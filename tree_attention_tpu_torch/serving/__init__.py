@@ -1,0 +1,14 @@
+"""Continuous-batching serving over the paged KV pool."""
+
+from tree_attention_tpu_torch.serving.block_pool import (  # noqa: F401
+    BlockAllocator,
+)
+from tree_attention_tpu_torch.serving.engine import (  # noqa: F401
+    Request,
+    RequestResult,
+    RequestSource,
+    ServeReport,
+    SlotServer,
+    StaticRequestSource,
+    synthetic_trace,
+)
