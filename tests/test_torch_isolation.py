@@ -17,9 +17,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "tree_attention_tpu_torch",
     "tree_attention_tpu_torch.__main__",
+    "tree_attention_tpu_torch.checkpoint",
     "tree_attention_tpu_torch.cli",
+    "tree_attention_tpu_torch.data",
     "tree_attention_tpu_torch.models",
     "tree_attention_tpu_torch.models.decode",
+    "tree_attention_tpu_torch.models.train",
     "tree_attention_tpu_torch.models.transformer",
     "tree_attention_tpu_torch.obs",
     "tree_attention_tpu_torch.obs.metrics",
@@ -28,16 +31,19 @@ PORT_MODULES = [
     "tree_attention_tpu_torch.ops._build",
     "tree_attention_tpu_torch.ops.block_utils",
     "tree_attention_tpu_torch.ops.cuda_attention",
+    "tree_attention_tpu_torch.ops.cuda_bwd",
     "tree_attention_tpu_torch.ops.cuda_decode",
     "tree_attention_tpu_torch.ops.decode",
     "tree_attention_tpu_torch.ops.reference",
     "tree_attention_tpu_torch.ops.tuning",
+    "tree_attention_tpu_torch.ops.vjp",
     "tree_attention_tpu_torch.serving",
     "tree_attention_tpu_torch.serving.block_pool",
     "tree_attention_tpu_torch.serving.engine",
     "tree_attention_tpu_torch.utils",
     "tree_attention_tpu_torch.utils.config",
     "tree_attention_tpu_torch.utils.logging",
+    "tree_attention_tpu_torch.utils.profiling",
 ]
 
 

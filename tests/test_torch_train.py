@@ -1,0 +1,262 @@
+"""The port's training path against the JAX package's (CPU).
+
+Both packages run the SAME parameters (the JAX ``init_params`` pytree,
+converted by ``params_from_jax``) on the same numpy batch, in float32, on a
+tiny config (2 layers, d_model 64, 4 heads over 2 KV heads, vocab 256,
+T = 128, B = 2). T = 128 puts the port's attention on the Q-tiled route
+(B3 forward, B6/B7 backward; their plain versions on the CPU) and JAX's on
+its blockwise custom VJP. Tolerances: the loss within 1e-5 relative, every
+gradient within 1e-4 absolute and relative (f32 sums in different orders
+through two layers and the cross entropy), and after two optimizer steps the
+losses within 1e-5 relative and the parameters within 1e-5 relative plus
+3e-6 absolute (see ``test_two_train_steps_match_jax``).
+"""
+
+import contextlib
+import dataclasses
+import io
+import json
+import runpy
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tree_attention_tpu import models as jm
+
+from tree_attention_tpu_torch import cli
+from tree_attention_tpu_torch import models as tm
+from tree_attention_tpu_torch.checkpoint import (
+    Checkpointer,
+    load_model_config,
+    save_model_config,
+)
+from tree_attention_tpu_torch.data import make_lm_batch, make_qkv
+from tree_attention_tpu_torch.ops import cuda_bwd
+
+J_CFG = jm.TransformerConfig(
+    vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    d_head=16, d_ff=192, max_seq_len=128, dtype=jnp.float32,
+)
+T_CFG = tm.TransformerConfig(
+    vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+    d_head=16, d_ff=192, max_seq_len=128, dtype=torch.float32,
+)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """Tiny shapes: torch's default of one thread per core only contends
+    with the JAX runtime's threads here (a tiny train step ran ~50x slower
+    with 8 threads than with 2 in one process with JAX loaded)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def _flat(tree):
+    """Dotted-name dict of a parameter tree (JAX pytree or port dict)."""
+    return {"embed": tree["embed"], "ln_f": tree["ln_f"],
+            "wout": tree["wout"],
+            **{f"layers.{k}": v for k, v in tree["layers"].items()}}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jp = jm.init_params(jax.random.PRNGKey(0), J_CFG)
+    toks = np.random.default_rng(0).integers(0, 256, (2, 129))
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+    jbatch = {k: jnp.asarray(v, jnp.int32) for k, v in batch.items()}
+    jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss_fn),
+                            static_argnums=2)(jp, jbatch, J_CFG)
+    return dict(jp=jp, batch=batch, jbatch=jbatch, jloss=float(jloss),
+                jgrads=_flat(jax.tree.map(np.asarray, jgrads)))
+
+
+def _port_params(jp):
+    return tm.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _tbatch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_loss_and_grads_match_jax(setup, remat):
+    cfg = dataclasses.replace(T_CFG, remat=remat)
+    params = _port_params(setup["jp"])
+    for _, t in tm.named_params(params):
+        t.requires_grad_(True)
+    launches = cuda_bwd.attention_cuda_dq.launches  # stays 0 on the CPU
+    loss, grads = tm.loss_and_grads(params, _tbatch(setup["batch"]), cfg)
+    np.testing.assert_allclose(float(loss), setup["jloss"], rtol=1e-5)
+    assert grads.keys() == setup["jgrads"].keys()
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), setup["jgrads"][name],
+                                   atol=1e-4, rtol=1e-4, err_msg=name)
+    assert cuda_bwd.attention_cuda_dq.launches == launches
+
+
+def test_two_train_steps_match_jax(setup):
+    """Clip + AdamW, two steps: losses within 1e-5 relative, parameters
+    within 1e-5 relative plus 3e-6 absolute (1% of one step at lr 3e-4).
+    The absolute term is for entries whose gradient is near 0: Adam divides
+    each gradient by its own root mean square, so where |g| is of the order
+    of eps (1e-8; one wv entry here has 1.8e-8) an f32 rounding difference
+    of the gradient becomes a visible difference of the update. torch's
+    ``clip_grad_norm_`` dividing by ``norm + 1e-6`` (optax: by the norm)
+    changes clipped gradients by 1e-6 relative, which that normalisation
+    cancels."""
+    jopt = jm.default_optimizer()
+    jstate = (setup["jp"], jopt.init(setup["jp"]))
+    jstep = jm.make_train_step(J_CFG, jopt, mesh=None, donate=False)
+    topt = tm.default_optimizer()
+    params = _port_params(setup["jp"])
+    tstate = (params, topt.init(params))
+    tstep = tm.make_train_step(T_CFG, topt)
+    rng = np.random.default_rng(1)
+    for _ in range(2):
+        toks = rng.integers(0, 256, (2, 129))
+        batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:]}
+        jstate, jloss = jstep(jstate, {k: jnp.asarray(v, jnp.int32)
+                                       for k, v in batch.items()})
+        tstate, tloss = tstep(tstate, _tbatch(batch))
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+    want = _flat(jax.tree.map(np.asarray, jstate[0]))
+    for name, t in tm.named_params(tstate[0]):
+        np.testing.assert_allclose(t.detach().numpy(), want[name], rtol=1e-5,
+                                   atol=3e-6, err_msg=name)
+
+
+def test_count_params_and_cross_entropy_match_jax(setup):
+    params = _port_params(setup["jp"])
+    assert tm.count_params(params) == jm.count_params(setup["jp"])
+    rng = np.random.default_rng(2)
+    logits = rng.standard_normal((2, 5, 11), np.float32)
+    targets = rng.integers(0, 11, (2, 5))
+    mask = rng.integers(0, 2, (2, 5))
+    for m in (None, mask):
+        want = jm.cross_entropy_loss(
+            jnp.asarray(logits), jnp.asarray(targets),
+            None if m is None else jnp.asarray(m))
+        got = tm.cross_entropy_loss(
+            torch.from_numpy(logits), torch.from_numpy(targets),
+            None if m is None else torch.from_numpy(m))
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+def test_forward_under_no_grad_records_nothing(setup):
+    """Serving callers wrap forward in no_grad: no graph, no checkpoint."""
+    params = _port_params(setup["jp"])
+    for _, t in tm.named_params(params):
+        t.requires_grad_(True)
+    with torch.no_grad():
+        logits = tm.forward(params, torch.from_numpy(setup["batch"]["inputs"]),
+                            T_CFG)
+    assert logits.grad_fn is None
+
+
+def test_make_lm_batch_and_qkv():
+    g = torch.Generator().manual_seed(3)
+    b = make_lm_batch(g, 2, 16, 50, "cpu")
+    assert b["inputs"].shape == b["targets"].shape == (2, 16)
+    assert torch.equal(b["inputs"][:, 1:], b["targets"][:, :-1])
+    assert int(b["inputs"].max()) < 50
+    again = make_lm_batch(torch.Generator().manual_seed(3), 2, 16, 50, "cpu")
+    assert torch.equal(b["inputs"], again["inputs"])
+    q, k, v = make_qkv(g, batch=2, heads=4, kv_heads=2, q_len=3, seq_len=8,
+                       head_dim=16, dtype=torch.float32, device="cpu")
+    assert q.shape == (2, 4, 3, 16) and k.shape == v.shape == (2, 2, 8, 16)
+
+
+def test_checkpointer_round_trip(tmp_path, setup):
+    opt = tm.default_optimizer()
+    params = _port_params(setup["jp"])
+    state = (params, opt.init(params))
+    step = tm.make_train_step(T_CFG, opt)
+    state, _ = step(state, _tbatch(setup["batch"]))
+    ck = Checkpointer(str(tmp_path), max_to_keep=2, save_interval_steps=2)
+    assert not ck.save(1, state)  # off the interval
+    for i in (0, 2, 4):
+        assert ck.save(i, state, cfg=T_CFG)
+    assert ck.all_steps() == [2, 4] and ck.latest_step() == 4
+    assert load_model_config(str(tmp_path)) == T_CFG
+    fresh = _port_params(setup["jp"])
+    fresh_state = (fresh, opt.init(fresh))
+    (restored, ropt), at = ck.restore(fresh_state)
+    assert at == 4
+    for (n, a), (_, b) in zip(tm.named_params(restored),
+                              tm.named_params(params)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0, msg=n)
+    assert ropt.state_dict()["state"][0]["step"] == 1
+    # Equal states take equal next steps.
+    batch = _tbatch(setup["batch"])
+    _, la = step(state, batch)
+    _, lb = step((restored, ropt), batch)
+    assert float(la) == float(lb)
+
+
+def _train(argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(argv) == 0
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+TINY = ["--mode", "train", "--device", "cpu", "--seq-len", "128",
+        "--model-dim", "64", "--heads", "4", "--kv-heads", "2",
+        "--n-layers", "1", "--vocab-size", "128", "--batch", "2",
+        "--dtype", "float32", "--iters", "1"]
+
+
+def test_cli_train_resume_continues_from_the_latest_step(tmp_path):
+    ck = ["--ckpt-dir", str(tmp_path)]
+    first = _train(TINY + ck + ["--steps", "2"])
+    assert len(first["losses"]) == 2
+    assert Checkpointer(str(tmp_path)).latest_step() == 1
+    resumed = _train(TINY + ck + ["--steps", "1", "--resume"])
+    assert len(resumed["losses"]) == 1
+    assert Checkpointer(str(tmp_path)).latest_step() == 2
+    # The resumed step is step 2 of the uninterrupted run.
+    straight = _train(TINY + ["--ckpt-dir", str(tmp_path / "b"),
+                              "--steps", "3"])
+    np.testing.assert_allclose(resumed["losses"][0], straight["losses"][2],
+                               rtol=1e-6)
+
+
+def test_cli_train_refuses_a_mismatched_checkpoint(tmp_path):
+    save_model_config(str(tmp_path), dataclasses.replace(T_CFG, d_model=32))
+    torch.save({}, tmp_path / "step_0.pt")
+    with pytest.raises(SystemExit, match="disagrees"):
+        cli.main(TINY + ["--ckpt-dir", str(tmp_path), "--resume"])
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--steps", "0"], "--steps >= 1"),
+    (["--resume"], "--resume requires --ckpt-dir"),
+])
+def test_cli_train_rejects_bad_flags(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        cli.main(TINY + argv)
+
+
+def test_cli_train_prints_its_record(monkeypatch):
+    """``python -m tree_attention_tpu_torch --mode train ...``, run as
+    ``__main__`` in this process (a fresh interpreter would spend seconds
+    importing torch): it exits 0 with its record as the last line."""
+    monkeypatch.setattr(sys, "argv", ["tree_attention_tpu_torch", *TINY,
+                                      "--steps", "2"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), pytest.raises(SystemExit) as exit_:
+        runpy.run_module("tree_attention_tpu_torch", run_name="__main__",
+                         alter_sys=True)
+    assert exit_.value.code == 0
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert rec["mode"] == "train" and rec["device"] == "cpu"
+    assert len(rec["losses"]) == 2 and all(np.isfinite(rec["losses"]))
+    assert rec["tokens_per_sec"] > 0 and rec["iters"] == 1
+    assert {"median_s", "mean_s", "min_s", "max_s"} <= rec.keys()

@@ -1,35 +1,39 @@
 """Command line: ``python -m tree_attention_tpu_torch``.
 
-Counterpart of ``tree_attention_tpu/cli.py`` for three modes, each printing
+Counterpart of ``tree_attention_tpu/cli.py`` for four modes, each printing
 one JSON record on stdout:
 
     python -m tree_attention_tpu_torch                  # reference workload
     python -m tree_attention_tpu_torch --mode generate --q-len 16
     python -m tree_attention_tpu_torch --mode serve --model-dim 2048 ...
+    python -m tree_attention_tpu_torch --mode train --seq-len 4096 ...
 
 ``decode`` times one attention step over a ``--seq-len`` KV cache (64000
 tokens, 16 heads x 128, one query by default) with CUDA events; ``generate``
 prefills a random prompt and decodes; ``serve`` drains a synthetic request
-trace through the continuous-batching :class:`SlotServer`. Everything runs
-on the GPU unless ``--device cpu`` is given; with no usable GPU the CLI
+trace through the continuous-batching :class:`SlotServer`; ``train`` takes
+``--steps`` optimizer steps on random next-token batches (with
+``--ckpt-dir``/``--resume`` checkpointing) and times one more. Everything
+runs on the GPU unless ``--device cpu`` is given; with no usable GPU the CLI
 exits with an error instead of falling back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
-import statistics
 import sys
-import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from tree_attention_tpu_torch.obs.metrics import TRAIN_STEPS, TRAIN_TOKENS
 from tree_attention_tpu_torch.utils import resolve_device
 from tree_attention_tpu_torch.utils.config import RunConfig, parse_args
 from tree_attention_tpu_torch.utils.logging import get_logger, setup_logging
+from tree_attention_tpu_torch.utils.profiling import time_fn
 
 log = get_logger("cli")
 
@@ -40,57 +44,25 @@ def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
-def time_calls(fn, *, iters: int, warmup: int,
-               dev: torch.device) -> Dict[str, Any]:
-    """Per-call seconds of ``fn()``: CUDA events around each call on the
-    GPU (device time), the host clock on the CPU."""
-    for _ in range(max(warmup, 0)):
-        fn()
-    times = []
-    for _ in range(max(iters, 1)):
-        if dev.type == "cuda":
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-    return {
-        "clock": "cuda_events" if dev.type == "cuda" else "host",
-        "median_s": statistics.median(times),
-        "min_s": min(times),
-        "iters": len(times),
-    }
-
-
 def run_decode(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
     """The reference workload: one attention step over a KV cache, timed."""
+    from tree_attention_tpu_torch.data import make_qkv
     from tree_attention_tpu_torch.ops import flash_attention
 
-    dtype = _DTYPES[cfg.dtype]
-    g = torch.Generator(device=dev).manual_seed(cfg.seed)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device=dev).to(dtype)
-
     hkv = cfg.resolved_kv_heads()
-    q = rnd(cfg.batch, cfg.heads, cfg.q_len, cfg.head_dim)
-    k = rnd(cfg.batch, hkv, cfg.seq_len, cfg.head_dim)
-    v = rnd(cfg.batch, hkv, cfg.seq_len, cfg.head_dim)
-    stats = time_calls(
-        lambda: flash_attention(q, k, v, causal=cfg.causal, impl=cfg.impl),
-        iters=cfg.iters, warmup=cfg.warmup, dev=dev,
+    q, k, v = make_qkv(
+        torch.Generator(device=dev).manual_seed(cfg.seed), batch=cfg.batch,
+        heads=cfg.heads, kv_heads=hkv, q_len=cfg.q_len, seq_len=cfg.seq_len,
+        head_dim=cfg.head_dim, dtype=_DTYPES[cfg.dtype], device=dev,
     )
+    stats = time_fn(flash_attention, q, k, v, causal=cfg.causal,
+                    impl=cfg.impl, iters=cfg.iters, warmup=cfg.warmup,
+                    device=dev)
     flops = 4.0 * cfg.batch * cfg.heads * cfg.q_len * cfg.seq_len \
         * cfg.head_dim
     log.info("decode: %d KV tokens, %d heads x %d, %s on %s: median %.6fs",
              cfg.seq_len, cfg.heads, cfg.head_dim, cfg.dtype,
-             device_name(dev), stats["median_s"])
+             device_name(dev), stats.median)
     return {
         "name": "decode",
         "workload": {
@@ -100,9 +72,10 @@ def run_decode(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
             "impl": cfg.impl,
         },
         "device": device_name(dev),
-        "tokens_per_sec": round(cfg.batch * cfg.seq_len / stats["median_s"], 1),
-        "flops_per_sec": flops / stats["median_s"],
-        **stats,
+        "tokens_per_sec": round(cfg.batch * cfg.seq_len / stats.median, 1),
+        "flops_per_sec": flops / stats.median,
+        "clock": stats.clock,
+        **stats.as_dict(),
     }
 
 
@@ -123,6 +96,92 @@ def transformer_config(cfg: RunConfig):
         dtype=_DTYPES[cfg.dtype],
         attn_impl="plain" if cfg.impl == "plain" else "auto",
     )
+
+
+def run_train(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
+    """LM training steps (the JAX CLI's ``_run_train`` on one device: no
+    mesh, corpus or elastic restarts), then one more step timed."""
+    from tree_attention_tpu_torch.checkpoint import (
+        Checkpointer,
+        load_model_config,
+    )
+    from tree_attention_tpu_torch.data import make_lm_batch
+    from tree_attention_tpu_torch.models import (
+        count_params,
+        default_optimizer,
+        init_train_state,
+        make_train_step,
+    )
+
+    if cfg.steps < 1:
+        # The timing below reuses the last training batch; with no steps
+        # there is neither a batch nor anything meaningful to time.
+        raise SystemExit("train mode requires --steps >= 1")
+    if cfg.resume and not cfg.ckpt_dir:
+        raise SystemExit("--resume requires --ckpt-dir")
+    tcfg = transformer_config(cfg)
+    opt = default_optimizer()
+    state = init_train_state(tcfg, opt, seed=cfg.seed, device=dev)
+    step = make_train_step(tcfg, opt)
+    log.info("transformer: %d params, %d layers, d_model %d, seq %d",
+             count_params(state[0]), tcfg.n_layers, tcfg.d_model,
+             cfg.seq_len)
+    ckpt = start_step = None
+    if cfg.ckpt_dir:
+        ckpt = Checkpointer(cfg.ckpt_dir, save_interval_steps=cfg.ckpt_every)
+        if cfg.resume and ckpt.latest_step() is not None:
+            with contextlib.suppress(FileNotFoundError):
+                saved_cfg = load_model_config(cfg.ckpt_dir)
+                if saved_cfg != tcfg:
+                    raise SystemExit(
+                        f"checkpoint config in {cfg.ckpt_dir} disagrees with "
+                        f"the CLI flags:\n  saved: {saved_cfg}\n  flags: "
+                        f"{tcfg}"
+                    )
+            state, start_step = ckpt.restore(state)
+            log.info("resumed from step %d", start_step)
+    # --resume runs --steps MORE steps from the restored point.
+    start = 0 if start_step is None else start_step + 1
+    end = start + cfg.steps
+
+    def next_batch(i: int) -> Dict[str, torch.Tensor]:
+        # Batch i is a pure function of (seed, i): a resume replays nothing.
+        g = torch.Generator().manual_seed((cfg.seed + 1) * 1_000_003 + i)
+        return make_lm_batch(g, cfg.batch, cfg.seq_len, tcfg.vocab_size, dev)
+
+    losses = []
+    saved_last = True
+    for i in range(start, end):
+        batch = next_batch(i)
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        TRAIN_STEPS.inc()
+        TRAIN_TOKENS.inc(cfg.batch * cfg.seq_len)
+        log.info("step %d: loss %.4f", i, losses[-1])
+        if ckpt is not None:
+            saved_last = ckpt.save(i, state, cfg=tcfg)
+    if ckpt is not None:
+        if not saved_last:
+            # The save interval skipped the final step; the resumable
+            # state must include all completed work.
+            ckpt.save(end - 1, state, cfg=tcfg, force=True)
+        ckpt.close()
+    # Throughput of the step on the last batch. The timed steps update the
+    # state in place too; they come after the last checkpoint and their
+    # losses are not recorded.
+    stats = time_fn(step, state, batch, iters=max(cfg.iters, 1), warmup=1,
+                    device=dev)
+    toks = cfg.batch * cfg.seq_len
+    log.info("train step: median %.4fs (%.0f tokens/s)", stats.median,
+             toks / stats.median)
+    return {
+        "mode": "train",
+        "device": device_name(dev),
+        "losses": losses,
+        "tokens_per_sec": round(toks / stats.median, 1),
+        "clock": stats.clock,
+        **stats.as_dict(),
+    }
 
 
 def run_generate(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
@@ -221,6 +280,8 @@ def main(argv: Optional[list] = None) -> int:
         record = run_decode(cfg, dev)
     elif cfg.mode == "generate":
         record = run_generate(cfg, dev)
+    elif cfg.mode == "train":
+        record = run_train(cfg, dev)
     else:
         record, _ = run_serve(cfg, dev)
     print(json.dumps(record))

@@ -1,4 +1,4 @@
-"""The transformer LM and its KV-cache decoding."""
+"""The transformer LM, its KV-cache decoding, and its training step."""
 
 from tree_attention_tpu_torch.models.decode import (  # noqa: F401
     KVCache,
@@ -11,9 +11,21 @@ from tree_attention_tpu_torch.models.decode import (  # noqa: F401
     round_cache_len,
     sample_slots,
 )
+from tree_attention_tpu_torch.models.train import (  # noqa: F401
+    OptimizerSpec,
+    TrainState,
+    default_optimizer,
+    init_train_state,
+    loss_and_grads,
+    make_train_step,
+)
 from tree_attention_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,
+    count_params,
+    cross_entropy_loss,
     forward,
     init_params,
+    loss_fn,
+    named_params,
     params_from_jax,
 )

@@ -6,17 +6,19 @@ plain functions over a parameter dictionary with the JAX package's layout —
 per-layer weights stacked on a leading ``n_layers`` axis — so
 :func:`params_from_jax` is a dtype-preserving copy and both packages compute
 the same thing. Norms, RoPE and the softmax run in float32; weights and
-activations in ``cfg.dtype``.
+activations in ``cfg.dtype``. :func:`forward` is differentiable (training
+goes through :func:`loss_fn`); serving callers wrap it in ``no_grad``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tree_attention_tpu_torch.ops import flash_attention
 from tree_attention_tpu_torch.utils import resolve_device
@@ -43,6 +45,7 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     attn_impl: str = "auto"      # "auto" (kernels) | "plain" (their plain
     #                              versions on any device)
+    remat: bool = True           # recompute each layer body in the backward
 
     def __post_init__(self):
         if self.attn_impl not in ("auto", "plain"):
@@ -124,6 +127,18 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     }
 
 
+def named_params(params: Params) -> List[Tuple[str, torch.Tensor]]:
+    """Every parameter tensor with a dotted name, in a fixed order (the
+    optimizer's and the checkpoint's)."""
+    return ([("embed", params["embed"])]
+            + [(f"layers.{k}", params["layers"][k]) for k in LAYER_KEYS]
+            + [("ln_f", params["ln_f"]), ("wout", params["wout"])])
+
+
+def count_params(params: Params) -> int:
+    return sum(t.numel() for _, t in named_params(params))
+
+
 def layer(params: Params, i: int) -> Params:
     """Layer ``i``'s weights (views into the stacked tensors)."""
     return {k: v[i] for k, v in params["layers"].items()}
@@ -179,10 +194,19 @@ def _mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
 
 
-@torch.no_grad()
+def _layer_body(x: torch.Tensor, p: Params, positions: torch.Tensor,
+                cfg: TransformerConfig) -> torch.Tensor:
+    x = x + _attention_block(p, rms_norm(x, p["ln1"], cfg.norm_eps),
+                             positions, cfg)
+    return x + _mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
 def forward(params: Params, tokens: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
-    """Token ids ``(B, T)`` -> logits ``(B, T, vocab)`` float32."""
+    """Token ids ``(B, T)`` -> logits ``(B, T, vocab)`` float32. Under grad
+    mode with ``cfg.remat``, each layer body is checkpointed: its
+    activations are recomputed in the backward (attention's forward kernel
+    runs twice per layer and step), as JAX's ``jax.checkpoint``."""
     T = tokens.shape[1]
     if T > cfg.max_seq_len:
         raise ValueError(
@@ -190,10 +214,35 @@ def forward(params: Params, tokens: torch.Tensor,
         )
     positions = torch.arange(T, device=tokens.device)
     x = params["embed"][tokens.long()]
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p = layer(params, i)
-        x = x + _attention_block(p, rms_norm(x, p["ln1"], cfg.norm_eps),
-                                 positions, cfg)
-        x = x + _mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps))
+        if remat:
+            x = checkpoint(_layer_body, x, p, positions, cfg,
+                           use_reentrant=False)
+        else:
+            x = _layer_body(x, p, positions, cfg)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return (x @ params["wout"]).float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy in float32. ``targets``/``mask``:
+    ``(B, T)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(params: Params, batch: Mapping[str, torch.Tensor],
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Batch = ``{"inputs": (B, T) ids, "targets": (B, T) ids, optional
+    "mask"}``, targets pre-shifted at the data layer (contiguous layout)."""
+    logits = forward(params, batch["inputs"], cfg)
+    return cross_entropy_loss(logits, batch["targets"], batch.get("mask"))

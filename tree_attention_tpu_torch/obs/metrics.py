@@ -353,3 +353,13 @@ def histogram(
     buckets: Sequence[float] = DEFAULT_BUCKETS,
 ) -> Histogram:
     return REGISTRY.histogram(name, help, labels, buckets)
+
+
+# Host-loop totals of the train loop (each counted unit is a step the
+# process finished), under the JAX CLI's names.
+TRAIN_STEPS = counter(
+    "train_steps_total", "optimizer steps completed by the CLI train loop"
+)
+TRAIN_TOKENS = counter(
+    "train_tokens_total", "tokens consumed by completed train steps"
+)

@@ -10,7 +10,10 @@ Counterpart of ``tree_attention_tpu/ops/__init__.py``.
 - ``"naive"``     — materialised f32 scores, the oracle (:mod:`.reference`)
 - ``"blockwise"`` — online softmax over KV blocks (:mod:`.reference`)
 
-Inference only in this slice: there is no autograd rule yet.
+Under grad mode, with an input that requires grad, ``"auto"`` and
+``"plain"`` go through :class:`.vjp.FlashAttention` (backward: the kernels
+B6/B7 after B3, the plain blockwise backward after B1); ``"naive"`` and
+``"blockwise"`` differentiate by plain autograd (the oracles).
 """
 
 from __future__ import annotations
@@ -33,6 +36,11 @@ from tree_attention_tpu_torch.ops.tuning import (
     default_block_size,
     kernel_for,
 )
+from tree_attention_tpu_torch.ops.vjp import (  # noqa: F401
+    FlashAttention,
+    attention_bwd_blockwise,
+    flash_attention_vjp,
+)
 
 IMPLS = ("auto", "plain", "naive", "blockwise")
 
@@ -54,6 +62,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
               kv_offset=kv_offset)
+    if impl in ("auto", "plain") and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return flash_attention_vjp(q, k, v, impl=impl, **kw)
     if impl == "auto":
         kernel = (attention_cuda_decode if kernel_for(q.shape[2]) == "decode"
                   else attention_cuda_fwd)

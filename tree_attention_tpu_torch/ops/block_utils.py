@@ -38,6 +38,29 @@ def tile_live(qi: int, ki: int, block_q: int, block_k: int, q_offset: Offset,
     return (q_offset + qi * block_q + block_q - 1) >= (kv_offset + ki * block_k)
 
 
+def last_live_k(qi: int, block_q: int, block_k: int, q_offset: int,
+                kv_offset: int, n_k: int) -> int:
+    """Last KV tile a dQ tile (kernel B6) needs under causality: the tile of
+    the key at its last row's frontier, ``(q_offset - kv_offset + qi*bq +
+    bq - 1) // bk``, clamped to ``[0, n_k - 1]`` (a Q tile that sees no key
+    clamps to 0; its tiles are dead either way). Integer counterpart of the
+    JAX package's ``causal_last_live_k``. B6 computes the same frontier
+    inline (``csrc/flash_bwd.cu``); this form states the rule and is held
+    against JAX's in ``tests/test_torch_vjp.py``."""
+    hi = (q_offset - kv_offset + qi * block_q + block_q - 1) // block_k
+    return min(max(hi, 0), n_k - 1)
+
+
+def first_live_q(ki: int, block_q: int, block_k: int, q_offset: int,
+                 kv_offset: int, n_q: int) -> int:
+    """First Q tile a dK/dV tile (kernel B7) needs under causality: the tile
+    holding row ``kv_offset + ki*bk - q_offset``, the first that sees the KV
+    tile's first key, clamped to ``[0, n_q - 1]``. Integer counterpart of
+    the JAX package's ``causal_first_live_q``."""
+    lo = -((q_offset + block_q - 1 - kv_offset - ki * block_k) // block_q)
+    return min(max(lo, 0), n_q - 1)
+
+
 def tile_mask(tq: int, blk: int, blk_idx: int, tk: int, q_offset: Offset,
               kv_offset: Offset, causal: bool,
               device: torch.device) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Run configuration: one dataclass, one argparse bridge.
 
 Counterpart of ``tree_attention_tpu/utils/config.py`` for the modes this
-port runs (``decode``, ``generate``, ``serve``), with the same flag names
-and defaults. The defaults reproduce the reference workload: decode over a
+port runs (``decode``, ``generate``, ``serve``, ``train``), with the same
+flag names and defaults. The defaults reproduce the reference workload: decode over a
 64000-token context, 16 heads x 128, B=1, one query. ``--device`` is
 ``cuda`` (the default) or ``cpu``.
 """
@@ -29,7 +29,7 @@ class RunConfig:
     dtype: str = "bfloat16"
 
     # Execution.
-    mode: str = "decode"  # decode | generate | serve
+    mode: str = "decode"  # decode | generate | serve | train
     device: str = "cuda"  # cuda | cpu
     impl: str = "auto"    # auto | naive | blockwise | plain
     seed: int = 0
@@ -43,6 +43,12 @@ class RunConfig:
     temperature: float = 0.8
     max_new_tokens: int = 32
     top_k: int = 0
+
+    # Train mode.
+    steps: int = 3
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 1
+    resume: bool = False
 
     # Serve mode (continuous batching over a synthetic request trace).
     slots: int = 8
@@ -78,7 +84,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
             "the GPU."
         ),
     )
-    p.add_argument("--mode", choices=["decode", "generate", "serve"],
+    p.add_argument("--mode", choices=["decode", "generate", "serve", "train"],
                    default=d.mode)
     p.add_argument("--device", choices=["cuda", "cpu"], default=d.device,
                    help="cuda (default; fails when no GPU is present) or "
@@ -108,6 +114,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-k", type=int, default=d.top_k,
                    help="serve: sample from the k highest logits (0 = off)")
     p.add_argument("--max-new-tokens", type=int, default=d.max_new_tokens)
+    p.add_argument("--steps", type=int, default=d.steps,
+                   help="train-mode steps")
+    p.add_argument("--ckpt-dir", default=d.ckpt_dir,
+                   help="train: checkpoint directory (enables saving)")
+    p.add_argument("--ckpt-every", type=int, default=d.ckpt_every,
+                   help="save every N steps")
+    p.add_argument("--resume", action="store_true", default=d.resume,
+                   help="resume from the latest checkpoint in --ckpt-dir")
     p.add_argument("--slots", type=int, default=d.slots,
                    help="serve: concurrent cache slots")
     p.add_argument("--requests", type=int, default=d.requests,
