@@ -13,8 +13,9 @@ failure exits non-zero:
    plain
    version, and ``scaled_dot_product_attention`` on the same function as a
    yardstick (the port never calls it) — device time of each call's kernels
-   from ``torch.profiler`` (CUDA events if it traces nothing), L2 flushed
-   before each call — beside the least time the card could take (bytes /
+   from ``torch.profiler``, the larger of two traced runs (CUDA events if
+   it traces nothing or reads below the bound), L2 flushed before each
+   call — beside the least time the card could take (bytes /
    3.35 TB/s or FLOPs / 989 TFLOP/s, the larger). B3 also at the training
    shape (B2 H16 T4096 causal).
    Then the backward kernels B6 (dq) and B7 (dk, dv) against their plain
@@ -26,6 +27,17 @@ failure exits non-zero:
    B3, B6, B7 timed at B1 H16 T16384 causal (no plain version there); and
    the gradients of the Tq < 128 training route (B1 forward, blockwise
    backward) against its plain forward, under the same row gate.
+   The int8 routes under the same row gate: B4 at the reference workload
+   and at GQA Hq32 Hkv8 Tq16 with per-batch offsets and a ragged Tk, B5 at
+   the serve decode tick with per-block and with channel scales, B1 over
+   int8 K/V (the cast route) at the reference workload and B2 over int8
+   pools with per-block scales at the serve tick. Bound: the visible int8
+   K+V bytes (plus Q, scales, output) / 3.35 TB/s, or the products at the
+   int8 (q8q q.k) and bf16 rates; no PyTorch call computes int8-KV
+   attention, so SDPA over the dequantized bf16 K/V is timed as a labelled
+   yardstick. At B5's serve shape the gate is shown to reject per-block
+   scales read by logical block, the V scalar applied before the softmax
+   sum, and an output halved.
 3. Serve 16 requests through the paged, chunked SlotServer (the CLI's
    ``--mode serve`` entry point) at the reference attention width (d_model
    2048, 16 heads x 128, d_ff 5504, vocab 32768, bf16, depth cut to 4
@@ -36,8 +48,26 @@ failure exits non-zero:
    precision ~4e-3, through 4 layers at a logit scale ~1; KV within 2e-2 of
    the pool's largest |value|). The serve step's device time is split by
    kernel group from a traced wave, against the same wave's untraced wall.
+   Then int8: 16 requests through ``cli.main --mode serve --kv-quant
+   int8`` (staged admission, the paged int8 cache): every request retires
+   with its budget, the pool drains, B5 launched once per layer and int8
+   step, B1/B3 for the staged chunks; 4 requests on the contiguous int8
+   cache (B4 once per layer and int8 step) and 4 through ``--kv-quant
+   int8-cast`` (B2 with per-block scales once per layer and int8 step);
+   the 8-request wave again on an
+   int8 cache, its device time split (B5 apart) and its greedy tokens
+   against the exact wave's (reported); and one int8 decode step, kernel
+   path against plain path on clones of one per-block-quantized cache, for
+   both q8 routes (logits within 0.1, block scales equal, written codes
+   equal in layer 0 and within 2 codes beyond it; the code gate shown
+   rejecting new rows quantized under the next head's block scale). The
+   int8 serves run with the metrics registry off, as the exact serve does;
+   their int8 steps are the report's decode ticks (one step over the int8
+   cache each).
 4. Time ``--mode decode`` at the reference workload (B=1, 16 heads x 128,
-   64000 KV tokens, one query) through the contiguous decode kernel (B1).
+   64000 KV tokens, one query) through the contiguous decode kernel (B1),
+   and with ``--kv-quant int8`` (B4) and ``int8-cast`` (B1 over int8 K/V);
+   each step's median at or above its KV bytes / 3.35 TB/s.
 5. Train through the CLI's ``--mode train`` (``cli.main`` in process) at
    the serve phase's model (T 4096, B 2, 4 steps, then 1 + 3 timed): every
    loss finite, and B6/B7 launched exactly once per layer per step, B3
@@ -68,15 +98,29 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 TOL_OUT_REL, TOL_LSE = 2e-2, 1e-3  # out: relative to each row's max |out|
 TOL_LOGITS = 0.1
 TOL_KV_REL = 2e-2  # written KV: relative to the pool's max |value|
+# Written int8 codes of one step, kernel path vs plain path: equal in layer
+# 0 (same inputs), and beyond it, where the bf16 activations entering a
+# layer differ by the previous layers' attention rounding, within the
+# written-KV gate above in codes: 2e-2 of a block's 127-code range, 2 codes.
+TOL_CODES = int(TOL_KV_REL * 127)
 # dq/dk/dv: each row within 2e-2 of that row's largest |plain value| (about
 # two bf16 ulps: both sides round ds and p to bf16 before the products).
 TOL_GRAD_REL = 2e-2
 # One training step, kernel path vs plain path: per-parameter gradient norm
 # ratio, and the loss.
 TOL_STEP_GRAD, TOL_STEP_LOSS = 2e-2, 1e-2
+SERVE_ARGS = [
+    "--mode", "serve", "--model-dim", "2048", "--heads", "16",
+    "--n-layers", "4", "--vocab-size", "32768", "--dtype", "bfloat16",
+    "--slots", "8", "--requests", "16", "--prompt-len", "512",
+    "--prompt-jitter", "64", "--max-new-tokens", "64",
+    "--prefill-chunk", "256", "--kv-layout", "paged", "--kv-block", "64",
+    "--temperature", "0",
+]
 TRAIN_ARGS = [
     "--mode", "train", "--model-dim", "2048", "--heads", "16",
     "--n-layers", "4", "--vocab-size", "32768", "--seq-len", "4096",
@@ -175,30 +219,42 @@ def main() -> None:
         return [(e.name, e.time_range.elapsed_us() / 1e3)
                 for e in prof.events() if e.device_type == cuda_dev]
 
-    def time_ms(fn, floor_ms, iters=10):
+    def time_ms(fn, floor_ms, iters=10, names=None):
         """Device time of one call: the summed duration of the kernels it
-        runs on the card (torch.profiler), mean of ``iters`` calls with the
+        runs on the card (torch.profiler; with ``names``, only the kernels
+        whose name holds one of them), mean of ``iters`` calls with the
         L2 flushed before each (a serving step finds the layer's KV cold);
-        host launch gaps are excluded. ``floor_ms`` is the least time the
-        card could take for the call's work (its bound): a profiler reading
-        below it has lost kernels, and then — or if the profiler traces no
-        device time — the median of CUDA events around each call is taken
-        instead (launch gaps included); a reading still below the floor
-        fails the run. Returns ``(ms, clock)``."""
+        host launch gaps are excluded. The profiler on the card's machine
+        now and then loses kernels, and a lost kernel only lowers a
+        reading, so the larger of two traced runs is kept. ``floor_ms`` is
+        the least time the card could take for the call's work (its bound):
+        a reading below it has still lost kernels, and then — or if the
+        profiler traces no device time — the median of CUDA events around
+        each call is taken instead (launch gaps included); a reading still
+        below the floor fails the run. Returns ``(ms, clock, call_ms)``:
+        ``call_ms`` is every kernel of the same calls (or the CUDA-event
+        time)."""
         fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU, cuda_act]) as prof:
-            for _ in range(iters):
-                flush_buf.zero_()
-                fn()
-            torch.cuda.synchronize()
-        total = sum(ms for name, ms in device_kernels(prof)
-                    if "FillFunctor<unsigned char>" not in name)
-        if total / iters >= floor_ms:
-            return total / iters, "profiler"
+        total = mine = 0.0
+        for _ in range(2):
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, cuda_act]) as prof:
+                for _ in range(iters):
+                    flush_buf.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            kernels = [(n, ms) for n, ms in device_kernels(prof)
+                       if "FillFunctor<unsigned char>" not in n]
+            run = sum(ms for _, ms in kernels)
+            if run > total:
+                total = run
+                mine = sum(ms for n, ms in kernels
+                           if names is None or any(x in n for x in names))
+        if mine / iters >= floor_ms:
+            return mine / iters, "profiler", total / iters
         if total > 0:
-            print(f"time_ms: profiler read {total / iters:.4f} ms, below "
+            print(f"time_ms: profiler read {mine / iters:.4f} ms, below "
                   f"the {floor_ms:.4f} ms bound; timing with CUDA events",
                   flush=True)
         times = []
@@ -215,7 +271,7 @@ def main() -> None:
         if ms < floor_ms:
             fail(f"a call timed {ms:.4f} ms, below its {floor_ms:.4f} ms "
                  f"bound")
-        return ms, "cuda_events"
+        return ms, "cuda_events", ms
 
     def gate(a, b):
         """Hold ``a = (out, lse)`` against the plain ``b``: every query
@@ -248,30 +304,48 @@ def main() -> None:
 
     cases = []
 
-    def record(kernel, name, fn, plain, library, bytes_, flops):
+    def record(kernel, name, fn, plain, library, bytes_, flops, *,
+               ops_s=None, yardstick=None, names=None):
+        """Gate ``fn`` against ``plain`` and time both beside the bound
+        (bytes / HBM rate or the operations' time — ``flops`` at the bf16
+        rate, or ``ops_s`` seconds — the larger) and ``library``, one
+        PyTorch call of the same function (None where there is none; then
+        ``yardstick`` is timed instead, a labelled near-equivalent). With
+        ``names`` ``ms`` counts only the kernel's own launches and
+        ``call_ms`` the whole call's."""
         a, b = fn(), plain()
         torch.cuda.synchronize()
         ok, eo, er, el = gate(a, b)
         if not ok:
             fail(f"{kernel} {name}: |dout| {eo:.3e}, relative {er:.3e} "
                  f"(tol {TOL_OUT_REL}), |dlse| {el:.3e} (tol {TOL_LSE})")
-        bound = max(bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
-        (ms, clock), (plain_ms, plain_clock), (lib_ms, lib_clock) = (
-            time_ms(fn, bound), time_ms(plain, bound, iters=3),
-            time_ms(library, bound))
+        t_ops = flops / BF16_FLOPS_PER_S if ops_s is None else ops_s
+        bound = max(bytes_ / HBM_BYTES_PER_S, t_ops) * 1e3
+        ms, clock, call_ms = time_ms(fn, bound, names=names)
+        plain_ms, plain_clock, _ = time_ms(plain, bound, iters=3)
+        lib_ms, lib_clock, _ = (time_ms(library, bound)
+                                if library is not None else (None,) * 3)
         c = {
             "kernel": kernel, "case": name, "max_abs_err": eo,
             "max_rel_err": er, "max_abs_err_lse": el, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound,
-            "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S
-                         >= flops / BF16_FLOPS_PER_S else "operations"),
+            "bound_by": ("bytes" if bytes_ / HBM_BYTES_PER_S >= t_ops
+                         else "operations"),
             "clocks": [clock, plain_clock, lib_clock],
         }
+        if names is not None:
+            c["call_ms"] = call_ms
+        if yardstick is not None:
+            c["yardstick_sdpa_dequant_ms"] = time_ms(yardstick, bound)[0]
         cases.append(c)
+        lib = (f"sdpa {lib_ms:.4f}" if lib_ms is not None else
+               f"library none, sdpa over dequantized bf16 "
+               f"{c.get('yardstick_sdpa_dequant_ms', math.nan):.4f}")
         print(f"{kernel} {name}: |dout| {eo:.3e} relative {er:.3e} "
-              f"|dlse| {el:.3e} (tol {TOL_OUT_REL}/{TOL_LSE}) ms {ms:.4f} plain {plain_ms:.4f} "
-              f"sdpa {lib_ms:.4f} bound {bound:.4f} ({c['bound_by']}) "
-              f"clocks {c['clocks']}", flush=True)
+              f"|dlse| {el:.3e} (tol {TOL_OUT_REL}/{TOL_LSE}) ms {ms:.4f} "
+              + (f"(whole call {c['call_ms']:.4f}) " if names else "")
+              + f"plain {plain_ms:.4f} {lib} bound {bound:.4f} "
+              f"({c['bound_by']}) clocks {c['clocks']}", flush=True)
 
     # B1: the reference workload (the --mode decode shape) ...
     q, k, v = rnd(1, 16, 1, 128), rnd(1, 16, 64000, 128), rnd(1, 16, 64000, 128)
@@ -335,6 +409,171 @@ def main() -> None:
                need * 16 * 128 * 2 * 2 + 2 * q.numel() * 2,
                4.0 * 16 * 128 * visible_pairs(qoff, tq, nb * blk))
 
+    # -- 2a. the int8 routes: B4, B5, and B1/B2 over int8 K/V -------------
+    # Bound: the visible int8 K+V bytes (to each row's causal frontier),
+    # plus Q, the scales and the output; operations: the q.k products at
+    # the int8 rate (q8q) or the bf16 rate (cast), the p.v products at the
+    # bf16 rate. No PyTorch call computes int8-KV attention (library none);
+    # SDPA over the dequantized bf16 K/V is timed as a yardstick: the same
+    # result to within quantization, at twice the K/V bytes.
+    own = ("decode_split", "merge_splits")
+
+    def q8_ops_s(pairs, q8q):
+        qk = INT8_OPS_PER_S if q8q else BF16_FLOPS_PER_S
+        return 2.0 * 128 * pairs / qk + 2.0 * 128 * pairs / BF16_FLOPS_PER_S
+
+    def deq(codes, scale):
+        return (codes.float() * scale).to(torch.bfloat16)
+
+    q = rnd(1, 16, 1, 128)
+    kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(
+        rnd(1, 16, 64000, 128), rnd(1, 16, 64000, 128))
+    kd, vd = deq(kq, ks), deq(vq, vs)
+    ref_q8_bytes = 2 * kq.numel() + q.numel() * 4 + 4 * ks.numel() * 4
+    for kernel, route in (("flash_decode_q8q", "q8q"),
+                          ("flash_decode", "q8")):
+        record(kernel, "int8 ref B1 H16 Tk64000 Tq1",
+               lambda: cuda_decode.resolve_q8_kernel(route)(
+                   q, kq, vq, ks, vs),
+               lambda: cuda_decode.resolve_q8_kernel(route, plain=True)(
+                   q, kq, vq, ks, vs),
+               None, ref_q8_bytes, 0.0,
+               ops_s=q8_ops_s(16 * 64000, route == "q8q"),
+               yardstick=lambda: F.scaled_dot_product_attention(q, kd, vd),
+               names=own)
+    del kq, vq, kd, vd
+    # B4 at GQA with per-batch offsets and a ragged Tk.
+    tk = 4037
+    q = rnd(8, 32, 16, 128)
+    kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(
+        rnd(8, 8, tk, 128), rnd(8, 8, tk, 128))
+    qoff = torch.randint(0, tk - 16, (8,), generator=g, device=dev,
+                         dtype=torch.int32)
+    need = sum(min(tk, int(o) + 16) for o in qoff.tolist())
+    kd, vd, mask = deq(kq, ks), deq(vq, vs), gqa_mask(qoff, 16, tk)
+    record("flash_decode_q8q", f"int8 GQA B8 Hq32 Hkv8 Tk{tk} Tq16 ragged",
+           lambda: cuda_decode.attention_cuda_decode_q8q(
+               q, kq, vq, ks, vs, causal=True, q_offset=qoff),
+           lambda: cuda_decode.decode_q8q_plain(q, kq, vq, ks, vs,
+                                                causal=True, q_offset=qoff),
+           None, need * 8 * 128 * 2 + q.numel() * 4 + 4 * ks.numel() * 4,
+           0.0, ops_s=q8_ops_s(32 * visible_pairs(qoff, 16, tk), True),
+           yardstick=lambda: F.scaled_dot_product_attention(
+               q, kd, vd, attn_mask=mask, enable_gqa=True),
+           names=own)
+    del kq, vq, kd, vd, mask
+    # B5 and B2-int8 at the serve decode tick: 8 slots of 640 tokens in
+    # 64-token blocks of a fragmented pool, ragged lengths. The pool's
+    # blocks carry magnitudes that differ from block to block, so their
+    # per-block scales differ as a served cache's do.
+    x = (torch.randn((npool, 16, blk, 128), generator=g, device=dev)
+         * torch.exp(0.7 * torch.randn((npool, 16, 1, 1), generator=g,
+                                       device=dev)))
+    kp8, kbs = cuda_decode.quantize_symmetric_int8(
+        x.reshape(npool, 16, blk * 128), 2)
+    x = (torch.randn((npool, 16, blk, 128), generator=g, device=dev)
+         * torch.exp(0.7 * torch.randn((npool, 16, 1, 1), generator=g,
+                                       device=dev)))
+    vp8, vbs = cuda_decode.quantize_symmetric_int8(
+        x.reshape(npool, 16, blk * 128), 2)
+    kp8, vp8 = (t.reshape(npool, 16, blk, 128) for t in (kp8, vp8))
+    kbs, vbs = kbs[..., 0], vbs[..., 0]
+    q = rnd(8, 16, 1, 128)
+    qoff = torch.randint(0, nb * blk - 1, (8,), generator=g, device=dev,
+                         dtype=torch.int32)
+    need = sum(min(nb * blk, int(o) + 1) for o in qoff.tolist())
+    mask = gqa_mask(qoff, 1, nb * blk)
+    kg, vg = gather_paged_kv(deq(kp8, kbs[..., None, None]),
+                             deq(vp8, vbs[..., None, None]), table)
+    tick_bytes = need * 16 * 128 * 2 + q.numel() * 4
+    serve_q8 = (q, kp8, vp8, table, kbs, vbs, qoff)
+    record("flash_decode_paged_q8q", "int8 B8 H16 block64 NB10 Tq1 ragged, "
+           "per-block scales",
+           lambda: cuda_decode.attention_cuda_decode_paged_q8q(
+               q, kp8, vp8, table, kbs, vbs, q_offset=qoff),
+           lambda: cuda_decode.paged_decode_q8q_plain(
+               q, kp8, vp8, table, kbs, vbs, q_offset=qoff),
+           None, tick_bytes + 2 * 8 * nb * 16 * 4, 0.0,
+           ops_s=q8_ops_s(16 * visible_pairs(qoff, 1, nb * blk), True),
+           yardstick=lambda: F.scaled_dot_product_attention(
+               q, kg, vg, attn_mask=mask), names=own)
+    record("flash_decode_paged", "int8 B8 H16 block64 NB10 Tq1 ragged, "
+           "block_scales",
+           lambda: cuda_decode.attention_cuda_decode_paged(
+               q, kp8, vp8, table, q_offset=qoff, block_scales=(kbs, vbs)),
+           lambda: cuda_decode.paged_decode_plain(
+               q, kp8, vp8, table, q_offset=qoff, block_scales=(kbs, vbs)),
+           None, tick_bytes + 2 * 8 * nb * 16 * 4, 0.0,
+           ops_s=q8_ops_s(16 * visible_pairs(qoff, 1, nb * blk), False),
+           yardstick=lambda: F.scaled_dot_product_attention(
+               q, kg, vg, attn_mask=mask), names=own)
+    cks, cvs = (torch.rand((8, 16, 1, 128), generator=g, device=dev) * 0.03
+                + 0.005 for _ in range(2))
+    kg, vg = gather_paged_kv(kp8, vp8, table)
+    kg, vg = deq(kg, cks), deq(vg, cvs)
+    record("flash_decode_paged_q8q", "int8 B8 H16 block64 NB10 Tq1 ragged, "
+           "channel scales",
+           lambda: cuda_decode.attention_cuda_decode_paged_q8q(
+               q, kp8, vp8, table, cks, cvs, q_offset=qoff),
+           lambda: cuda_decode.paged_decode_q8q_plain(
+               q, kp8, vp8, table, cks, cvs, q_offset=qoff),
+           None, tick_bytes + 2 * cks.numel() * 4, 0.0,
+           ops_s=q8_ops_s(16 * visible_pairs(qoff, 1, nb * blk), True),
+           yardstick=lambda: F.scaled_dot_product_attention(
+               q, kg, vg, attn_mask=mask), names=own)
+    del kg, vg, mask, x
+
+    # The gate has teeth at B5's serve shape: B5's arithmetic written out
+    # here from the gathered view passes it, and with a planted per-block
+    # scale fault it is rejected — scales read by logical block j instead
+    # of table[b, j], and the V scalar applied before the softmax sum l.
+    def q8q_paged_here(fault=None):
+        q, kp, vp, tbl, ksc, vsc, qo = serve_q8
+        B, NB = tbl.shape
+        codes, qs = cuda_decode._fold_quantize_q(q, 16, None, None)
+        kg, vg = gather_paged_kv(kp, vp, tbl)
+        idx = (torch.arange(NB, device=dev).expand(B, NB)
+               if fault == "logical" else tbl.long())
+        kk, vk = (sc[idx].transpose(1, 2).repeat_interleave(blk, 2)[
+            :, :, None] for sc in (ksc, vsc))
+        s = torch.einsum("bhrd,bhkd->bhrk", codes.float(), kg.float()) \
+            * qs * kk
+        vis = (torch.arange(NB * blk, device=dev)[None, None, None]
+               <= qo.long()[:, None, None, None])
+        s = s.masked_fill(~vis, -math.inf)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        if fault == "v_early":
+            p = p * vk
+        den = p.sum(-1)
+        if fault != "v_early":
+            p = p * vk
+        acc = torch.einsum("bhrk,bhkd->bhrd",
+                           p.to(torch.bfloat16).float(), vg.float())
+        return ((acc / den[..., None]).to(torch.bfloat16).reshape(q.shape),
+                (m[..., 0] + torch.log(den)).reshape(q.shape[:3]))
+
+    plain = cuda_decode.paged_decode_q8q_plain(*serve_q8[:6],
+                                               q_offset=serve_q8[6])
+    teeth = {f: gate(q8q_paged_here(f), plain)
+             for f in (None, "logical", "v_early")}
+    o, l = cuda_decode.attention_cuda_decode_paged_q8q(
+        *serve_q8[:6], q_offset=serve_q8[6])
+    teeth["halved"] = gate((o * 0.5, l), plain)
+    q8_teeth = {str(f): {"pass": r[0], "rel": r[2], "dlse": r[3]}
+                for f, r in teeth.items()}
+    print(f"gate at B5's serve shape: written out here {teeth[None][2]:.3e} "
+          f"relative (passes: {teeth[None][0]}); scales by logical block -> "
+          f"{teeth['logical'][2]:.3e} relative, |dlse| "
+          f"{teeth['logical'][3]:.3e}; V scalar before l -> "
+          f"{teeth['v_early'][2]:.3e}, |dlse| {teeth['v_early'][3]:.3e}; "
+          f"output halved -> {teeth['halved'][2]:.3e}", flush=True)
+    if not teeth[None][0] or any(teeth[f][0] for f in
+                                 ("logical", "v_early", "halved")):
+        fail("the parity gate at B5's serve shape fails its own arithmetic "
+             "or accepts a planted fault")
+    del plain, o, l, serve_q8, kp8, vp8
+
     # B3: a Tq=256 prefill chunk against a 2k-token gathered view.
     q, k, v = rnd(8, 16, 256, 128), rnd(8, 16, 2048, 128), rnd(8, 16, 2048, 128)
     qoff = torch.randint(0, 2048 - 256, (8,), generator=g, device=dev,
@@ -349,7 +588,7 @@ def main() -> None:
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
            need * 16 * 128 * 2 * 2 + 2 * q.numel() * 2,
            4.0 * 16 * 128 * visible_pairs(qoff, 256, 2048))
-    del q, k, v, kp, vp, kg, vg, mask
+    del q, k, v, kp, vp, mask
     # ... and the training forward: B2 H16 T4096 causal (the train phase's
     # attention shape).
     q, k, v = (rnd(2, 16, 4096, 128) for _ in range(3))
@@ -416,7 +655,7 @@ def main() -> None:
         kv = 2 * k.numel() * 2
         # SDPA's backward does the whole gradient: at least the q.k, dO.v,
         # ds.k, ds^T.q and p^T.dO products, 10 * pairs * D FLOPs.
-        lib_ms, lib_clock = time_ms(
+        lib_ms, lib_clock, _ = time_ms(
             sdpa_bwd(q, k, v, dout, qo, ko),
             bwd_bound(io + 3 * kv + q.numel() * 2, 10.0 * pairs * 128)[0],
             iters=5)
@@ -441,12 +680,13 @@ def main() -> None:
                 if not ok:
                     fail(f"{kernel} {name}: |d| {eabs:.3e}, relative "
                          f"{erel:.3e} (tol {TOL_GRAD_REL})")
-                (c["plain_ms"], plain_clock) = time_ms(plain, bound, iters=3)
+                c["plain_ms"], plain_clock, _ = time_ms(plain, bound,
+                                                        iters=3)
                 c.update(max_abs_err=eabs, max_rel_err=erel)
             else:
                 plain_clock = None
                 c.update(plain_ms=None, max_abs_err=None, max_rel_err=None)
-            c["ms"], clock = time_ms(fn, bound, iters=5)
+            c["ms"], clock, _ = time_ms(fn, bound, iters=5)
             c["clocks"] = [clock, plain_clock, lib_clock]
             cases.append(c)
             print(f"{kernel} {name}: |d| {c['max_abs_err']} relative "
@@ -504,10 +744,10 @@ def main() -> None:
     bound, bound_by = bwd_bound(
         4 * q.numel() * 2 + 16 * 16384 * 4,
         4.0 * 128 * causal_pairs(1, 16, 16384, 16384, 0, 0))
-    fwd_ms, fwd_clock = time_ms(
+    fwd_ms, fwd_clock, _ = time_ms(
         lambda: cuda_attention.attention_cuda_fwd(q, k, v, causal=True),
         bound, iters=3)
-    sdpa_ms, sdpa_clock = time_ms(
+    sdpa_ms, sdpa_clock, _ = time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
         bound, iters=3)
     cases.append({"kernel": "flash_fwd", "case": "long B1 H16 T16384 causal",
@@ -545,6 +785,8 @@ def main() -> None:
     wrappers = {
         "flash_decode": cuda_decode.attention_cuda_decode,
         "flash_decode_paged": cuda_decode.attention_cuda_decode_paged,
+        "flash_decode_q8q": cuda_decode.attention_cuda_decode_q8q,
+        "flash_decode_paged_q8q": cuda_decode.attention_cuda_decode_paged_q8q,
         "flash_fwd": cuda_attention.attention_cuda_fwd,
         "flash_dq": cuda_bwd.attention_cuda_dq,
         "flash_dkv": cuda_bwd.attention_cuda_dkv,
@@ -554,14 +796,7 @@ def main() -> None:
         for w in wrappers.values():
             w.launches = 0
 
-    serve_cfg = parse_args([
-        "--mode", "serve", "--model-dim", "2048", "--heads", "16",
-        "--n-layers", "4", "--vocab-size", "32768", "--dtype", "bfloat16",
-        "--slots", "8", "--requests", "16", "--prompt-len", "512",
-        "--prompt-jitter", "64", "--max-new-tokens", "64",
-        "--prefill-chunk", "256", "--kv-layout", "paged", "--kv-block", "64",
-        "--temperature", "0",
-    ])
+    serve_cfg = parse_args(SERVE_ARGS)
     reset_counts()
     t0 = time.monotonic()
     rec, server = cli.run_serve(serve_cfg, dev)
@@ -592,53 +827,67 @@ def main() -> None:
                             max_new_tokens=64, vocab_size=tcfg.vocab_size,
                             seed=7)
 
-    def wave():
+    def wave(**kw):
         engine = SlotServer(params, tcfg, slots=8, cache_len=640,
-                            prefill_chunk=256, kv_block=64)
+                            prefill_chunk=256, kv_block=64, **kw)
         rep = engine.serve(trace)
         torch.cuda.synchronize()
         return rep
 
-    plain_rep = wave()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        prof_rep = wave()
-    by_kernel = {}
-    for name, ms in device_kernels(prof):
-        by_kernel[name] = by_kernel.get(name, 0.0) + ms
-    groups = {"flash_decode (B1/B2 + merge)": ("decode_split", "merge_splits"),
-              "flash_fwd (B3)": ("flash_fwd",),
-              "matmul": ("nvjet", "gemm", "gemv", "sm90", "cutlass",
-                         "cublas")}
-    split = {g: 0.0 for g in groups}
-    split["other"] = 0.0
-    for name, ms in by_kernel.items():
-        low = name.lower()
-        key = next((g for g, keys in groups.items()
-                    if any(x in low for x in keys)), "other")
-        split[key] += ms
-    busy = sum(split.values())
-    wall_ms, traced_wall_ms = plain_rep.wall_s * 1e3, prof_rep.wall_s * 1e3
-    breakdown = {
-        "serve_wall_ms": wall_ms,
-        "traced_serve_wall_ms": traced_wall_ms,
-        "device_busy_ms": busy,
-        "idle_share": (1 - busy / wall_ms) if busy else None,
-        "idle_share_of_traced_wall": (1 - busy / traced_wall_ms)
-        if busy else None,
-        "by_group_ms": split,
-        "top_kernels_ms": dict(sorted(by_kernel.items(),
-                                      key=lambda kv: -kv[1])[:12]),
-        "tokens_per_sec": plain_rep.tokens_per_sec,
-        "traced_tokens_per_sec": prof_rep.tokens_per_sec,
-    }
-    print(f"serve breakdown (8 requests): "
-          + (json.dumps({k: round(v, 3) for k, v in split.items()})
-             + f" busy {busy:.2f} ms (traced) of {wall_ms:.2f} ms untraced "
-             f"wall ({traced_wall_ms:.2f} ms traced), idle share "
-             f"{breakdown['idle_share']:.4f}"
-             if busy else "device time not measured"), flush=True)
+    matmul = ("nvjet", "gemm", "gemv", "sm90", "cutlass", "cublas")
+
+    def split_by(prof, groups):
+        """Device ms of a trace by kernel group (the first group whose
+        name fragment a kernel's name holds; "other" else), and by
+        kernel."""
+        by_kernel = {}
+        for name, ms in device_kernels(prof):
+            by_kernel[name] = by_kernel.get(name, 0.0) + ms
+        split = {g: 0.0 for g in groups}
+        split["other"] = 0.0
+        for name, ms in by_kernel.items():
+            low = name.lower()
+            key = next((g for g, keys in groups.items()
+                        if any(x.lower() in low for x in keys)), "other")
+            split[key] += ms
+        return split, by_kernel
+
+    def wave_breakdown(label, groups, **kw):
+        """One wave served untraced (its wall) and once traced (its device
+        time; the profiler slows the host, so its own wall is longer)."""
+        plain_rep = wave(**kw)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            prof_rep = wave(**kw)
+        split, by_kernel = split_by(prof, groups)
+        busy = sum(split.values())
+        wall_ms = plain_rep.wall_s * 1e3
+        traced_wall_ms = prof_rep.wall_s * 1e3
+        bd = {
+            "serve_wall_ms": wall_ms,
+            "traced_serve_wall_ms": traced_wall_ms,
+            "device_busy_ms": busy,
+            "idle_share": (1 - busy / wall_ms) if busy else None,
+            "idle_share_of_traced_wall": (1 - busy / traced_wall_ms)
+            if busy else None,
+            "by_group_ms": split,
+            "top_kernels_ms": dict(sorted(by_kernel.items(),
+                                          key=lambda kv: -kv[1])[:12]),
+            "tokens_per_sec": plain_rep.tokens_per_sec,
+            "traced_tokens_per_sec": prof_rep.tokens_per_sec,
+        }
+        print(f"{label} breakdown (8 requests): "
+              + (json.dumps({k: round(v, 3) for k, v in split.items()})
+                 + f" busy {busy:.2f} ms (traced) of {wall_ms:.2f} ms "
+                 f"untraced wall ({traced_wall_ms:.2f} ms traced), idle "
+                 f"share {bd['idle_share']:.4f}"
+                 if busy else "device time not measured"), flush=True)
+        return plain_rep, bd
+
+    plain_rep, breakdown = wave_breakdown("serve", {
+        "flash_decode (B1/B2 + merge)": ("decode_split", "merge_splits"),
+        "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul})
 
     # One mixed step, kernel path vs plain path, on the same cache: slots
     # prefilled to ragged lengths, then decode rows, a 256-row chunk, a
@@ -679,19 +928,200 @@ def main() -> None:
         fail(f"mixed-step logits differ by {logit_err}")
     if not (math.isfinite(kv_err) and kv_err <= TOL_KV_REL * kv_max):
         fail(f"mixed-step written KV differs by {kv_err} (max |KV| {kv_max})")
-    del server, params, cache, snap, kv_kernel, lk, lp, ck, cp
+    del cache, snap, kv_kernel, lk, lp, ck, cp
     torch.cuda.empty_cache()
 
-    # -- 4. decode: the reference workload through B1 ----------------------
-    reset_counts()
-    drec = cli.run_decode(parse_args(["--mode", "decode", "--iters", "20"]),
-                          dev)
-    launches["flash_decode"] = wrappers["flash_decode"].launches
-    print(f"decode: {drec['median_s'] * 1e3:.4f} ms per step "
-          f"({drec['clock']}), {drec['tokens_per_sec']} KV tokens/s, "
-          f"launches {launches['flash_decode']}", flush=True)
-    if launches["flash_decode"] == 0:
-        fail("decode never launched flash_decode")
+    # -- 3b. int8 serve at full width -------------------------------------
+    from tree_attention_tpu_torch.models import PagedQuantKVCache
+
+    n_layers = tcfg.n_layers
+
+    def serve_main(argv):
+        """``cli.main`` in process, with the metrics registry off as in the
+        exact serve: its record, the steps it ran over the int8 cache (each
+        decode tick runs one; staged chunks run on the exact staging
+        cache), the launches."""
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        return rec, rec["decode_ticks"], {n: w.launches
+                                          for n, w in wrappers.items()}
+
+    t0 = time.monotonic()
+    q_rec, q_steps, q_launches = serve_main(SERVE_ARGS
+                                            + ["--kv-quant", "int8"])
+    print(f"int8 serve: {q_rec['requests']} requests, "
+          f"{q_rec['tokens_generated']} tokens, {q_rec['tokens_per_sec']} "
+          f"tok/s, ttft_p50 {q_rec['ttft_p50_s']}s, ttft_p95 "
+          f"{q_rec['ttft_p95_s']}s, tbt_p50 {q_rec['tbt_p50_s']}s, tbt_p95 "
+          f"{q_rec['tbt_p95_s']}s, ticks {q_rec['ticks']}, int8 steps "
+          f"{q_steps}, launches {json.dumps(q_launches)}, "
+          f"wall incl. init {time.monotonic() - t0:.2f}s", flush=True)
+    if q_rec["outcomes"] != {"budget": 16} or \
+            q_rec["tokens_generated"] != 16 * 64:
+        fail(f"int8 serve outcomes {q_rec['outcomes']}, "
+             f"{q_rec['tokens_generated']} tokens")
+    if any(q_rec["leaks"][k] for k in q_rec["leaks"]):
+        fail(f"int8 serve leaked: {q_rec['leaks']}")
+    # B5 once per layer and int8 step; staged chunks ran B1 (tails below
+    # 128 rows) and B3; the exact paged kernel had nothing to do.
+    if not (q_steps > 0 and q_launches["flash_decode_paged_q8q"]
+            == n_layers * q_steps):
+        fail(f"int8 serve: B5 launched {q_launches['flash_decode_paged_q8q']}"
+             f" times over {q_steps} int8 steps")
+    if not (q_launches["flash_decode"] and q_launches["flash_fwd"]) or \
+            q_launches["flash_decode_paged"]:
+        fail(f"int8 serve staged launches {q_launches}")
+    c_rec, c_steps, c_launches = serve_main(
+        SERVE_ARGS + ["--kv-quant", "int8", "--kv-layout", "contiguous",
+                      "--requests", "4", "--max-new-tokens", "16"])
+    print(f"int8 serve, contiguous: {c_rec['requests']} requests, "
+          f"{c_rec['tokens_generated']} tokens, int8 steps "
+          f"{c_steps}, B4 launches "
+          f"{c_launches['flash_decode_q8q']}", flush=True)
+    if c_rec["outcomes"] != {"budget": 4} or not (
+            c_steps > 0 and c_launches["flash_decode_q8q"]
+            == n_layers * c_steps):
+        fail(f"contiguous int8 serve: {c_rec['outcomes']}, "
+             f"{c_launches['flash_decode_q8q']} B4 launches over "
+             f"{c_steps} int8 steps")
+
+    x_rec, x_steps, x_launches = serve_main(
+        SERVE_ARGS + ["--kv-quant", "int8-cast", "--requests", "4",
+                      "--max-new-tokens", "16"])
+    print(f"int8-cast serve, paged: {x_rec['requests']} requests, "
+          f"{x_rec['tokens_generated']} tokens, int8 steps "
+          f"{x_steps}, B2 launches "
+          f"{x_launches['flash_decode_paged']}", flush=True)
+    if x_rec["outcomes"] != {"budget": 4} or not (
+            x_steps > 0 and x_launches["flash_decode_paged"]
+            == n_layers * x_steps) or \
+            x_launches["flash_decode_paged_q8q"]:
+        fail(f"int8-cast serve: {x_rec['outcomes']}, "
+             f"{x_launches['flash_decode_paged']} B2 launches over "
+             f"{x_steps} int8 steps")
+
+    # The int8 wave: the same 8 requests as the exact wave, on an int8
+    # cache; its device time split the same way, B5 apart; and how many of
+    # its greedy tokens equal the exact wave's (reported, not gated).
+    q8_rep, q8_breakdown = wave_breakdown("int8 serve", {
+        "flash_decode_paged_q8q (B5)": ("decode_split_kernel<signed char, "
+                                        "signed char",),
+        "flash_decode (B1 staged chunks) + merges": ("decode_split",
+                                                     "merge_splits"),
+        "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul}, quantize=True)
+    exact_tok = {r.uid: r.tokens for r in plain_rep.results}
+    same = sum(a == b for r in q8_rep.results
+               for a, b in zip(r.tokens, exact_tok[r.uid]))
+    q8_breakdown["tokens_equal_to_exact"] = same / q8_rep.tokens_generated
+    print(f"int8 wave: {same} of {q8_rep.tokens_generated} greedy tokens "
+          f"equal the exact wave's ({same / q8_rep.tokens_generated:.4f})",
+          flush=True)
+
+    # One int8 decode step, kernel path against plain path, on clones of
+    # one paged int8 cache: slots prefilled exactly to ragged lengths
+    # (three at a block boundary, so the step enters a block), the pools
+    # quantized per block, then one token per slot (slot 2 inert).
+    cache = init_paged_cache(tcfg, 8, 640, 80, block=64, device=dev)
+    cache.table.copy_(torch.arange(80, device=dev, dtype=torch.int32
+                                   ).reshape(8, 10))
+    _, cache = forward_step(params, pre, cache, tcfg, n_tokens=n0)
+
+    def per_block(pool):
+        codes, sc = cuda_decode.quantize_symmetric_int8(
+            pool.reshape(*pool.shape[:3], -1), 3)
+        return codes.reshape(pool.shape), sc[..., 0]
+
+    (k8, ks8), (v8, vs8) = per_block(cache.k), per_block(cache.v)
+    qcache = PagedQuantKVCache(k=k8, v=v8, table=cache.table,
+                               length=cache.length, k_scale=ks8,
+                               v_scale=vs8)
+    del cache
+
+    def clone(c):
+        return dataclasses.replace(c, **{n: getattr(c, n).clone() for n in (
+            "k", "v", "k_scale", "v_scale", "length")})
+
+    tok1 = toks[:, :1]
+    n_one = torch.tensor([1, 1, 0, 1, 1, 1, 1, 1], device=dev,
+                         dtype=torch.int32)
+    q8_step = {}
+    for route in ("q8q", "q8"):
+        lk, ck = forward_step(params, tok1, clone(qcache), tcfg,
+                              n_tokens=n_one, quant_kernel=route)
+        lp, cp = forward_step(params, tok1, clone(qcache),
+                              dataclasses.replace(tcfg, attn_impl="plain"),
+                              n_tokens=n_one, quant_kernel=route)
+        live = n_one > 0
+        n_pool = qcache.blocks
+        err = (lk[live] - lp[live]).abs().max().item()
+        diff = [(a[:, :n_pool].int() - b[:, :n_pool].int()).abs()
+                for a, b in ((ck.k, cp.k), (ck.v, cp.v))]
+        codes = max(d.max().item() for d in diff)
+        n_off = sum(int((d != 0).sum()) for d in diff)
+        layer0_equal = all(int(d[0].max()) == 0 for d in diff)
+        scales_equal = all(torch.equal(a[:, :n_pool], b[:, :n_pool])
+                           for a, b in ((ck.k_scale, cp.k_scale),
+                                        (ck.v_scale, cp.v_scale)))
+        # The code gate's teeth: the plain path's new K rows quantized
+        # under the next head's scalar of their block (a head-stride fault).
+        slots = live.nonzero()[:, 0]
+        pos = qcache.length[slots].long()
+        pb = qcache.table[slots, pos // qcache.block].long().tolist()
+        off = (pos % qcache.block).tolist()
+        rows = torch.stack([cp.k[:, b, :, o] for b, o in zip(pb, off)]
+                           ).float()
+        sc = torch.stack([cp.k_scale[:, b] for b in pb])[..., None]
+        planted = torch.clamp(torch.round(rows * sc / sc.roll(1, 2)), -127,
+                              127)
+        planted_codes = (planted - rows).abs().max().item()
+        q8_step[route] = {"logits_err": err, "max_code_diff": codes,
+                          "codes_off": n_off, "layer0_codes_equal":
+                          layer0_equal, "scales_equal": scales_equal,
+                          "planted_next_head_scale_codes": planted_codes}
+        print(f"int8 step ({route}), kernel vs plain: logits |d| {err:.3e} "
+              f"(tol {TOL_LOGITS}); written codes equal in layer 0: "
+              f"{layer0_equal}, within {codes} step(s) in all layers (tol "
+              f"{TOL_CODES}; {n_off} codes differ; new rows under the next "
+              f"head's block scale read {planted_codes:.0f}); block scales "
+              f"equal: {scales_equal}", flush=True)
+        if not (math.isfinite(err) and err <= TOL_LOGITS and layer0_equal
+                and codes <= TOL_CODES and scales_equal):
+            fail(f"int8 step ({route}) kernel and plain paths differ: "
+                 f"{q8_step[route]}")
+        if planted_codes <= TOL_CODES:
+            fail(f"int8 step ({route}): the code gate passes rows quantized "
+                 f"under the wrong head's scale ({planted_codes} codes)")
+    del server, params, qcache, lk, lp, ck, cp, k8, v8
+    torch.cuda.empty_cache()
+
+    # -- 4. decode: the reference workload through B1, then int8 through
+    # B4 and through B1 over int8 K/V ---------------------------------------
+    decode_recs = {}
+    for quant, kernel in (("none", "flash_decode"),
+                          ("int8", "flash_decode_q8q"),
+                          ("int8-cast", "flash_decode")):
+        reset_counts()
+        drec = cli.run_decode(parse_args(
+            ["--mode", "decode", "--iters", "20", "--kv-quant", quant]), dev)
+        n = wrappers[kernel].launches
+        floor_ms = drec["kv_bytes"] / HBM_BYTES_PER_S * 1e3
+        drec["launches"] = n
+        decode_recs[quant] = drec
+        print(f"decode ({drec['name']}, kv_quant {quant}): "
+              f"{drec['median_s'] * 1e3:.4f} ms per step ({drec['clock']}; "
+              f"KV floor {floor_ms:.4f} ms), {drec['tokens_per_sec']} KV "
+              f"tokens/s, {kernel} launches {n}", flush=True)
+        if n == 0:
+            fail(f"decode --kv-quant {quant} never launched {kernel}")
+        if drec["median_s"] * 1e3 < floor_ms:
+            fail(f"decode --kv-quant {quant}: {drec['median_s']} s is below "
+                 f"the KV bytes' floor {floor_ms} ms")
+    drec = decode_recs["none"]
+    launches["flash_decode"] = decode_recs["none"]["launches"]
 
     # -- 5. train through the CLI's --mode train ---------------------------
     targs = parse_args(TRAIN_ARGS)
@@ -786,19 +1216,10 @@ def main() -> None:
         state, _ = step(state, batch)
         torch.cuda.synchronize()
         traced_wall_ms = (time.perf_counter() - t0) * 1e3
-    tgroups = {"flash_fwd (B3)": ("flash_fwd_kernel",),
-               "flash_dq (B6)": ("flash_dq_kernel",),
-               "flash_dkv (B7)": ("flash_dkv_kernel",),
-               "matmul": groups["matmul"]}
-    tsplit = {g: 0.0 for g in tgroups}
-    tsplit["other"] = 0.0
-    tby_kernel = {}
-    for name, ms in device_kernels(prof):
-        tby_kernel[name] = tby_kernel.get(name, 0.0) + ms
-        low = name.lower()
-        key = next((g for g, keys in tgroups.items()
-                    if any(x in low for x in keys)), "other")
-        tsplit[key] += ms
+    tsplit, tby_kernel = split_by(prof, {
+        "flash_fwd (B3)": ("flash_fwd_kernel",),
+        "flash_dq (B6)": ("flash_dq_kernel",),
+        "flash_dkv (B7)": ("flash_dkv_kernel",), "matmul": matmul})
     tbusy = sum(tsplit.values())
     train_breakdown = {
         "step_wall_ms": step_wall_ms,
@@ -829,6 +1250,11 @@ def main() -> None:
                          "tree_attention_tpu/ops/pallas_decode.py:179"),
         "flash_decode_paged": ("cuda", csrc + "flash_decode.cu",
                                "tree_attention_tpu/ops/pallas_decode.py:344"),
+        "flash_decode_q8q": ("cuda", csrc + "flash_decode.cu",
+                             "tree_attention_tpu/ops/pallas_decode.py:266"),
+        "flash_decode_paged_q8q": (
+            "cuda", csrc + "flash_decode.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:461"),
         "flash_fwd": ("cuda", csrc + "flash_fwd.cu",
                       "tree_attention_tpu/ops/pallas_attention.py:65"),
         "flash_dq": ("cuda", csrc + "flash_bwd.cu",
@@ -837,10 +1263,15 @@ def main() -> None:
                       "tree_attention_tpu/ops/pallas_bwd.py:118"),
     }
     # Main-path launches: B1 in the decode phase, B2 in the serve phase, B3
-    # in the serve and the train phases, B6/B7 in the train phase.
+    # in the serve and the train phases, B6/B7 in the train phase, B5 in
+    # the int8 serve, B4 in the int8 decode and the contiguous int8 serve.
     main_launches = dict(launches)
     for n, count in train_launches.items():
         main_launches[n] = main_launches.get(n, 0) + count
+    main_launches["flash_decode_paged_q8q"] = q_launches[
+        "flash_decode_paged_q8q"]
+    main_launches["flash_decode_q8q"] = (decode_recs["int8"]["launches"]
+                                         + c_launches["flash_decode_q8q"])
     kernels = []
     for name, (route, src, replaces) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -861,6 +1292,23 @@ def main() -> None:
         }
         if name not in ("flash_dq", "flash_dkv"):
             entry["tolerance_lse"] = TOL_LSE
+        if head["library_ms"] is None:
+            # No PyTorch call computes int8-KV attention.
+            entry["library"] = "none"
+            entry["yardstick_sdpa_dequant_ms"] = head[
+                "yardstick_sdpa_dequant_ms"]
+        if head.get("call_ms") is not None:
+            entry["call_ms"] = head["call_ms"]
+        if name in ("flash_decode", "flash_decode_paged"):
+            # The int8-cast route through this kernel.
+            cast = next(c for c in mine if c["case"].startswith("int8"))
+            entry["int8_cast"] = {k: cast[k] for k in (
+                "case", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "yardstick_sdpa_dequant_ms", "max_rel_err")}
+            entry["launches_int8"] = (
+                decode_recs["int8-cast"]["launches"] if name == "flash_decode"
+                else x_launches[name])
+            entry["launches_int8_serve_staged"] = q_launches[name]
         if name == "flash_fwd":
             # Serve chunks, then 2 per layer and training step (forward and
             # its recomputation under remat).
@@ -875,7 +1323,15 @@ def main() -> None:
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "build_s": secs, "cases": cases,
-                   "serve": rec, "decode": drec,
+                   "serve": rec, "decode": drec, "decode_q8": {
+                       k: decode_recs[k] for k in ("int8", "int8-cast")},
+                   "int8_serve": q_rec, "int8_serve_steps": q_steps,
+                   "int8_serve_launches": q_launches,
+                   "int8_serve_contiguous": c_rec,
+                   "int8_cast_serve": x_rec, "int8_cast_serve_launches":
+                   x_launches,
+                   "int8_serve_breakdown": q8_breakdown,
+                   "int8_step_vs_plain": q8_step, "q8_gate_teeth": q8_teeth,
                    "mixed_step": {"logits_err": logit_err, "kv_err": kv_err,
                                   "kv_max": kv_max},
                    "serve_breakdown": breakdown, "train": trec,

@@ -9,7 +9,8 @@ one JSON record on stdout:
     python -m tree_attention_tpu_torch --mode train --seq-len 4096 ...
 
 ``decode`` times one attention step over a ``--seq-len`` KV cache (64000
-tokens, 16 heads x 128, one query by default) with CUDA events; ``generate``
+tokens, 16 heads x 128, one query by default) with CUDA events (over an int8
+cache with ``--kv-quant``); ``generate``
 prefills a random prompt and decodes; ``serve`` drains a synthetic request
 trace through the continuous-batching :class:`SlotServer`; ``train`` takes
 ``--steps`` optimizer steps on random next-token batches (with
@@ -44,33 +45,67 @@ def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
+def check_kv_quant(cfg: RunConfig) -> Optional[str]:
+    """The q8 route of ``--kv-quant`` (None without it). An int8 buffer is
+    served by the q8 kernels or their plain versions only, so ``--impl
+    naive|blockwise`` is refused."""
+    kernel = cfg.resolved_quant_kernel()
+    if kernel is not None and cfg.impl not in ("auto", "plain"):
+        raise SystemExit(
+            f"--kv-quant {cfg.kv_quant} runs a q8 decode kernel; --impl "
+            f"{cfg.impl} cannot serve a quantized buffer"
+        )
+    return kernel
+
+
 def run_decode(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
-    """The reference workload: one attention step over a KV cache, timed."""
+    """The reference workload: one attention step over a KV cache, timed;
+    with ``--kv-quant`` over its per-channel int8 quantization through the
+    q8 route it names."""
     from tree_attention_tpu_torch.data import make_qkv
     from tree_attention_tpu_torch.ops import flash_attention
+    from tree_attention_tpu_torch.ops.cuda_decode import (
+        quantize_kv_channelwise,
+        resolve_q8_kernel,
+    )
 
+    kernel = check_kv_quant(cfg)
     hkv = cfg.resolved_kv_heads()
     q, k, v = make_qkv(
         torch.Generator(device=dev).manual_seed(cfg.seed), batch=cfg.batch,
         heads=cfg.heads, kv_heads=hkv, q_len=cfg.q_len, seq_len=cfg.seq_len,
         head_dim=cfg.head_dim, dtype=_DTYPES[cfg.dtype], device=dev,
     )
-    stats = time_fn(flash_attention, q, k, v, causal=cfg.causal,
-                    impl=cfg.impl, iters=cfg.iters, warmup=cfg.warmup,
-                    device=dev)
+    name, impl, extra = "decode", cfg.impl, {}
+    if kernel is None:
+        stats = time_fn(flash_attention, q, k, v, causal=cfg.causal,
+                        impl=cfg.impl, iters=cfg.iters, warmup=cfg.warmup,
+                        device=dev)
+    else:
+        k, v, k_s, v_s = quantize_kv_channelwise(k, v)
+        fn = resolve_q8_kernel(kernel, plain=cfg.impl == "plain")
+        stats = time_fn(fn, q, k, v, k_s, v_s, causal=cfg.causal,
+                        iters=cfg.iters, warmup=cfg.warmup, device=dev)
+        name, extra = "decode_" + kernel, {"kv_quant": cfg.kv_quant}
+        # What actually ran: B4, or B1 over int8 K/V, or a plain version.
+        impl = ("plain" if cfg.impl == "plain" or dev.type == "cpu"
+                else {"q8q": "flash_decode_q8q", "q8": "flash_decode"}[
+                    kernel])
     flops = 4.0 * cfg.batch * cfg.heads * cfg.q_len * cfg.seq_len \
         * cfg.head_dim
-    log.info("decode: %d KV tokens, %d heads x %d, %s on %s: median %.6fs",
-             cfg.seq_len, cfg.heads, cfg.head_dim, cfg.dtype,
+    log.info("%s: %d KV tokens, %d heads x %d, %s on %s: median %.6fs",
+             name, cfg.seq_len, cfg.heads, cfg.head_dim, cfg.dtype,
              device_name(dev), stats.median)
     return {
-        "name": "decode",
+        "name": name,
         "workload": {
             "batch": cfg.batch, "heads": cfg.heads, "kv_heads": hkv,
             "head_dim": cfg.head_dim, "seq_len": cfg.seq_len,
             "q_len": cfg.q_len, "dtype": cfg.dtype, "causal": cfg.causal,
-            "impl": cfg.impl,
+            "impl": impl, **extra,
         },
+        # The K and V bytes one step must stream.
+        "kv_bytes": k.numel() * k.element_size() * 2,
         "device": device_name(dev),
         "tokens_per_sec": round(cfg.batch * cfg.seq_len / stats.median, 1),
         "flops_per_sec": flops / stats.median,
@@ -191,6 +226,7 @@ def run_generate(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
         raise SystemExit("--temperature must be >= 0 (0 = greedy)")
     if cfg.max_new_tokens < 1:
         raise SystemExit("--max-new-tokens must be >= 1")
+    kernel = check_kv_quant(cfg)
     tcfg = transformer_config(cfg)
     params = init_params(tcfg, cfg.seed, dev)
     g = torch.Generator().manual_seed(cfg.seed + 1)
@@ -199,11 +235,15 @@ def run_generate(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
     toks = generate(params, prompt, cfg.max_new_tokens, tcfg,
                     temperature=cfg.temperature,
                     generator=torch.Generator(device=dev).manual_seed(
-                        cfg.seed + 2))
-    log.info("generated %s tokens from a %s prompt", tuple(toks.shape),
-             tuple(prompt.shape))
+                        cfg.seed + 2),
+                    quantize_after_prefill=kernel is not None,
+                    quant_kernel=kernel or "q8q")
+    log.info("generated %s tokens from a %s prompt%s", tuple(toks.shape),
+             tuple(prompt.shape),
+             f" ({cfg.kv_quant} KV cache)" if kernel else "")
     return {"mode": "generate", "device": device_name(dev),
-            "tokens": toks.tolist()}
+            "tokens": toks.tolist(),
+            **({"kv_quant": cfg.kv_quant} if kernel else {})}
 
 
 def run_serve(cfg: RunConfig, dev: torch.device
@@ -234,6 +274,7 @@ def run_serve(cfg: RunConfig, dev: torch.device
         raise SystemExit("--kv-block must be a power of two >= 1")
     if cfg.kv_blocks is not None and cfg.kv_blocks < 1:
         raise SystemExit("--kv-blocks must be >= 1")
+    kernel = check_kv_quant(cfg)
     cache_len = cfg.prompt_len + cfg.prompt_jitter + cfg.max_new_tokens
     tcfg = transformer_config(dataclasses.replace(cfg, seq_len=cache_len))
     params = init_params(tcfg, cfg.seed, dev)
@@ -243,7 +284,8 @@ def run_serve(cfg: RunConfig, dev: torch.device
         prefill_chunk=cfg.prefill_chunk, prefill_budget=cfg.prefill_budget,
         slo_ttft=cfg.slo_ttft, slo_tbt=cfg.slo_tbt,
         kv_layout=cfg.kv_layout, kv_block=cfg.kv_block,
-        kv_blocks=cfg.kv_blocks,
+        kv_blocks=cfg.kv_blocks, quantize=kernel is not None,
+        quant_kernel=kernel or "q8q",
     )
     trace = synthetic_trace(
         cfg.requests, prompt_len=cfg.prompt_len,
@@ -261,6 +303,7 @@ def run_serve(cfg: RunConfig, dev: torch.device
         "cache_len": cache_len,
         "prefill_chunk": cfg.prefill_chunk,
         "kv_layout": cfg.kv_layout,
+        **({"kv_quant": cfg.kv_quant} if kernel else {}),
         **report.as_dict(),
         "leaks": server.leak_report(),
     }

@@ -1,6 +1,7 @@
 // Shared device helpers of the attention kernels: per-lane vector loads that
-// widen bf16/f32 rows to f32 registers, the store back to the output dtype,
-// the P-rounding to V's dtype, and warp reductions.
+// widen bf16/f32 rows to f32 registers, int8 lines packed in one 32-bit word,
+// the store back to the output dtype, the P-rounding to V's dtype, and warp
+// reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -90,6 +91,27 @@ struct Line<float, N> {
   }
 };
 
+// int8 lines: N <= 4 codes in the low bytes of one word (zero above), so a
+// lane's share of a K row is one load and one __dp4a against a Q word.
+template <int N>
+struct Line<int8_t, N> {
+  static_assert(N == 2 || N == 4, "int8 lines hold 2 or 4 codes");
+  uint32_t u;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    if constexpr (N == 4) {
+      u = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      u = *reinterpret_cast<const uint16_t*>(p);
+    }
+  }
+  __device__ __forceinline__ void zero() { u = 0u; }
+  __device__ __forceinline__ void unpack(float (&o)[N]) const {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      o[i] = static_cast<float>(static_cast<int>(u << (24 - 8 * i)) >> 24);
+  }
+};
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -105,8 +127,18 @@ __device__ __forceinline__ float round_as(float x, const float*) { return x; }
 __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(x));
 }
+// int8 V is cast to bf16 (exact for [-127, 127]), so P rounds to bf16.
+__device__ __forceinline__ float round_as(float x, const int8_t*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;

@@ -3,11 +3,16 @@
 from tree_attention_tpu_torch.models.decode import (  # noqa: F401
     KVCache,
     PagedKVCache,
+    PagedQuantKVCache,
+    QuantKVCache,
     decode_attention,
     forward_step,
     generate,
     init_cache,
     init_paged_cache,
+    paged_insert_slot,
+    quantize_cache,
+    quantize_paged_blocks,
     round_cache_len,
     sample_slots,
 )

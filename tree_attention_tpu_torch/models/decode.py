@@ -6,6 +6,9 @@ Counterpart of ``tree_attention_tpu/models/decode.py`` (single device):
   per-slot length vector ``(B,)``.
 - :class:`PagedKVCache` — one block pool under every slot plus per-slot
   block tables (PagedAttention, arXiv:2309.06180).
+- :class:`QuantKVCache` / :class:`PagedQuantKVCache` — their int8
+  counterparts: frozen per-channel scales per slot, or one scale per pool
+  block and head (:func:`quantize_cache`, :func:`quantize_paged_blocks`).
 - :func:`forward_step` — ``Tq`` new tokens per slot against the cache: slot
   ``i``'s rows land at ``[length[i], length[i] + n_tokens[i])`` and its
   queries attend causally from ``length[i]``. Mixed-Tq ``n_tokens`` lets
@@ -36,6 +39,10 @@ from tree_attention_tpu_torch.models.transformer import (
     rope,
     unheads,
 )
+from tree_attention_tpu_torch.ops.cuda_decode import (
+    quantize_symmetric_int8,
+    resolve_q8_kernel,
+)
 from tree_attention_tpu_torch.ops.decode import flash_decode
 from tree_attention_tpu_torch.utils import resolve_device
 
@@ -47,6 +54,10 @@ _STEP_DISPATCH = obs.counter(
     "forward_step_dispatch_total",
     "forward_step calls by cache kind",
     labels=("cache",),
+)
+_CACHE_QUANTIZE = obs.counter(
+    "kv_cache_quantize_total",
+    "whole-cache int8 quantizations (quantize-after-prefill)",
 )
 
 
@@ -100,29 +111,85 @@ class PagedKVCache:
         return self.k[i, :n], self.v[i, :n]
 
 
+@dataclasses.dataclass
+class QuantKVCache(KVCache):
+    """int8 per-layer KV buffers with frozen per-channel scales.
+
+    The quantize-after-prefill shape: a prompt is prefilled in the model
+    dtype, :func:`quantize_cache` converts the filled rows once (scales =
+    per-channel absmax of the prefix), and later decode steps append rows
+    quantized under those frozen scales (outliers clamp to +-127). Halves
+    the KV bytes a decode step streams.
+    """
+
+    # (L, B, Hkv, 1, D) float32 each
+    k_scale: torch.Tensor = dataclasses.field(kw_only=True)
+    v_scale: torch.Tensor = dataclasses.field(kw_only=True)
+
+
+@dataclasses.dataclass
+class PagedQuantKVCache(PagedKVCache):
+    """int8 paged KV: int8 block pools plus one scale per POOL block.
+
+    ``k``/``v`` are ``(L, N + 1, Hkv, block, D)`` int8 (with the drop block
+    at ``N``), ``k_scale``/``v_scale`` ``(L, N + 1, Hkv)`` float32 — a
+    block carries what dequantizes it. A prompt block's scale is the absmax
+    of its rows when the prompt is quantized (:func:`quantize_paged_blocks`);
+    rows appended later quantize under the slot's **anchor** scale — the
+    scale of the block holding the slot's last row before the write — which
+    every block the write enters (its first row) inherits. So all rows of a
+    block share the block's scale, and the per-block scalar commutes out of
+    the score product (what B5 relies on).
+    """
+
+    # (L, N + 1, Hkv) float32 each
+    k_scale: torch.Tensor = dataclasses.field(kw_only=True)
+    v_scale: torch.Tensor = dataclasses.field(kw_only=True)
+
+    def scales(self, i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``i``'s ``(N, Hkv)`` K and V block scales."""
+        n = self.blocks
+        return self.k_scale[i, :n], self.v_scale[i, :n]
+
+
 AnyCache = Union[KVCache, PagedKVCache]
 
 
 def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int, *,
-               device: Union[str, torch.device] = "cuda") -> KVCache:
-    """An empty contiguous cache."""
+               device: Union[str, torch.device] = "cuda",
+               quantize: bool = False) -> KVCache:
+    """An empty contiguous cache; with ``quantize`` an int8
+    :class:`QuantKVCache` with unit scales (what :func:`quantize_cache`
+    gives an empty cache)."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len, cfg.d_head)
     if obs.REGISTRY.enabled:
         _CACHE_CAPACITY.set(max_len)
-    return KVCache(
-        k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    dtype = torch.int8 if quantize else cfg.dtype
+    kw = dict(
+        k=torch.zeros(shape, dtype=dtype, device=dev),
+        v=torch.zeros(shape, dtype=dtype, device=dev),
         length=torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+    )
+    if not quantize:
+        return KVCache(**kw)
+    sshape = shape[:3] + (1, shape[4])
+    return QuantKVCache(
+        **kw,
+        k_scale=torch.ones(sshape, dtype=torch.float32, device=dev),
+        v_scale=torch.ones(sshape, dtype=torch.float32, device=dev),
     )
 
 
 def init_paged_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
                      blocks: int, *, block: int = 64,
-                     device: Union[str, torch.device] = "cuda"
-                     ) -> PagedKVCache:
+                     device: Union[str, torch.device] = "cuda",
+                     quantize: bool = False) -> PagedKVCache:
     """An empty paged cache: a ``blocks``-block pool (plus the drop block)
-    and all-zero tables of ``ceil(max_len / block)`` entries per slot."""
+    and all-zero tables of ``ceil(max_len / block)`` entries per slot; with
+    ``quantize`` int8 pools and unit per-block scales
+    (:class:`PagedQuantKVCache`), so a paged and a contiguous int8 server
+    start alike."""
     if block < 1 or block & (block - 1):
         raise ValueError(f"kv block must be a power of two, got {block}")
     if blocks < 1:
@@ -132,12 +199,99 @@ def init_paged_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
     shape = (cfg.n_layers, blocks + 1, cfg.n_kv_heads, block, cfg.d_head)
     if obs.REGISTRY.enabled:
         _CACHE_CAPACITY.set(nb * block)
-    return PagedKVCache(
-        k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    dtype = torch.int8 if quantize else cfg.dtype
+    kw = dict(
+        k=torch.zeros(shape, dtype=dtype, device=dev),
+        v=torch.zeros(shape, dtype=dtype, device=dev),
         table=torch.zeros((batch_size, nb), dtype=torch.int32, device=dev),
         length=torch.zeros((batch_size,), dtype=torch.int32, device=dev),
     )
+    if not quantize:
+        return PagedKVCache(**kw)
+    return PagedQuantKVCache(
+        **kw,
+        k_scale=torch.ones(shape[:3], dtype=torch.float32, device=dev),
+        v_scale=torch.ones(shape[:3], dtype=torch.float32, device=dev),
+    )
+
+
+def quantize_cache(cache: KVCache) -> QuantKVCache:
+    """Per-channel int8 quantization of a (typically just-prefilled) cache,
+    scales over the token axis. Unwritten capacity rows are zeros and do not
+    shrink a scale; a channel that is zero over the whole prefix takes the
+    contract's scale of 1.0 (:func:`quantize_symmetric_int8`), so rows
+    appended later quantize as ``round(x)``."""
+    _CACHE_QUANTIZE.inc()
+    k_q, k_s = quantize_symmetric_int8(cache.k, 3)
+    v_q, v_s = quantize_symmetric_int8(cache.v, 3)
+    return QuantKVCache(k=k_q, v=v_q, length=cache.length, k_scale=k_s,
+                        v_scale=v_s)
+
+
+def _quantize_rows(rows: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize new ``(B, Hkv, Tq, D)`` rows under a frozen scale (divided,
+    as the TPU path does, so both give the same bytes)."""
+    return torch.clamp(torch.round(rows.float() / scale), -127, 127).to(
+        torch.int8)
+
+
+def quantize_paged_blocks(k: torch.Tensor, v: torch.Tensor, block: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor]:
+    """Per-BLOCK int8 quantization of a just-prefilled B=1 cache.
+
+    ``k``/``v`` are ``(L, 1, Hkv, T, D)`` exact rows; the caller zeroes the
+    rows past the prompt, so the absmax ignores them. ``T`` pads up to
+    whole ``block``-token spans; span ``j``'s scale is the absmax over its
+    rows and all channels (1.0 for a zero span). Returns ``(k_q, v_q,
+    k_scale, v_scale)``: int8 rows shaped like the inputs and scales
+    ``(L, nb, Hkv)``."""
+    L, _, Hkv, T, D = k.shape
+    nb = -(-T // block)
+
+    def one(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        xf = F.pad(x.float()[:, 0], (0, 0, 0, nb * block - T))
+        q, scale = quantize_symmetric_int8(
+            xf.reshape(L, Hkv, nb, block * D), 3)  # one scale per span
+        q = q.reshape(L, Hkv, nb * block, D)[:, :, :T]
+        return q[:, None], scale[..., 0].transpose(1, 2).contiguous()
+
+    k_q, k_s = one(k)
+    v_q, v_s = one(v)
+    return k_q, v_q, k_s, v_s
+
+
+def paged_insert_slot(cache: PagedQuantKVCache, slot: int,
+                      k_rows: torch.Tensor, v_rows: torch.Tensor, plen: int,
+                      k_scale: torch.Tensor, v_scale: torch.Tensor
+                      ) -> PagedQuantKVCache:
+    """Place a B=1 quantized prompt into one slot's mapped blocks, in place.
+
+    ``k_rows``/``v_rows`` are ``(L, 1, Hkv, T, D)`` int8; token positions
+    ``[0, plen)`` scatter through the slot's table row (other rows go to
+    the drop block), the per-block scales ``(L, nb, Hkv)`` of the blocks
+    that hold a prompt row land in the pool's scale arrays through the
+    same row, and the slot's length becomes ``plen``. The caller maps
+    blocks covering ``[0, plen)`` first."""
+    L, _, Hkv, T, D = k_rows.shape
+    N, blk = cache.blocks, cache.block
+    row = cache.table[slot].long()
+    NB = row.shape[0]
+    dev = row.device
+    pos = torch.arange(T, device=dev)
+    ok = (pos < plen) & (pos < NB * blk)
+    pb = torch.where(ok, row[(pos // blk).clamp(max=NB - 1)], N)
+    off = pos % blk
+    for pool, rows in ((cache.k, k_rows), (cache.v, v_rows)):
+        pool[:, pb, :, off] = rows[:, 0].permute(2, 0, 1, 3).to(pool.dtype)
+    nbk = k_scale.shape[1]
+    idx = torch.arange(nbk, device=dev)
+    ok = (idx * blk < plen) & (idx < NB)
+    pb_s = torch.where(ok, row[idx.clamp(max=NB - 1)], N)
+    cache.k_scale[:, pb_s] = k_scale
+    cache.v_scale[:, pb_s] = v_scale
+    cache.length[slot] = plen
+    return cache
 
 
 def _paged_pool_write(pool: torch.Tensor, rows: torch.Tensor,
@@ -192,17 +346,44 @@ def _masked_window_write(buf: torch.Tensor, rows: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      q_position, block_table: Optional[torch.Tensor] = None,
-                     impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+                     impl: str = "auto",
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
+                     quant_kernel: str = "q8q"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Op-level decode entry (single device): split-KV flash decode over a
-    contiguous buffer or, with ``block_table``, a paged pool."""
+    contiguous buffer or, with ``block_table``, a paged pool. Passing
+    ``k_scale``/``v_scale`` (with int8 ``k``/``v``) selects the q8 routes,
+    ``quant_kernel`` which: ``"q8q"`` (B4/B5) or ``"q8"`` (the cast route
+    over B1/B2)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if k_scale is not None:
+        if impl not in ("auto", "plain"):
+            raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+        fn = resolve_q8_kernel(quant_kernel, plain=impl == "plain")
+        return fn(q, k, v, k_scale, v_scale, causal=True,
+                  q_offset=q_position, block_table=block_table)
     return flash_decode(q, k, v, q_position=q_position,
                         block_table=block_table, impl=impl)
+
+
+def _dequant_view(pool: torch.Tensor, scale: torch.Tensor,
+                  table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The dequantized logical view ``(L, B, Hkv, NB*block, D)`` of int8
+    pools ``(L, N + 1, Hkv, block, D)`` and their ``(L, N + 1, Hkv)``
+    scales: int8 x per-block scale in f32, cast to ``dtype``."""
+    idx = table.long().clamp(0, pool.shape[1] - 2)  # never the drop block
+    rows = pool[:, idx].float() * scale[:, idx][..., None, None]
+    L, B, NB, Hkv, blk, D = rows.shape
+    return rows.transpose(2, 3).reshape(L, B, Hkv, NB * blk, D).to(dtype)
 
 
 @torch.no_grad()
 def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
                  cfg: TransformerConfig, *,
-                 n_tokens: Optional[torch.Tensor] = None
+                 n_tokens: Optional[torch.Tensor] = None,
+                 quant_kernel: str = "q8q"
                  ) -> Tuple[torch.Tensor, AnyCache]:
     """Run ``Tq`` new tokens per slot through the model against the cache.
 
@@ -214,21 +395,55 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
     ``length + n_tokens <= capacity`` (and ``Tq <= capacity`` for the
     contiguous layout).
 
+    Int8 caches quantize the new rows before writing them: under the
+    slot's frozen channel scales (:class:`QuantKVCache`), or under the
+    slot's anchor block scale, which each block the write enters inherits
+    (:class:`PagedQuantKVCache`). Attention then runs the q8 route
+    ``quant_kernel`` names (``"q8q"``: B4/B5; ``"q8"``: the cast route),
+    except for a paged int8 cache on the CPU, which attends — as the JAX
+    package does off the TPU — over the dequantized logical view through
+    the exact path, with the step's new rows mirrored into it as they were
+    quantized.
+
     Returns ``logits`` ``(B, Tq, vocab)`` float32 and the cache with
     ``length`` advanced (same buffers, written in place).
     """
     B, Tq = tokens.shape
     start = cache.length
     paged = isinstance(cache, PagedKVCache)
+    quant = isinstance(cache, (QuantKVCache, PagedQuantKVCache))
     if not paged and Tq > cache.capacity:
         raise ValueError(
             f"step of Tq={Tq} exceeds cache capacity {cache.capacity}"
         )
     if obs.REGISTRY.enabled:
-        _STEP_DISPATCH.labels(cache="paged" if paged else "exact").inc()
-    n_valid = (torch.full((B,), Tq, dtype=torch.int32, device=tokens.device)
+        kind = (("paged_quant" if quant else "paged") if paged
+                else ("quant" if quant else "exact"))
+        _STEP_DISPATCH.labels(cache=kind).inc()
+    dev = tokens.device
+    n_valid = (torch.full((B,), Tq, dtype=torch.int32, device=dev)
                if n_tokens is None else n_tokens)
-    positions = start.long()[:, None] + torch.arange(Tq, device=tokens.device)
+    positions = start.long()[:, None] + torch.arange(Tq, device=dev)
+    view = paged and quant and dev.type == "cpu"
+    if paged and quant:
+        blk, NB, N = cache.block, cache.table.shape[1], cache.blocks
+        table = cache.table.long()
+        # The anchor: the block holding each slot's last row before the
+        # write (its first block for an empty slot).
+        anchor = table.gather(
+            1, torch.div(start.long() - 1, blk, rounding_mode="floor")
+            .clamp(0, NB - 1)[:, None])[:, 0].clamp(0, N - 1)
+        entered = ((torch.arange(Tq, device=dev)[None, :]
+                    < n_valid.long()[:, None])
+                   & (positions % blk == 0) & (positions < NB * blk))
+        scale_tgt = torch.where(
+            entered, table.gather(1, (positions // blk).clamp(0, NB - 1)), N
+        ).reshape(-1)  # invalid rows land on the drop block's scale
+        if view:
+            k_view = _dequant_view(cache.k, cache.k_scale, cache.table,
+                                   cfg.dtype)
+            v_view = _dequant_view(cache.v, cache.v_scale, cache.table,
+                                   cfg.dtype)
     x = params["embed"][tokens.long()]
     for i in range(cfg.n_layers):
         p = layer(params, i)
@@ -238,18 +453,52 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
         k_new = rope(heads(h @ p["wk"], cfg.n_kv_heads, cfg.d_head),
                      positions, cfg.rope_theta)
         v_new = heads(h @ p["wv"], cfg.n_kv_heads, cfg.d_head)
+        scales = {}
+        if paged and quant:
+            ks, vs = cache.k_scale[i], cache.v_scale[i]
+            k_anchor = ks[anchor][:, :, None, None]  # (B, Hkv, 1, 1)
+            v_anchor = vs[anchor][:, :, None, None]
+            k_new = _quantize_rows(k_new, k_anchor)
+            v_new = _quantize_rows(v_new, v_anchor)
+            Hkv = ks.shape[1]
+            ks[scale_tgt] = k_anchor[:, None, :, 0, 0].expand(
+                B, Tq, Hkv).reshape(-1, Hkv)
+            vs[scale_tgt] = v_anchor[:, None, :, 0, 0].expand(
+                B, Tq, Hkv).reshape(-1, Hkv)
+            if view:
+                # Mirror what the pool now holds into the view.
+                _masked_window_write(
+                    k_view[i], (k_new.float() * k_anchor).to(cfg.dtype),
+                    start, n_valid)
+                _masked_window_write(
+                    v_view[i], (v_new.float() * v_anchor).to(cfg.dtype),
+                    start, n_valid)
+            else:
+                k_pool_s, v_pool_s = cache.scales(i)
+                scales = dict(k_scale=k_pool_s, v_scale=v_pool_s)
+        elif quant:
+            k_new = _quantize_rows(k_new, cache.k_scale[i])
+            v_new = _quantize_rows(v_new, cache.v_scale[i])
+            scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
         if paged:
             _paged_pool_write(cache.k[i], k_new, cache.table, start, n_valid)
             _paged_pool_write(cache.v[i], v_new, cache.table, start, n_valid)
-            k_pool, v_pool = cache.pool(i)
-            out, _ = decode_attention(q, k_pool, v_pool, q_position=start,
-                                      block_table=cache.table,
-                                      impl=cfg.attn_impl)
         else:
             _masked_window_write(cache.k[i], k_new, start, n_valid)
             _masked_window_write(cache.v[i], v_new, start, n_valid)
-            out, _ = decode_attention(q, cache.k[i], cache.v[i],
+        if view:
+            out, _ = decode_attention(q, k_view[i], v_view[i],
                                       q_position=start, impl=cfg.attn_impl)
+        elif paged:
+            k_pool, v_pool = cache.pool(i)
+            out, _ = decode_attention(q, k_pool, v_pool, q_position=start,
+                                      block_table=cache.table,
+                                      impl=cfg.attn_impl,
+                                      quant_kernel=quant_kernel, **scales)
+        else:
+            out, _ = decode_attention(q, cache.k[i], cache.v[i],
+                                      q_position=start, impl=cfg.attn_impl,
+                                      quant_kernel=quant_kernel, **scales)
         x = x + unheads(out) @ p["wo"]
         x = x + _mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps))
     logits = (rms_norm(x, params["ln_f"], cfg.norm_eps) @ params["wout"]).float()
@@ -310,9 +559,14 @@ def _sample(logits: torch.Tensor, temperature: float,
 def generate(params: Params, prompt: torch.Tensor, max_new_tokens: int,
              cfg: TransformerConfig, *, cache_len: Optional[int] = None,
              temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             quantize_after_prefill: bool = False,
+             quant_kernel: str = "q8q") -> torch.Tensor:
     """Prefill ``prompt`` ``(B, Tp)`` then decode ``max_new_tokens``
-    (greedy at temperature 0). Returns ``(B, max_new_tokens)`` ids."""
+    (greedy at temperature 0). With ``quantize_after_prefill`` the prefill
+    runs exactly, the cache is then int8-quantized (:func:`quantize_cache`)
+    and the decode steps run the ``quant_kernel`` q8 route. Returns
+    ``(B, max_new_tokens)`` ids."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     B, Tp = prompt.shape
@@ -322,9 +576,12 @@ def generate(params: Params, prompt: torch.Tensor, max_new_tokens: int,
         raise ValueError(f"cache_len={cache_len} < prompt+new={total}")
     cache = init_cache(cfg, B, cache_len, device=prompt.device)
     logits, cache = forward_step(params, prompt, cache, cfg)
+    if quantize_after_prefill:
+        cache = quantize_cache(cache)
     toks: List[torch.Tensor] = [_sample(logits[:, -1], temperature,
                                         generator)]
     for _ in range(max_new_tokens - 1):
-        logits, cache = forward_step(params, toks[-1][:, None], cache, cfg)
+        logits, cache = forward_step(params, toks[-1][:, None], cache, cfg,
+                                     quant_kernel=quant_kernel)
         toks.append(_sample(logits[:, -1], temperature, generator))
     return torch.stack(toks, 1).int()

@@ -1,24 +1,40 @@
-"""Split-KV flash decode on Hopper: kernels B1 (contiguous KV) and B2 (paged).
+"""Split-KV flash decode on Hopper: kernels B1 and B2 (exact or int8 K/V),
+B4 and B5 (int8 Q x int8 K).
 
 Counterpart of ``tree_attention_tpu/ops/pallas_decode.py``; the kernels are
 ``csrc/flash_decode.cu`` (design notes and the bound there). Same
 ``(out, lse)`` contract: each KV head's ``G*Tq`` query rows are packed into
 one tile, a key at global position ``kv_offset + j`` is visible to packed
 row ``r`` iff ``kv_offset + j <= q_offset[b] + r % Tq`` (causal), scores and
-lse in f32, P rounded to V's dtype, output in q's dtype, empty rows
-``(0, -inf)``.
+lse in f32, P rounded to V's dtype (bf16 for int8 V), output in q's dtype,
+empty rows ``(0, -inf)``.
+
+The int8 routes serve a cache quantized by the one q8 numeric contract,
+:func:`quantize_symmetric_int8` (absmax/127 scale, 1.0 for a zero channel,
+round half to even, clip to +-127):
+
+- **q8q** (B4 contiguous, B5 paged): K's channel scale and the softmax
+  scale fold into Q in f32 (only the softmax scale with per-block scales),
+  each packed row is quantized over D, the kernel runs int8 x int8 -> int32
+  scores rescaled by the row scale and writes bf16; V's channel scale then
+  applies to the bf16 output in f32, rounded to q's dtype.
+- **q8** (the cast route over B1/B2): K's channel scale folds into a bf16
+  Q, B1/B2 widen the int8 K/V, and V's channel scale applies to the output;
+  with per-block ``(N, Hkv)`` scales B2 takes them as ``block_scales``.
 
 Each wrapper runs its kernel for a CUDA tensor and its plain version
-(:func:`decode_plain`, :func:`paged_decode_plain`) for a CPU
-tensor — nothing else: a build or launch failure raises. ``.launches``
-counts the kernel launches of each wrapper.
+(:func:`decode_plain`, :func:`paged_decode_plain`, :func:`decode_q8q_plain`,
+:func:`paged_decode_q8q_plain`, :func:`decode_q8_plain`) for a CPU tensor —
+nothing else: a build or launch failure raises. ``.launches`` counts the
+kernel launches of each kernel wrapper; the cast route counts under B1/B2.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -36,8 +52,13 @@ _TARGET_WARPS = 4096
 # Fewest keys a split streams (below this the merge costs more than it buys).
 _MIN_SPLIT_KEYS = 64
 
+# The kernels' dtype codes, and the decode kernel's operand variants
+# (``csrc/flash_decode.cu``): 0/1 exact, then the two int8 routes.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_CAST, _Q8Q = 2, 3
 _lib_fn = None
+
+BlockScales = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _launcher():
@@ -46,7 +67,7 @@ def _launcher():
         lib = _build.library("flash_decode")
         fn = lib.flash_decode_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 9
+            [ctypes.c_void_p] * 12
             + [ctypes.c_int] * 14
             + [ctypes.c_float, ctypes.c_void_p]
         )
@@ -60,6 +81,56 @@ def _rows_per_warp(rows: int) -> int:
     query row (the lean variant), else 8."""
     return 1 if rows == 1 else 8
 
+
+# -- the q8 numeric contract -------------------------------------------------
+
+def quantize_symmetric_int8(x: torch.Tensor, dim: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one definition of the q8 numeric contract the kernels dequant
+    against: absmax/127 scale over ``dim`` (kept; a zero channel's scale is
+    1.0), f32 intermediate, round half to even, clip to +-127, int8. ``dim``
+    is the reduction axis — 2 (tokens) for a ``(B, Hkv, T, D)`` buffer, 3
+    for a ``(L, B, Hkv, T, D)`` cache or the head dim of packed Q rows.
+    Returns ``(codes, scale)``.
+
+    The scale is ``absmax * f32(1/127)``: XLA compiles the JAX package's
+    division by the constant 127 into that product, and the bytes must
+    match."""
+    xf = x.float()
+    amax = xf.abs().amax(dim, keepdim=True)
+    scale = torch.where(amax == 0.0, torch.ones_like(amax),
+                        amax * (1.0 / 127.0))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_kv_channelwise(k: torch.Tensor, v: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """Per-channel int8 quantization of ``(B, Hkv, T, D)`` K/V: returns
+    ``(k_q, v_q, k_scale, v_scale)``, scales ``(B, Hkv, 1, D)`` f32 with
+    ``k ~= k_q * k_scale`` — one scale per head-dim lane per KV head, so the
+    scales fold into Q and the output instead of riding the KV stream."""
+    k_q, k_s = quantize_symmetric_int8(k, 2)
+    v_q, v_s = quantize_symmetric_int8(v, 2)
+    return k_q, v_q, k_s, v_s
+
+
+def resolve_q8_kernel(kernel: str, plain: bool = False) -> Callable:
+    """The one home of the q8-kernel-name contract: ``"q8q"`` -> the int8 x
+    int8 route (B4/B5), ``"q8"`` -> the cast route (B1/B2 over int8 K/V);
+    anything else raises. The returned callable takes ``(q, k_q, v_q,
+    k_scale, v_scale, *, causal, scale, q_offset, kv_offset, block_table)``
+    and runs the kernels, or with ``plain`` their plain versions on any
+    device."""
+    if kernel == "q8q":
+        return functools.partial(_q8q_route, plain=plain)
+    if kernel == "q8":
+        return decode_q8_plain if plain else attention_cuda_decode_q8
+    raise ValueError(f"q8 kernel must be 'q8q' or 'q8', got {kernel!r}")
+
+
+# -- plain versions ----------------------------------------------------------
 
 def gather_paged_kv(k: torch.Tensor, v: torch.Tensor,
                     block_table: torch.Tensor
@@ -78,64 +149,241 @@ def gather_paged_kv(k: torch.Tensor, v: torch.Tensor,
     return g(k), g(v)
 
 
+def _key_scales(block_scales: BlockScales, block_table: torch.Tensor,
+                blk: int) -> BlockScales:
+    """Per-block ``(N, Hkv)`` scalars read through the table for every
+    logical key: ``(B, Hkv, NB*blk)`` each."""
+
+    def g(scale: torch.Tensor) -> torch.Tensor:
+        idx = block_table.long().clamp(0, scale.shape[0] - 1)
+        return scale[idx].transpose(1, 2).repeat_interleave(blk, dim=2)
+
+    return g(block_scales[0]), g(block_scales[1])
+
+
+def _cast_q(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Q against int8 K/V runs in bf16 (the TPU kernel's cast)."""
+    return q.to(torch.bfloat16) if k.dtype == torch.int8 else q
+
+
 def decode_plain(q, k, v, *, causal: bool = False,
                  scale: Optional[float] = None, q_offset: Offset = 0,
                  kv_offset: Offset = 0):
     """B1's plain version (any device)."""
-    return attention_packed(q, k, v, causal=causal, scale=scale,
-                            q_offset=q_offset, kv_offset=kv_offset)
+    out, lse = attention_packed(_cast_q(q, k), k, v, causal=causal,
+                                scale=scale, q_offset=q_offset,
+                                kv_offset=kv_offset)
+    return out.to(q.dtype), lse
 
 
 def paged_decode_plain(q, k, v, block_table, *, q_offset: Offset,
-                       scale: Optional[float] = None):
-    """B2's plain version (any device): gather the logical view, then B1's."""
+                       scale: Optional[float] = None,
+                       block_scales: Optional[BlockScales] = None):
+    """B2's plain version (any device): gather the logical view (and the
+    per-key scalars of ``block_scales``), then B1's."""
     kg, vg = gather_paged_kv(k, v, block_table)
-    return attention_packed(q, kg, vg, causal=True, scale=scale,
-                            q_offset=q_offset, kv_offset=0)
+    keys = (None if block_scales is None
+            else _key_scales(block_scales, block_table, k.shape[2]))
+    out, lse = attention_packed(_cast_q(q, k), kg, vg, causal=True,
+                                scale=scale, q_offset=q_offset, kv_offset=0,
+                                key_scales=keys)
+    return out.to(q.dtype), lse
 
 
-def _check(q: torch.Tensor, *kv: torch.Tensor) -> None:
+def _fold_quantize_q(q: torch.Tensor, n_kv_heads: int,
+                     k_scale: Optional[torch.Tensor], scale: Optional[float]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q8q's Q: ``q * (k_scale * sm)`` in f32 (``q * sm`` when ``k_scale``
+    is None: per-block scales cannot fold), each packed row ``(B, Hkv,
+    G*Tq)`` quantized over D. Returns int8 codes ``(B, Hkv, R, D)`` and row
+    scales ``(B, Hkv, R, 1)``."""
+    B, Hq, Tq, D = q.shape
+    sm = default_scale(D, scale)
+    qf = q.float().reshape(B, n_kv_heads, (Hq // n_kv_heads) * Tq, D)
+    return quantize_symmetric_int8(
+        qf * (sm if k_scale is None else k_scale * sm), 3)
+
+
+def _unfold_out(out: torch.Tensor, lse: torch.Tensor, q: torch.Tensor,
+                v_scale: Optional[torch.Tensor]):
+    """Packed ``(B, Hkv, R, D)`` bf16 kernel output -> ``(B, Hq, Tq, D)`` in
+    q's dtype, V's channel scale applied in f32 first (the double rounding
+    the TPU route has)."""
+    if v_scale is not None:
+        out = out.float().reshape(v_scale.shape[0], v_scale.shape[1], -1,
+                                  out.shape[-1]) * v_scale
+    return out.reshape(q.shape).to(q.dtype), lse.reshape(q.shape[:3])
+
+
+def _check_q8(q, k_q, v_q, k_scale, v_scale, block_table) -> bool:
+    """Validate a q8 call's operands; returns whether its scales are
+    per-block ``(N, Hkv)`` (else per-channel ``(B, Hkv, 1, D)``)."""
+    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
+        raise ValueError(f"k_q/v_q must be int8, got {k_q.dtype}/{v_q.dtype}")
+    B, Hq, _, D = q.shape
+    Hkv = k_q.shape[1]
+    if Hq % Hkv:
+        raise ValueError(
+            f"query heads ({Hq}) must be a multiple of kv heads ({Hkv})")
+    per_block = block_table is not None and k_scale.dim() == 2
+    want = (k_q.shape[0], Hkv) if per_block else (B, Hkv, 1, D)
+    if tuple(k_scale.shape) != want or tuple(v_scale.shape) != want:
+        kind = "per-block" if per_block else "channel"
+        raise ValueError(f"{kind} scales must be {want}, got "
+                         f"{tuple(k_scale.shape)}/{tuple(v_scale.shape)}")
+    return per_block
+
+
+def decode_q8q_plain(q, k_q, v_q, k_scale, v_scale, *, causal: bool = False,
+                     scale: Optional[float] = None, q_offset: Offset = 0,
+                     kv_offset: Offset = 0):
+    """B4's plain version (any device): the fold and quantize of Q, then
+    exact int8 products summed in f32 (exact: |s| <= 128 * 127^2 < 2^24),
+    rescaled by each row's Q scale, the f32 softmax, P rounded to bf16, and
+    V's channel scale on the bf16 output."""
+    _check_q8(q, k_q, v_q, k_scale, v_scale, None)
+    if k_q.shape[2] == 0:
+        return empty_result(q)
+    codes, qs = _fold_quantize_q(q, k_q.shape[1], k_scale, scale)
+    out, lse = attention_packed(codes.reshape(q.shape), k_q, v_q,
+                                causal=causal, scale=None, q_offset=q_offset,
+                                kv_offset=kv_offset, row_scale=qs)
+    return _unfold_out(out, lse, q, v_scale)
+
+
+def paged_decode_q8q_plain(q, k_q, v_q, block_table, k_scale, v_scale, *,
+                           q_offset: Offset, scale: Optional[float] = None):
+    """B5's plain version (any device): B4's over the gathered view, with
+    per-block ``(N, Hkv)`` scales read through the table for each key (K's
+    on the score after the row scale, V's on p after the softmax sum) or
+    channel ``(B, Hkv, 1, D)`` scales folded as in B4."""
+    per_block = _check_q8(q, k_q, v_q, k_scale, v_scale, block_table)
+    if block_table.shape[1] == 0:
+        return empty_result(q)
+    codes, qs = _fold_quantize_q(q, k_q.shape[1],
+                                 None if per_block else k_scale, scale)
+    kg, vg = gather_paged_kv(k_q, v_q, block_table)
+    keys = (_key_scales((k_scale, v_scale), block_table, k_q.shape[2])
+            if per_block else None)
+    out, lse = attention_packed(codes.reshape(q.shape), kg, vg, causal=True,
+                                scale=None, q_offset=q_offset, kv_offset=0,
+                                row_scale=qs, key_scales=keys)
+    return _unfold_out(out, lse, q, None if per_block else v_scale)
+
+
+def _q8_cast(q, k_q, v_q, k_scale, v_scale, *, causal, scale, q_offset,
+             kv_offset, block_table, b1, b2):
+    """The cast route over ``b1``/``b2`` (the kernels or their plain
+    versions): K's channel scale folds into a bf16 Q and V's applies to the
+    output; per-block scales go to ``b2`` as ``block_scales`` with Q
+    unfolded."""
+    if _check_q8(q, k_q, v_q, k_scale, v_scale, block_table):
+        out, lse = b2(q.to(torch.bfloat16), k_q, v_q, block_table,
+                      q_offset=q_offset, scale=scale,
+                      block_scales=(k_scale, v_scale))
+        return out.to(q.dtype), lse
+    B, Hq, Tq, D = q.shape
+    Hkv = k_q.shape[1]
+    qf = (q.float().reshape(B, Hkv, -1, D) * k_scale).to(
+        torch.bfloat16).reshape(q.shape)
+    if block_table is not None:
+        out, lse = b2(qf, k_q, v_q, block_table, q_offset=q_offset,
+                      scale=scale)
+    else:
+        out, lse = b1(qf, k_q, v_q, causal=causal, scale=scale,
+                      q_offset=q_offset, kv_offset=kv_offset)
+    return _unfold_out(out, lse, q, v_scale)
+
+
+def decode_q8_plain(q, k_q, v_q, k_scale, v_scale, *, causal: bool = False,
+                    scale: Optional[float] = None, q_offset: Offset = 0,
+                    kv_offset: Offset = 0,
+                    block_table: Optional[torch.Tensor] = None):
+    """The cast route's plain version (any device), over
+    :func:`decode_plain` / :func:`paged_decode_plain`."""
+    return _q8_cast(q, k_q, v_q, k_scale, v_scale, causal=causal,
+                    scale=scale, q_offset=q_offset, kv_offset=kv_offset,
+                    block_table=block_table, b1=decode_plain,
+                    b2=paged_decode_plain)
+
+
+# -- kernel wrappers ---------------------------------------------------------
+
+def _check(q: torch.Tensor, *others: torch.Tensor) -> None:
+    """The kernels' common operand check: CUDA tensors of one dtype (f32
+    or bf16) on one device, head dim 64 or 128."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {q.dtype} (float32, bfloat16)")
-    for t in kv:
+    for t in others:
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("q, k and v must share dtype and device")
     if q.shape[-1] not in (64, 128):
         raise ValueError(f"head dim {q.shape[-1]} unsupported (64, 128)")
 
 
-def _launch(q, k, v, offs, table, *, B, Hkv, Tk, blk, NB, causal, scale):
+def _check_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """:func:`_check` for the decode kernels, which also take int8 K/V (q
+    then runs in bf16). Returns the kernel variant."""
+    if k.dtype != torch.int8:
+        _check(q, k, v)
+        return _DTYPES[q.dtype]
+    _check(q)
+    if v.dtype != torch.int8 or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError("int8 k and v must both be int8, on q's device")
+    return _CAST
+
+
+def _launch(qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB, causal,
+            scale, qs=None, block_scales=None):
+    """Run the split kernel and its merge on packed ``qp`` ``(B, Hkv, R,
+    D)``; returns ``out`` ``(B, Hkv, R, D)`` (bf16 for the int8 variants)
+    and ``lse`` ``(B, Hkv, R)``."""
     fn, warps = _launcher()
-    _, Hq, Tq, D = q.shape
-    R = (Hq // Hkv) * Tq
+    B, Hkv, R, D = qp.shape
     rows_per_warp = _rows_per_warp(R)
-    qp = q.contiguous().reshape(B * Hkv, R, D)
-    k, v = k.contiguous(), v.contiguous()
+    qp, k, v = qp.contiguous(), k.contiguous(), v.contiguous()
     base = -(-R // rows_per_warp) * B * Hkv
     splits = max(1, min(-(-_TARGET_WARPS // base), Tk // _MIN_SPLIT_KEYS))
     split_len = -(-math.ceil(Tk / splits) // 8) * 8
     ctas = -(-math.ceil(Tk / split_len) // warps)
     s_eff = ctas * warps
+    dev = qp.device
     o_part = torch.empty((s_eff, B * Hkv, R, D), dtype=torch.float32,
-                         device=q.device)
+                         device=dev)
     lse_part = torch.empty((s_eff, B * Hkv, R), dtype=torch.float32,
-                           device=q.device)
-    out = torch.empty_like(qp)
-    lse = torch.empty((B * Hkv, R), dtype=torch.float32, device=q.device)
+                           device=dev)
+    out = torch.empty((B, Hkv, R, D), device=dev,
+                      dtype=qp.dtype if variant in _DTYPES.values()
+                      else torch.bfloat16)
+    lse = torch.empty((B, Hkv, R), dtype=torch.float32, device=dev)
+    if block_scales is not None:
+        block_scales = tuple(s.float().contiguous() for s in block_scales)
+    if qs is not None:
+        qs = qs.contiguous()
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
     err = fn(
-        qp.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
-        0 if table is None else table.data_ptr(), o_part.data_ptr(),
-        lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        _DTYPES[q.dtype], D, int(table is not None), rows_per_warp, B, Hkv, R,
-        Tq, Tk, blk, NB, ctas, split_len, int(causal),
-        float(default_scale(D, scale)),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(qs),
+        ptr(None if block_scales is None else block_scales[0]),
+        ptr(None if block_scales is None else block_scales[1]),
+        offs.data_ptr(), ptr(table), o_part.data_ptr(), lse_part.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), variant, D, int(table is not None),
+        rows_per_warp, B, Hkv, R, Tq, Tk, blk, NB, ctas, split_len,
+        int(causal), float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
-    return out.reshape(B, Hq, Tq, D), lse.reshape(B, Hq, Tq)
+    return out, lse
+
+
+def _pack(q: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
+    B, Hq, Tq, D = q.shape
+    return q.reshape(B, n_kv_heads, (Hq // n_kv_heads) * Tq, D)
 
 
 def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
@@ -143,18 +391,21 @@ def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
                           scale: Optional[float] = None,
                           q_offset: Offset = 0, kv_offset: Offset = 0):
     """B1: ``q`` ``(B, Hq, Tq, D)`` against contiguous ``k``/``v``
-    ``(B, Hkv, Tk, D)``; offsets scalar or ``(B,)``."""
+    ``(B, Hkv, Tk, D)`` of q's dtype, or int8 (q then runs in bf16);
+    offsets scalar or ``(B,)``."""
     if q.device.type == "cpu":
         return decode_plain(q, k, v, causal=causal, scale=scale,
                             q_offset=q_offset, kv_offset=kv_offset)
-    _check(q, k, v)
-    B, Hkv, Tk, _ = k.shape
+    variant = _check_decode(q, k, v)
+    B, Hkv, Tk, D = k.shape
     if Tk == 0:
         return empty_result(q)
     offs = offsets(q_offset, kv_offset, B, q.device).contiguous()
     attention_cuda_decode.launches += 1
-    return _launch(q, k, v, offs, None, B=B, Hkv=Hkv, Tk=Tk, blk=1, NB=0,
-                   causal=causal, scale=scale)
+    out, lse = _launch(_pack(_cast_q(q, k), Hkv), k, v, offs, None,
+                       variant=variant, Tq=q.shape[2], Tk=Tk, blk=1, NB=0,
+                       causal=causal, scale=default_scale(D, scale))
+    return _unfold_out(out, lse, q, None)
 
 
 attention_cuda_decode.launches = 0
@@ -163,23 +414,129 @@ attention_cuda_decode.launches = 0
 def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, block_table: torch.Tensor,
                                 *, q_offset: Offset,
-                                scale: Optional[float] = None):
+                                scale: Optional[float] = None,
+                                block_scales: Optional[BlockScales] = None):
     """B2: causal decode of ``q`` ``(B, Hq, Tq, D)`` against
-    ``(N, Hkv, block, D)`` pools through the ``(B, NB)`` int32 table; slot
-    ``b``'s queries sit at ``q_offset[b]``. Table entries past a slot's
-    length are never read."""
+    ``(N, Hkv, block, D)`` pools (q's dtype, or int8 with q in bf16) through
+    the ``(B, NB)`` int32 table; slot ``b``'s queries sit at
+    ``q_offset[b]``. ``block_scales`` ``(k_scale, v_scale)``, each ``(N,
+    Hkv)`` f32, dequantize int8 pools per block. Table entries past a
+    slot's length are never read."""
     if q.device.type == "cpu":
-        return paged_decode_plain(q, k, v, block_table,
-                                  q_offset=q_offset, scale=scale)
-    _check(q, k, v)
+        return paged_decode_plain(q, k, v, block_table, q_offset=q_offset,
+                                  scale=scale, block_scales=block_scales)
+    variant = _check_decode(q, k, v)
     if block_table.dtype != torch.int32 or block_table.device != q.device:
         raise ValueError("block_table must be int32 on q's device")
+    if block_scales is not None and variant != _CAST:
+        raise ValueError("block_scales dequantize int8 pools only")
     B, NB = block_table.shape
-    _, Hkv, blk, _ = k.shape
+    _, Hkv, blk, D = k.shape
     offs = offsets(q_offset, 0, B, q.device).contiguous()
     attention_cuda_decode_paged.launches += 1
-    return _launch(q, k, v, offs, block_table.contiguous(), B=B, Hkv=Hkv,
-                   Tk=NB * blk, blk=blk, NB=NB, causal=True, scale=scale)
+    out, lse = _launch(_pack(_cast_q(q, k), Hkv), k, v, offs,
+                       block_table.contiguous(), variant=variant,
+                       Tq=q.shape[2], Tk=NB * blk,
+                       blk=blk, NB=NB, causal=True,
+                       scale=default_scale(D, scale),
+                       block_scales=block_scales)
+    return _unfold_out(out, lse, q, None)
 
 
 attention_cuda_decode_paged.launches = 0
+
+
+def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
+                              v_q: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor, *, causal: bool = False,
+                              scale: Optional[float] = None,
+                              q_offset: Offset = 0, kv_offset: Offset = 0):
+    """B4: ``q`` ``(B, Hq, Tq, D)`` against contiguous int8 ``k_q``/``v_q``
+    ``(B, Hkv, Tk, D)`` with channel scales ``(B, Hkv, 1, D)``; Q folded
+    and quantized per packed row, int8 x int8 -> int32 scores."""
+    if q.device.type == "cpu":
+        return decode_q8q_plain(q, k_q, v_q, k_scale, v_scale, causal=causal,
+                                scale=scale, q_offset=q_offset,
+                                kv_offset=kv_offset)
+    _check_q8(q, k_q, v_q, k_scale, v_scale, None)
+    _check_decode(q, k_q, v_q)
+    B, Hkv, Tk, _ = k_q.shape
+    if Tk == 0:
+        return empty_result(q)
+    codes, qs = _fold_quantize_q(q, Hkv, k_scale, scale)
+    offs = offsets(q_offset, kv_offset, B, q.device).contiguous()
+    attention_cuda_decode_q8q.launches += 1
+    out, lse = _launch(codes, k_q, v_q, offs, None, variant=_Q8Q,
+                       Tq=q.shape[2], Tk=Tk, blk=1, NB=0, causal=causal,
+                       scale=1.0, qs=qs)
+    return _unfold_out(out, lse, q, v_scale)
+
+
+attention_cuda_decode_q8q.launches = 0
+
+
+def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
+                                    v_q: torch.Tensor,
+                                    block_table: torch.Tensor,
+                                    k_scale: torch.Tensor,
+                                    v_scale: torch.Tensor, *,
+                                    q_offset: Offset,
+                                    scale: Optional[float] = None):
+    """B5: B4 through the ``(B, NB)`` int32 table over int8 ``(N, Hkv,
+    block, D)`` pools, with per-block ``(N, Hkv)`` scales (read through the
+    table in the kernel) or channel ``(B, Hkv, 1, D)`` scales (folded as in
+    B4)."""
+    if q.device.type == "cpu":
+        return paged_decode_q8q_plain(q, k_q, v_q, block_table, k_scale,
+                                      v_scale, q_offset=q_offset,
+                                      scale=scale)
+    per_block = _check_q8(q, k_q, v_q, k_scale, v_scale, block_table)
+    _check_decode(q, k_q, v_q)
+    if block_table.dtype != torch.int32 or block_table.device != q.device:
+        raise ValueError("block_table must be int32 on q's device")
+    B, NB = block_table.shape
+    _, Hkv, blk, _ = k_q.shape
+    if NB == 0:
+        return empty_result(q)
+    codes, qs = _fold_quantize_q(q, Hkv, None if per_block else k_scale,
+                                 scale)
+    offs = offsets(q_offset, 0, B, q.device).contiguous()
+    attention_cuda_decode_paged_q8q.launches += 1
+    out, lse = _launch(codes, k_q, v_q, offs, block_table.contiguous(),
+                       variant=_Q8Q, Tq=q.shape[2], Tk=NB * blk, blk=blk,
+                       NB=NB, causal=True, scale=1.0, qs=qs,
+                       block_scales=(k_scale, v_scale) if per_block
+                       else None)
+    return _unfold_out(out, lse, q, None if per_block else v_scale)
+
+
+attention_cuda_decode_paged_q8q.launches = 0
+
+
+def attention_cuda_decode_q8(q, k_q, v_q, k_scale, v_scale, *,
+                             causal: bool = False,
+                             scale: Optional[float] = None,
+                             q_offset: Offset = 0, kv_offset: Offset = 0,
+                             block_table: Optional[torch.Tensor] = None):
+    """The cast route (``q8``): B1, or B2 with ``block_table``, over int8
+    K/V with channel scales folded, or B2 with per-block scales."""
+    return _q8_cast(q, k_q, v_q, k_scale, v_scale, causal=causal,
+                    scale=scale, q_offset=q_offset, kv_offset=kv_offset,
+                    block_table=block_table, b1=attention_cuda_decode,
+                    b2=attention_cuda_decode_paged)
+
+
+def _q8q_route(q, k_q, v_q, k_scale, v_scale, *, causal: bool = False,
+               scale: Optional[float] = None, q_offset: Offset = 0,
+               kv_offset: Offset = 0,
+               block_table: Optional[torch.Tensor] = None,
+               plain: bool = False):
+    """q8q with the TPU wrapper's signature: B5 with a table, else B4."""
+    if block_table is not None:
+        fn = paged_decode_q8q_plain if plain else \
+            attention_cuda_decode_paged_q8q
+        return fn(q, k_q, v_q, block_table, k_scale, v_scale,
+                  q_offset=q_offset, scale=scale)
+    fn = decode_q8q_plain if plain else attention_cuda_decode_q8q
+    return fn(q, k_q, v_q, k_scale, v_scale, causal=causal, scale=scale,
+              q_offset=q_offset, kv_offset=kv_offset)

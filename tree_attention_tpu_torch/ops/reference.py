@@ -145,13 +145,31 @@ def finalize_merge(num: torch.Tensor, den: torch.Tensor, m: torch.Tensor,
     return out.to(out_dtype), lse.float()
 
 
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype an operand computes in: int8 codes are widened to bf16
+    (exact for [-127, 127]), as the TPU kernels cast them."""
+    return torch.bfloat16 if dtype == torch.int8 else dtype
+
+
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool, scale: Optional[float], q_offset: Offset,
-                     kv_offset: Offset) -> Tuple[torch.Tensor, torch.Tensor]:
+                     kv_offset: Offset,
+                     row_scale: Optional[torch.Tensor] = None,
+                     key_scales: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernels' plain version: dense f32 scores over each KV head's
     packed ``G*Tq`` query rows, per-batch ``(B,)`` or scalar offsets, P
     rounded to V's dtype before an f32-accumulated P.V — the kernels'
-    arithmetic, term for term, in one materialised pass."""
+    arithmetic, term for term, in one materialised pass.
+
+    Int8 operands (the q8 routes): int8 K/V and Q codes enter the products
+    as exact integers; P rounds to bf16 and the output is bf16 when q is
+    int8. ``row_scale`` ``(B, Hkv, G*Tq, 1)`` replaces the softmax scale as
+    each packed row's multiplier of the raw dot (q8q: the row's Q scale);
+    ``key_scales`` ``(k_key, v_key)``, each ``(B, Hkv, Tk)``, are per-key
+    dequantization scalars: K's multiplies the score, V's multiplies p
+    after the softmax sum has taken it (the kernels' fold order)."""
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     G = _group(q, k)
@@ -160,7 +178,9 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     R = G * Tq
     s = torch.einsum(
         "bhrd,bhkd->bhrk", q.reshape(B, Hkv, R, D).float(), k.float()
-    ) * default_scale(D, scale)
+    ) * (default_scale(D, scale) if row_scale is None else row_scale)
+    if key_scales is not None:
+        s = s * key_scales[0][:, :, None, :]
     if causal:
         offs = offsets(q_offset, kv_offset, B, q.device).long()
         qpos = offs[0][:, None] + torch.arange(R, device=q.device) % Tq
@@ -170,6 +190,10 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = s.amax(-1)
     m_safe = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(s - m_safe[..., None])
-    acc = torch.einsum("bhrk,bhkd->bhrd", p.to(v.dtype).float(), v.float())
-    out, lse = finalize(acc, m, p.sum(-1), q.dtype)
+    l = p.sum(-1)
+    if key_scales is not None:
+        p = p * key_scales[1][:, :, None, :]
+    acc = torch.einsum("bhrk,bhkd->bhrd",
+                       p.to(compute_dtype(v.dtype)).float(), v.float())
+    out, lse = finalize(acc, m, l, compute_dtype(q.dtype))
     return out.reshape(B, Hq, Tq, D), lse.reshape(B, Hq, Tq)

@@ -1,4 +1,5 @@
-"""Continuous-batching serving over the paged KV pool."""
+"""Continuous-batching serving over the paged KV pool or per-slot regions,
+exact or int8 (``SlotServer(quantize=True)``)."""
 
 from tree_attention_tpu_torch.serving.block_pool import (  # noqa: F401
     BlockAllocator,

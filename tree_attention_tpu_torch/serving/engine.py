@@ -27,10 +27,20 @@ slot, block tables, the B2 kernel streams blocks in place) and
 ``"contiguous"`` (per-slot regions, the B1 kernel). Prompt chunks of a
 bucket >= 128 take the Q-tiled B3 kernel.
 
+``quantize=True`` serves from an int8 cache (B5 on the paged layout, B4 on
+the contiguous one; the cast route over B2/B1 with ``quant_kernel="q8"``).
+Admission is then **staged**: a prompt's chunks run against ONE
+preallocated B=1 exact staging cache (B1 or B3), one prompt at a time —
+admission waits while one is staged — ahead of the tick's decode step over
+the int8 cache. The final chunk samples the first token, masks the staging
+cache's stale tail, quantizes the prompt (per block on the paged layout,
+per channel on the contiguous one: the quantize-after-prefill contract) and
+inserts its rows, scales and length into the slot.
+
 Left for later slices of the port (see ROADMAP): whole-prompt admission,
-the prefix cache, int8 caches, speculation, forks and tree-sibling decode,
-KV tiering, disaggregation, cancellation/deadlines/drain and the HTTP
-ingress, tracing and the flight recorder.
+the prefix cache, speculation, forks and tree-sibling decode, KV tiering,
+disaggregation, cancellation/deadlines/drain and the HTTP ingress, tracing
+and the flight recorder.
 """
 
 from __future__ import annotations
@@ -45,11 +55,16 @@ import torch
 
 from tree_attention_tpu_torch import obs
 from tree_attention_tpu_torch.models.decode import (
+    KVCache,
     forward_step,
     init_cache,
     init_paged_cache,
+    paged_insert_slot,
+    quantize_cache,
+    quantize_paged_blocks,
     sample_slots,
 )
+from tree_attention_tpu_torch.ops.cuda_decode import resolve_q8_kernel
 from tree_attention_tpu_torch.models.transformer import (
     Params,
     TransformerConfig,
@@ -137,6 +152,7 @@ class ServeReport:
     wall_s: float
     tokens_generated: int
     mean_occupancy: float  # live slots per executed decode tick
+    decode_ticks: int = 0  # ticks that decoded live slots
     tbt_s: List[float] = dataclasses.field(default_factory=list)
     slo: Dict[str, Any] = dataclasses.field(default_factory=dict)
     kv: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -177,6 +193,7 @@ class ServeReport:
             "tokens_generated": self.tokens_generated,
             "tokens_per_sec": round(self.tokens_per_sec, 1),
             "mean_occupancy": round(self.mean_occupancy, 2),
+            "decode_ticks": self.decode_ticks,
             "queue_wait_p50_s": round(waits[len(waits) // 2], 4) if waits else 0.0,
             "outcomes": self.outcomes,
             **{k: round(v, 4) for k, v in self.completion_percentiles().items()},
@@ -322,6 +339,10 @@ class SlotServer:
         ``slots * ceil(cache_len / kv_block)``, the contiguous layout's
         bytes); a smaller pool over-subscribes — admissions wait for
         blocks, and a request that could never fit fails validation.
+      quantize: serve from an int8 cache with staged admission (module
+        docstring).
+      quant_kernel: the q8 route of the decode ticks: ``"q8q"`` (B4/B5) or
+        ``"q8"`` (the cast route over B1/B2).
     """
 
     def __init__(
@@ -342,6 +363,8 @@ class SlotServer:
         kv_layout: str = "paged",
         kv_block: Optional[int] = None,
         kv_blocks: Optional[int] = None,
+        quantize: bool = False,
+        quant_kernel: str = "q8q",
     ):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -357,6 +380,7 @@ class SlotServer:
             raise ValueError("temperature must be >= 0 (0 = greedy)")
         if top_k < 0:
             raise ValueError("top_k must be >= 0 (0 = off)")
+        resolve_q8_kernel(quant_kernel)  # validates the name
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
@@ -369,6 +393,8 @@ class SlotServer:
         self.prefill_budget = (slots * self.prefill_chunk
                                if prefill_budget is None else prefill_budget)
         self.kv_layout = kv_layout
+        self.quantize = quantize
+        self.quant_kernel = quant_kernel
         self._paged = kv_layout == "paged"
         if self._paged:
             self.kv_block = 64 if kv_block is None else kv_block
@@ -385,9 +411,15 @@ class SlotServer:
             self._defer_gen = -1
             self.cache = init_paged_cache(cfg, slots, cache_len,
                                           self.kv_blocks, block=self.kv_block,
-                                          device=self.device)
+                                          device=self.device,
+                                          quantize=quantize)
         else:
-            self.cache = init_cache(cfg, slots, cache_len, device=self.device)
+            self.cache = init_cache(cfg, slots, cache_len, device=self.device,
+                                    quantize=quantize)
+        if quantize:
+            # The one exact B=1 staging cache of staged admission.
+            self._staging: KVCache = init_cache(cfg, 1, cache_len,
+                                                device=self.device)
         self.tok = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self._lp = torch.zeros((slots,), dtype=torch.float32,
                                device=self.device)
@@ -441,7 +473,8 @@ class SlotServer:
         length = torch.where(reset_t, reset_val_t, self.cache.length)
         cache = dataclasses.replace(self.cache, length=length)
         logits, self.cache = forward_step(self.params, tokens, cache,
-                                          self.cfg, n_tokens=n_t)
+                                          self.cfg, n_tokens=n_t,
+                                          quant_kernel=self.quant_kernel)
         row = (n_t - 1).clamp(min=0).long()
         last = logits[torch.arange(S, device=self.device), row]
         tok_s, lp_s = sample_slots(last, self._temp_np, self._topk_np,
@@ -449,6 +482,49 @@ class SlotServer:
         self.tok = torch.where(emit_t, tok_s, tokens[:, 0].int())
         self._lp = torch.where(emit_t, lp_s, self._lp)
         return torch.stack([self.tok, self._lp.view(torch.int32)], 1)
+
+    def _run_staged_chunk(self, slot: int, n: int, last: bool) -> None:
+        """Staged admission (int8 caches): advance one slot's exact prefill
+        in the staging cache by ``n`` tokens. The final chunk samples the
+        slot's first token from its last row (parked in the token vector
+        until the tick's fetch), zeroes the staging cache's stale tail,
+        quantizes the prompt and inserts it into the slot."""
+        first = self._prefill_pos[slot] == 0
+        plen = len(self._prompt_np[slot])
+        mat = np.zeros((1, self._chunk_bucket(n)), np.int32)
+        mat[0, :n] = self._consume_chunk(slot, n, last)
+        staging = self._staging
+        if first:
+            staging = dataclasses.replace(staging,
+                                          length=torch.zeros_like(
+                                              staging.length))
+        n_t = torch.tensor([n], dtype=torch.int32, device=self.device)
+        logits, self._staging = forward_step(
+            self.params, torch.from_numpy(mat).to(self.device), staging,
+            self.cfg, n_tokens=n_t)
+        if not last:
+            return
+        tok, lp = sample_slots(logits[:, n - 1], self._temp_np[slot:slot + 1],
+                               self._topk_np[slot:slot + 1],
+                               self._gens[slot:slot + 1],
+                               np.ones((1,), bool))
+        self.tok[slot] = tok[0]
+        self._lp[slot] = lp[0]
+        valid = (torch.arange(self.cache_len, device=self.device)
+                 < plen)[None, None, None, :, None]
+        k = torch.where(valid, self._staging.k, 0)
+        v = torch.where(valid, self._staging.v, 0)
+        if self._paged:
+            # The insert scatters the whole prompt: map its blocks first.
+            self._ensure_blocks(slot, plen)
+            self._sync_table()
+            kq, vq, ks, vs = quantize_paged_blocks(k, v, self.kv_block)
+            paged_insert_slot(self.cache, slot, kq, vq, plen, ks, vs)
+            return
+        qc = quantize_cache(KVCache(k=k, v=v, length=self._staging.length))
+        for name in ("k", "v", "k_scale", "v_scale"):
+            getattr(self.cache, name)[:, slot] = getattr(qc, name)[:, 0]
+        self.cache.length[slot] = plen
 
     # -- scheduler --------------------------------------------------------
 
@@ -660,6 +736,8 @@ class SlotServer:
             # admission that cannot reserve its worst case waits (FIFO).
             free = [i for i, st in enumerate(self._slot_state) if st == "free"]
             while free and pending:
+                if self.quantize and self._prefill_fifo:
+                    break  # staged admission: one prompt in flight
                 needed = None
                 if self._paged:
                     if self._defer_gen == self._pool.gen:
@@ -698,6 +776,12 @@ class SlotServer:
                 n_vec[i] = 1
                 emit[i] = True
             fused = None
+            if self.quantize and plan:
+                # Staged chunks run first; the tick's step is then the
+                # decode-only step over the int8 cache.
+                for slot, n, last in plan:
+                    self._run_staged_chunk(slot, n, last)
+                plan = []
             if plan:
                 # The mixed tick: decode rows + prefill chunks in one step.
                 mat = np.zeros((S, self._chunk_bucket(
@@ -723,7 +807,11 @@ class SlotServer:
                       if st == "await"]
             if awaits or live_idx:
                 # THE per-tick host fetch: every new token of the tick and
-                # its logprob, one array.
+                # its logprob, one array (the token vector itself when no
+                # step ran: a staged final chunk parked its first token).
+                if fused is None:
+                    fused = torch.stack([self.tok,
+                                         self._lp.view(torch.int32)], 1)
                 fh = fused.cpu().numpy()
                 self._tok_host = fh[:, 0].copy()
                 lp_host = np.ascontiguousarray(fh[:, 1]).view(np.float32)
@@ -799,6 +887,7 @@ class SlotServer:
             wall_s=wall,
             tokens_generated=tokens,
             mean_occupancy=occupancy / max(decode_ticks, 1),
+            decode_ticks=decode_ticks,
             tbt_s=tbt,
             slo=self.slo.snapshot(),
             kv=kv_snap,

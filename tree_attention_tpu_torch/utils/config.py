@@ -32,6 +32,7 @@ class RunConfig:
     mode: str = "decode"  # decode | generate | serve | train
     device: str = "cuda"  # cuda | cpu
     impl: str = "auto"    # auto | naive | blockwise | plain
+    kv_quant: str = "none"  # none | int8 (int8 x int8 q8q) | int8-cast (q8)
     seed: int = 0
     iters: int = 10
     warmup: int = 2
@@ -71,6 +72,19 @@ class RunConfig:
     def resolved_kv_heads(self) -> int:
         return self.heads if self.kv_heads is None else self.kv_heads
 
+    def resolved_quant_kernel(self) -> Optional[str]:
+        """kv_quant -> q8 route (the one home of that mapping): 'int8' ->
+        'q8q' (B4/B5), 'int8-cast' -> 'q8' (the cast route over B1/B2),
+        'none' -> None. Programmatic configs bypass argparse's choices, so
+        an unknown value raises here."""
+        kernels = {"none": None, "int8": "q8q", "int8-cast": "q8"}
+        if self.kv_quant not in kernels:
+            raise ValueError(
+                f"kv_quant must be one of {sorted(kernels)}, "
+                f"got {self.kv_quant!r}"
+            )
+        return kernels[self.kv_quant]
+
 
 def build_arg_parser() -> argparse.ArgumentParser:
     d = RunConfig()
@@ -103,6 +117,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    default=d.impl,
                    help="attention implementation: auto = the CUDA kernels "
                         "on the GPU")
+    p.add_argument("--kv-quant", choices=["none", "int8", "int8-cast"],
+                   default=d.kv_quant,
+                   help="decode: int8-quantize the KV buffer; generate: "
+                        "quantize the cache after prefill; serve: serve "
+                        "from an int8 cache (per-channel scales; halves the "
+                        "KV stream). 'int8' runs the int8 x int8 q8q kernels "
+                        "(B4/B5); 'int8-cast' the cast route over B1/B2 "
+                        "(minimum int8 error)")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--iters", type=int, default=d.iters)
     p.add_argument("--warmup", type=int, default=d.warmup)
