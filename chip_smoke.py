@@ -4,7 +4,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, any
 failure exits non-zero:
 
 1. Build the CUDA kernels from ``tree_attention_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together) and print the card.
+   ``nvcc`` per source, all started together), print the card, each
+   kernel's registers and spills, and the HGMMA instructions in the SASS
+   of the tensor-core bodies of B3 and B6 (``cuobjdump -sass``; none is a
+   failure).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (bf16; each query row's out within 2e-2 of that row's
    largest |out|, i.e. about two bf16 ulps, and lse within 1e-3 — P is
@@ -17,13 +20,20 @@ failure exits non-zero:
    it traces nothing or reads below the bound), L2 flushed before each
    call — beside the least time the card could take (bytes /
    3.35 TB/s or FLOPs / 989 TFLOP/s, the larger). B3 also at the training
-   shape (B2 H16 T4096 causal).
+   shape (B2 H16 T4096 causal); at the serve-chunk shape the gate is shown
+   to reject each row's causal frontier shifted by one key.
    Then the backward kernels B6 (dq) and B7 (dk, dv) against their plain
    versions at the training shape, a GQA shape with a query offset, a
    ragged Tq/Tk shape and a KV offset that is not tile-aligned (each row of
-   each gradient within 2e-2 of that row's largest |plain value|; at the
-   training shape the gate is shown to reject dv halved and B7 skipping
-   each KV tile's first live Q tile), timed beside SDPA's backward; and
+   each gradient within 2e-2 of that row's largest |plain value|, a dq row
+   whose query sees exactly one key within the f32 rounding bound of its
+   cancellation instead, their |d| printed beside it; at the training
+   shape the gate is shown to reject dv halved, B7 skipping each KV tile's
+   first live Q tile and B6's causal frontier shifted by one key), timed
+   beside SDPA's backward; then every body that ships off its tile edges
+   (B3, B6, B7 in bf16 and f32, D 64 and 128, Tq 5 and 130 against Tk
+   300, GQA, a negative and an unaligned offset, causal and not) under the
+   same gates; and
    B3, B6, B7 timed at B1 H16 T16384 causal (no plain version there); and
    the gradients of the Tq < 128 training route (B1 forward, blockwise
    backward) against its plain forward, under the same row gate.
@@ -109,6 +119,11 @@ TOL_KV_REL = 2e-2  # written KV: relative to the pool's max |value|
 TOL_CODES = int(TOL_KV_REL * 127)
 # dq/dk/dv: each row within 2e-2 of that row's largest |plain value| (about
 # two bf16 ulps: both sides round ds and p to bf16 before the products).
+# A dq row whose query sees exactly one key is 0 by cancellation (p = 1 and
+# O = V there, so dO.V^T - delta = 0) and holds only f32 rounding, which two
+# correct summation orders do not share: those rows alone are held to the
+# rounding bound of cuda_bwd.dq_one_key_bound instead. The rule lives in
+# cuda_bwd.grad_rows_close, which the GPU tests hold too.
 TOL_GRAD_REL = 2e-2
 # One training step, kernel path vs plain path: per-parameter gradient norm
 # ratio, and the loss.
@@ -137,23 +152,46 @@ def causal_pairs(B: int, Hq: int, Tq: int, Tk: int, q_offset: int,
 
 
 def ptxas_summary(build) -> dict:
-    """``{kernel<dtype,D>: [registers, spill-store bytes]}`` of the
-    backward kernels, from the ``-Xptxas -v`` log the build keeps beside
-    each library."""
+    """``{kernel<dtype,D>: [registers, spill-store bytes]}`` of the forward
+    and backward kernels (B3, B6, B7), from the ``-Xptxas -v`` log the
+    build keeps beside each library. The tensor-core bodies are bf16 only
+    (``*_wgmma_kernel<D>``)."""
     import re
 
     out = {}
-    log = build._target("flash_bwd").with_suffix(".log").read_text()
-    for block in log.split("Compiling entry function")[1:]:
-        name = re.search(r"(flash_(?:dq|dkv)_kernel)I(13__nv_bfloat16|f)"
-                         r"Li(\d+)E", block)
-        regs = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores", block)
-        if name and regs:
-            dtype = "bf16" if name.group(2) != "f" else "f32"
-            key = f"{name.group(1)}<{dtype},{name.group(3)}>"
-            out[key] = [int(regs.group(1)),
-                        int(spill.group(1)) if spill else 0]
+    for lib in ("flash_fwd", "flash_bwd"):
+        log = build._target(lib).with_suffix(".log").read_text()
+        for block in log.split("Compiling entry function")[1:]:
+            name = re.search(r"(flash_(?:fwd|dq|dkv)(?:_wgmma)?_kernel)I"
+                             r"(13__nv_bfloat16|f|)Li(\d+)E", block)
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            if name and regs:
+                dtype = "f32" if name.group(2) == "f" else "bf16"
+                key = f"{name.group(1)}<{dtype},{name.group(3)}>"
+                out[key] = [int(regs.group(1)),
+                            int(spill.group(1)) if spill else 0]
+    return out
+
+
+def hgmma_counts(build) -> dict:
+    """``{mangled kernel name: HGMMA instructions}`` of the tensor-core
+    bodies (``*_wgmma_kernel``) in the built B3 and B6 libraries, from the
+    toolkit's ``cuobjdump -sass``: the proof that their products run on
+    the tensor cores."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for lib in ("flash_fwd", "flash_bwd"):
+        sass = subprocess.run([tool, "-sass", str(build._target(lib))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for block in sass.split("Function : ")[1:]:
+            name = block.split(None, 1)[0]
+            if "wgmma_kernel" in name:
+                out[name] = sum("HGMMA" in line
+                                for line in block.splitlines())
     return out
 
 
@@ -180,7 +218,7 @@ def main() -> None:
     from tree_attention_tpu_torch.ops import cuda_bwd, cuda_decode
     from tree_attention_tpu_torch.ops import flash_attention
     from tree_attention_tpu_torch.ops.block_utils import first_live_q
-    from tree_attention_tpu_torch.ops.tuning import BWD_BLOCK_K, BWD_BLOCK_Q
+    from tree_attention_tpu_torch.ops.tuning import DKV_TILES
     from tree_attention_tpu_torch.ops.cuda_decode import gather_paged_kv
     from tree_attention_tpu_torch.serving import SlotServer, synthetic_trace
     from tree_attention_tpu_torch.utils.config import parse_args
@@ -203,6 +241,12 @@ def main() -> None:
     ptxas = ptxas_summary(_build)
     print(f"ptxas (registers, spill-store bytes): {json.dumps(ptxas)}",
           flush=True)
+    hgmma = hgmma_counts(_build)
+    print(f"SASS HGMMA instructions of the tensor-core bodies: "
+          f"{json.dumps(hgmma)}", flush=True)
+    for body in ("flash_fwd_wgmma", "flash_dq_wgmma"):
+        if not any(body in n and c > 0 for n, c in hgmma.items()):
+            fail(f"no HGMMA instruction in {body}_kernel's SASS")
 
     # -- 2. kernels against their plain versions ---------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -588,6 +632,17 @@ def main() -> None:
            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
            need * 16 * 128 * 2 * 2 + 2 * q.numel() * 2,
            4.0 * 16 * 128 * visible_pairs(qoff, 256, 2048))
+    # The gate has teeth for B3's tiling: it rejects each row's causal
+    # frontier shifted by one key (the plain version at q_offset + 1).
+    shift = gate(cuda_attention.fwd_plain(q, k, v, causal=True,
+                                          q_offset=qoff + 1),
+                 cuda_attention.fwd_plain(q, k, v, causal=True,
+                                          q_offset=qoff))
+    print(f"gate: B3's frontier shifted by one key -> relative |dout| "
+          f"{shift[2]:.3e}, |dlse| {shift[3]:.3e}; rejected: "
+          f"{not shift[0]}", flush=True)
+    if shift[0]:
+        fail("the parity gate accepts B3's frontier shifted by one key")
     del q, k, v, kp, vp, mask
     # ... and the training forward: B2 H16 T4096 causal (the train phase's
     # attention shape).
@@ -602,21 +657,13 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- 2b. the backward kernels B6 and B7 against their plain versions ---
-    def gate_rows(got, want):
+    def gate_rows(got, want, one_key=None):
         """Every row of each gradient (dq rows per query, dk/dv rows per
-        key) within TOL_GRAD_REL of that row's largest plain |value| — a
-        row that is 0 in the plain version must be exactly 0. Returns
-        ``(ok, max |d|, max relative |d|)``."""
-        ok, eabs, erel = True, 0.0, 0.0
-        for a, b in zip(got, want):
-            if not (a.shape == b.shape and torch.isfinite(a).all()):
-                return False, math.inf, math.inf
-            d = (a.float() - b.float()).abs()
-            row = b.float().abs().amax(-1, keepdim=True)
-            ok = ok and bool((d <= TOL_GRAD_REL * row).all())
-            eabs = max(eabs, d.max().item())
-            erel = max(erel, (d / row.clamp_min(1e-30)).max().item())
-        return ok, eabs, erel
+        key) within TOL_GRAD_REL of that row's largest plain |value| (a row
+        that is 0 in the plain version must be exactly 0); with ``one_key``
+        (``cuda_bwd.dq_one_key_bound``) dq's one-key rows within their
+        rounding bound. Returns ``(ok, max |d|, max relative |d|)``."""
+        return cuda_bwd.grad_rows_close(got, want, TOL_GRAD_REL, one_key)
 
     def bwd_inputs(B, Hq, Hkv, Tq, Tk, qo, ko):
         q, k, v = rnd(B, Hq, Tq, 128), rnd(B, Hkv, Tk, 128), rnd(B, Hkv, Tk,
@@ -650,6 +697,8 @@ def main() -> None:
         B, Hq, Hkv, Tq, Tk, qo, ko = shape
         q, k, v, dout, lse_f, delta = bwd_inputs(*shape)
         kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+        one_key = (cuda_bwd.dq_one_key_bound(q, k, v, dout, delta, **kw)
+                   if with_plain else None)
         pairs = causal_pairs(B, Hq, Tq, Tk, qo, ko)
         io = (q.numel() + dout.numel()) * 2 + 2 * lse_f.numel() * 4
         kv = 2 * k.numel() * 2
@@ -676,7 +725,8 @@ def main() -> None:
             c = {"kernel": kernel, "case": name, "bound_ms": bound,
                  "bound_by": bound_by, "library_ms": lib_ms}
             if with_plain:
-                ok, eabs, erel = gate_rows(fn(), plain())
+                ok, eabs, erel = gate_rows(fn(), plain(), one_key if
+                                           kernel == "flash_dq" else None)
                 if not ok:
                     fail(f"{kernel} {name}: |d| {eabs:.3e}, relative "
                          f"{erel:.3e} (tol {TOL_GRAD_REL})")
@@ -713,10 +763,17 @@ def main() -> None:
     dk, dv = cuda_bwd.attention_cuda_dkv(q, k, v, dout, lse_f, delta,
                                          causal=True)
     halved = gate_rows((dk, dv * 0.5), want)
+    # ... and B6's causal frontier shifted by one key (the plain dq at
+    # q_offset 1, on the same lse and delta).
+    dq_shift = gate_rows(
+        (cuda_bwd.dq_plain(q, k, v, dout, lse_f, delta, causal=True,
+                           q_offset=1),),
+        (cuda_bwd.dq_plain(q, k, v, dout, lse_f, delta, causal=True),),
+        cuda_bwd.dq_one_key_bound(q, k, v, dout, delta, causal=True))
     # What B7 would give without each KV tile's first live Q tile: the
     # plain dk/dv less that (Q tile, KV tile) pair's share, which is the
     # plain version on the pair's rows and keys at their offsets.
-    bq, bk = BWD_BLOCK_Q, BWD_BLOCK_K
+    bq, bk = DKV_TILES["bfloat16"]
     share = ([], [])
     for ki in range(4096 // bk):
         qi = first_live_q(ki, bq, bk, 0, 0, 4096 // bq)
@@ -729,14 +786,78 @@ def main() -> None:
             acc.append(part.float())
     skipped = gate_rows(tuple(w.float() - torch.cat(acc, 2)
                               for w, acc in zip(want, share)), want)
-    print(f"gate: dv halved -> relative |d| {halved[2]:.3e}; first live Q "
-          f"tile skipped -> relative |d| {skipped[2]:.3e}; both rejected: "
-          f"{not (halved[0] or skipped[0])}", flush=True)
-    if halved[0] or skipped[0]:
+    print(f"gate: dv halved -> relative |d| {halved[2]:.3e}; B7's first "
+          f"live Q tile skipped -> relative |d| {skipped[2]:.3e}; B6's "
+          f"frontier shifted by one key -> relative |d| {dq_shift[2]:.3e}; "
+          f"all rejected: {not (halved[0] or skipped[0] or dq_shift[0])}",
+          flush=True)
+    if halved[0] or skipped[0] or dq_shift[0]:
         fail("the gradient gate accepts a planted fault at the training "
              "shape")
+    # The one-key dq rows at the training shape (row 0 of every head): the
+    # kernel against the plain version there, beside their bound, and the
+    # row gate without the one-key rule (reported, not gated).
+    rows, bound = cuda_bwd.dq_one_key_bound(q, k, v, dout, delta, causal=True)
+    dq_k = cuda_bwd.attention_cuda_dq(q, k, v, dout, lse_f, delta, causal=True)
+    dq_p = cuda_bwd.dq_plain(q, k, v, dout, lse_f, delta, causal=True)
+    sel = rows.expand_as(bound)
+    d1 = (dq_k.float() - dq_p.float()).abs()[sel]
+    one_key_rows = {
+        "max_abs_diff": d1.max().item(),
+        "max_abs_plain": dq_p.float().abs()[sel].max().item(),
+        "min_bound": bound[sel].min().item(),
+        "max_diff_over_bound": (d1 / bound[sel]).max().item(),
+        "strict_row_gate_pass": gate_rows((dq_k,), (dq_p,))[0]}
+    print(f"B6's one-key dq rows (train shape): {json.dumps(one_key_rows)}",
+          flush=True)
+    del rows, bound, dq_k, dq_p, sel, d1
     del q, k, v, dout, lse_f, delta, tq_in, want, dk, dv, share
     torch.cuda.empty_cache()
+    # Every body and instantiation that ships, off its tile edges: B3 and
+    # B6/B7 in bf16 (the tensor-core bodies of B3 and B6) and f32 (the
+    # CUDA-core bodies), D 64 and 128, Tq 5 and 130 against Tk 300, GQA
+    # Hq4 Hkv2, per batch row q_offset -3 (rows that see no key, then one
+    # key) or 170 with kv_offset 37 (off every tile edge), causal and not,
+    # each against its plain version under the gates above; the residuals
+    # come from the plain forward.
+    edges = []
+    qo_e = torch.tensor([-3, 170], dtype=torch.int32, device=dev)
+    ko_e = torch.tensor([0, 37], dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 128):
+            for Tq, causal in ((5, True), (130, True), (130, False)):
+                q, dout = (torch.randn(2, 4, Tq, D, generator=g, device=dev
+                                       ).to(dtype) for _ in range(2))
+                k, v = (torch.randn(2, 2, 300, D, generator=g, device=dev
+                                    ).to(dtype) for _ in range(2))
+                kw = dict(causal=causal, q_offset=qo_e, kv_offset=ko_e)
+                want = cuda_attention.fwd_plain(q, k, v, **kw)
+                f_ok, _, f_rel, f_lse = gate(
+                    cuda_attention.attention_cuda_fwd(q, k, v, **kw), want)
+                lse_f, delta = cuda_bwd.bwd_residuals(*want, dout)
+                args = (q, k, v, dout, lse_f, delta)
+                b_ok, _, b_rel = gate_rows(
+                    (cuda_bwd.attention_cuda_dq(*args, **kw),
+                     *cuda_bwd.attention_cuda_dkv(*args, **kw)),
+                    (cuda_bwd.dq_plain(*args, **kw),
+                     *cuda_bwd.dkv_plain(*args, **kw)),
+                    cuda_bwd.dq_one_key_bound(q, k, v, dout, delta, **kw))
+                edges.append({"dtype": str(dtype).removeprefix("torch."),
+                              "D": D, "Tq": Tq, "Tk": 300, "causal": causal,
+                              "fwd_rel": f_rel, "fwd_dlse": f_lse,
+                              "bwd_rel": b_rel, "ok": f_ok and b_ok})
+    torch.cuda.synchronize()
+    print(f"tile edges (B3, B6, B7; bf16 and f32, D 64/128, Tq 5/130, Tk "
+          f"300): worst out relative "
+          f"{max(e['fwd_rel'] for e in edges):.3e}, |dlse| "
+          f"{max(e['fwd_dlse'] for e in edges):.3e}, gradient relative "
+          f"{max(e['bwd_rel'] for e in edges):.3e}; "
+          f"{sum(e['ok'] for e in edges)}/{len(edges)} pass", flush=True)
+    bad = [e for e in edges if not e["ok"]]
+    if bad:
+        fail(f"a kernel differs from its plain version at a tile edge: "
+             f"{json.dumps(bad)}")
+    del q, k, v, dout, lse_f, delta, want, args
     # BASELINE.json's "causal forward+backward, seq 16384" shape: timing
     # only (the plain versions would materialise 17 GB of scores per array).
     long_shape = (1, 16, 16, 16384, 16384, 0, 0)
@@ -1217,9 +1338,8 @@ def main() -> None:
         torch.cuda.synchronize()
         traced_wall_ms = (time.perf_counter() - t0) * 1e3
     tsplit, tby_kernel = split_by(prof, {
-        "flash_fwd (B3)": ("flash_fwd_kernel",),
-        "flash_dq (B6)": ("flash_dq_kernel",),
-        "flash_dkv (B7)": ("flash_dkv_kernel",), "matmul": matmul})
+        "flash_fwd (B3)": ("flash_fwd",), "flash_dq (B6)": ("flash_dq",),
+        "flash_dkv (B7)": ("flash_dkv",), "matmul": matmul})
     tbusy = sum(tsplit.values())
     train_breakdown = {
         "step_wall_ms": step_wall_ms,
@@ -1309,6 +1429,10 @@ def main() -> None:
                 decode_recs["int8-cast"]["launches"] if name == "flash_decode"
                 else x_launches[name])
             entry["launches_int8_serve_staged"] = q_launches[name]
+        if name in ("flash_fwd", "flash_dq"):
+            # bf16 runs the tensor-core body: its HGMMA count in the SASS.
+            entry["hgmma_sass"] = sum(c for n, c in hgmma.items()
+                                      if f"{name}_wgmma" in n)
         if name == "flash_fwd":
             # Serve chunks, then 2 per layer and training step (forward and
             # its recomputation under remat).
@@ -1339,7 +1463,9 @@ def main() -> None:
                    "train_step_vs_plain": {"loss": [loss_k, loss_p],
                                            "grad_rel": grad_rel},
                    "train_breakdown": train_breakdown,
-                   "ptxas": ptxas, "kernels": kernels}, f, indent=1)
+                   "ptxas": ptxas, "hgmma_sass": hgmma, "tile_edges": edges,
+                   "one_key_rows": one_key_rows,
+                   "kernels": kernels}, f, indent=1)
     print(f"chip_smoke: total wall {time.monotonic() - t_start:.1f}s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

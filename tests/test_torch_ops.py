@@ -138,6 +138,61 @@ def test_b3_plain_matches_pallas_fwd(case, dtype):
     _close(port, ref, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_b3_plain_matches_pallas_fwd_at_tile_edges(dtype):
+    """D = 128 with Tq = 130 and Tk = 300 (past the tensor-core body's
+    64-row and 128-key tile edges), GQA, and per-batch offsets one of which
+    is negative (that row's first queries see no key)."""
+    B, Hq, Hkv, Tq, Tk, D = 3, 4, 2, 130, 300, 128
+    q, k, v = _data(11, dtype, (B, Hq, Tq, D), (B, Hkv, Tk, D),
+                    (B, Hkv, Tk, D))
+    qo = np.array([-5, 100, 170], dtype=np.int32)
+    ref = attention_pallas_fwd(
+        _jax(q, dtype), _jax(k, dtype), _jax(v, dtype), causal=True,
+        q_offset=jnp.asarray(qo), block_size=128, block_q=64, interpret=True,
+    )
+    port = cuda_attention.attention_cuda_fwd(
+        _torch(q, dtype), _torch(k, dtype), _torch(v, dtype), causal=True,
+        q_offset=torch.from_numpy(qo),
+    )
+    _close(port, ref, dtype)
+    assert np.all(np.isneginf(port[1].numpy()[0, :, :5]))
+
+
+class _Lib:
+    """A stand-in for a built kernel library: its tile exports report
+    ``tiles`` for every dtype."""
+
+    def __init__(self, tiles):
+        self.tiles = tiles
+
+    def __getattr__(self, name):
+        if name.endswith("_block_q"):
+            return lambda code: self.tiles[0]
+        if name.endswith("_block_k"):
+            return lambda code: self.tiles[1]
+        raise AttributeError(name)
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd"])
+def test_wrappers_reject_a_library_built_with_other_tiles(kernel,
+                                                          monkeypatch):
+    """B3's and B6/B7's launchers check the built library's tile exports
+    against ``ops/tuning.py`` before the first launch, and raise on a
+    mismatch instead of running tiles the Python side does not know."""
+    from tree_attention_tpu_torch.ops import _build, cuda_bwd
+
+    module, launcher, name = {
+        "flash_fwd": (cuda_attention, "_launcher", "_lib_fn"),
+        "flash_bwd": (cuda_bwd, "_launchers", "_fns"),
+    }[kernel]
+    monkeypatch.setattr(module, name, None)
+    monkeypatch.setattr(_build, "library", lambda lib: _Lib((64, 32)))
+    with pytest.raises(RuntimeError, match="tiles"):
+        getattr(module, launcher)()
+    assert getattr(module, name) is None
+
+
 def test_cpu_wrappers_run_the_plain_versions_without_launching():
     q, k, v = _data(4, "float32", (1, 2, 3, 16), (1, 2, 40, 16),
                     (1, 2, 40, 16))
@@ -233,28 +288,38 @@ def test_tuning_policy_matches_jax():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_gpu():
-    """B1/B2/B3 on the card against their plain versions (bf16)."""
+    """B1/B2/B3 on the card against their plain versions, in bf16 (B3's
+    tensor-core body) and f32 (its CUDA-core body), at D 64 and 128, with
+    Tq = 130 and Tk = 300 off B3's 64-row and 128-key tile edges."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
                     "CPU mode (the plain versions are tested above)")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
+    tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
-    def rnd(*s):
-        return torch.randn(*s, generator=g).to("cuda", torch.bfloat16)
+    def rnd(dtype, *s):
+        return torch.randn(*s, generator=g).to("cuda", dtype)
 
-    q, k, v = rnd(3, 8, 5, 128), rnd(3, 2, 300, 128), rnd(3, 2, 300, 128)
     qo = torch.tensor([-5, 100, 290], dtype=torch.int32, device="cuda")
-    for fn, plain in ((cuda_decode.attention_cuda_decode,
-                       cuda_decode.decode_plain),
-                      (cuda_attention.attention_cuda_fwd,
-                       cuda_attention.fwd_plain)):
-        a = fn(q, k, v, causal=True, q_offset=qo)
-        b = plain(q, k, v, causal=True, q_offset=qo)
-        torch.testing.assert_close(a[0].float(), b[0].float(), atol=2e-2,
-                                   rtol=2e-2)
-        torch.testing.assert_close(a[1], b[1], atol=1e-3, rtol=0)
-    kp, vp = rnd(30, 2, 16, 128), rnd(30, 2, 16, 128)
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 128):
+            for Tq in (5, 130):
+                q = rnd(dtype, 3, 8, Tq, D)
+                k, v = rnd(dtype, 3, 2, 300, D), rnd(dtype, 3, 2, 300, D)
+                for fn, plain in ((cuda_decode.attention_cuda_decode,
+                                   cuda_decode.decode_plain),
+                                  (cuda_attention.attention_cuda_fwd,
+                                   cuda_attention.fwd_plain)):
+                    a = fn(q, k, v, causal=True, q_offset=qo)
+                    b = plain(q, k, v, causal=True, q_offset=qo)
+                    torch.testing.assert_close(
+                        a[0].float(), b[0].float(), atol=tol[dtype],
+                        rtol=tol[dtype])
+                    torch.testing.assert_close(a[1], b[1], atol=1e-3, rtol=0)
+    q = rnd(torch.bfloat16, 3, 8, 5, 128)
+    kp, vp = rnd(torch.bfloat16, 30, 2, 16, 128), rnd(torch.bfloat16, 30, 2,
+                                                     16, 128)
     table = torch.stack([torch.randperm(30, generator=g)[:8]
                          for _ in range(3)]).to("cuda", torch.int32)
     a = cuda_decode.attention_cuda_decode_paged(q, kp, vp, table,

@@ -74,6 +74,8 @@ BWD_CASES = {
     "gqa4x1": (dict(seed=1, Hq=4, Hkv=1, Tq=128, Tk=256, D=32), True, 128, 0),
     "ragged": (dict(seed=2, Tq=100, Tk=300, D=32), True, 200, 0),
     "unaligned": (dict(seed=4, D=32), True, 0, 100),
+    # D = 128 past the tensor-core B6's 64-row and 64-key tile edges.
+    "edges_d128": (dict(seed=11, Tq=130, Tk=300, D=128), True, 170, 0),
 }
 
 
@@ -220,7 +222,8 @@ def test_plain_impl_grads_equal_auto_on_cpu():
         torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("bq,bk", [(32, 64), (128, 128), (64, 32)])
+@pytest.mark.parametrize("bq,bk", [(32, 64), (128, 128), (128, 64),
+                                   (64, 32)])
 def test_tile_liveness_matches_jax(bq, bk):
     """B6's last live KV tile and B7's first live Q tile, as integers,
     against the JAX package's index-map helpers."""
@@ -235,30 +238,94 @@ def test_tile_liveness_matches_jax(bq, bk):
                     jbu.causal_first_live_q(ki, bq, bk, qo, ko, n_q))
 
 
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_gate_holds_one_key_rows_to_their_rounding_bound(dtype, D):
+    """``cuda_bwd.grad_rows_close``, the row gate the backward kernels are
+    held to on the card: the plain gradients against the plain gradients
+    with the head dim permuted (a second correct f32 summation order) pass
+    it; ``dq_one_key_bound`` names exactly the rows that see one key, and
+    its bound there stays under 1e-2 of the median dq row's scale; the
+    gate rejects a one-key dq row off by twice its bound, a no-key dq row
+    off by 1e-6 and a dk row off by 3e-2 of its scale."""
+    B, Hq, Hkv, Tq, Tk = 2, 4, 2, 40, 60
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s, np.float32)
+                                    ).to(dtype)
+                   for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D),
+                             (B, Hq, Tq, D)))
+    qo, ko = torch.tensor([-3, 10]), torch.tensor([0, 12])
+    kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+    lse_f, delta = cuda_bwd.bwd_residuals(
+        *cuda_attention.fwd_plain(q, k, v, **kw), do)
+    want = (cuda_bwd.dq_plain(q, k, v, do, lse_f, delta, **kw),
+            *cuda_bwd.dkv_plain(q, k, v, do, lse_f, delta, **kw))
+    perm = torch.from_numpy(rng.permutation(D))
+    inv = torch.argsort(perm)
+    pq, pk, pv, pdo = (t[..., perm] for t in (q, k, v, do))
+    got = (cuda_bwd.dq_plain(pq, pk, pv, pdo, lse_f, delta, **kw)[..., inv],
+           *(t[..., inv] for t in cuda_bwd.dkv_plain(pq, pk, pv, pdo, lse_f,
+                                                     delta, **kw)))
+    one_key = cuda_bwd.dq_one_key_bound(q, k, v, do, delta, **kw)
+    rows, bound = one_key
+    seen = ((torch.arange(Tk) + ko[:, None, None])
+            <= (qo[:, None] + torch.arange(Tq))[..., None]).sum(-1)
+    assert torch.equal(rows[:, 0, :, 0], seen == 1) and int(rows.sum()) == 2
+    assert cuda_bwd.grad_rows_close(got, want, 2e-2, one_key)[0]
+    scale = want[0].float().abs().amax(-1)
+    assert bound[rows.expand_as(bound)].max() < 1e-2 * scale[
+        (seen > 1)[:, None].expand_as(scale)].median()
+
+    def off(i, fn):
+        t = [w.clone() for w in want]
+        fn(t[i])
+        return cuda_bwd.grad_rows_close(t, want, 2e-2, one_key)[0]
+
+    b1 = int((seen[0] == 1).nonzero()[0])
+    b0 = int((seen[0] == 0).nonzero()[0])
+    assert not off(0, lambda t: t[0, 0, b1].add_(2 * bound[0, 0, b1]))
+    assert not off(0, lambda t: t[0, 0, b0].add_(1e-6))
+    assert not off(1, lambda t: t[0, 0, 5].add_(
+        3e-2 * t[0, 0, 5].float().abs().max()))
+
+
 @pytest.mark.gpu
 def test_bwd_kernels_match_plain_on_gpu():
-    """B6/B7 on the card against their plain versions (bf16, each row of
-    dq/dk/dv within 2e-2 of that row's max |plain|)."""
+    """B6/B7 on the card against their plain versions, in bf16 (B6's
+    tensor-core body) and f32 (the CUDA-core bodies), at D 64 and 128, with
+    Tq = 130 and Tk = 300 off B6's 64-row and 64-key tile edges, under
+    ``chip_smoke.py``'s gate (``cuda_bwd.grad_rows_close``): each row of
+    dq/dk/dv within 2e-2 of that row's max |plain|, and the dq rows that
+    see exactly one key within their rounding bound."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
                     "CPU mode (the plain versions are tested above)")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
 
-    def rnd(*s):
-        return torch.randn(*s, generator=g).to("cuda", torch.bfloat16)
+    def rnd(dtype, *s):
+        return torch.randn(*s, generator=g).to("cuda", dtype)
 
-    for Hq, Hkv, Tq, Tk, qo, ko in ((8, 2, 100, 300, 200, 0),
-                                    (4, 4, 256, 256, 0, 100)):
-        q, k, v, do = (rnd(2, Hq, Tq, 128), rnd(2, Hkv, Tk, 128),
-                       rnd(2, Hkv, Tk, 128), rnd(2, Hq, Tq, 128))
-        kw = dict(causal=True, q_offset=qo, kv_offset=ko)
-        out, lse = cuda_attention.fwd_plain(q, k, v, **kw)
-        lse_f, delta = cuda_bwd.bwd_residuals(out, lse, do)
-        got = (cuda_bwd.attention_cuda_dq(q, k, v, do, lse_f, delta, **kw),
-               *cuda_bwd.attention_cuda_dkv(q, k, v, do, lse_f, delta, **kw))
-        want = (cuda_bwd.dq_plain(q, k, v, do, lse_f, delta, **kw),
-                *cuda_bwd.dkv_plain(q, k, v, do, lse_f, delta, **kw))
-        for a, b in zip(got, want):
-            row = b.float().abs().amax(-1, keepdim=True)
-            assert ((a.float() - b.float()).abs() <= 2e-2 * row).all()
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 128):
+            for Hq, Hkv, Tq, Tk, qo, ko in ((8, 2, 100, 300, 200, 0),
+                                            (4, 4, 256, 256, 0, 100),
+                                            (4, 2, 130, 300, 170, 0)):
+                q, k, v, do = (rnd(dtype, 2, Hq, Tq, D),
+                               rnd(dtype, 2, Hkv, Tk, D),
+                               rnd(dtype, 2, Hkv, Tk, D),
+                               rnd(dtype, 2, Hq, Tq, D))
+                kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+                out, lse = cuda_attention.fwd_plain(q, k, v, **kw)
+                lse_f, delta = cuda_bwd.bwd_residuals(out, lse, do)
+                got = (cuda_bwd.attention_cuda_dq(q, k, v, do, lse_f, delta,
+                                                  **kw),
+                       *cuda_bwd.attention_cuda_dkv(q, k, v, do, lse_f,
+                                                    delta, **kw))
+                want = (cuda_bwd.dq_plain(q, k, v, do, lse_f, delta, **kw),
+                        *cuda_bwd.dkv_plain(q, k, v, do, lse_f, delta, **kw))
+                one_key = cuda_bwd.dq_one_key_bound(q, k, v, do, delta,
+                                                    **kw)
+                ok, _, rel = cuda_bwd.grad_rows_close(got, want, 2e-2,
+                                                      one_key)
+                assert ok, (dtype, D, Tq, Tk, rel)

@@ -10,7 +10,8 @@
 //   dk = (ds in Q's dtype)^T . Q * scale,  dv = (p in dO's dtype)^T . dO   (B7)
 // Scores and every accumulation in f32; dq, dk, dv stored in their inputs'
 // dtypes. Masks as B3's: causal with per-batch (q_offset, kv_offset), keys
-// past Tk invisible, query rows past Tq never stored.
+// past Tk invisible, query rows past Tq never stored. JAX's split needs no
+// atomics, so the gradients are deterministic.
 //
 // What bounds them on the card: operations. With `pairs` the visible
 // (query, key) pairs summed over batch and query heads, B6 does 6*pairs*D
@@ -19,9 +20,23 @@
 // delta read once, the gradients written once) are a few times smaller at
 // training shapes (T >= 2k, D = 128).
 //
-// Design (simple first, like B3: the f32 CUDA cores, not wgmma, so both sit
-// far above that bound; making them fast is later work). JAX's split needs
-// no atomics, so the gradients are deterministic:
+// B6 for bf16 (flash_dq_wgmma_kernel): the tensor cores, with the skeleton
+// (sm90::QRing) and the primitives of B3's bf16 body. One CTA per (b*Hq,
+// 128-row Q tile); Q, dO (by TMA), lse and delta (in registers) stay
+// resident while a producer warp streams 64-key K/V tiles through a TMA
+// ring up to the tile's causal frontier. Two consumer warpgroups own 64
+// rows each; per tile S = Q.K^T and dP = dO.V^T (wgmma from shared memory),
+// p = exp2(S*scale*log2e - lse*log2e) and ds = p*(dP - delta) on the
+// accumulator fragments, ds rounded to bf16 in registers as the A operand
+// of dQ += ds.K (K's tile as a transposed B). dQ stays in f32 registers and
+// is stored once, times scale, in bf16. Its tiles are its own (tc::); B7's
+// stay as they were.
+//
+// B6 for f32 and B7 (flash_dq_kernel, flash_dkv_kernel): simple first, the
+// f32 CUDA cores, not wgmma, so both sit far above that bound. B6's f32
+// body stays on the CUDA cores because the JAX reference pins f32 products
+// at HIGHEST precision (TF32 products would change the numbers); B7 is the
+// next to move to the tensor cores.
 // - B6: one CTA per (b*Hq, kBlockQ query rows). Q, dO, lse and delta stay
 //   resident; the CTA loops over kBlockK-key tiles up to its last row's
 //   causal frontier (block_utils.last_live_k) and holds dq in f32 registers.
@@ -38,6 +53,7 @@
 //   shuffles (as B3's P.V); B7 writes p and ds to shared memory and switches
 //   to warp w owning kKeys keys, lane l columns l + 32n, over the tile's rows.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -408,6 +424,140 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- B6, bf16: the tensor cores --
+
+namespace tc {
+
+constexpr int kBlockQ = 128;  // two consumer warpgroups x 64 rows
+constexpr int kBlockK = 64;
+constexpr int kStages = 2;
+constexpr int kConsumers = 2;  // warpgroups
+
+// The CTA: the Q and dO tiles resident (Q first, dO after), K/V tiles
+// through the ring.
+template <int D>
+using Ring = sm90::QRing<kBlockQ, kBlockK, kStages, kConsumers, D,
+                         2 * kBlockQ * D * 2>;
+
+template <int D>
+__global__ void __launch_bounds__(Ring<D>::kThreads, 1)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,   // (D,Tq,B*Hq)
+                      const __grid_constant__ CUtensorMap tk,   // (D,Tk,B*Hkv)
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,  // (D,Tq,B*Hq)
+                      const float* __restrict__ lse,    // (B,Hq,Tq), -inf->+inf
+                      const float* __restrict__ delta,  // (B, Hq, Tq)
+                      const int32_t* __restrict__ offs,  // (2, B)
+                      __nv_bfloat16* __restrict__ dq,   // (B, Hq, Tq, D)
+                      int B, int Hq, int Hkv, int Tq, int Tk, int causal,
+                      float scale, float scale_log2) {
+  constexpr int kRowsBytes = kBlockQ * D * 2;  // the Q or dO tile
+  extern __shared__ uint8_t smem_raw[];
+  Ring<D> cta;
+  cta.init(smem_raw, offs, B, Hq, Hkv, Tk, causal);
+
+  if (cta.is_producer()) {
+    cta.produce(&tk, &tv, [&] {
+      sm90::load_tile<kBlockQ, D>(cta.smem, &tq, cta.resident, cta.q0,
+                                  cta.bh);
+      sm90::load_tile<kBlockQ, D>(cta.smem + kRowsBytes, &tdo, cta.resident,
+                                  cta.q0, cta.bh);
+    });
+  } else {  // consumers: warpgroup wg owns 64 rows of the Q tile
+    sm90::reg_alloc<240>();
+    constexpr float kLog2e = 1.4426950408889634f;
+    const int lane = threadIdx.x & 31;
+    const int row0 = cta.row0();
+    const int bh = cta.bh;
+    const uint32_t q_addr =
+        sm90::smem_u32(cta.smem) + 64 * cta.wg() * sm90::kRowBytes;
+    const uint32_t o_addr = q_addr + kRowsBytes;
+
+    float lse2[2], dl[2];  // the rows' lse in log2 units, and delta
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      // Rows past Tq: lse +inf makes p exactly 0 (their Q and dO load as 0).
+      lse2[h] = r < Tq ? lse[(size_t)bh * Tq + r] * kLog2e : INFINITY;
+      dl[h] = r < Tq ? delta[(size_t)bh * Tq + r] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    sm90::mbar_wait(cta.resident, 0);
+    for (int t = 0; t < cta.n_k; ++t) {
+      const uint32_t k_addr = cta.wait_kv(t);
+      const uint32_t v_addr = k_addr + Ring<D>::kTile;
+
+      float sc[kBlockK / 2], dp[kBlockK / 2];
+      sm90::wg_fence();
+      sm90::gemm_ss<kBlockK, D, kBlockQ>(sc, q_addr, k_addr);  // Q.K^T
+      sm90::gemm_ss<kBlockK, D, kBlockQ>(dp, o_addr, v_addr);  // dO.V^T
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+
+      const bool masked = cta.needs_mask(t, Tk, causal);
+#pragma unroll
+      for (int i = 0; i < kBlockK / 2; ++i) {
+        const int h = (i >> 1) & 1;
+        bool vis = true;
+        if (masked) {
+          const int j = t * kBlockK + sm90::frag_col(i, lane);
+          vis = j < Tk &&
+                (!causal || cta.kv_off + j <= cta.q_off + row0 + 8 * h);
+        }
+        const float p = vis ? exp2f(fmaf(sc[i], scale_log2, -lse2[h])) : 0.f;
+        sc[i] = p * (dp[i] - dl[h]);  // ds
+      }
+      uint32_t da[kBlockK / 16][4];
+      sm90::acc_to_a<kBlockK>(sc, da);  // ds in K's dtype
+
+      sm90::wg_fence();
+      sm90::fence_regs(acc);
+      sm90::gemm_rs<D, kBlockK>(acc, da, k_addr);  // dQ += ds.K
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(acc);
+      cta.release_kv(t);
+    }
+
+    const float f[2] = {scale, scale};
+    sm90::store_rows_bf16<D>(acc, dq + (size_t)bh * Tq * D, row0, Tq, f,
+                             lane);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, const void* offs, void* dq,
+                            int B, int Hq, int Hkv, int Tq, int Tk, int causal,
+                            float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo;
+  int err = sm90::make_tensor_map(&mq, q, D, Tq, B * Hq, kBlockQ);
+  if (!err) err = sm90::make_tensor_map(&mo, dout, D, Tq, B * Hq, kBlockQ);
+  if (!err) err = sm90::make_tensor_map(&mk, k, D, Tk, B * Hkv, kBlockK);
+  if (!err) err = sm90::make_tensor_map(&mv, v, D, Tk, B * Hkv, kBlockK);
+  if (err) return static_cast<cudaError_t>(err);
+  constexpr int smem = Ring<D>::kSmemBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Tq + kBlockQ - 1) / kBlockQ, B * Hq);
+  flash_dq_wgmma_kernel<D><<<grid, Ring<D>::kThreads, smem, stream>>>(
+      mq, mk, mv, mo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int32_t*>(offs),
+      static_cast<__nv_bfloat16*>(dq), B, Hq, Hkv, Tq, Tk, causal, scale,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // The instantiation of `launch` for (dtype, D): 0 = float32, 1 = bfloat16;
 // D 64 or 128. Unknown combinations give cudaErrorInvalidValue.
 #define TA_DISPATCH(launch, ...)                                           \
@@ -425,21 +575,37 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// The tiles the kernels were built with (the wrapper checks them against
-// ops/tuning.py).
-int flash_bwd_block_q() { return kBlockQ; }
-int flash_bwd_block_k() { return kBlockK; }
+// The (Q, KV) tiles the kernels were built with (the wrapper checks them
+// against ops/tuning.py) for `dtype` (0 = float32, 1 = bfloat16): B6 runs
+// its tensor-core body for bf16 and its CUDA-core body for f32; B7 runs
+// its one body for both.
+int flash_dq_block_q(int dtype) { return dtype == 1 ? tc::kBlockQ : kBlockQ; }
+int flash_dq_block_k(int dtype) { return dtype == 1 ? tc::kBlockK : kBlockK; }
+int flash_dkv_block_q(int) { return kBlockQ; }
+int flash_dkv_block_k(int) { return kBlockK; }
 
-// Contiguous (B, H, T, D) operands, lse and delta (B, Hq, Tq) f32, offs
-// (2, B) int32. Each returns the CUDA error of its launch (0 on success).
+// Contiguous (B, H, T, D) operands (16-byte aligned for the bf16 B6's
+// TMA), lse and delta (B, Hq, Tq) f32, offs (2, B) int32. Each returns the
+// CUDA error of its launch (0 on success).
 int flash_dq_launch(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     const void* offs, void* dq, int dtype, int D, int B,
                     int Hq, int Hkv, int Tq, int Tk, int causal, float scale,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  TA_DISPATCH(launch_dq, q, k, v, dout, lse, delta, offs, dq, B, Hq, Hkv, Tq,
-              Tk, causal, scale, st);
+  if (dtype == 1 && D == 64)
+    return tc::launch_dq_wgmma<64>(q, k, v, dout, lse, delta, offs, dq, B,
+                                   Hq, Hkv, Tq, Tk, causal, scale, st);
+  if (dtype == 1 && D == 128)
+    return tc::launch_dq_wgmma<128>(q, k, v, dout, lse, delta, offs, dq, B,
+                                    Hq, Hkv, Tq, Tk, causal, scale, st);
+  if (dtype == 0 && D == 64)
+    return launch_dq<float, 64>(q, k, v, dout, lse, delta, offs, dq, B, Hq,
+                                Hkv, Tq, Tk, causal, scale, st);
+  if (dtype == 0 && D == 128)
+    return launch_dq<float, 128>(q, k, v, dout, lse, delta, offs, dq, B, Hq,
+                                 Hkv, Tq, Tk, causal, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 int flash_dkv_launch(const void* q, const void* k, const void* v,

@@ -53,14 +53,15 @@ def _target(name: str) -> Path:
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every missing library of ``names``, one ``nvcc`` per source,
-    all started together. Returns the wall seconds of each build (0.0 for
-    one already on disk); the compiler's register/shared-memory report goes
-    to ``<lib>.log`` beside it. Raises with the compiler's output when a
-    build fails."""
+    all started together. Returns the wall seconds of each build, from the
+    common start to its own end (0.0 for one already on disk); the
+    compiler's register/shared-memory report goes to ``<lib>.log`` beside
+    it. Raises with the compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     secs = {}
+    t0 = time.monotonic()
     for name in names:
         out = _target(name)
         if out.exists():
@@ -68,17 +69,25 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".tmp{os.getpid()}")
+        log = out.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ), tmp, out, time.monotonic())
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs[name] = time.monotonic() - t0
-        out.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        procs[name] = (proc, tmp, out, log)
+    while procs:
+        for name, (proc, tmp, out, log) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            secs[name] = time.monotonic() - t0
+            del procs[name]
+            if proc.returncode != 0:
+                for other, *_ in procs.values():
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    f"nvcc failed for {name}.cu:\n{log.read_text()}")
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+        time.sleep(0.05)
     return secs
 
 

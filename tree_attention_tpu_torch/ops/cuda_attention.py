@@ -6,9 +6,13 @@ there). Same ``(out, lse)`` contract as the decode kernels, for prefill-sized
 query counts: causal with per-batch ``(q_offset, kv_offset)``, GQA through
 the KV head index, lse f32, P rounded to V's dtype, empty rows ``(0, -inf)``.
 
-The wrapper runs the kernel for a CUDA tensor and its plain version
-(:func:`fwd_plain`) for a CPU tensor — nothing else: a build or launch
-failure raises. ``attention_cuda_fwd.launches`` counts kernel launches.
+The kernel has two bodies, chosen by dtype alone: bf16 runs on the tensor
+cores (``wgmma`` fed by a TMA ring), float32 on the CUDA cores (the JAX
+reference pins f32 products at full precision). Their tiles are
+``ops/tuning.FWD_TILES``, checked against the built library. The wrapper
+runs the kernel for a CUDA tensor and its plain version (:func:`fwd_plain`)
+for a CPU tensor — nothing else: a build or launch failure raises.
+``attention_cuda_fwd.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from tree_attention_tpu_torch.ops.reference import (
     default_scale,
     empty_result,
 )
+from tree_attention_tpu_torch.ops.tuning import FWD_TILES
 
 _lib_fn = None
 
@@ -33,7 +38,9 @@ _lib_fn = None
 def _launcher():
     global _lib_fn
     if _lib_fn is None:
-        fn = _build.library("flash_fwd").flash_fwd_launch
+        lib = _build.library("flash_fwd")
+        check_tiles(lib, "flash_fwd", FWD_TILES)
+        fn = lib.flash_fwd_launch
         fn.argtypes = (
             [ctypes.c_void_p] * 6
             + [ctypes.c_int] * 8
@@ -42,6 +49,22 @@ def _launcher():
         fn.restype = ctypes.c_int
         _lib_fn = fn
     return _lib_fn
+
+
+def check_tiles(lib, kernel: str, tiles) -> None:
+    """Raise unless each dtype's body of ``kernel`` in the loaded ``lib``
+    was built with the (Q, KV) tiles ``tiles[dtype name]`` (from
+    ``ops/tuning.py``), as its ``<kernel>_block_q/k(dtype code)`` exports
+    report them."""
+    for dtype, code in _DTYPES.items():
+        want = tiles[str(dtype).removeprefix("torch.")]
+        built = (getattr(lib, f"{kernel}_block_q")(code),
+                 getattr(lib, f"{kernel}_block_k")(code))
+        if built != want:
+            raise RuntimeError(
+                f"{kernel} was built with (Q, KV) tiles {built} for {dtype}, "
+                f"ops/tuning.py says {want}"
+            )
 
 
 def fwd_plain(q, k, v, *, causal: bool = False,

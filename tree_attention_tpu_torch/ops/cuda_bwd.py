@@ -10,23 +10,29 @@ exactly 0 on those rows instead of ``exp(-inf - (-inf)) = NaN`` — plain torch
 ops, as JAX computes them outside its kernels. JAX's 128-lane residual
 packing is a TPU layout and does not carry over.
 
-Each wrapper runs its kernel for a CUDA tensor and its plain version
-(:func:`dq_plain`, :func:`dkv_plain`) for a CPU tensor — nothing else: a
-build or launch failure raises. ``.launches`` counts kernel launches.
+B6 has two bodies, chosen by dtype alone: bf16 runs on the tensor cores
+(``wgmma`` fed by a TMA ring), float32 on the CUDA cores, as B7 does for
+both. Their tiles are ``ops/tuning.DQ_TILES`` and ``DKV_TILES``, checked
+against the built library. Each wrapper runs its kernel for a CUDA tensor
+and its plain version (:func:`dq_plain`, :func:`dkv_plain`) for a CPU
+tensor — nothing else: a build or launch failure raises. ``.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from tree_attention_tpu_torch.ops import _build
 from tree_attention_tpu_torch.ops.block_utils import NEG_INF, Offset, offsets
+from tree_attention_tpu_torch.ops.cuda_attention import check_tiles
 from tree_attention_tpu_torch.ops.cuda_decode import _DTYPES, _check
 from tree_attention_tpu_torch.ops.reference import _group, default_scale
-from tree_attention_tpu_torch.ops.tuning import BWD_BLOCK_K, BWD_BLOCK_Q
+from tree_attention_tpu_torch.ops.tuning import DKV_TILES, DQ_TILES
 
 _fns = None
 
@@ -35,12 +41,8 @@ def _launchers():
     global _fns
     if _fns is None:
         lib = _build.library("flash_bwd")
-        built = (lib.flash_bwd_block_q(), lib.flash_bwd_block_k())
-        if built != (BWD_BLOCK_Q, BWD_BLOCK_K):
-            raise RuntimeError(
-                f"flash_bwd was built with (Q, KV) tiles {built}, "
-                f"ops/tuning.py says {(BWD_BLOCK_Q, BWD_BLOCK_K)}"
-            )
+        check_tiles(lib, "flash_dq", DQ_TILES)
+        check_tiles(lib, "flash_dkv", DKV_TILES)
         dq, dkv = lib.flash_dq_launch, lib.flash_dkv_launch
         dq.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -126,6 +128,73 @@ def dkv_plain(q, k, v, dout, lse, delta, *, causal: bool = False,
         dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", p.to(dout.dtype).float(),
                                 dg).to(v.dtype))
     return torch.cat(dks), torch.cat(dvs)
+
+
+def dq_one_key_bound(q, k, v, dout, delta, *, causal: bool = False,
+                     scale: Optional[float] = None, q_offset: Offset = 0,
+                     kv_offset: Offset = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """How far two correct dq may differ on the rows where dq is 0 by
+    cancellation: ``(rows, bound)``, the ``(B, 1, Tq, 1)`` bool of the
+    query rows that see exactly one key, and the ``(B, Hq, Tq, D)`` f32
+    bound on ``|dq_a - dq_b|`` there.
+
+    Such a row sees key 0 alone: p = 1 and O = V_0, so the exact ds =
+    dO.V_0^T - delta is 0 and dq holds only rounding. Each side forms
+    dO.V_0^T as an f32 sum of D products, off by at most
+    ``D * eps * sum|dO * V_0|`` (eps = 2^-23, one addition's error rounded
+    or truncated), and subtracts ``delta``, which is itself within that of
+    the same sum (here ``|dO.V_0^T - delta|`` as computed, plus the sum's
+    own error); p is at most ``exp(2 * D * eps * sum|q * k_0| * scale)``
+    (the recomputed score against lse); ds goes to K's dtype and dq to
+    q's (two roundings, each within 2^-8 relative), and dq = ds * K_0 *
+    scale. The bound is twice one side's."""
+    B, Hq, Tq, D = q.shape
+    Tk = k.shape[2]
+    if causal:
+        offs = offsets(q_offset, kv_offset, B, q.device).long()
+        seen = (offs[0] - offs[1] + 1)[:, None] + torch.arange(
+            Tq, device=q.device)
+        rows = seen.clamp(0, Tk) == 1
+    else:
+        rows = torch.full((B, Tq), Tk == 1, device=q.device)
+    G = _group(q, k)
+    k0 = k[:, :, :1].float().repeat_interleave(G, 1)  # (B, Hq, 1, D)
+    v0 = v[:, :, :1].float().repeat_interleave(G, 1)
+    sc = default_scale(D, scale)
+    err = D * torch.finfo(torch.float32).eps
+    dov = dout.float() * v0
+    ds = ((2 * err * dov.abs().sum(-1) + (dov.sum(-1) - delta).abs())
+          * torch.exp(2 * err * sc * (q.float() * k0).abs().sum(-1))
+          * (1 + 2.0 ** -6))
+    return rows[:, None, :, None], 2 * ds[..., None] * k0.abs() * sc
+
+
+def grad_rows_close(got: Sequence[torch.Tensor], want: Sequence[torch.Tensor],
+                    tol: float,
+                    one_key: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    ) -> Tuple[bool, float, float]:
+    """Hold gradients ``got`` against their plain versions ``want`` row by
+    row: each row (a dq row per query, a dk or dv row per key) within
+    ``tol`` of that row's largest plain |value|, so a row that is 0 in the
+    plain version must be exactly 0. With ``one_key`` (from
+    :func:`dq_one_key_bound`; ``got[0]`` is then dq) dq's rows that see
+    exactly one key are held to that bound instead. Returns ``(ok, max
+    |d|, max relative |d|)``, the last in units of the row scale, so that
+    it passes at or below ``tol`` (a one-key row's bound counts as ``tol``
+    of its scale)."""
+    ok, eabs, erel = True, 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not (a.shape == b.shape and torch.isfinite(a).all()):
+            return False, math.inf, math.inf
+        d = (a.float() - b.float()).abs()
+        allowed = tol * b.float().abs().amax(-1, keepdim=True)
+        if i == 0 and one_key is not None:
+            allowed = torch.where(one_key[0], one_key[1], allowed)
+        ok = ok and bool((d <= allowed).all())
+        eabs = max(eabs, d.max().item())
+        erel = max(erel, (d * tol / allowed.clamp_min(1e-30)).max().item())
+    return ok, eabs, erel
 
 
 def _row(x: Offset, b: int) -> Offset:

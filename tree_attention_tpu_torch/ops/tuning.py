@@ -3,9 +3,10 @@
 Counterpart of ``tree_attention_tpu/ops/tuning.py``. The TPU tables (tile
 sizes measured on a v5e) do not carry over: on the card the decode kernels'
 split length is chosen per call from the work-item count
-(``ops/cuda_decode.py``) and the forward kernel's (32, 64) tile is fixed in
-``csrc/flash_fwd.cu``; the backward kernels' tiles are below. What carries
-over is the dispatch policy: the packed-row decode kernels below the Q-tile
+(``ops/cuda_decode.py``), and the (Q, KV) tiles of B3, B6 and B7 are fixed
+in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` and stated below, where
+the wrappers check the built libraries against them. What carries over is
+the dispatch policy: the packed-row decode kernels below the Q-tile
 width, the Q-tiled kernel above it (packing a prefill chunk's rows per KV head would re-stream the KV once
 per 8-row tile).
 """
@@ -19,14 +20,19 @@ DECODE_KERNEL_MAX_TQ = 128
 # KV block of the plain blockwise reference.
 BLOCKWISE_BLOCK_K = 512
 
-# Tiles of the backward kernels B6/B7, fixed in ``csrc/flash_bwd.cu`` (the
-# wrapper checks the built library against these): 64 keys (two per lane in
-# the score phase) by 32 query rows (4 per warp). The Q tile was chosen on an
-# H100 over 64 rows, which were slower for both kernels (``PERF.md``): at
-# D = 128, 32 rows keep B6 at 96 KB and B7 at 112 KB of shared memory, two
-# CTAs per SM. The v5e ``default_block_q_bwd`` table does not carry over.
-BWD_BLOCK_K = 64
-BWD_BLOCK_Q = 32
+# (Q rows, keys) per tile of each body, by input dtype. bf16 runs the
+# tensor-core bodies of B3 and B6 (wgmma fed by a TMA ring, two consumer
+# warpgroups of 64 rows): B3 streams 128-key tiles; B6 64-key tiles, since
+# it holds S, dP and dQ in registers at once. float32 runs the CUDA-core
+# bodies (32 rows, 64 keys: two keys per lane in the score phase), as does
+# B7 for both dtypes; its 32-row Q tile was chosen on an H100 over 64 rows,
+# which were slower (``PERF.md``): at D = 128 it keeps B7 at 112 KB of
+# shared memory, two CTAs per SM. The v5e ``default_block_q*`` tables do
+# not carry over.
+FWD_TILES = {"bfloat16": (128, 128), "float32": (32, 64)}  # B3
+DQ_TILES = {"bfloat16": (128, 64), "float32": (32, 64)}    # B6
+DKV_TILES = {"bfloat16": (32, 64), "float32": (32, 64)}    # B7
+
 
 def kernel_for(tq: int) -> str:
     """``"decode"`` (B1/B2) below the Q-tile width, ``"fwd"`` (B3) above."""
