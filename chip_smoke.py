@@ -48,6 +48,18 @@ failure exits non-zero:
    yardstick. At B5's serve shape the gate is shown to reject per-block
    scales read by logical block, the V scalar applied before the softmax
    sum, and an output halved.
+   B2 with ``local_blocks`` (one rank's slice of a sequence-sharded pool
+   under a signed table) at the serve tick (B8 H16 Tq1, 640-token slots)
+   and a 64-row chunk, exact bf16 and int8 with per-block scales, over 80
+   blocks sharded W = 2 and 4 ways with tables drawn as
+   ``ShardedBlockAllocator`` hands blocks out: every rank's call under the
+   row gate, rank 0's timed against its bound (the keys it holds / 3.35
+   TB/s), the W partials merged by the in-process monoid against unsharded
+   B2, an all-remote row exactly ``(0, -inf)``, and the gate shown
+   rejecting remote entries read as block 0. Per-shard ``tree_decode`` at
+   the reference workload: B1 over W = 2 and 4 KV shards with their
+   offsets, and B4 over the shards of the channel-quantized K/V, merged
+   against the unsharded B1 / B4 under the same gate.
 3. Serve 16 requests through the paged, chunked SlotServer (the CLI's
    ``--mode serve`` entry point) at the reference attention width (d_model
    2048, 16 heads x 128, d_ff 5504, vocab 32768, bf16, depth cut to 4
@@ -74,6 +86,18 @@ failure exits non-zero:
    int8 serves run with the metrics registry off, as the exact serve does;
    their int8 steps are the report's decode ticks (one step over the int8
    cache each).
+   Then two ranks on the one card (spawned processes on ``cuda:0`` over
+   gloo; NCCL refuses two ranks on one device): ``--mesh seq=2 --kv-shard
+   seq`` at the same width, exact and ``--kv-quant int8`` (16 requests
+   each): every request retires with its budget, each rank's pool drains
+   and holds half the whole pool's bytes, B2 ``local_blocks`` launches
+   once per layer and step on each rank (nothing else reads the sharded
+   pool), exactly 1 MAX + 2 SUM all-reduces per layer and step (int8: plus
+   one SUM per step for the anchor scales), both ranks' tokens equal; one
+   mixed step's merged logits within 0.1 of the single-rank path on the
+   same logical cache; greedy agreement with the single-rank serve
+   reported; and ``--mode decode --mesh seq=2`` at the reference workload
+   (its time: two ranks sharing one card, not a scaling figure).
 4. Time ``--mode decode`` at the reference workload (B=1, 16 heads x 128,
    64000 KV tokens, one query) through the contiguous decode kernel (B1),
    and with ``--kv-quant int8`` (B4) and ``int8-cast`` (B1 over int8 K/V);
@@ -193,6 +217,210 @@ def hgmma_counts(build) -> dict:
                 out[name] = sum("HGMMA" in line
                                 for line in block.splitlines())
     return out
+
+
+MESH_ARGS = ["--mesh", "seq=2", "--dist-backend", "gloo"]
+DECODE_MESH_ARGS = ["--mode", "decode", "--iters", "20"]
+SHARDED_TIMEOUT_S = 600
+
+
+def _sharded_rank(rank: int, world: int, port: int, device: str,
+                  serve_args: list, decode_args: list) -> dict:
+    """One rank of the two-rank phase: the sharded serve exact and int8
+    through ``cli.run_serve`` (what ``cli.main`` runs once the group
+    forms), one mixed step against the single-rank path on the same
+    logical cache, and ``cli.main --mode decode`` on the mesh. ``device``
+    "cpu" with small arguments rehearses it without the card."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as dist
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.models import (
+        forward_step,
+        init_paged_cache,
+    )
+    from tree_attention_tpu_torch.ops import cuda_attention, cuda_decode
+    from tree_attention_tpu_torch.parallel import (
+        COLLECTIVES,
+        initialize_distributed,
+        make_mesh,
+    )
+    from tree_attention_tpu_torch.serving import ShardedBlockAllocator
+    from tree_attention_tpu_torch.utils.config import parse_args
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, created = initialize_distributed("gloo", device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    mesh = make_mesh({"seq": world})
+    b2 = cuda_decode.attention_cuda_decode_paged
+    counters = {
+        "flash_decode": (cuda_decode.attention_cuda_decode, "launches"),
+        "flash_decode_paged": (b2, "launches"),
+        "flash_decode_paged_local": (b2, "local_launches"),
+        "flash_decode_paged_q8q": (
+            cuda_decode.attention_cuda_decode_paged_q8q, "launches"),
+        "flash_fwd": (cuda_attention.attention_cuda_fwd, "launches"),
+    }
+    out = {}
+    try:
+        for label, extra in (("exact", []), ("int8", ["--kv-quant", "int8"])):
+            cfg = parse_args(serve_args + MESH_ARGS + ["--kv-shard", "seq"]
+                             + extra)
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            c0 = dict(COLLECTIVES)
+            t0 = time.monotonic()
+            rec, server, rep = cli.run_serve(cfg, dev, mesh)
+            sync()
+            wall = time.monotonic() - t0
+            tcfg = server.cfg
+            elem = (1 if server.quantize
+                    else torch.empty(0, dtype=tcfg.dtype).element_size())
+            whole = (2 * tcfg.n_layers * server.kv_blocks * tcfg.n_kv_heads
+                     * server.kv_block * tcfg.d_head * elem
+                     + (2 * tcfg.n_layers * server.kv_blocks
+                        * tcfg.n_kv_heads * 4 if server.quantize else 0))
+            out[label] = {
+                "rec": rec, "wall_s": wall,
+                "launches": {n: getattr(fn, a)
+                             for n, (fn, a) in counters.items()},
+                "colls": {f"{a}/{c}": v - c0.get((a, c), 0)
+                          for (a, c), v in COLLECTIVES.items()
+                          if v - c0.get((a, c), 0)},
+                "tokens": {r.uid: r.tokens for r in rep.results},
+                "pool_bytes": server.pool_bytes(),
+                "whole_pool_bytes": whole,
+            }
+            if label == "exact":
+                params = server.params
+            del server
+        # One mixed step on the same logical cache: the whole pool filled by
+        # the single-rank path, this rank's slice copied out of it, then
+        # decode rows, a 256-row chunk, a short chunk and an inert slot.
+        B, nb, blk = 8, 10, 64
+        npool = B * nb
+        alloc = ShardedBlockAllocator(npool, world)
+        alloc.reserve(npool)
+        table = torch.tensor([[alloc.alloc() for _ in range(nb)]
+                              for _ in range(B)], dtype=torch.int32,
+                             device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        pre = torch.randint(0, tcfg.vocab_size, (B, 256), generator=gen,
+                            device=dev)
+        toks = torch.randint(0, tcfg.vocab_size, (B, 256), generator=gen,
+                             device=dev)
+        n0 = torch.tensor([256, 17, 0, 200, 64, 1, 256, 128], device=dev,
+                          dtype=torch.int32)
+        n1 = torch.tensor([1, 1, 256, 40, 0, 1, 100, 1], device=dev,
+                          dtype=torch.int32)
+        whole = init_paged_cache(tcfg, B, nb * blk, npool, block=blk,
+                                 device=dev)
+        whole.table.copy_(table)
+        _, whole = forward_step(params, pre, whole, tcfg, n_tokens=n0)
+        kw = dict(mesh=mesh, kv_shard="seq")
+        part = init_paged_cache(tcfg, B, nb * blk, npool, block=blk,
+                                device=dev, **kw)
+        nl = part.blocks
+        lo = mesh.axis_index("seq") * nl
+        part.k[:, :nl] = whole.k[:, lo:lo + nl]
+        part.v[:, :nl] = whole.v[:, lo:lo + nl]
+        part.table.copy_(table)
+        part.length.copy_(whole.length)
+        lg_sharded, _ = forward_step(params, toks, part, tcfg, n_tokens=n1,
+                                     **kw)
+        lg_single, _ = forward_step(params, toks, whole, tcfg, n_tokens=n1)
+        valid = torch.arange(256, device=dev)[None] < n1[:, None]
+        out["mixed"] = {"logits_err": (lg_sharded[valid] - lg_single[valid]
+                                       ).abs().max().item()}
+        del whole, part, params
+        # The reference workload's decode on the mesh through cli.main (the
+        # group exists, so main leaves it to this function).
+        b1 = cuda_decode.attention_cuda_decode
+        b1.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(decode_args + MESH_ARGS)
+        sync()
+        lines = buf.getvalue().strip().splitlines()
+        out["decode"] = json.loads(lines[-1]) if rank == 0 else None
+        out["decode_printed"] = bool(lines)
+        out["decode_launches"] = b1.launches
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return out
+
+
+def _sharded_rank_main(rank, world, port, out_q, *args) -> None:
+    try:
+        out_q.put((rank, True, _sharded_rank(rank, world, port, *args)))
+    except BaseException:  # reported to the parent, which fails
+        import traceback
+
+        out_q.put((rank, False, traceback.format_exc()))
+
+
+def run_sharded_ranks(world: int = 2, device: str = "cuda",
+                      serve_args: list = SERVE_ARGS,
+                      decode_args: list = DECODE_MESH_ARGS) -> list:
+    """Spawn ``world`` ranks on ``cuda:0`` over gloo and return their
+    results in rank order; a rank that raises, dies or outlives
+    ``SHARDED_TIMEOUT_S`` fails the script, and every rank still running
+    is killed."""
+    import multiprocessing
+    import queue
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=_sharded_rank_main,
+                         args=(r, world, port, out_q, device, serve_args,
+                               decode_args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    try:
+        while len(results) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                fail(f"sharded ranks did not finish within "
+                     f"{SHARDED_TIMEOUT_S} s")
+            try:
+                rank, ok, payload = out_q.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in results]
+                if dead:
+                    fail(f"sharded ranks {dead} died")
+                continue
+            if not ok:
+                fail(f"sharded rank {rank} raised:\n{payload}")
+            results[rank] = payload
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+            if p.exitcode != 0:
+                fail(f"a sharded rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+    if results[1]["decode_printed"]:
+        fail("rank 1 printed a decode record: only rank 0 prints")
+    return [results[r] for r in range(world)]
 
 
 def fail(msg: str) -> None:
@@ -618,6 +846,179 @@ def main() -> None:
              "or accepts a planted fault")
     del plain, o, l, serve_q8, kp8, vp8
 
+    # -- 2b. B2 local_blocks: one rank's slice of a sequence-sharded pool --
+    # The serve shapes (8 slots of 640 tokens in 64-token blocks, 16 heads
+    # x 128; the tick Tq 1 and a 64-row chunk) over a pool of 80 blocks
+    # sharded W = 2 and 4 ways, the table drawn as ShardedBlockAllocator
+    # hands blocks out (richest shard first) to slots filled one after the
+    # other, so each slot's blocks interleave over the ranks and every row
+    # has keys on every rank. Each rank's call is held
+    # against its plain version under the row gate, the W partials merged
+    # by the in-process monoid against unsharded B2 on the whole pool;
+    # exact bf16 and int8 with per-block scales. Timed: rank 0's call,
+    # against its bound (the keys it holds up to each row's frontier, K+V,
+    # plus Q, the scales it reads and the output / 3.35 TB/s).
+    from tree_attention_tpu_torch.ops.reference import merge_partials
+    from tree_attention_tpu_torch.serving import ShardedBlockAllocator
+
+    b2 = cuda_decode.attention_cuda_decode_paged
+    nb, blk, npool = 10, 64, 80
+    pools = {"exact": (rnd(npool, 16, blk, 128), rnd(npool, 16, blk, 128),
+                       None)}
+    codes = [torch.randint(-127, 128, (npool, 16, blk, 128), generator=g,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand((npool, 16), generator=g, device=dev) * 0.03 + 0.005
+              for _ in range(2)]
+    pools["int8"] = (codes[0], codes[1], tuple(scales))
+    local_merge = {}
+
+    def held_counts(loc, qoff, tq):
+        """(keys a rank streams, (query, key) pairs it computes) under a
+        signed local table: held keys up to each row's causal frontier."""
+        held = (loc >= 0).repeat_interleave(blk, 1)          # (B, K)
+        pos = torch.arange(nb * blk, device=dev)
+        rows = qoff.long()[:, None] + torch.arange(tq, device=dev)
+        vis = (pos[None, None] <= rows[..., None]) & held[:, None]
+        keys = (held & (pos[None] <= rows[:, -1:])).sum().item()
+        return keys, vis.sum().item()
+
+    for W in (2, 4):
+        alloc = ShardedBlockAllocator(npool, W)
+        alloc.reserve(npool)
+        # Slot by slot, as chunked prefill maps a prompt's blocks: each
+        # slot's blocks alternate over the ranks.
+        table = torch.tensor([[alloc.alloc() for _ in range(nb)]
+                              for _ in range(8)], dtype=torch.int32,
+                             device=dev)
+        nl = npool // W
+        for tq in (1, 64):
+            q = rnd(8, 16, tq, 128)
+            qoff = torch.randint(0, nb * blk - tq, (8,), generator=g,
+                                 device=dev, dtype=torch.int32)
+            for kind, (kf, vf, sf) in pools.items():
+                int8 = sf is not None
+                whole = b2(q, kf, vf, table, q_offset=qoff, block_scales=sf)
+                parts = []
+                for r in range(W):
+                    kr, vr = kf[r * nl:(r + 1) * nl], vf[r * nl:(r + 1) * nl]
+                    sr = None if sf is None else tuple(
+                        x[r * nl:(r + 1) * nl] for x in sf)
+                    loc = table - r * nl
+                    loc = torch.where((loc >= 0) & (loc < nl), loc,
+                                      -1).to(torch.int32)
+
+                    def fn(kr=kr, vr=vr, loc=loc, sr=sr):
+                        return b2(q, kr, vr, loc, q_offset=qoff,
+                                  block_scales=sr, local_blocks=True)
+
+                    def plain(kr=kr, vr=vr, loc=loc, sr=sr):
+                        return cuda_decode.paged_decode_plain(
+                            q, kr, vr, loc, q_offset=qoff, block_scales=sr,
+                            local_blocks=True)
+
+                    name = (f"W{W} rank{r} {kind} B8 H16 block64 NB10 Tq{tq} "
+                            f"ragged")
+                    if r == 0:
+                        keys, pairs = held_counts(loc, qoff, tq)
+                        elem = 1 if int8 else 2
+                        nbytes = (keys * 16 * 128 * elem * 2 + q.numel() * 4
+                                  + (int((loc >= 0).sum()) * 16 * 8
+                                     if int8 else 0))
+                        kg, vg = gather_paged_kv(
+                            deq(kr, sr[0][..., None, None]) if int8 else kr,
+                            deq(vr, sr[1][..., None, None]) if int8 else vr,
+                            loc)
+                        held = (loc >= 0).repeat_interleave(blk, 1)
+                        mask = gqa_mask(qoff, tq, nb * blk) & \
+                            held[:, None, None, :]
+                        sdpa = (lambda kg=kg, vg=vg, mask=mask:
+                                F.scaled_dot_product_attention(
+                                    q, kg, vg, attn_mask=mask))
+                        record("flash_decode_paged_local", name, fn, plain,
+                               None if int8 else sdpa, nbytes,
+                               0.0 if int8 else 4.0 * 128 * pairs * 16,
+                               ops_s=(q8_ops_s(16 * pairs, False) if int8
+                                      else None),
+                               yardstick=sdpa if int8 else None,
+                               names=own)
+                        del kg, vg, mask
+                    else:
+                        ok, eo, er, el = gate(fn(), plain())
+                        if not ok:
+                            fail(f"B2 local_blocks {name}: |dout| {eo:.3e}, "
+                                 f"relative {er:.3e}, |dlse| {el:.3e}")
+                    parts.append(fn())
+                merged = merge_partials(torch.stack([o for o, _ in parts]),
+                                        torch.stack([l for _, l in parts]))
+                ok, eo, er, el = gate(merged, whole)
+                local_merge[f"W{W} {kind} Tq{tq}"] = {
+                    "pass": ok, "max_abs_err": eo, "max_rel_err": er,
+                    "max_abs_err_lse": el}
+                print(f"B2 local_blocks W{W} {kind} Tq{tq}: {W} partials "
+                      f"merged vs unsharded B2: |dout| {eo:.3e} relative "
+                      f"{er:.3e} |dlse| {el:.3e}", flush=True)
+                if not ok:
+                    fail(f"B2 local_blocks W{W} {kind} Tq{tq}: merged "
+                         f"partials differ from unsharded B2")
+    # A row whose every block another rank holds is exactly (0, -inf); and
+    # the gate rejects a remote entry read as block 0 (the call without the
+    # flag, remote entries clamped to 0: what an unguarded kernel reads).
+    kf, vf, _ = pools["exact"]
+    kr, vr = kf[:nl], vf[:nl]
+    loc = torch.where((table >= 0) & (table < nl), table, -1).to(torch.int32)
+    loc[3] = -1
+    o, l = b2(q, kr, vr, loc, q_offset=qoff, local_blocks=True)
+    identity = bool(torch.all(o[3] == 0) and torch.all(torch.isneginf(l[3])))
+    read0 = gate(b2(q, kr, vr, loc.clamp(min=0), q_offset=qoff),
+                 cuda_decode.paged_decode_plain(q, kr, vr, loc, q_offset=qoff,
+                                                local_blocks=True))
+    local_teeth = {"all_remote_row_is_identity": identity,
+                   "remote_read_as_block0": {"pass": read0[0],
+                                             "rel": read0[2],
+                                             "dlse": read0[3]}}
+    print(f"B2 local_blocks: all-remote row exactly (0, -inf): {identity}; "
+          f"remote entries read as block 0 -> relative |dout| "
+          f"{read0[2]:.3e}, |dlse| {read0[3]:.3e}, rejected: "
+          f"{not read0[0]}", flush=True)
+    if not identity or read0[0]:
+        fail("B2 local_blocks: an all-remote row is not (0, -inf), or the "
+             "gate accepts remote entries read as block 0")
+    del pools, codes, scales, kf, vf, kr, vr, parts, merged, whole, o, l
+
+    # -- 2c. per-shard tree_decode at the reference workload ---------------
+    # B1 (H16, Tk 64000, Tq 1, bf16) over W = 2 and 4 KV shards, each with
+    # its kv_offset, and B4 over the shards of the channel-quantized K/V
+    # (scales of the whole sequence); the merged partials against the
+    # unsharded B1 / B4 under the row gate.
+    q = rnd(1, 16, 1, 128)
+    k, v = rnd(1, 16, 64000, 128), rnd(1, 16, 64000, 128)
+    kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(k, v)
+    tree_merge = {}
+    for kind, full, shard_fn in (
+            ("B1", cuda_decode.attention_cuda_decode(q, k, v),
+             lambda lo, hi: cuda_decode.attention_cuda_decode(
+                 q, k[:, :, lo:hi], v[:, :, lo:hi], kv_offset=lo)),
+            ("B4", cuda_decode.attention_cuda_decode_q8q(q, kq, vq, ks, vs),
+             lambda lo, hi: cuda_decode.attention_cuda_decode_q8q(
+                 q, kq[:, :, lo:hi], vq[:, :, lo:hi], ks, vs,
+                 kv_offset=lo))):
+        for W in (2, 4):
+            step = 64000 // W
+            parts = [shard_fn(r * step, (r + 1) * step) for r in range(W)]
+            merged = merge_partials(torch.stack([o for o, _ in parts]),
+                                    torch.stack([l for _, l in parts]))
+            ok, eo, er, el = gate(merged, full)
+            tree_merge[f"{kind} W{W}"] = {"pass": ok, "max_abs_err": eo,
+                                          "max_rel_err": er,
+                                          "max_abs_err_lse": el}
+            print(f"tree_decode shards, reference workload, {kind} W{W}: "
+                  f"merged vs unsharded |dout| {eo:.3e} relative {er:.3e} "
+                  f"|dlse| {el:.3e}", flush=True)
+            if not ok:
+                fail(f"tree_decode {kind} W{W}: merged shards differ from "
+                     f"the unsharded kernel")
+    del q, k, v, kq, vq, ks, vs, parts, merged
+
     # B3: a Tq=256 prefill chunk against a 2k-token gathered view.
     q, k, v = rnd(8, 16, 256, 128), rnd(8, 16, 2048, 128), rnd(8, 16, 2048, 128)
     qoff = torch.randint(0, 2048 - 256, (8,), generator=g, device=dev,
@@ -920,7 +1321,7 @@ def main() -> None:
     serve_cfg = parse_args(SERVE_ARGS)
     reset_counts()
     t0 = time.monotonic()
-    rec, server = cli.run_serve(serve_cfg, dev)
+    rec, server, serve_rep = cli.run_serve(serve_cfg, dev)
     torch.cuda.synchronize()
     serve_wall = time.monotonic() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
@@ -939,6 +1340,8 @@ def main() -> None:
     for n in ("flash_decode_paged", "flash_fwd"):
         if launches[n] == 0:
             fail(f"serve never launched {n}")
+    single_tokens = {r.uid: r.tokens for r in serve_rep.results}
+    single_pool_bytes = server.pool_bytes()
 
     # Where a serve step's time goes: one more wave (8 requests) on the
     # same weights, served once untraced (its wall) and once traced (its
@@ -1219,6 +1622,85 @@ def main() -> None:
     del server, params, qcache, lk, lp, ck, cp, k8, v8
     torch.cuda.empty_cache()
 
+    # -- 3c. two ranks sharing the card: the sequence-sharded pool ---------
+    sharded = run_sharded_ranks()
+    sh = {label: [r[label] for r in sharded] for label in ("exact", "int8")}
+    for label, ranks in sh.items():
+        for rank, r in enumerate(ranks):
+            rrec, n_steps = r["rec"], r["rec"]["steps"]
+            n_att = n_layers * n_steps
+            want_colls = {"paged_tree_decode/pmax": n_att,
+                          "paged_tree_decode/psum_num": n_att,
+                          "paged_tree_decode/psum_den": n_att}
+            if label == "int8":
+                want_colls["paged_anchor_scales/psum"] = n_steps
+            print(f"sharded serve ({label}), rank {rank} of 2 on one card "
+                  f"over gloo: {rrec['requests']} requests, "
+                  f"{rrec['tokens_generated']} tokens, {rrec['tokens_per_sec']}"
+                  f" tok/s (two ranks sharing one card, not a scaling "
+                  f"figure), steps {n_steps}, launches "
+                  f"{json.dumps(r['launches'])}, collectives "
+                  f"{json.dumps(r['colls'])}, pool bytes {r['pool_bytes']} "
+                  f"of {r['whole_pool_bytes']}, wall {r['wall_s']:.2f}s",
+                  flush=True)
+            if rrec["outcomes"] != {"budget": 16} or \
+                    rrec["tokens_generated"] != 16 * 64:
+                fail(f"sharded serve ({label}) rank {rank}: outcomes "
+                     f"{rrec['outcomes']}, {rrec['tokens_generated']} tokens")
+            if any(rrec["leaks"][k] for k in rrec["leaks"]):
+                fail(f"sharded serve ({label}) rank {rank} leaked: "
+                     f"{rrec['leaks']}")
+            if 2 * r["pool_bytes"] != r["whole_pool_bytes"]:
+                fail(f"sharded serve ({label}) rank {rank}: pool bytes "
+                     f"{r['pool_bytes']}, not half of {r['whole_pool_bytes']}")
+            # B2 local_blocks once per layer and step; nothing else attends
+            # over the sharded pool (int8: B1/B3 run the staged chunks on
+            # the whole staging cache).
+            lc = r["launches"]
+            if not (n_steps > 0 and lc["flash_decode_paged_local"] == n_att
+                    and lc["flash_decode_paged"] == 0
+                    and lc["flash_decode_paged_q8q"] == 0):
+                fail(f"sharded serve ({label}) rank {rank}: launches {lc} "
+                     f"over {n_steps} steps")
+            if label == "exact" and lc["flash_fwd"]:
+                fail(f"sharded serve (exact) rank {rank} ran B3: {lc}")
+            if r["colls"] != want_colls:
+                fail(f"sharded serve ({label}) rank {rank}: collectives "
+                     f"{r['colls']}, expected {want_colls}")
+        if ranks[0]["tokens"] != ranks[1]["tokens"]:
+            fail(f"sharded serve ({label}): the ranks' tokens differ")
+    if sh["exact"][0]["whole_pool_bytes"] != single_pool_bytes:
+        fail(f"sharded serve: whole pool {sh['exact'][0]['whole_pool_bytes']}"
+             f" B vs the single-rank serve's {single_pool_bytes} B")
+    for rank, r in enumerate(sharded):
+        m = r["mixed"]
+        print(f"sharded mixed step, rank {rank}: merged logits vs the "
+              f"single-rank path on the same logical cache |d| "
+              f"{m['logits_err']:.3e} (tol {TOL_LOGITS})", flush=True)
+        if not (math.isfinite(m["logits_err"])
+                and m["logits_err"] <= TOL_LOGITS):
+            fail(f"sharded mixed step, rank {rank}: logits differ by "
+                 f"{m['logits_err']}")
+    same = sum(a == b for uid, toks in sh["exact"][0]["tokens"].items()
+               for a, b in zip(toks, single_tokens[uid]))
+    sharded_agree = same / (16 * 64)
+    print(f"sharded serve: {same} of {16 * 64} greedy tokens equal the "
+          f"single-rank exact serve's ({sharded_agree:.4f}; reported, not "
+          f"gated)", flush=True)
+    mdec = sharded[0]["decode"]
+    floor_ms = mdec["kv_bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"decode on two ranks sharing one card (gloo; two ranks sharing "
+          f"one card, not a scaling figure): {mdec['name']} "
+          f"{mdec['median_s'] * 1e3:.4f} ms per step ({mdec['clock']}; this "
+          f"rank's KV floor {floor_ms:.4f} ms), B1 launches "
+          f"{[r['decode_launches'] for r in sharded]}", flush=True)
+    if mdec["name"] != "tree_decode" or not all(
+            r["decode_launches"] for r in sharded) \
+            or mdec["median_s"] * 1e3 < floor_ms:
+        fail(f"decode on the mesh: {mdec['name']}, launches "
+             f"{[r['decode_launches'] for r in sharded]}, median "
+             f"{mdec['median_s']} s")
+
     # -- 4. decode: the reference workload through B1, then int8 through
     # B4 and through B1 over int8 K/V ---------------------------------------
     decode_recs = {}
@@ -1375,6 +1857,9 @@ def main() -> None:
         "flash_decode_paged_q8q": (
             "cuda", csrc + "flash_decode.cu",
             "tree_attention_tpu/ops/pallas_decode.py:461"),
+        "flash_decode_paged_local": (
+            "cuda", csrc + "flash_decode.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:344"),
         "flash_fwd": ("cuda", csrc + "flash_fwd.cu",
                       "tree_attention_tpu/ops/pallas_attention.py:65"),
         "flash_dq": ("cuda", csrc + "flash_bwd.cu",
@@ -1392,6 +1877,9 @@ def main() -> None:
         "flash_decode_paged_q8q"]
     main_launches["flash_decode_q8q"] = (decode_recs["int8"]["launches"]
                                          + c_launches["flash_decode_q8q"])
+    # B2 local_blocks: rank 0's launches in the two-rank exact sharded serve.
+    main_launches["flash_decode_paged_local"] = sh["exact"][0]["launches"][
+        "flash_decode_paged_local"]
     kernels = []
     for name, (route, src, replaces) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -1429,6 +1917,16 @@ def main() -> None:
                 decode_recs["int8-cast"]["launches"] if name == "flash_decode"
                 else x_launches[name])
             entry["launches_int8_serve_staged"] = q_launches[name]
+        if name == "flash_decode_paged_local":
+            entry["launches_per_rank"] = {
+                label: [r["launches"][name] for r in ranks]
+                for label, ranks in sh.items()}
+            entry["int8_block_scales"] = next(
+                {k: c[k] for k in ("case", "ms", "call_ms", "plain_ms",
+                                   "bound_ms", "bound_by",
+                                   "yardstick_sdpa_dequant_ms",
+                                   "max_rel_err")}
+                for c in mine if " int8 " in c["case"])
         if name in ("flash_fwd", "flash_dq"):
             # bf16 runs the tensor-core body: its HGMMA count in the SASS.
             entry["hgmma_sass"] = sum(c for n, c in hgmma.items()
@@ -1463,6 +1961,13 @@ def main() -> None:
                    "train_step_vs_plain": {"loss": [loss_k, loss_p],
                                            "grad_rel": grad_rel},
                    "train_breakdown": train_breakdown,
+                   "local_blocks_merge": local_merge,
+                   "local_blocks_teeth": local_teeth,
+                   "tree_decode_shards": tree_merge,
+                   "sharded": [{k: r[k] for k in ("exact", "int8", "mixed",
+                                                  "decode", "decode_launches")}
+                               for r in sharded],
+                   "sharded_tokens_equal_to_single": sharded_agree,
                    "ptxas": ptxas, "hgmma_sass": hgmma, "tile_edges": edges,
                    "one_key_rows": one_key_rows,
                    "kernels": kernels}, f, indent=1)

@@ -37,6 +37,10 @@ PORT_MODULES = [
     "tree_attention_tpu_torch.ops.reference",
     "tree_attention_tpu_torch.ops.tuning",
     "tree_attention_tpu_torch.ops.vjp",
+    "tree_attention_tpu_torch.parallel",
+    "tree_attention_tpu_torch.parallel.accounting",
+    "tree_attention_tpu_torch.parallel.mesh",
+    "tree_attention_tpu_torch.parallel.tree",
     "tree_attention_tpu_torch.serving",
     "tree_attention_tpu_torch.serving.block_pool",
     "tree_attention_tpu_torch.serving.engine",

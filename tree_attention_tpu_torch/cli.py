@@ -17,6 +17,17 @@ trace through the continuous-batching :class:`SlotServer`; ``train`` takes
 ``--ckpt-dir``/``--resume`` checkpointing) and times one more. Everything
 runs on the GPU unless ``--device cpu`` is given; with no usable GPU the CLI
 exits with an error instead of falling back.
+
+Under ``--mesh seq=W`` the CLI runs once per rank, e.g.::
+
+    torchrun --standalone --nproc-per-node 2 -m tree_attention_tpu_torch \
+        --mesh seq=2 --mode serve --kv-shard seq ...
+
+``decode`` then shards the KV sequence over the ranks and merges their
+partials with the tree all-reduce (record ``tree_decode``); ``serve`` with
+``--kv-shard seq`` serves from a sequence-sharded paged pool. The process
+group forms before any device work and is destroyed on exit; only rank 0
+prints the record.
 """
 
 from __future__ import annotations
@@ -26,11 +37,20 @@ import dataclasses
 import json
 import logging
 import sys
+import zlib
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from tree_attention_tpu_torch.obs.metrics import TRAIN_STEPS, TRAIN_TOKENS
+from tree_attention_tpu_torch.parallel.mesh import (
+    AXIS_SEQ,
+    Mesh,
+    dist_info,
+    initialize_distributed,
+    make_mesh,
+)
 from tree_attention_tpu_torch.utils import resolve_device
 from tree_attention_tpu_torch.utils.config import RunConfig, parse_args
 from tree_attention_tpu_torch.utils.logging import get_logger, setup_logging
@@ -58,39 +78,92 @@ def check_kv_quant(cfg: RunConfig) -> Optional[str]:
     return kernel
 
 
-def run_decode(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
+def _seq_sharded(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.axis_size(AXIS_SEQ) > 1
+
+
+def _quantize_across(k: torch.Tensor, v: torch.Tensor, mesh: Mesh):
+    """Per-channel int8 quantization of this rank's K/V shard under the
+    scales of the WHOLE sequence: each channel's absmax is taken over every
+    rank's shard (one MAX all-reduce; setup, outside any timed call), then
+    the q8 contract (:func:`quantize_symmetric_int8`'s scale and rounding)
+    runs against it."""
+    from tree_attention_tpu_torch.ops.cuda_decode import (
+        quantize_symmetric_int8,
+    )
+
+    out = []
+    for x in (k, v):
+        amax = x.float().abs().amax(2, keepdim=True)
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                        group=mesh.group(AXIS_SEQ))
+        out.append(quantize_symmetric_int8(x, 2, amax=amax))
+    (k_q, k_s), (v_q, v_s) = out
+    return k_q, v_q, k_s, v_s
+
+
+def run_decode(cfg: RunConfig, dev: torch.device,
+               mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """The reference workload: one attention step over a KV cache, timed;
     with ``--kv-quant`` over its per-channel int8 quantization through the
-    q8 route it names."""
-    from tree_attention_tpu_torch.data import make_qkv
+    q8 route it names. On a mesh whose ``seq`` axis is larger than 1 the
+    KV sequence is sharded over the ranks (each makes only its own shard)
+    and each timed call is this rank's partial plus the tree merge."""
+    from tree_attention_tpu_torch.data import make_qkv, make_qkv_sharded
     from tree_attention_tpu_torch.ops import flash_attention
     from tree_attention_tpu_torch.ops.cuda_decode import (
         quantize_kv_channelwise,
         resolve_q8_kernel,
     )
+    from tree_attention_tpu_torch.parallel.tree import (
+        tree_decode,
+        tree_decode_q8,
+    )
 
     kernel = check_kv_quant(cfg)
     hkv = cfg.resolved_kv_heads()
-    q, k, v = make_qkv(
-        torch.Generator(device=dev).manual_seed(cfg.seed), batch=cfg.batch,
-        heads=cfg.heads, kv_heads=hkv, q_len=cfg.q_len, seq_len=cfg.seq_len,
-        head_dim=cfg.head_dim, dtype=_DTYPES[cfg.dtype], device=dev,
-    )
+    shape = dict(batch=cfg.batch, heads=cfg.heads, kv_heads=hkv,
+                 q_len=cfg.q_len, seq_len=cfg.seq_len,
+                 head_dim=cfg.head_dim, dtype=_DTYPES[cfg.dtype], device=dev)
+    sharded = _seq_sharded(mesh)
+    if sharded:
+        if cfg.impl not in ("auto", "plain"):
+            raise SystemExit(f"--mesh runs the decode kernels or their "
+                             f"plain versions; --impl {cfg.impl} cannot")
+        q, k, v = make_qkv_sharded(cfg.seed, mesh, **shape)
+    else:
+        q, k, v = make_qkv(torch.Generator(device=dev).manual_seed(cfg.seed),
+                           **shape)
     name, impl, extra = "decode", cfg.impl, {}
-    if kernel is None:
+    if kernel is None and sharded:
+        name = "tree_decode"
+        stats = time_fn(tree_decode, q, k, v, mesh=mesh, causal=cfg.causal,
+                        impl=cfg.impl, iters=cfg.iters, warmup=cfg.warmup,
+                        device=dev)
+    elif kernel is None:
         stats = time_fn(flash_attention, q, k, v, causal=cfg.causal,
                         impl=cfg.impl, iters=cfg.iters, warmup=cfg.warmup,
                         device=dev)
     else:
-        k, v, k_s, v_s = quantize_kv_channelwise(k, v)
-        fn = resolve_q8_kernel(kernel, plain=cfg.impl == "plain")
-        stats = time_fn(fn, q, k, v, k_s, v_s, causal=cfg.causal,
-                        iters=cfg.iters, warmup=cfg.warmup, device=dev)
-        name, extra = "decode_" + kernel, {"kv_quant": cfg.kv_quant}
+        if sharded:
+            k, v, k_s, v_s = _quantize_across(k, v, mesh)
+            name = "tree_decode_" + kernel
+            stats = time_fn(tree_decode_q8, q, k, v, k_s, v_s, mesh=mesh,
+                            causal=cfg.causal, kernel=kernel, impl=cfg.impl,
+                            iters=cfg.iters, warmup=cfg.warmup, device=dev)
+        else:
+            k, v, k_s, v_s = quantize_kv_channelwise(k, v)
+            fn = resolve_q8_kernel(kernel, plain=cfg.impl == "plain")
+            stats = time_fn(fn, q, k, v, k_s, v_s, causal=cfg.causal,
+                            iters=cfg.iters, warmup=cfg.warmup, device=dev)
+            name = "decode_" + kernel
+        extra = {"kv_quant": cfg.kv_quant}
         # What actually ran: B4, or B1 over int8 K/V, or a plain version.
         impl = ("plain" if cfg.impl == "plain" or dev.type == "cpu"
                 else {"q8q": "flash_decode_q8q", "q8": "flash_decode"}[
                     kernel])
+    if sharded:
+        extra.update(_mesh_record(cfg, mesh, dev))
     flops = 4.0 * cfg.batch * cfg.heads * cfg.q_len * cfg.seq_len \
         * cfg.head_dim
     log.info("%s: %d KV tokens, %d heads x %d, %s on %s: median %.6fs",
@@ -104,7 +177,7 @@ def run_decode(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
             "q_len": cfg.q_len, "dtype": cfg.dtype, "causal": cfg.causal,
             "impl": impl, **extra,
         },
-        # The K and V bytes one step must stream.
+        # The K and V bytes one step must stream (this rank's shard).
         "kv_bytes": k.numel() * k.element_size() * 2,
         "device": device_name(dev),
         "tokens_per_sec": round(cfg.batch * cfg.seq_len / stats.median, 1),
@@ -112,6 +185,19 @@ def run_decode(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
         "clock": stats.clock,
         **stats.as_dict(),
     }
+
+
+def _mesh_record(cfg: RunConfig, mesh: Mesh, dev: torch.device
+                 ) -> Dict[str, Any]:
+    """What a record states about its mesh: the axes, the backend, and
+    how many of this host's ranks share each card (more than 1 only under
+    an explicit gloo backend)."""
+    rec: Dict[str, Any] = {"mesh": dict(mesh.shape),
+                           "dist_backend": cfg.resolved_dist_backend()}
+    if dev.type == "cuda":
+        rec["ranks_per_card"] = -(-dist_info().local_world_size
+                                  // torch.cuda.device_count())
+    return rec
 
 
 def transformer_config(cfg: RunConfig):
@@ -246,11 +332,15 @@ def run_generate(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
             **({"kv_quant": cfg.kv_quant} if kernel else {})}
 
 
-def run_serve(cfg: RunConfig, dev: torch.device
-              ) -> Tuple[Dict[str, Any], Any]:
+def run_serve(cfg: RunConfig, dev: torch.device,
+              mesh: Optional[Mesh] = None
+              ) -> Tuple[Dict[str, Any], Any, Any]:
     """Drain a synthetic trace through the SlotServer; returns the JSON
-    record and the drained server."""
-    from tree_attention_tpu_torch.models import init_params
+    record, the drained server and its ``ServeReport``. Under a mesh every
+    rank serves the same trace; with ``--kv-shard seq`` from its slice of
+    the sharded pool. The ranks' token streams are checked equal at the end
+    (one all-reduce)."""
+    from tree_attention_tpu_torch.models import init_params, round_cache_len
     from tree_attention_tpu_torch.serving import SlotServer, synthetic_trace
 
     if cfg.max_new_tokens < 1:
@@ -274,8 +364,16 @@ def run_serve(cfg: RunConfig, dev: torch.device
         raise SystemExit("--kv-block must be a power of two >= 1")
     if cfg.kv_blocks is not None and cfg.kv_blocks < 1:
         raise SystemExit("--kv-blocks must be >= 1")
+    if cfg.kv_shard == "seq" and cfg.kv_layout != "paged":
+        raise SystemExit("--kv-shard seq requires --kv-layout paged (it "
+                         "shards the block pool)")
+    if _seq_sharded(mesh) and cfg.kv_layout != "paged":
+        raise SystemExit("--mesh serves from the paged layout: a contiguous "
+                         "cache sharded over seq is a later slice of the "
+                         "port (ROADMAP)")
     kernel = check_kv_quant(cfg)
-    cache_len = cfg.prompt_len + cfg.prompt_jitter + cfg.max_new_tokens
+    cache_len = round_cache_len(
+        cfg.prompt_len + cfg.prompt_jitter + cfg.max_new_tokens, mesh)
     tcfg = transformer_config(dataclasses.replace(cfg, seq_len=cache_len))
     params = init_params(tcfg, cfg.seed, dev)
     server = SlotServer(
@@ -285,7 +383,7 @@ def run_serve(cfg: RunConfig, dev: torch.device
         slo_ttft=cfg.slo_ttft, slo_tbt=cfg.slo_tbt,
         kv_layout=cfg.kv_layout, kv_block=cfg.kv_block,
         kv_blocks=cfg.kv_blocks, quantize=kernel is not None,
-        quant_kernel=kernel or "q8q",
+        quant_kernel=kernel or "q8q", mesh=mesh, kv_shard=cfg.kv_shard,
     )
     trace = synthetic_trace(
         cfg.requests, prompt_len=cfg.prompt_len,
@@ -296,6 +394,11 @@ def run_serve(cfg: RunConfig, dev: torch.device
     report = server.serve(trace)
     log.info("served %d requests on %d slot(s): %.1f tokens/s aggregate",
              len(report.results), cfg.slots, report.tokens_per_sec)
+    mesh_rec = {}
+    if _seq_sharded(mesh):
+        _check_ranks_agree(report, mesh)
+        mesh_rec = {**_mesh_record(cfg, mesh, dev),
+                    "kv_shard": cfg.kv_shard}
     record = {
         "mode": "serve",
         "device": device_name(dev),
@@ -304,31 +407,75 @@ def run_serve(cfg: RunConfig, dev: torch.device
         "prefill_chunk": cfg.prefill_chunk,
         "kv_layout": cfg.kv_layout,
         **({"kv_quant": cfg.kv_quant} if kernel else {}),
+        **mesh_rec,
         **report.as_dict(),
         "leaks": server.leak_report(),
     }
-    return record, server
+    return record, server, report
+
+
+def _check_ranks_agree(report, mesh: Mesh) -> None:
+    """Every rank must have served the same tokens: the merged attention
+    comes out of an all-reduce, so logits and greedy tokens agree by
+    construction — checked here, not assumed, with one MAX all-reduce of
+    each rank's digest and its negation."""
+    flat = [t for r in report.results for t in [r.uid, *r.tokens, -1]]
+    digest = zlib.crc32(",".join(map(str, flat)).encode())
+    on = (torch.device("cuda", torch.cuda.current_device())
+          if dist.get_backend() == "nccl" else torch.device("cpu"))
+    both = torch.tensor([digest, -digest], dtype=torch.int64, device=on)
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=mesh.group(AXIS_SEQ))
+    if int(both[0]) != digest or int(-both[1]) != digest:
+        raise RuntimeError(
+            f"rank {mesh.rank}: the ranks served different tokens (digest "
+            f"{digest}, max {int(both[0])}, min {int(-both[1])})")
 
 
 def main(argv: Optional[list] = None) -> int:
     cfg = parse_args(argv)
-    setup_logging(getattr(logging, cfg.log_level.upper()),
-                  log_file=cfg.log_file)
+    axes = cfg.mesh_axes()
+    mesh = None
+    created = False
     try:
-        dev = resolve_device(cfg.device)
-    except RuntimeError as e:
-        raise SystemExit(f"error: {e}") from None
-    log.info("device=%s mode=%s", device_name(dev), cfg.mode)
-    if cfg.mode == "decode":
-        record = run_decode(cfg, dev)
-    elif cfg.mode == "generate":
-        record = run_generate(cfg, dev)
-    elif cfg.mode == "train":
-        record = run_train(cfg, dev)
-    else:
-        record, _ = run_serve(cfg, dev)
-    print(json.dumps(record))
-    return 0
+        if axes is not None:
+            # The process group forms before any device work; the rank's
+            # device is checked against the backend first.
+            try:
+                dev, created = initialize_distributed(
+                    cfg.resolved_dist_backend(), cfg.device)
+                mesh = make_mesh(axes)
+            except (RuntimeError, ValueError, NotImplementedError) as e:
+                raise SystemExit(f"error: {e}") from None
+        rank = mesh.rank if mesh is not None else 0
+        setup_logging(getattr(logging, cfg.log_level.upper())
+                      if rank == 0 else logging.WARNING,
+                      log_file=cfg.log_file)
+        if mesh is None:
+            try:
+                dev = resolve_device(cfg.device)
+            except RuntimeError as e:
+                raise SystemExit(f"error: {e}") from None
+        log.info("device=%s mode=%s%s", device_name(dev), cfg.mode,
+                 f" mesh={dict(mesh.shape)}" if mesh is not None else "")
+        if mesh is not None and cfg.mode in ("generate", "train") \
+                and mesh.size > 1:
+            raise SystemExit(
+                f"--mode {cfg.mode} on a mesh is a later slice of the port "
+                "(ROADMAP): decode and serve run on one")
+        if cfg.mode == "decode":
+            record = run_decode(cfg, dev, mesh)
+        elif cfg.mode == "generate":
+            record = run_generate(cfg, dev)
+        elif cfg.mode == "train":
+            record = run_train(cfg, dev)
+        else:
+            record, _, _ = run_serve(cfg, dev, mesh)
+        if rank == 0:
+            print(json.dumps(record))
+        return 0
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

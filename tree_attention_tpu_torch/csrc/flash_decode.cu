@@ -5,11 +5,13 @@
 //   _flash_decode_paged_kernel      (B2: KV read through a (B, NB) block
 //                                    table over an (N, Hkv, block, D) pool;
 //                                    exact, or int8 with optional per-block
-//                                    K/V scalars)
+//                                    K/V scalars; with local_blocks, one
+//                                    rank's slice of a sequence-sharded
+//                                    pool under a signed table)
 //   _flash_decode_q8q_kernel        (B4: int8 Q x int8 K -> int32 scores)
 //   _flash_decode_paged_q8q_kernel  (B5: B4 through the block table, with
 //                                    optional per-block K/V scalars)
-// no tree or local-block flags. One body serves four operand variants:
+// no tree flag. One body serves four operand variants:
 //   exact  q, k, v and out all f32 or all bf16;
 //   cast   q bf16, k/v int8 widened to float (exact for [-127, 127]), out
 //          bf16 — the "q8" route over B1/B2;
@@ -51,6 +53,17 @@
 //   and never dereferences table entries past its length.
 // - Keys past Tk are never loaded: their V lines (and per-block scalars)
 //   stay 0, so a masked p = 0 never meets garbage (0 * NaN).
+// - local_blocks (B2 only; the sequence-sharded pool, where each rank holds
+//   a slice of the blocks): the table is SIGNED, a negative entry names a
+//   block another rank holds. Its keys are treated like keys past Tk — K,
+//   V and the per-block scalars are never read at that entry (the TPU
+//   kernel clamps its DMA to pool row 0 instead; here nothing needs to
+//   stream), and the keys are masked out of the softmax. A chunk of keys
+//   that are all remote is skipped whole. A row whose every visible block
+//   is remote keeps m = -inf, l = 0 and finalizes to (0, -inf), the merge
+//   identity. The split heuristic still sizes splits on NB * blk, the
+//   logical length, though a rank holds about 1/W of the blocks: a split
+//   over remote blocks only costs its table reads and a (0, -inf) partial.
 #include <type_traits>
 
 #include "common.cuh"
@@ -76,6 +89,7 @@ struct Args {
   void* out;              // (BH, R, D) in the output type
   float* lse;             // (BH, R)
   int B, Hkv, R, Tq, Tk, blk, NB, split_len, causal;
+  int local;              // paged: negative table entries are remote blocks
   float scale;            // softmax scale (unused by q8q: folded into Q)
 };
 
@@ -173,13 +187,23 @@ decode_split_kernel(const Args a) {
   for (int j = j0; j < j1; j += kKeysPerChunk) {
     ta::Line<TKV, N> kl[kKeysPerChunk], vl[kKeysPerChunk];
     float ksc[kScaleSlots], vsc[kScaleSlots];
+    // Bit c: key j + c was loaded (below j1 and, under local_blocks, on a
+    // block this rank holds). The same for every lane of the warp.
+    uint32_t loaded = 0;
 #pragma unroll
     for (int c = 0; c < kKeysPerChunk; ++c) {
       const int jj = j + c;
-      if (jj < j1) {
+      bool ok = jj < j1;
+      int pb = 0;
+      if constexpr (kPaged) {
+        if (ok) {
+          pb = a.table[b * a.NB + jj / a.blk];
+          if (a.local && pb < 0) ok = false;  // a remote block
+        }
+      }
+      if (ok) {
         size_t base;
         if constexpr (kPaged) {
-          const int pb = a.table[b * a.NB + jj / a.blk];
           base = (((size_t)pb * a.Hkv + h) * a.blk + (jj % a.blk)) * D;
           if constexpr (kScales) {
             ksc[c] = a.ks[pb * a.Hkv + h];
@@ -190,6 +214,7 @@ decode_split_kernel(const Args a) {
         }
         kl[c].load(k + base + lane * N);
         vl[c].load(v + base + lane * N);
+        loaded |= 1u << c;
       } else {
         kl[c].zero();
         vl[c].zero();
@@ -199,6 +224,7 @@ decode_split_kernel(const Args a) {
         }
       }
     }
+    if (loaded == 0) continue;  // every key of the chunk is remote
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
       if (r >= nrows) continue;
@@ -209,7 +235,8 @@ decode_split_kernel(const Args a) {
         float sc = dot(qr[r], kl[c]) * qmul[r];
         if constexpr (kScales) sc *= ksc[c];  // this key's block K scalar
         const int jj = j + c;
-        const bool vis = jj < j1 && (!a.causal || kv_off + jj <= qpos[r]);
+        const bool vis = ((loaded >> c) & 1u) &&
+                         (!a.causal || kv_off + jj <= qpos[r]);
         s[c] = vis ? sc : ta::kNegInf;
         mx = fmaxf(mx, s[c]);
       }
@@ -347,8 +374,10 @@ int flash_decode_warps_per_cta() { return kWarps; }
 // (N, Hkv, blk, D) pools read through table (B, NB), Tk = NB*blk. ks/vs:
 // per-block (N, Hkv) f32 scalars of an int8 pool, or null. rows_per_warp:
 // 1 or 8 packed query rows per warp (the Q tile). o_part/lse_part hold
-// split_ctas * warps_per_cta partials. Returns the CUDA error of the
-// launches (0 on success).
+// split_ctas * warps_per_cta partials. local_blocks (paged only): the table
+// is signed and a negative entry is a block another rank holds — never
+// read, its keys masked. Returns the CUDA error of the launches (0 on
+// success).
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const void* qs, const void* ks, const void* vs,
                         const void* offs, const void* table, void* o_part,
@@ -356,15 +385,17 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         int D, int paged, int rows_per_warp, int B, int Hkv,
                         int R, int Tq, int Tk, int blk, int NB,
                         int split_ctas, int split_len, int causal,
-                        float scale, void* stream) {
+                        int local_blocks, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((ks == nullptr) != (vs == nullptr)) return cudaErrorInvalidValue;
+  if (local_blocks && !paged) return cudaErrorInvalidValue;
   Args a{q, k, v, static_cast<const float*>(qs),
          static_cast<const float*>(ks), static_cast<const float*>(vs),
          static_cast<const int32_t*>(offs),
          static_cast<const int32_t*>(table), static_cast<float*>(o_part),
          static_cast<float*>(lse_part), out, static_cast<float*>(lse),
-         B, Hkv, R, Tq, Tk, blk, NB, split_len, causal, scale};
+         B, Hkv, R, Tq, Tk, blk, NB, split_len, causal, local_blocks,
+         scale};
   switch (variant) {
     case kExactF32:
       return by_layout<float, float, float>(paged, rows_per_warp, D, a,

@@ -1,6 +1,6 @@
 """Autoregressive decoding: KV caches, the mixed-Tq step, sampling, generate.
 
-Counterpart of ``tree_attention_tpu/models/decode.py`` (single device):
+Counterpart of ``tree_attention_tpu/models/decode.py``:
 
 - :class:`KVCache` — per-layer buffers ``(L, B, Hkv, Tmax, D)`` plus a
   per-slot length vector ``(B,)``.
@@ -17,6 +17,12 @@ Counterpart of ``tree_attention_tpu/models/decode.py`` (single device):
 Unlike the JAX package (immutable arrays), the cache buffers are updated IN
 PLACE: a step writes its new rows into the cache tensors it was given and
 returns a cache object with the advanced lengths over the same buffers.
+
+Under a mesh with ``kv_shard="seq"`` a paged pool is sequence-SHARDED: rank
+``r`` of ``W`` holds global block ids ``[r N/W, (r+1) N/W)`` (plus its own
+drop block), the block tables stay global and the same on every rank, and
+attention runs the tree merge (``parallel/tree.py:paged_tree_decode``).
+Each rank writes only the rows whose blocks it holds.
 """
 
 from __future__ import annotations
@@ -44,6 +50,15 @@ from tree_attention_tpu_torch.ops.cuda_decode import (
     resolve_q8_kernel,
 )
 from tree_attention_tpu_torch.ops.decode import flash_decode
+from tree_attention_tpu_torch.parallel.accounting import account_payload
+from tree_attention_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh
+from tree_attention_tpu_torch.parallel.tree import (
+    all_reduce,
+    local_table,
+    paged_tree_decode,
+    tree_decode,
+    tree_decode_q8,
+)
 from tree_attention_tpu_torch.utils import resolve_device
 
 _CACHE_CAPACITY = obs.gauge(
@@ -86,6 +101,10 @@ class PagedKVCache:
     block holding slot ``i``'s tokens ``[j*block, (j+1)*block)``; unwritten
     entries stay at a valid index (0) and sit past the slot's length, where
     the causal mask hides them and the kernel never reads them.
+
+    On a sequence-sharded pool the buffers are this rank's slice, ``(L,
+    N/W + 1, Hkv, block, D)`` with the rank's drop block at ``N/W``, and
+    :attr:`blocks` counts the slice; ``table`` holds GLOBAL ids.
     """
 
     k: torch.Tensor      # (L, N + 1, Hkv, block, D)
@@ -181,22 +200,45 @@ def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int, *,
     )
 
 
+def _seq_shards(mesh: Optional[Mesh], kv_shard: str) -> int:
+    """The pool's shard count: the mesh's ``seq`` size under
+    ``kv_shard="seq"``, else 1 (a replicated pool)."""
+    if kv_shard not in ("replicated", "seq"):
+        raise ValueError(
+            f"kv_shard must be 'replicated' or 'seq', got {kv_shard!r}")
+    if kv_shard == "seq" and mesh is not None:
+        return mesh.axis_size(AXIS_SEQ)
+    return 1
+
+
 def init_paged_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
                      blocks: int, *, block: int = 64,
                      device: Union[str, torch.device] = "cuda",
-                     quantize: bool = False) -> PagedKVCache:
+                     quantize: bool = False, mesh: Optional[Mesh] = None,
+                     kv_shard: str = "replicated") -> PagedKVCache:
     """An empty paged cache: a ``blocks``-block pool (plus the drop block)
     and all-zero tables of ``ceil(max_len / block)`` entries per slot; with
     ``quantize`` int8 pools and unit per-block scales
     (:class:`PagedQuantKVCache`), so a paged and a contiguous int8 server
-    start alike."""
+    start alike.
+
+    ``kv_shard="seq"`` under ``mesh``: this rank's slice of a pool
+    sequence-sharded over the ``seq`` axis — ``blocks/W`` rows (``blocks``
+    must divide; callers round up) plus the rank's drop block; per-block
+    int8 scales are sharded with it. ``"replicated"``: the whole pool."""
     if block < 1 or block & (block - 1):
         raise ValueError(f"kv block must be a power of two, got {block}")
     if blocks < 1:
         raise ValueError(f"paged pool needs >= 1 block, got {blocks}")
+    n_sh = _seq_shards(mesh, kv_shard)
+    if blocks % n_sh:
+        raise ValueError(
+            f"kv_shard='seq': pool of {blocks} blocks must divide over "
+            f"{n_sh} '{AXIS_SEQ}' shards — round the pool up")
     dev = resolve_device(device)
     nb = -(-max_len // block)
-    shape = (cfg.n_layers, blocks + 1, cfg.n_kv_heads, block, cfg.d_head)
+    shape = (cfg.n_layers, blocks // n_sh + 1, cfg.n_kv_heads, block,
+             cfg.d_head)
     if obs.REGISTRY.enabled:
         _CACHE_CAPACITY.set(nb * block)
     dtype = torch.int8 if quantize else cfg.dtype
@@ -263,7 +305,9 @@ def quantize_paged_blocks(k: torch.Tensor, v: torch.Tensor, block: int
 
 def paged_insert_slot(cache: PagedQuantKVCache, slot: int,
                       k_rows: torch.Tensor, v_rows: torch.Tensor, plen: int,
-                      k_scale: torch.Tensor, v_scale: torch.Tensor
+                      k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+                      mesh: Optional[Mesh] = None,
+                      kv_shard: str = "replicated"
                       ) -> PagedQuantKVCache:
     """Place a B=1 quantized prompt into one slot's mapped blocks, in place.
 
@@ -272,10 +316,15 @@ def paged_insert_slot(cache: PagedQuantKVCache, slot: int,
     the drop block), the per-block scales ``(L, nb, Hkv)`` of the blocks
     that hold a prompt row land in the pool's scale arrays through the
     same row, and the slot's length becomes ``plen``. The caller maps
-    blocks covering ``[0, plen)`` first."""
+    blocks covering ``[0, plen)`` first. On a sequence-sharded pool
+    (``kv_shard="seq"`` under ``mesh``) the row is rebased to this rank's
+    ids, and rows and scales of blocks another rank holds go to the drop
+    block."""
     L, _, Hkv, T, D = k_rows.shape
     N, blk = cache.blocks, cache.block
     row = cache.table[slot].long()
+    if _seq_shards(mesh, kv_shard) > 1:
+        row = local_table(row, mesh, N, N)
     NB = row.shape[0]
     dev = row.device
     pos = torch.arange(T, device=dev)
@@ -349,18 +398,40 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      impl: str = "auto",
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
-                     quant_kernel: str = "q8q"
+                     quant_kernel: str = "q8q",
+                     mesh: Optional[Mesh] = None,
+                     kv_shard: str = "replicated"
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Op-level decode entry (single device): split-KV flash decode over a
-    contiguous buffer or, with ``block_table``, a paged pool. Passing
-    ``k_scale``/``v_scale`` (with int8 ``k``/``v``) selects the q8 routes,
-    ``quant_kernel`` which: ``"q8q"`` (B4/B5) or ``"q8"`` (the cast route
-    over B1/B2)."""
+    """Op-level decode entry: split-KV flash decode over a contiguous
+    buffer or, with ``block_table``, a paged pool; the tree merge across
+    ranks on a sequence-sharded cache. Passing ``k_scale``/``v_scale``
+    (with int8 ``k``/``v``) selects the q8 routes, ``quant_kernel`` which:
+    ``"q8q"`` (B4/B5) or ``"q8"`` (the cast route over B1/B2).
+
+    Under a mesh whose ``seq`` axis is larger than 1: a paged pool with
+    ``kv_shard="seq"`` (``k``/``v`` this rank's slice, the table global)
+    goes to :func:`paged_tree_decode` — B2 with ``local_blocks``, int8
+    slices through B2's cast route whatever ``quant_kernel`` says, as the
+    JAX package's sharded int8 pool does; a contiguous buffer (``k``/``v``
+    this rank's token shard) goes to :func:`tree_decode` /
+    :func:`tree_decode_q8`. A replicated paged pool ignores the mesh."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    sharded = mesh is not None and mesh.axis_size(AXIS_SEQ) > 1
+    if block_table is not None and sharded and kv_shard == "seq":
+        return paged_tree_decode(q, k, v, block_table, mesh=mesh,
+                                 q_position=q_position, k_scale=k_scale,
+                                 v_scale=v_scale, impl=impl)
+    if block_table is None and sharded:
+        if k_scale is not None:
+            return tree_decode_q8(q, k, v, k_scale, v_scale, mesh=mesh,
+                                  causal=True, q_position=q_position,
+                                  kernel=quant_kernel, impl=impl)
+        return tree_decode(q, k, v, mesh=mesh, causal=True,
+                           q_position=q_position, impl=impl)
     if k_scale is not None:
-        if impl not in ("auto", "plain"):
-            raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
         fn = resolve_q8_kernel(quant_kernel, plain=impl == "plain")
         return fn(q, k, v, k_scale, v_scale, causal=True,
                   q_offset=q_position, block_table=block_table)
@@ -383,7 +454,9 @@ def _dequant_view(pool: torch.Tensor, scale: torch.Tensor,
 def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
                  cfg: TransformerConfig, *,
                  n_tokens: Optional[torch.Tensor] = None,
-                 quant_kernel: str = "q8q"
+                 quant_kernel: str = "q8q",
+                 mesh: Optional[Mesh] = None,
+                 kv_shard: str = "replicated"
                  ) -> Tuple[torch.Tensor, AnyCache]:
     """Run ``Tq`` new tokens per slot through the model against the cache.
 
@@ -405,6 +478,15 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
     the exact path, with the step's new rows mirrored into it as they were
     quantized.
 
+    ``kv_shard="seq"`` (a paged cache under a mesh whose ``seq`` axis is
+    larger than 1) declares the cache this rank's slice of a
+    sequence-sharded pool (:func:`init_paged_cache`): each rank writes the
+    rows whose blocks it holds and attention is the tree merge
+    (:func:`decode_attention`). On an int8 slice the anchor scales, which
+    live on the rank holding the anchor block, reach the other ranks by one
+    SUM all-reduce per step (every rank contributes the anchors it holds,
+    zeros elsewhere) — the gather the JAX package leaves to GSPMD.
+
     Returns ``logits`` ``(B, Tq, vocab)`` float32 and the cache with
     ``length`` advanced (same buffers, written in place).
     """
@@ -412,6 +494,10 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
     start = cache.length
     paged = isinstance(cache, PagedKVCache)
     quant = isinstance(cache, (QuantKVCache, PagedQuantKVCache))
+    if kv_shard == "seq" and not paged:
+        raise ValueError("kv_shard='seq' shards the paged block pool; a "
+                         "contiguous cache has no block axis to shard")
+    seq_sharded = paged and _seq_shards(mesh, kv_shard) > 1
     if not paged and Tq > cache.capacity:
         raise ValueError(
             f"step of Tq={Tq} exceeds cache capacity {cache.capacity}"
@@ -424,21 +510,41 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
     n_valid = (torch.full((B,), Tq, dtype=torch.int32, device=dev)
                if n_tokens is None else n_tokens)
     positions = start.long()[:, None] + torch.arange(Tq, device=dev)
-    view = paged and quant and dev.type == "cpu"
+    # The CPU's dequantized view is a replicated materialisation of the
+    # pool: a sharded slice keeps the block-table path.
+    view = paged and quant and dev.type == "cpu" and not seq_sharded
+    write_table = cache.table if paged else None
+    if seq_sharded:
+        write_table = local_table(cache.table, mesh, cache.blocks,
+                                  cache.blocks)
     if paged and quant:
         blk, NB, N = cache.block, cache.table.shape[1], cache.blocks
+        n_all = N * (mesh.axis_size(AXIS_SEQ) if seq_sharded else 1)
         table = cache.table.long()
         # The anchor: the block holding each slot's last row before the
-        # write (its first block for an empty slot).
+        # write (its first block for an empty slot), a global id.
         anchor = table.gather(
             1, torch.div(start.long() - 1, blk, rounding_mode="floor")
-            .clamp(0, NB - 1)[:, None])[:, 0].clamp(0, N - 1)
+            .clamp(0, NB - 1)[:, None])[:, 0].clamp(0, n_all - 1)
         entered = ((torch.arange(Tq, device=dev)[None, :]
                     < n_valid.long()[:, None])
                    & (positions % blk == 0) & (positions < NB * blk))
         scale_tgt = torch.where(
-            entered, table.gather(1, (positions // blk).clamp(0, NB - 1)), N
+            entered, write_table.long().gather(
+                1, (positions // blk).clamp(0, NB - 1)), N
         ).reshape(-1)  # invalid rows land on the drop block's scale
+        if seq_sharded:
+            # (2, L, B, Hkv): every layer's anchor scales, from the rank
+            # that holds each anchor block.
+            loc = local_table(anchor, mesh, N, N)
+            held = (loc < N)[None, None, :, None]
+            anchors = torch.stack([cache.k_scale[:, loc.clamp(max=N - 1)],
+                                   cache.v_scale[:, loc.clamp(max=N - 1)]])
+            anchors = torch.where(held, anchors, 0.0)
+            account_payload("paged_anchor_scales",
+                            psum=anchors.numel() * 4)
+            all_reduce(anchors, mesh, AXIS_SEQ, "paged_anchor_scales",
+                        "psum")
         if view:
             k_view = _dequant_view(cache.k, cache.k_scale, cache.table,
                                    cfg.dtype)
@@ -456,8 +562,12 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
         scales = {}
         if paged and quant:
             ks, vs = cache.k_scale[i], cache.v_scale[i]
-            k_anchor = ks[anchor][:, :, None, None]  # (B, Hkv, 1, 1)
-            v_anchor = vs[anchor][:, :, None, None]
+            if seq_sharded:
+                k_anchor = anchors[0, i][:, :, None, None]  # (B, Hkv, 1, 1)
+                v_anchor = anchors[1, i][:, :, None, None]
+            else:
+                k_anchor = ks[anchor][:, :, None, None]
+                v_anchor = vs[anchor][:, :, None, None]
             k_new = _quantize_rows(k_new, k_anchor)
             v_new = _quantize_rows(v_new, v_anchor)
             Hkv = ks.shape[1]
@@ -481,8 +591,8 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
             v_new = _quantize_rows(v_new, cache.v_scale[i])
             scales = dict(k_scale=cache.k_scale[i], v_scale=cache.v_scale[i])
         if paged:
-            _paged_pool_write(cache.k[i], k_new, cache.table, start, n_valid)
-            _paged_pool_write(cache.v[i], v_new, cache.table, start, n_valid)
+            _paged_pool_write(cache.k[i], k_new, write_table, start, n_valid)
+            _paged_pool_write(cache.v[i], v_new, write_table, start, n_valid)
         else:
             _masked_window_write(cache.k[i], k_new, start, n_valid)
             _masked_window_write(cache.v[i], v_new, start, n_valid)
@@ -494,7 +604,9 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
             out, _ = decode_attention(q, k_pool, v_pool, q_position=start,
                                       block_table=cache.table,
                                       impl=cfg.attn_impl,
-                                      quant_kernel=quant_kernel, **scales)
+                                      quant_kernel=quant_kernel,
+                                      mesh=mesh if seq_sharded else None,
+                                      kv_shard=kv_shard, **scales)
         else:
             out, _ = decode_attention(q, cache.k[i], cache.v[i],
                                       q_position=start, impl=cfg.attn_impl,
@@ -505,10 +617,11 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
     return logits, dataclasses.replace(cache, length=start + n_valid)
 
 
-def round_cache_len(total: int) -> int:
-    """Cache capacity for ``total`` tokens (one device: no rounding; the JAX
-    rule rounds up to the mesh's sequence-shard multiple)."""
-    return total
+def round_cache_len(total: int, mesh: Optional[Mesh] = None) -> int:
+    """Cache capacity for ``total`` tokens, rounded up to the mesh's
+    ``seq``-shard multiple (no rounding without a mesh)."""
+    shards = mesh.axis_size(AXIS_SEQ) if mesh is not None else 1
+    return total + (-total) % max(shards, 1)
 
 
 def sample_slots(logits: torch.Tensor, temperature: np.ndarray,

@@ -26,7 +26,9 @@ Each wrapper runs its kernel for a CUDA tensor and its plain version
 (:func:`decode_plain`, :func:`paged_decode_plain`, :func:`decode_q8q_plain`,
 :func:`paged_decode_q8q_plain`, :func:`decode_q8_plain`) for a CPU tensor —
 nothing else: a build or launch failure raises. ``.launches`` counts the
-kernel launches of each kernel wrapper; the cast route counts under B1/B2.
+kernel launches of each kernel wrapper; the cast route counts under B1/B2,
+and B2's ``local_blocks`` variant (one rank's slice of a sequence-sharded
+pool) on ``attention_cuda_decode_paged.local_launches``.
 """
 
 from __future__ import annotations
@@ -68,7 +70,7 @@ def _launcher():
         fn = lib.flash_decode_launch
         fn.argtypes = (
             [ctypes.c_void_p] * 12
-            + [ctypes.c_int] * 14
+            + [ctypes.c_int] * 15
             + [ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -84,20 +86,23 @@ def _rows_per_warp(rows: int) -> int:
 
 # -- the q8 numeric contract -------------------------------------------------
 
-def quantize_symmetric_int8(x: torch.Tensor, dim: int
+def quantize_symmetric_int8(x: torch.Tensor, dim: int,
+                            amax: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The one definition of the q8 numeric contract the kernels dequant
     against: absmax/127 scale over ``dim`` (kept; a zero channel's scale is
     1.0), f32 intermediate, round half to even, clip to +-127, int8. ``dim``
     is the reduction axis — 2 (tokens) for a ``(B, Hkv, T, D)`` buffer, 3
     for a ``(L, B, Hkv, T, D)`` cache or the head dim of packed Q rows.
-    Returns ``(codes, scale)``.
+    Returns ``(codes, scale)``. ``amax`` (keepdim shape) replaces the
+    absmax of ``x`` itself, e.g. one taken over every rank's shard.
 
     The scale is ``absmax * f32(1/127)``: XLA compiles the JAX package's
     division by the constant 127 into that product, and the bytes must
     match."""
     xf = x.float()
-    amax = xf.abs().amax(dim, keepdim=True)
+    if amax is None:
+        amax = xf.abs().amax(dim, keepdim=True)
     scale = torch.where(amax == 0.0, torch.ones_like(amax),
                         amax * (1.0 / 127.0))
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
@@ -178,15 +183,21 @@ def decode_plain(q, k, v, *, causal: bool = False,
 
 def paged_decode_plain(q, k, v, block_table, *, q_offset: Offset,
                        scale: Optional[float] = None,
-                       block_scales: Optional[BlockScales] = None):
+                       block_scales: Optional[BlockScales] = None,
+                       local_blocks: bool = False):
     """B2's plain version (any device): gather the logical view (and the
-    per-key scalars of ``block_scales``), then B1's."""
+    per-key scalars of ``block_scales``), then B1's. With ``local_blocks``
+    the table is signed: a negative entry is a block another rank holds,
+    gathered clamped to row 0 and masked out, so a row with no held
+    visible block comes back ``(0, -inf)``."""
     kg, vg = gather_paged_kv(k, v, block_table)
     keys = (None if block_scales is None
             else _key_scales(block_scales, block_table, k.shape[2]))
+    held = (block_table >= 0).repeat_interleave(k.shape[2], dim=1) \
+        if local_blocks else None
     out, lse = attention_packed(_cast_q(q, k), kg, vg, causal=True,
                                 scale=scale, q_offset=q_offset, kv_offset=0,
-                                key_scales=keys)
+                                key_scales=keys, key_mask=held)
     return out.to(q.dtype), lse
 
 
@@ -337,10 +348,11 @@ def _check_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
 
 
 def _launch(qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB, causal,
-            scale, qs=None, block_scales=None):
+            scale, qs=None, block_scales=None, local_blocks=False):
     """Run the split kernel and its merge on packed ``qp`` ``(B, Hkv, R,
     D)``; returns ``out`` ``(B, Hkv, R, D)`` (bf16 for the int8 variants)
-    and ``lse`` ``(B, Hkv, R)``."""
+    and ``lse`` ``(B, Hkv, R)``. ``local_blocks``: the paged table is
+    signed (negative = a block another rank holds)."""
     fn, warps = _launcher()
     B, Hkv, R, D = qp.shape
     rows_per_warp = _rows_per_warp(R)
@@ -374,7 +386,8 @@ def _launch(qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB, causal,
         offs.data_ptr(), ptr(table), o_part.data_ptr(), lse_part.data_ptr(),
         out.data_ptr(), lse.data_ptr(), variant, D, int(table is not None),
         rows_per_warp, B, Hkv, R, Tq, Tk, blk, NB, ctas, split_len,
-        int(causal), float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        int(causal), int(local_blocks), float(scale),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
@@ -415,16 +428,24 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, block_table: torch.Tensor,
                                 *, q_offset: Offset,
                                 scale: Optional[float] = None,
-                                block_scales: Optional[BlockScales] = None):
+                                block_scales: Optional[BlockScales] = None,
+                                local_blocks: bool = False):
     """B2: causal decode of ``q`` ``(B, Hq, Tq, D)`` against
     ``(N, Hkv, block, D)`` pools (q's dtype, or int8 with q in bf16) through
     the ``(B, NB)`` int32 table; slot ``b``'s queries sit at
     ``q_offset[b]``. ``block_scales`` ``(k_scale, v_scale)``, each ``(N,
     Hkv)`` f32, dequantize int8 pools per block. Table entries past a
-    slot's length are never read."""
+    slot's length are never read.
+
+    ``local_blocks``: the pools are one rank's slice of a sequence-sharded
+    pool and the table is signed — entries in ``[0, N)`` are local blocks,
+    a negative entry is a block another rank holds, never read and masked
+    out; a row with no local visible key comes back ``(0, -inf)``. Such
+    launches count on ``.local_launches``, the others on ``.launches``."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k, v, block_table, q_offset=q_offset,
-                                  scale=scale, block_scales=block_scales)
+                                  scale=scale, block_scales=block_scales,
+                                  local_blocks=local_blocks)
     variant = _check_decode(q, k, v)
     if block_table.dtype != torch.int32 or block_table.device != q.device:
         raise ValueError("block_table must be int32 on q's device")
@@ -433,17 +454,21 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
     B, NB = block_table.shape
     _, Hkv, blk, D = k.shape
     offs = offsets(q_offset, 0, B, q.device).contiguous()
-    attention_cuda_decode_paged.launches += 1
+    if local_blocks:
+        attention_cuda_decode_paged.local_launches += 1
+    else:
+        attention_cuda_decode_paged.launches += 1
     out, lse = _launch(_pack(_cast_q(q, k), Hkv), k, v, offs,
                        block_table.contiguous(), variant=variant,
                        Tq=q.shape[2], Tk=NB * blk,
                        blk=blk, NB=NB, causal=True,
                        scale=default_scale(D, scale),
-                       block_scales=block_scales)
+                       block_scales=block_scales, local_blocks=local_blocks)
     return _unfold_out(out, lse, q, None)
 
 
 attention_cuda_decode_paged.launches = 0
+attention_cuda_decode_paged.local_launches = 0
 
 
 def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,

@@ -12,6 +12,10 @@ the block table on a paged pool — and prefill-sized chunks take the Q-tiled
 kernel B3, after one gather of a paged pool's logical view. Each kernel
 wrapper runs its plain version for CPU tensors. ``impl="plain"`` runs the
 plain versions on any device (the comparison path of the on-card checks).
+
+:func:`paged_local_partial` is one rank's half of the sequence-sharded
+pool's decode (``parallel/tree.py:paged_tree_decode`` merges the ranks'
+partials): B2 with ``local_blocks`` for every Tq.
 """
 
 from __future__ import annotations
@@ -104,3 +108,62 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn = fwd_plain if plain else attention_cuda_fwd
     return fn(q, k, v, causal=True, scale=scale, q_offset=q_position,
               kv_offset=0)
+
+
+def paged_local_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        local_table: torch.Tensor, *, q_position,
+                        scale: Optional[float] = None,
+                        k_scale: Optional[torch.Tensor] = None,
+                        v_scale: Optional[torch.Tensor] = None,
+                        impl: str = "auto"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's flash partial over its slice of a sequence-sharded paged
+    pool: the per-rank half of the tree-attention decode monoid.
+
+    Args:
+      q: ``(B, Hq, Tq, D)``, the same on every rank.
+      k, v: ``(Nl, Hkv, block, D)``, this rank's pool slice (``Nl = N/W``).
+      local_table: ``(B, NB)`` int32, the slot tables rebased to LOCAL
+        block ids: entries in ``[0, Nl)`` name a local block, a negative
+        entry a block another rank holds (its keys do not contribute here).
+      q_position: per-slot ``(B,)`` global position of each slot's first
+        query row; the causal rule is in LOGICAL positions, so the ranks'
+        partials merge into exactly the unsharded result.
+      k_scale, v_scale: optional ``(Nl, Hkv)`` per-block scales of an int8
+        slice (sharded with it).
+      impl: ``"auto"`` (the kernel for CUDA tensors) or ``"plain"``.
+
+    On the card this is B2 with ``local_blocks`` for every Tq (prompt
+    chunks too: the JAX package also runs its decode kernel for them); an
+    int8 slice goes through B2's cast route with ``block_scales``. On the
+    CPU, as the JAX package off the TPU: the plain version, and for an
+    int8 slice the exact plain version over the slice dequantized under
+    its per-block scales (int8 x scale in f32, cast to q's dtype).
+
+    Returns ``(out, lse)``, normalized within the rank; rows with no local
+    visible key are ``(0, -inf)``.
+    """
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if getattr(q_position, "ndim", 0) != 1:
+        raise ValueError("paged_local_partial needs a per-slot (B,) "
+                         "q_position")
+    _account_dispatch("paged_local_partial",
+                      local_table.shape[1] * k.shape[2])
+    fn = paged_decode_plain if impl == "plain" else attention_cuda_decode_paged
+    if k_scale is None:
+        return fn(q, k, v, local_table, q_offset=q_position, scale=scale,
+                  local_blocks=True)
+    if q.device.type == "cpu":
+        def deq(pool: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+            return (pool.float() * s[:, :, None, None]).to(q.dtype)
+
+        return paged_decode_plain(q, deq(k, k_scale), deq(v, v_scale),
+                                  local_table, q_offset=q_position,
+                                  scale=scale, local_blocks=True)
+    out, lse = fn(q.to(torch.bfloat16), k, v, local_table,
+                  q_offset=q_position, scale=scale,
+                  block_scales=(k_scale, v_scale), local_blocks=True)
+    return out.to(q.dtype), lse

@@ -156,7 +156,8 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_offset: Offset,
                      row_scale: Optional[torch.Tensor] = None,
                      key_scales: Optional[Tuple[torch.Tensor,
-                                                torch.Tensor]] = None
+                                                torch.Tensor]] = None,
+                     key_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernels' plain version: dense f32 scores over each KV head's
     packed ``G*Tq`` query rows, per-batch ``(B,)`` or scalar offsets, P
@@ -169,7 +170,9 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     each packed row's multiplier of the raw dot (q8q: the row's Q scale);
     ``key_scales`` ``(k_key, v_key)``, each ``(B, Hkv, Tk)``, are per-key
     dequantization scalars: K's multiplies the score, V's multiplies p
-    after the softmax sum has taken it (the kernels' fold order)."""
+    after the softmax sum has taken it (the kernels' fold order).
+    ``key_mask`` ``(B, Tk)`` bool hides the keys it is False for (B2's
+    remote blocks under ``local_blocks``)."""
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     G = _group(q, k)
@@ -187,6 +190,8 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kpos = offs[1][:, None] + torch.arange(Tk, device=q.device)
         s = s.masked_fill(~(kpos[:, None, None, :] <= qpos[:, None, :, None]),
                           NEG_INF)
+    if key_mask is not None:
+        s = s.masked_fill(~key_mask[:, None, None, :], NEG_INF)
     m = s.amax(-1)
     m_safe = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(s - m_safe[..., None])

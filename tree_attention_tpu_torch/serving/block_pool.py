@@ -32,6 +32,18 @@ _BLOCKS_FREE = obs.gauge(
     "serving_kv_blocks_free",
     "unified KV pool blocks on the free list",
 )
+# Per-shard views of the same ledger (the sequence-sharded pool): the
+# aggregate gauges above keep their contract; these show the split.
+_BLOCKS_USED_SHARD = obs.gauge(
+    "serving_kv_blocks_used_shard",
+    "KV pool blocks owned per mesh shard (sequence-sharded pool)",
+    labels=("shard",),
+)
+_BLOCKS_FREE_SHARD = obs.gauge(
+    "serving_kv_blocks_free_shard",
+    "KV pool blocks free per mesh shard (sequence-sharded pool)",
+    labels=("shard",),
+)
 
 # Block ownership states (the debug ledger's vocabulary).
 _FREE, _PRIVATE, _CACHED = 0, 1, 2
@@ -68,9 +80,9 @@ class BlockAllocator:
     # -- the free list (subclass seam) ------------------------------------
     #
     # Every free-list touch goes through these two hooks so a subclass can
-    # swap the backing structure (the JAX package's sequence-sharded
-    # allocator keeps one list per mesh shard) without re-deriving any of
-    # the ownership transitions or the reservation-soundness argument.
+    # swap the backing structure (the sequence-sharded allocator keeps one
+    # list per mesh shard) without re-deriving any of the ownership
+    # transitions or the reservation-soundness argument.
 
     def _push_free(self, bid: int) -> None:
         self._free.append(bid)
@@ -190,3 +202,65 @@ class BlockAllocator:
         self._state[bid] = _FREE
         self._push_free(bid)
         self.gen += 1
+
+
+class ShardedBlockAllocator(BlockAllocator):
+    """The sequence-sharded pool's ledger: ``blocks`` global block ids
+    range-partitioned over ``shards`` ranks — shard ``s`` owns ids ``[s*Nl,
+    (s+1)*Nl)`` with ``Nl = blocks // shards``, the rule the device pool
+    uses to map a global table entry to a local slice row, so ledger and
+    placement cannot disagree. Every rank keeps the same ledger.
+
+    One free list per shard; :meth:`alloc` pops from the RICHEST shard (the
+    lowest index on a tie), so a growing slot's blocks interleave across
+    shards and each shard holds about ``1/W`` of every slot's keys.
+    Reservations stay GLOBAL: any block can serve any slot through the
+    table, so ``available()`` over the pooled free count is exactly what
+    :meth:`alloc` needs.
+    """
+
+    def __init__(self, blocks: int, shards: int):
+        if shards < 1:
+            raise ValueError(f"need >= 1 shard, got {shards}")
+        if blocks % shards:
+            raise ValueError(
+                f"pool of {blocks} blocks does not split over {shards} "
+                f"shards — round the pool up first")
+        self.shards = shards
+        self.shard_blocks = blocks // shards
+        super().__init__(blocks)
+        nl = self.shard_blocks
+        self._free_by_shard: List[List[int]] = [
+            list(range((s + 1) * nl - 1, s * nl - 1, -1))
+            for s in range(shards)
+        ]
+        self._free = []  # unused: the per-shard lists are the free list
+
+    def shard_of(self, bid: int) -> int:
+        return bid // self.shard_blocks
+
+    def _push_free(self, bid: int) -> None:
+        self._free_by_shard[bid // self.shard_blocks].append(bid)
+
+    def _pop_free(self) -> int:
+        rich = max(range(self.shards),
+                   key=lambda s: len(self._free_by_shard[s]))
+        return self._free_by_shard[rich].pop()
+
+    @property
+    def free_count(self) -> int:
+        return sum(len(f) for f in self._free_by_shard)
+
+    def free_per_shard(self) -> List[int]:
+        return [len(f) for f in self._free_by_shard]
+
+    def used_per_shard(self) -> List[int]:
+        return [self.shard_blocks - len(f) for f in self._free_by_shard]
+
+    def publish_gauges(self) -> None:
+        super().publish_gauges()
+        if obs.REGISTRY.enabled:
+            for s, nfree in enumerate(self.free_per_shard()):
+                _BLOCKS_FREE_SHARD.labels(shard=s).set(nfree)
+                _BLOCKS_USED_SHARD.labels(shard=s).set(
+                    self.shard_blocks - nfree)

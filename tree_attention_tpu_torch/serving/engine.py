@@ -37,6 +37,15 @@ cache's stale tail, quantizes the prompt (per block on the paged layout,
 per channel on the contiguous one: the quantize-after-prefill contract) and
 inserts its rows, scales and length into the slot.
 
+Under a mesh, ``kv_shard="seq"`` serves from a sequence-SHARDED paged pool:
+every rank runs the same engine with the same host ledger (global block
+ids, a :class:`ShardedBlockAllocator`), each rank's device pool holds its
+``1/W`` of the blocks, and the batched per-tick step attends through the
+tree merge across ranks (B2 with ``local_blocks`` on each rank). The merged
+result comes out of an all-reduce, so every rank samples the same tokens
+and takes the same decisions with no further collective. The staging cache
+of int8 admission stays whole on every rank.
+
 Left for later slices of the port (see ROADMAP): whole-prompt admission,
 the prefix cache, speculation, forks and tree-sibling decode, KV tiering,
 disaggregation, cancellation/deadlines/drain and the HTTP ingress, tracing
@@ -71,7 +80,11 @@ from tree_attention_tpu_torch.models.transformer import (
 )
 from tree_attention_tpu_torch.obs.metrics import percentile
 from tree_attention_tpu_torch.obs.slo import SLOMonitor
-from tree_attention_tpu_torch.serving.block_pool import BlockAllocator
+from tree_attention_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh
+from tree_attention_tpu_torch.serving.block_pool import (
+    BlockAllocator,
+    ShardedBlockAllocator,
+)
 from tree_attention_tpu_torch.utils.logging import get_logger
 
 log = get_logger("serving")
@@ -153,6 +166,7 @@ class ServeReport:
     tokens_generated: int
     mean_occupancy: float  # live slots per executed decode tick
     decode_ticks: int = 0  # ticks that decoded live slots
+    steps: int = 0  # batched per-tick steps run (decode and mixed ticks)
     tbt_s: List[float] = dataclasses.field(default_factory=list)
     slo: Dict[str, Any] = dataclasses.field(default_factory=dict)
     kv: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -194,6 +208,7 @@ class ServeReport:
             "tokens_per_sec": round(self.tokens_per_sec, 1),
             "mean_occupancy": round(self.mean_occupancy, 2),
             "decode_ticks": self.decode_ticks,
+            "steps": self.steps,
             "queue_wait_p50_s": round(waits[len(waits) // 2], 4) if waits else 0.0,
             "outcomes": self.outcomes,
             **{k: round(v, 4) for k, v in self.completion_percentiles().items()},
@@ -342,7 +357,13 @@ class SlotServer:
       quantize: serve from an int8 cache with staged admission (module
         docstring).
       quant_kernel: the q8 route of the decode ticks: ``"q8q"`` (B4/B5) or
-        ``"q8"`` (the cast route over B1/B2).
+        ``"q8"`` (the cast route over B1/B2). A sequence-sharded int8 pool
+        always runs B2's cast route with per-block scales.
+      mesh / kv_shard: ``kv_shard="seq"`` (paged layout only) shards the
+        block pool over the mesh's ``seq`` axis: ``kv_blocks`` rounds up to
+        a multiple of its size W and each rank's pool holds ``kv_blocks /
+        W`` blocks. ``"replicated"`` (default) keeps the whole pool on every
+        rank, which then computes alike without collectives.
     """
 
     def __init__(
@@ -365,6 +386,8 @@ class SlotServer:
         kv_blocks: Optional[int] = None,
         quantize: bool = False,
         quant_kernel: str = "q8q",
+        mesh: Optional[Mesh] = None,
+        kv_shard: str = "replicated",
     ):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -381,6 +404,27 @@ class SlotServer:
         if top_k < 0:
             raise ValueError("top_k must be >= 0 (0 = off)")
         resolve_q8_kernel(quant_kernel)  # validates the name
+        if kv_shard not in ("replicated", "seq"):
+            raise ValueError(
+                f"kv_shard must be 'replicated' or 'seq', got {kv_shard!r}")
+        if kv_shard == "seq" and kv_layout != "paged":
+            raise ValueError(
+                "kv_shard='seq' shards the paged block pool; use "
+                "kv_layout='paged'")
+        if (mesh is not None and mesh.axis_size(AXIS_SEQ) > 1
+                and kv_layout != "paged"):
+            raise NotImplementedError(
+                "a contiguous cache sharded over the seq axis is a later "
+                "slice of the port (ROADMAP); serve a mesh from the paged "
+                "layout")
+        self.mesh = mesh
+        self.kv_shard = kv_shard
+        # Only the batched per-tick step runs on the sharded pool; the B=1
+        # staging cache of int8 admission is whole on every rank.
+        self._fs_kw = ({"mesh": mesh, "kv_shard": "seq"}
+                       if kv_shard == "seq" else {})
+        self._seq_shards = (mesh.axis_size(AXIS_SEQ)
+                            if mesh is not None else 1)
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
@@ -401,7 +445,14 @@ class SlotServer:
             self._npb = -(-cache_len // self.kv_block)  # table width
             self.kv_blocks = (slots * self._npb if kv_blocks is None
                               else kv_blocks)
-            self._pool = BlockAllocator(self.kv_blocks)
+            if kv_shard == "seq":
+                # Round up to whole per-shard slices: extra blocks only
+                # ever add capacity.
+                w = self._seq_shards
+                self.kv_blocks = -(-self.kv_blocks // w) * w
+                self._pool = ShardedBlockAllocator(self.kv_blocks, w)
+            else:
+                self._pool = BlockAllocator(self.kv_blocks)
             self._host_table = np.zeros((slots, self._npb), np.int32)
             self._table_dirty = False
             self._slot_nblocks = [0] * slots
@@ -412,7 +463,8 @@ class SlotServer:
             self.cache = init_paged_cache(cfg, slots, cache_len,
                                           self.kv_blocks, block=self.kv_block,
                                           device=self.device,
-                                          quantize=quantize)
+                                          quantize=quantize, mesh=mesh,
+                                          kv_shard=kv_shard)
         else:
             self.cache = init_cache(cfg, slots, cache_len, device=self.device,
                                     quantize=quantize)
@@ -474,7 +526,8 @@ class SlotServer:
         cache = dataclasses.replace(self.cache, length=length)
         logits, self.cache = forward_step(self.params, tokens, cache,
                                           self.cfg, n_tokens=n_t,
-                                          quant_kernel=self.quant_kernel)
+                                          quant_kernel=self.quant_kernel,
+                                          **self._fs_kw)
         row = (n_t - 1).clamp(min=0).long()
         last = logits[torch.arange(S, device=self.device), row]
         tok_s, lp_s = sample_slots(last, self._temp_np, self._topk_np,
@@ -519,7 +572,8 @@ class SlotServer:
             self._ensure_blocks(slot, plen)
             self._sync_table()
             kq, vq, ks, vs = quantize_paged_blocks(k, v, self.kv_block)
-            paged_insert_slot(self.cache, slot, kq, vq, plen, ks, vs)
+            paged_insert_slot(self.cache, slot, kq, vq, plen, ks, vs,
+                              **self._fs_kw)
             return
         qc = quantize_cache(KVCache(k=k, v=v, length=self._staging.length))
         for name in ("k", "v", "k_scale", "v_scale"):
@@ -684,6 +738,18 @@ class SlotServer:
         if obs.REGISTRY.enabled:
             _REQUESTS.labels(outcome=outcome).inc()
 
+    def pool_bytes(self) -> int:
+        """Device bytes of this rank's pool blocks (K, V and int8 scales;
+        the drop block aside): ``1/W`` of the whole pool's on a pool
+        sharded ``W`` ways."""
+        if not self._paged:
+            return 0
+        n = self.cache.blocks
+        parts = [self.cache.k, self.cache.v]
+        if self.quantize:
+            parts += [self.cache.k_scale, self.cache.v_scale]
+        return sum(t[:, :n].numel() * t.element_size() for t in parts)
+
     def leak_report(self) -> Dict[str, int]:
         """The no-leak invariant as numbers: after a drained run no slot
         holds blocks or reservations (no prefix tree: ``blocks_used`` must
@@ -714,7 +780,7 @@ class SlotServer:
         results: List[RequestResult] = []
         visible_wall: Dict[int, float] = {}
         tbt: List[float] = []
-        tick = decode_ticks = occupancy = tokens = 0
+        tick = decode_ticks = occupancy = tokens = steps = 0
         if self._paged:
             self._peak_blocks_used = self._pool.used
             self._defer_gen = -1
@@ -797,11 +863,13 @@ class SlotServer:
                 self._sync_table()
                 fused = self._step(torch.from_numpy(mat).to(self.device),
                                    n_vec, reset, reset_val, emit)
+                steps += 1
             elif live_idx:
                 # Pure-decode tick: the tokens stay on the device.
                 self._sync_table()
                 fused = self._step(self.tok[:, None], n_vec, reset,
                                    reset_val, emit)
+                steps += 1
 
             awaits = [i for i, st in enumerate(self._slot_state)
                       if st == "await"]
@@ -874,6 +942,13 @@ class SlotServer:
                 "blocks_free": self._pool.free_count,
                 "peak_blocks_used": self._peak_blocks_used,
             }
+            if self.kv_shard == "seq":
+                kv_snap.update(
+                    kv_shard="seq", shards=self._seq_shards,
+                    free_per_shard=self._pool.free_per_shard(),
+                    # This rank's pool rows, its drop block aside.
+                    pool_bytes_rank=self.pool_bytes(),
+                )
         log.info(
             "served %d request(s): %d tokens over %d decode tick(s), "
             "%.1f tok/s, mean occupancy %.2f/%d",
@@ -888,6 +963,7 @@ class SlotServer:
             tokens_generated=tokens,
             mean_occupancy=occupancy / max(decode_ticks, 1),
             decode_ticks=decode_ticks,
+            steps=steps,
             tbt_s=tbt,
             slo=self.slo.snapshot(),
             kv=kv_snap,

@@ -4,14 +4,33 @@ Counterpart of ``tree_attention_tpu/utils/config.py`` for the modes this
 port runs (``decode``, ``generate``, ``serve``, ``train``), with the same
 flag names and defaults. The defaults reproduce the reference workload: decode over a
 64000-token context, 16 heads x 128, B=1, one query. ``--device`` is
-``cuda`` (the default) or ``cpu``.
+``cuda`` (the default) or ``cpu``. ``--mesh seq=W`` runs one process per
+rank (``torchrun --nproc-per-node W``) over a ``--dist-backend`` process
+group: NCCL by default on the card, gloo on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
+
+
+def parse_mesh_spec(spec: str) -> Dict[str, int]:
+    """Parse ``"seq=8"`` / ``"data=1,seq=2"`` into an ordered axis map (a
+    size of -1 absorbs the ranks left over; see ``parallel.make_mesh``)."""
+    axes: Dict[str, int] = {}
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        if "=" not in part:
+            raise ValueError(f"bad mesh axis {part!r}; want name=size")
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if name in axes:
+            raise ValueError(f"duplicate mesh axis {name!r}")
+        axes[name] = int(size)
+    if not axes:
+        raise ValueError(f"empty mesh spec {spec!r}")
+    return axes
 
 
 @dataclasses.dataclass
@@ -31,6 +50,8 @@ class RunConfig:
     # Execution.
     mode: str = "decode"  # decode | generate | serve | train
     device: str = "cuda"  # cuda | cpu
+    mesh: Optional[str] = None  # e.g. "seq=2": one process per rank
+    dist_backend: Optional[str] = None  # nccl | gloo (None: by --device)
     impl: str = "auto"    # auto | naive | blockwise | plain
     kv_quant: str = "none"  # none | int8 (int8 x int8 q8q) | int8-cast (q8)
     seed: int = 0
@@ -64,10 +85,21 @@ class RunConfig:
     kv_layout: str = "paged"  # paged | contiguous
     kv_block: Optional[int] = None  # tokens per pool block (pow2; None -> 64)
     kv_blocks: Optional[int] = None  # pool blocks (None -> slots * table)
+    kv_shard: str = "replicated"  # replicated | seq (shard the block pool)
 
     # Observability.
     log_level: str = "info"
     log_file: Optional[str] = None
+
+    def mesh_axes(self) -> Optional[Dict[str, int]]:
+        return parse_mesh_spec(self.mesh) if self.mesh else None
+
+    def resolved_dist_backend(self) -> str:
+        """``--dist-backend``, else NCCL for ``--device cuda`` and gloo for
+        ``--device cpu``."""
+        if self.dist_backend is not None:
+            return self.dist_backend
+        return "nccl" if self.device == "cuda" else "gloo"
 
     def resolved_kv_heads(self) -> int:
         return self.heads if self.kv_heads is None else self.kv_heads
@@ -103,6 +135,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default=d.device,
                    help="cuda (default; fails when no GPU is present) or "
                         "cpu (the kernels' plain versions)")
+    p.add_argument("--mesh", default=d.mesh, metavar="SPEC",
+                   help="named mesh axes, e.g. seq=2: one process per rank "
+                        "(torchrun --nproc-per-node 2); only seq may exceed "
+                        "1. decode: the KV sequence sharded over the ranks "
+                        "and merged by the tree all-reduce; serve: with "
+                        "--kv-shard seq")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                   default=d.dist_backend,
+                   help="process-group backend under --mesh (default: nccl "
+                        "for --device cuda, one card per rank; gloo for "
+                        "--device cpu). gloo on cuda lets ranks share a "
+                        "card")
     p.add_argument("--batch", type=int, default=d.batch)
     p.add_argument("--seq-len", type=int, default=d.seq_len)
     p.add_argument("--q-len", type=int, default=d.q_len)
@@ -167,6 +211,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "default 64)")
     p.add_argument("--kv-blocks", type=int, default=d.kv_blocks,
                    help="serve: total paged pool capacity in blocks")
+    p.add_argument("--kv-shard", choices=["replicated", "seq"],
+                   default=d.kv_shard,
+                   help="serve: 'seq' shards the paged KV pool over the "
+                        "mesh's seq axis — each rank holds blocks/W pool "
+                        "rows and decode merges the ranks' partials with "
+                        "the tree monoid (one MAX and two SUM all-reduces "
+                        "per layer and step); needs --kv-layout paged")
     p.add_argument("--log-level",
                    choices=["debug", "info", "warning", "error"],
                    default=d.log_level)
