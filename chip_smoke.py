@@ -5,8 +5,9 @@ failure exits non-zero:
 
 1. Build the CUDA kernels from ``tree_attention_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together), print the card, each
-   kernel's registers and spills, and the HGMMA instructions in the SASS
-   of the tensor-core bodies of B3 and B6 (``cuobjdump -sass``; none is a
+   kernel's registers and spills (the decode body's tree variants beside
+   their causal twins), and the HGMMA instructions in the SASS of the
+   tensor-core bodies of B3 and B6 (``cuobjdump -sass``; none is a
    failure).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (bf16; each query row's out within 2e-2 of that row's
@@ -60,6 +61,19 @@ failure exits non-zero:
    the reference workload: B1 over W = 2 and 4 KV shards with their
    offsets, and B4 over the shards of the channel-quantized K/V, merged
    against the unsharded B1 / B4 under the same gate.
+   The tree variants (speculative tree verification: the ancestor-window
+   rule in place of the causal one) under the same row gate, masks random
+   draft trees packed as ``pack_proposal`` packs them (one slot a chain):
+   B2 and B5 at a verify tick (B8 H16, Tq 8 and 32 — bit 31 — 640-token
+   slots, one window across a block boundary; bf16, int8 per-block
+   scales), B1 and B4 at the contiguous verify tick and at the reference
+   workload with Tq 8, the int8-cast routes of B1 and B2; each timed beside
+   its bound (the keys some row sees, K+V / 3.35 TB/s) and SDPA with a
+   boolean ``attn_mask`` over the gathered view. A lower-triangular mask
+   gives the causal launch's out and lse bit for bit (B1, B2, B4, B5);
+   table entries past each window named a NaN block change nothing; the
+   gate is shown rejecting each row reading the previous row's bits and
+   the window shifted by one key.
 3. Serve 16 requests through the paged, chunked SlotServer (the CLI's
    ``--mode serve`` entry point) at the reference attention width (d_model
    2048, 16 heads x 128, d_ff 5504, vocab 32768, bf16, depth cut to 4
@@ -86,6 +100,23 @@ failure exits non-zero:
    int8 serves run with the metrics registry off, as the exact serve does;
    their int8 steps are the report's decode ticks (one step over the int8
    cache each).
+   Then speculative serving (``--speculate``, draft_k 4): the 16-request
+   serve through ``cli.run_serve`` with ``--drafter ngram`` and
+   ``ngram-tree``, exact and ``--kv-quant int8``, and the 8-request wave
+   with an oracle drafter (the non-speculative wave's tokens, a wrong token
+   every 3rd call, a decoy branch packed before the true chain: every
+   proposal a tree, every commit a compaction) on the paged and contiguous
+   layouts, exact and int8: every request retires with its budget, the
+   pool drains, each tree verify tick launches the layout's tree kernel
+   once per layer and no other tree kernel runs, the oracle's acceptance
+   is above 0 on the paged layouts, and every emitted greedy token is
+   within 0.1 of its position's largest logit when the stream is re-scored
+   by the non-speculative kernel path (teacher-forced replay). One tree
+   verify step's logits against the plain path (exact and int8) and
+   against each root path decoded one token at a time, within 0.1. Token
+   agreement with the non-speculative serve, acceptance, tokens per verify
+   tick and spec tok/s beside non-spec tok/s are reported, with the oracle
+   wave's device split.
    Then two ranks on the one card (spawned processes on ``cuda:0`` over
    gloo; NCCL refuses two ranks on one device): ``--mesh seq=2 --kv-shard
    seq`` at the same width, exact and ``--kv-quant int8`` (16 requests
@@ -175,26 +206,33 @@ def causal_pairs(B: int, Hq: int, Tq: int, Tk: int, q_offset: int,
                         for i in range(Tq))
 
 
-def ptxas_summary(build) -> dict:
-    """``{kernel<dtype,D>: [registers, spill-store bytes]}`` of the forward
-    and backward kernels (B3, B6, B7), from the ``-Xptxas -v`` log the
-    build keeps beside each library. The tensor-core bodies are bf16 only
+def _fwd_bwd_name(m) -> str:
+    dtype = "f32" if m.group(2) == "f" else "bf16"
+    return f"{m.group(1)}<{dtype},{m.group(3)}>"
+
+
+def ptxas_summary(build, libs=("flash_fwd", "flash_bwd"),
+                  pattern=r"(flash_(?:fwd|dq|dkv)(?:_wgmma)?_kernel)I"
+                          r"(13__nv_bfloat16|f|)Li(\d+)E",
+                  name=_fwd_bwd_name) -> dict:
+    """``{kernel: [registers, spill-store bytes]}`` from the ``-Xptxas -v``
+    log the build keeps beside each library of ``libs``: every entry
+    function whose mangled name matches ``pattern``, named by ``name(match)``.
+    The default reads the forward and backward kernels (B3, B6, B7) as
+    ``kernel<dtype,D>``; the tensor-core bodies are bf16 only
     (``*_wgmma_kernel<D>``)."""
     import re
 
     out = {}
-    for lib in ("flash_fwd", "flash_bwd"):
+    for lib in libs:
         log = build._target(lib).with_suffix(".log").read_text()
         for block in log.split("Compiling entry function")[1:]:
-            name = re.search(r"(flash_(?:fwd|dq|dkv)(?:_wgmma)?_kernel)I"
-                             r"(13__nv_bfloat16|f|)Li(\d+)E", block)
+            m = re.search(pattern, block)
             regs = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores", block)
-            if name and regs:
-                dtype = "f32" if name.group(2) == "f" else "bf16"
-                key = f"{name.group(1)}<{dtype},{name.group(3)}>"
-                out[key] = [int(regs.group(1)),
-                            int(spill.group(1)) if spill else 0]
+            if m and regs:
+                out[name(m)] = [int(regs.group(1)),
+                                int(spill.group(1)) if spill else 0]
     return out
 
 
@@ -423,6 +461,390 @@ def run_sharded_ranks(world: int = 2, device: str = "cuda",
     return [results[r] for r in range(world)]
 
 
+SPEC_ARGS = ["--speculate", "--draft-k", "4"]
+# A verify tick's tree masks: 8 rows (draft_k 4 plus decoys fit), and the
+# 32-row cap of the int32 bitmasks.
+TREE_TQS = (8, 32)
+
+
+def random_trees(B: int, tq: int, chain_slot: int, seed: int):
+    """``(B, tq, tq)`` bool ancestor masks of random draft trees packed as
+    the engine packs a proposal (``pack_proposal``: topological parents,
+    the tip at row 0); slot ``chain_slot`` is a plain chain. Row ``tq - 1``
+    sees itself, so at tq 32 every slot has a row that sets bit 31."""
+    import numpy as np
+    import torch
+
+    from tree_attention_tpu_torch.serving.speculation import (
+        DraftProposal,
+        pack_proposal,
+    )
+
+    rng = np.random.default_rng(seed)
+    out = np.zeros((B, tq, tq), bool)
+    for b in range(B):
+        parents = [i - 1 if b == chain_slot else int(rng.integers(-1, i))
+                   for i in range(tq - 1)]
+        out[b] = pack_proposal(0, DraftProposal(
+            np.zeros(tq - 1, np.int32), np.asarray(parents, np.int32))).anc
+    return torch.from_numpy(out)
+
+
+def oracle_drafter(requests, refs, vocab: int, wrong_every: int = 3):
+    """The adversarial drafter of the JAX package's spec tests: each
+    request's non-speculative continuation ``refs[uid]`` with a wrong
+    second token every ``wrong_every``-th call, behind a decoy branch packed
+    BEFORE the true chain — every proposal is a tree, an accepted path is
+    never contiguous rows, so every commit compacts, and a random-weight
+    model accepts where n-gram lookup may not."""
+    import numpy as np
+
+    from tree_attention_tpu_torch.serving.speculation import (
+        DraftProposal,
+        Drafter,
+    )
+
+    full = [(np.asarray(r.prompt, np.int32),
+             np.concatenate([np.asarray(r.prompt, np.int32),
+                             np.asarray(refs[r.uid], np.int32)]))
+            for r in requests]
+
+    class Oracle(Drafter):
+        calls = 0
+
+        def propose(self, history, k):
+            self.calls += 1
+            seq = next(f for p, f in full if len(history) >= len(p)
+                       and np.array_equal(history[:len(p)], p))
+            cont = seq[len(history):len(history) + k].copy()
+            if len(cont) == 0:
+                cont = np.full((max(k, 1),), 3, np.int32)
+            if self.calls % wrong_every == 0 and len(cont) > 1:
+                cont[1] = (cont[1] + 1) % vocab
+            tokens, parents, prev = [int((cont[0] + 1) % vocab)], [-1], -1
+            for t in cont[:max(len(cont) - 1, 1)]:
+                parents.append(prev)
+                prev = len(tokens)
+                tokens.append(int(t))
+            return DraftProposal(np.asarray(tokens, np.int32),
+                                 np.asarray(parents, np.int32))
+
+    return Oracle()
+
+
+def replay_margin(params, cfg, results, requests, quant: bool, layout: str,
+                  dev, block: int = 64) -> float:
+    """Teacher-forced re-scoring of a greedy serve's emitted tokens through
+    the non-speculative kernel path: each request's prompt prefilled
+    exactly (an int8 cache then takes it quantized as staged admission
+    does: per block on the paged layout, per channel on the contiguous
+    one), then every emitted token but the last in one step. Returns the
+    largest (row's max logit - emitted token's logit) over every emitted
+    token; a greedy token the model would not pick shows there."""
+    import numpy as np
+    import torch
+
+    from tree_attention_tpu_torch.models import (
+        forward_step,
+        init_cache,
+        init_paged_cache,
+        paged_insert_slot,
+        quantize_cache,
+        quantize_paged_blocks,
+    )
+
+    prompts = {r.uid: r.prompt for r in requests}
+    worst = 0.0
+    for res in results:
+        prompt = torch.as_tensor(np.asarray(prompts[res.uid]),
+                                 dtype=torch.int64, device=dev)[None]
+        toks = torch.as_tensor(res.tokens, dtype=torch.int64, device=dev)
+        plen, total = prompt.shape[1], prompt.shape[1] + len(res.tokens)
+        nb = -(-total // block)
+
+        def paged(q):
+            c = init_paged_cache(cfg, 1, total, nb, block=block, device=dev,
+                                 quantize=q)
+            c.table.copy_(torch.arange(nb, dtype=torch.int32,
+                                       device=dev)[None])
+            return c
+
+        if not quant:
+            cache = (paged(False) if layout == "paged"
+                     else init_cache(cfg, 1, total, device=dev))
+            lg, _ = forward_step(params, torch.cat([prompt, toks[None, :-1]],
+                                                   1), cache, cfg)
+            rows = lg[0, plen - 1:]
+        else:
+            stage = init_cache(cfg, 1, total, device=dev)
+            lg, stage = forward_step(params, prompt, stage, cfg)
+            rows = lg[0, -1:]
+            if layout == "paged":
+                cache = paged(True)
+                kq, vq, ks, vs = quantize_paged_blocks(stage.k, stage.v,
+                                                       block)
+                paged_insert_slot(cache, 0, kq, vq, plen, ks, vs)
+            else:
+                cache = quantize_cache(stage)
+            if len(res.tokens) > 1:
+                lg, _ = forward_step(params, toks[None, :-1], cache, cfg)
+                rows = torch.cat([rows, lg[0]], 0)
+        rows = rows.float()
+        margin = rows.amax(-1) - rows.gather(1, toks[:, None])[:, 0]
+        worst = max(worst, margin.max().item())
+    return worst
+
+
+def tree_step_check(params, cfg, dev, slots: int = 8, cache_len: int = 640,
+                    block: int = 64, prefix: int = 256, tq: int = 8) -> dict:
+    """One tree verify step (random trees, one slot a chain; positions =
+    length + depth) on a prefilled paged cache at ragged lengths, one of
+    them a window across a block boundary: the kernel path against the
+    plain path on copies of the same cache, exact and int8 (the cache
+    quantized per block); and each exact tree row against its root path
+    decoded one token at a time by the kernel path. Returns the largest
+    |dlogit| of each comparison."""
+    import dataclasses
+
+    import torch
+
+    from tree_attention_tpu_torch.models import (
+        PagedQuantKVCache,
+        forward_step,
+        init_paged_cache,
+    )
+    from tree_attention_tpu_torch.ops.cuda_decode import (
+        quantize_symmetric_int8,
+    )
+
+    nb = cache_len // block
+    cache = init_paged_cache(cfg, slots, cache_len, slots * nb, block=block,
+                             device=dev)
+    cache.table.copy_(torch.arange(slots * nb, dtype=torch.int32,
+                                   device=dev).reshape(slots, nb))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pre = torch.randint(0, cfg.vocab_size, (slots, prefix), generator=gen,
+                        device=dev)
+    n0 = torch.randint(1, prefix + 1, (slots,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    n0[0] = min(2 * block - 3, prefix)  # the window crosses a block edge
+    _, cache = forward_step(params, pre, cache, cfg, n_tokens=n0)
+    trees = random_trees(slots, tq, 1, 2).to(dev)
+    depth = trees.sum(-1) - 1  # a row's ancestors, itself included
+    toks = torch.randint(0, cfg.vocab_size, (slots, tq), generator=gen,
+                         device=dev)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="plain")
+
+    def clone(c):
+        return dataclasses.replace(c, **{
+            f.name: getattr(c, f.name).clone()
+            for f in dataclasses.fields(c)})
+
+    def tree_step(c, conf):
+        lg, _ = forward_step(params, toks, clone(c), conf,
+                             positions=c.length.long()[:, None] + depth,
+                             tree_mask=trees)
+        return lg.float()
+
+    lk = tree_step(cache, cfg)
+    out = {"logits_err_plain": (lk - tree_step(cache, plain_cfg)
+                                ).abs().max().item()}
+    # Each row against its root path, one token per step (slots whose path
+    # is shorter ride the later steps inert).
+    worst = 0.0
+    for i in range(tq):
+        paths = []
+        for b in range(slots):
+            anc = trees[b, i].nonzero()[:, 0].tolist()  # ascending = path
+            paths.append(anc)
+        c = clone(cache)
+        last = torch.empty_like(lk[:, 0])
+        for s in range(max(len(p) for p in paths)):
+            step = torch.tensor([[int(toks[b, p[s]]) if s < len(p) else 0]
+                                 for b, p in enumerate(paths)], device=dev)
+            n = torch.tensor([int(s < len(p)) for p in paths], device=dev,
+                             dtype=torch.int32)
+            lg, c = forward_step(params, step, c, cfg, n_tokens=n)
+            for b, p in enumerate(paths):
+                if s == len(p) - 1:
+                    last[b] = lg[b, 0].float()
+        worst = max(worst, (last - lk[:, i]).abs().max().item())
+    out["logits_err_paths"] = worst
+
+    def per_block(pool):
+        codes, sc = quantize_symmetric_int8(
+            pool.reshape(*pool.shape[:3], -1), 3)
+        return codes.reshape(pool.shape), sc[..., 0]
+
+    (k8, ks8), (v8, vs8) = per_block(cache.k), per_block(cache.v)
+    qcache = PagedQuantKVCache(k=k8, v=v8, table=cache.table,
+                               length=cache.length, k_scale=ks8,
+                               v_scale=vs8)
+    out["int8_logits_err_plain"] = (
+        tree_step(qcache, cfg) - tree_step(qcache, plain_cfg)
+    ).abs().max().item()
+    return out
+
+
+def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
+               wrappers, reset_counts, tol_logits) -> dict:
+    """Phase 3d: speculative serving at the serve width.
+
+    (a) ``cli.run_serve`` (what ``cli.main --mode serve --speculate``
+    runs) with the ``ngram`` and ``ngram-tree`` drafters, exact and
+    ``--kv-quant int8``, on the serve phase's trace; (b) the oracle drafter
+    in process on the wave's trace (``refs``: its non-speculative greedy
+    tokens, exact and int8) on the paged and contiguous layouts, exact and
+    int8. Every serve retires every request with its budget and drains its
+    pool; each tree verify tick launches the layout's tree kernel once per
+    layer (and no other tree kernel runs); the oracle's acceptance is above
+    0 on the paged layouts; every emitted token passes the teacher-forced
+    replay (:func:`replay_margin` within ``tol_logits``); (c) a sampled
+    wave served plain and then speculatively (the oracle drafting the plain
+    serve's sampled tokens) under one seed. Token agreement with the
+    non-speculative serves is reported, not gated. On a CPU the launch
+    counts are not read (the wrappers run their plain versions)."""
+    import torch
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.serving import SlotServer, synthetic_trace
+    from tree_attention_tpu_torch.utils.config import parse_args
+
+    on_card = dev.type == "cuda"
+    tree_kernel = {("paged", False): "flash_decode_paged",
+                   ("paged", True): "flash_decode_paged_q8q",
+                   ("contiguous", False): "flash_decode",
+                   ("contiguous", True): "flash_decode_q8q"}
+    n_layers = cfg.n_layers
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def check(label, rep, server, n_req, n_new, layout, quant):
+        """The gates every speculative serve passes; returns its facts."""
+        tree = {n: w.tree_launches for n, w in wrappers.items()
+                if hasattr(w, "tree_launches")}
+        ticks = rep.spec["tree_verify_ticks"]
+        if rep.outcomes != {"budget": n_req} or \
+                rep.tokens_generated != n_req * n_new:
+            fail(f"spec serve {label}: outcomes {rep.outcomes}, "
+                 f"{rep.tokens_generated} tokens")
+        if any(server.leak_report().values()):
+            fail(f"spec serve {label} leaked: {server.leak_report()}")
+        mine = tree_kernel[(layout, quant)]
+        if on_card and (tree[mine] != n_layers * ticks or any(
+                c for n, c in tree.items() if n != mine)):
+            fail(f"spec serve {label}: tree launches {tree} over {ticks} "
+                 f"tree verify ticks x {n_layers} layers")
+        return {"spec": rep.spec, "tokens_per_sec": rep.tokens_per_sec,
+                "wall_s": rep.wall_s, "ticks": rep.ticks,
+                "decode_ticks": rep.decode_ticks,
+                "tree_launches": tree[mine], "tree_kernel": mine}
+
+    out = {"cli": {}, "oracle": {}}
+    for quant in ("none", "int8"):
+        for drafter in ("ngram", "ngram-tree"):
+            label = f"cli {drafter} kv_quant {quant}"
+            c = parse_args(serve_args + SPEC_ARGS + ["--drafter", drafter,
+                                                     "--kv-quant", quant])
+            reset_counts()
+            rec, server, rep = cli.run_serve(c, dev)
+            sync()
+            r = check(label, rep, server, c.requests, c.max_new_tokens,
+                      "paged", quant != "none")
+            reqs = synthetic_trace(
+                c.requests, prompt_len=c.prompt_len,
+                prompt_jitter=c.prompt_jitter,
+                max_new_tokens=c.max_new_tokens,
+                arrival_every=c.arrival_every,
+                vocab_size=server.cfg.vocab_size, seed=c.seed + 1)
+            r["replay_margin"] = replay_margin(
+                server.params, server.cfg, rep.results, reqs,
+                quant != "none", "paged", dev, server.kv_block)
+            r["tokens"] = {x.uid: x.tokens for x in rep.results}
+            r["record"] = rec
+            out["cli"][label] = r
+            print(f"spec serve ({label}): {rec['tokens_per_sec']} tok/s, "
+                  f"spec {json.dumps(rep.spec)}, tree launches "
+                  f"{r['tree_launches']}, replay margin "
+                  f"{r['replay_margin']:.3e} (tol {tol_logits})", flush=True)
+            if not r["replay_margin"] <= tol_logits:
+                fail(f"spec serve ({label}): an emitted token is "
+                     f"{r['replay_margin']} below its position's largest "
+                     f"logit on the non-speculative path")
+            del server
+    n_new = max(r.max_new_tokens for r in trace)
+    for layout in ("paged", "contiguous"):
+        for quant in (False, True):
+            label = f"oracle {layout}{' int8' if quant else ''}"
+            ref = refs[quant]
+            server = SlotServer(
+                params, cfg, **engine_kw, kv_layout=layout, quantize=quant,
+                speculate=True, draft_k=4,
+                drafter=oracle_drafter(trace, ref, cfg.vocab_size))
+            reset_counts()
+            rep = server.serve(trace)
+            sync()
+            r = check(label, rep, server, len(trace), n_new, layout, quant)
+            if on_card and not r["tree_launches"]:
+                fail(f"spec serve ({label}): no tree verify tick")
+            same = sum(a == b for x in rep.results
+                       for a, b in zip(x.tokens, ref[x.uid]))
+            r["tokens_equal_to_nonspec"] = same / rep.tokens_generated
+            r["replay_margin"] = replay_margin(
+                params, cfg, rep.results, trace, quant, layout, dev,
+                engine_kw.get("kv_block", 64))
+            out["oracle"][label] = r
+            print(f"spec serve ({label}): {rep.tokens_per_sec:.1f} tok/s, "
+                  f"spec {json.dumps(rep.spec)}, tree launches "
+                  f"{r['tree_launches']} ({r['tree_kernel']}), tokens equal "
+                  f"to the non-spec wave's {same}/{rep.tokens_generated}, "
+                  f"replay margin {r['replay_margin']:.3e} (tol "
+                  f"{tol_logits})", flush=True)
+            if layout == "paged" and not rep.spec["acceptance_rate"] > 0:
+                fail(f"spec serve ({label}): acceptance rate "
+                     f"{rep.spec['acceptance_rate']}")
+            if not r["replay_margin"] <= tol_logits:
+                fail(f"spec serve ({label}): an emitted token is "
+                     f"{r['replay_margin']} below its position's largest "
+                     f"logit on the non-speculative path")
+            del server
+    # (c) Sampled: the wave at temperature 0.8, top-k 50 under one seed,
+    # served plain, then speculatively with the oracle drafting the plain
+    # serve's own sampled tokens (keyed draws: on exact arithmetic the two
+    # streams are one). Both retire and drain; agreement is reported.
+    samp = dict(temperature=0.8, top_k=50, seed=11)
+    server = SlotServer(params, cfg, **engine_kw, **samp)
+    plain = server.serve(trace)
+    sync()
+    if plain.outcomes != {"budget": len(trace)} or any(
+            server.leak_report().values()):
+        fail(f"sampled plain serve: outcomes {plain.outcomes}, leaks "
+             f"{server.leak_report()}")
+    sref = {x.uid: x.tokens for x in plain.results}
+    label = "oracle paged sampled"
+    server = SlotServer(params, cfg, **engine_kw, **samp, speculate=True,
+                        draft_k=4,
+                        drafter=oracle_drafter(trace, sref, cfg.vocab_size))
+    reset_counts()
+    rep = server.serve(trace)
+    sync()
+    r = check(label, rep, server, len(trace), n_new, "paged", False)
+    same = sum(a == b for x in rep.results
+               for a, b in zip(x.tokens, sref[x.uid]))
+    r["tokens_equal_to_nonspec"] = same / rep.tokens_generated
+    r["nonspec_tokens_per_sec"] = plain.tokens_per_sec
+    out["oracle"][label] = r
+    print(f"spec serve ({label}): {rep.tokens_per_sec:.1f} tok/s beside "
+          f"the sampled plain serve's {plain.tokens_per_sec:.1f}, spec "
+          f"{json.dumps(rep.spec)}, tree launches {r['tree_launches']}, "
+          f"tokens equal to the sampled plain serve's "
+          f"{same}/{rep.tokens_generated} (reported, not gated)", flush=True)
+    del server
+    return out
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -469,6 +891,18 @@ def main() -> None:
     ptxas = ptxas_summary(_build)
     print(f"ptxas (registers, spill-store bytes): {json.dumps(ptxas)}",
           flush=True)
+    # Every instantiation of the decode body (B1/B2/B4/B5), by mangled
+    # name; the tree variants' template arguments end in ``ELb1EE``.
+    dptx = ptxas_summary(_build, ("flash_decode",),
+                         r"(_Z\w*decode_split_kernel\w*)",
+                         lambda m: m.group(1))
+    tree_bodies = {n: r for n, r in dptx.items() if "ELb1EEEv" in n}
+    print(f"ptxas of the decode body: {len(dptx)} instantiations, "
+          f"{len(tree_bodies)} tree variants; tree vs causal twin "
+          f"(registers, spill-store bytes): " + json.dumps({
+              n[n.index("kernelI") + 7:n.index("EEEv")]: [
+                  r, dptx.get(n.replace("ELb1EEEv", "ELb0EEEv"))]
+              for n, r in tree_bodies.items()}), flush=True)
     hgmma = hgmma_counts(_build)
     print(f"SASS HGMMA instructions of the tensor-core bodies: "
           f"{json.dumps(hgmma)}", flush=True)
@@ -1019,6 +1453,218 @@ def main() -> None:
                      f"the unsharded kernel")
     del q, k, v, kq, vq, ks, vs, parts, merged
 
+    # -- 2d. the tree variants of B1, B2, B4 and B5 -------------------------
+    # Speculative tree verification: the tree mask replaces the causal rule
+    # with the ancestor-window rule. Masks are random draft trees packed as
+    # pack_proposal packs them (slot 1 a plain chain; at Tq 32 every slot's
+    # last row sets bit 31). Shapes: B2/B5 at a verify tick (B8 H16, Tq 8
+    # and 32, 640-token slots of 64-token blocks; bf16, int8 with per-block
+    # scales), B1/B4 at the contiguous verify tick (B8 H16 Tk640) and at the
+    # reference workload with Tq 8, and the int8-cast routes of B1 and B2.
+    # Bound: the keys some row sees (history plus the window), K+V, plus Q
+    # and the output / 3.35 TB/s, or the visible (row, key) pairs' products.
+    # Library: SDPA with a boolean attn_mask over the gathered view (the
+    # labelled yardstick for the int8 routes: over the dequantized view).
+    from tree_attention_tpu_torch.ops.block_utils import tree_window_mask
+
+    def tree_counts(trees, qoff, tk):
+        """(keys some row sees, visible (row, key) pairs) over the slots:
+        each row sees the history below the window and its ancestors."""
+        tq = trees.shape[1]
+        keys = sum(min(tk, int(o) + tq) for o in qoff.tolist())
+        pairs = int(trees.sum()) + tq * int(qoff.clamp(max=tk).sum())
+        return keys, pairs
+
+    def tree_sdpa_mask(trees, qoff, tk):
+        return tree_window_mask(trees, qoff, torch.zeros_like(qoff),
+                                tk)[:, None]  # (B, 1, Tq, Tk)
+
+    tree_cases = {}
+    causal_ms = {}  # the causal launch on the same inputs: the mask's cost
+    blk, nb, npool = 64, 10, 96
+    kp, vp = rnd(npool, 16, blk, 128), rnd(npool, 16, blk, 128)
+    x = (torch.randn((npool, 16, blk, 128), generator=g, device=dev)
+         * torch.exp(0.7 * torch.randn((npool, 16, 1, 1), generator=g,
+                                       device=dev)))
+    kp8, kbs = cuda_decode.quantize_symmetric_int8(
+        x.reshape(npool, 16, blk * 128), 2)
+    x = (torch.randn((npool, 16, blk, 128), generator=g, device=dev)
+         * torch.exp(0.7 * torch.randn((npool, 16, 1, 1), generator=g,
+                                       device=dev)))
+    vp8, vbs = cuda_decode.quantize_symmetric_int8(
+        x.reshape(npool, 16, blk * 128), 2)
+    kp8, vp8 = (t.reshape(npool, 16, blk, 128) for t in (kp8, vp8))
+    kbs, vbs = kbs[..., 0], vbs[..., 0]
+    del x
+    table = torch.stack([torch.randperm(npool, generator=g, device=dev)[:nb]
+                         for _ in range(8)]).to(torch.int32)
+    kgd, vgd = gather_paged_kv(deq(kp8, kbs[..., None, None]),
+                               deq(vp8, vbs[..., None, None]), table)
+    kg, vg = gather_paged_kv(kp, vp, table)
+    b2, b5 = (cuda_decode.attention_cuda_decode_paged,
+              cuda_decode.attention_cuda_decode_paged_q8q)
+    for tq in TREE_TQS:
+        q = rnd(8, 16, tq, 128)
+        qoff = torch.randint(0, nb * blk - tq, (8,), generator=g, device=dev,
+                             dtype=torch.int32)
+        qoff[0] = 3 * blk - 3  # the window straddles a block boundary
+        trees = random_trees(8, tq, 1, tq).to(dev)
+        keys, pairs = tree_counts(trees, qoff, nb * blk)
+        mask = tree_sdpa_mask(trees, qoff, nb * blk)
+        tree_cases[tq] = (q, qoff, trees)
+        record("flash_decode_paged_tree", f"B8 H16 block64 NB10 Tq{tq} tree",
+               lambda: b2(q, kp, vp, table, q_offset=qoff, tree_mask=trees),
+               lambda: cuda_decode.paged_decode_plain(
+                   q, kp, vp, table, q_offset=qoff, tree_mask=trees),
+               lambda: F.scaled_dot_product_attention(q, kg, vg,
+                                                      attn_mask=mask),
+               keys * 16 * 128 * 2 * 2 + 2 * q.numel() * 2,
+               4.0 * 16 * 128 * pairs, names=own)
+        record("flash_decode_paged_q8q_tree",
+               f"int8 B8 H16 block64 NB10 Tq{tq} tree, per-block scales",
+               lambda: b5(q, kp8, vp8, table, kbs, vbs, q_offset=qoff,
+                          tree_mask=trees),
+               lambda: cuda_decode.paged_decode_q8q_plain(
+                   q, kp8, vp8, table, kbs, vbs, q_offset=qoff,
+                   tree_mask=trees),
+               None, keys * 16 * 128 * 2 + q.numel() * 4
+               + 2 * 8 * nb * 16 * 4, 0.0,
+               ops_s=q8_ops_s(16 * pairs, True),
+               yardstick=lambda: F.scaled_dot_product_attention(
+                   q, kgd, vgd, attn_mask=mask), names=own)
+        for name, fn in (
+                ("B2", lambda: b2(q, kp, vp, table, q_offset=qoff)),
+                ("B5", lambda: b5(q, kp8, vp8, table, kbs, vbs,
+                                  q_offset=qoff))):
+            causal_ms[f"{name} Tq{tq}"] = time_ms(
+                fn, keys * 16 * 128 * 2 / HBM_BYTES_PER_S * 1e3,
+                names=own)[0]
+    print(f"the same inputs without the mask (causal launch) ms: "
+          f"{json.dumps(causal_ms)}", flush=True)
+    q, qoff, trees = tree_cases[8]
+    keys, pairs = tree_counts(trees, qoff, nb * blk)
+    mask = tree_sdpa_mask(trees, qoff, nb * blk)
+    record("flash_decode_paged_tree",
+           "int8 B8 H16 block64 NB10 Tq8 tree, block_scales",
+           lambda: b2(q, kp8, vp8, table, q_offset=qoff,
+                      block_scales=(kbs, vbs), tree_mask=trees),
+           lambda: cuda_decode.paged_decode_plain(
+               q, kp8, vp8, table, q_offset=qoff, block_scales=(kbs, vbs),
+               tree_mask=trees),
+           None, keys * 16 * 128 * 2 + q.numel() * 4 + 2 * 8 * nb * 16 * 4,
+           0.0, ops_s=q8_ops_s(16 * pairs, False),
+           yardstick=lambda: F.scaled_dot_product_attention(
+               q, kgd, vgd, attn_mask=mask), names=own)
+    # Lower-triangular masks give the causal launches' out and lse bit for
+    # bit (B2 and B5 here, B1 and B4 below); rows past a slot's window never
+    # read a table entry past it: every entry past each slot's window names
+    # a block of NaN (int8: NaN block scales), and the result is unchanged.
+    tree_teeth = {}
+    tril8 = torch.tril(torch.ones(8, 8, dtype=torch.bool, device=dev)
+                       ).expand(8, 8, 8)
+    for name, fn in (
+            ("B2", lambda **kw: b2(q, kp, vp, table, q_offset=qoff, **kw)),
+            ("B5", lambda **kw: b5(q, kp8, vp8, table, kbs, vbs,
+                                   q_offset=qoff, **kw))):
+        a, t = fn(), fn(tree_mask=tril8)
+        tree_teeth[f"{name} tril == causal"] = (torch.equal(a[0], t[0])
+                                                and torch.equal(a[1], t[1]))
+    q32, qoff32, trees32 = tree_cases[32]
+    past = (torch.arange(nb, device=dev)[None] * blk
+            >= (qoff32 + 32)[:, None])
+    used = torch.zeros(npool, dtype=torch.bool, device=dev)
+    used[table.long().flatten()] = True
+    spare = int((~used).nonzero()[0])  # a block no slot maps
+    nan_table = torch.where(past, spare, table).to(torch.int32)
+    kn, vn = kp.clone(), vp.clone()
+    kn[spare], vn[spare] = math.nan, math.nan
+    ksn, vsn = kbs.clone(), vbs.clone()
+    ksn[spare], vsn[spare] = math.nan, math.nan
+    if not bool(past.any()):
+        fail("tree: no table entry lies past a window")
+    for name, a, t in (
+            ("B2", b2(q32, kp, vp, table, q_offset=qoff32, tree_mask=trees32),
+             b2(q32, kn, vn, nan_table, q_offset=qoff32, tree_mask=trees32)),
+            ("B5", b5(q32, kp8, vp8, table, kbs, vbs, q_offset=qoff32,
+                      tree_mask=trees32),
+             b5(q32, kp8, vp8, nan_table, ksn, vsn, q_offset=qoff32,
+                tree_mask=trees32))):
+        tree_teeth[f"{name} entries past the window unread"] = (
+            torch.equal(a[0], t[0]) and torch.equal(a[1], t[1]))
+    del kn, vn
+    # The gate has teeth for the window rule: it rejects each row reading
+    # the previous row's bits, and the window shifted by one key.
+    got = b2(q32, kp, vp, table, q_offset=qoff32, tree_mask=trees32)
+    for fault, plain in (
+            ("previous row's bits", cuda_decode.paged_decode_plain(
+                q32, kp, vp, table, q_offset=qoff32,
+                tree_mask=trees32.roll(1, 1))),
+            ("window shifted by one key", cuda_decode.paged_decode_plain(
+                q32, kp, vp, table, q_offset=qoff32 + 1,
+                tree_mask=trees32))):
+        r = gate(got, plain)
+        tree_teeth[fault] = {"pass": r[0], "rel": r[2], "dlse": r[3]}
+    print(f"tree variants: {json.dumps(tree_teeth)}", flush=True)
+    if not all(tree_teeth[k] for k in tree_teeth if "==" in k or "unread"
+               in k) or any(tree_teeth[f]["pass"] for f in (
+                   "previous row's bits", "window shifted by one key")):
+        fail(f"tree variants: {tree_teeth}")
+    del kp, vp, kp8, vp8, kg, vg, kgd, vgd, got
+    # B1 and B4 at the contiguous verify tick (8 slots of 640 tokens) and at
+    # the reference workload with Tq 8; the int8-cast route of B1.
+    b1, b4 = (cuda_decode.attention_cuda_decode,
+              cuda_decode.attention_cuda_decode_q8q)
+    for shape, B, tk in (("B8 H16 Tk640", 8, 640),
+                         ("ref B1 H16 Tk64000", 1, 64000)):
+        q, k, v = rnd(B, 16, 8, 128), rnd(B, 16, tk, 128), rnd(B, 16, tk, 128)
+        qoff = (torch.randint(0, tk - 8, (B,), generator=g, device=dev,
+                              dtype=torch.int32) if B > 1 else
+                torch.full((1,), tk - 8, dtype=torch.int32, device=dev))
+        trees = random_trees(B, 8, 1 if B > 1 else -1, 3).to(dev)
+        keys, pairs = tree_counts(trees, qoff, tk)
+        mask = tree_sdpa_mask(trees, qoff, tk)
+        kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(k, v)
+        kd, vd = deq(kq, ks), deq(vq, vs)
+        kw = dict(causal=True, q_offset=qoff)
+        record("flash_decode_tree", f"{shape} Tq8 tree",
+               lambda: b1(q, k, v, tree_mask=trees, **kw),
+               lambda: cuda_decode.decode_plain(q, k, v, tree_mask=trees,
+                                                **kw),
+               lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask),
+               keys * 16 * 128 * 2 * 2 + 2 * q.numel() * 2,
+               4.0 * 16 * 128 * pairs, names=own)
+        q8_bytes = keys * 16 * 128 * 2 + q.numel() * 4 + 4 * ks.numel() * 4
+        record("flash_decode_q8q_tree", f"int8 {shape} Tq8 tree",
+               lambda: b4(q, kq, vq, ks, vs, tree_mask=trees, **kw),
+               lambda: cuda_decode.decode_q8q_plain(
+                   q, kq, vq, ks, vs, tree_mask=trees, **kw),
+               None, q8_bytes, 0.0, ops_s=q8_ops_s(16 * pairs, True),
+               yardstick=lambda: F.scaled_dot_product_attention(
+                   q, kd, vd, attn_mask=mask), names=own)
+        if B == 1:
+            record("flash_decode_tree", f"int8 {shape} Tq8 tree, cast",
+                   lambda: cuda_decode.attention_cuda_decode_q8(
+                       q, kq, vq, ks, vs, tree_mask=trees, **kw),
+                   lambda: cuda_decode.decode_q8_plain(
+                       q, kq, vq, ks, vs, tree_mask=trees, **kw),
+                   None, q8_bytes, 0.0, ops_s=q8_ops_s(16 * pairs, False),
+                   yardstick=lambda: F.scaled_dot_product_attention(
+                       q, kd, vd, attn_mask=mask), names=own)
+        tril = torch.tril(torch.ones(8, 8, dtype=torch.bool, device=dev)
+                          ).expand(B, 8, 8)
+        for name, fn in (("B1", lambda **a: b1(q, k, v, **kw, **a)),
+                         ("B4", lambda **a: b4(q, kq, vq, ks, vs, **kw,
+                                               **a))):
+            a, t = fn(), fn(tree_mask=tril)
+            same = torch.equal(a[0], t[0]) and torch.equal(a[1], t[1])
+            tree_teeth[f"{name} {shape} tril == causal"] = same
+            if not same:
+                fail(f"tree: {name} {shape} with a lower-triangular mask "
+                     f"differs from the causal launch")
+        del q, k, v, kq, vq, kd, vd, mask
+    torch.cuda.empty_cache()
+
     # B3: a Tq=256 prefill chunk against a 2k-token gathered view.
     q, k, v = rnd(8, 16, 256, 128), rnd(8, 16, 2048, 128), rnd(8, 16, 2048, 128)
     qoff = torch.randint(0, 2048 - 256, (8,), generator=g, device=dev,
@@ -1044,7 +1690,7 @@ def main() -> None:
           f"{not shift[0]}", flush=True)
     if shift[0]:
         fail("the parity gate accepts B3's frontier shifted by one key")
-    del q, k, v, kp, vp, mask
+    del q, k, v, mask
     # ... and the training forward: B2 H16 T4096 causal (the train phase's
     # attention shape).
     q, k, v = (rnd(2, 16, 4096, 128) for _ in range(3))
@@ -1317,6 +1963,8 @@ def main() -> None:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+            if hasattr(w, "tree_launches"):
+                w.tree_launches = 0
 
     serve_cfg = parse_args(SERVE_ARGS)
     reset_counts()
@@ -1619,7 +2267,58 @@ def main() -> None:
         if planted_codes <= TOL_CODES:
             fail(f"int8 step ({route}): the code gate passes rows quantized "
                  f"under the wrong head's scale ({planted_codes} codes)")
-    del server, params, qcache, lk, lp, ck, cp, k8, v8
+    del qcache, lk, lp, ck, cp, k8, v8
+    torch.cuda.empty_cache()
+
+    # -- 3d. speculative serving ------------------------------------------
+    # The CLI's --speculate serves (ngram, ngram-tree; exact, int8) on the
+    # serve phase's trace, the oracle drafter on the wave's trace on the
+    # four layouts (spec_phase), one tree verify step against the plain
+    # path and against each root path decoded token by token
+    # (tree_step_check), and the verify ticks' device split from a traced
+    # oracle wave beside the plain wave's.
+    spec_refs = {False: {r.uid: r.tokens for r in plain_rep.results},
+                 True: {r.uid: r.tokens for r in q8_rep.results}}
+    spec_kw = dict(slots=8, cache_len=640, prefill_chunk=256, kv_block=64)
+    t0 = time.monotonic()
+    spec = spec_phase(dev, params, tcfg, SERVE_ARGS, trace, spec_refs,
+                      spec_kw, wrappers, reset_counts, TOL_LOGITS)
+    for label, r in spec["cli"].items():
+        if "kv_quant none" in label:
+            same = sum(a == b for uid, toks in r["tokens"].items()
+                       for a, b in zip(toks, single_tokens[uid]))
+            r["tokens_equal_to_nonspec"] = same / (16 * 64)
+            print(f"spec serve ({label}): {same} of {16 * 64} greedy tokens "
+                  f"equal the non-speculative serve's (reported, not gated); "
+                  f"{r['tokens_per_sec']:.1f} spec tok/s beside "
+                  f"{rec['tokens_per_sec']} non-spec tok/s", flush=True)
+        del r["tokens"]
+    tree_step = tree_step_check(params, tcfg, dev)
+    print(f"tree verify step: kernel vs plain logits |d| "
+          f"{tree_step['logits_err_plain']:.3e} (int8 "
+          f"{tree_step['int8_logits_err_plain']:.3e}), tree rows vs their "
+          f"root paths decoded token by token |d| "
+          f"{tree_step['logits_err_paths']:.3e} (tol {TOL_LOGITS})",
+          flush=True)
+    if not all(math.isfinite(e) and e <= TOL_LOGITS
+               for e in tree_step.values()):
+        fail(f"tree verify step: {tree_step}")
+    spec_wave, spec_breakdown = wave_breakdown("spec serve (oracle)", {
+        "flash_decode tree (B2 tree)": (", 8, true>",),
+        "flash_decode (B2/B1) + merges": ("decode_split", "merge_splits"),
+        "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul},
+        speculate=True, draft_k=4,
+        drafter=oracle_drafter(trace, spec_refs[False], tcfg.vocab_size))
+    spec_breakdown["spec"] = spec_wave.spec
+    spec_breakdown["nonspec_tokens_per_sec"] = plain_rep.tokens_per_sec
+    spec_breakdown["verify_ticks"] = spec_wave.decode_ticks
+    print(f"spec wave (oracle, 8 requests): {spec_wave.tokens_per_sec:.1f} "
+          f"tok/s beside the plain wave's {plain_rep.tokens_per_sec:.1f}; "
+          f"{spec_wave.decode_ticks} verify ticks vs "
+          f"{plain_rep.decode_ticks} decode ticks; spec "
+          f"{json.dumps(spec_wave.spec)}; phase wall "
+          f"{time.monotonic() - t0:.2f}s", flush=True)
+    del server, params
     torch.cuda.empty_cache()
 
     # -- 3c. two ranks sharing the card: the sequence-sharded pool ---------
@@ -1860,6 +2559,17 @@ def main() -> None:
         "flash_decode_paged_local": (
             "cuda", csrc + "flash_decode.cu",
             "tree_attention_tpu/ops/pallas_decode.py:344"),
+        "flash_decode_tree": ("cuda", csrc + "flash_decode.cu",
+                              "tree_attention_tpu/ops/pallas_decode.py:179"),
+        "flash_decode_paged_tree": (
+            "cuda", csrc + "flash_decode.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:344"),
+        "flash_decode_q8q_tree": (
+            "cuda", csrc + "flash_decode.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:266"),
+        "flash_decode_paged_q8q_tree": (
+            "cuda", csrc + "flash_decode.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:461"),
         "flash_fwd": ("cuda", csrc + "flash_fwd.cu",
                       "tree_attention_tpu/ops/pallas_attention.py:65"),
         "flash_dq": ("cuda", csrc + "flash_bwd.cu",
@@ -1880,6 +2590,16 @@ def main() -> None:
     # B2 local_blocks: rank 0's launches in the two-rank exact sharded serve.
     main_launches["flash_decode_paged_local"] = sh["exact"][0]["launches"][
         "flash_decode_paged_local"]
+    # The tree variants: their launches in the speculative serves (3d).
+    spec_runs = {**spec["cli"], **spec["oracle"]}
+    for name in ("flash_decode", "flash_decode_paged", "flash_decode_q8q",
+                 "flash_decode_paged_q8q"):
+        main_launches[name + "_tree"] = sum(
+            r["tree_launches"] for r in spec_runs.values()
+            if r["tree_kernel"] == name)
+        if not main_launches[name + "_tree"]:
+            fail(f"the speculative serves never launched {name}'s tree "
+                 f"variant")
     kernels = []
     for name, (route, src, replaces) in meta.items():
         mine = [c for c in cases if c["kernel"] == name]
@@ -1917,6 +2637,16 @@ def main() -> None:
                 decode_recs["int8-cast"]["launches"] if name == "flash_decode"
                 else x_launches[name])
             entry["launches_int8_serve_staged"] = q_launches[name]
+        if name in ("flash_decode_tree", "flash_decode_paged_tree"):
+            # The int8-cast route through the tree variant.
+            cast = next(c for c in mine if c["case"].startswith("int8"))
+            entry["int8_cast"] = {k: cast[k] for k in (
+                "case", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "yardstick_sdpa_dequant_ms", "max_rel_err")}
+        if name.endswith("_tree"):
+            entry["launches_per_run"] = {
+                label: r["tree_launches"] for label, r in spec_runs.items()
+                if r["tree_kernel"] + "_tree" == name}
         if name == "flash_decode_paged_local":
             entry["launches_per_rank"] = {
                 label: [r["launches"][name] for r in ranks]
@@ -1964,6 +2694,10 @@ def main() -> None:
                    "local_blocks_merge": local_merge,
                    "local_blocks_teeth": local_teeth,
                    "tree_decode_shards": tree_merge,
+                   "tree_variants": tree_teeth, "decode_ptxas": dptx,
+                   "tree_causal_ms": causal_ms,
+                   "spec": spec, "spec_tree_step": tree_step,
+                   "spec_breakdown": spec_breakdown,
                    "sharded": [{k: r[k] for k in ("exact", "int8", "mixed",
                                                   "decode", "decode_launches")}
                                for r in sharded],

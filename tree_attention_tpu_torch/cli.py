@@ -376,15 +376,34 @@ def run_serve(cfg: RunConfig, dev: torch.device,
         cfg.prompt_len + cfg.prompt_jitter + cfg.max_new_tokens, mesh)
     tcfg = transformer_config(dataclasses.replace(cfg, seq_len=cache_len))
     params = init_params(tcfg, cfg.seed, dev)
-    server = SlotServer(
-        params, tcfg, slots=cfg.slots, cache_len=cache_len,
-        temperature=cfg.temperature, top_k=cfg.top_k, seed=cfg.seed + 2,
-        prefill_chunk=cfg.prefill_chunk, prefill_budget=cfg.prefill_budget,
-        slo_ttft=cfg.slo_ttft, slo_tbt=cfg.slo_tbt,
-        kv_layout=cfg.kv_layout, kv_block=cfg.kv_block,
-        kv_blocks=cfg.kv_blocks, quantize=kernel is not None,
-        quant_kernel=kernel or "q8q", mesh=mesh, kv_shard=cfg.kv_shard,
-    )
+    drafter = cfg.drafter
+    if cfg.speculate and cfg.drafter == "model":
+        # A half-depth draft transformer (same widths and vocab) from its
+        # own seed: the two-model speculative shape.
+        from tree_attention_tpu_torch.serving.speculation import (
+            DraftModelDrafter,
+        )
+
+        draft_cfg = dataclasses.replace(tcfg,
+                                        n_layers=max(tcfg.n_layers // 2, 1))
+        drafter = DraftModelDrafter(init_params(draft_cfg, cfg.seed + 3, dev),
+                                    draft_cfg)
+    try:
+        # The engine refuses what it does not serve (--draft-k out of
+        # [1, 31], --speculate under --mesh).
+        server = SlotServer(
+            params, tcfg, slots=cfg.slots, cache_len=cache_len,
+            temperature=cfg.temperature, top_k=cfg.top_k, seed=cfg.seed + 2,
+            prefill_chunk=cfg.prefill_chunk,
+            prefill_budget=cfg.prefill_budget,
+            slo_ttft=cfg.slo_ttft, slo_tbt=cfg.slo_tbt,
+            kv_layout=cfg.kv_layout, kv_block=cfg.kv_block,
+            kv_blocks=cfg.kv_blocks, quantize=kernel is not None,
+            quant_kernel=kernel or "q8q", mesh=mesh, kv_shard=cfg.kv_shard,
+            speculate=cfg.speculate, draft_k=cfg.draft_k, drafter=drafter,
+        )
+    except ValueError as e:
+        raise SystemExit(f"error: {e}") from None
     trace = synthetic_trace(
         cfg.requests, prompt_len=cfg.prompt_len,
         prompt_jitter=cfg.prompt_jitter, max_new_tokens=cfg.max_new_tokens,
@@ -407,6 +426,8 @@ def run_serve(cfg: RunConfig, dev: torch.device,
         "prefill_chunk": cfg.prefill_chunk,
         "kv_layout": cfg.kv_layout,
         **({"kv_quant": cfg.kv_quant} if kernel else {}),
+        **({"speculate": {"draft_k": cfg.draft_k, "drafter": cfg.drafter}}
+           if cfg.speculate else {}),
         **mesh_rec,
         **report.as_dict(),
         "leaks": server.leak_report(),

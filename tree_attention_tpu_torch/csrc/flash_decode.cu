@@ -11,7 +11,8 @@
 //   _flash_decode_q8q_kernel        (B4: int8 Q x int8 K -> int32 scores)
 //   _flash_decode_paged_q8q_kernel  (B5: B4 through the block table, with
 //                                    optional per-block K/V scalars)
-// no tree flag. One body serves four operand variants:
+// each with and without its static `tree` flag (the kTree template flag
+// here). One body serves four operand variants:
 //   exact  q, k, v and out all f32 or all bf16;
 //   cast   q bf16, k/v int8 widened to float (exact for [-127, 127]), out
 //          bf16 — the "q8" route over B1/B2;
@@ -64,6 +65,20 @@
 //   identity. The split heuristic still sizes splits on NB * blk, the
 //   logical length, though a rank holds about 1/W of the blocks: a split
 //   over remote blocks only costs its table reads and a (0, -inf) partial.
+// - The tree variant (kTree; speculative tree verification, SpecInfer,
+//   arXiv:2305.09781): a slot's Tq <= 32 query rows are packed draft-tree
+//   nodes at KV positions [q_off, q_off + Tq), and each packed row carries
+//   one int32 word (tree, (BH, R)), bit i set iff its query row sees window
+//   position i (its ancestors and itself). Row r sees the key at p iff
+//   rel = p - q_off < 0 (committed history) or rel < Tq and bit rel of its
+//   word is set (read as unsigned: bit 31 is the sign bit). That replaces
+//   the causal test; the causal cull of the key range stays, since the
+//   window ends at q_off + Tq, and the ragged-tail and local-blocks masks
+//   compose with it unchanged. A lower-triangular mask is the causal rule,
+//   so it gives the causal body's out and lse bit for bit. The word is one
+//   register per row of the warp, loaded beside the row's position; the
+//   flag is a template parameter, so the body without it is unchanged. It
+//   is built for the 8-row Q tile only (every Tq a tree verifies).
 #include <type_traits>
 
 #include "common.cuh"
@@ -84,6 +99,7 @@ struct Args {
   const float* vs;        // (N, Hkv) per-block V scalars
   const int32_t* offs;    // (2, B): q_offset row, kv_offset row
   const int32_t* table;   // (B, NB) if paged
+  const int32_t* tree;    // (BH, R) ancestor bitmasks (tree variant only)
   float* o_part;          // (S, BH, R, D)
   float* lse_part;        // (S, BH, R)
   void* out;              // (BH, R, D) in the output type
@@ -131,7 +147,8 @@ __device__ __forceinline__ float dot(const QReg<TQ, N>& q,
   }
 }
 
-template <typename TQ, typename TKV, int D, bool kPaged, bool kScales, int RW>
+template <typename TQ, typename TKV, int D, bool kPaged, bool kScales, int RW,
+          bool kTree>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_split_kernel(const Args a) {
   constexpr int N = D / 32;
@@ -162,6 +179,7 @@ decode_split_kernel(const Args a) {
   QReg<TQ, N> qr[RW];
   float qmul[RW];  // the raw dot's multiplier: softmax scale or row scale
   int qpos[RW];
+  uint32_t bits[kTree ? RW : 1];  // tree: each row's ancestor bitmask
   float m[RW], l[RW], acc[RW][N];
 #pragma unroll
   for (int r = 0; r < RW; ++r) {
@@ -178,6 +196,11 @@ decode_split_kernel(const Args a) {
       qmul[r] = 0.f;
     }
     qpos[r] = q_off + (row0 + r) % a.Tq;
+    if constexpr (kTree) {
+      bits[r] = r < nrows
+                    ? static_cast<uint32_t>(a.tree[(size_t)bh * R + row0 + r])
+                    : 0u;
+    }
     m[r] = ta::kNegInf;
     l[r] = 0.f;
 #pragma unroll
@@ -235,8 +258,15 @@ decode_split_kernel(const Args a) {
         float sc = dot(qr[r], kl[c]) * qmul[r];
         if constexpr (kScales) sc *= ksc[c];  // this key's block K scalar
         const int jj = j + c;
-        const bool vis = ((loaded >> c) & 1u) &&
-                         (!a.causal || kv_off + jj <= qpos[r]);
+        bool rule;
+        if constexpr (kTree) {
+          // The window rule; rel < Tq <= 32 guards the shift.
+          const int rel = kv_off + jj - q_off;
+          rule = rel < 0 || (rel < a.Tq && ((bits[r] >> rel) & 1u));
+        } else {
+          rule = !a.causal || kv_off + jj <= qpos[r];
+        }
+        const bool vis = ((loaded >> c) & 1u) && rule;
         s[c] = vis ? sc : ta::kNegInf;
         mx = fmaxf(mx, s[c]);
       }
@@ -314,11 +344,11 @@ merge_splits_kernel(const float* __restrict__ o_part,
 }
 
 template <typename TQ, typename TKV, typename TO, int D, bool kPaged,
-          bool kScales, int RW>
+          bool kScales, int RW, bool kTree = false>
 cudaError_t launch(const Args& a, int split_ctas, cudaStream_t stream) {
   const int BH = a.B * a.Hkv;
   dim3 grid(split_ctas, (a.R + RW - 1) / RW, BH);
-  decode_split_kernel<TQ, TKV, D, kPaged, kScales, RW>
+  decode_split_kernel<TQ, TKV, D, kPaged, kScales, RW, kTree>
       <<<grid, kWarps * 32, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -332,6 +362,13 @@ cudaError_t launch(const Args& a, int split_ctas, cudaStream_t stream) {
 template <typename TQ, typename TKV, typename TO, bool kPaged, bool kScales>
 cudaError_t by_shape(int rows_per_warp, int D, const Args& a, int ctas,
                      cudaStream_t st) {
+  if (a.tree != nullptr) {  // the tree variant: the 8-row Q tile only
+    if (rows_per_warp == 8 && D == 64)
+      return launch<TQ, TKV, TO, 64, kPaged, kScales, 8, true>(a, ctas, st);
+    if (rows_per_warp == 8 && D == 128)
+      return launch<TQ, TKV, TO, 128, kPaged, kScales, 8, true>(a, ctas, st);
+    return cudaErrorInvalidValue;
+  }
   if (rows_per_warp == 1 && D == 64)
     return launch<TQ, TKV, TO, 64, kPaged, kScales, 1>(a, ctas, st);
   if (rows_per_warp == 1 && D == 128)
@@ -376,11 +413,13 @@ int flash_decode_warps_per_cta() { return kWarps; }
 // 1 or 8 packed query rows per warp (the Q tile). o_part/lse_part hold
 // split_ctas * warps_per_cta partials. local_blocks (paged only): the table
 // is signed and a negative entry is a block another rank holds — never
-// read, its keys masked. Returns the CUDA error of the launches (0 on
-// success).
+// read, its keys masked. tree: (B*Hkv, R) int32 ancestor bitmasks of the
+// packed rows (the tree variant; causal, Tq <= 32, rows_per_warp 8), or
+// null. Returns the CUDA error of the launches (0 on success).
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const void* qs, const void* ks, const void* vs,
-                        const void* offs, const void* table, void* o_part,
+                        const void* offs, const void* table,
+                        const void* tree, void* o_part,
                         void* lse_part, void* out, void* lse, int variant,
                         int D, int paged, int rows_per_warp, int B, int Hkv,
                         int R, int Tq, int Tk, int blk, int NB,
@@ -389,10 +428,12 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((ks == nullptr) != (vs == nullptr)) return cudaErrorInvalidValue;
   if (local_blocks && !paged) return cudaErrorInvalidValue;
+  if (tree != nullptr && (!causal || Tq > 32)) return cudaErrorInvalidValue;
   Args a{q, k, v, static_cast<const float*>(qs),
          static_cast<const float*>(ks), static_cast<const float*>(vs),
          static_cast<const int32_t*>(offs),
-         static_cast<const int32_t*>(table), static_cast<float*>(o_part),
+         static_cast<const int32_t*>(table),
+         static_cast<const int32_t*>(tree), static_cast<float*>(o_part),
          static_cast<float*>(lse_part), out, static_cast<float*>(lse),
          B, Hkv, R, Tq, Tk, blk, NB, split_len, causal, local_blocks,
          scale};

@@ -5,7 +5,9 @@ from tree_attention_tpu_torch.models.decode import (  # noqa: F401
     PagedKVCache,
     PagedQuantKVCache,
     QuantKVCache,
+    compact_decode_window,
     decode_attention,
+    fold_in,
     forward_step,
     generate,
     init_cache,
@@ -14,6 +16,7 @@ from tree_attention_tpu_torch.models.decode import (  # noqa: F401
     quantize_cache,
     quantize_paged_blocks,
     round_cache_len,
+    sample_rows,
     sample_slots,
 )
 from tree_attention_tpu_torch.models.train import (  # noqa: F401

@@ -12,7 +12,12 @@ Counterpart of ``tree_attention_tpu/models/decode.py``:
 - :func:`forward_step` — ``Tq`` new tokens per slot against the cache: slot
   ``i``'s rows land at ``[length[i], length[i] + n_tokens[i])`` and its
   queries attend causally from ``length[i]``. Mixed-Tq ``n_tokens`` lets
-  decode slots (one token) and prefill chunks share one step.
+  decode slots (one token) and prefill chunks share one step; ``positions``
+  and ``tree_mask`` make it the verify step of speculative tree decoding.
+- :func:`compact_decode_window` — the device half of a tree-draft commit.
+- :func:`sample_rows` / :func:`sample_slots` — per-row sampling, each draw
+  keyed by the request's key and the token's stream index
+  (:func:`fold_in`).
 
 Unlike the JAX package (immutable arrays), the cache buffers are updated IN
 PLACE: a step writes its new rows into the cache tensors it was given and
@@ -400,7 +405,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      v_scale: Optional[torch.Tensor] = None,
                      quant_kernel: str = "q8q",
                      mesh: Optional[Mesh] = None,
-                     kv_shard: str = "replicated"
+                     kv_shard: str = "replicated",
+                     tree_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Op-level decode entry: split-KV flash decode over a contiguous
     buffer or, with ``block_table``, a paged pool; the tree merge across
@@ -414,12 +420,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     slices through B2's cast route whatever ``quant_kernel`` says, as the
     JAX package's sharded int8 pool does; a contiguous buffer (``k``/``v``
     this rank's token shard) goes to :func:`tree_decode` /
-    :func:`tree_decode_q8`. A replicated paged pool ignores the mesh."""
+    :func:`tree_decode_q8`. A replicated paged pool ignores the mesh.
+
+    ``tree_mask`` ``(B, Tq, Tq)`` (speculative tree verification; see
+    :func:`~tree_attention_tpu_torch.ops.decode.flash_decode`) rides every
+    single-device route, exact and q8; the tree merges have no window-mask
+    plumbing and raise."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     sharded = mesh is not None and mesh.axis_size(AXIS_SEQ) > 1
+    if tree_mask is not None and sharded and (
+            block_table is None or kv_shard == "seq"):
+        raise ValueError(
+            "tree_mask is not supported on the sequence-sharded tree-decode "
+            "path; use chain drafts or the replicated pool")
     if block_table is not None and sharded and kv_shard == "seq":
         return paged_tree_decode(q, k, v, block_table, mesh=mesh,
                                  q_position=q_position, k_scale=k_scale,
@@ -434,9 +450,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k_scale is not None:
         fn = resolve_q8_kernel(quant_kernel, plain=impl == "plain")
         return fn(q, k, v, k_scale, v_scale, causal=True,
-                  q_offset=q_position, block_table=block_table)
+                  q_offset=q_position, block_table=block_table,
+                  tree_mask=tree_mask)
     return flash_decode(q, k, v, q_position=q_position,
-                        block_table=block_table, impl=impl)
+                        block_table=block_table, impl=impl,
+                        tree_mask=tree_mask)
 
 
 def _dequant_view(pool: torch.Tensor, scale: torch.Tensor,
@@ -456,7 +474,9 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
                  n_tokens: Optional[torch.Tensor] = None,
                  quant_kernel: str = "q8q",
                  mesh: Optional[Mesh] = None,
-                 kv_shard: str = "replicated"
+                 kv_shard: str = "replicated",
+                 positions: Optional[torch.Tensor] = None,
+                 tree_mask: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, AnyCache]:
     """Run ``Tq`` new tokens per slot through the model against the cache.
 
@@ -487,6 +507,17 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
     SUM all-reduce per step (every rank contributes the anchors it holds,
     zeros elsewhere) — the gather the JAX package leaves to GSPMD.
 
+    ``positions`` ``(B, Tq)`` (optional) are the rows' RoPE positions — the
+    speculative tree-verification shape (SpecInfer, arXiv:2305.09781), where
+    packed draft node ``j`` of slot ``i`` sits at ``length[i] + depth[j]``.
+    KV rows still land at buffer positions ``[length[i], length[i] + Tq)``
+    in ROW order, and the paged int8 write's blocks and anchor scale follow
+    those buffer positions. ``tree_mask`` ``(B, Tq, Tq)`` bool (``Tq <=
+    32``): row ``j`` of slot ``i`` attends its committed history plus the
+    window rows ``tree_mask[i, j]`` flags (its draft-tree ancestors and
+    itself) instead of the causal window; a lower-triangular mask is the
+    causal rule. Not supported on a sequence-sharded cache.
+
     Returns ``logits`` ``(B, Tq, vocab)`` float32 and the cache with
     ``length`` advanced (same buffers, written in place).
     """
@@ -498,6 +529,11 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
         raise ValueError("kv_shard='seq' shards the paged block pool; a "
                          "contiguous cache has no block axis to shard")
     seq_sharded = paged and _seq_shards(mesh, kv_shard) > 1
+    if seq_sharded and tree_mask is not None:
+        raise ValueError(
+            "tree_mask is not supported under kv_shard='seq' (the tree "
+            "merge has no window-mask plumbing); use chain drafts or the "
+            "replicated pool")
     if not paged and Tq > cache.capacity:
         raise ValueError(
             f"step of Tq={Tq} exceeds cache capacity {cache.capacity}"
@@ -509,7 +545,11 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
     dev = tokens.device
     n_valid = (torch.full((B,), Tq, dtype=torch.int32, device=dev)
                if n_tokens is None else n_tokens)
-    positions = start.long()[:, None] + torch.arange(Tq, device=dev)
+    # Buffer positions of the new rows (row order): the writes, and the
+    # paged int8 write's blocks and scales, follow these; RoPE takes
+    # ``positions`` where a tree step gives them.
+    buf_pos = start.long()[:, None] + torch.arange(Tq, device=dev)
+    rope_pos = buf_pos if positions is None else positions.long()
     # The CPU's dequantized view is a replicated materialisation of the
     # pool: a sharded slice keeps the block-table path.
     view = paged and quant and dev.type == "cpu" and not seq_sharded
@@ -528,10 +568,10 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
             .clamp(0, NB - 1)[:, None])[:, 0].clamp(0, n_all - 1)
         entered = ((torch.arange(Tq, device=dev)[None, :]
                     < n_valid.long()[:, None])
-                   & (positions % blk == 0) & (positions < NB * blk))
+                   & (buf_pos % blk == 0) & (buf_pos < NB * blk))
         scale_tgt = torch.where(
             entered, write_table.long().gather(
-                1, (positions // blk).clamp(0, NB - 1)), N
+                1, (buf_pos // blk).clamp(0, NB - 1)), N
         ).reshape(-1)  # invalid rows land on the drop block's scale
         if seq_sharded:
             # (2, L, B, Hkv): every layer's anchor scales, from the rank
@@ -554,10 +594,10 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
     for i in range(cfg.n_layers):
         p = layer(params, i)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q = rope(heads(h @ p["wq"], cfg.n_heads, cfg.d_head), positions,
+        q = rope(heads(h @ p["wq"], cfg.n_heads, cfg.d_head), rope_pos,
                  cfg.rope_theta)
         k_new = rope(heads(h @ p["wk"], cfg.n_kv_heads, cfg.d_head),
-                     positions, cfg.rope_theta)
+                     rope_pos, cfg.rope_theta)
         v_new = heads(h @ p["wv"], cfg.n_kv_heads, cfg.d_head)
         scales = {}
         if paged and quant:
@@ -598,7 +638,8 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
             _masked_window_write(cache.v[i], v_new, start, n_valid)
         if view:
             out, _ = decode_attention(q, k_view[i], v_view[i],
-                                      q_position=start, impl=cfg.attn_impl)
+                                      q_position=start, impl=cfg.attn_impl,
+                                      tree_mask=tree_mask)
         elif paged:
             k_pool, v_pool = cache.pool(i)
             out, _ = decode_attention(q, k_pool, v_pool, q_position=start,
@@ -606,15 +647,75 @@ def forward_step(params: Params, tokens: torch.Tensor, cache: AnyCache,
                                       impl=cfg.attn_impl,
                                       quant_kernel=quant_kernel,
                                       mesh=mesh if seq_sharded else None,
-                                      kv_shard=kv_shard, **scales)
+                                      kv_shard=kv_shard, tree_mask=tree_mask,
+                                      **scales)
         else:
             out, _ = decode_attention(q, cache.k[i], cache.v[i],
                                       q_position=start, impl=cfg.attn_impl,
-                                      quant_kernel=quant_kernel, **scales)
+                                      quant_kernel=quant_kernel,
+                                      tree_mask=tree_mask, **scales)
         x = x + unheads(out) @ p["wo"]
         x = x + _mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps))
     logits = (rms_norm(x, params["ln_f"], cfg.norm_eps) @ params["wout"]).float()
     return logits, dataclasses.replace(cache, length=start + n_valid)
+
+
+def compact_decode_window(cache: AnyCache, start: torch.Tensor,
+                          src: torch.Tensor, n: torch.Tensor) -> AnyCache:
+    """Move each slot's accepted tree rows to the front of its verify
+    window, in place (the device half of a tree-draft commit).
+
+    A tree verify step writes its packed draft nodes at buffer positions
+    ``[start[i], start[i] + W)`` in row order, and the accepted root path's
+    rows lie scattered among them. Token position ``start[i] + j`` takes
+    the KV bytes of ``start[i] + src[i, j]`` for ``j < n[i]``; every read
+    sees the buffer as it was before the call. ``src`` ``(B, W)``,
+    ``start``/``n`` ``(B,)``. Slots with ``n[i] = 0`` are left bit-identical;
+    ``length`` is not changed (the engine rolls it back through the next
+    step's reset).
+
+    All four layouts: a contiguous buffer permutes inside each slot's
+    window, read at an offset clamped to ``capacity - W`` as
+    :func:`_masked_window_write` does; a paged pool gathers the moved rows
+    through the block table and scatters them back (invalid rows to the
+    drop block). Int8 rows move verbatim and no scale changes: a window's
+    rows were all quantized under one scale (the slot's frozen channel
+    scales, or its anchor block scale, which every block the window entered
+    inherited), as in the JAX package. Not for a sequence-sharded pool."""
+    dev = cache.k.device
+    src = src.to(dev).long()
+    start = start.to(dev).long()
+    n = n.to(dev).long()
+    B, W = src.shape
+    loc = torch.arange(W, device=dev)
+    if isinstance(cache, PagedKVCache):
+        table = cache.table.long()
+        N, blk, nb = cache.blocks, cache.block, table.shape[1]
+        pos_dst = start[:, None] + loc[None]
+        pos_src = start[:, None] + src
+        valid = ((loc[None] < n[:, None]) & (pos_dst < nb * blk)
+                 & (pos_src < nb * blk))
+        pb_src = table.gather(1, (pos_src // blk).clamp(0, nb - 1)).clamp(
+            0, N - 1)
+        pb_dst = torch.where(
+            valid, table.gather(1, (pos_dst // blk).clamp(0, nb - 1)), N)
+        sb, so = pb_src.reshape(-1), (pos_src % blk).reshape(-1)
+        db, do = pb_dst.reshape(-1), (pos_dst % blk).reshape(-1)
+        for pool in (cache.k, cache.v):
+            pool[:, db, :, do] = pool[:, sb, :, so]
+        return cache
+    cap = cache.k.shape[3]
+    ws = start.clamp(0, cap - W)
+    shift = start - ws  # > 0 only where the window straddles capacity
+    rel = loc[None] - shift[:, None]
+    src_loc = shift[:, None] + src.gather(1, rel.clamp(0, W - 1))
+    idx = torch.where((rel >= 0) & (rel < n[:, None]), src_loc, loc[None])
+    pos = ws[:, None] + loc[None]
+    b = torch.arange(B, device=dev)[:, None]
+    for buf in (cache.k, cache.v):
+        window = buf[:, b, :, pos]          # (B, W, L, Hkv, D)
+        buf[:, b, :, pos] = window[b, idx.clamp(0, W - 1)]
+    return cache
 
 
 def round_cache_len(total: int, mesh: Optional[Mesh] = None) -> int:
@@ -624,40 +725,77 @@ def round_cache_len(total: int, mesh: Optional[Mesh] = None) -> int:
     return total + (-total) % max(shards, 1)
 
 
-def sample_slots(logits: torch.Tensor, temperature: np.ndarray,
-                 top_k: np.ndarray,
-                 generators: Sequence[Optional[torch.Generator]],
-                 active: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-slot sampling for the serving tick: exact argmax where a slot's
-    temperature is 0 (token-identical to the greedy path), temperature /
-    top-k categorical from the slot's own ``torch.Generator`` where it is
-    positive. Only ``active`` sampled slots draw, so a request's random
-    stream depends on its own emitted tokens only, never on which other
-    slots share the tick. ``jax.random`` streams are not reproduced: sampled
-    parity with the JAX engine is distributional.
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(key: int, index: int) -> int:
+    """The seed of one draw: a pure function of a request's ``key`` and the
+    token's stream ``index`` (splitmix64 over both), the counterpart of
+    ``jax.random.fold_in(key, index)``. A request's ``j``-th token is drawn
+    under ``fold_in(key, j)`` whichever tick, batch or verify row draws it,
+    so a speculative serve commits the stream a plain serve samples."""
+    x = (int(key) * 0x9E3779B97F4A7C15 + int(index) + 1) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (x ^ (x >> 31)) & 0x7FFF_FFFF_FFFF_FFFF
+
+
+def sample_rows(logits: torch.Tensor, temperature: np.ndarray,
+                top_k: np.ndarray, keys: Sequence[int],
+                sample_idx: np.ndarray, active: np.ndarray
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-ROW sampling over a verify-shaped ``(S, Tq, V)`` logits bundle:
+    exact argmax where a slot's temperature is 0 (token-identical to the
+    greedy path), else a temperature / top-k categorical draw seeded by
+    ``fold_in(keys[i], sample_idx[i, j])`` — the request's key and the
+    stream index of the token the row predicts. The key, not a running
+    generator, decides each draw, so a row drawn for a rejected draft leaves
+    every later token alone. ``jax.random`` streams are not reproduced:
+    sampled parity with the JAX engine is distributional.
 
     Args:
-      logits: ``(S, V)`` last-row logits.
+      logits: ``(S, Tq, V)``.
       temperature, top_k: ``(S,)`` host arrays (0 = greedy / top-k off).
-      generators: one generator per slot (used where it samples).
-      active: ``(S,)`` host bool — slots whose sample is kept this tick.
+      keys: one request key per slot (used where it samples).
+      sample_idx: ``(S, Tq)`` host stream indices.
+      active: ``(S, Tq)`` host bool — the rows whose draw is kept.
 
-    Returns ``(tok, logprob)``: ``(S,)`` int32 ids and the float32 model
+    Returns ``(tok, logprob)``: ``(S, Tq)`` int32 ids and the float32 model
     log-probabilities of the chosen tokens (unadjusted by temperature).
     """
     lf = logits.float()
     tok = lf.argmax(-1)
     V = lf.shape[-1]
-    for i in np.flatnonzero(np.asarray(active) & (temperature > 0)):
+    draws = np.asarray(active, bool) & (np.asarray(temperature)[:, None] > 0)
+    gen = None
+    for i in np.flatnonzero(draws.any(1)):
         lg = lf[i]
         k = int(top_k[i])
         if k > 0:
-            thresh = torch.topk(lg, min(k, V)).values[-1]
+            thresh = torch.topk(lg, min(k, V), dim=-1).values[:, -1:]
             lg = lg.masked_fill(lg < thresh, float("-inf"))
         probs = torch.softmax(lg / float(temperature[i]), -1)
-        tok[i] = torch.multinomial(probs, 1, generator=generators[i])[0]
-    lp = F.log_softmax(lf, -1).gather(1, tok[:, None])[:, 0]
+        if gen is None:
+            gen = torch.Generator(device=lf.device)
+        for j in np.flatnonzero(draws[i]):
+            gen.manual_seed(fold_in(keys[i], sample_idx[i, j]))
+            tok[i, j] = torch.multinomial(probs[j], 1, generator=gen)[0]
+    lp = F.log_softmax(lf, -1).gather(-1, tok[..., None])[..., 0]
     return tok.int(), lp
+
+
+def sample_slots(logits: torch.Tensor, temperature: np.ndarray,
+                 top_k: np.ndarray, keys: Sequence[int],
+                 sample_idx: np.ndarray, active: np.ndarray
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-slot sampling for the serving tick: :func:`sample_rows`' one-row
+    case. ``logits`` ``(S, V)`` last-row logits, ``sample_idx`` and
+    ``active`` ``(S,)``. Returns ``(S,)`` int32 ids and float32
+    log-probabilities."""
+    tok, lp = sample_rows(logits[:, None], temperature, top_k, keys,
+                          np.asarray(sample_idx)[:, None],
+                          np.asarray(active, bool)[:, None])
+    return tok[:, 0], lp[:, 0]
 
 
 def _sample(logits: torch.Tensor, temperature: float,

@@ -3,13 +3,14 @@
 Counterpart of ``tree_attention_tpu/ops/block_utils.py``: the ONE
 causal-with-offsets rule (a query at global position ``q_offset + i`` sees a
 key at ``kv_offset + j`` iff ``q_offset + i >= kv_offset + j``), the
-ragged-tail rule (keys past ``tk`` are invisible), and the per-batch offset
-operand the kernels read.
+ragged-tail rule (keys past ``tk`` are invisible), the per-batch offset
+operand the kernels read, and the tree-window rule of speculative tree
+verification (:func:`tree_window_mask`).
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -85,3 +86,43 @@ def offsets(q_offset: Offset, kv_offset: Offset, batch: int,
         return t.expand(batch)
 
     return torch.stack([row(q_offset), row(kv_offset)])
+
+
+# Ancestor sets pack into one int32 word per query row (bit j = window row
+# j), so a tree mask covers at most 32 query rows.
+TREE_MAX_ROWS = 32
+
+
+def check_tree_mask(tree_mask: torch.Tensor, batch: int, tq: int,
+                    causal: bool, max_rows: Optional[int] = None) -> None:
+    """Validate a ``(B, Tq, Tq)`` tree mask, with the JAX package's
+    messages: it needs ``causal`` and, where ``max_rows`` is given (the
+    kernels' int32 bitmasks), ``Tq <= max_rows``."""
+    if not causal:
+        raise ValueError("tree_mask requires causal=True")
+    if max_rows is not None and tq > max_rows:
+        raise ValueError(
+            f"tree_mask packs into int32 bitmasks: Tq={tq} exceeds "
+            f"{max_rows}")
+    if tuple(tree_mask.shape) != (batch, tq, tq):
+        raise ValueError(
+            f"tree_mask must be (B, Tq, Tq) = {(batch, tq, tq)}, got "
+            f"{tuple(tree_mask.shape)}")
+
+
+def tree_window_mask(tree_mask: torch.Tensor, q_offset: torch.Tensor,
+                     kv_offset: torch.Tensor, tk: int) -> torch.Tensor:
+    """``(B, Tq, Tk)`` visibility under the tree-window rule (SpecInfer,
+    arXiv:2305.09781): slot ``b``'s Tq query rows occupy KV positions
+    ``[q_offset[b], q_offset[b] + Tq)``, and row ``i`` sees the key at
+    ``p = kv_offset[b] + j`` iff ``p < q_offset[b]`` (committed history) or
+    ``0 <= p - q_offset[b] < Tq`` and ``tree_mask[b, i, p - q_offset[b]]``
+    (an ancestor of ``i``, or ``i`` itself); nothing past the window. A
+    lower-triangular mask is the causal rule. Offsets are ``(B,)``."""
+    B, tq, _ = tree_mask.shape
+    rel = (kv_offset.long()[:, None] - q_offset.long()[:, None]
+           + torch.arange(tk, device=tree_mask.device))          # (B, Tk)
+    taken = tree_mask.bool().gather(
+        2, rel.clamp(0, tq - 1)[:, None, :].expand(B, tq, tk))
+    rel = rel[:, None, :]
+    return (rel < 0) | ((rel < tq) & taken)

@@ -9,6 +9,12 @@ row ``r`` iff ``kv_offset + j <= q_offset[b] + r % Tq`` (causal), scores and
 lse in f32, P rounded to V's dtype (bf16 for int8 V), output in q's dtype,
 empty rows ``(0, -inf)``.
 
+Each wrapper and plain version takes ``tree_mask`` ``(B, Tq, Tq)`` bool
+(causal only, ``Tq <= 32``): the tree-window rule of speculative tree
+verification (:func:`~.block_utils.tree_window_mask`) replaces the causal
+one. The kernels read it as one int32 ancestor bitmask per packed query row
+(:func:`tree_bits_rows`), packed on the device by the wrapper.
+
 The int8 routes serve a cache quantized by the one q8 numeric contract,
 :func:`quantize_symmetric_int8` (absmax/127 scale, 1.0 for a zero channel,
 round half to even, clip to +-127):
@@ -27,8 +33,9 @@ Each wrapper runs its kernel for a CUDA tensor and its plain version
 :func:`paged_decode_q8q_plain`, :func:`decode_q8_plain`) for a CPU tensor —
 nothing else: a build or launch failure raises. ``.launches`` counts the
 kernel launches of each kernel wrapper; the cast route counts under B1/B2,
-and B2's ``local_blocks`` variant (one rank's slice of a sequence-sharded
-pool) on ``attention_cuda_decode_paged.local_launches``.
+B2's ``local_blocks`` variant (one rank's slice of a sequence-sharded pool)
+on ``attention_cuda_decode_paged.local_launches``, and each wrapper's tree
+variant on its ``.tree_launches``.
 """
 
 from __future__ import annotations
@@ -41,7 +48,12 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from tree_attention_tpu_torch.ops import _build
-from tree_attention_tpu_torch.ops.block_utils import Offset, offsets
+from tree_attention_tpu_torch.ops.block_utils import (
+    TREE_MAX_ROWS,
+    Offset,
+    check_tree_mask,
+    offsets,
+)
 from tree_attention_tpu_torch.ops.reference import (
     attention_packed,
     default_scale,
@@ -69,7 +81,7 @@ def _launcher():
         lib = _build.library("flash_decode")
         fn = lib.flash_decode_launch
         fn.argtypes = (
-            [ctypes.c_void_p] * 12
+            [ctypes.c_void_p] * 13
             + [ctypes.c_int] * 15
             + [ctypes.c_float, ctypes.c_void_p]
         )
@@ -78,10 +90,37 @@ def _launcher():
     return _lib_fn
 
 
-def _rows_per_warp(rows: int) -> int:
+def _rows_per_warp(rows: int, tree: bool = False) -> int:
     """The kernel's Q tile: 1 packed row per warp when a KV head has one
-    query row (the lean variant), else 8."""
-    return 1 if rows == 1 else 8
+    query row (the lean variant), else 8; the tree variant is built for 8
+    only."""
+    return 1 if rows == 1 and not tree else 8
+
+
+def tree_bits_rows(tree_mask: torch.Tensor, n_q_per_kv: int,
+                   n_kv_heads: int) -> torch.Tensor:
+    """Pack a ``(B, Tq, Tq)`` bool ancestor mask into the operand the decode
+    kernels read: ``(B*Hkv, G*Tq)`` int32, bit ``j`` of packed row ``r`` set
+    iff query row ``r % Tq`` sees window position ``j``. Bit 31 is the sign
+    bit (the kernel shifts the word as unsigned). The counterpart of
+    ``pallas_decode.py:_tree_bits_rows`` without its lane broadcast and Q
+    tile padding."""
+    B, Tq, _ = tree_mask.shape
+    weights = torch.ones((), dtype=torch.int64, device=tree_mask.device) \
+        << torch.arange(Tq, device=tree_mask.device)
+    bits = (tree_mask.long() * weights).sum(2)                  # (B, Tq)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+    return bits[:, None, None, :].expand(
+        B, n_kv_heads, n_q_per_kv, Tq).reshape(B * n_kv_heads,
+                                               n_q_per_kv * Tq)
+
+
+def _check_tree(q: torch.Tensor, tree_mask: Optional[torch.Tensor],
+                causal: bool = True) -> None:
+    """A kernel's tree mask: causal, ``Tq <= 32``, ``(B, Tq, Tq)``."""
+    if tree_mask is not None:
+        check_tree_mask(tree_mask, q.shape[0], q.shape[2], causal,
+                        TREE_MAX_ROWS)
 
 
 # -- the q8 numeric contract -------------------------------------------------
@@ -127,7 +166,7 @@ def resolve_q8_kernel(kernel: str, plain: bool = False) -> Callable:
     anything else raises. The returned callable takes ``(q, k_q, v_q,
     k_scale, v_scale, *, causal, scale, q_offset, kv_offset, block_table)``
     and runs the kernels, or with ``plain`` their plain versions on any
-    device."""
+    device; all of them also take ``tree_mask``."""
     if kernel == "q8q":
         return functools.partial(_q8q_route, plain=plain)
     if kernel == "q8":
@@ -173,18 +212,20 @@ def _cast_q(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def decode_plain(q, k, v, *, causal: bool = False,
                  scale: Optional[float] = None, q_offset: Offset = 0,
-                 kv_offset: Offset = 0):
+                 kv_offset: Offset = 0,
+                 tree_mask: Optional[torch.Tensor] = None):
     """B1's plain version (any device)."""
     out, lse = attention_packed(_cast_q(q, k), k, v, causal=causal,
                                 scale=scale, q_offset=q_offset,
-                                kv_offset=kv_offset)
+                                kv_offset=kv_offset, tree_mask=tree_mask)
     return out.to(q.dtype), lse
 
 
 def paged_decode_plain(q, k, v, block_table, *, q_offset: Offset,
                        scale: Optional[float] = None,
                        block_scales: Optional[BlockScales] = None,
-                       local_blocks: bool = False):
+                       local_blocks: bool = False,
+                       tree_mask: Optional[torch.Tensor] = None):
     """B2's plain version (any device): gather the logical view (and the
     per-key scalars of ``block_scales``), then B1's. With ``local_blocks``
     the table is signed: a negative entry is a block another rank holds,
@@ -197,7 +238,8 @@ def paged_decode_plain(q, k, v, block_table, *, q_offset: Offset,
         if local_blocks else None
     out, lse = attention_packed(_cast_q(q, k), kg, vg, causal=True,
                                 scale=scale, q_offset=q_offset, kv_offset=0,
-                                key_scales=keys, key_mask=held)
+                                key_scales=keys, key_mask=held,
+                                tree_mask=tree_mask)
     return out.to(q.dtype), lse
 
 
@@ -247,7 +289,8 @@ def _check_q8(q, k_q, v_q, k_scale, v_scale, block_table) -> bool:
 
 def decode_q8q_plain(q, k_q, v_q, k_scale, v_scale, *, causal: bool = False,
                      scale: Optional[float] = None, q_offset: Offset = 0,
-                     kv_offset: Offset = 0):
+                     kv_offset: Offset = 0,
+                     tree_mask: Optional[torch.Tensor] = None):
     """B4's plain version (any device): the fold and quantize of Q, then
     exact int8 products summed in f32 (exact: |s| <= 128 * 127^2 < 2^24),
     rescaled by each row's Q scale, the f32 softmax, P rounded to bf16, and
@@ -258,12 +301,14 @@ def decode_q8q_plain(q, k_q, v_q, k_scale, v_scale, *, causal: bool = False,
     codes, qs = _fold_quantize_q(q, k_q.shape[1], k_scale, scale)
     out, lse = attention_packed(codes.reshape(q.shape), k_q, v_q,
                                 causal=causal, scale=None, q_offset=q_offset,
-                                kv_offset=kv_offset, row_scale=qs)
+                                kv_offset=kv_offset, row_scale=qs,
+                                tree_mask=tree_mask)
     return _unfold_out(out, lse, q, v_scale)
 
 
 def paged_decode_q8q_plain(q, k_q, v_q, block_table, k_scale, v_scale, *,
-                           q_offset: Offset, scale: Optional[float] = None):
+                           q_offset: Offset, scale: Optional[float] = None,
+                           tree_mask: Optional[torch.Tensor] = None):
     """B5's plain version (any device): B4's over the gathered view, with
     per-block ``(N, Hkv)`` scales read through the table for each key (K's
     on the score after the row scale, V's on p after the softmax sum) or
@@ -278,12 +323,13 @@ def paged_decode_q8q_plain(q, k_q, v_q, block_table, k_scale, v_scale, *,
             if per_block else None)
     out, lse = attention_packed(codes.reshape(q.shape), kg, vg, causal=True,
                                 scale=None, q_offset=q_offset, kv_offset=0,
-                                row_scale=qs, key_scales=keys)
+                                row_scale=qs, key_scales=keys,
+                                tree_mask=tree_mask)
     return _unfold_out(out, lse, q, None if per_block else v_scale)
 
 
 def _q8_cast(q, k_q, v_q, k_scale, v_scale, *, causal, scale, q_offset,
-             kv_offset, block_table, b1, b2):
+             kv_offset, block_table, b1, b2, tree_mask=None):
     """The cast route over ``b1``/``b2`` (the kernels or their plain
     versions): K's channel scale folds into a bf16 Q and V's applies to the
     output; per-block scales go to ``b2`` as ``block_scales`` with Q
@@ -291,7 +337,7 @@ def _q8_cast(q, k_q, v_q, k_scale, v_scale, *, causal, scale, q_offset,
     if _check_q8(q, k_q, v_q, k_scale, v_scale, block_table):
         out, lse = b2(q.to(torch.bfloat16), k_q, v_q, block_table,
                       q_offset=q_offset, scale=scale,
-                      block_scales=(k_scale, v_scale))
+                      block_scales=(k_scale, v_scale), tree_mask=tree_mask)
         return out.to(q.dtype), lse
     B, Hq, Tq, D = q.shape
     Hkv = k_q.shape[1]
@@ -299,23 +345,25 @@ def _q8_cast(q, k_q, v_q, k_scale, v_scale, *, causal, scale, q_offset,
         torch.bfloat16).reshape(q.shape)
     if block_table is not None:
         out, lse = b2(qf, k_q, v_q, block_table, q_offset=q_offset,
-                      scale=scale)
+                      scale=scale, tree_mask=tree_mask)
     else:
         out, lse = b1(qf, k_q, v_q, causal=causal, scale=scale,
-                      q_offset=q_offset, kv_offset=kv_offset)
+                      q_offset=q_offset, kv_offset=kv_offset,
+                      tree_mask=tree_mask)
     return _unfold_out(out, lse, q, v_scale)
 
 
 def decode_q8_plain(q, k_q, v_q, k_scale, v_scale, *, causal: bool = False,
                     scale: Optional[float] = None, q_offset: Offset = 0,
                     kv_offset: Offset = 0,
-                    block_table: Optional[torch.Tensor] = None):
+                    block_table: Optional[torch.Tensor] = None,
+                    tree_mask: Optional[torch.Tensor] = None):
     """The cast route's plain version (any device), over
     :func:`decode_plain` / :func:`paged_decode_plain`."""
     return _q8_cast(q, k_q, v_q, k_scale, v_scale, causal=causal,
                     scale=scale, q_offset=q_offset, kv_offset=kv_offset,
                     block_table=block_table, b1=decode_plain,
-                    b2=paged_decode_plain)
+                    b2=paged_decode_plain, tree_mask=tree_mask)
 
 
 # -- kernel wrappers ---------------------------------------------------------
@@ -348,14 +396,19 @@ def _check_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
 
 
 def _launch(qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB, causal,
-            scale, qs=None, block_scales=None, local_blocks=False):
+            scale, qs=None, block_scales=None, local_blocks=False,
+            tree_mask=None):
     """Run the split kernel and its merge on packed ``qp`` ``(B, Hkv, R,
     D)``; returns ``out`` ``(B, Hkv, R, D)`` (bf16 for the int8 variants)
     and ``lse`` ``(B, Hkv, R)``. ``local_blocks``: the paged table is
-    signed (negative = a block another rank holds)."""
+    signed (negative = a block another rank holds). ``tree_mask``: the
+    tree variant, its bits packed here on the device."""
     fn, warps = _launcher()
     B, Hkv, R, D = qp.shape
-    rows_per_warp = _rows_per_warp(R)
+    tree = tree_mask is not None
+    rows_per_warp = _rows_per_warp(R, tree)
+    bits = (tree_bits_rows(tree_mask.to(qp.device), R // Tq, Hkv)
+            .contiguous() if tree else None)
     qp, k, v = qp.contiguous(), k.contiguous(), v.contiguous()
     base = -(-R // rows_per_warp) * B * Hkv
     splits = max(1, min(-(-_TARGET_WARPS // base), Tk // _MIN_SPLIT_KEYS))
@@ -383,8 +436,9 @@ def _launch(qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB, causal,
         qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(qs),
         ptr(None if block_scales is None else block_scales[0]),
         ptr(None if block_scales is None else block_scales[1]),
-        offs.data_ptr(), ptr(table), o_part.data_ptr(), lse_part.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), variant, D, int(table is not None),
+        offs.data_ptr(), ptr(table), ptr(bits), o_part.data_ptr(),
+        lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), variant, D,
+        int(table is not None),
         rows_per_warp, B, Hkv, R, Tq, Tk, blk, NB, ctas, split_len,
         int(causal), int(local_blocks), float(scale),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -399,29 +453,44 @@ def _pack(q: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
     return q.reshape(B, n_kv_heads, (Hq // n_kv_heads) * Tq, D)
 
 
+def _count(wrapper, tree_mask) -> None:
+    """One launch on the wrapper's count: ``.tree_launches`` for the tree
+    variant, ``.launches`` otherwise."""
+    if tree_mask is None:
+        wrapper.launches += 1
+    else:
+        wrapper.tree_launches += 1
+
+
 def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = False,
                           scale: Optional[float] = None,
-                          q_offset: Offset = 0, kv_offset: Offset = 0):
+                          q_offset: Offset = 0, kv_offset: Offset = 0,
+                          tree_mask: Optional[torch.Tensor] = None):
     """B1: ``q`` ``(B, Hq, Tq, D)`` against contiguous ``k``/``v``
     ``(B, Hkv, Tk, D)`` of q's dtype, or int8 (q then runs in bf16);
-    offsets scalar or ``(B,)``."""
+    offsets scalar or ``(B,)``. Launches with ``tree_mask`` count on
+    ``.tree_launches``."""
+    _check_tree(q, tree_mask, causal)
     if q.device.type == "cpu":
         return decode_plain(q, k, v, causal=causal, scale=scale,
-                            q_offset=q_offset, kv_offset=kv_offset)
+                            q_offset=q_offset, kv_offset=kv_offset,
+                            tree_mask=tree_mask)
     variant = _check_decode(q, k, v)
     B, Hkv, Tk, D = k.shape
     if Tk == 0:
         return empty_result(q)
     offs = offsets(q_offset, kv_offset, B, q.device).contiguous()
-    attention_cuda_decode.launches += 1
+    _count(attention_cuda_decode, tree_mask)
     out, lse = _launch(_pack(_cast_q(q, k), Hkv), k, v, offs, None,
                        variant=variant, Tq=q.shape[2], Tk=Tk, blk=1, NB=0,
-                       causal=causal, scale=default_scale(D, scale))
+                       causal=causal, scale=default_scale(D, scale),
+                       tree_mask=tree_mask)
     return _unfold_out(out, lse, q, None)
 
 
 attention_cuda_decode.launches = 0
+attention_cuda_decode.tree_launches = 0
 
 
 def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
@@ -429,7 +498,8 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
                                 *, q_offset: Offset,
                                 scale: Optional[float] = None,
                                 block_scales: Optional[BlockScales] = None,
-                                local_blocks: bool = False):
+                                local_blocks: bool = False,
+                                tree_mask: Optional[torch.Tensor] = None):
     """B2: causal decode of ``q`` ``(B, Hq, Tq, D)`` against
     ``(N, Hkv, block, D)`` pools (q's dtype, or int8 with q in bf16) through
     the ``(B, NB)`` int32 table; slot ``b``'s queries sit at
@@ -441,11 +511,17 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
     pool and the table is signed — entries in ``[0, N)`` are local blocks,
     a negative entry is a block another rank holds, never read and masked
     out; a row with no local visible key comes back ``(0, -inf)``. Such
-    launches count on ``.local_launches``, the others on ``.launches``."""
+    launches count on ``.local_launches``, the tree variant's
+    (``tree_mask``) on ``.tree_launches``, the others on ``.launches``."""
+    _check_tree(q, tree_mask)
+    if local_blocks and tree_mask is not None:
+        raise ValueError("tree_mask is not supported under local_blocks "
+                         "(the sequence-sharded pool); use chain drafts")
     if q.device.type == "cpu":
         return paged_decode_plain(q, k, v, block_table, q_offset=q_offset,
                                   scale=scale, block_scales=block_scales,
-                                  local_blocks=local_blocks)
+                                  local_blocks=local_blocks,
+                                  tree_mask=tree_mask)
     variant = _check_decode(q, k, v)
     if block_table.dtype != torch.int32 or block_table.device != q.device:
         raise ValueError("block_table must be int32 on q's device")
@@ -457,32 +533,36 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
     if local_blocks:
         attention_cuda_decode_paged.local_launches += 1
     else:
-        attention_cuda_decode_paged.launches += 1
+        _count(attention_cuda_decode_paged, tree_mask)
     out, lse = _launch(_pack(_cast_q(q, k), Hkv), k, v, offs,
                        block_table.contiguous(), variant=variant,
                        Tq=q.shape[2], Tk=NB * blk,
                        blk=blk, NB=NB, causal=True,
                        scale=default_scale(D, scale),
-                       block_scales=block_scales, local_blocks=local_blocks)
+                       block_scales=block_scales, local_blocks=local_blocks,
+                       tree_mask=tree_mask)
     return _unfold_out(out, lse, q, None)
 
 
 attention_cuda_decode_paged.launches = 0
 attention_cuda_decode_paged.local_launches = 0
+attention_cuda_decode_paged.tree_launches = 0
 
 
 def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
                               v_q: torch.Tensor, k_scale: torch.Tensor,
                               v_scale: torch.Tensor, *, causal: bool = False,
                               scale: Optional[float] = None,
-                              q_offset: Offset = 0, kv_offset: Offset = 0):
+                              q_offset: Offset = 0, kv_offset: Offset = 0,
+                              tree_mask: Optional[torch.Tensor] = None):
     """B4: ``q`` ``(B, Hq, Tq, D)`` against contiguous int8 ``k_q``/``v_q``
     ``(B, Hkv, Tk, D)`` with channel scales ``(B, Hkv, 1, D)``; Q folded
     and quantized per packed row, int8 x int8 -> int32 scores."""
+    _check_tree(q, tree_mask, causal)
     if q.device.type == "cpu":
         return decode_q8q_plain(q, k_q, v_q, k_scale, v_scale, causal=causal,
                                 scale=scale, q_offset=q_offset,
-                                kv_offset=kv_offset)
+                                kv_offset=kv_offset, tree_mask=tree_mask)
     _check_q8(q, k_q, v_q, k_scale, v_scale, None)
     _check_decode(q, k_q, v_q)
     B, Hkv, Tk, _ = k_q.shape
@@ -490,14 +570,15 @@ def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
         return empty_result(q)
     codes, qs = _fold_quantize_q(q, Hkv, k_scale, scale)
     offs = offsets(q_offset, kv_offset, B, q.device).contiguous()
-    attention_cuda_decode_q8q.launches += 1
+    _count(attention_cuda_decode_q8q, tree_mask)
     out, lse = _launch(codes, k_q, v_q, offs, None, variant=_Q8Q,
                        Tq=q.shape[2], Tk=Tk, blk=1, NB=0, causal=causal,
-                       scale=1.0, qs=qs)
+                       scale=1.0, qs=qs, tree_mask=tree_mask)
     return _unfold_out(out, lse, q, v_scale)
 
 
 attention_cuda_decode_q8q.launches = 0
+attention_cuda_decode_q8q.tree_launches = 0
 
 
 def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
@@ -506,15 +587,17 @@ def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
                                     k_scale: torch.Tensor,
                                     v_scale: torch.Tensor, *,
                                     q_offset: Offset,
-                                    scale: Optional[float] = None):
+                                    scale: Optional[float] = None,
+                                    tree_mask: Optional[torch.Tensor] = None):
     """B5: B4 through the ``(B, NB)`` int32 table over int8 ``(N, Hkv,
     block, D)`` pools, with per-block ``(N, Hkv)`` scales (read through the
     table in the kernel) or channel ``(B, Hkv, 1, D)`` scales (folded as in
     B4)."""
+    _check_tree(q, tree_mask)
     if q.device.type == "cpu":
         return paged_decode_q8q_plain(q, k_q, v_q, block_table, k_scale,
                                       v_scale, q_offset=q_offset,
-                                      scale=scale)
+                                      scale=scale, tree_mask=tree_mask)
     per_block = _check_q8(q, k_q, v_q, k_scale, v_scale, block_table)
     _check_decode(q, k_q, v_q)
     if block_table.dtype != torch.int32 or block_table.device != q.device:
@@ -526,42 +609,45 @@ def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
     codes, qs = _fold_quantize_q(q, Hkv, None if per_block else k_scale,
                                  scale)
     offs = offsets(q_offset, 0, B, q.device).contiguous()
-    attention_cuda_decode_paged_q8q.launches += 1
+    _count(attention_cuda_decode_paged_q8q, tree_mask)
     out, lse = _launch(codes, k_q, v_q, offs, block_table.contiguous(),
                        variant=_Q8Q, Tq=q.shape[2], Tk=NB * blk, blk=blk,
                        NB=NB, causal=True, scale=1.0, qs=qs,
                        block_scales=(k_scale, v_scale) if per_block
-                       else None)
+                       else None, tree_mask=tree_mask)
     return _unfold_out(out, lse, q, None if per_block else v_scale)
 
 
 attention_cuda_decode_paged_q8q.launches = 0
+attention_cuda_decode_paged_q8q.tree_launches = 0
 
 
 def attention_cuda_decode_q8(q, k_q, v_q, k_scale, v_scale, *,
                              causal: bool = False,
                              scale: Optional[float] = None,
                              q_offset: Offset = 0, kv_offset: Offset = 0,
-                             block_table: Optional[torch.Tensor] = None):
+                             block_table: Optional[torch.Tensor] = None,
+                             tree_mask: Optional[torch.Tensor] = None):
     """The cast route (``q8``): B1, or B2 with ``block_table``, over int8
     K/V with channel scales folded, or B2 with per-block scales."""
     return _q8_cast(q, k_q, v_q, k_scale, v_scale, causal=causal,
                     scale=scale, q_offset=q_offset, kv_offset=kv_offset,
                     block_table=block_table, b1=attention_cuda_decode,
-                    b2=attention_cuda_decode_paged)
+                    b2=attention_cuda_decode_paged, tree_mask=tree_mask)
 
 
 def _q8q_route(q, k_q, v_q, k_scale, v_scale, *, causal: bool = False,
                scale: Optional[float] = None, q_offset: Offset = 0,
                kv_offset: Offset = 0,
                block_table: Optional[torch.Tensor] = None,
+               tree_mask: Optional[torch.Tensor] = None,
                plain: bool = False):
     """q8q with the TPU wrapper's signature: B5 with a table, else B4."""
     if block_table is not None:
         fn = paged_decode_q8q_plain if plain else \
             attention_cuda_decode_paged_q8q
         return fn(q, k_q, v_q, block_table, k_scale, v_scale,
-                  q_offset=q_offset, scale=scale)
+                  q_offset=q_offset, scale=scale, tree_mask=tree_mask)
     fn = decode_q8q_plain if plain else attention_cuda_decode_q8q
     return fn(q, k_q, v_q, k_scale, v_scale, causal=causal, scale=scale,
-              q_offset=q_offset, kv_offset=kv_offset)
+              q_offset=q_offset, kv_offset=kv_offset, tree_mask=tree_mask)

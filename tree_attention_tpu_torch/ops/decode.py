@@ -12,6 +12,8 @@ the block table on a paged pool — and prefill-sized chunks take the Q-tiled
 kernel B3, after one gather of a paged pool's logical view. Each kernel
 wrapper runs its plain version for CPU tensors. ``impl="plain"`` runs the
 plain versions on any device (the comparison path of the on-card checks).
+A ``tree_mask`` (speculative tree verification, ``Tq <= 32``) always takes
+the decode kernels, whatever Tq is: B3 has no mask path.
 
 :func:`paged_local_partial` is one rank's half of the sequence-sharded
 pool's decode (``parallel/tree.py:paged_tree_decode`` merges the ranks'
@@ -25,6 +27,10 @@ from typing import Optional, Tuple
 import torch
 
 from tree_attention_tpu_torch import obs
+from tree_attention_tpu_torch.ops.block_utils import (
+    TREE_MAX_ROWS,
+    check_tree_mask,
+)
 from tree_attention_tpu_torch.ops.cuda_attention import (
     attention_cuda_fwd,
     fwd_plain,
@@ -67,7 +73,9 @@ def default_num_splits(kv_len: int, block_size: int) -> int:
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  q_position=None, scale: Optional[float] = None,
                  block_table: Optional[torch.Tensor] = None,
-                 impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+                 impl: str = "auto",
+                 tree_mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal decode attention, ``(out, lse)``.
 
     Args:
@@ -79,12 +87,24 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         own length). Defaults to ``Tk - Tq``; paged callers must pass it.
       impl: ``"auto"`` (kernels for CUDA tensors, their plain versions for
         CPU tensors) or ``"plain"`` (plain versions on any device).
+      tree_mask: optional ``(B, Tq, Tq)`` bool ancestor mask (``Tq <= 32``,
+        a per-slot ``(B,)`` ``q_position``): the query rows are packed
+        draft-tree nodes at KV positions ``[q_position[b], q_position[b] +
+        Tq)``, and row ``i`` sees window position ``j`` iff
+        ``tree_mask[b, i, j]``; everything below the window stays visible,
+        nothing past it is (:func:`~.block_utils.tree_window_mask`).
 
     Returns ``(B, Hq, Tq, D)`` in q's dtype and ``(B, Hq, Tq)`` float32.
     """
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
     Tq = q.shape[2]
+    if tree_mask is not None:
+        check_tree_mask(tree_mask, q.shape[0], Tq, True, TREE_MAX_ROWS)
+        if getattr(q_position, "ndim", 0) != 1:
+            raise ValueError(
+                "tree_mask needs a per-slot (B,) q_position (the window "
+                "start is each slot's committed length)")
     paged = block_table is not None
     Tk = block_table.shape[1] * k.shape[2] if paged else k.shape[2]
     if q_position is None:
@@ -92,12 +112,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             # Tk - Tq would expose every table entry, unwritten ones too.
             raise ValueError("paged decode needs an explicit q_position")
         q_position = Tk - Tq
-    kernel = kernel_for(Tq)
+    # Spec-tree chunks are <= 32 rows, the decode kernels' regime; the
+    # Q-tiled kernel has no mask path.
+    kernel = "decode" if tree_mask is not None else kernel_for(Tq)
     plain = impl == "plain"
+    tree_kw = {} if tree_mask is None else {"tree_mask": tree_mask}
     if paged and kernel == "decode":
         _account_dispatch("paged_decode", Tk)
         fn = paged_decode_plain if plain else attention_cuda_decode_paged
-        return fn(q, k, v, block_table, q_offset=q_position, scale=scale)
+        return fn(q, k, v, block_table, q_offset=q_position, scale=scale,
+                  **tree_kw)
     if paged:
         # B3 has no table path: one gather, amortised over Tq rows.
         k, v = gather_paged_kv(k, v, block_table)
@@ -107,7 +131,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         fn = fwd_plain if plain else attention_cuda_fwd
     return fn(q, k, v, causal=True, scale=scale, q_offset=q_position,
-              kv_offset=0)
+              kv_offset=0, **tree_kw)
 
 
 def paged_local_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

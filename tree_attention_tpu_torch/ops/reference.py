@@ -19,10 +19,12 @@ import torch
 from tree_attention_tpu_torch.ops.block_utils import (
     NEG_INF,
     Offset,
+    check_tree_mask,
     offsets,
     pad_to_block,
     tile_live,
     tile_mask,
+    tree_window_mask,
 )
 
 
@@ -157,7 +159,8 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      row_scale: Optional[torch.Tensor] = None,
                      key_scales: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
-                     key_mask: Optional[torch.Tensor] = None
+                     key_mask: Optional[torch.Tensor] = None,
+                     tree_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernels' plain version: dense f32 scores over each KV head's
     packed ``G*Tq`` query rows, per-batch ``(B,)`` or scalar offsets, P
@@ -172,10 +175,16 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dequantization scalars: K's multiplies the score, V's multiplies p
     after the softmax sum has taken it (the kernels' fold order).
     ``key_mask`` ``(B, Tk)`` bool hides the keys it is False for (B2's
-    remote blocks under ``local_blocks``)."""
+    remote blocks under ``local_blocks``). ``tree_mask`` ``(B, Tq, Tq)``
+    bool (requires ``causal``) replaces the causal rule with the tree-window
+    rule (:func:`~.block_utils.tree_window_mask`) of speculative tree
+    verification; packed row ``r`` takes query row ``r % Tq``'s mask, and a
+    lower-triangular mask gives the causal result bit for bit."""
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     G = _group(q, k)
+    if tree_mask is not None:
+        check_tree_mask(tree_mask, B, Tq, causal)
     if Tk == 0:
         return empty_result(q)
     R = G * Tq
@@ -184,7 +193,12 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ) * (default_scale(D, scale) if row_scale is None else row_scale)
     if key_scales is not None:
         s = s * key_scales[0][:, :, None, :]
-    if causal:
+    if tree_mask is not None:
+        offs = offsets(q_offset, kv_offset, B, q.device)
+        vis = tree_window_mask(tree_mask, offs[0], offs[1], Tk)
+        rows = torch.arange(R, device=q.device) % Tq
+        s = s.masked_fill(~vis[:, None, rows, :], NEG_INF)
+    elif causal:
         offs = offsets(q_offset, kv_offset, B, q.device).long()
         qpos = offs[0][:, None] + torch.arange(R, device=q.device) % Tq
         kpos = offs[1][:, None] + torch.arange(Tk, device=q.device)

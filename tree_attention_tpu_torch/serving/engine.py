@@ -46,10 +46,27 @@ result comes out of an all-reduce, so every rank samples the same tokens
 and takes the same decisions with no further collective. The staging cache
 of int8 admission stays whole on every rank.
 
+``speculate=True`` turns every live slot's tick into a **draft-and-verify**
+step (speculative decoding, arXiv:2211.17192): a host drafter proposes up
+to ``draft_k`` tokens from the slot's own history (``"ngram"``
+prompt-lookup chains, ``"ngram-tree"`` token trees verified under the
+tree-attention ancestor mask — SpecInfer, arXiv:2305.09781 — or a small
+draft model), the tick's ONE step scores them all beside any prefill
+chunks, the longest accepted root path commits in a burst with the model's
+bonus token, accepted tree rows are compacted to the front of the window
+(:func:`compact_decode_window`), and rejections roll the slot's length back
+through the next step's ``reset_val`` — with paged blocks past the rollback
+unmapped back into the slot's reservation. Every draw is keyed by the
+request and the token's stream index (:func:`sample_rows`), so where the
+verify rows' logits equal the one-row decode's (the plain versions on a
+CPU) greedy and sampled slots commit exactly the non-speculative stream.
+On a GPU the decode kernel at a verify tick's Tq rounds differently from
+Tq 1, and the streams part where the model's top logits nearly tie.
+
 Left for later slices of the port (see ROADMAP): whole-prompt admission,
-the prefix cache, speculation, forks and tree-sibling decode, KV tiering,
-disaggregation, cancellation/deadlines/drain and the HTTP ingress, tracing
-and the flight recorder.
+the prefix cache, speculation on a mesh, forks and tree-sibling decode, KV
+tiering, disaggregation, cancellation/deadlines/drain and the HTTP ingress,
+tracing and the flight recorder.
 """
 
 from __future__ import annotations
@@ -57,7 +74,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -65,12 +82,14 @@ import torch
 from tree_attention_tpu_torch import obs
 from tree_attention_tpu_torch.models.decode import (
     KVCache,
+    compact_decode_window,
     forward_step,
     init_cache,
     init_paged_cache,
     paged_insert_slot,
     quantize_cache,
     quantize_paged_blocks,
+    sample_rows,
     sample_slots,
 )
 from tree_attention_tpu_torch.ops.cuda_decode import resolve_q8_kernel
@@ -84,6 +103,15 @@ from tree_attention_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh
 from tree_attention_tpu_torch.serving.block_pool import (
     BlockAllocator,
     ShardedBlockAllocator,
+)
+from tree_attention_tpu_torch.serving.speculation import (
+    DraftProposal,
+    Drafter,
+    PackedSpec,
+    accept_longest_path,
+    accept_stochastic_path,
+    make_drafter,
+    pack_proposal,
 )
 from tree_attention_tpu_torch.utils.logging import get_logger
 
@@ -118,6 +146,20 @@ _TBT = obs.histogram(
     "serving_tbt_seconds",
     "wall seconds between consecutive tokens of one live slot",
 )
+_SPEC_PROPOSED = obs.counter(
+    "serving_spec_proposed_total",
+    "draft tokens proposed into speculative verify ticks",
+)
+_SPEC_ACCEPTED = obs.counter(
+    "serving_spec_accepted_total",
+    "proposed draft tokens the verify pass accepted (bonus tokens — the "
+    "model's own next token at the divergence point — are not drafts and "
+    "do not count)",
+)
+_SPEC_ACCEPT_RATIO = obs.gauge(
+    "serving_spec_acceptance_ratio",
+    "lifetime accepted/proposed draft-token ratio (set per verify tick)",
+)
 
 OUTCOME_EOS = "eos"        # sampled the request's eos_id
 OUTCOME_BUDGET = "budget"  # hit max_new_tokens
@@ -128,7 +170,7 @@ class Request:
     """One generation request. ``arrival_tick`` is synthetic-trace time in
     ticks (0 = queued at start); ``eos_id`` stops generation early (the EOS
     token is included in the output). ``temperature``/``top_k`` override
-    the engine's defaults; ``seed`` seeds the request's sampling generator
+    the engine's defaults; ``seed`` salts the request's sampling key
     (default: its uid)."""
 
     uid: int
@@ -170,6 +212,9 @@ class ServeReport:
     tbt_s: List[float] = dataclasses.field(default_factory=list)
     slo: Dict[str, Any] = dataclasses.field(default_factory=dict)
     kv: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Speculative decoding (drafter, draft_k, proposed/accepted draft
+    # tokens, acceptance_rate, verify ticks); empty when off.
+    spec: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def tokens_per_sec(self) -> float:
@@ -215,6 +260,7 @@ class ServeReport:
             **{k: round(v, 5) for k, v in self.latency_percentiles().items()},
             **({"slo": self.slo} if self.slo else {}),
             **({"kv": self.kv} if self.kv else {}),
+            **({"spec": self.spec} if self.spec else {}),
         }
 
 
@@ -322,6 +368,16 @@ class StaticRequestSource(RequestSource):
         return self._pos >= len(self._reqs)
 
 
+class _Verify(NamedTuple):
+    """A verify tick's extra operands (:meth:`SlotServer._step`)."""
+
+    depth: Optional[np.ndarray]  # (S, Tq) RoPE offsets; None: no tree
+    bits: Optional[np.ndarray]   # (S, Tq, Tq) ancestor masks; None: no tree
+    ridx: np.ndarray             # (S, Tq) stream index each row predicts
+    rows: np.ndarray             # (S, Tq) bool: the rows whose draw is kept
+    dev0: np.ndarray             # (S,) bool: row 0 from the device tokens
+
+
 def _bucket(n: int, cap: int, floor: int = 8, multiple: int = 1) -> int:
     """Pad a length up to a power-of-two bucket (a small fixed set of step
     shapes), rounded to ``multiple`` and capped at ``cap``."""
@@ -342,8 +398,9 @@ class SlotServer:
       cache_len: per-slot KV capacity; every request needs
         ``prompt_len + max_new_tokens <= cache_len``.
       temperature / top_k / seed: sampling defaults (temperature 0 =
-        greedy); each request's generator is seeded from ``seed`` and the
-        request's own ``seed`` (or uid).
+        greedy); each request's key is derived from ``seed`` and the
+        request's own ``seed`` (or uid), and its ``j``-th token is drawn
+        under ``fold_in(key, j)``.
       prefill_chunk: max prompt tokens one tick writes for one slot.
       prefill_budget: max prompt tokens per tick over all prefilling slots
         (default ``slots * prefill_chunk``).
@@ -364,6 +421,13 @@ class SlotServer:
         a multiple of its size W and each rank's pool holds ``kv_blocks /
         W`` blocks. ``"replicated"`` (default) keeps the whole pool on every
         rank, which then computes alike without collectives.
+      speculate: draft-and-verify speculative decoding (module docstring);
+        not with a mesh yet.
+      draft_k: max draft tokens per slot per verify tick (1..31: a tree
+        mask packs into int32 bitmasks). One verify commits 1 to
+        ``draft_k + 1`` tokens.
+      drafter: ``"ngram"`` (default), ``"ngram-tree"``, or any
+        :class:`~.speculation.Drafter` (e.g. ``DraftModelDrafter``).
     """
 
     def __init__(
@@ -388,9 +452,20 @@ class SlotServer:
         quant_kernel: str = "q8q",
         mesh: Optional[Mesh] = None,
         kv_shard: str = "replicated",
+        speculate: bool = False,
+        draft_k: int = 4,
+        drafter: Union[str, Drafter, None] = None,
     ):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if speculate and mesh is not None:
+            raise ValueError(
+                "speculate=True under a mesh is not ported yet (ROADMAP); "
+                "serve speculation on one device")
+        if speculate and not 1 <= draft_k <= 31:
+            raise ValueError(
+                f"draft_k must be in [1, 31] (int32 tree bitmasks), "
+                f"got {draft_k}")
         if kv_layout not in ("paged", "contiguous"):
             raise ValueError(
                 f"kv_layout must be 'paged' or 'contiguous', got {kv_layout!r}"
@@ -477,8 +552,34 @@ class SlotServer:
                                device=self.device)
         self._temp_np = np.zeros((slots,), np.float32)
         self._topk_np = np.zeros((slots,), np.int32)
-        self._gens = [torch.Generator(device=self.device)
-                      for _ in range(slots)]
+        self._keys = [0] * slots  # each slot's request key
+
+        # Speculative decoding: the drafter, the per-slot committed-length
+        # ledger (the rollback truth: the device length over-counts by the
+        # rejected rows until the next step's reset) and token history
+        # (filled incrementally: admit writes the prompt, every commit
+        # appends its burst; history = buf[i, :len]).
+        self._speculate = bool(speculate)
+        self.draft_k = draft_k
+        self._drafter: Optional[Drafter] = None
+        if self._speculate:
+            self._drafter = (make_drafter(drafter or "ngram")
+                             if isinstance(drafter, str) or drafter is None
+                             else drafter)
+        # Verify chunks ride power-of-two Tq buckets that must fit the
+        # cache's write window: at most min(32, cache_len) rows.
+        cap = 1
+        while cap * 2 <= min(32, cache_len):
+            cap *= 2
+        self._spec_rows_cap = cap
+        self._slot_clen = [0] * slots
+        self._hist_buf = np.zeros((slots, cache_len + 1), np.int32)
+        self._hist_len = [0] * slots
+        self._spec_proposed = 0   # lifetime draft tokens proposed
+        self._spec_accepted = 0   # lifetime draft tokens accepted
+        self._spec_ticks = 0      # ticks that verified >= 1 draft token
+        self._spec_verifies = 0   # per-slot verify events with >= 1 draft
+        self._spec_tree_ticks = 0  # verify ticks that ran a tree mask
 
         # Host mirror of slot state (the scheduler's view).
         self._slot_req: List[Optional[Request]] = [None] * slots
@@ -506,7 +607,8 @@ class SlotServer:
 
     def _step(self, tokens: torch.Tensor, n_vec: np.ndarray,
               reset: np.ndarray, reset_val: np.ndarray,
-              emit: np.ndarray) -> torch.Tensor:
+              emit: np.ndarray, verify: Optional[_Verify] = None
+              ) -> torch.Tensor:
         """THE per-tick step: one mixed-Tq forward_step for every slot.
 
         Slot ``i`` consumes ``n_vec[i]`` rows of ``tokens`` ``(S, Tq)`` (1
@@ -516,7 +618,17 @@ class SlotServer:
         samples from its last valid row; ``emit`` keeps the sample (decode
         slots and final chunks), otherwise the slot's row-0 token and
         parked logprob ride through. Returns the ``(S, 2)`` int32 fetch
-        vehicle: tokens and bitcast logprobs."""
+        vehicle: tokens and bitcast logprobs.
+
+        ``verify`` makes it the verify tick of speculation: ``depth`` and
+        ``bits`` (tree ticks only) give the rows RoPE positions ``length +
+        depth`` and the ancestor mask, every row marked in ``rows`` (the
+        draft rows and each emit slot's last row) is sampled under its
+        stream index ``ridx`` in one :func:`sample_rows` pass, and
+        the slots in ``dev0`` (a staged first token parked in the device
+        token vector) keep that token in row 0. The fetch vehicle is then
+        ``(S, 1 + Tq, 2)``: the token vector, then every row's draw — still
+        one host fetch per tick."""
         S = self.slots
         ctrl = torch.from_numpy(np.stack(
             [n_vec, reset, reset_val, emit]).astype(np.int32)).to(self.device)
@@ -524,17 +636,39 @@ class SlotServer:
             ctrl[3] > 0
         length = torch.where(reset_t, reset_val_t, self.cache.length)
         cache = dataclasses.replace(self.cache, length=length)
+        kw = dict(self._fs_kw)
+        if verify is not None and verify.dev0.any():
+            dev0 = torch.from_numpy(verify.dev0).to(self.device)
+            tokens = tokens.clone()
+            tokens[:, 0] = torch.where(dev0, self.tok, tokens[:, 0])
+        if verify is not None and verify.depth is not None:
+            depth = torch.from_numpy(verify.depth).to(self.device)
+            kw["positions"] = length.long()[:, None] + depth
+            kw["tree_mask"] = torch.from_numpy(verify.bits).to(self.device)
         logits, self.cache = forward_step(self.params, tokens, cache,
                                           self.cfg, n_tokens=n_t,
                                           quant_kernel=self.quant_kernel,
-                                          **self._fs_kw)
+                                          **kw)
+        ar = torch.arange(S, device=self.device)
         row = (n_t - 1).clamp(min=0).long()
-        last = logits[torch.arange(S, device=self.device), row]
-        tok_s, lp_s = sample_slots(last, self._temp_np, self._topk_np,
-                                   self._gens, emit)
+        if verify is None:
+            sidx = np.asarray([len(t) for t in self._slot_tokens], np.int64)
+            tok_s, lp_s = sample_slots(logits[ar, row], self._temp_np,
+                                       self._topk_np, self._keys, sidx, emit)
+        else:
+            # One sampling pass: the emit slots' last rows are marked in
+            # ``rows`` beside the draft rows.
+            all_tok, all_lp = sample_rows(logits, self._temp_np,
+                                          self._topk_np, self._keys,
+                                          verify.ridx, verify.rows)
+            tok_s, lp_s = all_tok[ar, row], all_lp[ar, row]
         self.tok = torch.where(emit_t, tok_s, tokens[:, 0].int())
         self._lp = torch.where(emit_t, lp_s, self._lp)
-        return torch.stack([self.tok, self._lp.view(torch.int32)], 1)
+        fused = torch.stack([self.tok, self._lp.view(torch.int32)], 1)
+        if verify is None:
+            return fused
+        rest = torch.stack([all_tok, all_lp.view(torch.int32)], -1)
+        return torch.cat([fused[:, None], rest], 1)
 
     def _run_staged_chunk(self, slot: int, n: int, last: bool) -> None:
         """Staged admission (int8 caches): advance one slot's exact prefill
@@ -559,8 +693,8 @@ class SlotServer:
             return
         tok, lp = sample_slots(logits[:, n - 1], self._temp_np[slot:slot + 1],
                                self._topk_np[slot:slot + 1],
-                               self._gens[slot:slot + 1],
-                               np.ones((1,), bool))
+                               self._keys[slot:slot + 1],
+                               np.zeros((1,), np.int64), np.ones((1,), bool))
         self.tok[slot] = tok[0]
         self._lp[slot] = lp[0]
         valid = (torch.arange(self.cache_len, device=self.device)
@@ -653,11 +787,14 @@ class SlotServer:
                                else req.temperature)
         self._topk_np[slot] = self.top_k if req.top_k is None else req.top_k
         salt = req.seed if req.seed is not None else req.uid
-        self._gens[slot].manual_seed(
-            (self.seed * 1_000_003 + salt) & 0x7FFF_FFFF_FFFF_FFFF
-        )
+        self._keys[slot] = (self.seed * 1_000_003 + salt) \
+            & 0x7FFF_FFFF_FFFF_FFFF
         self.slo.observe_queue_wait(waited)
         self._prompt_np[slot] = np.asarray(req.prompt, np.int32)
+        if self._speculate:
+            plen = len(self._prompt_np[slot])
+            self._hist_buf[slot, :plen] = self._prompt_np[slot]
+            self._hist_len[slot] = plen
         if self._paged:
             self._slot_reserve[slot] = needed
             self._slot_private[slot] = set()
@@ -698,6 +835,201 @@ class SlotServer:
         if obs.REGISTRY.enabled:
             _PREFILL_CHUNKS.inc()
         return rows
+
+    # -- speculation ------------------------------------------------------
+
+    def _spec_bucket(self, n: int) -> int:
+        """Tq bucket of a verify tick: power of two from 8 (shared with the
+        chunk buckets), capped at the window-safe rows cap."""
+        b = min(8, self._spec_rows_cap)
+        while b < n:
+            b *= 2
+        return min(b, self._spec_rows_cap)
+
+    def _draft_slot(self, i: int, tree_ok: bool = True) -> PackedSpec:
+        """Slot ``i``'s verify chunk for this tick: the drafter's proposal
+        clamped to the budget (never past the request's remaining tokens: a
+        drafter proposing past ``max_new_tokens`` is truncated here, not
+        trusted), cut to its root-path chain where the tick cannot run a
+        tree mask (``tree_ok`` False: a prefill chunk widens Tq past 32),
+        packed behind the committed tip at row 0. No proposal packs to one
+        row: a plain decode row."""
+        req = self._slot_req[i]
+        tip = self._slot_tokens[i][-1]
+        remaining = req.max_new_tokens - len(self._slot_tokens[i])
+        budget = min(self.draft_k, remaining - 1, self._spec_rows_cap - 1)
+        prop: Optional[DraftProposal] = None
+        if budget >= 1:
+            prop = self._drafter.propose(
+                self._hist_buf[i, :self._hist_len[i]], budget)
+        if prop is not None and len(prop) > 0:
+            prop = prop.truncated(budget)
+            if not tree_ok and not prop.is_chain:
+                prop = prop.chain_prefix()
+        else:
+            prop = DraftProposal(tokens=np.empty((0,), np.int32),
+                                 parents=np.empty((0,), np.int32))
+        return pack_proposal(tip, prop)
+
+    def _spec_unmap(self, slot: int) -> None:
+        """Roll back the slot's block tail after a partial accept: blocks
+        wholly past the committed length held only rejected rows; they go
+        back to the pool and the reservation they used is restored
+        (``unmap_private``), so the later re-allocation cannot fail and
+        rolled-back KV never leaks capacity. Runs after the tick's
+        compaction was queued; the device table changes at the next sync."""
+        keep = -(-self._slot_clen[slot] // self.kv_block)
+        while self._slot_nblocks[slot] > keep:
+            j = self._slot_nblocks[slot] - 1
+            bid = int(self._host_table[slot, j])
+            self._pool.unmap_private(bid)
+            self._slot_private[slot].discard(bid)
+            self._slot_reserve[slot] += 1
+            self._host_table[slot, j] = 0
+            self._slot_nblocks[slot] -= 1
+            self._table_dirty = True
+
+    def _verify_inputs(self, spec_plan: Dict[int, PackedSpec],
+                       plan: List[tuple], tq: int):
+        """The verify tick's host matrices: draft windows (tip at row 0,
+        every spec slot reset to its committed length — the rollback) and
+        the tick's prefill chunks. Returns ``(mat, n_vec, reset, reset_val,
+        emit, verify)``, ``verify`` as :meth:`_step` takes it."""
+        S = self.slots
+        mat = np.zeros((S, tq), np.int32)
+        n_vec = np.zeros((S,), np.int32)
+        reset = np.zeros((S,), np.int32)
+        reset_val = np.zeros((S,), np.int32)
+        emit = np.zeros((S,), bool)
+        # A staged final chunk parked its slot's first token in the device
+        # token vector only: that slot's row 0 comes from there.
+        dev0 = np.asarray([st == "await" for st in self._slot_state])
+        sidx = np.asarray([len(t) for t in self._slot_tokens], np.int64)
+        ridx = sidx[:, None] + np.arange(tq)
+        rows = np.zeros((S, tq), bool)
+        depth = np.tile(np.arange(tq, dtype=np.int64), (S, 1))
+        bits = np.broadcast_to(np.tril(np.ones((tq, tq), bool)),
+                               (S, tq, tq)).copy()
+        tree = False
+        for i, pack in spec_plan.items():
+            r = pack.rows
+            self._ensure_blocks(i, self._slot_clen[i] + r)
+            mat[i, :r] = pack.row_tokens
+            n_vec[i] = r
+            reset[i] = 1
+            reset_val[i] = self._slot_clen[i]
+            ridx[i, :r] = sidx[i] + pack.depth
+            rows[i, :r] = True
+            depth[i, :r] = pack.depth
+            bits[i, :r, :r] = pack.anc
+            tree |= not np.array_equal(pack.depth, np.arange(r))
+        for slot, n, last in plan:
+            self._ensure_blocks(slot, self._prefill_pos[slot] + n)
+            first = self._prefill_pos[slot] == 0
+            mat[slot, :n] = self._consume_chunk(slot, n, last)
+            n_vec[slot] = n
+            reset[slot] = first
+            emit[slot] = last
+            # A final chunk's last row draws the slot's first token.
+            rows[slot, n - 1] = last
+            ridx[slot, n - 1] = sidx[slot]
+        # Chain slots and prefill chunks ride the arange / lower-triangular
+        # defaults of a tree tick: the causal rule, bit for bit.
+        verify = _Verify(depth if tree else None, bits if tree else None,
+                         ridx, rows, dev0)
+        return mat, n_vec, reset, reset_val, emit, verify
+
+    def _spec_commit_all(self, spec_plan: Dict[int, PackedSpec],
+                         alltok: np.ndarray, alllp: np.ndarray, width: int,
+                         now: float, tick: int,
+                         results: List[RequestResult],
+                         tbt: List[float]) -> int:
+        """The host half of a verify tick: walk each slot's fetched per-row
+        draws (argmax, or keyed samples for a sampled slot: the same walk),
+        emit the committed burst (EOS and budget checked in stream order —
+        an EOS inside the burst truncates it and retires the slot the same
+        tick), advance the committed-length ledger (the next step's reset
+        rolls the device back), queue ONE compaction for every tree commit
+        of the tick, and unmap rolled-back paged blocks. Returns the number
+        of tokens emitted."""
+        emitted = 0
+        compact = None
+        t_prop = t_acc = t_ver = 0
+        for i, pack in spec_plan.items():
+            req = self._slot_req[i]
+            accept = (accept_stochastic_path if self._temp_np[i] > 0.0
+                      else accept_longest_path)
+            kept, committed = accept(pack, alltok[i])
+            m = pack.rows - 1
+            t_prop += m
+            t_acc += len(kept)
+            t_ver += m > 0
+            remaining = req.max_new_tokens - len(self._slot_tokens[i])
+            emit_list = committed[:remaining]
+            outcome = None
+            if req.eos_id is not None and req.eos_id in emit_list:
+                emit_list = emit_list[:emit_list.index(req.eos_id) + 1]
+                outcome = OUTCOME_EOS
+            if outcome is None and (len(self._slot_tokens[i]) + len(emit_list)
+                                    >= req.max_new_tokens):
+                outcome = OUTCOME_BUDGET
+            # The burst lands at one instant: its first token carries the
+            # whole inter-token gap, the rest arrive with it.
+            gap = max(now - self._last_tok_t[i], 0.0)
+            self._last_tok_t[i] = now
+            self._slot_max_tbt[i] = max(self._slot_max_tbt[i], gap)
+            self.slo.observe_tbt(gap)
+            hl = self._hist_len[i]
+            rows_used = [0] + kept  # the window row each token came from
+            for j, t in enumerate(emit_list):
+                self._slot_tokens[i].append(int(t))
+                self._slot_cum_lp[i] += float(alllp[i][rows_used[j]])
+                self._hist_buf[i, hl + j] = int(t)
+                tbt.append(gap if j == 0 else 0.0)
+                if obs.REGISTRY.enabled:
+                    _TOKENS.inc()
+                    _TBT.observe(gap if j == 0 else 0.0)
+            self._hist_len[i] = hl + len(emit_list)
+            emitted += len(emit_list)
+            if obs.REGISTRY.enabled and m:
+                _SPEC_PROPOSED.inc(m)
+                if kept:
+                    _SPEC_ACCEPTED.inc(len(kept))
+            if outcome is not None:
+                self._retire(i, tick, outcome, results)
+                continue
+            # Committed rows: the tip's (row 0) and every accepted draft
+            # row; the bonus token is the new pending tip.
+            a = len(kept)
+            if kept != list(range(1, a + 1)):
+                # A tree path's rows lie scattered in the window.
+                if compact is None:
+                    compact = (np.zeros((self.slots,), np.int64),
+                               np.tile(np.arange(width), (self.slots, 1)),
+                               np.zeros((self.slots,), np.int64))
+                compact[0][i] = self._slot_clen[i]
+                compact[1][i, 1:a + 1] = kept
+                compact[2][i] = a + 1
+            self._slot_clen[i] += 1 + a
+        if compact is not None:
+            # ONE batched gather-to-front; the device table still maps the
+            # rolled-back blocks (the unmapping below reaches the device at
+            # the next tick's sync, after this ran).
+            self.cache = compact_decode_window(
+                self.cache, *(torch.from_numpy(x).to(self.device)
+                              for x in compact))
+        if self._paged:
+            for i in spec_plan:
+                if self._slot_state[i] == "live":  # retired slots freed
+                    self._spec_unmap(i)
+        self._spec_proposed += t_prop
+        self._spec_accepted += t_acc
+        self._spec_verifies += t_ver
+        if t_prop:
+            self._spec_ticks += 1
+        if obs.REGISTRY.enabled and self._spec_proposed:
+            _SPEC_ACCEPT_RATIO.set(self._spec_accepted / self._spec_proposed)
+        return emitted
 
     def _retire(self, slot: int, tick: int, outcome: str,
                 results: List[RequestResult]) -> None:
@@ -781,6 +1113,8 @@ class SlotServer:
         visible_wall: Dict[int, float] = {}
         tbt: List[float] = []
         tick = decode_ticks = occupancy = tokens = steps = 0
+        spec0 = (self._spec_proposed, self._spec_accepted, self._spec_ticks,
+                 self._spec_verifies, self._spec_tree_ticks)
         if self._paged:
             self._peak_blocks_used = self._pool.used
             self._defer_gen = -1
@@ -836,19 +1170,45 @@ class SlotServer:
             reset = np.zeros((S,), np.int32)
             reset_val = np.zeros((S,), np.int32)
             emit = np.zeros((S,), bool)
-            for i in live_idx:
-                self._ensure_blocks(i, len(self._slot_req[i].prompt)
-                                    + len(self._slot_tokens[i]))
-                n_vec[i] = 1
-                emit[i] = True
+            if not self._speculate:
+                for i in live_idx:
+                    self._ensure_blocks(i, len(self._slot_req[i].prompt)
+                                        + len(self._slot_tokens[i]))
+                    n_vec[i] = 1
+                    emit[i] = True
             fused = None
+            verified = False
+            spec_plan: Dict[int, PackedSpec] = {}
             if self.quantize and plan:
                 # Staged chunks run first; the tick's step is then the
                 # decode-only step over the int8 cache.
                 for slot, n, last in plan:
                     self._run_staged_chunk(slot, n, last)
                 plan = []
-            if plan:
+            if self._speculate and live_idx:
+                # THE verify tick: every live slot's draft window (tip at
+                # row 0; no proposal = a one-row decode) and the tick's
+                # prefill chunks in one step. A chunk wider than 32 rows
+                # cannot ride int32 tree masks: trees fall back to their
+                # root-path chains for that tick. A tick with no draft
+                # anywhere runs the Tq = 1 shape.
+                chunk_tq = (self._chunk_bucket(max(n for _, n, _ in plan))
+                            if plan else 1)
+                for i in live_idx:
+                    spec_plan[i] = self._draft_slot(i, chunk_tq <= 32)
+                rows_max = max(p.rows for p in spec_plan.values())
+                tq = self._spec_bucket(rows_max) if rows_max > 1 else 1
+                if plan:
+                    tq = max(tq, chunk_tq)
+                mat, n_vec, reset, reset_val, emit, verify = \
+                    self._verify_inputs(spec_plan, plan, tq)
+                self._sync_table()
+                fused = self._step(torch.from_numpy(mat).to(self.device),
+                                   n_vec, reset, reset_val, emit, verify)
+                verified = True
+                self._spec_tree_ticks += verify.depth is not None
+                steps += 1
+            elif plan:
                 # The mixed tick: decode rows + prefill chunks in one step.
                 mat = np.zeros((S, self._chunk_bucket(
                     max(n for _, n, _ in plan))), np.int32)
@@ -881,6 +1241,12 @@ class SlotServer:
                     fused = torch.stack([self.tok,
                                          self._lp.view(torch.int32)], 1)
                 fh = fused.cpu().numpy()
+                if verified:
+                    # (S, 1 + Tq, 2): the token vector, then every row draw.
+                    alltok = fh[:, 1:, 0]
+                    alllp = np.ascontiguousarray(fh[:, 1:, 1]).view(
+                        np.float32)
+                    fh = fh[:, 0]
                 self._tok_host = fh[:, 0].copy()
                 lp_host = np.ascontiguousarray(fh[:, 1]).view(np.float32)
                 now2 = time.monotonic()
@@ -893,6 +1259,12 @@ class SlotServer:
                     self._slot_tokens[i] = [first]
                     self._slot_cum_lp[i] = float(lp_host[i])
                     self._slot_state[i] = "live"
+                    # The committed rows are the prompt; the first token is
+                    # the pending tip.
+                    self._slot_clen[i] = len(req.prompt)
+                    if self._speculate:
+                        self._hist_buf[i, self._hist_len[i]] = first
+                        self._hist_len[i] += 1
                     _, vis = self._slot_admit[i]
                     self._slot_ttft[i] = max(now2 - vis, 0.0)
                     self._last_tok_t[i] = now2
@@ -905,24 +1277,32 @@ class SlotServer:
                         self._retire(i, tick, OUTCOME_EOS, results)
                     elif req.max_new_tokens <= 1:
                         self._retire(i, tick, OUTCOME_BUDGET, results)
-                for i in live_idx:
-                    req = self._slot_req[i]
-                    tok_i = int(self._tok_host[i])
-                    self._slot_tokens[i].append(tok_i)
-                    self._slot_cum_lp[i] += float(lp_host[i])
-                    tokens += 1
-                    gap = max(now2 - self._last_tok_t[i], 0.0)
-                    tbt.append(gap)
-                    self._last_tok_t[i] = now2
-                    self._slot_max_tbt[i] = max(self._slot_max_tbt[i], gap)
-                    self.slo.observe_tbt(gap)
-                    if obs.REGISTRY.enabled:
-                        _TOKENS.inc()
-                        _TBT.observe(gap)
-                    if req.eos_id is not None and tok_i == req.eos_id:
-                        self._retire(i, tick, OUTCOME_EOS, results)
-                    elif len(self._slot_tokens[i]) >= req.max_new_tokens:
-                        self._retire(i, tick, OUTCOME_BUDGET, results)
+                if spec_plan:
+                    # Live slots' tokens come from the accept walk over the
+                    # fetched row draws: 1 to draft_k + 1 per slot.
+                    tokens += self._spec_commit_all(
+                        spec_plan, alltok, alllp, mat.shape[1], now2, tick,
+                        results, tbt)
+                else:
+                    for i in live_idx:
+                        req = self._slot_req[i]
+                        tok_i = int(self._tok_host[i])
+                        self._slot_tokens[i].append(tok_i)
+                        self._slot_cum_lp[i] += float(lp_host[i])
+                        tokens += 1
+                        gap = max(now2 - self._last_tok_t[i], 0.0)
+                        tbt.append(gap)
+                        self._last_tok_t[i] = now2
+                        self._slot_max_tbt[i] = max(self._slot_max_tbt[i],
+                                                    gap)
+                        self.slo.observe_tbt(gap)
+                        if obs.REGISTRY.enabled:
+                            _TOKENS.inc()
+                            _TBT.observe(gap)
+                        if req.eos_id is not None and tok_i == req.eos_id:
+                            self._retire(i, tick, OUTCOME_EOS, results)
+                        elif len(self._slot_tokens[i]) >= req.max_new_tokens:
+                            self._retire(i, tick, OUTCOME_BUDGET, results)
             if self._paged:
                 self._peak_blocks_used = max(self._peak_blocks_used,
                                              self._pool.used)
@@ -949,6 +1329,26 @@ class SlotServer:
                     # This rank's pool rows, its drop block aside.
                     pool_bytes_rank=self.pool_bytes(),
                 )
+        spec_snap: Dict[str, Any] = {}
+        if self._speculate:
+            prop = self._spec_proposed - spec0[0]
+            acc = self._spec_accepted - spec0[1]
+            ver = self._spec_verifies - spec0[3]
+            spec_snap = {
+                "drafter": type(self._drafter).__name__,
+                "draft_k": self.draft_k,
+                "proposed": prop,
+                "accepted": acc,
+                "acceptance_rate": round(acc / prop, 4) if prop else 0.0,
+                "verify_ticks": self._spec_ticks - spec0[2],
+                # Verify ticks that ran the tree variant of the decode
+                # kernel (one launch per layer each).
+                "tree_verify_ticks": self._spec_tree_ticks - spec0[4],
+                # Accepted drafts per per-slot verify event, plus the free
+                # bonus token (1 = no win, draft_k + 1 = every draft kept).
+                "tokens_per_verify": round(1.0 + acc / ver, 4) if ver
+                else 0.0,
+            }
         log.info(
             "served %d request(s): %d tokens over %d decode tick(s), "
             "%.1f tok/s, mean occupancy %.2f/%d",
@@ -967,4 +1367,5 @@ class SlotServer:
             tbt_s=tbt,
             slo=self.slo.snapshot(),
             kv=kv_snap,
+            spec=spec_snap,
         )

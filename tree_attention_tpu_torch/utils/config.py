@@ -86,6 +86,9 @@ class RunConfig:
     kv_block: Optional[int] = None  # tokens per pool block (pow2; None -> 64)
     kv_blocks: Optional[int] = None  # pool blocks (None -> slots * table)
     kv_shard: str = "replicated"  # replicated | seq (shard the block pool)
+    speculate: bool = False  # draft-and-verify speculative decoding
+    draft_k: int = 4         # max draft tokens per slot per verify tick
+    drafter: str = "ngram"   # ngram | ngram-tree | model
 
     # Observability.
     log_level: str = "info"
@@ -218,6 +221,24 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "rows and decode merges the ranks' partials with "
                         "the tree monoid (one MAX and two SUM all-reduces "
                         "per layer and step); needs --kv-layout paged")
+    p.add_argument("--speculate", action="store_true", default=d.speculate,
+                   help="serve: draft-and-verify speculative decoding "
+                        "(arXiv:2211.17192) on the mixed-Tq tick — a host "
+                        "drafter proposes tokens, ONE verify step scores "
+                        "them all, accepted prefixes commit in a burst, "
+                        "rejections roll back; committed tokens are the "
+                        "non-speculative stream (greedy or sampled)")
+    p.add_argument("--draft-k", type=int, default=d.draft_k,
+                   help="serve: max draft tokens per slot per verify tick "
+                        "(1..31); one verify commits 1 to draft_k+1 tokens")
+    p.add_argument("--drafter", choices=["ngram", "ngram-tree", "model"],
+                   default=d.drafter,
+                   help="serve: 'ngram' = prompt lookup over the slot's own "
+                        "history; 'ngram-tree' = multi-branch token trees "
+                        "verified under the tree-attention ancestor mask "
+                        "(SpecInfer, arXiv:2305.09781; the tree variants of "
+                        "the decode kernels); 'model' = a half-depth draft "
+                        "transformer (same widths and vocab, --seed+3)")
     p.add_argument("--log-level",
                    choices=["debug", "info", "warning", "error"],
                    default=d.log_level)
