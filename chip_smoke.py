@@ -5,10 +5,11 @@ failure exits non-zero:
 
 1. Build the CUDA kernels from ``tree_attention_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together), print the card, each
-   kernel's registers and spills (the decode body's tree variants beside
-   their causal twins), and the HGMMA instructions in the SASS of the
-   tensor-core bodies of B3 and B6 (``cuobjdump -sass``; none is a
-   failure).
+   kernel's registers and spills (the decode split body's tree variants
+   beside their causal twins, every instantiation of B2's multi-row body),
+   and the HGMMA instructions in the SASS of the tensor-core bodies of B3,
+   B6 and B7 (``cuobjdump -sass``; none is a failure, and so is a spill in
+   B7's tensor-core body or in B2's multi-row body).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (bf16; each query row's out within 2e-2 of that row's
    largest |out|, i.e. about two bf16 ulps, and lse within 1e-3 — P is
@@ -31,10 +32,10 @@ failure exits non-zero:
    cancellation instead, their |d| printed beside it; at the training
    shape the gate is shown to reject dv halved, B7 skipping each KV tile's
    first live Q tile and B6's causal frontier shifted by one key), timed
-   beside SDPA's backward; then every body that ships off its tile edges
-   (B3, B6, B7 in bf16 and f32, D 64 and 128, Tq 5 and 130 against Tk
-   300, GQA, a negative and an unaligned offset, causal and not) under the
-   same gates; and
+   beside SDPA's backward (B7 in bf16 is its tensor-core body); then every
+   body that ships off its tile edges (B3, B6, B7 in bf16 and f32, D 64
+   and 128, Tq 5 and 130 against Tk 300, GQA, a negative and an unaligned
+   offset, causal and not) under the same gates; and
    B3, B6, B7 timed at B1 H16 T16384 causal (no plain version there); and
    the gradients of the Tq < 128 training route (B1 forward, blockwise
    backward) against its plain forward, under the same row gate.
@@ -74,11 +75,19 @@ failure exits non-zero:
    table entries past each window named a NaN block change nothing; the
    gate is shown rejecting each row reading the previous row's bits and
    the window shifted by one key.
+   B2's multi-row body (bf16, more than one packed row: prompt tails,
+   verify ticks, the sharded pool's chunks; ``cuda_decode.decode_body``)
+   under the row gate at Tq 2, 8, 28, 32, 64, 127 for G 1 and 4, ragged
+   640-token slots, every table entry past each window naming a NaN block,
+   and under ``local_blocks`` with every block the rank's table does not
+   name NaN-poisoned; each such launch counted on ``.tiled_launches``; the
+   prompt-tail buckets Tq 8, 16, 32, 64 timed beside SDPA.
 3. Serve 16 requests through the paged, chunked SlotServer (the CLI's
    ``--mode serve`` entry point) at the reference attention width (d_model
    2048, 16 heads x 128, d_ff 5504, vocab 32768, bf16, depth cut to 4
    layers, random weights from a seed); check every request retires with
-   its budget, the pool drains, the paged decode (B2) and Q-tiled (B3)
+   its budget, the pool drains, the paged decode (B2, its multi-row body
+   on the prompt-tail ticks, counted by Tq bucket) and Q-tiled (B3)
    kernels ran, and one mixed step's logits and written KV match the plain
    path on the same cache (logits within 0.1: bf16 activations, relative
    precision ~4e-3, through 4 layers at a logit scale ~1; KV within 2e-2 of
@@ -108,7 +117,9 @@ failure exits non-zero:
    proposal a tree, every commit a compaction) on the paged and contiguous
    layouts, exact and int8: every request retires with its budget, the
    pool drains, each tree verify tick launches the layout's tree kernel
-   once per layer and no other tree kernel runs, the oracle's acceptance
+   once per layer and no other tree kernel runs (on the exact paged pool
+   through B2's multi-row body, which every verify tick takes), the
+   oracle's acceptance
    is above 0 on the paged layouts, and every emitted greedy token is
    within 0.1 of its position's largest logit when the stream is re-scored
    by the non-speculative kernel path (teacher-forced replay). One tree
@@ -123,9 +134,10 @@ failure exits non-zero:
    each): every request retires with its budget, each rank's pool drains
    and holds half the whole pool's bytes, B2 ``local_blocks`` launches
    once per layer and step on each rank (nothing else reads the sharded
-   pool), exactly 1 MAX + 2 SUM all-reduces per layer and step (int8: plus
-   one SUM per step for the anchor scales), both ranks' tokens equal; one
-   mixed step's merged logits within 0.1 of the single-rank path on the
+   pool; the exact chunks take its multi-row body, the int8 slice's cast
+   route never), exactly 1 MAX + 2 SUM all-reduces per layer and step
+   (int8: plus one SUM per step for the anchor scales), both ranks'
+   tokens equal; one mixed step's merged logits within 0.1 of the single-rank path on the
    same logical cache; greedy agreement with the single-rank serve
    reported; and ``--mode decode --mesh seq=2`` at the reference workload
    (its time: two ranks sharing one card, not a scaling figure).
@@ -303,6 +315,7 @@ def _sharded_rank(rank: int, world: int, port: int, device: str,
         "flash_decode": (cuda_decode.attention_cuda_decode, "launches"),
         "flash_decode_paged": (b2, "launches"),
         "flash_decode_paged_local": (b2, "local_launches"),
+        "flash_decode_paged_tiled": (b2, "tiled_launches"),
         "flash_decode_paged_q8q": (
             cuda_decode.attention_cuda_decode_paged_q8q, "launches"),
         "flash_fwd": (cuda_attention.attention_cuda_fwd, "launches"),
@@ -737,10 +750,18 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
                 c for n, c in tree.items() if n != mine)):
             fail(f"spec serve {label}: tree launches {tree} over {ticks} "
                  f"tree verify ticks x {n_layers} layers")
+        # On the exact paged pool every verify tick (tree or chain, Tq >= 8)
+        # runs B2's multi-row body.
+        tiled = wrappers["flash_decode_paged"].tiled_launches
+        if on_card and layout == "paged" and not quant and not (
+                tiled >= tree[mine] and tiled > 0):
+            fail(f"spec serve {label}: B2's multi-row body launched {tiled} "
+                 f"times beside {tree[mine]} tree launches")
         return {"spec": rep.spec, "tokens_per_sec": rep.tokens_per_sec,
                 "wall_s": rep.wall_s, "ticks": rep.ticks,
                 "decode_ticks": rep.decode_ticks,
-                "tree_launches": tree[mine], "tree_kernel": mine}
+                "tree_launches": tree[mine], "tree_kernel": mine,
+                "tiled_launches": tiled}
 
     out = {"cli": {}, "oracle": {}}
     for quant in ("none", "int8"):
@@ -767,7 +788,8 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
             out["cli"][label] = r
             print(f"spec serve ({label}): {rec['tokens_per_sec']} tok/s, "
                   f"spec {json.dumps(rep.spec)}, tree launches "
-                  f"{r['tree_launches']}, replay margin "
+                  f"{r['tree_launches']}, multi-row B2 launches "
+                  f"{r['tiled_launches']}, replay margin "
                   f"{r['replay_margin']:.3e} (tol {tol_logits})", flush=True)
             if not r["replay_margin"] <= tol_logits:
                 fail(f"spec serve ({label}): an emitted token is "
@@ -903,12 +925,26 @@ def main() -> None:
               n[n.index("kernelI") + 7:n.index("EEEv")]: [
                   r, dptx.get(n.replace("ELb1EEEv", "ELb0EEEv"))]
               for n, r in tree_bodies.items()}), flush=True)
+    # B2's multi-row body (mma.sync): registers and spills of each
+    # instantiation (D, warps, tree, local), by mangled name.
+    tptx = ptxas_summary(_build, ("flash_decode",),
+                         r"_Z\w*(decode_tiled_kernelI\w+?EE)v",
+                         lambda m: m.group(1))
+    print(f"ptxas of B2's multi-row body: {len(tptx)} instantiations "
+          f"(registers, spill-store bytes): {json.dumps(tptx)}", flush=True)
     hgmma = hgmma_counts(_build)
     print(f"SASS HGMMA instructions of the tensor-core bodies: "
           f"{json.dumps(hgmma)}", flush=True)
-    for body in ("flash_fwd_wgmma", "flash_dq_wgmma"):
+    for body in ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma"):
         if not any(body in n and c > 0 for n, c in hgmma.items()):
             fail(f"no HGMMA instruction in {body}_kernel's SASS")
+    # The redesigned bodies keep every register: a spill would put the
+    # accumulators (B7's dK and dV, B2's O) through local memory.
+    spills = {n: r for n, r in {**ptxas, **tptx}.items()
+              if ("dkv_wgmma" in n or "decode_tiled" in n) and r[1]}
+    if spills or not tptx or not any("dkv_wgmma" in n for n in ptxas):
+        fail(f"the new bodies spill or are missing from the build: "
+             f"{json.dumps(spills)}")
 
     # -- 2. kernels against their plain versions ---------------------------
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1093,12 +1129,13 @@ def main() -> None:
                4.0 * 32 * 128 * visible_pairs(qoff, tq, 4096))
 
     # B2: a fragmented 64-token-block pool at the serve shapes (8 slots,
-    # 16 heads x 128, 10-block tables = 640-token slots).
+    # 16 heads x 128, 10-block tables = 640-token slots), the decode tick
+    # (the split body; more rows take the multi-row body, phase 2e).
     blk, nb, npool = 64, 10, 96
     kp, vp = rnd(npool, 16, blk, 128), rnd(npool, 16, blk, 128)
     table = torch.stack([torch.randperm(npool, generator=g, device=dev)[:nb]
                          for _ in range(8)]).to(torch.int32)
-    for tq in (1, 16, 64):
+    for tq in (1,):
         q = rnd(8, 16, tq, 128)
         qoff = torch.randint(0, nb * blk - tq, (8,), generator=g, device=dev,
                              dtype=torch.int32)
@@ -1122,7 +1159,7 @@ def main() -> None:
     # bf16 rate. No PyTorch call computes int8-KV attention (library none);
     # SDPA over the dequantized bf16 K/V is timed as a yardstick: the same
     # result to within quantization, at twice the K/V bytes.
-    own = ("decode_split", "merge_splits")
+    own = ("decode_split", "decode_tiled", "merge_splits")
 
     def q8_ops_s(pairs, q8q):
         qk = INT8_OPS_PER_S if q8q else BF16_FLOPS_PER_S
@@ -1343,7 +1380,8 @@ def main() -> None:
 
                     def fn(kr=kr, vr=vr, loc=loc, sr=sr):
                         return b2(q, kr, vr, loc, q_offset=qoff,
-                                  block_scales=sr, local_blocks=True)
+                                  block_scales=sr, local_blocks=True,
+                                  local_shards=W)
 
                     def plain(kr=kr, vr=vr, loc=loc, sr=sr):
                         return cuda_decode.paged_decode_plain(
@@ -1665,6 +1703,118 @@ def main() -> None:
         del q, k, v, kq, vq, kd, vd, mask
     torch.cuda.empty_cache()
 
+    # -- 2e. B2's multi-row body: bf16, more than one packed row ----------
+    # The body the plain serve's prompt tails (chunk buckets Tq 8-64, below
+    # the Q-tile width), the verify ticks (2d) and the sharded pool's chunks
+    # (2b) run, by cuda_decode.decode_body's rule. Row gate against the
+    # plain version at Tq 2, 8, 28, 32, 64, 127 for G 1 (H16) and 4 (Hq64
+    # Hkv16) over 640-token slots of 64-token blocks, ragged: one slot's
+    # window ends on a block's last key, one starts on a block's first;
+    # every table entry past each slot's window names a block of NaN (never
+    # read). Then local_blocks (W 2, rank 0) with the rank's slice holding
+    # NaN in block 0 and in every block its table does not name: a remote
+    # entry read as block 0 would poison its row. Each launch must count on
+    # .tiled_launches. Timed: the prompt-tail buckets, the 64-row chunk
+    # first, beside SDPA with the causal mask over the gathered view.
+    tiled_gate = {}
+    b2 = cuda_decode.attention_cuda_decode_paged
+    blk, nb, npool = 64, 10, 96
+    kp, vp = rnd(npool, 16, blk, 128), rnd(npool, 16, blk, 128)
+    table = torch.stack([torch.randperm(npool, generator=g, device=dev)[:nb]
+                         for _ in range(8)]).to(torch.int32)
+    used = torch.zeros(npool, dtype=torch.bool, device=dev)
+    used[table.long().flatten()] = True
+    spare = int((~used).nonzero()[0])
+    kn, vn = kp.clone(), vp.clone()
+    kn[spare], vn[spare] = math.nan, math.nan
+
+    def tiled_call(fn):
+        before = b2.tiled_launches
+        out = fn()
+        if b2.tiled_launches != before + 1:
+            fail("B2's multi-row body did not take a bf16 multi-row launch")
+        return out
+
+    def ragged_qoff(tq):
+        qoff = torch.randint(0, nb * blk - tq, (8,), generator=g, device=dev,
+                             dtype=torch.int32)
+        qoff[0] = 3 * blk - tq  # the window ends on a block's last key
+        qoff[1] = 5 * blk       # ... starts on a block's first key
+        return qoff
+
+    for G in (1, 4):
+        for tq in (2, 8, 28, 32, 64, 127):
+            q = rnd(8, 16 * G, tq, 128)
+            qoff = ragged_qoff(tq)
+            past = (torch.arange(nb, device=dev)[None] * blk
+                    >= (qoff + tq)[:, None])
+            nan_table = torch.where(past, spare, table).to(torch.int32)
+            got = tiled_call(lambda: b2(q, kn, vn, nan_table, q_offset=qoff))
+            ok, eo, er, el = gate(got, cuda_decode.paged_decode_plain(
+                q, kp, vp, table, q_offset=qoff))
+            tiled_gate[f"G{G} Tq{tq}"] = {"pass": ok, "max_abs_err": eo,
+                                          "max_rel_err": er,
+                                          "max_abs_err_lse": el}
+            if not ok:
+                fail(f"B2 multi-row G{G} Tq{tq} (entries past each window "
+                     f"NaN): |dout| {eo:.3e}, relative {er:.3e}, |dlse| "
+                     f"{el:.3e}")
+    from tree_attention_tpu_torch.serving import ShardedBlockAllocator
+
+    alloc = ShardedBlockAllocator(80, 2)
+    alloc.reserve(80)
+    gtable = torch.tensor([[alloc.alloc() for _ in range(nb)]
+                           for _ in range(8)], dtype=torch.int32, device=dev)
+    kr, vr = kp[:40], vp[:40]  # rank 0's slice: global ids [0, 40)
+    loc = torch.where(gtable < 40, gtable, -1).to(torch.int32)
+    nan_blocks = torch.full((9, 16, blk, 128), math.nan, device=dev,
+                            dtype=torch.bfloat16)
+    kpois = torch.cat([nan_blocks[:1], kr, nan_blocks[1:]])
+    vpois = torch.cat([nan_blocks[:1], vr, nan_blocks[1:]])
+    for tq in (8, 64):
+        q = rnd(8, 16, tq, 128)
+        qoff = ragged_qoff(tq)
+        past = (torch.arange(nb, device=dev)[None] * blk
+                >= (qoff + tq)[:, None])
+        # Held entries shift by the NaN block 0; past each window they name
+        # it (held, never read); remote entries stay -1.
+        lpois = torch.where(loc >= 0, torch.where(past, 0, loc + 1),
+                            -1).to(torch.int32)
+        got = tiled_call(lambda: b2(q, kpois, vpois, lpois, q_offset=qoff,
+                                    local_blocks=True, local_shards=2))
+        ok, eo, er, el = gate(got, cuda_decode.paged_decode_plain(
+            q, kr, vr, loc, q_offset=qoff, local_blocks=True))
+        tiled_gate[f"local W2 rank0 Tq{tq}"] = {
+            "pass": ok, "max_abs_err": eo, "max_rel_err": er,
+            "max_abs_err_lse": el}
+        if not ok:
+            fail(f"B2 multi-row local_blocks Tq{tq} (unnamed blocks NaN): "
+                 f"|dout| {eo:.3e}, relative {er:.3e}, |dlse| {el:.3e}")
+    print(f"B2 multi-row body, row gate (entries past each window and "
+          f"unnamed local blocks NaN): worst relative "
+          f"{max(c['max_rel_err'] for c in tiled_gate.values()):.3e}, |dlse| "
+          f"{max(c['max_abs_err_lse'] for c in tiled_gate.values()):.3e}, "
+          f"{len(tiled_gate)} cases pass", flush=True)
+    del kn, vn, kpois, vpois, nan_blocks, kr, vr
+    kg, vg = gather_paged_kv(kp, vp, table)
+    for tq in (64, 8, 16, 32):
+        q = rnd(8, 16, tq, 128)
+        qoff = ragged_qoff(tq)
+        need = sum(min(nb * blk, int(o) + tq) for o in qoff.tolist())
+        mask = gqa_mask(qoff, tq, nb * blk)
+        record("flash_decode_paged_tiled",
+               f"{'chunk' if tq == 64 else 'prompt tail'} B8 H16 block64 "
+               f"NB10 Tq{tq} ragged",
+               lambda: b2(q, kp, vp, table, q_offset=qoff),
+               lambda: cuda_decode.paged_decode_plain(q, kp, vp, table,
+                                                      q_offset=qoff),
+               lambda: F.scaled_dot_product_attention(q, kg, vg,
+                                                      attn_mask=mask),
+               need * 16 * 128 * 2 * 2 + 2 * q.numel() * 2,
+               4.0 * 16 * 128 * visible_pairs(qoff, tq, nb * blk),
+               names=own)
+    del kp, vp, kg, vg, mask
+
     # B3: a Tq=256 prefill chunk against a 2k-token gathered view.
     q, k, v = rnd(8, 16, 256, 128), rnd(8, 16, 2048, 128), rnd(8, 16, 2048, 128)
     qoff = torch.randint(0, 2048 - 256, (8,), generator=g, device=dev,
@@ -1963,8 +2113,11 @@ def main() -> None:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
-            if hasattr(w, "tree_launches"):
-                w.tree_launches = 0
+            for extra in ("tree_launches", "local_launches",
+                          "tiled_launches"):
+                if hasattr(w, extra):
+                    setattr(w, extra, 0)
+        cuda_decode.attention_cuda_decode_paged.tiled_tq.clear()
 
     serve_cfg = parse_args(SERVE_ARGS)
     reset_counts()
@@ -1973,6 +2126,11 @@ def main() -> None:
     torch.cuda.synchronize()
     serve_wall = time.monotonic() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
+    # B2's multi-row body: the prompt-tail ticks (chunk buckets below 128
+    # rows run every slot's rows through B2 at that Tq), by Tq bucket.
+    b2w = cuda_decode.attention_cuda_decode_paged
+    launches["flash_decode_paged_tiled"] = b2w.tiled_launches
+    serve_tiled_tq = dict(sorted(b2w.tiled_tq.items()))
     print(f"serve: {rec['requests']} requests, {rec['tokens_generated']} "
           f"tokens, {rec['tokens_per_sec']} tok/s, ttft_p50 "
           f"{rec['ttft_p50_s']}s, tbt_p50 {rec['tbt_p50_s']}s, tbt_p95 "
@@ -1985,9 +2143,12 @@ def main() -> None:
         fail(f"serve generated {rec['tokens_generated']} tokens")
     if any(rec["leaks"][k] for k in rec["leaks"]):
         fail(f"serve leaked: {rec['leaks']}")
-    for n in ("flash_decode_paged", "flash_fwd"):
+    for n in ("flash_decode_paged", "flash_decode_paged_tiled", "flash_fwd"):
         if launches[n] == 0:
             fail(f"serve never launched {n}")
+    print(f"serve: B2's multi-row body launched {b2w.tiled_launches} times "
+          f"(by Tq bucket {json.dumps(serve_tiled_tq)}), its split body "
+          f"{launches['flash_decode_paged'] - b2w.tiled_launches}", flush=True)
     single_tokens = {r.uid: r.tokens for r in serve_rep.results}
     single_pool_bytes = server.pool_bytes()
 
@@ -2058,7 +2219,9 @@ def main() -> None:
         return plain_rep, bd
 
     plain_rep, breakdown = wave_breakdown("serve", {
-        "flash_decode (B1/B2 + merge)": ("decode_split", "merge_splits"),
+        "B2 multi-row body": ("decode_tiled",),
+        "flash_decode (B1/B2 split body + merge)": ("decode_split",
+                                                     "merge_splits"),
         "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul})
 
     # One mixed step, kernel path vs plain path, on the same cache: slots
@@ -2304,8 +2467,11 @@ def main() -> None:
                for e in tree_step.values()):
         fail(f"tree verify step: {tree_step}")
     spec_wave, spec_breakdown = wave_breakdown("spec serve (oracle)", {
-        "flash_decode tree (B2 tree)": (", 8, true>",),
-        "flash_decode (B2/B1) + merges": ("decode_split", "merge_splits"),
+        "B2 multi-row body (tree and chain verify ticks, tails)": (
+            "decode_tiled",),
+        "flash_decode tree, split body (B1/B4/B5)": (", 8, true>",),
+        "flash_decode (B2/B1 split body) + merges": ("decode_split",
+                                                     "merge_splits"),
         "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul},
         speculate=True, draft_k=4,
         drafter=oracle_drafter(trace, spec_refs[False], tcfg.vocab_size))
@@ -2363,6 +2529,11 @@ def main() -> None:
                      f"over {n_steps} steps")
             if label == "exact" and lc["flash_fwd"]:
                 fail(f"sharded serve (exact) rank {rank} ran B3: {lc}")
+            # bf16 chunks (more than one packed row) take B2's multi-row
+            # body; the int8 slice's cast route keeps the split body.
+            if (lc["flash_decode_paged_tiled"] > 0) != (label == "exact"):
+                fail(f"sharded serve ({label}) rank {rank}: multi-row B2 "
+                     f"launches {lc['flash_decode_paged_tiled']}")
             if r["colls"] != want_colls:
                 fail(f"sharded serve ({label}) rank {rank}: collectives "
                      f"{r['colls']}, expected {want_colls}")
@@ -2559,6 +2730,9 @@ def main() -> None:
         "flash_decode_paged_local": (
             "cuda", csrc + "flash_decode.cu",
             "tree_attention_tpu/ops/pallas_decode.py:344"),
+        "flash_decode_paged_tiled": (
+            "cuda", csrc + "flash_decode.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:344"),
         "flash_decode_tree": ("cuda", csrc + "flash_decode.cu",
                               "tree_attention_tpu/ops/pallas_decode.py:179"),
         "flash_decode_paged_tree": (
@@ -2590,6 +2764,9 @@ def main() -> None:
     # B2 local_blocks: rank 0's launches in the two-rank exact sharded serve.
     main_launches["flash_decode_paged_local"] = sh["exact"][0]["launches"][
         "flash_decode_paged_local"]
+    # B2's multi-row body: its launches in the plain serve (prompt tails).
+    main_launches["flash_decode_paged_tiled"] = launches[
+        "flash_decode_paged_tiled"]
     # The tree variants: their launches in the speculative serves (3d).
     spec_runs = {**spec["cli"], **spec["oracle"]}
     for name in ("flash_decode", "flash_decode_paged", "flash_decode_q8q",
@@ -2648,6 +2825,13 @@ def main() -> None:
                 label: r["tree_launches"] for label, r in spec_runs.items()
                 if r["tree_kernel"] + "_tree" == name}
         if name == "flash_decode_paged_local":
+            # The 64-row chunk on rank 0 of W = 2 (B2's multi-row body).
+            entry["chunk_tq64"] = next(
+                {k: c[k] for k in ("case", "ms", "call_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "max_rel_err")}
+                for c in mine if c["case"].startswith("W2 rank0 exact")
+                and "Tq64" in c["case"])
             entry["launches_per_rank"] = {
                 label: [r["launches"][name] for r in ranks]
                 for label, ranks in sh.items()}
@@ -2657,7 +2841,24 @@ def main() -> None:
                                    "yardstick_sdpa_dequant_ms",
                                    "max_rel_err")}
                 for c in mine if " int8 " in c["case"])
-        if name in ("flash_fwd", "flash_dq"):
+        if name.startswith("flash_decode"):
+            # Which body ran the head case (cuda_decode.decode_body: bf16
+            # B2 with more than one packed row takes the multi-row one).
+            entry["body"] = ("tiled" if name in ("flash_decode_paged_tiled",
+                                                 "flash_decode_paged_tree")
+                             else "split")
+        if name == "flash_decode_paged_tiled":
+            # The new body's launches on each serve of the main path.
+            entry["launches_per_serve"] = {
+                "serve (prompt-tail ticks)": launches[name],
+                "serve by Tq bucket": serve_tiled_tq,
+                "speculative serves (paged exact)": {
+                    label: r["tiled_launches"]
+                    for label, r in spec_runs.items()
+                    if r["tree_kernel"] == "flash_decode_paged"},
+                "sharded serve, rank 0 (exact)": sh["exact"][0]["launches"][
+                    name]}
+        if name in ("flash_fwd", "flash_dq", "flash_dkv"):
             # bf16 runs the tensor-core body: its HGMMA count in the SASS.
             entry["hgmma_sass"] = sum(c for n, c in hgmma.items()
                                       if f"{name}_wgmma" in n)
@@ -2695,6 +2896,8 @@ def main() -> None:
                    "local_blocks_teeth": local_teeth,
                    "tree_decode_shards": tree_merge,
                    "tree_variants": tree_teeth, "decode_ptxas": dptx,
+                   "tiled_ptxas": tptx, "tiled_gate": tiled_gate,
+                   "serve_tiled_tq": serve_tiled_tq,
                    "tree_causal_ms": causal_ms,
                    "spec": spec, "spec_tree_step": tree_step,
                    "spec_breakdown": spec_breakdown,

@@ -1,0 +1,346 @@
+"""How the redesigned kernels cut their work, on the CPU.
+
+B2's multi-row body (``csrc/flash_decode.cu`` ``decode_tiled_kernel``) and
+B7's tensor-core body (``csrc/flash_bwd.cu`` ``flash_dkv_wgmma_kernel``)
+run only on the card; what surrounds them is Python that these tests
+reach:
+
+- (a) the static rule that picks B2's body (``cuda_decode.decode_body``),
+  and the launchers' check of the built library's constants;
+- (b) the split geometry (``decode_geometry``, ``split_keys``): every
+  visible (row, key) pair of a ragged batch falls in exactly one split and
+  one Q tile, no split reads past its slot's frontier, and under
+  ``local_blocks`` the multi-row body's splits are sized on the rank's
+  share of the keys (the split body's on the logical length);
+- (c) B7's walk of (query head, Q tile) per K/V tile (``cuda_bwd
+  .dkv_walk``): it starts at the first live Q tile (held against the JAX
+  package's ``causal_first_live_q``), leaves no live tile out and takes no
+  tile twice.
+
+The plain version at the multi-row body's shapes (bf16, Tq 8 and 28, G 1
+and 4, tree and local_blocks) is held against the Pallas paged decode
+kernel in interpret mode, as ``tests/test_pallas_decode.py`` runs it.
+Tolerance as ``tests/test_torch_ops.py`` holds bf16: 2e-2 on out, 1e-2 on
+lse. The ``gpu`` twins launch the kernels against their plain versions and
+skip here.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tree_attention_tpu.ops import block_utils as jbu
+from tree_attention_tpu.ops.pallas_decode import attention_pallas_decode
+
+from tree_attention_tpu_torch.ops import _build, block_utils, cuda_bwd
+from tree_attention_tpu_torch.ops import cuda_decode as cd
+from tree_attention_tpu_torch.ops.tuning import DKV_TILES
+from tree_attention_tpu_torch.serving import ShardedBlockAllocator
+
+BF16, F32, CAST, Q8Q = 1, 0, 2, 3
+
+
+# -- (a) the body rule --------------------------------------------------------
+
+@pytest.mark.parametrize("variant,rows,paged,tree,body", [
+    (BF16, 8, True, False, "tiled"),    # a prompt tail or a chain verify
+    (BF16, 8, True, True, "tiled"),     # a tree verify tick
+    (BF16, 1, True, True, "tiled"),     # a one-row tree: the mask's body
+    (BF16, 2, True, False, "tiled"),    # the fewest rows that take it
+    (BF16, 127, True, False, "tiled"),  # past one 64-row Q tile
+    (BF16, 512, True, False, "tiled"),  # GQA 4 x 128 (sharded chunks)
+    (BF16, 1, True, False, "split"),    # the lean decode tick
+    (F32, 8, True, False, "split"),     # f32 stays on the CUDA cores
+    (F32, 8, True, True, "split"),
+    (CAST, 8, True, True, "split"),     # int8 K/V widened (q8 route)
+    (Q8Q, 8, True, False, "split"),     # int8 x int8 (B5)
+    (BF16, 8, False, True, "split"),    # contiguous B1
+    (Q8Q, 8, False, False, "split"),    # contiguous B4
+])
+def test_decode_body_rule(variant, rows, paged, tree, body):
+    """The rule is static in the operands: bf16 exact, paged, more than one
+    packed row or a tree mask -> the multi-row body; the local_blocks flag
+    does not enter it (both bodies carry it)."""
+    assert cd.decode_body(variant, rows, paged, tree) == body
+
+
+def test_decode_launchers_check_the_built_library(monkeypatch):
+    """The launchers read the library's warps per CTA and keys per tile
+    before the first launch, and raise on a library built otherwise."""
+
+    class Lib:
+        def __init__(self, warps, keys):
+            self.flash_decode_warps_per_cta = lambda: warps
+            self.flash_decode_tiled_keys = lambda: keys
+            self.flash_decode_launch = self.flash_decode_tiled_launch = (
+                lambda *a: 0)
+
+    monkeypatch.setattr(cd, "_lib_fns", None)
+    monkeypatch.setattr(_build, "library", lambda name: Lib(4, 32))
+    with pytest.raises(RuntimeError, match="keys per tile"):
+        cd._launchers()
+    monkeypatch.setattr(_build, "library", lambda name: Lib(
+        cd._SPLIT_WARPS, cd._TILED_KEYS))
+    assert len(cd._launchers()) == 2
+
+
+def test_cpu_wrapper_counts_no_multi_row_launch():
+    """On a CPU tensor the wrapper runs the plain version: nothing counts
+    on ``.tiled_launches``."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 8, 16), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((6, 2, 4, 16), np.float32))
+            for _ in range(2))
+    table = torch.tensor([[0, 1, 2, 3], [5, 4, 3, 2]], dtype=torch.int32)
+    qo = torch.tensor([3, 7], dtype=torch.int32)
+    w = cd.attention_cuda_decode_paged
+    before = (w.launches, w.tiled_launches)
+    got = w(q.bfloat16(), k.bfloat16(), v.bfloat16(), table, q_offset=qo)
+    want = cd.paged_decode_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 table, q_offset=qo)
+    assert (w.launches, w.tiled_launches) == before
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# -- (b) the split geometry ---------------------------------------------------
+
+B, HKV, BLK, NB = 3, 2, 16, 40  # 640-key slots of 16-key blocks
+
+
+def _tables(W, rng):
+    """``(B, NB)`` signed local tables of rank 0 (W > 1: blocks handed out
+    as ShardedBlockAllocator hands them, slot by slot), or an unsharded
+    permutation (W = 1)."""
+    if W == 1:
+        return np.stack([rng.permutation(B * NB) for _ in range(B)])[:, :NB]
+    alloc = ShardedBlockAllocator(B * NB, W)
+    alloc.reserve(B * NB)
+    table = np.asarray([[alloc.alloc() for _ in range(NB)]
+                        for _ in range(B)])
+    nl = B * NB // W
+    return np.where(table < nl, table, -1)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("tq", [1, 8, 28, 32, 64, 127])
+def test_split_geometry_covers_every_visible_pair_once(tq, G, W):
+    rng = np.random.default_rng(tq * 10 + G + W)
+    Tk = NB * BLK
+    R = G * tq
+    table = torch.from_numpy(_tables(W, rng))
+    qoff = rng.integers(0, Tk - tq, size=B)
+    qoff[0] = 3 * BLK - tq if 3 * BLK >= tq else 0  # ends on a block edge
+    body = cd.decode_body(BF16, R, True)
+    geo = cd.decode_geometry(body, R, B, HKV, Tk, shards=W)
+    granule = cd._TILED_KEYS if body == "tiled" else 8
+    assert geo.split_len % granule == 0
+    assert geo.q_tiles == -(-R // geo.rows)
+    if body == "tiled":
+        assert geo.rows in cd._TILED_ROWS and geo.splits == geo.ctas
+        assert geo.q_tiles == -(-R // 64)  # each key read once per 64 rows
+    else:
+        assert geo.splits == geo.ctas * cd._SPLIT_WARPS
+    assert geo.splits * geo.split_len >= Tk
+    # The multi-row body sizes on the rank's share: its splits with keys
+    # stream at least _MIN_SPLIT_KEYS of the keys the rank holds, on
+    # average; the split body sizes on the logical length.
+    share = W if body == "tiled" else 1
+    assert -(-Tk // geo.split_len) <= max(1, Tk // share
+                                          // cd._MIN_SPLIT_KEYS)
+
+    held = (table >= 0).repeat_interleave(BLK, 1)               # (B, Tk)
+    pos = torch.from_numpy(qoff)[:, None] + torch.arange(R) % tq  # (B, R)
+    keys = torch.arange(Tk)
+    visible = (keys[None, None] <= pos[..., None]) & held[:, None]
+    count = torch.zeros((B, R, Tk), dtype=torch.int32)
+    read = torch.zeros((B, Tk), dtype=torch.bool)
+    for b in range(B):
+        for s in range(geo.splits):
+            span = cd.split_keys(geo, s, int(qoff[b]), tq, Tk)
+            if not len(span):
+                continue
+            read[b, span.start:span.stop] = True
+            for y in range(geo.q_tiles):
+                count[b, y * geo.rows:(y + 1) * geo.rows,
+                      span.start:span.stop] += 1
+    assert torch.all(count[visible] == 1)
+    assert int(count.max()) <= 1  # no (row, key) twice, visible or not
+    frontier = torch.from_numpy(qoff)[:, None] + tq
+    assert not torch.any(read & (keys[None] >= frontier))
+
+
+@pytest.mark.parametrize("R,W", [(64, 2), (64, 4), (8, 4), (1, 2), (1, 4)])
+def test_local_splits_follow_the_body(R, W):
+    """The serve shape (8 slots, 16 KV heads, 640-key slots) with the pool
+    sharded W ways, where a rank holds ~640/W keys of a slot: the
+    multi-row body sizes its splits on that share (no split below
+    _MIN_SPLIT_KEYS of HELD keys, on average); the split body (one packed
+    row) keeps the logical sizing, which it ran faster with on the card."""
+    body = cd.decode_body(BF16, R, True)
+    one = cd.decode_geometry(body, R, 8, 16, 640)
+    sharded = cd.decode_geometry(body, R, 8, 16, 640, shards=W)
+    if body == "split":
+        assert sharded == one
+        return
+    assert -(-640 // sharded.split_len) <= max(
+        1, 640 // W // cd._MIN_SPLIT_KEYS)
+    assert sharded.split_len >= one.split_len
+    if W == 4:  # the share binds: longer splits than the logical sizing
+        assert sharded.split_len > one.split_len
+
+
+# -- (c) B7's walk ------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,qo,ko", [
+    (False, 0, 0), (True, 0, 0), (True, 200, 0), (True, 0, 100),
+    (True, -70, 0), (True, 37, 170), (True, 1000, 0), (True, 0, 1000)])
+@pytest.mark.parametrize("G", [1, 3])
+def test_dkv_walk_takes_each_live_tile_once(G, causal, qo, ko):
+    bq, bk = DKV_TILES["bfloat16"]
+    Tq, Tk = 300, 330
+    n_q, n_k = -(-Tq // bq), -(-Tk // bk)
+    rows, cols = torch.arange(Tq), torch.arange(Tk)
+    sees = ((cols[None] + ko <= rows[:, None] + qo) if causal
+            else torch.ones(Tq, Tk, dtype=torch.bool))
+    for ki in range(n_k):
+        walk = cuda_bwd.dkv_walk(ki, G, n_q, block_q=bq, block_k=bk,
+                                 causal=causal, q_offset=qo, kv_offset=ko)
+        assert len(walk) == len(set(walk))
+        live = {(g, qt) for g in range(G) for qt in range(n_q)
+                if sees[qt * bq:(qt + 1) * bq, ki * bk:(ki + 1) * bk].any()}
+        assert live <= set(walk)
+        if walk:  # head by head, each from the first live Q tile
+            first = int(jbu.causal_first_live_q(ki, bq, bk, qo, ko, n_q)
+                        ) if causal else 0
+            assert first == block_utils.first_live_q(ki, bq, bk, qo, ko,
+                                                     n_q) or not causal
+            assert walk == [(g, qt) for g in range(G)
+                            for qt in range(first, n_q)]
+        else:  # no row sees the tile: nothing to walk, dk = dv = 0
+            assert not live
+
+
+# -- the plain version at the multi-row shapes, against Pallas ----------------
+
+def _bf16(a):
+    return np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("tq,G,flag", [(8, 1, None), (28, 4, None),
+                                       (8, 1, "tree"), (8, 1, "local")])
+def test_multi_row_shapes_plain_match_pallas(tq, G, flag):
+    rng = np.random.default_rng(tq + G)
+    Bq, Hkv, D, blk, NBq, N = 2, 2, 16, 4, 12, 30
+    q, k, v = (_bf16(rng.standard_normal(s).astype(np.float32)) for s in (
+        (Bq, Hkv * G, tq, D), (N, Hkv, blk, D), (N, Hkv, blk, D)))
+    table = np.stack([rng.permutation(N)[:NBq] for _ in range(Bq)]
+                     ).astype(np.int32)
+    pos = rng.integers(0, NBq * blk - tq, size=Bq).astype(np.int32)
+    kw_j, kw_t = {}, {}
+    if flag == "local":
+        table[:, 1::3] = -1
+        kw_j = kw_t = {"local_blocks": True}
+    if flag == "tree":
+        tree = np.tril(rng.random((Bq, tq, tq)) < 0.5)
+        tree[:, np.arange(tq), np.arange(tq)] = True
+        tree[:, :, 0] = True
+        kw_j = {"tree_mask": jnp.asarray(tree)}
+        kw_t = {"tree_mask": torch.from_numpy(tree)}
+    ref = attention_pallas_decode(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), causal=True, q_offset=jnp.asarray(pos),
+        kv_offset=0, block_table=jnp.asarray(table), interpret=True, **kw_j)
+    o, l = cd.attention_cuda_decode_paged(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+        torch.from_numpy(table), q_offset=torch.from_numpy(pos), **kw_t)
+    ro = np.asarray(jnp.asarray(ref[0], jnp.float32))
+    rl = np.asarray(ref[1])
+    np.testing.assert_allclose(o.float().numpy(), ro, atol=2e-2, rtol=2e-2)
+    np.testing.assert_array_equal(np.isneginf(l.numpy()), np.isneginf(rl))
+    fin = np.isfinite(rl)
+    np.testing.assert_allclose(l.numpy()[fin], rl[fin], atol=1e-2, rtol=1e-2)
+
+
+# -- on the card --------------------------------------------------------------
+
+def _gate(a, b):
+    """``chip_smoke.py``'s row gate: each query row's |dout| within 2e-2 of
+    the row's largest plain |out|, the same empty rows, |dlse| <= 1e-3."""
+    (o1, l1), (o2, l2) = a, b
+    row = o2.float().abs().amax(-1, keepdim=True)
+    fin = torch.isfinite(l2)
+    return (bool(torch.all((o1.float() - o2.float()).abs() <= 2e-2 * row))
+            and torch.equal(torch.isneginf(l1), torch.isneginf(l2))
+            and float((l1[fin] - l2[fin]).abs().max()) <= 1e-3)
+
+
+@pytest.mark.gpu
+def test_multi_row_body_matches_plain_on_gpu():
+    """B2's multi-row body on the card against its plain version: Tq 2, 8,
+    28, 64, 127 at G 1 and 4, a tree mask (lower-triangular: bit-equal to
+    the causal launch) and local_blocks, each launch counted on
+    ``.tiled_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode (the plain versions are tested above)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    blk, nb, N = 64, 10, 96
+    k, v = (torch.randn(N, 8, blk, 128, generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    table = torch.stack([torch.randperm(N, generator=g)[:nb]
+                         for _ in range(4)]).to(dev, torch.int32)
+    w = cd.attention_cuda_decode_paged
+    for G in (1, 4):
+        for tq in (2, 8, 28, 64, 127):
+            q = torch.randn(4, 8 * G, tq, 128, generator=g).to(
+                dev, torch.bfloat16)
+            qo = torch.randint(0, nb * blk - tq, (4,), generator=g).to(
+                dev, torch.int32)
+            before = w.tiled_launches
+            got = w(q, k, v, table, q_offset=qo)
+            assert w.tiled_launches == before + 1
+            assert _gate(got, cd.paged_decode_plain(q, k, v, table,
+                                                    q_offset=qo)), (G, tq)
+            if tq <= 32:
+                tril = torch.tril(torch.ones(tq, tq, dtype=torch.bool,
+                                             device=dev)).expand(4, tq, tq)
+                t = w(q, k, v, table, q_offset=qo, tree_mask=tril)
+                assert torch.equal(t[0], got[0]) and torch.equal(t[1], got[1])
+    loc = torch.where(table < N // 2, table, -1).to(torch.int32)
+    q = torch.randn(4, 8, 64, 128, generator=g).to(dev, torch.bfloat16)
+    qo = torch.randint(0, nb * blk - 64, (4,), generator=g).to(dev,
+                                                               torch.int32)
+    got = w(q, k[:N // 2], v[:N // 2], loc, q_offset=qo, local_blocks=True,
+            local_shards=2)
+    assert _gate(got, cd.paged_decode_plain(q, k[:N // 2], v[:N // 2], loc,
+                                            q_offset=qo, local_blocks=True))
+
+
+@pytest.mark.gpu
+def test_dkv_tensor_core_body_matches_plain_on_gpu():
+    """B7's bf16 body on the card against its plain version under the row
+    gate, causal and not, GQA, past its 64-row and 128-key tile edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode (the walk and the plain version are tested "
+                    "above)")
+    from tree_attention_tpu_torch.ops import cuda_attention
+
+    g = torch.Generator().manual_seed(1)
+    for D in (64, 128):
+        for causal, Hq, Hkv, Tq, Tk, qo, ko in (
+                (True, 8, 2, 130, 300, 170, 0), (False, 4, 4, 5, 300, 0, 0),
+                (True, 4, 4, 256, 256, 0, 100)):
+            q, do = (torch.randn(2, Hq, Tq, D, generator=g).to(
+                "cuda", torch.bfloat16) for _ in range(2))
+            k, v = (torch.randn(2, Hkv, Tk, D, generator=g).to(
+                "cuda", torch.bfloat16) for _ in range(2))
+            kw = dict(causal=causal, q_offset=qo, kv_offset=ko)
+            lse_f, delta = cuda_bwd.bwd_residuals(
+                *cuda_attention.fwd_plain(q, k, v, **kw), do)
+            got = cuda_bwd.attention_cuda_dkv(q, k, v, do, lse_f, delta, **kw)
+            want = cuda_bwd.dkv_plain(q, k, v, do, lse_f, delta, **kw)
+            assert cuda_bwd.grad_rows_close(got, want, 2e-2)[0], (D, Tq)

@@ -291,9 +291,10 @@ def test_grad_gate_holds_one_key_rows_to_their_rounding_bound(dtype, D):
 
 @pytest.mark.gpu
 def test_bwd_kernels_match_plain_on_gpu():
-    """B6/B7 on the card against their plain versions, in bf16 (B6's
-    tensor-core body) and f32 (the CUDA-core bodies), at D 64 and 128, with
-    Tq = 130 and Tk = 300 off B6's 64-row and 64-key tile edges, under
+    """B6/B7 on the card against their plain versions, in bf16 (the
+    tensor-core bodies) and f32 (the CUDA-core bodies), at D 64 and 128,
+    with Tq = 130 and Tk = 300 off the bodies' 64-row and 64/128-key tile
+    edges, under
     ``chip_smoke.py``'s gate (``cuda_bwd.grad_rows_close``): each row of
     dq/dk/dv within 2e-2 of that row's max |plain|, and the dq rows that
     see exactly one key within their rounding bound."""

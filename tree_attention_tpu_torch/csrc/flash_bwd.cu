@@ -29,14 +29,28 @@
 // p = exp2(S*scale*log2e - lse*log2e) and ds = p*(dP - delta) on the
 // accumulator fragments, ds rounded to bf16 in registers as the A operand
 // of dQ += ds.K (K's tile as a transposed B). dQ stays in f32 registers and
-// is stored once, times scale, in bf16. Its tiles are its own (tc::); B7's
-// stay as they were.
+// is stored once, times scale, in bf16.
 //
-// B6 for f32 and B7 (flash_dq_kernel, flash_dkv_kernel): simple first, the
-// f32 CUDA cores, not wgmma, so both sit far above that bound. B6's f32
-// body stays on the CUDA cores because the JAX reference pins f32 products
-// at HIGHEST precision (TF32 products would change the numbers); B7 is the
-// next to move to the tensor cores.
+// B7 for bf16 (flash_dkv_wgmma_kernel): the same ring turned around
+// (sm90::KRing). One CTA per (128-key K/V tile, b*Hkv); the K and V tiles
+// stay resident (TMA) while a producer warp streams 64-row Q and dO tiles,
+// each with its rows' lse and delta (bulk copies from arrays the wrapper
+// pads to a multiple of 64 rows: lse +inf, delta 0, so rows past Tq give p
+// = 0), through a 2-stage ring: for each of the G query heads of the KV
+// head's group, the Q tiles from the first live one
+// (block_utils.first_live_q) to the last. Two consumer warpgroups own 64
+// keys each; per Q tile S^T = K.Q^T and dP^T = V.dO^T (wgmma from shared
+// memory, m64n64k16), p^T and ds^T on the accumulator fragments in exp2
+// form with lse and delta read per column from the stage, both rounded to
+// bf16 in registers as the A operands of dV += p^T.dO and dK += ds^T.Q (the
+// stage's tiles as MN-major B, m64nDk16). dK and dV stay in f32 registers
+// for the whole walk (64 + 64 a thread at D = 128, beside 32 + 32 for S^T
+// and dP^T: setmaxnreg gives the consumers 240) and are stored once, dK
+// times scale, in bf16. The GQA reduction stays in the CTA: no atomics.
+//
+// f32 (flash_dq_kernel, flash_dkv_kernel): the CUDA cores, not wgmma,
+// because the JAX reference pins f32 products at HIGHEST precision (TF32
+// products would change the numbers); both sit far above the bound.
 // - B6: one CTA per (b*Hq, kBlockQ query rows). Q, dO, lse and delta stay
 //   resident; the CTA loops over kBlockK-key tiles up to its last row's
 //   causal frontier (block_utils.last_live_k) and holds dq in f32 registers.
@@ -256,7 +270,7 @@ flash_dkv_kernel(const T* __restrict__ q,            // (B, Hq, Tq, D)
                  const int32_t* __restrict__ offs,   // (2, B)
                  T* __restrict__ dk,                 // (B, Hkv, Tk, D)
                  T* __restrict__ dv,
-                 int B, int Hq, int Hkv, int Tq, int Tk, int causal,
+                 int B, int Hq, int Hkv, int Tq, int ld, int Tk, int causal,
                  float scale) {
   constexpr int N = D / 32;
   extern __shared__ float smem[];
@@ -307,8 +321,8 @@ flash_dkv_kernel(const T* __restrict__ q,            // (B, Hq, Tq, D)
       load_rows<T, D>(Os, ob, q0, kBlockQ, Tq);
       if (threadIdx.x < kBlockQ) {
         const int i = q0 + threadIdx.x;
-        Ls[threadIdx.x] = i < Tq ? lse[(size_t)bh * Tq + i] : INFINITY;
-        Dl[threadIdx.x] = i < Tq ? delta[(size_t)bh * Tq + i] : 0.f;
+        Ls[threadIdx.x] = i < Tq ? lse[(size_t)bh * ld + i] : INFINITY;
+        Dl[threadIdx.x] = i < Tq ? delta[(size_t)bh * ld + i] : 0.f;
       }
       __syncthreads();
 
@@ -407,8 +421,8 @@ template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        const void* offs, void* dk, void* dv, int B, int Hq,
-                       int Hkv, int Tq, int Tk, int causal, float scale,
-                       cudaStream_t stream) {
+                       int Hkv, int Tq, int ld, int Tk, int causal,
+                       float scale, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_dkv_kernel<T, D>,
@@ -420,7 +434,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int32_t*>(offs), static_cast<T*>(dk),
-      static_cast<T*>(dv), B, Hq, Hkv, Tq, Tk, causal, scale);
+      static_cast<T*>(dv), B, Hq, Hkv, Tq, ld, Tk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -556,35 +570,153 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-}  // namespace tc
+// ------------------------------------------ B7, bf16: the tensor cores --
 
-// The instantiation of `launch` for (dtype, D): 0 = float32, 1 = bfloat16;
-// D 64 or 128. Unknown combinations give cudaErrorInvalidValue.
-#define TA_DISPATCH(launch, ...)                                           \
-  do {                                                                     \
-    if (dtype == 1 && D == 64)                                             \
-      return launch<__nv_bfloat16, 64>(__VA_ARGS__);                       \
-    if (dtype == 1 && D == 128)                                            \
-      return launch<__nv_bfloat16, 128>(__VA_ARGS__);                      \
-    if (dtype == 0 && D == 64) return launch<float, 64>(__VA_ARGS__);      \
-    if (dtype == 0 && D == 128) return launch<float, 128>(__VA_ARGS__);    \
-    return cudaErrorInvalidValue;                                          \
-  } while (0)
+constexpr int kDkvBlockK = 128;  // two consumer warpgroups x 64 keys
+constexpr int kDkvBlockQ = 64;
+
+// The CTA: the K and V tiles resident, Q/dO tiles (with lse and delta)
+// through the ring.
+template <int D>
+using KvRing = sm90::KRing<kDkvBlockK, kDkvBlockQ, kStages, kConsumers, D>;
+
+template <int D>
+__global__ void __launch_bounds__(KvRing<D>::kThreads, 1)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,   // (D,Tq,B*Hq)
+                       const __grid_constant__ CUtensorMap tk,   // (D,Tk,B*Hkv)
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,  // (D,Tq,B*Hq)
+                       const float* __restrict__ lse,    // (B*Hq, ld), +inf pad
+                       const float* __restrict__ delta,  // (B*Hq, ld), 0 pad
+                       const int32_t* __restrict__ offs,  // (2, B)
+                       __nv_bfloat16* __restrict__ dk,   // (B, Hkv, Tk, D)
+                       __nv_bfloat16* __restrict__ dv,
+                       int B, int Hq, int Hkv, int Tq, int ld, int Tk,
+                       int causal, float scale, float scale_log2) {
+  using Ring = KvRing<D>;
+  extern __shared__ uint8_t smem_raw[];
+  Ring cta;
+  cta.init(smem_raw, offs, B, Hq, Hkv, Tq, causal);
+
+  if (cta.is_producer()) {
+    cta.produce(&tk, &tv, &tq, &tdo, lse, delta, ld);
+  } else {  // consumers: warpgroup wg owns 64 keys of the K/V tile
+    sm90::reg_alloc<240>();
+    constexpr float kLog2e = 1.4426950408889634f;
+    const int lane = threadIdx.x & 31;
+    const int key0 = cta.key0();
+    const uint32_t k_addr =
+        sm90::smem_u32(cta.smem) + 64 * cta.wg() * sm90::kRowBytes;
+    const uint32_t v_addr = k_addr + Ring::kTileKV;
+
+    float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+    sm90::mbar_wait(cta.resident, 0);
+    for (int t = 0; t < cta.n_tiles; ++t) {
+      const uint32_t q_addr = cta.wait(t);
+      const uint32_t o_addr = q_addr + Ring::kTileQ;
+      const float* lse_s =
+          reinterpret_cast<const float*>(cta.stage(t) + Ring::kStats);
+      const float* dl_s = lse_s + kDkvBlockQ;
+
+      float st[kDkvBlockQ / 2], dpt[kDkvBlockQ / 2];  // S^T, dP^T: key x row
+      sm90::wg_fence();
+      sm90::gemm_ss<kDkvBlockQ, D, kDkvBlockK>(st, k_addr, q_addr);   // K.Q^T
+      sm90::gemm_ss<kDkvBlockQ, D, kDkvBlockK>(dpt, v_addr, o_addr);  // V.dO^T
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+
+      // p^T and ds^T on the fragments: column c is query row q0 + c, whose
+      // lse and delta sit in the stage.
+      const bool masked = cta.needs_mask(t, causal);
+      const int row_gap = cta.q_off + cta.q0(t) - cta.kv_off;
+#pragma unroll
+      for (int i = 0; i < kDkvBlockQ / 2; ++i) {
+        const int c = sm90::frag_col(i, lane);
+        const int key = key0 + 8 * ((i >> 1) & 1);
+        const bool vis = !masked || key <= row_gap + c;
+        const float p =
+            vis ? exp2f(fmaf(st[i], scale_log2, -lse_s[c] * kLog2e)) : 0.f;
+        dpt[i] = p * (dpt[i] - dl_s[c]);  // ds
+        st[i] = p;
+      }
+      uint32_t pa[kDkvBlockQ / 16][4], da[kDkvBlockQ / 16][4];
+      sm90::acc_to_a<kDkvBlockQ>(st, pa);   // p in dO's dtype
+      sm90::acc_to_a<kDkvBlockQ>(dpt, da);  // ds in Q's dtype
+
+      sm90::wg_fence();
+      sm90::fence_regs(acc_v);
+      sm90::fence_regs(acc_k);
+      sm90::gemm_rs<D, kDkvBlockQ>(acc_v, pa, o_addr);  // dV += p^T.dO
+      sm90::gemm_rs<D, kDkvBlockQ>(acc_k, da, q_addr);  // dK += ds^T.Q
+      sm90::wg_commit();
+      sm90::wg_wait<0>();
+      sm90::fence_regs(acc_v);
+      sm90::fence_regs(acc_k);
+      cta.release(t);
+    }
+
+    const size_t head = (size_t)cta.bkh * Tk * D;
+    const float fk[2] = {scale, scale}, fv[2] = {1.f, 1.f};
+    sm90::store_rows_bf16<D>(acc_k, dk + head, key0, Tk, fk, lane);
+    sm90::store_rows_bf16<D>(acc_v, dv + head, key0, Tk, fv, lane);
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, const void* offs, void* dk,
+                             void* dv, int B, int Hq, int Hkv, int Tq, int ld,
+                             int Tk, int causal, float scale,
+                             cudaStream_t stream) {
+  if (ld % kDkvBlockQ || ld < Tq) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo;
+  int err = sm90::make_tensor_map(&mq, q, D, Tq, B * Hq, kDkvBlockQ);
+  if (!err) err = sm90::make_tensor_map(&mo, dout, D, Tq, B * Hq, kDkvBlockQ);
+  if (!err) err = sm90::make_tensor_map(&mk, k, D, Tk, B * Hkv, kDkvBlockK);
+  if (!err) err = sm90::make_tensor_map(&mv, v, D, Tk, B * Hkv, kDkvBlockK);
+  if (err) return static_cast<cudaError_t>(err);
+  if ((reinterpret_cast<uintptr_t>(lse) | reinterpret_cast<uintptr_t>(delta))
+      % 16)
+    return cudaErrorMisalignedAddress;
+  constexpr int smem = KvRing<D>::kSmemBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dkv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((Tk + kDkvBlockK - 1) / kDkvBlockK, B * Hkv);
+  flash_dkv_wgmma_kernel<D><<<grid, KvRing<D>::kThreads, smem, stream>>>(
+      mq, mk, mv, mo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int32_t*>(offs),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), B, Hq,
+      Hkv, Tq, ld, Tk, causal, scale, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 
 extern "C" {
 
 // The (Q, KV) tiles the kernels were built with (the wrapper checks them
-// against ops/tuning.py) for `dtype` (0 = float32, 1 = bfloat16): B6 runs
-// its tensor-core body for bf16 and its CUDA-core body for f32; B7 runs
-// its one body for both.
+// against ops/tuning.py) for `dtype` (0 = float32, 1 = bfloat16): B6 and B7
+// run their tensor-core bodies for bf16 and their CUDA-core bodies for f32.
 int flash_dq_block_q(int dtype) { return dtype == 1 ? tc::kBlockQ : kBlockQ; }
 int flash_dq_block_k(int dtype) { return dtype == 1 ? tc::kBlockK : kBlockK; }
-int flash_dkv_block_q(int) { return kBlockQ; }
-int flash_dkv_block_k(int) { return kBlockK; }
+int flash_dkv_block_q(int dtype) {
+  return dtype == 1 ? tc::kDkvBlockQ : kBlockQ;
+}
+int flash_dkv_block_k(int dtype) {
+  return dtype == 1 ? tc::kDkvBlockK : kBlockK;
+}
 
-// Contiguous (B, H, T, D) operands (16-byte aligned for the bf16 B6's
+// Contiguous (B, H, T, D) operands (16-byte aligned for the bf16 bodies'
 // TMA), lse and delta (B, Hq, Tq) f32, offs (2, B) int32. Each returns the
 // CUDA error of its launch (0 on success).
 int flash_dq_launch(const void* q, const void* k, const void* v,
@@ -608,14 +740,31 @@ int flash_dq_launch(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
+// lse and delta here are (B * Hq, ld) f32 with row stride ld >= Tq: the
+// bf16 body bulk-copies 64-row slices, so it takes ld a multiple of its Q
+// tile with the rows past Tq padded (lse +inf, delta 0); the f32 body reads
+// rows [0, Tq) of any ld.
 int flash_dkv_launch(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* offs, void* dk, void* dv, int dtype, int D,
-                     int B, int Hq, int Hkv, int Tq, int Tk, int causal,
-                     float scale, void* stream) {
+                     int B, int Hq, int Hkv, int Tq, int ld, int Tk,
+                     int causal, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  TA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, offs, dk, dv, B, Hq,
-              Hkv, Tq, Tk, causal, scale, st);
+  if (dtype == 1 && D == 64)
+    return tc::launch_dkv_wgmma<64>(q, k, v, dout, lse, delta, offs, dk, dv,
+                                    B, Hq, Hkv, Tq, ld, Tk, causal, scale,
+                                    st);
+  if (dtype == 1 && D == 128)
+    return tc::launch_dkv_wgmma<128>(q, k, v, dout, lse, delta, offs, dk, dv,
+                                     B, Hq, Hkv, Tq, ld, Tk, causal, scale,
+                                     st);
+  if (dtype == 0 && D == 64)
+    return launch_dkv<float, 64>(q, k, v, dout, lse, delta, offs, dk, dv, B,
+                                 Hq, Hkv, Tq, ld, Tk, causal, scale, st);
+  if (dtype == 0 && D == 128)
+    return launch_dkv<float, 128>(q, k, v, dout, lse, delta, offs, dk, dv, B,
+                                  Hq, Hkv, Tq, ld, Tk, causal, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

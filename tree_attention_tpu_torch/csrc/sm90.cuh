@@ -1,12 +1,13 @@
-// Hopper (sm_90a) tile primitives of the tensor-core attention bodies (B3's
-// and B6's bf16 kernels): the TMA tile load, its host-side tensor map and
-// the producer's side of a K/V ring, mbarriers, the wgmma shared-memory
-// descriptor of a 128-byte-swizzled bf16 tile, the m64nNk16 bf16 x bf16 ->
-// f32 products with A from shared memory (SS) or from registers (RS) and
-// their k-loops, register rebalancing, the map from an accumulator
-// fragment to its (row, column), to a bf16 A operand and to bf16 rows, and
-// the CTA skeleton both bodies share (QRing: tile indices, causal frontier,
-// barriers, producer).
+// Hopper (sm_90a) tile primitives of the tensor-core attention bodies (B3's,
+// B6's and B7's bf16 kernels): the TMA tile load and bulk copy, the host-side
+// tensor map, mbarriers, the wgmma shared-memory descriptor of a
+// 128-byte-swizzled bf16 tile, the m64nNk16 bf16 x bf16 -> f32 products with
+// A from shared memory (SS) or from registers (RS) and their k-loops,
+// register rebalancing, the map from an accumulator fragment to its (row,
+// column), to a bf16 A operand and to bf16 rows, and the CTA skeleton the
+// bodies share (TileRing: barriers, stages, producer and consumer sides),
+// turned one way for B3 and B6 (QRing: Q resident, K/V streamed) and the
+// other for B7 (KRing: K/V resident, Q and dO streamed).
 //
 // Layout conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix
 // Multiply"): a bf16 tile arrives by TMA as rows of 64 elements (128 bytes,
@@ -352,7 +353,7 @@ __device__ __forceinline__ void store_rows_bf16(const float (&d)[N / 2],
   }
 }
 
-// ----------------------------------------------------------- the K/V ring --
+// ------------------------------------------------------- the ring CTA --
 
 // A tile of kRows rows (row0..) of head `head` of a (K, T, B*H) map into
 // shared memory as K/64 boxes, completing on `bar` (which the caller has
@@ -365,76 +366,50 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
     tma_load_3d(dst + x * kRows * kRowBytes, map, bar, x * kAtom, row0, head);
 }
 
-// The producer's side of a ring of kStages K/V stages at `ring` (stage s:
-// the K tile, then the V tile, each K/64 boxes of kRows rows): for tile t
-// it waits until stage t % kStages is free, announces the stage's bytes on
-// full[s] and loads rows t*kRows of head `head` of both maps. Consumers
-// wait on full[s] with parity (t / kStages) & 1 and arrive on empty[s].
-template <int kStages, int kRows, int K>
-__device__ __forceinline__ void load_kv_ring(uint8_t* ring,
-                                             const CUtensorMap* tk,
-                                             const CUtensorMap* tv,
-                                             uint64_t* full, uint64_t* empty,
-                                             int n_tiles, int head) {
-  constexpr int kTile = kRows * K * 2;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kStages;
-    mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);  // first pass: free
-    mbar_expect_tx(&full[s], 2 * kTile);
-    uint8_t* kt = ring + s * 2 * kTile;
-    load_tile<kRows, K>(kt, tk, &full[s], t * kRows, head);
-    load_tile<kRows, K>(kt + kTile, tv, &full[s], t * kRows, head);
-  }
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both
+// 16-byte aligned, by the bulk-copy unit; completes `bytes` of `bar`'s
+// expected transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// --------------------------------------------- a Q-stationary ring CTA --
+constexpr int round_up_1k(int bytes) { return (bytes + 1023) / 1024 * 1024; }
 
-// The skeleton of B3's and B6's bf16 bodies. One CTA per (batch * query
-// head, kBlockQ-row Q tile) on a grid of (Q tiles, B * Hq), the Q tiles with
-// the most keys first under causality. Its resident row tiles (kResident
-// bytes: Q, and dO for B6) arrive once by TMA; a producer warpgroup streams
-// kBlockK-key K/V tiles of D columns through a ring of kStages stages up to
-// the Q tile's causal frontier (block_utils.last_live_k); kConsumers
-// warpgroups of 64 query rows each read them.
+// What every warp-specialised CTA of the tensor-core bodies shares,
+// whichever operand stays put: kResident bytes of resident tiles that
+// arrive once by TMA (completing on `resident`), then a ring of kStages
+// stages of kStage bytes that one producer thread fills (full[s]) and
+// kConsumers warpgroups drain (empty[s]). The producer warpgroup is the
+// last one; its first thread issues every copy.
 //
 // Shared memory, byte offsets from a 1024-byte-aligned base: the resident
-// tiles, the ring (stage s: the K tile, then the V tile), then the
-// barriers full[kStages], empty[kStages] and the resident tiles' one.
-template <int kBlockQ, int kBlockK, int kStages, int kConsumers, int D,
-          int kResident>
-struct QRing {
+// tiles, the stages, then the barriers full[kStages], empty[kStages] and
+// the resident tiles' one.
+template <int kStages, int kConsumers, int kResident, int kStage>
+struct TileRing {
+  static_assert(kResident % 1024 == 0 && kStage % 1024 == 0,
+                "every tile starts on a 1024-byte boundary");
   static constexpr int kThreads = (kConsumers + 1) * 128;
-  static constexpr int kTile = kBlockK * D * 2;  // one K or V tile
-  static constexpr int kKV = kResident;
-  static constexpr int kBars = kKV + kStages * 2 * kTile;
+  static constexpr int kBars = kResident + kStages * kStage;
   static constexpr int kSmemBytes = kBars + (2 * kStages + 1) * 8 + 1024;
 
   uint8_t* smem;
   uint64_t *full, *empty, *resident;
-  int bh, kv_head;  // batch * Hq + query head, batch * Hkv + KV head
-  int q0, q_off, kv_off;
-  int n_k;             // K/V tiles up to the Q tile's causal frontier
 
   // Every thread of the CTA calls it: thread 0 initialises the barriers,
   // and all threads return once they are visible to the TMA unit.
-  __device__ __forceinline__ void init(uint8_t* raw, const int32_t* offs,
-                                       int B, int Hq, int Hkv, int Tk,
-                                       int causal) {
+  __device__ __forceinline__ void init_ring(uint8_t* raw) {
     smem = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
     full = reinterpret_cast<uint64_t*>(smem + kBars);
     empty = full + kStages;
     resident = empty + kStages;
-    const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-    bh = blockIdx.y;
-    const int b = bh / Hq;
-    kv_head = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
-    q0 = qt * kBlockQ;
-    q_off = offs[b];
-    kv_off = offs[B + b];
-    int k_end = Tk;  // keys j < k_end can be visible to some row of the tile
-    if (causal) k_end = min(k_end, q_off - kv_off + q0 + kBlockQ);
-    n_k = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
     if (threadIdx.x == 0) {
       for (int s = 0; s < kStages; ++s) {
         mbar_init(&full[s], 1);
@@ -449,6 +424,75 @@ struct QRing {
   __device__ __forceinline__ bool is_producer() const {
     return threadIdx.x / 128 == kConsumers;
   }
+  // The producer thread that issues the copies.
+  __device__ __forceinline__ bool is_issuer() const {
+    return threadIdx.x == kConsumers * 128;
+  }
+  // A consumer thread's warpgroup.
+  __device__ __forceinline__ int wg() const { return threadIdx.x / 128; }
+
+  // Tile t's stage (generic pointer) and its full barrier.
+  __device__ __forceinline__ uint8_t* stage(int t) const {
+    return smem + kResident + (t % kStages) * kStage;
+  }
+  __device__ __forceinline__ uint64_t* full_of(int t) const {
+    return &full[t % kStages];
+  }
+  // Producer: waits until tile t's stage is free and announces `bytes` of
+  // copies on its full barrier; returns the stage.
+  __device__ __forceinline__ uint8_t* acquire(int t, uint32_t bytes) const {
+    const int s = t % kStages;
+    mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);  // first pass: free
+    mbar_expect_tx(&full[s], bytes);
+    return stage(t);
+  }
+  // Consumer: waits for tile t's stage; returns its shared address.
+  __device__ __forceinline__ uint32_t wait(int t) const {
+    mbar_wait(full_of(t), (t / kStages) & 1);
+    return smem_u32(stage(t));
+  }
+  // This thread is done with tile t's stage.
+  __device__ __forceinline__ void release(int t) const {
+    mbar_arrive(&empty[t % kStages]);
+  }
+};
+
+// --------------------------------------------- a Q-stationary ring CTA --
+
+// The skeleton of B3's and B6's bf16 bodies. One CTA per (batch * query
+// head, kBlockQ-row Q tile) on a grid of (Q tiles, B * Hq), the Q tiles with
+// the most keys first under causality. Its resident row tiles (kResident
+// bytes: Q, and dO for B6) arrive once by TMA; the producer streams
+// kBlockK-key K/V tiles of D columns through the ring (stage: the K tile,
+// then the V tile) up to the Q tile's causal frontier
+// (block_utils.last_live_k); kConsumers warpgroups of 64 query rows each
+// read them.
+template <int kBlockQ, int kBlockK, int kStages, int kConsumers, int D,
+          int kResident>
+struct QRing
+    : TileRing<kStages, kConsumers, kResident, 2 * kBlockK * D * 2> {
+  static constexpr int kTile = kBlockK * D * 2;  // one K or V tile
+
+  int bh, kv_head;  // batch * Hq + query head, batch * Hkv + KV head
+  int q0, q_off, kv_off;
+  int n_k;             // K/V tiles up to the Q tile's causal frontier
+
+  // Every thread of the CTA calls it (TileRing::init_ring).
+  __device__ __forceinline__ void init(uint8_t* raw, const int32_t* offs,
+                                       int B, int Hq, int Hkv, int Tk,
+                                       int causal) {
+    const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    bh = blockIdx.y;
+    const int b = bh / Hq;
+    kv_head = b * Hkv + (bh - b * Hq) / (Hq / Hkv);
+    q0 = qt * kBlockQ;
+    q_off = offs[b];
+    kv_off = offs[B + b];
+    int k_end = Tk;  // keys j < k_end can be visible to some row of the tile
+    if (causal) k_end = min(k_end, q_off - kv_off + q0 + kBlockQ);
+    n_k = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
+    this->init_ring(raw);
+  }
 
   // The producer warpgroup's part: its registers lowered, one thread
   // announces the resident bytes, starts their loads (`load_resident()`,
@@ -458,24 +502,27 @@ struct QRing {
                                           const CUtensorMap* tv,
                                           LoadResident load_resident) {
     reg_dealloc<24>();
-    if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(resident, kResident);
+    if (this->is_issuer()) {
+      mbar_expect_tx(this->resident, kResident);
       load_resident();
-      load_kv_ring<kStages, kBlockK, D>(smem + kKV, tk, tv, full, empty, n_k,
-                                        kv_head);
+      for (int t = 0; t < n_k; ++t) {
+        uint8_t* st = this->acquire(t, 2 * kTile);
+        load_tile<kBlockK, D>(st, tk, this->full_of(t), t * kBlockK, kv_head);
+        load_tile<kBlockK, D>(st + kTile, tv, this->full_of(t), t * kBlockK,
+                              kv_head);
+      }
     }
   }
 
-  // A consumer thread's warpgroup, which owns rows q0 + 64 wg + [0, 64);
-  // the first of the thread's two fragment rows; and the last key index
-  // visible to the warpgroup's first row.
-  __device__ __forceinline__ int wg() const { return threadIdx.x / 128; }
+  // The first of a consumer thread's two fragment rows (its warpgroup owns
+  // rows q0 + 64 wg + [0, 64)); the last key index visible to the
+  // warpgroup's first row.
   __device__ __forceinline__ int row0() const {
-    return q0 + 64 * wg() + frag_row(0, (threadIdx.x >> 5) & 3,
-                                     threadIdx.x & 31);
+    return q0 + 64 * this->wg() + frag_row(0, (threadIdx.x >> 5) & 3,
+                                           threadIdx.x & 31);
   }
   __device__ __forceinline__ int wg_frontier() const {
-    return q_off - kv_off + q0 + 64 * wg();
+    return q_off - kv_off + q0 + 64 * this->wg();
   }
   // Whether tile t holds a key some row of the warpgroup must not see.
   __device__ __forceinline__ bool needs_mask(int t, int Tk, int causal) const {
@@ -486,13 +533,110 @@ struct QRing {
   // Waits for tile t's stage; returns the shared address of its K tile (V
   // follows kTile bytes after).
   __device__ __forceinline__ uint32_t wait_kv(int t) const {
-    const int s = t % kStages;
-    mbar_wait(&full[s], (t / kStages) & 1);
-    return smem_u32(smem + kKV + s * 2 * kTile);
+    return this->wait(t);
   }
-  // This thread is done with tile t's stage.
   __device__ __forceinline__ void release_kv(int t) const {
-    mbar_arrive(&empty[t % kStages]);
+    this->release(t);
+  }
+};
+
+// --------------------------------------------- a K/V-stationary ring CTA --
+
+// The skeleton of B7's bf16 body: the ring turned around. One CTA per
+// (kBlockK-key K/V tile, batch * KV head) on a grid of (K/V tiles,
+// B * Hkv). Its K and V tiles (D columns; kResident: K, then V) arrive once
+// by TMA; the producer streams kBlockQ-row Q and dO tiles through the ring,
+// each stage with its rows' lse and delta (kBlockQ f32 each, bulk-copied
+// from arrays whose row stride `ld` is a multiple of kBlockQ): for each of
+// the G query heads of the KV head's group in turn, the Q tiles from the
+// first one that sees the K/V tile's first key under causality
+// (block_utils.first_live_q) to the last. kConsumers warpgroups of 64 keys
+// each read them.
+//
+// Stage: the Q tile, the dO tile, then lse and delta (kStats bytes in).
+template <int kBlockK, int kBlockQ, int kStages, int kConsumers, int D>
+struct KRing
+    : TileRing<kStages, kConsumers, 2 * kBlockK * D * 2,
+               round_up_1k(2 * kBlockQ * D * 2 + 2 * kBlockQ * 4)> {
+  static_assert(kBlockK == 64 * kConsumers, "64 keys per warpgroup");
+  static constexpr int kTileKV = kBlockK * D * 2;  // the K or V tile
+  static constexpr int kTileQ = kBlockQ * D * 2;   // a Q or dO tile
+  static constexpr int kStats = 2 * kTileQ;
+  static constexpr int kCopy = 2 * kTileQ + 2 * kBlockQ * 4;  // per stage
+
+  int bkh;       // batch * Hkv + KV head
+  int bh0;       // batch * Hq + the group's first query head
+  int k0, q_off, kv_off;
+  int qt0;       // the first live Q tile
+  int n_live;    // Q tiles a query head walks
+  int n_tiles;   // the walk: G * n_live tiles
+
+  // Every thread of the CTA calls it (TileRing::init_ring).
+  __device__ __forceinline__ void init(uint8_t* raw, const int32_t* offs,
+                                       int B, int Hq, int Hkv, int Tq,
+                                       int causal) {
+    bkh = blockIdx.y;
+    const int b = bkh / Hkv;
+    const int G = Hq / Hkv;
+    bh0 = b * Hq + (bkh - b * Hkv) * G;
+    k0 = blockIdx.x * kBlockK;
+    q_off = offs[b];
+    kv_off = offs[B + b];
+    const int n_q = (Tq + kBlockQ - 1) / kBlockQ;
+    qt0 = 0;
+    if (causal) {  // the tile holding the first row that sees key k0
+      const int first = kv_off + k0 - q_off;
+      if (first > 0) qt0 = min(first / kBlockQ, n_q);
+    }
+    n_live = n_q - qt0;
+    n_tiles = G * n_live;
+    this->init_ring(raw);
+  }
+
+  // Tile t of the walk: query head bh(t), rows q0(t) + [0, kBlockQ).
+  __device__ __forceinline__ int bh(int t) const { return bh0 + t / n_live; }
+  __device__ __forceinline__ int q0(int t) const {
+    return (qt0 + t % n_live) * kBlockQ;
+  }
+
+  // The producer warpgroup's part: its registers lowered, one thread loads
+  // the K and V tiles (completing on `resident`) and streams the walk.
+  __device__ __forceinline__ void produce(const CUtensorMap* tk,
+                                          const CUtensorMap* tv,
+                                          const CUtensorMap* tq,
+                                          const CUtensorMap* tdo,
+                                          const float* lse,
+                                          const float* delta, int ld) {
+    reg_dealloc<24>();
+    if (this->is_issuer()) {
+      mbar_expect_tx(this->resident, 2 * kTileKV);
+      load_tile<kBlockK, D>(this->smem, tk, this->resident, k0, bkh);
+      load_tile<kBlockK, D>(this->smem + kTileKV, tv, this->resident, k0,
+                            bkh);
+      for (int t = 0; t < n_tiles; ++t) {
+        uint8_t* st = this->acquire(t, kCopy);
+        uint64_t* bar = this->full_of(t);
+        const int h = bh(t), r0 = q0(t);
+        load_tile<kBlockQ, D>(st, tq, bar, r0, h);
+        load_tile<kBlockQ, D>(st + kTileQ, tdo, bar, r0, h);
+        const size_t row = (size_t)h * ld + r0;
+        bulk_load(st + kStats, lse + row, kBlockQ * 4, bar);
+        bulk_load(st + kStats + kBlockQ * 4, delta + row, kBlockQ * 4, bar);
+      }
+    }
+  }
+
+  // The first of a consumer thread's two fragment rows, a key index (its
+  // warpgroup owns keys k0 + 64 wg + [0, 64)).
+  __device__ __forceinline__ int key0() const {
+    return k0 + 64 * this->wg() + frag_row(0, (threadIdx.x >> 5) & 3,
+                                           threadIdx.x & 31);
+  }
+  // Whether tile t's Q tile holds a row that must not see some key of the
+  // warpgroup (keys past Tk need no mask: their rows of dK and dV are
+  // never stored, and nothing else reads them).
+  __device__ __forceinline__ bool needs_mask(int t, int causal) const {
+    return causal && kv_off + k0 + 64 * this->wg() + 63 > q_off + q0(t);
   }
 };
 

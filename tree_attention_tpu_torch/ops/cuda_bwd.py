@@ -10,10 +10,12 @@ exactly 0 on those rows instead of ``exp(-inf - (-inf)) = NaN`` — plain torch
 ops, as JAX computes them outside its kernels. JAX's 128-lane residual
 packing is a TPU layout and does not carry over.
 
-B6 has two bodies, chosen by dtype alone: bf16 runs on the tensor cores
-(``wgmma`` fed by a TMA ring), float32 on the CUDA cores, as B7 does for
-both. Their tiles are ``ops/tuning.DQ_TILES`` and ``DKV_TILES``, checked
-against the built library. Each wrapper runs its kernel for a CUDA tensor
+B6 and B7 each have two bodies, chosen by dtype alone: bf16 runs on the
+tensor cores (``wgmma`` fed by a TMA ring; B6 with Q resident, B7 with K/V
+resident and Q/dO streamed), float32 on the CUDA cores. Their tiles are
+``ops/tuning.DQ_TILES`` and ``DKV_TILES``, checked against the built
+library; :func:`dkv_walk` states the (query head, Q tile) walk of B7's bf16
+body. Each wrapper runs its kernel for a CUDA tensor
 and its plain version (:func:`dq_plain`, :func:`dkv_plain`) for a CPU
 tensor — nothing else: a build or launch failure raises. ``.launches``
 counts kernel launches.
@@ -26,9 +28,15 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from tree_attention_tpu_torch.ops import _build
-from tree_attention_tpu_torch.ops.block_utils import NEG_INF, Offset, offsets
+from tree_attention_tpu_torch.ops.block_utils import (
+    NEG_INF,
+    Offset,
+    first_live_q,
+    offsets,
+)
 from tree_attention_tpu_torch.ops.cuda_attention import check_tiles
 from tree_attention_tpu_torch.ops.cuda_decode import _DTYPES, _check
 from tree_attention_tpu_torch.ops.reference import _group, default_scale
@@ -46,7 +54,7 @@ def _launchers():
         dq, dkv = lib.flash_dq_launch, lib.flash_dkv_launch
         dq.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
-        dkv.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        dkv.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                         + [ctypes.c_float, ctypes.c_void_p])
         dq.restype = dkv.restype = ctypes.c_int
         _fns = (dq, dkv)
@@ -197,6 +205,26 @@ def grad_rows_close(got: Sequence[torch.Tensor], want: Sequence[torch.Tensor],
     return ok, eabs, erel
 
 
+def dkv_walk(ki: int, n_q_per_kv: int, n_q: int, *, block_q: int,
+             block_k: int, causal: bool, q_offset: int = 0,
+             kv_offset: int = 0) -> list:
+    """The ``(query head of the group, Q tile)`` pairs B7's bf16 body walks,
+    in order, for K/V tile ``ki`` of one batch row (``n_q`` Q tiles of
+    ``block_q`` rows, ``block_k`` keys a K/V tile): every query head of the
+    group in turn, each from the first live Q tile
+    (:func:`~.block_utils.first_live_q`) to the last; under causality no Q
+    tile before it holds a row that sees the tile's first key, so none
+    holds a row that sees any of its keys. A K/V tile no row sees walks
+    nothing. The rule ``sm90::KRing::init`` computes on the card."""
+    first = 0
+    if causal:
+        ahead = kv_offset + ki * block_k - q_offset
+        if ahead >= n_q * block_q:  # no row sees the tile's first key
+            return []
+        first = first_live_q(ki, block_q, block_k, q_offset, kv_offset, n_q)
+    return [(g, qt) for g in range(n_q_per_kv) for qt in range(first, n_q)]
+
+
 def _row(x: Offset, b: int) -> Offset:
     """Batch row ``b``'s offset: a scalar passes through, a ``(B,)`` tensor
     gives its one-element slice."""
@@ -259,7 +287,9 @@ def attention_cuda_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_offset: Offset = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B7: ``(dk, dv)`` ``(B, Hkv, Tk, D)`` in k's and v's dtypes, reduced
-    over each KV head's query-head group."""
+    over each KV head's query-head group. For bf16 the tensor-core body
+    bulk-copies lse and delta in Q-tile slices, so they go in padded to a
+    multiple of its Q tile (lse ``+inf``, delta 0: no padded row counts)."""
     kw = dict(causal=causal, scale=scale, q_offset=q_offset,
               kv_offset=kv_offset)
     if q.device.type == "cpu":
@@ -268,12 +298,19 @@ def attention_cuda_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                  q_offset, kv_offset)
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
+    ld = Tq
+    if q.dtype == torch.bfloat16:
+        block_q = DKV_TILES["bfloat16"][0]
+        ld = -(-Tq // block_q) * block_q
+        lse = F.pad(lse, (0, ld - Tq), value=math.inf).contiguous()
+        delta = F.pad(delta, (0, ld - Tq)).contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     attention_cuda_dkv.launches += 1
     err = _launchers()[1](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), offs.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _DTYPES[q.dtype], D, B, Hq, Hkv, Tq, Tk, int(causal),
+        dv.data_ptr(), _DTYPES[q.dtype], D, B, Hq, Hkv, Tq, ld, Tk,
+        int(causal),
         float(default_scale(D, scale)),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

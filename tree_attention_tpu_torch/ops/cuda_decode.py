@@ -36,11 +36,21 @@ kernel launches of each kernel wrapper; the cast route counts under B1/B2,
 B2's ``local_blocks`` variant (one rank's slice of a sequence-sharded pool)
 on ``attention_cuda_decode_paged.local_launches``, and each wrapper's tree
 variant on its ``.tree_launches``.
+
+Two bodies compute every launch (``csrc/flash_decode.cu``), chosen by the
+static rule :func:`decode_body`: B2 with bf16 operands and more than one
+packed row per KV head, or a tree mask, runs the multi-row body on the
+tensor cores (prompt tails, verify ticks, the sharded pool's chunks),
+whatever its ``local_blocks`` flag; every other launch runs the split
+body. Launches of
+the multi-row body also count on ``attention_cuda_decode_paged
+.tiled_launches``. :func:`decode_geometry` sizes each body's splits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from typing import Callable, Optional, Tuple
@@ -60,41 +70,133 @@ from tree_attention_tpu_torch.ops.reference import (
     empty_result,
 )
 
-# Work items the split heuristic aims for: enough warps in flight to cover
-# HBM latency on 132 SMs even for the B=1 reference workload.
+# Work items the split body aims for: enough warps in flight to cover HBM
+# latency on 132 SMs even for the B=1 reference workload.
 _TARGET_WARPS = 4096
+# CTAs the multi-row body aims for: 4 per SM on 132 SMs (each streams its
+# split's keys once for up to 64 packed rows).
+_TARGET_CTAS = 528
 # Fewest keys a split streams (below this the merge costs more than it buys).
 _MIN_SPLIT_KEYS = 64
+# What the built library says of itself, checked at load: warps per CTA of
+# the split body; keys per tile of the multi-row body (its split lengths
+# are multiples); packed rows a multi-row CTA takes (16 a warp).
+_SPLIT_WARPS = 4
+_TILED_KEYS = 64
+_TILED_ROWS = (16, 32, 64)
 
 # The kernels' dtype codes, and the decode kernel's operand variants
 # (``csrc/flash_decode.cu``): 0/1 exact, then the two int8 routes.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CAST, _Q8Q = 2, 3
-_lib_fn = None
+_lib_fns = None
 
 BlockScales = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _launcher():
-    global _lib_fn
-    if _lib_fn is None:
+def _launchers():
+    global _lib_fns
+    if _lib_fns is None:
         lib = _build.library("flash_decode")
-        fn = lib.flash_decode_launch
-        fn.argtypes = (
+        built = (lib.flash_decode_warps_per_cta(),
+                 lib.flash_decode_tiled_keys())
+        if built != (_SPLIT_WARPS, _TILED_KEYS):
+            raise RuntimeError(
+                f"flash_decode was built with (warps per CTA, keys per tile) "
+                f"{built}, ops/cuda_decode.py says "
+                f"{(_SPLIT_WARPS, _TILED_KEYS)}")
+        split = lib.flash_decode_launch
+        split.argtypes = (
             [ctypes.c_void_p] * 13
             + [ctypes.c_int] * 15
             + [ctypes.c_float, ctypes.c_void_p]
         )
-        fn.restype = ctypes.c_int
-        _lib_fn = (fn, lib.flash_decode_warps_per_cta())
-    return _lib_fn
+        tiled = lib.flash_decode_tiled_launch
+        tiled.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                          + [ctypes.c_float, ctypes.c_void_p])
+        split.restype = tiled.restype = ctypes.c_int
+        _lib_fns = (split, tiled)
+    return _lib_fns
 
 
 def _rows_per_warp(rows: int, tree: bool = False) -> int:
-    """The kernel's Q tile: 1 packed row per warp when a KV head has one
-    query row (the lean variant), else 8; the tree variant is built for 8
-    only."""
+    """The split body's Q tile: 1 packed row per warp when a KV head has
+    one query row (the lean variant), else 8; the tree variant is built for
+    8 only."""
     return 1 if rows == 1 and not tree else 8
+
+
+def decode_body(variant: int, rows: int, paged: bool,
+                tree: bool = False) -> str:
+    """Which body a launch runs, by a static rule on its operands:
+    ``"tiled"`` — the multi-row body on the tensor cores — for exact bf16
+    operands (``variant`` 1) read through a block table with ``rows`` =
+    G*Tq > 1 packed rows per KV head or a tree mask; ``"split"`` for every
+    other launch: one packed row without a mask (the lean decode tick),
+    f32, the int8 cast and q8q variants, contiguous K/V (B1, B4). The
+    ``local_blocks`` flag rides either body, and the multi-row body takes
+    any block size and any row count, so no shape it receives is turned
+    away."""
+    tiled = (variant == _DTYPES[torch.bfloat16] and paged
+             and (rows > 1 or tree))
+    return "tiled" if tiled else "split"
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """A launch's grid. ``rows``: packed rows of a work item (its Q tile),
+    ``q_tiles`` of them per KV head; ``split_len``: the logical keys a split
+    covers; ``splits``: the partials each row gets (merged after);
+    ``ctas``: CTAs along the keys (the split body packs ``_SPLIT_WARPS``
+    splits, one per warp, into a CTA; the multi-row body one)."""
+
+    body: str
+    rows: int
+    q_tiles: int
+    split_len: int
+    splits: int
+    ctas: int
+
+
+def decode_geometry(body: str, R: int, B: int, Hkv: int, Tk: int, *,
+                    tree: bool = False, shards: int = 1) -> Geometry:
+    """Size the splits of a launch of ``body`` over ``R`` packed rows of
+    ``B * Hkv`` KV heads and ``Tk`` logical keys: as many splits as bring
+    the work items (Q tiles x B x Hkv x splits) to the body's target, each
+    streaming at least ``_MIN_SPLIT_KEYS`` keys. ``shards``: the ranks a
+    ``local_blocks`` pool is sharded over. A rank holds about ``Tk /
+    shards`` of the keys, and the multi-row body's splits are sized on
+    that share: its CTAs skip a tile of remote keys with one barrier. The
+    split body's stay sized on the logical length: each of its warps
+    checks its range chunk by chunk, so a long split of mostly remote
+    chunks serializes the checks that short splits spread over warps
+    (``PERF.md`` §6 has both sizings of both bodies on the card)."""
+    held = Tk // max(shards, 1) if body == "tiled" else Tk
+    if body == "tiled":
+        rows = next((r for r in _TILED_ROWS if R <= r), _TILED_ROWS[-1])
+        target, granule = _TARGET_CTAS, _TILED_KEYS
+    else:
+        rows = _rows_per_warp(R, tree)
+        target, granule = _TARGET_WARPS, 8
+    q_tiles = -(-R // rows)
+    base = q_tiles * B * Hkv
+    splits = max(1, min(-(-target // base), held // _MIN_SPLIT_KEYS))
+    split_len = max(granule, -(-math.ceil(Tk / splits) // granule) * granule)
+    n = -(-Tk // split_len)
+    if body == "tiled":
+        return Geometry(body, rows, q_tiles, split_len, n, n)
+    ctas = -(-n // _SPLIT_WARPS)
+    return Geometry(body, rows, q_tiles, split_len, ctas * _SPLIT_WARPS, ctas)
+
+
+def split_keys(geo: Geometry, split: int, q_offset: int, Tq: int,
+               Tk: int) -> range:
+    """The logical keys split ``split`` of a causal launch streams for a
+    slot whose first query sits at ``q_offset`` (kv_offset 0): its range
+    culled at the last row's frontier — the rule both bodies compute on
+    the card, so no table entry past a slot is read."""
+    j0 = split * geo.split_len
+    return range(j0, min(Tk, j0 + geo.split_len, q_offset + Tq))
 
 
 def tree_bits_rows(tree_mask: torch.Tensor, n_q_per_kv: int,
@@ -397,28 +499,25 @@ def _check_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
 
 def _launch(qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB, causal,
             scale, qs=None, block_scales=None, local_blocks=False,
-            tree_mask=None):
-    """Run the split kernel and its merge on packed ``qp`` ``(B, Hkv, R,
-    D)``; returns ``out`` ``(B, Hkv, R, D)`` (bf16 for the int8 variants)
-    and ``lse`` ``(B, Hkv, R)``. ``local_blocks``: the paged table is
-    signed (negative = a block another rank holds). ``tree_mask``: the
-    tree variant, its bits packed here on the device."""
-    fn, warps = _launcher()
+            tree_mask=None, shards=1):
+    """Run a body (:func:`decode_body`) and its merge on packed ``qp``
+    ``(B, Hkv, R, D)``; returns ``out`` ``(B, Hkv, R, D)`` (bf16 for the
+    int8 variants) and ``lse`` ``(B, Hkv, R)``. ``local_blocks``: the paged
+    table is signed (negative = a block another rank holds), the pool
+    sharded over ``shards`` ranks. ``tree_mask``: the tree variant, its
+    bits packed here on the device."""
+    split_fn, tiled_fn = _launchers()
     B, Hkv, R, D = qp.shape
     tree = tree_mask is not None
-    rows_per_warp = _rows_per_warp(R, tree)
+    geo = decode_geometry(decode_body(variant, R, table is not None, tree),
+                          R, B, Hkv, Tk, tree=tree, shards=shards)
     bits = (tree_bits_rows(tree_mask.to(qp.device), R // Tq, Hkv)
             .contiguous() if tree else None)
     qp, k, v = qp.contiguous(), k.contiguous(), v.contiguous()
-    base = -(-R // rows_per_warp) * B * Hkv
-    splits = max(1, min(-(-_TARGET_WARPS // base), Tk // _MIN_SPLIT_KEYS))
-    split_len = -(-math.ceil(Tk / splits) // 8) * 8
-    ctas = -(-math.ceil(Tk / split_len) // warps)
-    s_eff = ctas * warps
     dev = qp.device
-    o_part = torch.empty((s_eff, B * Hkv, R, D), dtype=torch.float32,
+    o_part = torch.empty((geo.splits, B * Hkv, R, D), dtype=torch.float32,
                          device=dev)
-    lse_part = torch.empty((s_eff, B * Hkv, R), dtype=torch.float32,
+    lse_part = torch.empty((geo.splits, B * Hkv, R), dtype=torch.float32,
                            device=dev)
     out = torch.empty((B, Hkv, R, D), device=dev,
                       dtype=qp.dtype if variant in _DTYPES.values()
@@ -432,17 +531,27 @@ def _launch(qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB, causal,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    err = fn(
-        qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(qs),
-        ptr(None if block_scales is None else block_scales[0]),
-        ptr(None if block_scales is None else block_scales[1]),
-        offs.data_ptr(), ptr(table), ptr(bits), o_part.data_ptr(),
-        lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), variant, D,
-        int(table is not None),
-        rows_per_warp, B, Hkv, R, Tq, Tk, blk, NB, ctas, split_len,
-        int(causal), int(local_blocks), float(scale),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if geo.body == "tiled":
+        attention_cuda_decode_paged.tiled_launches += 1
+        by_tq = attention_cuda_decode_paged.tiled_tq
+        by_tq[Tq] = by_tq.get(Tq, 0) + 1
+        err = tiled_fn(
+            qp.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
+            table.data_ptr(), ptr(bits), o_part.data_ptr(),
+            lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), D,
+            geo.rows, B, Hkv, R, Tq, blk, NB, geo.splits, geo.split_len,
+            int(local_blocks), float(scale), stream)
+    else:
+        err = split_fn(
+            qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(qs),
+            ptr(None if block_scales is None else block_scales[0]),
+            ptr(None if block_scales is None else block_scales[1]),
+            offs.data_ptr(), ptr(table), ptr(bits), o_part.data_ptr(),
+            lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), variant, D,
+            int(table is not None), geo.rows, B, Hkv, R, Tq, Tk, blk, NB,
+            geo.ctas, geo.split_len, int(causal), int(local_blocks),
+            float(scale), stream)
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
     return out, lse
@@ -499,6 +608,7 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
                                 scale: Optional[float] = None,
                                 block_scales: Optional[BlockScales] = None,
                                 local_blocks: bool = False,
+                                local_shards: int = 1,
                                 tree_mask: Optional[torch.Tensor] = None):
     """B2: causal decode of ``q`` ``(B, Hq, Tq, D)`` against
     ``(N, Hkv, block, D)`` pools (q's dtype, or int8 with q in bf16) through
@@ -510,9 +620,13 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
     ``local_blocks``: the pools are one rank's slice of a sequence-sharded
     pool and the table is signed — entries in ``[0, N)`` are local blocks,
     a negative entry is a block another rank holds, never read and masked
-    out; a row with no local visible key comes back ``(0, -inf)``. Such
-    launches count on ``.local_launches``, the tree variant's
-    (``tree_mask``) on ``.tree_launches``, the others on ``.launches``."""
+    out; a row with no local visible key comes back ``(0, -inf)``;
+    ``local_shards``, the ranks the pool is sharded over, sizes the
+    multi-row body's splits on this rank's share of the keys. Such
+    launches count on ``.local_launches``, the tree variant's (``tree_mask``) on
+    ``.tree_launches``, the others on ``.launches``; launches of the
+    multi-row body (bf16, more than one packed row) also on
+    ``.tiled_launches`` and, by Tq, in ``.tiled_tq``."""
     _check_tree(q, tree_mask)
     if local_blocks and tree_mask is not None:
         raise ValueError("tree_mask is not supported under local_blocks "
@@ -540,13 +654,15 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
                        blk=blk, NB=NB, causal=True,
                        scale=default_scale(D, scale),
                        block_scales=block_scales, local_blocks=local_blocks,
-                       tree_mask=tree_mask)
+                       tree_mask=tree_mask, shards=local_shards)
     return _unfold_out(out, lse, q, None)
 
 
 attention_cuda_decode_paged.launches = 0
 attention_cuda_decode_paged.local_launches = 0
 attention_cuda_decode_paged.tree_launches = 0
+attention_cuda_decode_paged.tiled_launches = 0
+attention_cuda_decode_paged.tiled_tq = {}  # multi-row launches by Tq
 
 
 def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,

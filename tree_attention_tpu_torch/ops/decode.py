@@ -22,6 +22,7 @@ partials): B2 with ``local_blocks`` for every Tq.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -139,7 +140,7 @@ def paged_local_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None,
                         k_scale: Optional[torch.Tensor] = None,
                         v_scale: Optional[torch.Tensor] = None,
-                        impl: str = "auto"
+                        shards: int = 1, impl: str = "auto"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One rank's flash partial over its slice of a sequence-sharded paged
     pool: the per-rank half of the tree-attention decode monoid.
@@ -155,10 +156,14 @@ def paged_local_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         partials merge into exactly the unsharded result.
       k_scale, v_scale: optional ``(Nl, Hkv)`` per-block scales of an int8
         slice (sharded with it).
+      shards: the ranks the pool is sharded over (``W``): B2's multi-row
+        body sizes its splits on this rank's share of the keys, ``NB *
+        block / W``.
       impl: ``"auto"`` (the kernel for CUDA tensors) or ``"plain"``.
 
     On the card this is B2 with ``local_blocks`` for every Tq (prompt
-    chunks too: the JAX package also runs its decode kernel for them); an
+    chunks too: the JAX package also runs its decode kernel for them) —
+    its multi-row body for a bf16 slice with more than one packed row; an
     int8 slice goes through B2's cast route with ``block_scales``. On the
     CPU, as the JAX package off the TPU: the plain version, and for an
     int8 slice the exact plain version over the slice dequantized under
@@ -176,7 +181,11 @@ def paged_local_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "q_position")
     _account_dispatch("paged_local_partial",
                       local_table.shape[1] * k.shape[2])
-    fn = paged_decode_plain if impl == "plain" else attention_cuda_decode_paged
+    if impl == "plain":
+        fn = paged_decode_plain
+    else:
+        fn = functools.partial(attention_cuda_decode_paged,
+                               local_shards=shards)
     if k_scale is None:
         return fn(q, k, v, local_table, q_offset=q_position, scale=scale,
                   local_blocks=True)

@@ -21,17 +21,17 @@ DECODE_KERNEL_MAX_TQ = 128
 BLOCKWISE_BLOCK_K = 512
 
 # (Q rows, keys) per tile of each body, by input dtype. bf16 runs the
-# tensor-core bodies of B3 and B6 (wgmma fed by a TMA ring, two consumer
-# warpgroups of 64 rows): B3 streams 128-key tiles; B6 64-key tiles, since
-# it holds S, dP and dQ in registers at once. float32 runs the CUDA-core
-# bodies (32 rows, 64 keys: two keys per lane in the score phase), as does
-# B7 for both dtypes; its 32-row Q tile was chosen on an H100 over 64 rows,
-# which were slower (``PERF.md``): at D = 128 it keeps B7 at 112 KB of
-# shared memory, two CTAs per SM. The v5e ``default_block_q*`` tables do
-# not carry over.
+# tensor-core bodies of B3, B6 and B7 (wgmma fed by a TMA ring, two consumer
+# warpgroups of 64 rows or keys): B3 streams 128-key tiles; B6 64-key
+# tiles, since it holds S, dP and dQ in registers at once; B7 keeps 128
+# keys resident (64 per warpgroup) and streams 64-row Q/dO tiles, since it
+# holds S^T, dP^T, dK and dV at once. float32 runs the CUDA-core bodies (32
+# rows, 64 keys: two keys per lane in the score phase); B7's 32-row Q tile
+# there was chosen on an H100 over 64 rows, which were slower (``PERF.md``).
+# The v5e ``default_block_q*`` tables do not carry over.
 FWD_TILES = {"bfloat16": (128, 128), "float32": (32, 64)}  # B3
 DQ_TILES = {"bfloat16": (128, 64), "float32": (32, 64)}    # B6
-DKV_TILES = {"bfloat16": (32, 64), "float32": (32, 64)}    # B7
+DKV_TILES = {"bfloat16": (64, 128), "float32": (32, 64)}   # B7
 
 
 def kernel_for(tq: int) -> str:

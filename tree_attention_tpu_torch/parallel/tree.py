@@ -249,7 +249,9 @@ def paged_tree_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       seq_axis).to(torch.int32)
     out, lse = paged_local_partial(q, k, v, loc, q_position=q_position,
                                    scale=scale, k_scale=k_scale,
-                                   v_scale=v_scale, impl=impl)
+                                   v_scale=v_scale,
+                                   shards=mesh.axis_size(seq_axis),
+                                   impl=impl)
     B, Hq, Tq, D = q.shape
     d_sh, h_sh = shard_counts(mesh, None, None)
     lse_bytes = 4 * -(-B // d_sh) * -(-Hq // h_sh) * Tq
