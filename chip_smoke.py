@@ -6,10 +6,11 @@ failure exits non-zero:
 1. Build the CUDA kernels from ``tree_attention_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together), print the card, each
    kernel's registers and spills (the decode split body's tree variants
-   beside their causal twins, every instantiation of B2's multi-row body),
+   beside their causal twins, every instantiation of the multi-row body of
+   B1, B2 and B5),
    and the HGMMA instructions in the SASS of the tensor-core bodies of B3,
    B6 and B7 (``cuobjdump -sass``; none is a failure, and so is a spill in
-   B7's tensor-core body or in B2's multi-row body).
+   B7's tensor-core body or in the multi-row decode body).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (bf16; each query row's out within 2e-2 of that row's
    largest |out|, i.e. about two bf16 ulps, and lse within 1e-3 — P is
@@ -21,7 +22,8 @@ failure exits non-zero:
    from ``torch.profiler``, the larger of two traced runs (CUDA events if
    it traces nothing or reads below the bound), L2 flushed before each
    call — beside the least time the card could take (bytes /
-   3.35 TB/s or FLOPs / 989 TFLOP/s, the larger). B3 also at the training
+   3.35 TB/s or FLOPs / 989 TFLOP/s, the larger); B1 and B4 at the
+   reference workload also split body and merge apart. B3 also at the training
    shape (B2 H16 T4096 causal); at the serve-chunk shape the gate is shown
    to reject each row's causal frontier shifted by one key.
    Then the backward kernels B6 (dq) and B7 (dk, dv) against their plain
@@ -82,6 +84,20 @@ failure exits non-zero:
    and under ``local_blocks`` with every block the rank's table does not
    name NaN-poisoned; each such launch counted on ``.tiled_launches``; the
    prompt-tail buckets Tq 8, 16, 32, 64 timed beside SDPA.
+   B1 and B5 on the same multi-row body (exact bf16 contiguous, and paged
+   int8 x int8, with more than one packed row or a tree), each launch
+   counted on the wrapper's ``.tiled_launches``: B1 under the row gate at
+   GQA Tq 16 over Tk 4096 and 4037, Tq 2, 5, 64, 127, G 1 and 4, D 64 and
+   128, causal with per-slot kv_offset (a shard wholly past its frontier
+   exactly ``(0, -inf)``) and not causal, K/V past each frontier NaN
+   unread bit for bit, the gate shown rejecting an output halved and the
+   first split's keys left out; B5 at chain and tree verify ticks (Tq 8,
+   32) over 64- and 16-token blocks with per-block scales that differ by
+   block and with channel scales, every Q and K code at +-127, tril ==
+   causal and NaN blocks and scales past each window unread bit for bit,
+   the gate shown rejecting scales read by logical block, the V scalar
+   before the softmax sum and an output halved; B5's chain verify ticks
+   timed.
 3. Serve 16 requests through the paged, chunked SlotServer (the CLI's
    ``--mode serve`` entry point) at the reference attention width (d_model
    2048, 16 heads x 128, d_ff 5504, vocab 32768, bf16, depth cut to 4
@@ -96,7 +112,8 @@ failure exits non-zero:
    Then int8: 16 requests through ``cli.main --mode serve --kv-quant
    int8`` (staged admission, the paged int8 cache): every request retires
    with its budget, the pool drains, B5 launched once per layer and int8
-   step, B1/B3 for the staged chunks; 4 requests on the contiguous int8
+   step, B1/B3 for the staged chunks (the tails below 128 rows on B1's
+   multi-row body); 4 requests on the contiguous int8
    cache (B4 once per layer and int8 step) and 4 through ``--kv-quant
    int8-cast`` (B2 with per-block scales once per layer and int8 step);
    the 8-request wave again on an
@@ -117,8 +134,9 @@ failure exits non-zero:
    proposal a tree, every commit a compaction) on the paged and contiguous
    layouts, exact and int8: every request retires with its budget, the
    pool drains, each tree verify tick launches the layout's tree kernel
-   once per layer and no other tree kernel runs (on the exact paged pool
-   through B2's multi-row body, which every verify tick takes), the
+   once per layer and no other tree kernel runs (on the exact pools and
+   the paged int8 pool through the multi-row body of B2, B1 and B5, which
+   every verify tick takes), the
    oracle's acceptance
    is above 0 on the paged layouts, and every emitted greedy token is
    within 0.1 of its position's largest logit when the stream is re-scored
@@ -127,7 +145,8 @@ failure exits non-zero:
    against each root path decoded one token at a time, within 0.1. Token
    agreement with the non-speculative serve, acceptance, tokens per verify
    tick and spec tok/s beside non-spec tok/s are reported, with the oracle
-   wave's device split.
+   wave's device split, exact and on the paged int8 pool. Every serve's
+   launches of the multi-row body are reported by kernel and Tq.
    Then two ranks on the one card (spawned processes on ``cuda:0`` over
    gloo; NCCL refuses two ranks on one device): ``--mesh seq=2 --kv-shard
    seq`` at the same width, exact and ``--kv-quant int8`` (16 requests
@@ -316,6 +335,8 @@ def _sharded_rank(rank: int, world: int, port: int, device: str,
         "flash_decode_paged": (b2, "launches"),
         "flash_decode_paged_local": (b2, "local_launches"),
         "flash_decode_paged_tiled": (b2, "tiled_launches"),
+        "flash_decode_tiled": (cuda_decode.attention_cuda_decode,
+                               "tiled_launches"),
         "flash_decode_paged_q8q": (
             cuda_decode.attention_cuda_decode_paged_q8q, "launches"),
         "flash_fwd": (cuda_attention.attention_cuda_fwd, "launches"),
@@ -750,18 +771,25 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
                 c for n, c in tree.items() if n != mine)):
             fail(f"spec serve {label}: tree launches {tree} over {ticks} "
                  f"tree verify ticks x {n_layers} layers")
-        # On the exact paged pool every verify tick (tree or chain, Tq >= 8)
-        # runs B2's multi-row body.
-        tiled = wrappers["flash_decode_paged"].tiled_launches
-        if on_card and layout == "paged" and not quant and not (
+        # Every verify tick (tree or chain, Tq >= 8) of the exact pools and
+        # the paged int8 pool runs the layout's kernel on the multi-row
+        # body (B2, B1, B5); contiguous int8 (B4) keeps the split body.
+        tiled = (wrappers[mine].tiled_launches
+                 if hasattr(wrappers[mine], "tiled_launches") else 0)
+        if on_card and (layout, quant) != ("contiguous", True) and not (
                 tiled >= tree[mine] and tiled > 0):
-            fail(f"spec serve {label}: B2's multi-row body launched {tiled} "
-                 f"times beside {tree[mine]} tree launches")
+            fail(f"spec serve {label}: {mine}'s multi-row body launched "
+                 f"{tiled} times beside {tree[mine]} tree launches")
+        by_tq = {n: dict(sorted(wrappers[k].tiled_tq.items()))
+                 for n, k in (("B1", "flash_decode"),
+                              ("B2", "flash_decode_paged"),
+                              ("B5", "flash_decode_paged_q8q"))
+                 if wrappers[k].tiled_tq}
         return {"spec": rep.spec, "tokens_per_sec": rep.tokens_per_sec,
                 "wall_s": rep.wall_s, "ticks": rep.ticks,
                 "decode_ticks": rep.decode_ticks,
                 "tree_launches": tree[mine], "tree_kernel": mine,
-                "tiled_launches": tiled}
+                "tiled_launches": tiled, "tiled_by_tq": by_tq}
 
     out = {"cli": {}, "oracle": {}}
     for quant in ("none", "int8"):
@@ -788,8 +816,8 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
             out["cli"][label] = r
             print(f"spec serve ({label}): {rec['tokens_per_sec']} tok/s, "
                   f"spec {json.dumps(rep.spec)}, tree launches "
-                  f"{r['tree_launches']}, multi-row B2 launches "
-                  f"{r['tiled_launches']}, replay margin "
+                  f"{r['tree_launches']}, multi-row launches by Tq "
+                  f"{json.dumps(r['tiled_by_tq'])}, replay margin "
                   f"{r['replay_margin']:.3e} (tol {tol_logits})", flush=True)
             if not r["replay_margin"] <= tol_logits:
                 fail(f"spec serve ({label}): an emitted token is "
@@ -820,7 +848,9 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
             out["oracle"][label] = r
             print(f"spec serve ({label}): {rep.tokens_per_sec:.1f} tok/s, "
                   f"spec {json.dumps(rep.spec)}, tree launches "
-                  f"{r['tree_launches']} ({r['tree_kernel']}), tokens equal "
+                  f"{r['tree_launches']} ({r['tree_kernel']}), multi-row "
+                  f"launches by Tq {json.dumps(r['tiled_by_tq'])}, tokens "
+                  f"equal "
                   f"to the non-spec wave's {same}/{rep.tokens_generated}, "
                   f"replay margin {r['replay_margin']:.3e} (tol "
                   f"{tol_logits})", flush=True)
@@ -925,13 +955,15 @@ def main() -> None:
               n[n.index("kernelI") + 7:n.index("EEEv")]: [
                   r, dptx.get(n.replace("ELb1EEEv", "ELb0EEEv"))]
               for n, r in tree_bodies.items()}), flush=True)
-    # B2's multi-row body (mma.sync): registers and spills of each
-    # instantiation (D, warps, tree, local), by mangled name.
-    tptx = ptxas_summary(_build, ("flash_decode",),
+    # The multi-row body of B1, B2 and B5 (mma.sync): registers and spills
+    # of each instantiation (operands, layout, D, warps, tree, local), by
+    # mangled name.
+    tptx = ptxas_summary(_build, ("flash_decode_tiled",),
                          r"_Z\w*(decode_tiled_kernelI\w+?EE)v",
                          lambda m: m.group(1))
-    print(f"ptxas of B2's multi-row body: {len(tptx)} instantiations "
-          f"(registers, spill-store bytes): {json.dumps(tptx)}", flush=True)
+    print(f"ptxas of the multi-row body (B1, B2, B5): {len(tptx)} "
+          f"instantiations (registers, spill-store bytes): "
+          f"{json.dumps(tptx)}", flush=True)
     hgmma = hgmma_counts(_build)
     print(f"SASS HGMMA instructions of the tensor-core bodies: "
           f"{json.dumps(hgmma)}", flush=True)
@@ -939,7 +971,8 @@ def main() -> None:
         if not any(body in n and c > 0 for n, c in hgmma.items()):
             fail(f"no HGMMA instruction in {body}_kernel's SASS")
     # The redesigned bodies keep every register: a spill would put the
-    # accumulators (B7's dK and dV, B2's O) through local memory.
+    # accumulators (B7's dK and dV, the multi-row body's O) through local
+    # memory.
     spills = {n: r for n, r in {**ptxas, **tptx}.items()
               if ("dkv_wgmma" in n or "decode_tiled" in n) and r[1]}
     if spills or not tptx or not any("dkv_wgmma" in n for n in ptxas):
@@ -1047,14 +1080,15 @@ def main() -> None:
     cases = []
 
     def record(kernel, name, fn, plain, library, bytes_, flops, *,
-               ops_s=None, yardstick=None, names=None):
+               ops_s=None, yardstick=None, names=None, parts=None):
         """Gate ``fn`` against ``plain`` and time both beside the bound
         (bytes / HBM rate or the operations' time — ``flops`` at the bf16
         rate, or ``ops_s`` seconds — the larger) and ``library``, one
         PyTorch call of the same function (None where there is none; then
         ``yardstick`` is timed instead, a labelled near-equivalent). With
         ``names`` ``ms`` counts only the kernel's own launches and
-        ``call_ms`` the whole call's."""
+        ``call_ms`` the whole call's; ``parts`` (kernel name fragments) are
+        also timed apart, as ``by_kernel_ms``."""
         a, b = fn(), plain()
         torch.cuda.synchronize()
         ok, eo, er, el = gate(a, b)
@@ -1079,6 +1113,9 @@ def main() -> None:
             c["call_ms"] = call_ms
         if yardstick is not None:
             c["yardstick_sdpa_dequant_ms"] = time_ms(yardstick, bound)[0]
+        if parts is not None:
+            c["by_kernel_ms"] = {x: time_ms(fn, 0.0, names=(x,))[0]
+                                 for x in parts}
         cases.append(c)
         lib = (f"sdpa {lib_ms:.4f}" if lib_ms is not None else
                f"library none, sdpa over dequantized bf16 "
@@ -1086,8 +1123,13 @@ def main() -> None:
         print(f"{kernel} {name}: |dout| {eo:.3e} relative {er:.3e} "
               f"|dlse| {el:.3e} (tol {TOL_OUT_REL}/{TOL_LSE}) ms {ms:.4f} "
               + (f"(whole call {c['call_ms']:.4f}) " if names else "")
+              + (f"by kernel {json.dumps(c['by_kernel_ms'])} " if parts
+                 else "")
               + f"plain {plain_ms:.4f} {lib} bound {bound:.4f} "
               f"({c['bound_by']}) clocks {c['clocks']}", flush=True)
+
+    # The decode kernels' own launches: a body and the merge.
+    own = ("decode_split", "decode_tiled", "merge_splits")
 
     # B1: the reference workload (the --mode decode shape) ...
     q, k, v = rnd(1, 16, 1, 128), rnd(1, 16, 64000, 128), rnd(1, 16, 64000, 128)
@@ -1096,7 +1138,8 @@ def main() -> None:
            lambda: cuda_decode.attention_cuda_decode(q, k, v),
            lambda: cuda_decode.decode_plain(q, k, v),
            lambda: F.scaled_dot_product_attention(q, k, v),
-           kv_bytes + 2 * q.numel() * 2, 4.0 * 16 * 64000 * 128)
+           kv_bytes + 2 * q.numel() * 2, 4.0 * 16 * 64000 * 128,
+           parts=("decode_split", "merge_splits"))
     # The gate has teeth at this shape: it rejects an output off by half,
     # and one split's keys left out of the merge (the wrapper cuts 64000
     # keys into splits of 256 here).
@@ -1111,14 +1154,17 @@ def main() -> None:
     if half[0] or dropped[0]:
         fail("the parity gate accepts a planted fault at the reference shape")
     del plain, o, l
-    # ... and a ragged GQA batch.
+    # ... and a ragged GQA batch: Tq 1 on the split body, Tq 16 (64 packed
+    # rows a KV head, a staged int8 prompt tail's shape) on the multi-row
+    # body.
     for tq in (1, 16):
         q, k, v = rnd(8, 32, tq, 128), rnd(8, 8, 4096, 128), rnd(8, 8, 4096, 128)
         qoff = torch.randint(0, 4096 - tq, (8,), generator=g, device=dev,
                              dtype=torch.int32)
         need = sum(min(4096, int(o) + tq) for o in qoff.tolist())
         mask = gqa_mask(qoff, tq, 4096)
-        record("flash_decode", f"GQA B8 Hq32 Hkv8 Tk4096 Tq{tq} ragged",
+        record("flash_decode" if tq == 1 else "flash_decode_tiled",
+               f"GQA B8 Hq32 Hkv8 Tk4096 Tq{tq} ragged",
                lambda: cuda_decode.attention_cuda_decode(
                    q, k, v, causal=True, q_offset=qoff),
                lambda: cuda_decode.decode_plain(q, k, v, causal=True,
@@ -1126,7 +1172,8 @@ def main() -> None:
                lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=mask, enable_gqa=True),
                need * 8 * 128 * 2 * 2 + 2 * q.numel() * 2,
-               4.0 * 32 * 128 * visible_pairs(qoff, tq, 4096))
+               4.0 * 32 * 128 * visible_pairs(qoff, tq, 4096), names=own,
+               parts=(("decode_tiled", "merge_splits") if tq > 1 else None))
 
     # B2: a fragmented 64-token-block pool at the serve shapes (8 slots,
     # 16 heads x 128, 10-block tables = 640-token slots), the decode tick
@@ -1159,7 +1206,6 @@ def main() -> None:
     # bf16 rate. No PyTorch call computes int8-KV attention (library none);
     # SDPA over the dequantized bf16 K/V is timed as a yardstick: the same
     # result to within quantization, at twice the K/V bytes.
-    own = ("decode_split", "decode_tiled", "merge_splits")
 
     def q8_ops_s(pairs, q8q):
         qk = INT8_OPS_PER_S if q8q else BF16_FLOPS_PER_S
@@ -1183,7 +1229,7 @@ def main() -> None:
                None, ref_q8_bytes, 0.0,
                ops_s=q8_ops_s(16 * 64000, route == "q8q"),
                yardstick=lambda: F.scaled_dot_product_attention(q, kd, vd),
-               names=own)
+               names=own, parts=("decode_split", "merge_splits"))
     del kq, vq, kd, vd
     # B4 at GQA with per-batch offsets and a ragged Tk.
     tk = 4037
@@ -1270,10 +1316,14 @@ def main() -> None:
     # here from the gathered view passes it, and with a planted per-block
     # scale fault it is rejected — scales read by logical block j instead
     # of table[b, j], and the V scalar applied before the softmax sum l.
-    def q8q_paged_here(fault=None):
-        q, kp, vp, tbl, ksc, vsc, qo = serve_q8
+    def q8q_paged_here(case, fault=None):
+        """B5 with per-block scales on ``case`` = (q, K and V pools, table,
+        K and V scales, q_offset), written out from the gathered view; a
+        packed row r sits at q_offset + r % Tq."""
+        q, kp, vp, tbl, ksc, vsc, qo = case
         B, NB = tbl.shape
-        codes, qs = cuda_decode._fold_quantize_q(q, 16, None, None)
+        blk, hkv, tq = kp.shape[2], kp.shape[1], q.shape[2]
+        codes, qs = cuda_decode._fold_quantize_q(q, hkv, None, None)
         kg, vg = gather_paged_kv(kp, vp, tbl)
         idx = (torch.arange(NB, device=dev).expand(B, NB)
                if fault == "logical" else tbl.long())
@@ -1281,8 +1331,10 @@ def main() -> None:
             :, :, None] for sc in (ksc, vsc))
         s = torch.einsum("bhrd,bhkd->bhrk", codes.float(), kg.float()) \
             * qs * kk
+        pos = qo.long()[:, None] + torch.arange(codes.shape[2],
+                                                device=dev) % tq
         vis = (torch.arange(NB * blk, device=dev)[None, None, None]
-               <= qo.long()[:, None, None, None])
+               <= pos[:, None, :, None])
         s = s.masked_fill(~vis, -math.inf)
         m = s.amax(-1, keepdim=True)
         p = torch.exp(s - m)
@@ -1296,13 +1348,19 @@ def main() -> None:
         return ((acc / den[..., None]).to(torch.bfloat16).reshape(q.shape),
                 (m[..., 0] + torch.log(den)).reshape(q.shape[:3]))
 
-    plain = cuda_decode.paged_decode_q8q_plain(*serve_q8[:6],
-                                               q_offset=serve_q8[6])
-    teeth = {f: gate(q8q_paged_here(f), plain)
-             for f in (None, "logical", "v_early")}
-    o, l = cuda_decode.attention_cuda_decode_paged_q8q(
-        *serve_q8[:6], q_offset=serve_q8[6])
-    teeth["halved"] = gate((o * 0.5, l), plain)
+    def q8q_teeth(case, kernel):
+        """The gate against B5's plain version on ``case``: the arithmetic
+        written out here, its two planted scale faults, and ``kernel``'s
+        output halved."""
+        plain = cuda_decode.paged_decode_q8q_plain(*case[:6],
+                                                   q_offset=case[6])
+        teeth = {f: gate(q8q_paged_here(case, f), plain)
+                 for f in (None, "logical", "v_early")}
+        o, l = kernel(*case[:6], q_offset=case[6])
+        teeth["halved"] = gate((o * 0.5, l), plain)
+        return teeth
+
+    teeth = q8q_teeth(serve_q8, cuda_decode.attention_cuda_decode_paged_q8q)
     q8_teeth = {str(f): {"pass": r[0], "rel": r[2], "dlse": r[3]}
                 for f, r in teeth.items()}
     print(f"gate at B5's serve shape: written out here {teeth[None][2]:.3e} "
@@ -1315,7 +1373,7 @@ def main() -> None:
                                  ("logical", "v_early", "halved")):
         fail("the parity gate at B5's serve shape fails its own arithmetic "
              "or accepts a planted fault")
-    del plain, o, l, serve_q8, kp8, vp8
+    del serve_q8, kp8, vp8
 
     # -- 2b. B2 local_blocks: one rank's slice of a sequence-sharded pool --
     # The serve shapes (8 slots of 640 tokens in 64-token blocks, 16 heads
@@ -1815,6 +1873,209 @@ def main() -> None:
                names=own)
     del kp, vp, kg, vg, mask
 
+    # -- 2f. B1 and B5 on the multi-row body --------------------------------
+    # B1 (contiguous bf16) and B5 (paged int8 x int8) with more than one
+    # packed row take the multi-row body (cuda_decode.decode_body), as B2
+    # does: every such launch must count on the wrapper's .tiled_launches.
+    # B1 under the row gate at GQA Tq 16 over Tk 4096 and 4037, Tq 2, 5, 64,
+    # 127 at G 1 and 4, D 64 and 128, causal with per-slot kv_offset (a
+    # tree_decode shard; slot 2's shard lies wholly past its frontier and
+    # must come back exactly (0, -inf)) and not causal; K/V rows past each
+    # slot's frontier set to NaN change nothing, bit for bit; the gate
+    # rejects an output halved and one split's keys left out. (The tree
+    # ticks, tril == causal included, are phase 2d's.) B5 at the verify
+    # ticks (B8 H16 640-token slots, Tq 8 and 32, chain and tree) over
+    # 64- and 16-token blocks whose magnitudes, and so per-block scales,
+    # differ by block, and with channel scales; codes at +-127 at D 128;
+    # tril == causal and NaN blocks and NaN scales past each window change
+    # nothing, bit for bit; the gate rejects scales read by logical block,
+    # the V scalar applied before the softmax sum and an output halved.
+    # Timed: B5's chain verify ticks (its tree ticks are phase 2d's).
+    b1 = cuda_decode.attention_cuda_decode
+    b5 = cuda_decode.attention_cuda_decode_paged_q8q
+    multi_gate = {}
+
+    def multi_call(w, fn):
+        before = w.tiled_launches
+        out = fn()
+        if w.tiled_launches != before + 1:
+            fail(f"{w.__name__}: a multi-row launch did not take the "
+                 f"multi-row body")
+        return out
+
+    def multi_check(name, got, want):
+        ok, eo, er, el = gate(got, want)
+        multi_gate[name] = {"pass": ok, "max_abs_err": eo,
+                            "max_rel_err": er, "max_abs_err_lse": el}
+        if not ok:
+            fail(f"multi-row {name}: |dout| {eo:.3e}, relative {er:.3e}, "
+                 f"|dlse| {el:.3e}")
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    multi_bits = {}
+    for D in (64, 128):
+        for G, tq, tk in ((4, 16, 4096), (4, 16, 4037), (1, 2, 640),
+                          (4, 5, 640), (1, 64, 700), (4, 127, 700)):
+            q = rnd(4, 8 * G, tq, D)
+            k, v = rnd(4, 8, tk, D), rnd(4, 8, tk, D)
+            qo = torch.tensor([tk - tq, 500, tk - 1, 60], dtype=torch.int32,
+                              device=dev)
+            ko = torch.tensor([0, 37, tk + 200, 5], dtype=torch.int32,
+                              device=dev)
+            kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+            name = f"B1 D{D} G{G} Tq{tq} Tk{tk}"
+            got = multi_call(b1, lambda: b1(q, k, v, **kw))
+            multi_check(name + " causal", got,
+                        cuda_decode.decode_plain(q, k, v, **kw))
+            if not (torch.all(got[0][2] == 0)
+                    and torch.all(torch.isneginf(got[1][2]))):
+                fail(f"{name}: the shard past its frontier is not (0, -inf)")
+            multi_check(name + " not causal",
+                        multi_call(b1, lambda: b1(q, k, v)),
+                        cuda_decode.decode_plain(q, k, v))
+            kn, vn = k.clone(), v.clone()
+            for b in range(4):
+                lo = max(0, int(qo[b] - ko[b]) + tq)
+                kn[b, :, lo:], vn[b, :, lo:] = math.nan, math.nan
+            multi_bits[f"{name} NaN past each frontier unread"] = same(
+                got, b1(q, kn, vn, **kw))
+            del kn, vn
+    # The gate has teeth at B1's multi-row shape (the last one above, GQA
+    # Tq 16 is the first: redo it): an output halved, the first split's
+    # keys left out.
+    q, k, v = rnd(8, 32, 16, 128), rnd(8, 8, 4096, 128), rnd(8, 8, 4096, 128)
+    qo = torch.randint(1024, 4096 - 16, (8,), generator=g, device=dev,
+                       dtype=torch.int32)
+    plain = cuda_decode.decode_plain(q, k, v, causal=True, q_offset=qo)
+    o, l = b1(q, k, v, causal=True, q_offset=qo)
+    cut = cuda_decode.decode_geometry("tiled", 64, 8, 8, 4096).split_len
+    half = gate((o * 0.5, l), plain)
+    dropped = gate(cuda_decode.decode_plain(
+        q, k[:, :, cut:], v[:, :, cut:], causal=True, q_offset=qo,
+        kv_offset=cut), plain)
+    multi_teeth = {"B1 output halved": {"pass": half[0], "rel": half[2]},
+                   f"B1 first split ({cut} keys) left out": {
+                       "pass": dropped[0], "dlse": dropped[3]}}
+    del q, k, v, plain, o, l
+    for blk in (64, 16):
+        nb = 640 // blk
+        npool = 12 * nb  # the 8 slots' tables leave blocks no slot maps
+        codes_scales = []
+        for _ in range(2):  # K, V: magnitudes that differ by block
+            x = (torch.randn((npool, 16, blk, 128), generator=g, device=dev)
+                 * torch.exp(0.7 * torch.randn((npool, 16, 1, 1),
+                                               generator=g, device=dev)))
+            c8, sc = cuda_decode.quantize_symmetric_int8(
+                x.reshape(npool, 16, blk * 128), 2)
+            codes_scales.append((c8.reshape(npool, 16, blk, 128), sc[..., 0]))
+        (kp8, kbs), (vp8, vbs) = codes_scales
+        cks, cvs = (torch.rand((8, 16, 1, 128), generator=g, device=dev)
+                    * 0.03 + 0.005 for _ in range(2))
+        table = torch.stack([torch.randperm(npool, generator=g,
+                                            device=dev)[:nb]
+                             for _ in range(8)]).to(torch.int32)
+        used = torch.zeros(npool, dtype=torch.bool, device=dev)
+        used[table.long().flatten()] = True
+        spare = int((~used).nonzero()[0])
+        ksn, vsn = kbs.clone(), vbs.clone()
+        ksn[spare], vsn[spare] = math.nan, math.nan
+        for tq in (8, 32):
+            q = rnd(8, 16, tq, 128)
+            qo = torch.randint(0, 640 - tq, (8,), generator=g, device=dev,
+                               dtype=torch.int32)
+            qo[0] = 3 * blk - 3  # the window straddles a block boundary
+            trees = random_trees(8, tq, 1, tq + blk).to(dev)
+            tril = torch.tril(torch.ones(tq, tq, dtype=torch.bool,
+                                         device=dev)).expand(8, tq, tq)
+            past = (torch.arange(nb, device=dev)[None] * blk
+                    >= (qo + tq)[:, None])
+            nan_table = torch.where(past, spare, table).to(torch.int32)
+            for tm, kind in ((None, "chain"), (trees, "tree")):
+                for sk, (ks_, vs_) in (("per-block", (kbs, vbs)),
+                                       ("channel", (cks, cvs))):
+                    name = f"B5 block{blk} Tq{tq} {kind} {sk}"
+                    got = multi_call(b5, lambda: b5(
+                        q, kp8, vp8, table, ks_, vs_, q_offset=qo,
+                        tree_mask=tm))
+                    multi_check(name, got, cuda_decode.paged_decode_q8q_plain(
+                        q, kp8, vp8, table, ks_, vs_, q_offset=qo,
+                        tree_mask=tm))
+                    if sk == "per-block":
+                        multi_bits[f"{name}: NaN blocks and scales past the "
+                                   f"window unread"] = same(got, b5(
+                                       q, kp8, vp8, nan_table, ksn, vsn,
+                                       q_offset=qo, tree_mask=tm))
+            multi_bits[f"B5 block{blk} Tq{tq} tril == causal"] = same(
+                b5(q, kp8, vp8, table, kbs, vbs, q_offset=qo),
+                b5(q, kp8, vp8, table, kbs, vbs, q_offset=qo,
+                   tree_mask=tril))
+            if blk == 16 and tq == 8:
+                # The gate's teeth at B5's multi-row shape, several blocks
+                # (and so scalars) in each 64-key tile.
+                teeth = q8q_teeth((q, kp8, vp8, table, kbs, vbs, qo), b5)
+                multi_teeth.update({f"B5 {f}": {"pass": r[0], "rel": r[2],
+                                                "dlse": r[3]}
+                                    for f, r in teeth.items()})
+            if blk == 64:
+                keys = sum(min(nb * blk, int(o) + tq) for o in qo.tolist())
+                pairs = visible_pairs(qo, tq, nb * blk)
+                mask = gqa_mask(qo, tq, nb * blk)
+                kgd, vgd = gather_paged_kv(deq(kp8, kbs[..., None, None]),
+                                           deq(vp8, vbs[..., None, None]),
+                                           table)
+                record("flash_decode_paged_q8q_tiled",
+                       f"int8 B8 H16 block64 NB10 Tq{tq} chain, per-block "
+                       f"scales",
+                       lambda: b5(q, kp8, vp8, table, kbs, vbs, q_offset=qo),
+                       lambda: cuda_decode.paged_decode_q8q_plain(
+                           q, kp8, vp8, table, kbs, vbs, q_offset=qo),
+                       None, keys * 16 * 128 * 2 + q.numel() * 4
+                       + 2 * 8 * nb * 16 * 4, 0.0,
+                       ops_s=q8_ops_s(16 * pairs, True),
+                       yardstick=lambda: F.scaled_dot_product_attention(
+                           q, kgd, vgd, attn_mask=mask), names=own,
+                       parts=("decode_tiled", "merge_splits"))
+                del kgd, vgd, mask
+    # Saturated codes: every Q code (each row +-1 before the fold, so
+    # absmax/127 puts every code at +-127) and every K code at +-127.
+    kp8 = (torch.randint(0, 2, (40, 16, 64, 128), generator=g, device=dev,
+                         dtype=torch.int8) * 2 - 1) * 127
+    vp8 = torch.randint(-127, 128, (40, 16, 64, 128), generator=g,
+                        device=dev, dtype=torch.int8)
+    kbs, vbs = (torch.rand((40, 16), generator=g, device=dev) * 0.03 + 0.005
+                for _ in range(2))
+    table = torch.stack([torch.randperm(40, generator=g, device=dev)[:10]
+                         for _ in range(8)]).to(torch.int32)
+    q = (torch.randint(0, 2, (8, 16, 8, 128), generator=g, device=dev) * 2
+         - 1).to(torch.bfloat16)
+    qo = torch.randint(0, 632, (8,), generator=g, device=dev,
+                       dtype=torch.int32)
+    codes, _ = cuda_decode._fold_quantize_q(q, 16, None, None)
+    if not bool((codes.abs() == 127).all()):
+        fail("saturated case: Q codes are not all +-127")
+    multi_check("B5 saturated codes D128 Tq8",
+                multi_call(b5, lambda: b5(q, kp8, vp8, table, kbs, vbs,
+                                          q_offset=qo)),
+                cuda_decode.paged_decode_q8q_plain(q, kp8, vp8, table, kbs,
+                                                   vbs, q_offset=qo))
+    print(f"multi-row B1 and B5, row gate: {len(multi_gate)} cases pass, "
+          f"worst relative "
+          f"{max(c['max_rel_err'] for c in multi_gate.values()):.3e}, "
+          f"|dlse| "
+          f"{max(c['max_abs_err_lse'] for c in multi_gate.values()):.3e}; "
+          f"bit for bit {json.dumps(multi_bits)}; the gate's teeth "
+          f"{json.dumps(multi_teeth)}", flush=True)
+    if not all(multi_bits.values()):
+        fail(f"multi-row B1/B5 bit-for-bit checks: {multi_bits}")
+    if not multi_teeth["B5 None"]["pass"] or any(
+            r["pass"] for f, r in multi_teeth.items() if f != "B5 None"):
+        fail(f"multi-row B1/B5: the gate fails its own arithmetic or "
+             f"accepts a planted fault: {multi_teeth}")
+    del kp8, vp8, q, codes
+    torch.cuda.empty_cache()
+
     # B3: a Tq=256 prefill chunk against a 2k-token gathered view.
     q, k, v = rnd(8, 16, 256, 128), rnd(8, 16, 2048, 128), rnd(8, 16, 2048, 128)
     qoff = torch.randint(0, 2048 - 256, (8,), generator=g, device=dev,
@@ -2117,7 +2378,19 @@ def main() -> None:
                           "tiled_launches"):
                 if hasattr(w, extra):
                     setattr(w, extra, 0)
-        cuda_decode.attention_cuda_decode_paged.tiled_tq.clear()
+            if hasattr(w, "tiled_tq"):
+                w.tiled_tq.clear()
+
+    # The multi-row body's launches of a serve, by kernel and Tq.
+    multi_row = {"B1": cuda_decode.attention_cuda_decode,
+                 "B2": cuda_decode.attention_cuda_decode_paged,
+                 "B5": cuda_decode.attention_cuda_decode_paged_q8q}
+
+    def tiled_by_tq():
+        return {n: dict(sorted(w.tiled_tq.items()))
+                for n, w in multi_row.items() if w.tiled_tq}
+
+    serve_tiled = {}  # serve label -> tiled_by_tq()
 
     serve_cfg = parse_args(SERVE_ARGS)
     reset_counts()
@@ -2131,6 +2404,7 @@ def main() -> None:
     b2w = cuda_decode.attention_cuda_decode_paged
     launches["flash_decode_paged_tiled"] = b2w.tiled_launches
     serve_tiled_tq = dict(sorted(b2w.tiled_tq.items()))
+    serve_tiled["serve"] = tiled_by_tq()
     print(f"serve: {rec['requests']} requests, {rec['tokens_generated']} "
           f"tokens, {rec['tokens_per_sec']} tok/s, ttft_p50 "
           f"{rec['ttft_p50_s']}s, tbt_p50 {rec['tbt_p50_s']}s, tbt_p95 "
@@ -2271,23 +2545,28 @@ def main() -> None:
 
     n_layers = tcfg.n_layers
 
-    def serve_main(argv):
+    def serve_main(label, argv):
         """``cli.main`` in process, with the metrics registry off as in the
         exact serve: its record, the steps it ran over the int8 cache (each
         decode tick runs one; staged chunks run on the exact staging
-        cache), the launches."""
+        cache), the launches (``<kernel>_tiled``: of the multi-row body;
+        by Tq in ``serve_tiled[label]``)."""
         reset_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             cli.main(argv)
         torch.cuda.synchronize()
         rec = json.loads(buf.getvalue().strip().splitlines()[-1])
-        return rec, rec["decode_ticks"], {n: w.launches
-                                          for n, w in wrappers.items()}
+        counts = {n: w.launches for n, w in wrappers.items()}
+        for n in ("flash_decode", "flash_decode_paged",
+                  "flash_decode_paged_q8q"):
+            counts[n + "_tiled"] = wrappers[n].tiled_launches
+        serve_tiled[label] = tiled_by_tq()
+        return rec, rec["decode_ticks"], counts
 
     t0 = time.monotonic()
-    q_rec, q_steps, q_launches = serve_main(SERVE_ARGS
-                                            + ["--kv-quant", "int8"])
+    q_rec, q_steps, q_launches = serve_main(
+        "int8 serve", SERVE_ARGS + ["--kv-quant", "int8"])
     print(f"int8 serve: {q_rec['requests']} requests, "
           f"{q_rec['tokens_generated']} tokens, {q_rec['tokens_per_sec']} "
           f"tok/s, ttft_p50 {q_rec['ttft_p50_s']}s, ttft_p95 "
@@ -2310,7 +2589,14 @@ def main() -> None:
     if not (q_launches["flash_decode"] and q_launches["flash_fwd"]) or \
             q_launches["flash_decode_paged"]:
         fail(f"int8 serve staged launches {q_launches}")
+    # The staged prompt tails (below 128 rows) run B1's multi-row body.
+    if not q_launches["flash_decode_tiled"]:
+        fail(f"int8 serve: no staged tail took B1's multi-row body: "
+             f"{q_launches}")
+    print(f"int8 serve: the multi-row body's launches by Tq "
+          f"{json.dumps(serve_tiled['int8 serve'])}", flush=True)
     c_rec, c_steps, c_launches = serve_main(
+        "int8 serve, contiguous",
         SERVE_ARGS + ["--kv-quant", "int8", "--kv-layout", "contiguous",
                       "--requests", "4", "--max-new-tokens", "16"])
     print(f"int8 serve, contiguous: {c_rec['requests']} requests, "
@@ -2325,6 +2611,7 @@ def main() -> None:
              f"{c_steps} int8 steps")
 
     x_rec, x_steps, x_launches = serve_main(
+        "int8-cast serve",
         SERVE_ARGS + ["--kv-quant", "int8-cast", "--requests", "4",
                       "--max-new-tokens", "16"])
     print(f"int8-cast serve, paged: {x_rec['requests']} requests, "
@@ -2344,8 +2631,11 @@ def main() -> None:
     # its greedy tokens equal the exact wave's (reported, not gated).
     q8_rep, q8_breakdown = wave_breakdown("int8 serve", {
         "flash_decode_paged_q8q (B5)": ("decode_split_kernel<signed char, "
-                                        "signed char",),
+                                        "signed char",
+                                        "decode_tiled_kernel<1,",
+                                        "decode_tiled_kernel<2,"),
         "flash_decode (B1 staged chunks) + merges": ("decode_split",
+                                                     "decode_tiled",
                                                      "merge_splits"),
         "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul}, quantize=True)
     exact_tok = {r.uid: r.tokens for r in plain_rep.results}
@@ -2466,10 +2756,13 @@ def main() -> None:
     if not all(math.isfinite(e) and e <= TOL_LOGITS
                for e in tree_step.values()):
         fail(f"tree verify step: {tree_step}")
+    # The multi-row body's kernels by name (their template arguments lead
+    # with the operands): B1 <0, false, ...>, B2 <0, true, ...>, B5 <1 or 2,
+    # ...>.
     spec_wave, spec_breakdown = wave_breakdown("spec serve (oracle)", {
         "B2 multi-row body (tree and chain verify ticks, tails)": (
             "decode_tiled",),
-        "flash_decode tree, split body (B1/B4/B5)": (", 8, true>",),
+        "flash_decode tree, split body (B4)": (", 8, true>",),
         "flash_decode (B2/B1 split body) + merges": ("decode_split",
                                                      "merge_splits"),
         "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul},
@@ -2484,6 +2777,22 @@ def main() -> None:
           f"{plain_rep.decode_ticks} decode ticks; spec "
           f"{json.dumps(spec_wave.spec)}; phase wall "
           f"{time.monotonic() - t0:.2f}s", flush=True)
+    # The same oracle wave on the paged int8 pool: B5's verify ticks on the
+    # multi-row body, B1's staged prompt tails, B5's split body on the
+    # decode ticks between.
+    spec8_wave, spec8_breakdown = wave_breakdown(
+        "spec serve (oracle, paged int8)", {
+            "B5 multi-row body (verify ticks)": ("decode_tiled_kernel<1,",
+                                                 "decode_tiled_kernel<2,"),
+            "B1 multi-row body (staged prompt tails)": (
+                "decode_tiled_kernel<0, false",),
+            "decode split body (B5 ticks, B1) + merges": ("decode_split",
+                                                          "merge_splits"),
+            "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul},
+        speculate=True, draft_k=4, quantize=True,
+        drafter=oracle_drafter(trace, spec_refs[True], tcfg.vocab_size))
+    spec8_breakdown["spec"] = spec8_wave.spec
+    spec8_breakdown["verify_ticks"] = spec8_wave.decode_ticks
     del server, params
     torch.cuda.empty_cache()
 
@@ -2731,18 +3040,24 @@ def main() -> None:
             "cuda", csrc + "flash_decode.cu",
             "tree_attention_tpu/ops/pallas_decode.py:344"),
         "flash_decode_paged_tiled": (
-            "cuda", csrc + "flash_decode.cu",
+            "cuda", csrc + "flash_decode_tiled.cu",
             "tree_attention_tpu/ops/pallas_decode.py:344"),
-        "flash_decode_tree": ("cuda", csrc + "flash_decode.cu",
+        "flash_decode_tiled": (
+            "cuda", csrc + "flash_decode_tiled.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:179"),
+        "flash_decode_paged_q8q_tiled": (
+            "cuda", csrc + "flash_decode_tiled.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:461"),
+        "flash_decode_tree": ("cuda", csrc + "flash_decode_tiled.cu",
                               "tree_attention_tpu/ops/pallas_decode.py:179"),
         "flash_decode_paged_tree": (
-            "cuda", csrc + "flash_decode.cu",
+            "cuda", csrc + "flash_decode_tiled.cu",
             "tree_attention_tpu/ops/pallas_decode.py:344"),
         "flash_decode_q8q_tree": (
             "cuda", csrc + "flash_decode.cu",
             "tree_attention_tpu/ops/pallas_decode.py:266"),
         "flash_decode_paged_q8q_tree": (
-            "cuda", csrc + "flash_decode.cu",
+            "cuda", csrc + "flash_decode_tiled.cu",
             "tree_attention_tpu/ops/pallas_decode.py:461"),
         "flash_fwd": ("cuda", csrc + "flash_fwd.cu",
                       "tree_attention_tpu/ops/pallas_attention.py:65"),
@@ -2767,8 +3082,17 @@ def main() -> None:
     # B2's multi-row body: its launches in the plain serve (prompt tails).
     main_launches["flash_decode_paged_tiled"] = launches[
         "flash_decode_paged_tiled"]
-    # The tree variants: their launches in the speculative serves (3d).
+    # B1's multi-row body: the int8 serve's staged prompt tails; B5's: the
+    # verify ticks of the speculative serves over the paged int8 pool.
     spec_runs = {**spec["cli"], **spec["oracle"]}
+    main_launches["flash_decode_tiled"] = q_launches["flash_decode_tiled"]
+    main_launches["flash_decode_paged_q8q_tiled"] = sum(
+        r["tiled_launches"] for r in spec_runs.values()
+        if r["tree_kernel"] == "flash_decode_paged_q8q")
+    # Every serve's multi-row launches by kernel and Tq.
+    for label, r in spec_runs.items():
+        serve_tiled[f"spec {label}"] = r["tiled_by_tq"]
+    # The tree variants: their launches in the speculative serves (3d).
     for name in ("flash_decode", "flash_decode_paged", "flash_decode_q8q",
                  "flash_decode_paged_q8q"):
         main_launches[name + "_tree"] = sum(
@@ -2842,13 +3166,28 @@ def main() -> None:
                                    "max_rel_err")}
                 for c in mine if " int8 " in c["case"])
         if name.startswith("flash_decode"):
-            # Which body ran the head case (cuda_decode.decode_body: bf16
-            # B2 with more than one packed row takes the multi-row one).
-            entry["body"] = ("tiled" if name in ("flash_decode_paged_tiled",
-                                                 "flash_decode_paged_tree")
-                             else "split")
+            # Which body ran the head case (cuda_decode.decode_body: exact
+            # bf16 B1/B2 and paged q8q B5 with more than one packed row or
+            # a tree take the multi-row one).
+            entry["body"] = ("tiled" if name in (
+                "flash_decode_tiled", "flash_decode_paged_tiled",
+                "flash_decode_paged_q8q_tiled", "flash_decode_tree",
+                "flash_decode_paged_tree", "flash_decode_paged_q8q_tree")
+                else "split")
+        if name in ("flash_decode_tiled", "flash_decode_paged_tiled",
+                    "flash_decode_paged_q8q_tiled"):
+            # The multi-row body's launches of this kernel on every serve,
+            # by Tq.
+            key = {"flash_decode_tiled": "B1", "flash_decode_paged_tiled":
+                   "B2", "flash_decode_paged_q8q_tiled": "B5"}[name]
+            entry["launches_per_serve_by_tq"] = {
+                label: by[key] for label, by in serve_tiled.items()
+                if key in by}
+            if key != "B5":  # the two-rank serves (B1: staged tails)
+                entry["launches_sharded_rank0"] = {
+                    label: ranks[0]["launches"][name]
+                    for label, ranks in sh.items()}
         if name == "flash_decode_paged_tiled":
-            # The new body's launches on each serve of the main path.
             entry["launches_per_serve"] = {
                 "serve (prompt-tail ticks)": launches[name],
                 "serve by Tq bucket": serve_tiled_tq,
@@ -2901,6 +3240,11 @@ def main() -> None:
                    "tree_causal_ms": causal_ms,
                    "spec": spec, "spec_tree_step": tree_step,
                    "spec_breakdown": spec_breakdown,
+                   "spec_int8_breakdown": spec8_breakdown,
+                   "multi_row_gate": multi_gate,
+                   "multi_row_bits": multi_bits,
+                   "multi_row_teeth": multi_teeth,
+                   "serve_multi_row_by_tq": serve_tiled,
                    "sharded": [{k: r[k] for k in ("exact", "int8", "mixed",
                                                   "decode", "decode_launches")}
                                for r in sharded],

@@ -1,28 +1,38 @@
 """How the redesigned kernels cut their work, on the CPU.
 
-B2's multi-row body (``csrc/flash_decode.cu`` ``decode_tiled_kernel``) and
-B7's tensor-core body (``csrc/flash_bwd.cu`` ``flash_dkv_wgmma_kernel``)
-run only on the card; what surrounds them is Python that these tests
-reach:
+The multi-row decode body (``csrc/flash_decode_tiled.cu``
+``decode_tiled_kernel``: B1, B2 and B5 with more than one packed row or a
+tree mask), the split body's merge (``csrc/decode.cuh``
+``merge_splits_kernel``) and B7's tensor-core body (``csrc/flash_bwd.cu``
+``flash_dkv_wgmma_kernel``) run only on the card; what surrounds them is
+Python that these tests reach:
 
-- (a) the static rule that picks B2's body (``cuda_decode.decode_body``),
-  and the launchers' check of the built library's constants;
+- (a) the static rule that picks a decode launch's body
+  (``cuda_decode.decode_body``), and the launchers' check of the built
+  libraries' constants;
 - (b) the split geometry (``decode_geometry``, ``split_keys``): every
   visible (row, key) pair of a ragged batch falls in exactly one split and
   one Q tile, no split reads past its slot's frontier, and under
   ``local_blocks`` the multi-row body's splits are sized on the rank's
-  share of the keys (the split body's on the logical length);
-- (c) B7's walk of (query head, Q tile) per K/V tile (``cuda_bwd
+  share of the keys (the split body's on the logical length); on the
+  contiguous layout also with a ``kv_offset`` (a ``tree_decode`` shard),
+  a shard wholly past the frontier, and without the causal rule;
+- (c) the merge's grouping of the partials (the warps of a row take runs
+  of 32, one weight per lane): a CPU model built on ``merge_partials``
+  equals the flat merge;
+- (d) B7's walk of (query head, Q tile) per K/V tile (``cuda_bwd
   .dkv_walk``): it starts at the first live Q tile (held against the JAX
   package's ``causal_first_live_q``), leaves no live tile out and takes no
   tile twice.
 
-The plain version at the multi-row body's shapes (bf16, Tq 8 and 28, G 1
-and 4, tree and local_blocks) is held against the Pallas paged decode
-kernel in interpret mode, as ``tests/test_pallas_decode.py`` runs it.
-Tolerance as ``tests/test_torch_ops.py`` holds bf16: 2e-2 on out, 1e-2 on
-lse. The ``gpu`` twins launch the kernels against their plain versions and
-skip here.
+The plain versions at the multi-row body's shapes (B2 bf16 at Tq 8 and 28,
+G 1 and 4, tree and local_blocks; B1 at GQA Tq 16 with a kv_offset; B5 at
+a Tq-8 tree with per-block scales over 4-token blocks) are held against
+the Pallas kernels in interpret mode, as ``tests/test_pallas_decode.py``
+runs them. Tolerance as ``tests/test_torch_ops.py`` holds bf16: 2e-2 on
+out, 1e-2 on lse (B5: as ``tests/test_torch_q8.py`` holds q8q). The
+``gpu`` twins launch the kernels against their plain versions and skip
+here.
 """
 
 import jax.numpy as jnp
@@ -31,10 +41,14 @@ import pytest
 import torch
 
 from tree_attention_tpu.ops import block_utils as jbu
-from tree_attention_tpu.ops.pallas_decode import attention_pallas_decode
+from tree_attention_tpu.ops.pallas_decode import (
+    attention_pallas_decode,
+    attention_pallas_decode_q8q,
+)
 
 from tree_attention_tpu_torch.ops import _build, block_utils, cuda_bwd
 from tree_attention_tpu_torch.ops import cuda_decode as cd
+from tree_attention_tpu_torch.ops.reference import merge_partials
 from tree_attention_tpu_torch.ops.tuning import DKV_TILES
 from tree_attention_tpu_torch.serving import ShardedBlockAllocator
 
@@ -54,20 +68,32 @@ BF16, F32, CAST, Q8Q = 1, 0, 2, 3
     (F32, 8, True, False, "split"),     # f32 stays on the CUDA cores
     (F32, 8, True, True, "split"),
     (CAST, 8, True, True, "split"),     # int8 K/V widened (q8 route)
-    (Q8Q, 8, True, False, "split"),     # int8 x int8 (B5)
-    (BF16, 8, False, True, "split"),    # contiguous B1
+    (Q8Q, 8, True, False, "tiled"),     # int8 x int8 through a table (B5)
+    (BF16, 8, False, True, "tiled"),    # contiguous B1, a tree verify tick
     (Q8Q, 8, False, False, "split"),    # contiguous B4
+    (BF16, 64, False, False, "tiled"),  # B1 GQA 4 x 16 (a staged tail)
+    (BF16, 1, False, False, "split"),   # B1 at the reference workload
+    (BF16, 1, False, True, "tiled"),    # B1 one-row tree
+    (Q8Q, 32, True, True, "tiled"),     # B5 tree verify tick, Tq 32
+    (Q8Q, 1, True, True, "tiled"),      # B5 one-row tree
+    (Q8Q, 1, True, False, "split"),     # B5's decode tick
+    (Q8Q, 8, False, True, "split"),     # contiguous q8q tree (B4)
+    (CAST, 16, False, False, "split"),  # B1 over int8 K/V (cast route)
+    (CAST, 64, True, False, "split"),   # B2 over int8 pools (cast route)
+    (F32, 16, False, False, "split"),   # B1 in f32
 ])
 def test_decode_body_rule(variant, rows, paged, tree, body):
-    """The rule is static in the operands: bf16 exact, paged, more than one
-    packed row or a tree mask -> the multi-row body; the local_blocks flag
-    does not enter it (both bodies carry it)."""
+    """The rule is static in the operands: exact bf16 on either layout, or
+    q8q through a block table, with more than one packed row or a tree
+    mask -> the multi-row body; the local_blocks flag does not enter it
+    (both bodies carry it)."""
     assert cd.decode_body(variant, rows, paged, tree) == body
 
 
 def test_decode_launchers_check_the_built_library(monkeypatch):
-    """The launchers read the library's warps per CTA and keys per tile
-    before the first launch, and raise on a library built otherwise."""
+    """The launchers read the split library's warps per CTA and the
+    multi-row library's keys per tile before the first launch, and raise
+    on a library built otherwise."""
 
     class Lib:
         def __init__(self, warps, keys):
@@ -191,7 +217,107 @@ def test_local_splits_follow_the_body(R, W):
         assert sharded.split_len > one.split_len
 
 
-# -- (c) B7's walk ------------------------------------------------------------
+@pytest.mark.parametrize("mode", ["causal", "shard", "noncausal"])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("tq", [2, 16, 64, 127])
+def test_contiguous_geometry_covers_every_visible_pair_once(tq, G, mode):
+    """B1 on the multi-row body (contiguous K/V, Tk not a multiple of the
+    64-key tile): with the causal rule at kv_offset 0; as one
+    ``tree_decode`` shard (per-slot kv_offset, one slot's shard wholly
+    past its frontier: it reads nothing); without the causal rule."""
+    rng = np.random.default_rng(tq * 10 + G)
+    Tk, R = 700, G * tq
+    causal = mode != "noncausal"
+    qoff = rng.integers(0, 2 * Tk, size=B)
+    koff = np.zeros(B, dtype=np.int64)
+    if mode == "shard":
+        koff = rng.integers(1, Tk, size=B)
+        qoff = koff + rng.integers(0, Tk - tq, size=B)
+        koff[2] = qoff[2] + tq  # the slot's first key is past its frontier
+    body = cd.decode_body(BF16, R, False)
+    assert body == "tiled"
+    geo = cd.decode_geometry(body, R, B, HKV, Tk)
+    assert geo.split_len % cd._TILED_KEYS == 0
+    assert geo.q_tiles == -(-R // 64) and geo.splits * geo.split_len >= Tk
+
+    pos = torch.from_numpy(qoff)[:, None] + torch.arange(R) % tq  # (B, R)
+    keys = torch.from_numpy(koff)[:, None] + torch.arange(Tk)      # (B, Tk)
+    visible = ((keys[:, None] <= pos[..., None]) if causal
+               else torch.ones((B, R, Tk), dtype=torch.bool))
+    count = torch.zeros((B, R, Tk), dtype=torch.int32)
+    for b in range(B):
+        for s in range(geo.splits):
+            span = cd.split_keys(geo, s, int(qoff[b]), tq, Tk,
+                                 kv_offset=int(koff[b]), causal=causal)
+            for y in range(geo.q_tiles):
+                count[b, y * geo.rows:(y + 1) * geo.rows,
+                      span.start:span.stop] += 1
+    assert torch.all(count[visible] == 1)
+    assert int(count.max()) <= 1
+    if causal:  # nothing past a slot's frontier is read
+        past = keys > pos[:, -1:]
+        assert not torch.any(count.sum(1).bool() & past)
+    if mode == "shard":
+        assert int(count[2].sum()) == 0
+
+
+# -- (c) the merge ------------------------------------------------------------
+
+def _merge_as_kernel(o, lse, wpr):
+    """``merge_splits_kernel``'s arithmetic on ``(S, rows, D)`` partials:
+    one max over all S, then warp p of a row sums the weights and weighted
+    rows of runs p, p + wpr, ... of 32 partials, and the warps' sums add."""
+    S = lse.shape[0]
+    m = lse.amax(0)
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    num = torch.zeros(o.shape[1:])
+    den = torch.zeros(lse.shape[1:])
+    for p in range(wpr):
+        for s0 in range(32 * p, S, 32 * wpr):
+            w = torch.exp(lse[s0:s0 + 32] - m_safe)
+            num += (w[..., None] * o[s0:s0 + 32]).sum(0)
+            den += w.sum(0)
+    empty = den <= 0
+    out = torch.where(empty[..., None], 0.0,
+                      num / torch.where(empty, 1.0, den)[..., None])
+    return out, torch.where(empty, -torch.inf, m + torch.log(den))
+
+
+@pytest.mark.parametrize("S", [12, 63, 100, 252])
+def test_merge_grouping_equals_the_flat_merge(S):
+    """The kernel's wpr warps per row (one per run of 32 partials, up to 8,
+    rounded up to a power of two, as ``merge_splits`` picks) each merge
+    their runs; the runs
+    regrouped by ``merge_partials`` (each warp's set, then the warps'
+    results) and the kernel's arithmetic both equal the flat merge. Row 0
+    no split saw; in row 1 one warp's every partial is empty."""
+    wpr = min(8, 1 << (-(-S // 32) - 1).bit_length())
+    rng = np.random.default_rng(S)
+    rows, D = 6, 8
+    o = torch.from_numpy(rng.standard_normal((S, rows, D), np.float32))
+    lse = torch.from_numpy(rng.standard_normal((S, rows)).astype(
+        np.float32) * 3)
+    lse[rng.random((S, rows)) < 0.3] = -torch.inf
+    lse[:, 0] = -torch.inf
+    groups = [[s for s0 in range(32 * p, S, 32 * wpr)
+               for s in range(s0, min(s0 + 32, S))] for p in range(wpr)]
+    groups = [x for x in groups if x]  # a warp with no run adds nothing
+    lse[groups[-1], 1] = -torch.inf
+    o[torch.isneginf(lse)] = 0.0  # an empty partial's o, as both bodies write
+    flat = merge_partials(o, lse)
+    parts = [merge_partials(o[g], lse[g]) for g in groups]
+    regrouped = merge_partials(torch.stack([x for x, _ in parts]),
+                               torch.stack([y for _, y in parts]))
+    for got in (regrouped, _merge_as_kernel(o, lse, wpr)):
+        torch.testing.assert_close(got[0], flat[0], atol=1e-6, rtol=1e-5)
+        assert torch.equal(torch.isneginf(got[1]), torch.isneginf(flat[1]))
+        fin = torch.isfinite(flat[1])
+        torch.testing.assert_close(got[1][fin], flat[1][fin], atol=1e-6,
+                                   rtol=1e-5)
+    assert torch.all(flat[0][0] == 0) and torch.all(torch.isneginf(flat[1][0]))
+
+
+# -- (d) B7's walk ------------------------------------------------------------
 
 @pytest.mark.parametrize("causal,qo,ko", [
     (False, 0, 0), (True, 0, 0), (True, 200, 0), (True, 0, 100),
@@ -261,6 +387,68 @@ def test_multi_row_shapes_plain_match_pallas(tq, G, flag):
     np.testing.assert_array_equal(np.isneginf(l.numpy()), np.isneginf(rl))
     fin = np.isfinite(rl)
     np.testing.assert_allclose(l.numpy()[fin], rl[fin], atol=1e-2, rtol=1e-2)
+
+
+def test_b1_gqa_tq16_kv_offset_plain_matches_pallas():
+    """B1's multi-row shape on the contiguous layout: GQA 4 x Tq 16 (64
+    packed rows), per-slot q_offset and kv_offset as a ``tree_decode``
+    shard has them, one slot's shard wholly past its frontier ((0, -inf)),
+    Tk not a multiple of the TPU tile. (``tests/test_torch_ops.py
+    test_b1_plain_matches_pallas_decode`` covers GQA Tq 16 at kv_offset 0.)"""
+    rng = np.random.default_rng(16)
+    Bq, Hkv, G, tq, Tk, D = 3, 2, 4, 16, 77, 16
+    q, k, v = (_bf16(rng.standard_normal(s).astype(np.float32)) for s in (
+        (Bq, Hkv * G, tq, D), (Bq, Hkv, Tk, D), (Bq, Hkv, Tk, D)))
+    ko = np.array([40, 300, 5], np.int32)
+    qo = np.array([100, 280, 30], np.int32)  # slot 1 sees none of its keys
+    ref = attention_pallas_decode(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), causal=True, q_offset=jnp.asarray(qo),
+        kv_offset=jnp.asarray(ko), block_size=32, interpret=True)
+    o, l = cd.attention_cuda_decode(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), causal=True,
+        q_offset=torch.from_numpy(qo), kv_offset=torch.from_numpy(ko))
+    ro = np.asarray(jnp.asarray(ref[0], jnp.float32))
+    rl = np.asarray(ref[1])
+    np.testing.assert_allclose(o.float().numpy(), ro, atol=2e-2, rtol=2e-2)
+    np.testing.assert_array_equal(np.isneginf(l.numpy()), np.isneginf(rl))
+    fin = np.isfinite(rl)
+    np.testing.assert_allclose(l.numpy()[fin], rl[fin], atol=1e-2, rtol=1e-2)
+    assert np.all(np.isneginf(l.numpy()[1])) and torch.all(o[1] == 0)
+
+
+def test_b5_tree_tq8_small_blocks_plain_matches_pallas():
+    """B5's multi-row shape: a Tq-8 tree verify tick over int8 pools of
+    4-token blocks with per-block scales whose magnitudes differ by block,
+    so the scalars change within one of the body's 64-key tiles. Row gate
+    as ``tests/test_torch_q8.py`` holds q8q: each row within 1e-2 of its
+    largest |out|, |dlse| within 1e-4."""
+    rng = np.random.default_rng(8)
+    Bq, Hkv, G, tq, D, blk, NBq, N = 2, 2, 2, 8, 16, 4, 24, 60
+    kq, vq = (rng.integers(-127, 128, size=(N, Hkv, blk, D)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (np.exp(rng.standard_normal((N, Hkv))).astype(np.float32) * 0.01
+              for _ in range(2))
+    table = np.stack([rng.permutation(N)[:NBq] for _ in range(Bq)]
+                     ).astype(np.int32)
+    qo = np.array([NBq * blk - tq, 37], np.int32)
+    q = rng.standard_normal((Bq, Hkv * G, tq, D)).astype(np.float32)
+    tree = np.tril(rng.random((Bq, tq, tq)) < 0.5)
+    tree[:, np.arange(tq), np.arange(tq)] = True
+    tree[:, :, 0] = True
+    ref = attention_pallas_decode_q8q(
+        *(jnp.asarray(x) for x in (q, kq, vq, ks, vs)), causal=True,
+        q_offset=jnp.asarray(qo), block_table=jnp.asarray(table),
+        tree_mask=jnp.asarray(tree), interpret=True)
+    o, l = cd.attention_cuda_decode_paged_q8q(
+        *(torch.from_numpy(x) for x in (q, kq, vq, table, ks, vs)),
+        q_offset=torch.from_numpy(qo), tree_mask=torch.from_numpy(tree))
+    o = o.float().numpy()
+    ro = np.asarray(jnp.asarray(ref[0], jnp.float32))
+    rl = np.asarray(ref[1])
+    assert np.all(np.abs(o - ro) <= 1e-2 * np.abs(ro).max(-1, keepdims=True))
+    np.testing.assert_array_equal(np.isneginf(l.numpy()), np.isneginf(rl))
+    np.testing.assert_allclose(l.numpy(), rl, atol=1e-4, rtol=0)
 
 
 # -- on the card --------------------------------------------------------------
@@ -344,3 +532,82 @@ def test_dkv_tensor_core_body_matches_plain_on_gpu():
             got = cuda_bwd.attention_cuda_dkv(q, k, v, do, lse_f, delta, **kw)
             want = cuda_bwd.dkv_plain(q, k, v, do, lse_f, delta, **kw)
             assert cuda_bwd.grad_rows_close(got, want, 2e-2)[0], (D, Tq)
+
+
+@pytest.mark.gpu
+def test_b1_multi_row_body_matches_plain_on_gpu():
+    """B1 on the multi-row body against its plain version: GQA Tq 16 over a
+    Tk that is not a multiple of 64, Tq 2, 5, 64, 127 at G 1 and 4, D 64
+    and 128, causal and not, per-slot kv_offset with one slot's shard past
+    its frontier ((0, -inf)), and a tree whose lower-triangular mask gives
+    the causal launch bit for bit; each launch counted on
+    ``.tiled_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode (the plain versions are tested above)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(2)
+    w = cd.attention_cuda_decode
+    for D in (64, 128):
+        for G, tq, tk in ((4, 16, 4037), (1, 2, 640), (4, 5, 640),
+                          (1, 64, 700), (4, 127, 700)):
+            q = torch.randn(4, 8 * G, tq, D, generator=g).to(dev,
+                                                            torch.bfloat16)
+            k, v = (torch.randn(4, 8, tk, D, generator=g).to(
+                dev, torch.bfloat16) for _ in range(2))
+            ko = torch.tensor([0, 37, 900, 5], dtype=torch.int32, device=dev)
+            qo = torch.tensor([tk - tq, 500, 700, 60], dtype=torch.int32,
+                              device=dev)  # slot 2's shard is past it
+            for kw in (dict(causal=True, q_offset=qo, kv_offset=ko),
+                       dict(causal=False)):
+                before = w.tiled_launches
+                got = w(q, k, v, **kw)
+                assert w.tiled_launches == before + 1
+                assert _gate(got, cd.decode_plain(q, k, v, **kw)), (D, tq)
+            if tq <= 32:
+                tril = torch.tril(torch.ones(tq, tq, dtype=torch.bool,
+                                             device=dev)).expand(4, tq, tq)
+                kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+                a, t = w(q, k, v, **kw), w(q, k, v, tree_mask=tril, **kw)
+                assert torch.equal(a[0], t[0]) and torch.equal(a[1], t[1])
+
+
+@pytest.mark.gpu
+def test_b5_multi_row_body_matches_plain_on_gpu():
+    """B5 on the multi-row body against its plain version: chain and tree
+    verify ticks at Tq 8 and 32 over 64- and 16-token blocks, per-block
+    scales and channel scales; each launch counted on
+    ``.tiled_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode (the plain versions are tested above)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(3)
+    w = cd.attention_cuda_decode_paged_q8q
+    for blk in (64, 16):
+        nb, N = 640 // blk, 2 * 640 // blk
+        kq, vq = (torch.randint(-127, 128, (N, 8, blk, 128), generator=g,
+                                dtype=torch.int8).to(dev) for _ in range(2))
+        scales = {
+            "block": tuple((torch.rand(N, 8, generator=g) * 0.03 + 0.005
+                            ).to(dev) for _ in range(2)),
+            "channel": tuple((torch.rand(4, 8, 1, 128, generator=g) * 0.03
+                              + 0.005).to(dev) for _ in range(2))}
+        table = torch.stack([torch.randperm(N, generator=g)[:nb]
+                             for _ in range(4)]).to(dev, torch.int32)
+        for tq in (8, 32):
+            q = torch.randn(4, 8, tq, 128, generator=g).to(dev,
+                                                          torch.bfloat16)
+            qo = torch.randint(0, 640 - tq, (4,), generator=g).to(
+                dev, torch.int32)
+            tree = torch.tril(torch.rand(4, tq, tq, generator=g) < 0.5)
+            tree = (tree | torch.eye(tq, dtype=torch.bool)).to(dev)
+            for ks, vs in scales.values():
+                for tm in (None, tree):
+                    before = w.tiled_launches
+                    got = w(q, kq, vq, table, ks, vs, q_offset=qo,
+                            tree_mask=tm)
+                    assert w.tiled_launches == before + 1
+                    assert _gate(got, cd.paged_decode_q8q_plain(
+                        q, kq, vq, table, ks, vs, q_offset=qo,
+                        tree_mask=tm)), (blk, tq)

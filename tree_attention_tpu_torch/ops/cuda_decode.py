@@ -2,7 +2,8 @@
 B4 and B5 (int8 Q x int8 K).
 
 Counterpart of ``tree_attention_tpu/ops/pallas_decode.py``; the kernels are
-``csrc/flash_decode.cu`` (design notes and the bound there). Same
+``csrc/flash_decode.cu`` and ``csrc/flash_decode_tiled.cu`` (design notes
+and the bound there). Same
 ``(out, lse)`` contract: each KV head's ``G*Tq`` query rows are packed into
 one tile, a key at global position ``kv_offset + j`` is visible to packed
 row ``r`` iff ``kv_offset + j <= q_offset[b] + r % Tq`` (causal), scores and
@@ -37,14 +38,21 @@ B2's ``local_blocks`` variant (one rank's slice of a sequence-sharded pool)
 on ``attention_cuda_decode_paged.local_launches``, and each wrapper's tree
 variant on its ``.tree_launches``.
 
-Two bodies compute every launch (``csrc/flash_decode.cu``), chosen by the
-static rule :func:`decode_body`: B2 with bf16 operands and more than one
-packed row per KV head, or a tree mask, runs the multi-row body on the
-tensor cores (prompt tails, verify ticks, the sharded pool's chunks),
-whatever its ``local_blocks`` flag; every other launch runs the split
-body. Launches of
-the multi-row body also count on ``attention_cuda_decode_paged
-.tiled_launches``. :func:`decode_geometry` sizes each body's splits.
+Two bodies compute every launch, chosen by the static rule
+:func:`decode_body`. The multi-row body (``csrc/flash_decode_tiled.cu``,
+tensor cores) takes every launch with more than one packed row per KV
+head, or a tree mask, whose operands are exact bf16 (B1 on either layout,
+B2 with or without ``local_blocks``) or q8q through a block table (B5):
+prompt tails, staged int8 admission's chunks, verify ticks, the sharded
+pool's chunks. It reads each key once per 64 packed rows; bytes bound it.
+The split body (``csrc/flash_decode.cu``, CUDA cores) takes the rest: one
+packed row without a mask (the decode tick, ``--mode decode``), f32, the
+int8 cast route, contiguous q8q (B4). A warp owns 1 packed row (then it
+reads each key once, and bytes bound it) or 8, and then re-reads the keys
+for every 8 rows. Both write per-split partials that one
+merge kernel combines. Launches of the multi-row body also count on the
+wrapper's ``.tiled_launches`` and, by Tq, ``.tiled_tq`` (B1, B2, B5).
+:func:`decode_geometry` sizes each body's splits.
 """
 
 from __future__ import annotations
@@ -98,23 +106,19 @@ def _launchers():
     global _lib_fns
     if _lib_fns is None:
         lib = _build.library("flash_decode")
+        tlib = _build.library("flash_decode_tiled")
         built = (lib.flash_decode_warps_per_cta(),
-                 lib.flash_decode_tiled_keys())
+                 tlib.flash_decode_tiled_keys())
         if built != (_SPLIT_WARPS, _TILED_KEYS):
             raise RuntimeError(
-                f"flash_decode was built with (warps per CTA, keys per tile) "
-                f"{built}, ops/cuda_decode.py says "
+                f"the decode libraries were built with (warps per CTA, keys "
+                f"per tile) {built}, ops/cuda_decode.py says "
                 f"{(_SPLIT_WARPS, _TILED_KEYS)}")
-        split = lib.flash_decode_launch
-        split.argtypes = (
-            [ctypes.c_void_p] * 13
-            + [ctypes.c_int] * 15
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
-        tiled = lib.flash_decode_tiled_launch
-        tiled.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
-                          + [ctypes.c_float, ctypes.c_void_p])
-        split.restype = tiled.restype = ctypes.c_int
+        split, tiled = lib.flash_decode_launch, tlib.flash_decode_tiled_launch
+        for fn in (split, tiled):  # one signature: see _launch
+            fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 15
+                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         _lib_fns = (split, tiled)
     return _lib_fns
 
@@ -129,16 +133,19 @@ def _rows_per_warp(rows: int, tree: bool = False) -> int:
 def decode_body(variant: int, rows: int, paged: bool,
                 tree: bool = False) -> str:
     """Which body a launch runs, by a static rule on its operands:
-    ``"tiled"`` — the multi-row body on the tensor cores — for exact bf16
-    operands (``variant`` 1) read through a block table with ``rows`` =
-    G*Tq > 1 packed rows per KV head or a tree mask; ``"split"`` for every
-    other launch: one packed row without a mask (the lean decode tick),
-    f32, the int8 cast and q8q variants, contiguous K/V (B1, B4). The
-    ``local_blocks`` flag rides either body, and the multi-row body takes
-    any block size and any row count, so no shape it receives is turned
-    away."""
-    tiled = (variant == _DTYPES[torch.bfloat16] and paged
-             and (rows > 1 or tree))
+    ``"tiled"`` — the multi-row body on the tensor cores — for a launch
+    with ``rows`` = G*Tq > 1 packed rows per KV head or a tree mask whose
+    operands are exact bf16 (``variant`` 1: B1 on contiguous K/V, B2
+    through a block table) or int8 q8q through a block table (``variant``
+    3: B5); ``"split"`` for every other launch: one packed row without a
+    mask (the lean decode tick), f32 (the reference pins f32 products at
+    HIGHEST: no tensor cores), the int8 cast route over B1/B2, contiguous
+    q8q (B4). The ``local_blocks`` flag rides either body, and the
+    multi-row body takes any block size, kv_offset and row count, so no
+    shape it receives is turned away."""
+    multi = rows > 1 or tree
+    tiled = multi and (variant == _DTYPES[torch.bfloat16]
+                       or (variant == _Q8Q and paged))
     return "tiled" if tiled else "split"
 
 
@@ -189,14 +196,19 @@ def decode_geometry(body: str, R: int, B: int, Hkv: int, Tk: int, *,
     return Geometry(body, rows, q_tiles, split_len, ctas * _SPLIT_WARPS, ctas)
 
 
-def split_keys(geo: Geometry, split: int, q_offset: int, Tq: int,
-               Tk: int) -> range:
-    """The logical keys split ``split`` of a causal launch streams for a
-    slot whose first query sits at ``q_offset`` (kv_offset 0): its range
-    culled at the last row's frontier — the rule both bodies compute on
-    the card, so no table entry past a slot is read."""
+def split_keys(geo: Geometry, split: int, q_offset: int, Tq: int, Tk: int,
+               kv_offset: int = 0, causal: bool = True) -> range:
+    """The keys split ``split`` of a launch streams for a slot whose first
+    query sits at ``q_offset`` and whose keys start at ``kv_offset``: its
+    range, culled (``causal``) at the last row's frontier ``q_offset -
+    kv_offset + Tq`` — the rule both bodies compute on the card, so no table
+    entry past a slot is read and a shard wholly past the frontier reads
+    nothing."""
     j0 = split * geo.split_len
-    return range(j0, min(Tk, j0 + geo.split_len, q_offset + Tq))
+    hi = min(Tk, j0 + geo.split_len)
+    if causal:
+        hi = min(hi, q_offset - kv_offset + Tq)
+    return range(j0, max(j0, hi))
 
 
 def tree_bits_rows(tree_mask: torch.Tensor, n_q_per_kv: int,
@@ -497,15 +509,16 @@ def _check_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
     return _CAST
 
 
-def _launch(qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB, causal,
-            scale, qs=None, block_scales=None, local_blocks=False,
+def _launch(wrapper, qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB,
+            causal, scale, qs=None, block_scales=None, local_blocks=False,
             tree_mask=None, shards=1):
     """Run a body (:func:`decode_body`) and its merge on packed ``qp``
     ``(B, Hkv, R, D)``; returns ``out`` ``(B, Hkv, R, D)`` (bf16 for the
     int8 variants) and ``lse`` ``(B, Hkv, R)``. ``local_blocks``: the paged
     table is signed (negative = a block another rank holds), the pool
     sharded over ``shards`` ranks. ``tree_mask``: the tree variant, its
-    bits packed here on the device."""
+    bits packed here on the device. A launch of the multi-row body counts
+    on ``wrapper.tiled_launches`` and, by Tq, in ``wrapper.tiled_tq``."""
     split_fn, tiled_fn = _launchers()
     B, Hkv, R, D = qp.shape
     tree = tree_mask is not None
@@ -531,27 +544,23 @@ def _launch(qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB, causal,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
     if geo.body == "tiled":
-        attention_cuda_decode_paged.tiled_launches += 1
-        by_tq = attention_cuda_decode_paged.tiled_tq
-        by_tq[Tq] = by_tq.get(Tq, 0) + 1
-        err = tiled_fn(
-            qp.data_ptr(), k.data_ptr(), v.data_ptr(), offs.data_ptr(),
-            table.data_ptr(), ptr(bits), o_part.data_ptr(),
-            lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), D,
-            geo.rows, B, Hkv, R, Tq, blk, NB, geo.splits, geo.split_len,
-            int(local_blocks), float(scale), stream)
+        # The multi-row body takes rows a CTA and partials where the split
+        # body takes rows a warp and CTAs along the keys.
+        fn, rows, ctas = tiled_fn, geo.rows, geo.splits
+        wrapper.tiled_launches += 1
+        wrapper.tiled_tq[Tq] = wrapper.tiled_tq.get(Tq, 0) + 1
     else:
-        err = split_fn(
-            qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(qs),
-            ptr(None if block_scales is None else block_scales[0]),
-            ptr(None if block_scales is None else block_scales[1]),
-            offs.data_ptr(), ptr(table), ptr(bits), o_part.data_ptr(),
-            lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), variant, D,
-            int(table is not None), geo.rows, B, Hkv, R, Tq, Tk, blk, NB,
-            geo.ctas, geo.split_len, int(causal), int(local_blocks),
-            float(scale), stream)
+        fn, rows, ctas = split_fn, geo.rows, geo.ctas
+    err = fn(
+        qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(qs),
+        ptr(None if block_scales is None else block_scales[0]),
+        ptr(None if block_scales is None else block_scales[1]),
+        offs.data_ptr(), ptr(table), ptr(bits), o_part.data_ptr(),
+        lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), variant, D,
+        int(table is not None), rows, B, Hkv, R, Tq, Tk, blk, NB, ctas,
+        geo.split_len, int(causal), int(local_blocks), float(scale),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
     return out, lse
@@ -579,7 +588,9 @@ def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
     """B1: ``q`` ``(B, Hq, Tq, D)`` against contiguous ``k``/``v``
     ``(B, Hkv, Tk, D)`` of q's dtype, or int8 (q then runs in bf16);
     offsets scalar or ``(B,)``. Launches with ``tree_mask`` count on
-    ``.tree_launches``."""
+    ``.tree_launches``, the others on ``.launches``; launches of the
+    multi-row body (bf16, more than one packed row or a tree) also on
+    ``.tiled_launches`` and, by Tq, in ``.tiled_tq``."""
     _check_tree(q, tree_mask, causal)
     if q.device.type == "cpu":
         return decode_plain(q, k, v, causal=causal, scale=scale,
@@ -591,15 +602,17 @@ def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
         return empty_result(q)
     offs = offsets(q_offset, kv_offset, B, q.device).contiguous()
     _count(attention_cuda_decode, tree_mask)
-    out, lse = _launch(_pack(_cast_q(q, k), Hkv), k, v, offs, None,
-                       variant=variant, Tq=q.shape[2], Tk=Tk, blk=1, NB=0,
-                       causal=causal, scale=default_scale(D, scale),
-                       tree_mask=tree_mask)
+    out, lse = _launch(attention_cuda_decode, _pack(_cast_q(q, k), Hkv), k,
+                       v, offs, None, variant=variant, Tq=q.shape[2], Tk=Tk,
+                       blk=1, NB=0, causal=causal,
+                       scale=default_scale(D, scale), tree_mask=tree_mask)
     return _unfold_out(out, lse, q, None)
 
 
 attention_cuda_decode.launches = 0
 attention_cuda_decode.tree_launches = 0
+attention_cuda_decode.tiled_launches = 0
+attention_cuda_decode.tiled_tq = {}  # multi-row launches by Tq
 
 
 def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
@@ -648,7 +661,8 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
         attention_cuda_decode_paged.local_launches += 1
     else:
         _count(attention_cuda_decode_paged, tree_mask)
-    out, lse = _launch(_pack(_cast_q(q, k), Hkv), k, v, offs,
+    out, lse = _launch(attention_cuda_decode_paged,
+                       _pack(_cast_q(q, k), Hkv), k, v, offs,
                        block_table.contiguous(), variant=variant,
                        Tq=q.shape[2], Tk=NB * blk,
                        blk=blk, NB=NB, causal=True,
@@ -687,7 +701,8 @@ def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
     codes, qs = _fold_quantize_q(q, Hkv, k_scale, scale)
     offs = offsets(q_offset, kv_offset, B, q.device).contiguous()
     _count(attention_cuda_decode_q8q, tree_mask)
-    out, lse = _launch(codes, k_q, v_q, offs, None, variant=_Q8Q,
+    out, lse = _launch(attention_cuda_decode_q8q, codes, k_q, v_q, offs,
+                       None, variant=_Q8Q,
                        Tq=q.shape[2], Tk=Tk, blk=1, NB=0, causal=causal,
                        scale=1.0, qs=qs, tree_mask=tree_mask)
     return _unfold_out(out, lse, q, v_scale)
@@ -708,7 +723,9 @@ def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
     """B5: B4 through the ``(B, NB)`` int32 table over int8 ``(N, Hkv,
     block, D)`` pools, with per-block ``(N, Hkv)`` scales (read through the
     table in the kernel) or channel ``(B, Hkv, 1, D)`` scales (folded as in
-    B4)."""
+    B4). Launches count as B1's do (``.launches``, ``.tree_launches``;
+    ``.tiled_launches`` and ``.tiled_tq`` for the multi-row body, which
+    takes more than one packed row or a tree)."""
     _check_tree(q, tree_mask)
     if q.device.type == "cpu":
         return paged_decode_q8q_plain(q, k_q, v_q, block_table, k_scale,
@@ -726,7 +743,8 @@ def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
                                  scale)
     offs = offsets(q_offset, 0, B, q.device).contiguous()
     _count(attention_cuda_decode_paged_q8q, tree_mask)
-    out, lse = _launch(codes, k_q, v_q, offs, block_table.contiguous(),
+    out, lse = _launch(attention_cuda_decode_paged_q8q, codes, k_q, v_q,
+                       offs, block_table.contiguous(),
                        variant=_Q8Q, Tq=q.shape[2], Tk=NB * blk, blk=blk,
                        NB=NB, causal=True, scale=1.0, qs=qs,
                        block_scales=(k_scale, v_scale) if per_block
@@ -736,6 +754,8 @@ def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
 
 attention_cuda_decode_paged_q8q.launches = 0
 attention_cuda_decode_paged_q8q.tree_launches = 0
+attention_cuda_decode_paged_q8q.tiled_launches = 0
+attention_cuda_decode_paged_q8q.tiled_tq = {}  # multi-row launches by Tq
 
 
 def attention_cuda_decode_q8(q, k_q, v_q, k_scale, v_scale, *,
