@@ -7,7 +7,7 @@ failure exits non-zero:
    ``nvcc`` per source, all started together), print the card, each
    kernel's registers and spills (the decode split body's tree variants
    beside their causal twins, every instantiation of the multi-row body of
-   B1, B2 and B5),
+   B1, B2, B4, B5 and the cast route, by library),
    and the HGMMA instructions in the SASS of the tensor-core bodies of B3,
    B6 and B7 (``cuobjdump -sass``; none is a failure, and so is a spill in
    B7's tensor-core body or in the multi-row decode body).
@@ -98,6 +98,21 @@ failure exits non-zero:
    the gate shown rejecting scales read by logical block, the V scalar
    before the softmax sum and an output halved; B5's chain verify ticks
    timed.
+   B4 and the int8 cast route over B1/B2 on the same multi-row body (phase
+   2g), each launch counted on ``.tiled_launches`` (B4) or
+   ``.cast_tiled_launches`` (B1, B2): B4 under the row gate at GQA Tq 16
+   over Tk 4096 and 4037, Tq 2, 5, 64, 127, G 1 and 4, D 64 and 128,
+   causal with per-slot kv_offset (a shard past its frontier exactly
+   ``(0, -inf)``) and not, trees at Tq 8 and 32 and at the reference
+   workload; the cast route on both layouts with channel scales and with
+   per-block scales over 64- and 16-token blocks, trees at Tq 8 and 32,
+   the ``local_blocks`` 64-row chunk at W 2 and 4 merged against
+   unsharded B2, codes at +-127; bit for bit: tril == causal, codes past
+   each frontier changed, and NaN scalars past each window and in every
+   block a rank's table does not name, all unread; the gate shown
+   rejecting an output halved, one split dropped, scalars read by logical
+   block and the V scalar before the softmax sum; the timed cases beside
+   their bound and the dequantized-SDPA yardstick.
 3. Serve 16 requests through the paged, chunked SlotServer (the CLI's
    ``--mode serve`` entry point) at the reference attention width (d_model
    2048, 16 heads x 128, d_ff 5504, vocab 32768, bf16, depth cut to 4
@@ -134,18 +149,21 @@ failure exits non-zero:
    proposal a tree, every commit a compaction) on the paged and contiguous
    layouts, exact and int8: every request retires with its budget, the
    pool drains, each tree verify tick launches the layout's tree kernel
-   once per layer and no other tree kernel runs (on the exact pools and
-   the paged int8 pool through the multi-row body of B2, B1 and B5, which
-   every verify tick takes), the
+   once per layer and no other tree kernel runs (through the multi-row
+   body of B2, B1, B5 and B4, which every verify tick takes), and the
+   same oracle wave through the int8 cast route (``quant_kernel="q8"``)
+   on the paged and contiguous layouts, whose verify ticks take the cast
+   route's multi-row body (B2 with per-block scales, B1); the
    oracle's acceptance
    is above 0 on the paged layouts, and every emitted greedy token is
    within 0.1 of its position's largest logit when the stream is re-scored
-   by the non-speculative kernel path (teacher-forced replay). One tree
+   by the non-speculative kernel path through the serve's own q8 route
+   (teacher-forced replay). One tree
    verify step's logits against the plain path (exact and int8) and
    against each root path decoded one token at a time, within 0.1. Token
    agreement with the non-speculative serve, acceptance, tokens per verify
    tick and spec tok/s beside non-spec tok/s are reported, with the oracle
-   wave's device split, exact and on the paged int8 pool. Every serve's
+   wave's device split, exact and on the paged and contiguous int8 pools. Every serve's
    launches of the multi-row body are reported by kernel and Tq.
    Then two ranks on the one card (spawned processes on ``cuda:0`` over
    gloo; NCCL refuses two ranks on one device): ``--mesh seq=2 --kv-shard
@@ -153,8 +171,9 @@ failure exits non-zero:
    each): every request retires with its budget, each rank's pool drains
    and holds half the whole pool's bytes, B2 ``local_blocks`` launches
    once per layer and step on each rank (nothing else reads the sharded
-   pool; the exact chunks take its multi-row body, the int8 slice's cast
-   route never), exactly 1 MAX + 2 SUM all-reduces per layer and step
+   pool; the exact chunks take its multi-row body; the int8 slice runs
+   one-row decode ticks only, staged admission's chunks going to the
+   staging cache), exactly 1 MAX + 2 SUM all-reduces per layer and step
    (int8: plus one SUM per step for the anchor scales), both ranks'
    tokens equal; one mixed step's merged logits within 0.1 of the single-rank path on the
    same logical cache; greedy agreement with the single-rank serve
@@ -567,12 +586,13 @@ def oracle_drafter(requests, refs, vocab: int, wrong_every: int = 3):
 
 
 def replay_margin(params, cfg, results, requests, quant: bool, layout: str,
-                  dev, block: int = 64) -> float:
+                  dev, block: int = 64, quant_kernel: str = "q8q") -> float:
     """Teacher-forced re-scoring of a greedy serve's emitted tokens through
     the non-speculative kernel path: each request's prompt prefilled
     exactly (an int8 cache then takes it quantized as staged admission
     does: per block on the paged layout, per channel on the contiguous
-    one), then every emitted token but the last in one step. Returns the
+    one), then every emitted token but the last in one step (an int8
+    cache's through the serve's ``quant_kernel`` route). Returns the
     largest (row's max logit - emitted token's logit) over every emitted
     token; a greedy token the model would not pick shows there."""
     import numpy as np
@@ -621,7 +641,8 @@ def replay_margin(params, cfg, results, requests, quant: bool, layout: str,
             else:
                 cache = quantize_cache(stage)
             if len(res.tokens) > 1:
-                lg, _ = forward_step(params, toks[None, :-1], cache, cfg)
+                lg, _ = forward_step(params, toks[None, :-1], cache, cfg,
+                                     quant_kernel=quant_kernel)
                 rows = torch.cat([rows, lg[0]], 0)
         rows = rows.float()
         margin = rows.amax(-1) - rows.gather(1, toks[:, None])[:, 0]
@@ -729,11 +750,14 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
     ``--kv-quant int8``, on the serve phase's trace; (b) the oracle drafter
     in process on the wave's trace (``refs``: its non-speculative greedy
     tokens, exact and int8) on the paged and contiguous layouts, exact and
-    int8. Every serve retires every request with its budget and drains its
-    pool; each tree verify tick launches the layout's tree kernel once per
-    layer (and no other tree kernel runs); the oracle's acceptance is above
-    0 on the paged layouts; every emitted token passes the teacher-forced
-    replay (:func:`replay_margin` within ``tol_logits``); (c) a sampled
+    int8 through both q8 routes (q8q: B5 / B4; q8, the cast route: B2 with
+    per-block scales / B1). Every serve retires every request with its
+    budget and drains its pool; each tree verify tick launches the layout's
+    tree kernel once per layer (and no other tree kernel runs), and the
+    kernel's multi-row body (its cast route's, for q8) at least once per
+    tree launch; the oracle's acceptance is above 0 on the paged layouts;
+    every emitted token passes the teacher-forced replay
+    (:func:`replay_margin` within ``tol_logits``); (c) a sampled
     wave served plain and then speculatively (the oracle drafting the plain
     serve's sampled tokens) under one seed. Token agreement with the
     non-speculative serves is reported, not gated. On a CPU the launch
@@ -745,18 +769,22 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
     from tree_attention_tpu_torch.utils.config import parse_args
 
     on_card = dev.type == "cuda"
-    tree_kernel = {("paged", False): "flash_decode_paged",
-                   ("paged", True): "flash_decode_paged_q8q",
-                   ("contiguous", False): "flash_decode",
-                   ("contiguous", True): "flash_decode_q8q"}
+    # The tree kernel of each (layout, q8 route; None: exact).
+    tree_kernel = {("paged", None): "flash_decode_paged",
+                   ("paged", "q8q"): "flash_decode_paged_q8q",
+                   ("paged", "q8"): "flash_decode_paged",
+                   ("contiguous", None): "flash_decode",
+                   ("contiguous", "q8q"): "flash_decode_q8q",
+                   ("contiguous", "q8"): "flash_decode"}
     n_layers = cfg.n_layers
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
-    def check(label, rep, server, n_req, n_new, layout, quant):
-        """The gates every speculative serve passes; returns its facts."""
+    def check(label, rep, server, n_req, n_new, layout, route):
+        """The gates every speculative serve passes; returns its facts.
+        ``route``: the q8 route of an int8 cache, None for an exact one."""
         tree = {n: w.tree_launches for n, w in wrappers.items()
                 if hasattr(w, "tree_launches")}
         ticks = rep.spec["tree_verify_ticks"]
@@ -766,30 +794,31 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
                  f"{rep.tokens_generated} tokens")
         if any(server.leak_report().values()):
             fail(f"spec serve {label} leaked: {server.leak_report()}")
-        mine = tree_kernel[(layout, quant)]
+        mine = tree_kernel[(layout, route)]
         if on_card and (tree[mine] != n_layers * ticks or any(
                 c for n, c in tree.items() if n != mine)):
             fail(f"spec serve {label}: tree launches {tree} over {ticks} "
                  f"tree verify ticks x {n_layers} layers")
-        # Every verify tick (tree or chain, Tq >= 8) of the exact pools and
-        # the paged int8 pool runs the layout's kernel on the multi-row
-        # body (B2, B1, B5); contiguous int8 (B4) keeps the split body.
-        tiled = (wrappers[mine].tiled_launches
-                 if hasattr(wrappers[mine], "tiled_launches") else 0)
-        if on_card and (layout, quant) != ("contiguous", True) and not (
-                tiled >= tree[mine] and tiled > 0):
+        # Every verify tick (tree or chain, Tq >= 8) runs the layout's
+        # kernel on the multi-row body (B2, B1, B5, B4; the cast route's
+        # for q8, counted apart from the exact staged prompt tails).
+        tiled = getattr(wrappers[mine], "cast_tiled_launches"
+                        if route == "q8" else "tiled_launches")
+        if on_card and not (tiled >= tree[mine] and tiled > 0):
             fail(f"spec serve {label}: {mine}'s multi-row body launched "
                  f"{tiled} times beside {tree[mine]} tree launches")
         by_tq = {n: dict(sorted(wrappers[k].tiled_tq.items()))
                  for n, k in (("B1", "flash_decode"),
                               ("B2", "flash_decode_paged"),
+                              ("B4", "flash_decode_q8q"),
                               ("B5", "flash_decode_paged_q8q"))
                  if wrappers[k].tiled_tq}
         return {"spec": rep.spec, "tokens_per_sec": rep.tokens_per_sec,
                 "wall_s": rep.wall_s, "ticks": rep.ticks,
-                "decode_ticks": rep.decode_ticks,
-                "tree_launches": tree[mine], "tree_kernel": mine,
-                "tiled_launches": tiled, "tiled_by_tq": by_tq}
+                "decode_ticks": rep.decode_ticks, "route": route,
+                "layout": layout, "tree_launches": tree[mine],
+                "tree_kernel": mine, "tiled_launches": tiled,
+                "tiled_by_tq": by_tq}
 
     out = {"cli": {}, "oracle": {}}
     for quant in ("none", "int8"):
@@ -801,7 +830,7 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
             rec, server, rep = cli.run_serve(c, dev)
             sync()
             r = check(label, rep, server, c.requests, c.max_new_tokens,
-                      "paged", quant != "none")
+                      "paged", None if quant == "none" else "q8q")
             reqs = synthetic_trace(
                 c.requests, prompt_len=c.prompt_len,
                 prompt_jitter=c.prompt_jitter,
@@ -826,17 +855,19 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
             del server
     n_new = max(r.max_new_tokens for r in trace)
     for layout in ("paged", "contiguous"):
-        for quant in (False, True):
-            label = f"oracle {layout}{' int8' if quant else ''}"
+        for route in (None, "q8q", "q8"):
+            quant = route is not None
+            label = (f"oracle {layout}{' int8' if quant else ''}"
+                     f"{' q8' if route == 'q8' else ''}")
             ref = refs[quant]
             server = SlotServer(
                 params, cfg, **engine_kw, kv_layout=layout, quantize=quant,
-                speculate=True, draft_k=4,
+                quant_kernel=route or "q8q", speculate=True, draft_k=4,
                 drafter=oracle_drafter(trace, ref, cfg.vocab_size))
             reset_counts()
             rep = server.serve(trace)
             sync()
-            r = check(label, rep, server, len(trace), n_new, layout, quant)
+            r = check(label, rep, server, len(trace), n_new, layout, route)
             if on_card and not r["tree_launches"]:
                 fail(f"spec serve ({label}): no tree verify tick")
             same = sum(a == b for x in rep.results
@@ -844,7 +875,7 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
             r["tokens_equal_to_nonspec"] = same / rep.tokens_generated
             r["replay_margin"] = replay_margin(
                 params, cfg, rep.results, trace, quant, layout, dev,
-                engine_kw.get("kv_block", 64))
+                engine_kw.get("kv_block", 64), route or "q8q")
             out["oracle"][label] = r
             print(f"spec serve ({label}): {rep.tokens_per_sec:.1f} tok/s, "
                   f"spec {json.dumps(rep.spec)}, tree launches "
@@ -882,7 +913,7 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
     reset_counts()
     rep = server.serve(trace)
     sync()
-    r = check(label, rep, server, len(trace), n_new, "paged", False)
+    r = check(label, rep, server, len(trace), n_new, "paged", None)
     same = sum(a == b for x in rep.results
                for a, b in zip(x.tokens, sref[x.uid]))
     r["tokens_equal_to_nonspec"] = same / rep.tokens_generated
@@ -955,15 +986,20 @@ def main() -> None:
               n[n.index("kernelI") + 7:n.index("EEEv")]: [
                   r, dptx.get(n.replace("ELb1EEEv", "ELb0EEEv"))]
               for n, r in tree_bodies.items()}), flush=True)
-    # The multi-row body of B1, B2 and B5 (mma.sync): registers and spills
-    # of each instantiation (operands, layout, D, warps, tree, local), by
-    # mangled name.
-    tptx = ptxas_summary(_build, ("flash_decode_tiled",),
-                         r"_Z\w*(decode_tiled_kernelI\w+?EE)v",
-                         lambda m: m.group(1))
-    print(f"ptxas of the multi-row body (B1, B2, B5): {len(tptx)} "
-          f"instantiations (registers, spill-store bytes): "
-          f"{json.dumps(tptx)}", flush=True)
+    # The multi-row body (mma.sync) in its three libraries (bf16: B1, B2;
+    # the cast route; q8q: B4, B5): registers and spills of each
+    # instantiation (operands, layout, D, warps, tree, local), by mangled
+    # name.
+    by_lib = {lib: ptxas_summary(_build, (lib,),
+                                 r"_Z\w*(decode_tiled_kernelI\w+?EE)v",
+                                 lambda m: m.group(1))
+              for lib in ("flash_decode_tiled", "flash_decode_tiled_cast",
+                          "flash_decode_tiled_q8q")}
+    tptx = {n: r for lib in by_lib.values() for n, r in lib.items()}
+    per_lib = {lib: len(x) for lib, x in by_lib.items()}
+    print(f"ptxas of the multi-row body (B1, B2, B4, B5, the cast route): "
+          f"{len(tptx)} instantiations ({json.dumps(per_lib)}; registers, "
+          f"spill-store bytes): {json.dumps(tptx)}", flush=True)
     hgmma = hgmma_counts(_build)
     print(f"SASS HGMMA instructions of the tensor-core bodies: "
           f"{json.dumps(hgmma)}", flush=True)
@@ -1231,26 +1267,7 @@ def main() -> None:
                yardstick=lambda: F.scaled_dot_product_attention(q, kd, vd),
                names=own, parts=("decode_split", "merge_splits"))
     del kq, vq, kd, vd
-    # B4 at GQA with per-batch offsets and a ragged Tk.
-    tk = 4037
-    q = rnd(8, 32, 16, 128)
-    kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(
-        rnd(8, 8, tk, 128), rnd(8, 8, tk, 128))
-    qoff = torch.randint(0, tk - 16, (8,), generator=g, device=dev,
-                         dtype=torch.int32)
-    need = sum(min(tk, int(o) + 16) for o in qoff.tolist())
-    kd, vd, mask = deq(kq, ks), deq(vq, vs), gqa_mask(qoff, 16, tk)
-    record("flash_decode_q8q", f"int8 GQA B8 Hq32 Hkv8 Tk{tk} Tq16 ragged",
-           lambda: cuda_decode.attention_cuda_decode_q8q(
-               q, kq, vq, ks, vs, causal=True, q_offset=qoff),
-           lambda: cuda_decode.decode_q8q_plain(q, kq, vq, ks, vs,
-                                                causal=True, q_offset=qoff),
-           None, need * 8 * 128 * 2 + q.numel() * 4 + 4 * ks.numel() * 4,
-           0.0, ops_s=q8_ops_s(32 * visible_pairs(qoff, 16, tk), True),
-           yardstick=lambda: F.scaled_dot_product_attention(
-               q, kd, vd, attn_mask=mask, enable_gqa=True),
-           names=own)
-    del kq, vq, kd, vd, mask
+    # (B4 with more than one packed row runs the multi-row body: phase 2g.)
     # B5 and B2-int8 at the serve decode tick: 8 slots of 640 tokens in
     # 64-token blocks of a fragmented pool, ragged lengths. The pool's
     # blocks carry magnitudes that differ from block to block, so their
@@ -1316,14 +1333,19 @@ def main() -> None:
     # here from the gathered view passes it, and with a planted per-block
     # scale fault it is rejected — scales read by logical block j instead
     # of table[b, j], and the V scalar applied before the softmax sum l.
-    def q8q_paged_here(case, fault=None):
-        """B5 with per-block scales on ``case`` = (q, K and V pools, table,
-        K and V scales, q_offset), written out from the gathered view; a
-        packed row r sits at q_offset + r % Tq."""
+    def q8q_paged_here(case, fault=None, route="q8q"):
+        """B5 (``route`` "q8q"; "q8": B2's cast route) with per-block
+        scales on ``case`` = (q, K and V pools, table, K and V scales,
+        q_offset), written out from the gathered view; a packed row r sits
+        at q_offset + r % Tq."""
         q, kp, vp, tbl, ksc, vsc, qo = case
         B, NB = tbl.shape
         blk, hkv, tq = kp.shape[2], kp.shape[1], q.shape[2]
-        codes, qs = cuda_decode._fold_quantize_q(q, hkv, None, None)
+        if route == "q8q":
+            codes, qs = cuda_decode._fold_quantize_q(q, hkv, None, None)
+        else:  # a bf16 Q and the softmax scale
+            codes = q.to(torch.bfloat16).reshape(B, hkv, -1, q.shape[3])
+            qs = q.shape[3] ** -0.5
         kg, vg = gather_paged_kv(kp, vp, tbl)
         idx = (torch.arange(NB, device=dev).expand(B, NB)
                if fault == "logical" else tbl.long())
@@ -1348,15 +1370,24 @@ def main() -> None:
         return ((acc / den[..., None]).to(torch.bfloat16).reshape(q.shape),
                 (m[..., 0] + torch.log(den)).reshape(q.shape[:3]))
 
-    def q8q_teeth(case, kernel):
-        """The gate against B5's plain version on ``case``: the arithmetic
-        written out here, its two planted scale faults, and ``kernel``'s
-        output halved."""
-        plain = cuda_decode.paged_decode_q8q_plain(*case[:6],
-                                                   q_offset=case[6])
-        teeth = {f: gate(q8q_paged_here(case, f), plain)
+    def q8q_teeth(case, kernel, route="q8q"):
+        """The gate against B5's plain version (``route`` "q8": B2's with
+        ``block_scales``) on ``case``: the arithmetic written out here, its
+        two planted scale faults, and ``kernel``'s output halved."""
+        if route == "q8q":
+            def call(f):
+                return f(*case[:6], q_offset=case[6])
+
+            plain = call(cuda_decode.paged_decode_q8q_plain)
+        else:
+            def call(f):
+                return f(*case[:4], q_offset=case[6],
+                         block_scales=case[4:6])
+
+            plain = call(cuda_decode.paged_decode_plain)
+        teeth = {f: gate(q8q_paged_here(case, f, route), plain)
                  for f in (None, "logical", "v_early")}
-        o, l = kernel(*case[:6], q_offset=case[6])
+        o, l = call(kernel)
         teeth["halved"] = gate((o * 0.5, l), plain)
         return teeth
 
@@ -1895,18 +1926,24 @@ def main() -> None:
     b5 = cuda_decode.attention_cuda_decode_paged_q8q
     multi_gate = {}
 
-    def multi_call(w, fn):
-        before = w.tiled_launches
+    def multi_call(w, fn, cast=False):
+        """``fn()``, which must launch ``w``'s multi-row body once (with
+        ``cast``, its int8 cast route: counted on .cast_tiled_launches
+        too, and only then)."""
+        def counts():
+            return (w.tiled_launches, getattr(w, "cast_tiled_launches", 0))
+
+        before = counts()
         out = fn()
-        if w.tiled_launches != before + 1:
+        if counts() != (before[0] + 1, before[1] + int(cast)):
             fail(f"{w.__name__}: a multi-row launch did not take the "
                  f"multi-row body")
         return out
 
-    def multi_check(name, got, want):
+    def multi_check(name, got, want, store=multi_gate):
         ok, eo, er, el = gate(got, want)
-        multi_gate[name] = {"pass": ok, "max_abs_err": eo,
-                            "max_rel_err": er, "max_abs_err_lse": el}
+        store[name] = {"pass": ok, "max_abs_err": eo, "max_rel_err": er,
+                       "max_abs_err_lse": el}
         if not ok:
             fail(f"multi-row {name}: |dout| {eo:.3e}, relative {er:.3e}, "
                  f"|dlse| {el:.3e}")
@@ -2074,6 +2111,366 @@ def main() -> None:
         fail(f"multi-row B1/B5: the gate fails its own arithmetic or "
              f"accepts a planted fault: {multi_teeth}")
     del kp8, vp8, q, codes
+    torch.cuda.empty_cache()
+
+    # -- 2g. B4 and the int8 cast route on the multi-row body ---------------
+    # B4 (contiguous q8q) and the cast route over B1/B2 (bf16 Q against
+    # int8 K/V) with more than one packed row or a tree take the multi-row
+    # body (cuda_decode.decode_body): every such launch must count on B4's
+    # .tiled_launches, or on B1's / B2's .cast_tiled_launches. Under the
+    # row gate: B4 and the contiguous cast route at B1's phase-2f shapes
+    # (GQA Tq 16 over Tk 4096 and 4037, Tq 2, 5, 64, 127, G 1 and 4, D 64
+    # and 128, causal with per-slot kv_offset — slot 2's shard lies wholly
+    # past its frontier and must come back exactly (0, -inf) — and not),
+    # trees at Tq 8 and 32 over 640-token slots, B4 at the reference
+    # workload with a Tq-8 tree; the paged cast route at Tq 8, 32, 64 over
+    # 64- and 16-token blocks with per-block scales that differ by block
+    # and with channel scales, trees at Tq 8 and 32, and the local_blocks
+    # 64-row chunk at W 2 and 4, its ranks' partials merged against
+    # unsharded B2; codes at +-127. Bit for bit: tril == causal; int8
+    # codes past each frontier changed (int8 has no NaN: codes not read
+    # cannot matter); table entries past each window naming a block whose
+    # per-block scalars are NaN, and under local_blocks NaN scalars in
+    # block 0 and every block the rank's table does not name (a scalar
+    # read there poisons its row through p * vs). The gate rejects an
+    # output halved, one split's keys left out, scalars read by logical
+    # block and the V scalar applied before the softmax sum (the cast
+    # route's arithmetic written out here passes it). Timed, beside the
+    # bound and the dequantized-SDPA yardstick: B4 at the contiguous chain
+    # verify tick and GQA Tq 16, the cast route at the contiguous tree tick
+    # and GQA Tq 16 and at the paged chain tick and 64-row chunk (their
+    # other trees are phase 2d's, the local chunk phase 2b's).
+    b1 = cuda_decode.attention_cuda_decode
+    b2 = cuda_decode.attention_cuda_decode_paged
+    b4 = cuda_decode.attention_cuda_decode_q8q
+    q8_route = cuda_decode.resolve_q8_kernel
+    int8_gate, int8_bits, int8_teeth = {}, {}, {}
+
+    def int8_call(w, fn):
+        return multi_call(w, fn, cast=w is not b4)
+
+    def int8_check(name, got, want):
+        multi_check(name, got, want, store=int8_gate)
+
+    routes = (("B4", "q8q", b4), ("B1 cast", "q8", b1))
+    for D in (64, 128):
+        for G, tq, tk in ((4, 16, 4096), (4, 16, 4037), (1, 2, 640),
+                          (4, 5, 640), (1, 64, 700), (4, 127, 700)):
+            q = rnd(4, 8 * G, tq, D)
+            kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(
+                rnd(4, 8, tk, D), rnd(4, 8, tk, D))
+            qo = torch.tensor([tk - tq, 500, tk - 1, 60], dtype=torch.int32,
+                              device=dev)
+            ko = torch.tensor([0, 37, tk + 200, 5], dtype=torch.int32,
+                              device=dev)
+            kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+            kn, vn = kq.clone(), vq.clone()
+            for b in range(4):  # other codes past each slot's frontier
+                lo = max(0, int(qo[b] - ko[b]) + tq)
+                kn[b, :, lo:], vn[b, :, lo:] = 127, -127
+            for kind, route, w in routes:
+                fn, plain = q8_route(route), q8_route(route, plain=True)
+                name = f"{kind} D{D} G{G} Tq{tq} Tk{tk}"
+                got = int8_call(w, lambda: fn(q, kq, vq, ks, vs, **kw))
+                int8_check(name + " causal", got,
+                           plain(q, kq, vq, ks, vs, **kw))
+                if not (torch.all(got[0][2] == 0)
+                        and torch.all(torch.isneginf(got[1][2]))):
+                    fail(f"{name}: the shard past its frontier is not "
+                         f"(0, -inf)")
+                int8_check(name + " not causal",
+                           int8_call(w, lambda: fn(q, kq, vq, ks, vs)),
+                           plain(q, kq, vq, ks, vs))
+                int8_bits[f"{name}: codes past each frontier unread"] = \
+                    same(got, fn(q, kn, vn, ks, vs, **kw))
+            del kn, vn
+    # Trees (and chains) at the contiguous verify tick: 8 slots of 640.
+    for tq in TREE_TQS:
+        q = rnd(8, 16, tq, 128)
+        kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(
+            rnd(8, 16, 640, 128), rnd(8, 16, 640, 128))
+        qo = torch.randint(0, 640 - tq, (8,), generator=g, device=dev,
+                           dtype=torch.int32)
+        trees = random_trees(8, tq, 1, tq + 5).to(dev)
+        tril = torch.tril(torch.ones(tq, tq, dtype=torch.bool,
+                                     device=dev)).expand(8, tq, tq)
+        kw = dict(causal=True, q_offset=qo)
+        for kind, route, w in routes:
+            fn, plain = q8_route(route), q8_route(route, plain=True)
+            name = f"{kind} B8 H16 Tk640 Tq{tq}"
+            got = int8_call(w, lambda: fn(q, kq, vq, ks, vs, tree_mask=trees,
+                                          **kw))
+            int8_check(name + " tree", got,
+                       plain(q, kq, vq, ks, vs, tree_mask=trees, **kw))
+            int8_bits[f"{name} tril == causal"] = same(
+                int8_call(w, lambda: fn(q, kq, vq, ks, vs, **kw)),
+                fn(q, kq, vq, ks, vs, tree_mask=tril, **kw))
+    # B4 at the reference workload with a Tq-8 tree (timed in phase 2d).
+    q = rnd(1, 16, 8, 128)
+    kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(
+        rnd(1, 16, 64000, 128), rnd(1, 16, 64000, 128))
+    kw = dict(causal=True, tree_mask=random_trees(1, 8, -1, 4).to(dev),
+              q_offset=torch.full((1,), 64000 - 8, dtype=torch.int32,
+                                  device=dev))
+    int8_check("B4 ref B1 H16 Tk64000 Tq8 tree",
+               int8_call(b4, lambda: b4(q, kq, vq, ks, vs, **kw)),
+               cuda_decode.decode_q8q_plain(q, kq, vq, ks, vs, **kw))
+    del kq, vq
+    # The gate's teeth at GQA Tq 16 (B4 and the contiguous cast route): an
+    # output halved, the first split's keys left out.
+    q = rnd(8, 32, 16, 128)
+    kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(
+        rnd(8, 8, 4096, 128), rnd(8, 8, 4096, 128))
+    qo = torch.randint(1024, 4096 - 16, (8,), generator=g, device=dev,
+                       dtype=torch.int32)
+    cut = cuda_decode.decode_geometry("tiled", 64, 8, 8, 4096).split_len
+    for kind, route, w in routes:
+        kw = dict(causal=True, q_offset=qo)
+        plain = q8_route(route, plain=True)(q, kq, vq, ks, vs, **kw)
+        o, l = q8_route(route)(q, kq, vq, ks, vs, **kw)
+        half = gate((o * 0.5, l), plain)
+        dropped = gate(q8_route(route, plain=True)(
+            q, kq[:, :, cut:], vq[:, :, cut:], ks, vs, kv_offset=cut, **kw),
+            plain)
+        int8_teeth[f"{kind} output halved"] = {"pass": half[0],
+                                               "rel": half[2]}
+        int8_teeth[f"{kind} first split ({cut} keys) left out"] = {
+            "pass": dropped[0], "dlse": dropped[3]}
+    del q, kq, vq, o, l, plain
+    # The paged cast route: per-block scales (magnitudes that differ by
+    # block) and channel scales, over 64- and 16-token blocks.
+    for blk in (64, 16):
+        nb = 640 // blk
+        npool = 12 * nb  # the 8 slots' tables leave blocks no slot maps
+        codes_scales = []
+        for _ in range(2):
+            x = (torch.randn((npool, 16, blk, 128), generator=g, device=dev)
+                 * torch.exp(0.7 * torch.randn((npool, 16, 1, 1),
+                                               generator=g, device=dev)))
+            c8, sc = cuda_decode.quantize_symmetric_int8(
+                x.reshape(npool, 16, blk * 128), 2)
+            codes_scales.append((c8.reshape(npool, 16, blk, 128), sc[..., 0]))
+        (kp8, kbs), (vp8, vbs) = codes_scales
+        del x
+        cks, cvs = (torch.rand((8, 16, 1, 128), generator=g, device=dev)
+                    * 0.03 + 0.005 for _ in range(2))
+        table = torch.stack([torch.randperm(npool, generator=g,
+                                            device=dev)[:nb]
+                             for _ in range(8)]).to(torch.int32)
+        used = torch.zeros(npool, dtype=torch.bool, device=dev)
+        used[table.long().flatten()] = True
+        spare = int((~used).nonzero()[0])
+        ksn, vsn = kbs.clone(), vbs.clone()
+        ksn[spare], vsn[spare] = math.nan, math.nan
+        for tq in (8, 32, 64):
+            q = rnd(8, 16, tq, 128)
+            qo = torch.randint(0, 640 - tq, (8,), generator=g, device=dev,
+                               dtype=torch.int32)
+            qo[0] = 3 * blk - 3  # the window straddles a block boundary
+            past = (torch.arange(nb, device=dev)[None] * blk
+                    >= (qo + tq)[:, None])
+            nan_table = torch.where(past, spare, table).to(torch.int32)
+            kinds = ((None, "chain"),) if tq == 64 else (
+                (None, "chain"), (random_trees(8, tq, 1, tq + blk).to(dev),
+                                  "tree"))
+            for tm, kind in kinds:
+                for sk, sc in (("per-block", (kbs, vbs)),
+                               ("channel", (cks, cvs))):
+                    name = f"B2 cast block{blk} Tq{tq} {kind} {sk}"
+                    kw = dict(causal=True, q_offset=qo, block_table=table,
+                              tree_mask=tm)
+                    got = int8_call(b2, lambda: q8_route("q8")(
+                        q, kp8, vp8, *sc, **kw))
+                    int8_check(name, got, q8_route("q8", plain=True)(
+                        q, kp8, vp8, *sc, **kw))
+                    if sk == "per-block":
+                        int8_bits[f"{name}: NaN scalars past the window "
+                                  f"unread"] = same(got, q8_route("q8")(
+                                      q, kp8, vp8, ksn, vsn, **dict(
+                                          kw, block_table=nan_table)))
+            if tq < 64:
+                tril = torch.tril(torch.ones(tq, tq, dtype=torch.bool,
+                                             device=dev)).expand(8, tq, tq)
+                kw = dict(causal=True, q_offset=qo, block_table=table)
+                int8_bits[f"B2 cast block{blk} Tq{tq} tril == causal"] = same(
+                    q8_route("q8")(q, kp8, vp8, kbs, vbs, **kw),
+                    q8_route("q8")(q, kp8, vp8, kbs, vbs, tree_mask=tril,
+                                   **kw))
+            if blk == 16 and tq == 8:
+                # The gate's teeth at the cast route's multi-row shape,
+                # several blocks (and so scalars) in each 64-key tile.
+                teeth = q8q_teeth((q, kp8, vp8, table, kbs, vbs, qo), b2,
+                                  route="q8")
+                int8_teeth.update({f"B2 cast {f}": {"pass": r[0],
+                                                    "rel": r[2],
+                                                    "dlse": r[3]}
+                                   for f, r in teeth.items()})
+            if tq == 64:
+                # local_blocks: the 64-row chunk over W ranks' slices; each
+                # rank's slice gets a block 0 and its unnamed blocks with
+                # NaN scalars (held entries shift by one; past each window
+                # they name block 0, held but never read).
+                for W in (2, 4):
+                    nl = npool // W
+                    parts = []
+                    for r in range(W):
+                        loc = table - r * nl
+                        held = (loc >= 0) & (loc < nl)
+                        lpois = torch.where(held, torch.where(past, 0,
+                                                              loc + 1),
+                                            -1).to(torch.int32)
+                        sl = slice(r * nl, (r + 1) * nl)
+                        kr = torch.cat([kp8[:1] * 0, kp8[sl]])
+                        vr = torch.cat([vp8[:1] * 0, vp8[sl]])
+                        named = torch.zeros(nl + 1, dtype=torch.bool,
+                                            device=dev)
+                        named[lpois[lpois > 0].long()] = True
+                        scp = tuple(torch.where(
+                            named[:, None], torch.cat([x[:1], x[sl]]),
+                            math.nan) for x in (kbs, vbs))
+                        got = int8_call(b2, lambda: b2(
+                            q, kr, vr, lpois, q_offset=qo, block_scales=scp,
+                            local_blocks=True, local_shards=W))
+                        int8_check(
+                            f"B2 cast local W{W} rank{r} block{blk} Tq64 "
+                            f"(unnamed blocks' scalars NaN)", got,
+                            cuda_decode.paged_decode_plain(
+                                q, kp8[sl], vp8[sl],
+                                torch.where(held, loc, -1).to(torch.int32),
+                                q_offset=qo,
+                                block_scales=tuple(x[sl] for x in (kbs,
+                                                                   vbs)),
+                                local_blocks=True))
+                        parts.append(got)
+                    merged = merge_partials(
+                        torch.stack([o.float() for o, _ in parts]),
+                        torch.stack([l for _, l in parts]))
+                    int8_check(f"B2 cast local W{W} block{blk} Tq64: "
+                               f"{W} partials merged vs unsharded B2",
+                               merged, b2(q, kp8, vp8, table, q_offset=qo,
+                                          block_scales=(kbs, vbs)))
+    del kp8, vp8, ksn, vsn
+    # Saturated codes: every K code at +-127 (B4 with every Q code at
+    # +-127 too: each row +-1 before the fold).
+    q = (torch.randint(0, 2, (8, 16, 8, 128), generator=g, device=dev) * 2
+         - 1).to(torch.bfloat16)
+    kq = (torch.randint(0, 2, (8, 16, 640, 128), generator=g, device=dev,
+                        dtype=torch.int8) * 2 - 1) * 127
+    vq = torch.randint(-127, 128, (8, 16, 640, 128), generator=g,
+                       device=dev, dtype=torch.int8)
+    ks, vs = (torch.rand((8, 16, 1, 128), generator=g, device=dev) * 0.03
+              + 0.005 for _ in range(2))
+    qo = torch.randint(0, 632, (8,), generator=g, device=dev,
+                       dtype=torch.int32)
+    codes, _ = cuda_decode._fold_quantize_q(q, 16, torch.ones_like(ks),
+                                            None)
+    if not bool((codes.abs() == 127).all()):
+        fail("saturated case: Q codes are not all +-127")
+    for kind, route, w in routes:
+        kw = dict(causal=True, q_offset=qo)
+        int8_check(f"{kind} saturated codes D128 Tq8",
+                   int8_call(w, lambda: q8_route(route)(
+                       q, kq, vq, torch.ones_like(ks), vs, **kw)),
+                   q8_route(route, plain=True)(q, kq, vq,
+                                               torch.ones_like(ks), vs,
+                                               **kw))
+    del q, kq, vq, codes
+    print(f"multi-row B4 and cast route, row gate: {len(int8_gate)} cases "
+          f"pass, worst relative "
+          f"{max(c['max_rel_err'] for c in int8_gate.values()):.3e}, |dlse| "
+          f"{max(c['max_abs_err_lse'] for c in int8_gate.values()):.3e}; "
+          f"bit for bit {json.dumps(int8_bits)}; the gate's teeth "
+          f"{json.dumps(int8_teeth)}", flush=True)
+    if not all(int8_bits.values()):
+        fail(f"multi-row B4/cast bit-for-bit checks: {int8_bits}")
+    if not int8_teeth["B2 cast None"]["pass"] or any(
+            r["pass"] for f, r in int8_teeth.items() if f != "B2 cast None"):
+        fail(f"multi-row B4/cast: the gate fails its own arithmetic or "
+             f"accepts a planted fault: {int8_teeth}")
+    # Timed: B4 at the contiguous chain verify tick and GQA Tq 16; the cast
+    # route at the contiguous tree tick and GQA Tq 16, and on the paged
+    # layout at the chain tick and the 64-row chunk (per-block scales).
+    for tq, B, hq, hkv, tk in ((8, 8, 16, 16, 640), (16, 8, 32, 8, 4037)):
+        q = rnd(B, hq, tq, 128)
+        kq, vq, ks, vs = cuda_decode.quantize_kv_channelwise(
+            rnd(B, hkv, tk, 128), rnd(B, hkv, tk, 128))
+        qoff = torch.randint(0, tk - tq, (B,), generator=g, device=dev,
+                             dtype=torch.int32)
+        need = sum(min(tk, int(o) + tq) for o in qoff.tolist())
+        pairs = hq * visible_pairs(qoff, tq, tk)
+        kd, vd, mask = deq(kq, ks), deq(vq, vs), gqa_mask(qoff, tq, tk)
+        nbytes = (need * hkv * 128 * 2 + q.numel() * 4 + 4 * ks.numel() * 4)
+        shape = (f"B8 H16 Tk640 Tq8 chain" if tq == 8 else
+                 f"GQA B8 Hq32 Hkv8 Tk{tk} Tq16 ragged")
+        record("flash_decode_q8q_tiled", f"int8 {shape}",
+               lambda: b4(q, kq, vq, ks, vs, causal=True, q_offset=qoff),
+               lambda: cuda_decode.decode_q8q_plain(
+                   q, kq, vq, ks, vs, causal=True, q_offset=qoff),
+               None, nbytes, 0.0, ops_s=q8_ops_s(pairs, True),
+               yardstick=lambda: F.scaled_dot_product_attention(
+                   q, kd, vd, attn_mask=mask, enable_gqa=True),
+               names=own, parts=("decode_tiled", "merge_splits"))
+        if tq == 8:  # the cast route's contiguous verify tick: a tree
+            trees = random_trees(B, 8, 1, 9).to(dev)
+            keys, tpairs = tree_counts(trees, qoff, tk)
+            tmask = tree_sdpa_mask(trees, qoff, tk)
+            record("flash_decode_cast_tiled", "int8 B8 H16 Tk640 Tq8 tree, "
+                   "cast",
+                   lambda: cuda_decode.attention_cuda_decode_q8(
+                       q, kq, vq, ks, vs, causal=True, q_offset=qoff,
+                       tree_mask=trees),
+                   lambda: cuda_decode.decode_q8_plain(
+                       q, kq, vq, ks, vs, causal=True, q_offset=qoff,
+                       tree_mask=trees),
+                   None, keys * 16 * 128 * 2 + q.numel() * 4
+                   + 4 * ks.numel() * 4, 0.0,
+                   ops_s=q8_ops_s(16 * tpairs, False),
+                   yardstick=lambda: F.scaled_dot_product_attention(
+                       q, kd, vd, attn_mask=tmask), names=own)
+        else:
+            record("flash_decode_cast_tiled", f"int8 {shape}, cast",
+                   lambda: cuda_decode.attention_cuda_decode_q8(
+                       q, kq, vq, ks, vs, causal=True, q_offset=qoff),
+                   lambda: cuda_decode.decode_q8_plain(
+                       q, kq, vq, ks, vs, causal=True, q_offset=qoff),
+                   None, nbytes, 0.0, ops_s=q8_ops_s(pairs, False),
+                   yardstick=lambda: F.scaled_dot_product_attention(
+                       q, kd, vd, attn_mask=mask, enable_gqa=True),
+                   names=own)
+        del kq, vq, kd, vd, mask
+    blk, nb, npool = 64, 10, 96
+    (kp8, kbs), (vp8, vbs) = (
+        (c.reshape(npool, 16, blk, 128), sc[..., 0]) for c, sc in (
+            cuda_decode.quantize_symmetric_int8(
+                (torch.randn((npool, 16, blk, 128), generator=g, device=dev)
+                 * torch.exp(0.7 * torch.randn((npool, 16, 1, 1),
+                                               generator=g, device=dev))
+                 ).reshape(npool, 16, blk * 128), 2) for _ in range(2)))
+    table = torch.stack([torch.randperm(npool, generator=g, device=dev)[:nb]
+                         for _ in range(8)]).to(torch.int32)
+    kgd, vgd = gather_paged_kv(deq(kp8, kbs[..., None, None]),
+                               deq(vp8, vbs[..., None, None]), table)
+    for tq in (8, 64):
+        q = rnd(8, 16, tq, 128)
+        qoff = torch.randint(0, nb * blk - tq, (8,), generator=g, device=dev,
+                             dtype=torch.int32)
+        need = sum(min(nb * blk, int(o) + tq) for o in qoff.tolist())
+        mask = gqa_mask(qoff, tq, nb * blk)
+        record("flash_decode_paged_cast_tiled",
+               f"int8 B8 H16 block64 NB10 Tq{tq} "
+               f"{'chain' if tq == 8 else 'chunk'}, per-block scales",
+               lambda: b2(q, kp8, vp8, table, q_offset=qoff,
+                          block_scales=(kbs, vbs)),
+               lambda: cuda_decode.paged_decode_plain(
+                   q, kp8, vp8, table, q_offset=qoff,
+                   block_scales=(kbs, vbs)),
+               None, need * 16 * 128 * 2 + q.numel() * 4
+               + 2 * 8 * nb * 16 * 4, 0.0,
+               ops_s=q8_ops_s(16 * visible_pairs(qoff, tq, nb * blk), False),
+               yardstick=lambda: F.scaled_dot_product_attention(
+                   q, kgd, vgd, attn_mask=mask), names=own,
+               parts=("decode_tiled", "merge_splits"))
+    del kp8, vp8, kgd, vgd, mask, q
     torch.cuda.empty_cache()
 
     # B3: a Tq=256 prefill chunk against a 2k-token gathered view.
@@ -2375,7 +2772,7 @@ def main() -> None:
         for w in wrappers.values():
             w.launches = 0
             for extra in ("tree_launches", "local_launches",
-                          "tiled_launches"):
+                          "tiled_launches", "cast_tiled_launches"):
                 if hasattr(w, extra):
                     setattr(w, extra, 0)
             if hasattr(w, "tiled_tq"):
@@ -2384,6 +2781,7 @@ def main() -> None:
     # The multi-row body's launches of a serve, by kernel and Tq.
     multi_row = {"B1": cuda_decode.attention_cuda_decode,
                  "B2": cuda_decode.attention_cuda_decode_paged,
+                 "B4": cuda_decode.attention_cuda_decode_q8q,
                  "B5": cuda_decode.attention_cuda_decode_paged_q8q}
 
     def tiled_by_tq():
@@ -2757,12 +3155,12 @@ def main() -> None:
                for e in tree_step.values()):
         fail(f"tree verify step: {tree_step}")
     # The multi-row body's kernels by name (their template arguments lead
-    # with the operands): B1 <0, false, ...>, B2 <0, true, ...>, B5 <1 or 2,
+    # with the operands): B1 <0, false, ...>, B2 <0, true, ...>, B4 <1,
+    # false, ...>, B5 <1, true, ...> or <2, ...>, the cast route <3 or 4,
     # ...>.
     spec_wave, spec_breakdown = wave_breakdown("spec serve (oracle)", {
         "B2 multi-row body (tree and chain verify ticks, tails)": (
             "decode_tiled",),
-        "flash_decode tree, split body (B4)": (", 8, true>",),
         "flash_decode (B2/B1 split body) + merges": ("decode_split",
                                                      "merge_splits"),
         "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul},
@@ -2793,6 +3191,21 @@ def main() -> None:
         drafter=oracle_drafter(trace, spec_refs[True], tcfg.vocab_size))
     spec8_breakdown["spec"] = spec8_wave.spec
     spec8_breakdown["verify_ticks"] = spec8_wave.decode_ticks
+    # ... and on the contiguous int8 cache: B4's verify ticks on the
+    # multi-row body.
+    specc8_wave, specc8_breakdown = wave_breakdown(
+        "spec serve (oracle, contiguous int8)", {
+            "B4 multi-row body (verify ticks)": (
+                "decode_tiled_kernel<1, false",),
+            "B1 multi-row body (staged prompt tails)": (
+                "decode_tiled_kernel<0, false",),
+            "decode split body (B4 ticks, B1) + merges": ("decode_split",
+                                                          "merge_splits"),
+            "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul},
+        speculate=True, draft_k=4, quantize=True, kv_layout="contiguous",
+        drafter=oracle_drafter(trace, spec_refs[True], tcfg.vocab_size))
+    specc8_breakdown["spec"] = specc8_wave.spec
+    specc8_breakdown["verify_ticks"] = specc8_wave.decode_ticks
     del server, params
     torch.cuda.empty_cache()
 
@@ -2839,7 +3252,8 @@ def main() -> None:
             if label == "exact" and lc["flash_fwd"]:
                 fail(f"sharded serve (exact) rank {rank} ran B3: {lc}")
             # bf16 chunks (more than one packed row) take B2's multi-row
-            # body; the int8 slice's cast route keeps the split body.
+            # body; the int8 slice sees one-row decode ticks only (staged
+            # admission runs the chunks on the staging cache).
             if (lc["flash_decode_paged_tiled"] > 0) != (label == "exact"):
                 fail(f"sharded serve ({label}) rank {rank}: multi-row B2 "
                      f"launches {lc['flash_decode_paged_tiled']}")
@@ -3046,18 +3460,27 @@ def main() -> None:
             "cuda", csrc + "flash_decode_tiled.cu",
             "tree_attention_tpu/ops/pallas_decode.py:179"),
         "flash_decode_paged_q8q_tiled": (
-            "cuda", csrc + "flash_decode_tiled.cu",
+            "cuda", csrc + "flash_decode_tiled_q8q.cu",
             "tree_attention_tpu/ops/pallas_decode.py:461"),
+        "flash_decode_q8q_tiled": (
+            "cuda", csrc + "flash_decode_tiled_q8q.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:266"),
+        "flash_decode_cast_tiled": (
+            "cuda", csrc + "flash_decode_tiled_cast.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:179"),
+        "flash_decode_paged_cast_tiled": (
+            "cuda", csrc + "flash_decode_tiled_cast.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:344"),
         "flash_decode_tree": ("cuda", csrc + "flash_decode_tiled.cu",
                               "tree_attention_tpu/ops/pallas_decode.py:179"),
         "flash_decode_paged_tree": (
             "cuda", csrc + "flash_decode_tiled.cu",
             "tree_attention_tpu/ops/pallas_decode.py:344"),
         "flash_decode_q8q_tree": (
-            "cuda", csrc + "flash_decode.cu",
+            "cuda", csrc + "flash_decode_tiled_q8q.cu",
             "tree_attention_tpu/ops/pallas_decode.py:266"),
         "flash_decode_paged_q8q_tree": (
-            "cuda", csrc + "flash_decode_tiled.cu",
+            "cuda", csrc + "flash_decode_tiled_q8q.cu",
             "tree_attention_tpu/ops/pallas_decode.py:461"),
         "flash_fwd": ("cuda", csrc + "flash_fwd.cu",
                       "tree_attention_tpu/ops/pallas_attention.py:65"),
@@ -3082,22 +3505,33 @@ def main() -> None:
     # B2's multi-row body: its launches in the plain serve (prompt tails).
     main_launches["flash_decode_paged_tiled"] = launches[
         "flash_decode_paged_tiled"]
-    # B1's multi-row body: the int8 serve's staged prompt tails; B5's: the
-    # verify ticks of the speculative serves over the paged int8 pool.
+    # B1's multi-row body: the int8 serve's staged prompt tails; B5's and
+    # B4's: the verify ticks of the speculative serves over the paged and
+    # the contiguous int8 pool; the cast route's (B1, B2): the verify
+    # ticks of the q8 oracle serves.
     spec_runs = {**spec["cli"], **spec["oracle"]}
     main_launches["flash_decode_tiled"] = q_launches["flash_decode_tiled"]
-    main_launches["flash_decode_paged_q8q_tiled"] = sum(
-        r["tiled_launches"] for r in spec_runs.values()
-        if r["tree_kernel"] == "flash_decode_paged_q8q")
+    for name, tree_kernel, route in (
+            ("flash_decode_paged_q8q_tiled", "flash_decode_paged_q8q",
+             "q8q"),
+            ("flash_decode_q8q_tiled", "flash_decode_q8q", "q8q"),
+            ("flash_decode_cast_tiled", "flash_decode", "q8"),
+            ("flash_decode_paged_cast_tiled", "flash_decode_paged", "q8")):
+        main_launches[name] = sum(
+            r["tiled_launches"] for r in spec_runs.values()
+            if r["tree_kernel"] == tree_kernel and r["route"] == route)
+        if not main_launches[name]:
+            fail(f"the speculative serves never launched {name}")
     # Every serve's multi-row launches by kernel and Tq.
     for label, r in spec_runs.items():
         serve_tiled[f"spec {label}"] = r["tiled_by_tq"]
-    # The tree variants: their launches in the speculative serves (3d).
+    # The tree variants: their launches in the speculative serves (3d; the
+    # cast route's count under its multi-row entries above).
     for name in ("flash_decode", "flash_decode_paged", "flash_decode_q8q",
                  "flash_decode_paged_q8q"):
         main_launches[name + "_tree"] = sum(
             r["tree_launches"] for r in spec_runs.values()
-            if r["tree_kernel"] == name)
+            if r["tree_kernel"] == name and r["route"] != "q8")
         if not main_launches[name + "_tree"]:
             fail(f"the speculative serves never launched {name}'s tree "
                  f"variant")
@@ -3147,7 +3581,7 @@ def main() -> None:
         if name.endswith("_tree"):
             entry["launches_per_run"] = {
                 label: r["tree_launches"] for label, r in spec_runs.items()
-                if r["tree_kernel"] + "_tree" == name}
+                if r["tree_kernel"] + "_tree" == name and r["route"] != "q8"}
         if name == "flash_decode_paged_local":
             # The 64-row chunk on rank 0 of W = 2 (B2's multi-row body).
             entry["chunk_tq64"] = next(
@@ -3166,27 +3600,33 @@ def main() -> None:
                                    "max_rel_err")}
                 for c in mine if " int8 " in c["case"])
         if name.startswith("flash_decode"):
-            # Which body ran the head case (cuda_decode.decode_body: exact
-            # bf16 B1/B2 and paged q8q B5 with more than one packed row or
-            # a tree take the multi-row one).
-            entry["body"] = ("tiled" if name in (
-                "flash_decode_tiled", "flash_decode_paged_tiled",
-                "flash_decode_paged_q8q_tiled", "flash_decode_tree",
-                "flash_decode_paged_tree", "flash_decode_paged_q8q_tree")
-                else "split")
+            # Which body ran the head case (cuda_decode.decode_body: every
+            # variant but f32 with more than one packed row or a tree takes
+            # the multi-row one).
+            entry["body"] = ("tiled" if name.endswith(("_tiled", "_tree"))
+                             else "split")
         if name in ("flash_decode_tiled", "flash_decode_paged_tiled",
-                    "flash_decode_paged_q8q_tiled"):
+                    "flash_decode_paged_q8q_tiled",
+                    "flash_decode_q8q_tiled"):
             # The multi-row body's launches of this kernel on every serve,
             # by Tq.
             key = {"flash_decode_tiled": "B1", "flash_decode_paged_tiled":
-                   "B2", "flash_decode_paged_q8q_tiled": "B5"}[name]
+                   "B2", "flash_decode_paged_q8q_tiled": "B5",
+                   "flash_decode_q8q_tiled": "B4"}[name]
             entry["launches_per_serve_by_tq"] = {
                 label: by[key] for label, by in serve_tiled.items()
                 if key in by}
-            if key != "B5":  # the two-rank serves (B1: staged tails)
+            if key in ("B1", "B2"):  # the two-rank serves (B1: staged tails)
                 entry["launches_sharded_rank0"] = {
                     label: ranks[0]["launches"][name]
                     for label, ranks in sh.items()}
+        if name in ("flash_decode_cast_tiled",
+                    "flash_decode_paged_cast_tiled"):
+            # The cast route's multi-row launches in each q8 oracle serve.
+            entry["launches_per_run"] = {
+                label: r["tiled_launches"] for label, r in spec_runs.items()
+                if r["route"] == "q8"
+                and r["tree_kernel"] == name.replace("_cast_tiled", "")}
         if name == "flash_decode_paged_tiled":
             entry["launches_per_serve"] = {
                 "serve (prompt-tail ticks)": launches[name],
@@ -3194,7 +3634,8 @@ def main() -> None:
                 "speculative serves (paged exact)": {
                     label: r["tiled_launches"]
                     for label, r in spec_runs.items()
-                    if r["tree_kernel"] == "flash_decode_paged"},
+                    if r["tree_kernel"] == "flash_decode_paged"
+                    and r["route"] is None},
                 "sharded serve, rank 0 (exact)": sh["exact"][0]["launches"][
                     name]}
         if name in ("flash_fwd", "flash_dq", "flash_dkv"):
@@ -3244,6 +3685,10 @@ def main() -> None:
                    "multi_row_gate": multi_gate,
                    "multi_row_bits": multi_bits,
                    "multi_row_teeth": multi_teeth,
+                   "int8_multi_row_gate": int8_gate,
+                   "int8_multi_row_bits": int8_bits,
+                   "int8_multi_row_teeth": int8_teeth,
+                   "spec_contiguous_int8_breakdown": specc8_breakdown,
                    "serve_multi_row_by_tq": serve_tiled,
                    "sharded": [{k: r[k] for k in ("exact", "int8", "mixed",
                                                   "decode", "decode_launches")}

@@ -10,16 +10,24 @@ B4 and B5 run on the main path:
   Tk4096 Tq16: a prompt tail of the int8 staging cache's shape); the
   contiguous verify tick (B8 H16 Tk640 Tq8 tree) and the reference workload
   with a Tq-8 tree;
-- B4 at the reference workload (channel scales), split and merge apart;
+- B4 at the reference workload (channel scales), split and merge apart,
+  and with a Tq-8 tree; at the contiguous verify tick (Tq 8 tree) and the
+  ragged GQA batch with a ragged Tk (Tk 4037);
+- the int8 cast route over B1 (bf16 Q against channel-quantized K/V) at
+  the reference workload, Tq 1 and with a Tq-8 tree;
 - B5 over a paged int8 pool with per-block scales at the serve shapes (8
   slots of 640 tokens in 64-token blocks, 16 heads x 128): the decode tick
   (Tq 1), chain verify ticks (Tq 8, 32) and tree verify ticks (Tq 8, 32);
 - B2 at the same serve shapes: the tick, tree verify ticks at Tq 8 and 32,
   the prompt-tail buckets Tq 8, 16, 32 and 64, one rank's 64-row chunk of a
-  pool sharded two ways;
+  pool sharded two ways; and its cast route over the int8 pool with
+  per-block scales: the tick, the Tq-8 tree verify tick and the rank's
+  64-row chunk;
 - B7 (dK/dV) at the training shape (B2 H16 T4096 causal).
 
-Inputs come from fixed seeds, so two checkouts see the same ones. Run it
+The checkout's kernels are built first, one ``nvcc`` per source in
+parallel. Inputs come from fixed seeds, so two checkouts see the same ones.
+Run it
 for two checkouts in turns in one call (parent, change, change, parent) to
 compare them on one card.
 
@@ -69,8 +77,10 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_times: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
-    from tree_attention_tpu_torch.ops import cuda_attention, cuda_bwd
+    from tree_attention_tpu_torch.ops import _build, cuda_attention, cuda_bwd
     from tree_attention_tpu_torch.ops import cuda_decode as cd
+
+    _build.build()
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -120,13 +130,21 @@ def main(argv=None) -> None:
     kq, vq, ks, vs = cd.quantize_kv_channelwise(k, v)
     cases["B4 ref B1 H16 Tk64000 Tq1, channel scales"] = device_ms(
         lambda: b4(q, kq, vq, ks, vs))
-    del kq, vq
+    q8 = cd.attention_cuda_decode_q8
+    cases["B1 cast ref B1 H16 Tk64000 Tq1, channel scales"] = device_ms(
+        lambda: q8(q, kq, vq, ks, vs))
     q = rnd(1, 16, 8, 128)
     qoff = torch.full((1,), 64000 - 8, dtype=torch.int32, device=dev)
     trees = tree_masks(1, 8, 3).to(dev)
     cases["B1 ref B1 H16 Tk64000 Tq8 tree"] = device_ms(
         lambda: b1(q, k, v, causal=True, q_offset=qoff, tree_mask=trees))
-    del k, v
+    cases["B4 ref B1 H16 Tk64000 Tq8 tree, channel scales"] = device_ms(
+        lambda: b4(q, kq, vq, ks, vs, causal=True, q_offset=qoff,
+                   tree_mask=trees))
+    cases["B1 cast ref B1 H16 Tk64000 Tq8 tree, channel scales"] = \
+        device_ms(lambda: q8(q, kq, vq, ks, vs, causal=True, q_offset=qoff,
+                             tree_mask=trees))
+    del k, v, kq, vq
     q, k, v = rnd(8, 32, 16, 128), rnd(8, 8, 4096, 128), rnd(8, 8, 4096, 128)
     qoff = offsets(8, 4096, 16)
     cases["B1 GQA B8 Hq32 Hkv8 Tk4096 Tq16 ragged"] = device_ms(
@@ -136,7 +154,17 @@ def main(argv=None) -> None:
     trees = tree_masks(8, 8, 8).to(dev)
     cases["B1 contiguous verify tick B8 H16 Tk640 Tq8 tree"] = device_ms(
         lambda: b1(q, k, v, causal=True, q_offset=qoff, tree_mask=trees))
-    del k, v
+    kq, vq, ks, vs = cd.quantize_kv_channelwise(k, v)
+    cases["B4 contiguous verify tick B8 H16 Tk640 Tq8 tree"] = device_ms(
+        lambda: b4(q, kq, vq, ks, vs, causal=True, q_offset=qoff,
+                   tree_mask=trees))
+    q = rnd(8, 32, 16, 128)
+    kq, vq, ks, vs = cd.quantize_kv_channelwise(rnd(8, 8, 4037, 128),
+                                                rnd(8, 8, 4037, 128))
+    qoff = offsets(8, 4037, 16)
+    cases["B4 GQA B8 Hq32 Hkv8 Tk4037 Tq16 ragged"] = device_ms(
+        lambda: b4(q, kq, vq, ks, vs, causal=True, q_offset=qoff))
+    del k, v, kq, vq
 
     # The serve shapes: 8 slots of 640 tokens in 64-token blocks of a
     # fragmented 96-block pool; int8 blocks with magnitudes (and so scales)
@@ -174,6 +202,12 @@ def main(argv=None) -> None:
         kind = {1: "tick", 64: "chunk"}.get(tq, "prompt tail")
         cases[f"B2 {kind} Tq{tq}"] = device_ms(
             lambda: b2(q, kp, vp, table, q_offset=qoff))
+        if tq in (1, 8):  # the cast route over the int8 pool
+            kind = "tick" if tq == 1 else "tree verify tick"
+            trees = tree_masks(8, tq, 5).to(dev) if tq > 1 else None
+            cases[f"B2 cast {kind} Tq{tq}, per-block scales"] = device_ms(
+                lambda: b2(q, kp8, vp8, table, q_offset=qoff,
+                           block_scales=(kbs, vbs), tree_mask=trees))
     # One rank of two: global ids [0, 40) of an 80-block pool, slot tables
     # interleaved over the ranks as the sharded allocator hands blocks out.
     order = [r * 40 + i for i in range(40) for r in range(2)]
@@ -184,6 +218,11 @@ def main(argv=None) -> None:
     cases["B2 local_blocks chunk Tq64, rank 0 of W=2"] = device_ms(
         lambda: b2(q, kp[:40], vp[:40], loc, q_offset=qoff,
                    local_blocks=True, local_shards=2))
+    cases["B2 cast local_blocks chunk Tq64, rank 0 of W=2, per-block "
+          "scales"] = device_ms(
+        lambda: b2(q, kp8[:40], vp8[:40], loc, q_offset=qoff,
+                   block_scales=(kbs[:40], vbs[:40]), local_blocks=True,
+                   local_shards=2))
     del kp, vp, kp8, vp8
 
     q, k, v, dout = (rnd(2, 16, 4096, 128) for _ in range(4))

@@ -1,8 +1,9 @@
 """How the redesigned kernels cut their work, on the CPU.
 
-The multi-row decode body (``csrc/flash_decode_tiled.cu``
-``decode_tiled_kernel``: B1, B2 and B5 with more than one packed row or a
-tree mask), the split body's merge (``csrc/decode.cuh``
+The multi-row decode body (``csrc/decode_tiled.cuh``
+``decode_tiled_kernel``: B1, B2, B4 and B5, and the cast route over B1/B2,
+with more than one packed row or a tree mask), the split body's merge
+(``csrc/decode.cuh``
 ``merge_splits_kernel``) and B7's tensor-core body (``csrc/flash_bwd.cu``
 ``flash_dkv_wgmma_kernel``) run only on the card; what surrounds them is
 Python that these tests reach:
@@ -27,12 +28,17 @@ Python that these tests reach:
 
 The plain versions at the multi-row body's shapes (B2 bf16 at Tq 8 and 28,
 G 1 and 4, tree and local_blocks; B1 at GQA Tq 16 with a kv_offset; B5 at
-a Tq-8 tree with per-block scales over 4-token blocks) are held against
-the Pallas kernels in interpret mode, as ``tests/test_pallas_decode.py``
-runs them. Tolerance as ``tests/test_torch_ops.py`` holds bf16: 2e-2 on
-out, 1e-2 on lse (B5: as ``tests/test_torch_q8.py`` holds q8q). The
-``gpu`` twins launch the kernels against their plain versions and skip
-here.
+a Tq-8 tree with per-block scales over 4-token blocks; B4 at GQA Tq 16
+with a kv_offset and at a Tq-8 tree; the cast route as a contiguous Tq-8
+tree and as a paged 64-row chunk with per-block scales over 4-token
+blocks) are held against the Pallas kernels in interpret mode, as
+``tests/test_pallas_decode.py`` runs them; the cast route under
+``local_blocks`` with per-block scales, its ranks' partials merged, against
+the unsharded plain version. Tolerance as ``tests/test_torch_ops.py``
+holds bf16: 2e-2 on out, 1e-2 on lse (the int8 routes: as
+``tests/test_torch_q8.py`` holds them, 1e-2 of each row's largest |out|
+and 1e-4 on lse). The ``gpu`` twins launch the kernels against their
+plain versions and skip here.
 """
 
 import jax.numpy as jnp
@@ -43,6 +49,7 @@ import torch
 from tree_attention_tpu.ops import block_utils as jbu
 from tree_attention_tpu.ops.pallas_decode import (
     attention_pallas_decode,
+    attention_pallas_decode_q8,
     attention_pallas_decode_q8q,
 )
 
@@ -67,48 +74,61 @@ BF16, F32, CAST, Q8Q = 1, 0, 2, 3
     (BF16, 1, True, False, "split"),    # the lean decode tick
     (F32, 8, True, False, "split"),     # f32 stays on the CUDA cores
     (F32, 8, True, True, "split"),
-    (CAST, 8, True, True, "split"),     # int8 K/V widened (q8 route)
+    (CAST, 8, True, True, "tiled"),     # int8 K/V widened (q8 route), tree
     (Q8Q, 8, True, False, "tiled"),     # int8 x int8 through a table (B5)
     (BF16, 8, False, True, "tiled"),    # contiguous B1, a tree verify tick
-    (Q8Q, 8, False, False, "split"),    # contiguous B4
+    (Q8Q, 8, False, False, "tiled"),    # contiguous B4
     (BF16, 64, False, False, "tiled"),  # B1 GQA 4 x 16 (a staged tail)
     (BF16, 1, False, False, "split"),   # B1 at the reference workload
     (BF16, 1, False, True, "tiled"),    # B1 one-row tree
     (Q8Q, 32, True, True, "tiled"),     # B5 tree verify tick, Tq 32
     (Q8Q, 1, True, True, "tiled"),      # B5 one-row tree
     (Q8Q, 1, True, False, "split"),     # B5's decode tick
-    (Q8Q, 8, False, True, "split"),     # contiguous q8q tree (B4)
-    (CAST, 16, False, False, "split"),  # B1 over int8 K/V (cast route)
-    (CAST, 64, True, False, "split"),   # B2 over int8 pools (cast route)
+    (Q8Q, 8, False, True, "tiled"),     # contiguous q8q tree (B4)
+    (CAST, 16, False, False, "tiled"),  # B1 over int8 K/V (cast route)
+    (CAST, 64, True, False, "tiled"),   # B2 over int8 pools (cast route)
     (F32, 16, False, False, "split"),   # B1 in f32
+    (Q8Q, 64, False, False, "tiled"),   # B4 GQA 4 x 16
+    (Q8Q, 1, False, False, "split"),    # B4 at the reference workload
+    (Q8Q, 1, False, True, "tiled"),     # B4 one-row tree
+    (CAST, 1, False, False, "split"),   # B1's cast route, one row
+    (CAST, 1, True, False, "split"),    # B2's cast route: the int8 tick
+    (CAST, 1, True, True, "tiled"),     # ... one-row tree
+    (F32, 1, False, True, "split"),     # an f32 tree stays on CUDA cores
 ])
 def test_decode_body_rule(variant, rows, paged, tree, body):
-    """The rule is static in the operands: exact bf16 on either layout, or
-    q8q through a block table, with more than one packed row or a tree
-    mask -> the multi-row body; the local_blocks flag does not enter it
-    (both bodies carry it)."""
-    assert cd.decode_body(variant, rows, paged, tree) == body
+    """The rule is static in the operands: every variant but f32 with more
+    than one packed row or a tree mask -> the multi-row body. The layout
+    (``paged``, each case's launch) does not enter it, nor do the
+    local_blocks flag and per-block scales: both bodies carry them."""
+    assert cd.decode_body(variant, rows, tree) == body
 
 
 def test_decode_launchers_check_the_built_library(monkeypatch):
-    """The launchers read the split library's warps per CTA and the
+    """The launchers read the split library's warps per CTA and each
     multi-row library's keys per tile before the first launch, and raise
     on a library built otherwise."""
 
     class Lib:
-        def __init__(self, warps, keys):
+        def __init__(self, name, warps, keys):
             self.flash_decode_warps_per_cta = lambda: warps
-            self.flash_decode_tiled_keys = lambda: keys
-            self.flash_decode_launch = self.flash_decode_tiled_launch = (
-                lambda *a: 0)
+            setattr(self, f"{name}_keys", lambda: keys)
+            self.flash_decode_launch = lambda *a: 0
+            setattr(self, f"{name}_launch", lambda *a: 0)
 
+    built = []
     monkeypatch.setattr(cd, "_lib_fns", None)
-    monkeypatch.setattr(_build, "library", lambda name: Lib(4, 32))
+    monkeypatch.setattr(_build, "build", built.append)
+    monkeypatch.setattr(_build, "library", lambda name: Lib(
+        name, 4, 32 if name == "flash_decode_tiled_cast" else 64))
     with pytest.raises(RuntimeError, match="keys per tile"):
         cd._launchers()
     monkeypatch.setattr(_build, "library", lambda name: Lib(
-        cd._SPLIT_WARPS, cd._TILED_KEYS))
-    assert len(cd._launchers()) == 2
+        name, cd._SPLIT_WARPS, cd._TILED_KEYS))
+    split, tiled = cd._launchers()
+    assert sorted(tiled) == [BF16, CAST, Q8Q]  # a library per variant
+    # Every decode library is built at once (one nvcc each, in parallel).
+    assert set(built[-1]) == {"flash_decode", *cd._TILED_LIBS.values()}
 
 
 def test_cpu_wrapper_counts_no_multi_row_launch():
@@ -127,6 +147,37 @@ def test_cpu_wrapper_counts_no_multi_row_launch():
                                  table, q_offset=qo)
     assert (w.launches, w.tiled_launches) == before
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_cpu_b4_and_cast_wrappers_count_no_multi_row_launch():
+    """B4 carries the multi-row counters (``.tiled_launches``,
+    ``.tiled_tq``) and B1/B2 the cast route's (``.cast_tiled_launches``);
+    a CPU call of the int8 routes at a multi-row shape counts on none of
+    them and equals the plain version."""
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 8, 16), np.float32))
+    kq, vq = (torch.from_numpy(rng.integers(-127, 128, (2, 2, 40, 16)
+                                            ).astype(np.int8))
+              for _ in range(2))
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.03, (2, 2, 1, 16))
+                               .astype(np.float32)) for _ in range(2))
+    qo = torch.tensor([30, 11], dtype=torch.int32)
+    b1, b2, b4 = (cd.attention_cuda_decode, cd.attention_cuda_decode_paged,
+                  cd.attention_cuda_decode_q8q)
+    assert b4.tiled_tq is not b1.tiled_tq and isinstance(b4.tiled_tq, dict)
+    counts = [(w.launches, w.tiled_launches, dict(w.tiled_tq),
+               getattr(w, "cast_tiled_launches", None))
+              for w in (b1, b2, b4)]
+    kw = dict(causal=True, q_offset=qo)
+    for route in ("q8q", "q8"):
+        got = cd.resolve_q8_kernel(route)(q, kq, vq, ks, vs, **kw)
+        want = cd.resolve_q8_kernel(route, plain=True)(q, kq, vq, ks, vs,
+                                                       **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert counts == [(w.launches, w.tiled_launches, dict(w.tiled_tq),
+                       getattr(w, "cast_tiled_launches", None))
+                      for w in (b1, b2, b4)]
+    assert counts[0][3] is not None and counts[1][3] is not None
 
 
 # -- (b) the split geometry ---------------------------------------------------
@@ -158,7 +209,7 @@ def test_split_geometry_covers_every_visible_pair_once(tq, G, W):
     table = torch.from_numpy(_tables(W, rng))
     qoff = rng.integers(0, Tk - tq, size=B)
     qoff[0] = 3 * BLK - tq if 3 * BLK >= tq else 0  # ends on a block edge
-    body = cd.decode_body(BF16, R, True)
+    body = cd.decode_body(BF16, R)
     geo = cd.decode_geometry(body, R, B, HKV, Tk, shards=W)
     granule = cd._TILED_KEYS if body == "tiled" else 8
     assert geo.split_len % granule == 0
@@ -204,7 +255,7 @@ def test_local_splits_follow_the_body(R, W):
     multi-row body sizes its splits on that share (no split below
     _MIN_SPLIT_KEYS of HELD keys, on average); the split body (one packed
     row) keeps the logical sizing, which it ran faster with on the card."""
-    body = cd.decode_body(BF16, R, True)
+    body = cd.decode_body(BF16, R)
     one = cd.decode_geometry(body, R, 8, 16, 640)
     sharded = cd.decode_geometry(body, R, 8, 16, 640, shards=W)
     if body == "split":
@@ -234,7 +285,7 @@ def test_contiguous_geometry_covers_every_visible_pair_once(tq, G, mode):
         koff = rng.integers(1, Tk, size=B)
         qoff = koff + rng.integers(0, Tk - tq, size=B)
         koff[2] = qoff[2] + tq  # the slot's first key is past its frontier
-    body = cd.decode_body(BF16, R, False)
+    body = cd.decode_body(BF16, R)
     assert body == "tiled"
     geo = cd.decode_geometry(body, R, B, HKV, Tk)
     assert geo.split_len % cd._TILED_KEYS == 0
@@ -415,6 +466,161 @@ def test_b1_gqa_tq16_kv_offset_plain_matches_pallas():
     fin = np.isfinite(rl)
     np.testing.assert_allclose(l.numpy()[fin], rl[fin], atol=1e-2, rtol=1e-2)
     assert np.all(np.isneginf(l.numpy()[1])) and torch.all(o[1] == 0)
+
+
+def _q8_rows_close(port, ref):
+    """The int8 routes' row gate (``tests/test_torch_q8.py``): each query
+    row within 1e-2 of its largest |out|, the same empty rows, |dlse|
+    within 1e-4."""
+    o = port[0].float().numpy()
+    ro = np.asarray(jnp.asarray(ref[0], jnp.float32))
+    rl = np.asarray(ref[1])
+    assert o.shape == ro.shape
+    assert np.all(np.abs(o - ro) <= 1e-2 * np.abs(ro).max(-1, keepdims=True))
+    np.testing.assert_array_equal(np.isneginf(port[1].numpy()),
+                                  np.isneginf(rl))
+    fin = np.isfinite(rl)
+    np.testing.assert_allclose(port[1].numpy()[fin], rl[fin], atol=1e-4,
+                               rtol=0)
+
+
+def _draft_tree(rng, Bq, tq):
+    """``(Bq, tq, tq)`` ancestor masks with random parents: each row sees
+    itself and the root; not the lower-triangular (causal) mask."""
+    tree = np.tril(rng.random((Bq, tq, tq)) < 0.5)
+    tree[:, np.arange(tq), np.arange(tq)] = True
+    tree[:, :, 0] = True
+    assert not np.all(tree == np.tril(np.ones((tq, tq), bool)))
+    return tree
+
+
+def test_b4_gqa_tq16_kv_offset_plain_matches_pallas():
+    """B4's multi-row shape: GQA 4 x Tq 16 (64 packed rows) over contiguous
+    int8 K/V with channel scales, per-slot q_offset and kv_offset as a
+    ``tree_decode`` shard has them, one slot's shard wholly past its
+    frontier ((0, -inf)), Tk not a multiple of the tile."""
+    rng = np.random.default_rng(17)
+    Bq, Hkv, G, tq, Tk, D = 3, 2, 4, 16, 77, 16
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in (
+        (Bq, Hkv * G, tq, D), (Bq, Hkv, Tk, D), (Bq, Hkv, Tk, D)))
+    kq, vq, ks, vs = cd.quantize_kv_channelwise(torch.from_numpy(k),
+                                                torch.from_numpy(v))
+    ko = np.array([40, 300, 5], np.int32)
+    qo = np.array([100, 280, 30], np.int32)  # slot 1 sees none of its keys
+    ref = attention_pallas_decode_q8q(
+        *(jnp.asarray(x) for x in (q, kq.numpy(), vq.numpy(), ks.numpy(),
+                                   vs.numpy())),
+        causal=True, q_offset=jnp.asarray(qo), kv_offset=jnp.asarray(ko),
+        block_size=32, interpret=True)
+    o, l = cd.attention_cuda_decode_q8q(
+        torch.from_numpy(q), kq, vq, ks, vs, causal=True,
+        q_offset=torch.from_numpy(qo), kv_offset=torch.from_numpy(ko))
+    _q8_rows_close((o, l), ref)
+    assert np.all(np.isneginf(l.numpy()[1])) and torch.all(o[1] == 0)
+    assert np.all(np.isfinite(l.numpy()[[0, 2]]))
+
+
+@pytest.mark.parametrize("route", ["q8q", "q8"])
+def test_int8_contiguous_tree_tq8_plain_matches_pallas(route):
+    """A Tq-8 verify tick on the contiguous int8 layout with a draft tree
+    (not the causal mask): B4 against ``attention_pallas_decode_q8q``, the
+    cast route over B1 against ``attention_pallas_decode_q8``."""
+    rng = np.random.default_rng(18)
+    Bq, Hkv, G, tq, Tk, D = 2, 2, 2, 8, 90, 16
+    q, k, v = (rng.standard_normal(s).astype(np.float32) for s in (
+        (Bq, Hkv * G, tq, D), (Bq, Hkv, Tk, D), (Bq, Hkv, Tk, D)))
+    kq, vq, ks, vs = cd.quantize_kv_channelwise(torch.from_numpy(k),
+                                                torch.from_numpy(v))
+    qo = np.array([Tk - tq, 37], np.int32)
+    tree = _draft_tree(rng, Bq, tq)
+    jfn = attention_pallas_decode_q8q if route == "q8q" else \
+        attention_pallas_decode_q8
+    ref = jfn(*(jnp.asarray(x) for x in (q, kq.numpy(), vq.numpy(),
+                                         ks.numpy(), vs.numpy())),
+              causal=True, q_offset=jnp.asarray(qo),
+              tree_mask=jnp.asarray(tree), block_size=32, interpret=True)
+    port = cd.resolve_q8_kernel(route)(
+        torch.from_numpy(q), kq, vq, ks, vs, causal=True,
+        q_offset=torch.from_numpy(qo), tree_mask=torch.from_numpy(tree))
+    _q8_rows_close(port, ref)
+    causal = cd.resolve_q8_kernel(route)(
+        torch.from_numpy(q), kq, vq, ks, vs, causal=True,
+        q_offset=torch.from_numpy(qo))
+    assert (port[0] - causal[0]).abs().max() > 1e-2  # the mask has teeth
+
+
+def _int8_pool(rng, N, Hkv, blk, D):
+    """int8 K/V pools with per-block ``(N, Hkv)`` scales whose magnitudes
+    differ by block."""
+    kq, vq = (rng.integers(-127, 128, size=(N, Hkv, blk, D)).astype(np.int8)
+              for _ in range(2))
+    ks, vs = (np.exp(rng.standard_normal((N, Hkv))).astype(np.float32) * 0.01
+              for _ in range(2))
+    return kq, vq, ks, vs
+
+
+def test_cast_paged_chunk_tq64_block_scales_plain_matches_pallas():
+    """The cast route's multi-row shape on the paged layout: a 64-row chunk
+    (Tq 64) over int8 pools of 4-token blocks with per-block scales (so
+    the scalars change every 4 keys of the body's 64-key tiles), ragged
+    slots, one seeing no key."""
+    rng = np.random.default_rng(19)
+    Bq, Hkv, tq, D, blk, NBq, N = 3, 2, 64, 16, 4, 40, 110
+    kq, vq, ks, vs = _int8_pool(rng, N, Hkv, blk, D)
+    table = np.stack([rng.permutation(N)[:NBq] for _ in range(Bq)]
+                     ).astype(np.int32)
+    qo = np.array([NBq * blk - tq, 21, -tq], np.int32)
+    q = rng.standard_normal((Bq, Hkv, tq, D)).astype(np.float32)
+    ref = attention_pallas_decode_q8(
+        *(jnp.asarray(x) for x in (q, kq, vq, ks, vs)), causal=True,
+        q_offset=jnp.asarray(qo), block_table=jnp.asarray(table),
+        interpret=True)
+    port = cd.attention_cuda_decode_q8(
+        *(torch.from_numpy(x) for x in (q, kq, vq, ks, vs)), causal=True,
+        q_offset=torch.from_numpy(qo), block_table=torch.from_numpy(table))
+    _q8_rows_close(port, ref)
+    assert np.all(np.isneginf(port[1].numpy()[2]))
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_cast_local_blocks_block_scales_merge_to_unsharded(W):
+    """B2's cast route under ``local_blocks`` with per-block scales (the
+    sequence-sharded int8 pool's chunks): a 64-row chunk over the W ranks'
+    slices of one pool, each rank's partial from its signed table, merged
+    by the monoid, equals unsharded B2 on the whole pool, and the
+    unsharded result equals ``attention_pallas_decode_q8``'s."""
+    rng = np.random.default_rng(20 + W)
+    Bq, Hkv, tq, D, blk, NBq = 3, 2, 64, 16, 4, 30
+    N = 24 * W  # a multiple of W: every rank holds N / W blocks
+    kq, vq, ks, vs = _int8_pool(rng, N, Hkv, blk, D)
+    table = np.stack([rng.permutation(N)[:NBq] for _ in range(Bq)]
+                     ).astype(np.int32)
+    qo = np.array([NBq * blk - tq, 33, 5], np.int32)
+    q = torch.from_numpy(rng.standard_normal((Bq, Hkv, tq, D)).astype(
+        np.float32)).bfloat16()
+    t = [torch.from_numpy(x) for x in (kq, vq, ks, vs, table, qo)]
+    whole = cd.attention_cuda_decode_paged(q, t[0], t[1], t[4], q_offset=t[5],
+                                           block_scales=(t[2], t[3]))
+    nl = N // W
+    parts = []
+    for r in range(W):
+        loc = table - r * nl
+        loc = np.where((loc >= 0) & (loc < nl), loc, -1).astype(np.int32)
+        sl = slice(r * nl, (r + 1) * nl)
+        parts.append(cd.attention_cuda_decode_paged(
+            q, t[0][sl], t[1][sl], torch.from_numpy(loc), q_offset=t[5],
+            block_scales=(t[2][sl], t[3][sl]), local_blocks=True,
+            local_shards=W))
+    merged = merge_partials(torch.stack([o.float() for o, _ in parts]),
+                            torch.stack([l for _, l in parts]))
+    row = whole[0].float().abs().amax(-1, keepdim=True)
+    assert torch.all((merged[0] - whole[0].float()).abs() <= 1e-2 * row)
+    torch.testing.assert_close(merged[1], whole[1], atol=1e-4, rtol=0)
+    ref = attention_pallas_decode_q8(
+        *(jnp.asarray(x) for x in (q.float().numpy(), kq, vq, ks, vs)),
+        causal=True, q_offset=jnp.asarray(qo),
+        block_table=jnp.asarray(table), interpret=True)
+    _q8_rows_close(whole, ref)
 
 
 def test_b5_tree_tq8_small_blocks_plain_matches_pallas():
@@ -611,3 +817,122 @@ def test_b5_multi_row_body_matches_plain_on_gpu():
                     assert _gate(got, cd.paged_decode_q8q_plain(
                         q, kq, vq, table, ks, vs, q_offset=qo,
                         tree_mask=tm)), (blk, tq)
+
+
+@pytest.mark.gpu
+def test_b4_multi_row_body_matches_plain_on_gpu():
+    """B4 on the multi-row body against its plain version: GQA Tq 16 over
+    a Tk that is not a multiple of 64, Tq 2, 5, 64, 127 at G 1 and 4, D 64
+    and 128, causal with per-slot kv_offset (one slot's shard past its
+    frontier: (0, -inf)) and not, and Tq-8 trees whose lower-triangular
+    mask gives the causal launch bit for bit; each launch counted on
+    ``.tiled_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode (the plain versions are tested above)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4)
+    w = cd.attention_cuda_decode_q8q
+    for D in (64, 128):
+        for G, tq, tk in ((4, 16, 4037), (1, 2, 640), (4, 5, 640),
+                          (1, 64, 700), (4, 127, 700), (1, 8, 640)):
+            q = torch.randn(4, 8 * G, tq, D, generator=g).to(dev,
+                                                            torch.bfloat16)
+            kq, vq, ks, vs = cd.quantize_kv_channelwise(*(
+                torch.randn(4, 8, tk, D, generator=g).to(dev)
+                for _ in range(2)))
+            ko = torch.tensor([0, 37, 900, 5], dtype=torch.int32, device=dev)
+            qo = torch.tensor([tk - tq, 500, 700, 60], dtype=torch.int32,
+                              device=dev)  # slot 2's shard is past it
+            for kw in (dict(causal=True, q_offset=qo, kv_offset=ko),
+                       dict(causal=False)):
+                before = w.tiled_launches
+                got = w(q, kq, vq, ks, vs, **kw)
+                assert w.tiled_launches == before + 1
+                assert _gate(got, cd.decode_q8q_plain(q, kq, vq, ks, vs,
+                                                      **kw)), (D, tq)
+            if tq == 8:
+                kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+                tril = torch.tril(torch.ones(8, 8, dtype=torch.bool,
+                                             device=dev)).expand(4, 8, 8)
+                a = w(q, kq, vq, ks, vs, **kw)
+                t = w(q, kq, vq, ks, vs, tree_mask=tril, **kw)
+                assert torch.equal(a[0], t[0]) and torch.equal(a[1], t[1])
+                tree = torch.from_numpy(_draft_tree(
+                    np.random.default_rng(D), 4, 8)).to(dev)
+                assert _gate(w(q, kq, vq, ks, vs, tree_mask=tree, **kw),
+                             cd.decode_q8q_plain(q, kq, vq, ks, vs,
+                                                 tree_mask=tree, **kw))
+
+
+@pytest.mark.gpu
+def test_cast_multi_row_body_matches_plain_on_gpu():
+    """The cast route over B1 and B2 on the multi-row body against its
+    plain version: contiguous GQA Tq 16 and a Tq-8 tree over channel
+    scales; paged Tq 8 and 64 over 64- and 16-token blocks with per-block
+    and channel scales, and a Tq-8 tree; a 64-row chunk under
+    ``local_blocks`` over two ranks, merged, against unsharded B2. Each
+    launch counted on the wrapper's ``.cast_tiled_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode (the plain versions are tested above)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+    b1, b2 = cd.attention_cuda_decode, cd.attention_cuda_decode_paged
+
+    def counted(wr, fn):
+        before = wr.cast_tiled_launches
+        out = fn()
+        assert wr.cast_tiled_launches == before + 1
+        return out
+
+    q = torch.randn(4, 32, 16, 128, generator=g).to(dev, torch.bfloat16)
+    kq, vq, ks, vs = cd.quantize_kv_channelwise(*(
+        torch.randn(4, 8, 4037, 128, generator=g).to(dev) for _ in range(2)))
+    qo = torch.tensor([4021, 500, 3000, 60], dtype=torch.int32, device=dev)
+    tree = torch.from_numpy(_draft_tree(np.random.default_rng(6), 4, 8)
+                            ).to(dev)
+    for qq, kw in ((q, dict(causal=True, q_offset=qo)),
+                   (q[:, :8, :8], dict(causal=True, q_offset=qo,
+                                       tree_mask=tree))):
+        got = counted(b1, lambda: cd.attention_cuda_decode_q8(
+            qq, kq, vq, ks, vs, **kw))
+        assert _gate(got, cd.decode_q8_plain(qq, kq, vq, ks, vs, **kw))
+    for blk in (64, 16):
+        nb, N = 640 // blk, 2 * 640 // blk
+        pk, pv = (torch.randint(-127, 128, (N, 8, blk, 128), generator=g,
+                                dtype=torch.int8).to(dev) for _ in range(2))
+        per_block = tuple((torch.rand(N, 8, generator=g) * 0.03 + 0.005
+                           ).to(dev) for _ in range(2))
+        channel = tuple((torch.rand(4, 8, 1, 128, generator=g) * 0.03
+                         + 0.005).to(dev) for _ in range(2))
+        table = torch.stack([torch.randperm(N, generator=g)[:nb]
+                             for _ in range(4)]).to(dev, torch.int32)
+        for tq in (8, 64):
+            q = torch.randn(4, 8, tq, 128, generator=g).to(dev,
+                                                          torch.bfloat16)
+            qo = torch.randint(0, 640 - tq, (4,), generator=g).to(
+                dev, torch.int32)
+            for sc in (per_block, channel):
+                for tm in ((None, tree) if tq == 8 else (None,)):
+                    kw = dict(causal=True, q_offset=qo, block_table=table,
+                              tree_mask=tm)
+                    got = counted(b2, lambda: cd.attention_cuda_decode_q8(
+                        q, pk, pv, *sc, **kw))
+                    assert _gate(got, cd.decode_q8_plain(q, pk, pv, *sc,
+                                                         **kw)), (blk, tq)
+        # One 64-row chunk over two ranks' halves of the pool.
+        parts = []
+        for r in range(2):
+            loc = table - r * (N // 2)
+            loc = torch.where((loc >= 0) & (loc < N // 2), loc, -1).to(
+                torch.int32)
+            sl = slice(r * (N // 2), (r + 1) * (N // 2))
+            parts.append(counted(b2, lambda: b2(
+                q, pk[sl], pv[sl], loc, q_offset=qo,
+                block_scales=tuple(x[sl] for x in per_block),
+                local_blocks=True, local_shards=2)))
+        merged = merge_partials(torch.stack([o.float() for o, _ in parts]),
+                                torch.stack([l for _, l in parts]))
+        assert _gate(merged, b2(q, pk, pv, table, q_offset=qo,
+                                block_scales=per_block))

@@ -1,7 +1,7 @@
 // What the two decode bodies share (flash_decode.cu's split body,
-// flash_decode_tiled.cu's multi-row body): the launch arguments and the
-// merge of the split partials. Each library includes it once; its kernels
-// have internal linkage, so the two libraries carry their own copies.
+// decode_tiled.cuh's multi-row body): the launch arguments and the merge of
+// the split partials. Each library includes it once; its kernels have
+// internal linkage, so each library carries its own copy.
 #pragma once
 
 #include "common.cuh"

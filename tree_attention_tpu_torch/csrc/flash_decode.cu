@@ -34,19 +34,20 @@
 //
 // Two bodies, chosen statically by the wrapper (ops/cuda_decode.py
 // decode_body):
-// - the multi-row body (flash_decode_tiled.cu; tensor cores) takes every
-//   launch with more than one packed row per KV head, or a tree mask, whose
-//   operands are exact bf16 (B1 on contiguous K/V, B2 through the table)
-//   or q8q through the table (B5): prompt tails and staged int8 chunks,
-//   verify ticks, the sharded pool's chunks. It reads each key once per 64
-//   packed rows, so it is bound by the visible K/V bytes;
+// - the multi-row body (decode_tiled.cuh; tensor cores) takes every launch
+//   with more than one packed row per KV head, or a tree mask, whose
+//   operands are not f32: exact bf16 (B1 on contiguous K/V, B2 through the
+//   table), the cast route over B1/B2, and q8q (B4 contiguous, B5 through
+//   the table): prompt tails and staged chunks, verify ticks, the sharded
+//   pool's chunks. It reads each key once per 64 packed rows, so it is
+//   bound by the visible K/V bytes;
 // - the split body (this file; CUDA cores) takes the rest: one packed row
-//   without a mask (the serving decode tick, the reference workload), f32
-//   (the reference pins f32 products at HIGHEST), the cast route, and
-//   contiguous q8q (B4). At one row a warp it reads each key once and is
-//   bound by bytes as well; its 8-row tile (f32, cast, B4 with more rows)
-//   re-streams every key for every 8 rows. It is built for exact bf16 and
-//   paged q8q at one row only.
+//   without a mask (the serving decode tick, the reference workload) of
+//   every variant, and f32 at any row count (the reference pins f32
+//   products at HIGHEST). At one row a warp it reads each key once and is
+//   bound by bytes as well; its 8-row tile (f32 only) re-streams every key
+//   for every 8 rows. It is built at one row for every variant, and with
+//   the 8-row tile and the tree mask for f32 only.
 //
 // The split body (decode_split_kernel; CUDA cores):
 // - One WARP is one (KV split, Q tile of RW packed rows, b*Hkv) work item
@@ -62,7 +63,7 @@
 //   whose low register count keeps more warps — more loads — in flight per
 //   SM, and which holds two chunks, issuing the next chunk's loads before
 //   it folds in the current one, so a warp's loads do not stop while it
-//   computes; otherwise 8, and each 8-row tile re-streams the keys.
+//   computes; otherwise 8 (f32), and each 8-row tile re-streams the keys.
 //
 // Both bodies:
 // - Splits give the card enough independent work items to cover HBM
@@ -107,7 +108,7 @@
 //   so it gives the causal launch's out and lse bit for bit. The word is
 //   one register per row, loaded beside the row's position; the flag is a
 //   template parameter, so the body without it is unchanged. The split
-//   body builds it for the 8-row Q tile only (f32, cast, B4).
+//   body builds it for the 8-row Q tile of f32 only.
 #include <type_traits>
 
 #include "decode.cuh"
@@ -368,13 +369,10 @@ cudaError_t launch(const Args& a, int split_ctas, cudaStream_t stream) {
 template <typename TQ, typename TKV, typename TO, bool kPaged, bool kScales>
 cudaError_t by_shape(int rows_per_warp, int D, const Args& a, int ctas,
                      cudaStream_t st) {
-  // Exact bf16 (B1, B2) and paged q8q (B5) with 8-row tiles or a tree
-  // mask run the multi-row body (flash_decode_tiled.cu), so the split body
-  // is built for them at one row only.
-  constexpr bool kLeanOnly =
-      (std::is_same<TQ, __nv_bfloat16>::value &&
-       std::is_same<TKV, __nv_bfloat16>::value) ||
-      (std::is_same<TQ, int8_t>::value && kPaged);
+  // Every variant but f32 runs its 8-row tiles and tree masks on the
+  // multi-row body (decode_tiled.cuh), so the split body is built for it at
+  // one row only.
+  constexpr bool kLeanOnly = !std::is_same<TQ, float>::value;
   if (a.tree != nullptr) {  // the tree variant: the 8-row Q tile only
     if constexpr (!kLeanOnly) {
       if (rows_per_warp == 8 && D == 64)
@@ -428,12 +426,12 @@ int flash_decode_warps_per_cta() { return kWarps; }
 // k/v, bf16 out (q8q). paged: 0 = k/v are (B*Hkv, Tk, D); 1 = k/v are
 // (N, Hkv, blk, D) pools read through table (B, NB), Tk = NB*blk. ks/vs:
 // per-block (N, Hkv) f32 scalars of an int8 pool, or null. rows_per_warp:
-// 1 or 8 packed query rows per warp (the Q tile). o_part/lse_part hold
+// 1 or (f32 only) 8 packed query rows per warp (the Q tile). o_part/lse_part hold
 // split_ctas * warps_per_cta partials. local_blocks (paged only): the table
 // is signed and a negative entry is a block another rank holds — never
 // read, its keys masked. tree: (B*Hkv, R) int32 ancestor bitmasks of the
-// packed rows (the tree variant; causal, Tq <= 32, rows_per_warp 8), or
-// null. Returns the CUDA error of the launches (0 on success).
+// packed rows (the tree variant; f32, causal, Tq <= 32, rows_per_warp
+// 8), or null. Returns the CUDA error of the launches (0 on success).
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const void* qs, const void* ks, const void* vs,
                         const void* offs, const void* table,

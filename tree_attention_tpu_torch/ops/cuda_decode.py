@@ -2,8 +2,8 @@
 B4 and B5 (int8 Q x int8 K).
 
 Counterpart of ``tree_attention_tpu/ops/pallas_decode.py``; the kernels are
-``csrc/flash_decode.cu`` and ``csrc/flash_decode_tiled.cu`` (design notes
-and the bound there). Same
+``csrc/flash_decode.cu`` and ``csrc/decode_tiled.cuh`` (design notes and the
+bound there). Same
 ``(out, lse)`` contract: each KV head's ``G*Tq`` query rows are packed into
 one tile, a key at global position ``kv_offset + j`` is visible to packed
 row ``r`` iff ``kv_offset + j <= q_offset[b] + r % Tq`` (causal), scores and
@@ -39,20 +39,23 @@ on ``attention_cuda_decode_paged.local_launches``, and each wrapper's tree
 variant on its ``.tree_launches``.
 
 Two bodies compute every launch, chosen by the static rule
-:func:`decode_body`. The multi-row body (``csrc/flash_decode_tiled.cu``,
-tensor cores) takes every launch with more than one packed row per KV
-head, or a tree mask, whose operands are exact bf16 (B1 on either layout,
-B2 with or without ``local_blocks``) or q8q through a block table (B5):
-prompt tails, staged int8 admission's chunks, verify ticks, the sharded
-pool's chunks. It reads each key once per 64 packed rows; bytes bound it.
-The split body (``csrc/flash_decode.cu``, CUDA cores) takes the rest: one
-packed row without a mask (the decode tick, ``--mode decode``), f32, the
-int8 cast route, contiguous q8q (B4). A warp owns 1 packed row (then it
-reads each key once, and bytes bound it) or 8, and then re-reads the keys
-for every 8 rows. Both write per-split partials that one
-merge kernel combines. Launches of the multi-row body also count on the
-wrapper's ``.tiled_launches`` and, by Tq, ``.tiled_tq`` (B1, B2, B5).
-:func:`decode_geometry` sizes each body's splits.
+:func:`decode_body`. The multi-row body (``csrc/decode_tiled.cuh``, tensor
+cores) takes every launch with more than one packed row per KV head, or a
+tree mask, whatever its operands but f32: exact bf16 (B1 on either layout,
+B2 with or without ``local_blocks``), the int8 cast route over B1/B2 (with
+or without per-block scales and ``local_blocks``) and q8q (B4 contiguous,
+B5 through a block table): prompt tails, staged int8 admission's chunks,
+verify ticks, the sharded pool's chunks. It reads each key once per 64
+packed rows; bytes bound it. Each operand variant has a library of its own
+(``csrc/flash_decode_tiled.cu``, ``_cast.cu``, ``_q8q.cu``). The split body
+(``csrc/flash_decode.cu``, CUDA cores) takes the rest: one packed row
+without a mask (the decode tick, ``--mode decode``) of every variant, and
+f32. A warp owns 1 packed row (then it reads each key once, and bytes
+bound it) or, in f32, 8, and then re-reads the keys for every 8 rows. Both
+write per-split partials that one merge kernel combines. Launches of the
+multi-row body also count on the wrapper's ``.tiled_launches`` and, by Tq,
+``.tiled_tq`` (B1, B2, B4, B5); the cast route's also on B1's or B2's
+``.cast_tiled_launches``. :func:`decode_geometry` sizes each body's splits.
 """
 
 from __future__ import annotations
@@ -97,25 +100,35 @@ _TILED_ROWS = (16, 32, 64)
 # (``csrc/flash_decode.cu``): 0/1 exact, then the two int8 routes.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CAST, _Q8Q = 2, 3
+# The multi-row body's library of each operand variant (f32 has none).
+_TILED_LIBS = {_DTYPES[torch.bfloat16]: "flash_decode_tiled",
+               _CAST: "flash_decode_tiled_cast",
+               _Q8Q: "flash_decode_tiled_q8q"}
 _lib_fns = None
 
 BlockScales = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _launchers():
+    """``(split, {variant: multi-row})``: the split body's C entry and the
+    multi-row body's of each operand variant, after checking what each
+    built library says of itself."""
     global _lib_fns
     if _lib_fns is None:
+        _build.build(("flash_decode", *_TILED_LIBS.values()))  # in parallel
         lib = _build.library("flash_decode")
-        tlib = _build.library("flash_decode_tiled")
+        tlibs = {v: (n, _build.library(n)) for v, n in _TILED_LIBS.items()}
         built = (lib.flash_decode_warps_per_cta(),
-                 tlib.flash_decode_tiled_keys())
-        if built != (_SPLIT_WARPS, _TILED_KEYS):
+                 *(getattr(t, f"{n}_keys")() for n, t in tlibs.values()))
+        want = (_SPLIT_WARPS,) + (_TILED_KEYS,) * len(tlibs)
+        if built != want:
             raise RuntimeError(
                 f"the decode libraries were built with (warps per CTA, keys "
-                f"per tile) {built}, ops/cuda_decode.py says "
-                f"{(_SPLIT_WARPS, _TILED_KEYS)}")
-        split, tiled = lib.flash_decode_launch, tlib.flash_decode_tiled_launch
-        for fn in (split, tiled):  # one signature: see _launch
+                f"per tile of each multi-row library) {built}, "
+                f"ops/cuda_decode.py says {want}")
+        split = lib.flash_decode_launch
+        tiled = {v: getattr(t, f"{n}_launch") for v, (n, t) in tlibs.items()}
+        for fn in (split, *tiled.values()):  # one signature: see _launch
             fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 15
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -125,28 +138,27 @@ def _launchers():
 
 def _rows_per_warp(rows: int, tree: bool = False) -> int:
     """The split body's Q tile: 1 packed row per warp when a KV head has
-    one query row (the lean variant), else 8; the tree variant is built for
-    8 only."""
+    one query row (the lean variant), else 8 (f32 only); the tree variant
+    is built for 8 only."""
     return 1 if rows == 1 and not tree else 8
 
 
-def decode_body(variant: int, rows: int, paged: bool,
-                tree: bool = False) -> str:
+def decode_body(variant: int, rows: int, tree: bool = False) -> str:
     """Which body a launch runs, by a static rule on its operands:
     ``"tiled"`` — the multi-row body on the tensor cores — for a launch
     with ``rows`` = G*Tq > 1 packed rows per KV head or a tree mask whose
-    operands are exact bf16 (``variant`` 1: B1 on contiguous K/V, B2
-    through a block table) or int8 q8q through a block table (``variant``
-    3: B5); ``"split"`` for every other launch: one packed row without a
-    mask (the lean decode tick), f32 (the reference pins f32 products at
-    HIGHEST: no tensor cores), the int8 cast route over B1/B2, contiguous
-    q8q (B4). The ``local_blocks`` flag rides either body, and the
-    multi-row body takes any block size, kv_offset and row count, so no
-    shape it receives is turned away."""
+    operands are not f32: exact bf16 (``variant`` 1: B1, B2), the int8
+    cast route over B1/B2 (2) and q8q (3: B4 contiguous, B5 through a
+    block table); ``"split"`` for every other launch: one packed row
+    without a mask (the lean decode tick, the reference workload) and f32
+    (the reference pins f32 products at HIGHEST: no tensor cores). The
+    layout, the ``local_blocks`` flag and per-block scales do not enter
+    the rule: both bodies take them, and the multi-row body takes any
+    block size, kv_offset and row count, so no shape it receives is
+    turned away."""
     multi = rows > 1 or tree
-    tiled = multi and (variant == _DTYPES[torch.bfloat16]
-                       or (variant == _Q8Q and paged))
-    return "tiled" if tiled else "split"
+    return ("tiled" if multi and variant != _DTYPES[torch.float32]
+            else "split")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -518,11 +530,12 @@ def _launch(wrapper, qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB,
     table is signed (negative = a block another rank holds), the pool
     sharded over ``shards`` ranks. ``tree_mask``: the tree variant, its
     bits packed here on the device. A launch of the multi-row body counts
-    on ``wrapper.tiled_launches`` and, by Tq, in ``wrapper.tiled_tq``."""
-    split_fn, tiled_fn = _launchers()
+    on ``wrapper.tiled_launches`` and, by Tq, in ``wrapper.tiled_tq``; the
+    cast route's also on ``wrapper.cast_tiled_launches``."""
+    split_fn, tiled_fns = _launchers()
     B, Hkv, R, D = qp.shape
     tree = tree_mask is not None
-    geo = decode_geometry(decode_body(variant, R, table is not None, tree),
+    geo = decode_geometry(decode_body(variant, R, tree),
                           R, B, Hkv, Tk, tree=tree, shards=shards)
     bits = (tree_bits_rows(tree_mask.to(qp.device), R // Tq, Hkv)
             .contiguous() if tree else None)
@@ -547,9 +560,11 @@ def _launch(wrapper, qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB,
     if geo.body == "tiled":
         # The multi-row body takes rows a CTA and partials where the split
         # body takes rows a warp and CTAs along the keys.
-        fn, rows, ctas = tiled_fn, geo.rows, geo.splits
+        fn, rows, ctas = tiled_fns[variant], geo.rows, geo.splits
         wrapper.tiled_launches += 1
         wrapper.tiled_tq[Tq] = wrapper.tiled_tq.get(Tq, 0) + 1
+        if variant == _CAST:
+            wrapper.cast_tiled_launches += 1
     else:
         fn, rows, ctas = split_fn, geo.rows, geo.ctas
     err = fn(
@@ -589,8 +604,9 @@ def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
     ``(B, Hkv, Tk, D)`` of q's dtype, or int8 (q then runs in bf16);
     offsets scalar or ``(B,)``. Launches with ``tree_mask`` count on
     ``.tree_launches``, the others on ``.launches``; launches of the
-    multi-row body (bf16, more than one packed row or a tree) also on
-    ``.tiled_launches`` and, by Tq, in ``.tiled_tq``."""
+    multi-row body (bf16 or int8, more than one packed row or a tree) also
+    on ``.tiled_launches`` and, by Tq, in ``.tiled_tq``, and with int8 K/V
+    on ``.cast_tiled_launches``."""
     _check_tree(q, tree_mask, causal)
     if q.device.type == "cpu":
         return decode_plain(q, k, v, causal=causal, scale=scale,
@@ -613,6 +629,7 @@ attention_cuda_decode.launches = 0
 attention_cuda_decode.tree_launches = 0
 attention_cuda_decode.tiled_launches = 0
 attention_cuda_decode.tiled_tq = {}  # multi-row launches by Tq
+attention_cuda_decode.cast_tiled_launches = 0  # ... with int8 K/V
 
 
 def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
@@ -638,8 +655,9 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
     multi-row body's splits on this rank's share of the keys. Such
     launches count on ``.local_launches``, the tree variant's (``tree_mask``) on
     ``.tree_launches``, the others on ``.launches``; launches of the
-    multi-row body (bf16, more than one packed row) also on
-    ``.tiled_launches`` and, by Tq, in ``.tiled_tq``."""
+    multi-row body (bf16 or int8, more than one packed row or a tree) also
+    on ``.tiled_launches`` and, by Tq, in ``.tiled_tq``, and with int8 pools
+    on ``.cast_tiled_launches``."""
     _check_tree(q, tree_mask)
     if local_blocks and tree_mask is not None:
         raise ValueError("tree_mask is not supported under local_blocks "
@@ -677,6 +695,7 @@ attention_cuda_decode_paged.local_launches = 0
 attention_cuda_decode_paged.tree_launches = 0
 attention_cuda_decode_paged.tiled_launches = 0
 attention_cuda_decode_paged.tiled_tq = {}  # multi-row launches by Tq
+attention_cuda_decode_paged.cast_tiled_launches = 0  # ... with int8 pools
 
 
 def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
@@ -687,7 +706,10 @@ def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
                               tree_mask: Optional[torch.Tensor] = None):
     """B4: ``q`` ``(B, Hq, Tq, D)`` against contiguous int8 ``k_q``/``v_q``
     ``(B, Hkv, Tk, D)`` with channel scales ``(B, Hkv, 1, D)``; Q folded
-    and quantized per packed row, int8 x int8 -> int32 scores."""
+    and quantized per packed row, int8 x int8 -> int32 scores. Launches
+    count as B1's do (``.launches``, ``.tree_launches``; ``.tiled_launches``
+    and ``.tiled_tq`` for the multi-row body, which takes more than one
+    packed row or a tree)."""
     _check_tree(q, tree_mask, causal)
     if q.device.type == "cpu":
         return decode_q8q_plain(q, k_q, v_q, k_scale, v_scale, causal=causal,
@@ -710,6 +732,8 @@ def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
 
 attention_cuda_decode_q8q.launches = 0
 attention_cuda_decode_q8q.tree_launches = 0
+attention_cuda_decode_q8q.tiled_launches = 0
+attention_cuda_decode_q8q.tiled_tq = {}  # multi-row launches by Tq
 
 
 def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
