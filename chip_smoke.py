@@ -7,10 +7,10 @@ failure exits non-zero:
    ``nvcc`` per source, all started together), print the card, each
    kernel's registers and spills (the decode split body's tree variants
    beside their causal twins, every instantiation of the multi-row body of
-   B1, B2, B4, B5 and the cast route, by library),
+   B1, B2, B4, B5 and the cast route, by library, and of the tick body),
    and the HGMMA instructions in the SASS of the tensor-core bodies of B3,
    B6 and B7 (``cuobjdump -sass``; none is a failure, and so is a spill in
-   B7's tensor-core body or in the multi-row decode body).
+   B7's tensor-core body, the multi-row decode body or the tick body).
 2. Hold each kernel against its plain PyTorch version on the card at the
    main path's shapes (bf16; each query row's out within 2e-2 of that row's
    largest |out|, i.e. about two bf16 ulps, and lse within 1e-3 — P is
@@ -51,7 +51,18 @@ failure exits non-zero:
    attention, so SDPA over the dequantized bf16 K/V is timed as a labelled
    yardstick. At B5's serve shape the gate is shown to reject per-block
    scales read by logical block, the V scalar applied before the softmax
-   sum, and an output halved.
+   sum, and an output halved; the same at B2's cast tick.
+   The tick body (B2, its cast route and B5 at one packed row through a
+   table; ``cuda_decode.decode_body`` "tick"): every such call counted on
+   the wrapper's ``.tick_launches``; under the row gate and timed beside
+   its bound at D 64 and 128 over 64- and 16-token blocks (8 slots x 16
+   heads of at most 640 tokens, ragged, one slot with no visible key), and
+   at one long paged slot (B1 H16, 1000 blocks of 64: the reference
+   workload through a table; bf16 and B5); bit for bit: NaN keys past each
+   slot's frontier inside its last block, NaN blocks past each slot and
+   in blocks no table names, and (int8) codes changed and NaN scalars past
+   each slot, all unread; the gate shown rejecting the last cluster rank's
+   partial left out of the merge.
    B2 with ``local_blocks`` (one rank's slice of a sequence-sharded pool
    under a signed table) at the serve tick (B8 H16 Tq1, 640-token slots)
    and a 64-row chunk, exact bf16 and int8 with per-block scales, over 80
@@ -59,14 +70,16 @@ failure exits non-zero:
    ``ShardedBlockAllocator`` hands blocks out: every rank's call under the
    row gate, rank 0's timed against its bound (the keys it holds / 3.35
    TB/s), the W partials merged by the in-process monoid against unsharded
-   B2, an all-remote row exactly ``(0, -inf)``, and the gate shown
-   rejecting remote entries read as block 0. Per-shard ``tree_decode`` at
-   the reference workload: B1 over W = 2 and 4 KV shards with their
-   offsets, and B4 over the shards of the channel-quantized K/V, merged
-   against the unsharded B1 / B4 under the same gate.
-   The tree variants (speculative tree verification: the ancestor-window
-   rule in place of the causal one) under the same row gate, masks random
-   draft trees packed as ``pack_proposal`` packs them (one slot a chain):
+   B2, an all-remote row exactly ``(0, -inf)`` (tick and chunk), each
+   tick's rank pool past every frontier poisoned and unread bit for bit,
+   and the gate shown rejecting remote entries read as block 0.
+   Per-shard ``tree_decode`` at the reference workload: B1 over W = 2 and 4
+   KV shards with their offsets, and B4 over the shards of the
+   channel-quantized K/V, merged against the unsharded B1 / B4 under the
+   same gate. The tree variants (speculative tree verification: the
+   ancestor-window rule in place of the causal one) under the same row
+   gate, masks random draft trees packed as ``pack_proposal`` packs them
+   (one slot a chain):
    B2 and B5 at a verify tick (B8 H16, Tq 8 and 32 — bit 31 — 640-token
    slots, one window across a block boundary; bf16, int8 per-block
    scales), B1 and B4 at the contiguous verify tick and at the reference
@@ -117,20 +130,22 @@ failure exits non-zero:
    ``--mode serve`` entry point) at the reference attention width (d_model
    2048, 16 heads x 128, d_ff 5504, vocab 32768, bf16, depth cut to 4
    layers, random weights from a seed); check every request retires with
-   its budget, the pool drains, the paged decode (B2, its multi-row body
-   on the prompt-tail ticks, counted by Tq bucket) and Q-tiled (B3)
-   kernels ran, and one mixed step's logits and written KV match the plain
-   path on the same cache (logits within 0.1: bf16 activations, relative
-   precision ~4e-3, through 4 layers at a logit scale ~1; KV within 2e-2 of
-   the pool's largest |value|). The serve step's device time is split by
-   kernel group from a traced wave, against the same wave's untraced wall.
+   its budget, the pool drains, the paged decode (B2: every one-row tick
+   on its tick body, its multi-row body on the prompt-tail ticks, counted
+   by Tq bucket) and Q-tiled (B3) kernels ran, and one mixed step's
+   logits and written KV match the plain path on the same cache (logits
+   within 0.1: bf16 activations, relative precision ~4e-3, through 4 layers
+   at a logit scale ~1; KV within 2e-2 of the pool's largest |value|). The
+   serve step's device time is split by kernel group from a traced wave,
+   against the same wave's untraced wall.
    Then int8: 16 requests through ``cli.main --mode serve --kv-quant
    int8`` (staged admission, the paged int8 cache): every request retires
    with its budget, the pool drains, B5 launched once per layer and int8
-   step, B1/B3 for the staged chunks (the tails below 128 rows on B1's
-   multi-row body); 4 requests on the contiguous int8
+   step, each on its tick body, B1/B3 for the staged chunks (the tails
+   below 128 rows on B1's multi-row body); 4 requests on the contiguous int8
    cache (B4 once per layer and int8 step) and 4 through ``--kv-quant
-   int8-cast`` (B2 with per-block scales once per layer and int8 step);
+   int8-cast`` (B2 with per-block scales once per layer and int8 step,
+   on its tick body);
    the 8-request wave again on an
    int8 cache, its device time split (B5 apart) and its greedy tokens
    against the exact wave's (reported); and one int8 decode step, kernel
@@ -163,21 +178,22 @@ failure exits non-zero:
    against each root path decoded one token at a time, within 0.1. Token
    agreement with the non-speculative serve, acceptance, tokens per verify
    tick and spec tok/s beside non-spec tok/s are reported, with the oracle
-   wave's device split, exact and on the paged and contiguous int8 pools. Every serve's
-   launches of the multi-row body are reported by kernel and Tq.
-   Then two ranks on the one card (spawned processes on ``cuda:0`` over
+   wave's device split, exact and on the paged and contiguous int8 pools.
+   Every serve's launches of the multi-row body are reported by kernel and
+   Tq. Then two ranks on the one card (spawned processes on ``cuda:0`` over
    gloo; NCCL refuses two ranks on one device): ``--mesh seq=2 --kv-shard
    seq`` at the same width, exact and ``--kv-quant int8`` (16 requests
    each): every request retires with its budget, each rank's pool drains
    and holds half the whole pool's bytes, B2 ``local_blocks`` launches
    once per layer and step on each rank (nothing else reads the sharded
-   pool; the exact chunks take its multi-row body; the int8 slice runs
-   one-row decode ticks only, staged admission's chunks going to the
-   staging cache), exactly 1 MAX + 2 SUM all-reduces per layer and step
-   (int8: plus one SUM per step for the anchor scales), both ranks'
-   tokens equal; one mixed step's merged logits within 0.1 of the single-rank path on the
-   same logical cache; greedy agreement with the single-rank serve
-   reported; and ``--mode decode --mesh seq=2`` at the reference workload
+   pool; the exact chunks take its multi-row body, every tick its tick
+   body; the int8 slice runs one-row decode ticks only, staged admission's
+   chunks going to the staging cache), exactly 1 MAX + 2 SUM all-reduces
+   per layer and step (int8: plus one SUM per step for the anchor scales),
+   both ranks' tokens equal; one mixed step's merged logits within 0.1 of
+   the single-rank path on the same logical cache; greedy agreement with
+   the single-rank serve reported; and ``--mode decode --mesh seq=2`` at
+   the reference workload
    (its time: two ranks sharing one card, not a scaling figure).
 4. Time ``--mode decode`` at the reference workload (B=1, 16 heads x 128,
    64000 KV tokens, one query) through the contiguous decode kernel (B1),
@@ -354,6 +370,7 @@ def _sharded_rank(rank: int, world: int, port: int, device: str,
         "flash_decode_paged": (b2, "launches"),
         "flash_decode_paged_local": (b2, "local_launches"),
         "flash_decode_paged_tiled": (b2, "tiled_launches"),
+        "flash_decode_paged_tick": (b2, "tick_launches"),
         "flash_decode_tiled": (cuda_decode.attention_cuda_decode,
                                "tiled_launches"),
         "flash_decode_paged_q8q": (
@@ -1000,6 +1017,14 @@ def main() -> None:
     print(f"ptxas of the multi-row body (B1, B2, B4, B5, the cast route): "
           f"{len(tptx)} instantiations ({json.dumps(per_lib)}; registers, "
           f"spill-store bytes): {json.dumps(tptx)}", flush=True)
+    # The tick body (B2 and B5's one-row paged launches): registers and
+    # spills of each instantiation (operands, D, per-block scalars).
+    kptx = ptxas_summary(_build, ("decode_tick",),
+                         r"_Z\w*(decode_tick_kernelI\w+?EE)v",
+                         lambda m: m.group(1))
+    print(f"ptxas of the tick body (B2, B5, the cast route at one row): "
+          f"{len(kptx)} instantiations (registers, spill-store bytes): "
+          f"{json.dumps(kptx)}", flush=True)
     hgmma = hgmma_counts(_build)
     print(f"SASS HGMMA instructions of the tensor-core bodies: "
           f"{json.dumps(hgmma)}", flush=True)
@@ -1009,9 +1034,10 @@ def main() -> None:
     # The redesigned bodies keep every register: a spill would put the
     # accumulators (B7's dK and dV, the multi-row body's O) through local
     # memory.
-    spills = {n: r for n, r in {**ptxas, **tptx}.items()
-              if ("dkv_wgmma" in n or "decode_tiled" in n) and r[1]}
-    if spills or not tptx or not any("dkv_wgmma" in n for n in ptxas):
+    spills = {n: r for n, r in {**ptxas, **tptx, **kptx}.items()
+              if ("dkv_wgmma" in n or "decode_t" in n) and r[1]}
+    if spills or not tptx or len(kptx) != 10 or not any(
+            "dkv_wgmma" in n for n in ptxas):
         fail(f"the new bodies spill or are missing from the build: "
              f"{json.dumps(spills)}")
 
@@ -1164,8 +1190,9 @@ def main() -> None:
               + f"plain {plain_ms:.4f} {lib} bound {bound:.4f} "
               f"({c['bound_by']}) clocks {c['clocks']}", flush=True)
 
-    # The decode kernels' own launches: a body and the merge.
-    own = ("decode_split", "decode_tiled", "merge_splits")
+    # The decode kernels' own launches: a body and the merge (the tick body
+    # merges inside its launch).
+    own = ("decode_split", "decode_tiled", "decode_tick", "merge_splits")
 
     # B1: the reference workload (the --mode decode shape) ...
     q, k, v = rnd(1, 16, 1, 128), rnd(1, 16, 64000, 128), rnd(1, 16, 64000, 128)
@@ -1213,7 +1240,19 @@ def main() -> None:
 
     # B2: a fragmented 64-token-block pool at the serve shapes (8 slots,
     # 16 heads x 128, 10-block tables = 640-token slots), the decode tick
-    # (the split body; more rows take the multi-row body, phase 2e).
+    # (the tick body; more rows take the multi-row body, phase 2e).
+    def ticked(wrapper, fn):
+        """``fn()``, failing unless it launched ``wrapper``'s tick body
+        exactly once."""
+        before = wrapper.tick_launches
+        out = fn()
+        if wrapper.tick_launches != before + 1:
+            fail(f"a one-row paged call did not run the tick body once "
+                 f"({wrapper.tick_launches - before} tick launches)")
+        return out
+
+    b2t = cuda_decode.attention_cuda_decode_paged
+    b5t = cuda_decode.attention_cuda_decode_paged_q8q
     blk, nb, npool = 64, 10, 96
     kp, vp = rnd(npool, 16, blk, 128), rnd(npool, 16, blk, 128)
     table = torch.stack([torch.randperm(npool, generator=g, device=dev)[:nb]
@@ -1225,15 +1264,16 @@ def main() -> None:
         need = sum(min(nb * blk, int(o) + tq) for o in qoff.tolist())
         kg, vg = gather_paged_kv(kp, vp, table)
         mask = gqa_mask(qoff, tq, nb * blk)
-        record("flash_decode_paged", f"B8 H16 block64 NB10 Tq{tq} ragged",
-               lambda: cuda_decode.attention_cuda_decode_paged(
-                   q, kp, vp, table, q_offset=qoff),
+        record("flash_decode_paged_tick", f"B8 H16 block64 NB10 Tq{tq} ragged",
+               lambda: ticked(b2t, lambda: b2t(q, kp, vp, table,
+                                               q_offset=qoff)),
                lambda: cuda_decode.paged_decode_plain(q, kp, vp, table,
                                                       q_offset=qoff),
                lambda: F.scaled_dot_product_attention(q, kg, vg,
                                                       attn_mask=mask),
                need * 16 * 128 * 2 * 2 + 2 * q.numel() * 2,
-               4.0 * 16 * 128 * visible_pairs(qoff, tq, nb * blk))
+               4.0 * 16 * 128 * visible_pairs(qoff, tq, nb * blk),
+               names=own)
 
     # -- 2a. the int8 routes: B4, B5, and B1/B2 over int8 K/V -------------
     # Bound: the visible int8 K+V bytes (to each row's causal frontier),
@@ -1293,20 +1333,20 @@ def main() -> None:
                              deq(vp8, vbs[..., None, None]), table)
     tick_bytes = need * 16 * 128 * 2 + q.numel() * 4
     serve_q8 = (q, kp8, vp8, table, kbs, vbs, qoff)
-    record("flash_decode_paged_q8q", "int8 B8 H16 block64 NB10 Tq1 ragged, "
-           "per-block scales",
-           lambda: cuda_decode.attention_cuda_decode_paged_q8q(
-               q, kp8, vp8, table, kbs, vbs, q_offset=qoff),
+    record("flash_decode_paged_q8q_tick", "int8 B8 H16 block64 NB10 Tq1 "
+           "ragged, per-block scales",
+           lambda: ticked(b5t, lambda: b5t(q, kp8, vp8, table, kbs, vbs,
+                                           q_offset=qoff)),
            lambda: cuda_decode.paged_decode_q8q_plain(
                q, kp8, vp8, table, kbs, vbs, q_offset=qoff),
            None, tick_bytes + 2 * 8 * nb * 16 * 4, 0.0,
            ops_s=q8_ops_s(16 * visible_pairs(qoff, 1, nb * blk), True),
            yardstick=lambda: F.scaled_dot_product_attention(
                q, kg, vg, attn_mask=mask), names=own)
-    record("flash_decode_paged", "int8 B8 H16 block64 NB10 Tq1 ragged, "
+    record("flash_decode_paged_tick", "int8 B8 H16 block64 NB10 Tq1 ragged, "
            "block_scales",
-           lambda: cuda_decode.attention_cuda_decode_paged(
-               q, kp8, vp8, table, q_offset=qoff, block_scales=(kbs, vbs)),
+           lambda: ticked(b2t, lambda: b2t(q, kp8, vp8, table, q_offset=qoff,
+                                           block_scales=(kbs, vbs))),
            lambda: cuda_decode.paged_decode_plain(
                q, kp8, vp8, table, q_offset=qoff, block_scales=(kbs, vbs)),
            None, tick_bytes + 2 * 8 * nb * 16 * 4, 0.0,
@@ -1317,10 +1357,10 @@ def main() -> None:
                 + 0.005 for _ in range(2))
     kg, vg = gather_paged_kv(kp8, vp8, table)
     kg, vg = deq(kg, cks), deq(vg, cvs)
-    record("flash_decode_paged_q8q", "int8 B8 H16 block64 NB10 Tq1 ragged, "
-           "channel scales",
-           lambda: cuda_decode.attention_cuda_decode_paged_q8q(
-               q, kp8, vp8, table, cks, cvs, q_offset=qoff),
+    record("flash_decode_paged_q8q_tick", "int8 B8 H16 block64 NB10 Tq1 "
+           "ragged, channel scales",
+           lambda: ticked(b5t, lambda: b5t(q, kp8, vp8, table, cks, cvs,
+                                           q_offset=qoff)),
            lambda: cuda_decode.paged_decode_q8q_plain(
                q, kp8, vp8, table, cks, cvs, q_offset=qoff),
            None, tick_bytes + 2 * cks.numel() * 4, 0.0,
@@ -1404,7 +1444,214 @@ def main() -> None:
                                  ("logical", "v_early", "halved")):
         fail("the parity gate at B5's serve shape fails its own arithmetic "
              "or accepts a planted fault")
+    cast_teeth = q8q_teeth(serve_q8, b2t, route="q8")
+    q8_teeth["cast tick"] = {str(f): {"pass": r[0], "rel": r[2], "dlse": r[3]}
+                             for f, r in cast_teeth.items()}
+    print(f"gate at B2's cast tick: written out here {cast_teeth[None][2]:.3e}"
+          f" relative (passes: {cast_teeth[None][0]}); scales by logical "
+          f"block -> {cast_teeth['logical'][2]:.3e}; V scalar before l -> "
+          f"{cast_teeth['v_early'][2]:.3e}; output halved -> "
+          f"{cast_teeth['halved'][2]:.3e}", flush=True)
+    if not cast_teeth[None][0] or any(cast_teeth[f][0] for f in
+                                      ("logical", "v_early", "halved")):
+        fail("the parity gate at B2's cast tick fails its own arithmetic "
+             "or accepts a planted fault")
     del serve_q8, kp8, vp8
+
+    # The tick body (cuda_decode.decode_body "tick": B2, its cast route
+    # and B5 at one packed row through a table) over D 64 and 128 and 64-
+    # and 16-token blocks: 8 slots x 16 heads of at most 640 tokens on
+    # disjoint tables, ragged, one slot with no visible key, one full, one
+    # ending on a block edge. Every call counted on .tick_launches, gated
+    # and timed beside its bound (bf16: and SDPA over the gathered view;
+    # int8: SDPA over the dequantized view as the yardstick); the serve
+    # shape's cases (D 128, block 64) are the head cases above. Bit for
+    # bit: NaN in the keys past each slot's frontier inside its last block,
+    # NaN blocks past each slot and in blocks no table names (bf16); codes
+    # past each frontier changed and NaN scalars on blocks past each slot
+    # and unnamed (int8) — all unread.
+    tick_bits = {}
+    for D in (128, 64):
+        for tblk in (64, 16):
+            tnb = 640 // tblk
+            tn = 8 * tnb + 4  # the slots' blocks, and 4 no table names
+            tk, tv = rnd(tn, 16, tblk, D), rnd(tn, 16, tblk, D)
+            tkq, tvq = (torch.randint(-127, 128, (tn, 16, tblk, D),
+                                      generator=g, device=dev,
+                                      dtype=torch.int8) for _ in range(2))
+            tbs = tuple(torch.rand((tn, 16), generator=g, device=dev) * 0.03
+                        + 0.005 for _ in range(2))
+            tcs = tuple(torch.rand((8, 16, 1, D), generator=g, device=dev)
+                        * 0.03 + 0.005 for _ in range(2))
+            ttab = torch.randperm(tn, generator=g, device=dev)[:8 * tnb] \
+                .reshape(8, tnb).to(torch.int32)
+            tq = rnd(8, 16, 1, D)
+            tqo = torch.randint(0, 639, (8,), generator=g, device=dev,
+                                dtype=torch.int32)
+            tqo[0], tqo[1], tqo[2] = -1, 639, 3 * tblk - 1
+            pairs = 16 * visible_pairs(tqo, 1, 640)
+            tag = f"D{D} block{tblk} B8 H16 Tq1 ragged"
+            cases_here = {
+                "bf16": (b2t, lambda k_, v_, s_: b2t(tq, k_, v_, ttab,
+                                                     q_offset=tqo)),
+                "cast, per-block scales": (
+                    b2t, lambda k_, v_, s_: b2t(tq, k_, v_, ttab,
+                                                q_offset=tqo,
+                                                block_scales=s_)),
+                "q8q, per-block scales": (
+                    b5t, lambda k_, v_, s_: b5t(tq, k_, v_, ttab, *s_,
+                                                q_offset=tqo)),
+                "q8q, channel scales": (
+                    b5t, lambda k_, v_, s_: b5t(tq, k_, v_, ttab, *tcs,
+                                                q_offset=tqo)),
+            }
+            plains = {
+                "bf16": lambda: cuda_decode.paged_decode_plain(
+                    tq, tk, tv, ttab, q_offset=tqo),
+                "cast, per-block scales": lambda: cuda_decode
+                .paged_decode_plain(tq, tkq, tvq, ttab, q_offset=tqo,
+                                    block_scales=tbs),
+                "q8q, per-block scales": lambda: cuda_decode
+                .paged_decode_q8q_plain(tq, tkq, tvq, ttab, *tbs,
+                                        q_offset=tqo),
+                "q8q, channel scales": lambda: cuda_decode
+                .paged_decode_q8q_plain(tq, tkq, tvq, ttab, *tcs,
+                                        q_offset=tqo),
+            }
+            mask = gqa_mask(tqo, 1, 640)
+            kg, vg = gather_paged_kv(tk, tv, ttab)
+            kgd, vgd = gather_paged_kv(deq(tkq, tbs[0][..., None, None]),
+                                       deq(tvq, tbs[1][..., None, None]),
+                                       ttab)
+            # Past each slot: the rest of its last block, and its later
+            # blocks; and the blocks no table names.
+            past = torch.zeros((tn,), dtype=torch.bool, device=dev)
+            unnamed = sorted(set(range(tn)) - set(ttab.flatten().tolist()))
+            past[torch.tensor(unnamed, device=dev, dtype=torch.long)] = True
+            tails = []
+            for b_, o in enumerate(tqo.tolist()):
+                j1 = max(o + 1, 0)
+                for nb_ in range(-(-j1 // tblk), tnb):
+                    past[ttab[b_, nb_].long()] = True
+                if j1 % tblk:
+                    tails.append((int(ttab[b_, j1 // tblk]), j1 % tblk))
+            for name, (wr, call) in cases_here.items():
+                int8 = name != "bf16"
+                kk, vv = (tkq, tvq) if int8 else (tk, tv)
+                fn = (lambda wr=wr, call=call, kk=kk, vv=vv:
+                      ticked(wr, lambda: call(kk, vv, tbs)))
+                if D == 128 and tblk == 64:
+                    # the serve shape: timed above; here the gate only
+                    ok, eo, er, el = gate(fn(), plains[name]())
+                    if not ok:
+                        fail(f"tick {name} {tag}: |dout| {eo:.3e}, relative "
+                             f"{er:.3e}, |dlse| {el:.3e}")
+                else:
+                    kernel = ("flash_decode_paged_q8q_tick"
+                              if name.startswith("q8q")
+                              else "flash_decode_paged_tick")
+                    elem = 1 if int8 else 2
+                    nbytes = (pairs * D * elem * 2 + tq.numel() * 4
+                              + (2 * 8 * tnb * 16 * 4 if "per-block" in name
+                                 else 2 * tcs[0].numel() * 4 if int8 else 0))
+                    record(kernel, f"{'int8 ' if int8 else ''}{tag}, {name}",
+                           fn, plains[name],
+                           None if int8 else (
+                               lambda: F.scaled_dot_product_attention(
+                                   tq, kg, vg, attn_mask=mask)),
+                           nbytes, 0.0 if int8 else 4.0 * D * pairs,
+                           ops_s=(q8_ops_s(pairs, name.startswith("q8q"))
+                                  * D / 128 if int8 else None),
+                           yardstick=(lambda: F.scaled_dot_product_attention(
+                               tq, kgd, vgd, attn_mask=mask))
+                           if int8 else None, names=own)
+                # Bit for bit: what lies past each slot is never read.
+                want = fn()
+                kk2, vv2 = kk.clone(), vv.clone()
+                if int8:
+                    for pb_, r_ in tails:
+                        kk2[pb_, :, r_:] = 127
+                        vv2[pb_, :, r_:] = -127
+                    kk2[past], vv2[past] = -127, 127
+                    sc2 = tuple(x.clone() for x in tbs)
+                    for x in sc2:
+                        x[past] = math.nan
+                else:
+                    for pb_, r_ in tails:
+                        kk2[pb_, :, r_:] = math.nan
+                        vv2[pb_, :, r_:] = math.nan
+                    kk2[past], vv2[past] = math.nan, math.nan
+                    sc2 = tbs
+                got = ticked(wr, lambda: call(kk2, vv2, sc2))
+                same = (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1]))
+                tick_bits[f"{tag}, {name}"] = same
+                if not same:
+                    fail(f"tick {name} {tag}: what lies past each slot "
+                         f"changed the result")
+            del tk, tv, tkq, tvq, kg, vg, kgd, vgd
+    print(f"tick body: {len(tick_bits)} sweep cases under the row gate, "
+          f"past-the-frontier bytes unread bit for bit in every one: "
+          f"{all(tick_bits.values())}", flush=True)
+
+    # One long paged slot: the reference workload through a table (B1 H16,
+    # 1000 blocks of 64 tokens), bf16 and B5 over its per-block-quantized
+    # pool — the tick body's largest cluster.
+    lk, lv = rnd(1000, 16, 64, 128), rnd(1000, 16, 64, 128)
+    ltab = torch.randperm(1000, generator=g, device=dev)[None].to(torch.int32)
+    lq = rnd(1, 16, 1, 128)
+    lqo = torch.full((1,), 63999, dtype=torch.int32, device=dev)
+    kg, vg = gather_paged_kv(lk, lv, ltab)
+    record("flash_decode_paged_tick", "long slot B1 H16 block64 NB1000 Tq1",
+           lambda: ticked(b2t, lambda: b2t(lq, lk, lv, ltab, q_offset=lqo)),
+           lambda: cuda_decode.paged_decode_plain(lq, lk, lv, ltab,
+                                                  q_offset=lqo),
+           lambda: F.scaled_dot_product_attention(lq, kg, vg),
+           2 * lk.numel() * 2 + 2 * lq.numel() * 2, 4.0 * 16 * 64000 * 128,
+           names=own)
+    del kg, vg
+    lkq, lks = cuda_decode.quantize_symmetric_int8(lk.reshape(1000, 16, -1), 2)
+    lvq, lvs = cuda_decode.quantize_symmetric_int8(lv.reshape(1000, 16, -1), 2)
+    lkq, lvq = lkq.reshape(lk.shape), lvq.reshape(lv.shape)
+    lks, lvs = lks[..., 0], lvs[..., 0]
+    del lk, lv
+    kgd, vgd = gather_paged_kv(deq(lkq, lks[..., None, None]),
+                               deq(lvq, lvs[..., None, None]), ltab)
+    record("flash_decode_paged_q8q_tick", "int8 long slot B1 H16 block64 "
+           "NB1000 Tq1, per-block scales",
+           lambda: ticked(b5t, lambda: b5t(lq, lkq, lvq, ltab, lks, lvs,
+                                           q_offset=lqo)),
+           lambda: cuda_decode.paged_decode_q8q_plain(lq, lkq, lvq, ltab, lks,
+                                                      lvs, q_offset=lqo),
+           None, 2 * lkq.numel() + lq.numel() * 4 + 2 * 1000 * 16 * 4, 0.0,
+           ops_s=q8_ops_s(16 * 64000, True),
+           yardstick=lambda: F.scaled_dot_product_attention(lq, kgd, vgd),
+           names=own)
+    del lkq, lvq, kgd, vgd
+
+    # The gate has teeth for the in-cluster merge: at the serve shape it
+    # rejects the result with the last cluster rank's partial left out —
+    # the plain version with that rank's units (cuda_decode.tick_units at
+    # this launch's geometry) hidden.
+    tgeo = cuda_decode.decode_geometry("tick", 1, 8, 16, nb * blk)
+    cut = table.clone()
+    for b_, o in enumerate(qoff.tolist()):
+        for nb_, _, _ in cuda_decode.tick_units(tgeo, tgeo.ctas - 1, o, 1,
+                                                nb * blk, blk):
+            cut[b_, nb_] = -1
+    rank_out = gate(cuda_decode.paged_decode_plain(q, kp, vp, cut,
+                                                   q_offset=qoff,
+                                                   local_blocks=True),
+                    cuda_decode.paged_decode_plain(q, kp, vp, table,
+                                                   q_offset=qoff))
+    tick_teeth = {"cluster": tgeo.ctas, "last_rank_left_out": {
+        "pass": rank_out[0], "rel": rank_out[2], "dlse": rank_out[3]}}
+    print(f"gate at the tick's serve shape (cluster of {tgeo.ctas}): the "
+          f"last rank's partial left out -> relative |dout| "
+          f"{rank_out[2]:.3e}, |dlse| {rank_out[3]:.3e}, rejected: "
+          f"{not rank_out[0]}", flush=True)
+    if rank_out[0] or tgeo.ctas < 2:
+        fail("the parity gate accepts a cluster rank's partial left out")
 
     # -- 2b. B2 local_blocks: one rank's slice of a sequence-sharded pool --
     # The serve shapes (8 slots of 640 tokens in 64-token blocks, 16 heads
@@ -1431,6 +1678,7 @@ def main() -> None:
               for _ in range(2)]
     pools["int8"] = (codes[0], codes[1], tuple(scales))
     local_merge = {}
+    local_unnamed = {}  # tick: the pool past each frontier unread
 
     def held_counts(loc, qoff, tq):
         """(keys a rank streams, (query, key) pairs it computes) under a
@@ -1495,7 +1743,9 @@ def main() -> None:
                         sdpa = (lambda kg=kg, vg=vg, mask=mask:
                                 F.scaled_dot_product_attention(
                                     q, kg, vg, attn_mask=mask))
-                        record("flash_decode_paged_local", name, fn, plain,
+                        record("flash_decode_paged_local_tick" if tq == 1
+                               else "flash_decode_paged_local_tiled", name,
+                               fn, plain,
                                None if int8 else sdpa, nbytes,
                                0.0 if int8 else 4.0 * 128 * pairs * 16,
                                ops_s=(q8_ops_s(16 * pairs, False) if int8
@@ -1508,6 +1758,42 @@ def main() -> None:
                         if not ok:
                             fail(f"B2 local_blocks {name}: |dout| {eo:.3e}, "
                                  f"relative {er:.3e}, |dlse| {el:.3e}")
+                    if tq == 1:
+                        # A tick reads nothing of the rank's pool past each
+                        # slot's frontier: the rest of the frontier block
+                        # (NaN, bf16; other codes, int8) and every block no
+                        # slot needs (NaN, or NaN scalars) change nothing,
+                        # bit for bit.
+                        need = torch.zeros(nl, dtype=torch.bool, device=dev)
+                        tails = []
+                        lrow = loc.tolist()
+                        for b_, o in enumerate(qoff.tolist()):
+                            for nb_, pb_ in enumerate(lrow[b_]):
+                                if pb_ >= 0 and nb_ * blk <= o:
+                                    need[pb_] = True
+                                    if o + 1 < (nb_ + 1) * blk:
+                                        tails.append((pb_, o + 1 - nb_ * blk))
+                        k2, v2 = kr.clone(), vr.clone()
+                        s2 = sr
+                        if int8:
+                            s2 = tuple(x.clone() for x in sr)
+                            for x in s2:
+                                x[~need] = math.nan
+                            for pb_, r_ in tails:
+                                k2[pb_, :, r_:], v2[pb_, :, r_:] = 127, -127
+                        else:
+                            k2[~need], v2[~need] = math.nan, math.nan
+                            for pb_, r_ in tails:
+                                k2[pb_, :, r_:] = math.nan
+                                v2[pb_, :, r_:] = math.nan
+                        a_, b_ = fn(), b2(q, k2, v2, loc, q_offset=qoff,
+                                          block_scales=s2, local_blocks=True,
+                                          local_shards=W)
+                        if not (torch.equal(a_[0], b_[0])
+                                and torch.equal(a_[1], b_[1])):
+                            fail(f"B2 local_blocks tick {name}: bytes past "
+                                 f"a slot's frontier were read")
+                        local_unnamed[name] = True
                     parts.append(fn())
                 merged = merge_partials(torch.stack([o for o, _ in parts]),
                                         torch.stack([l for _, l in parts]))
@@ -1530,14 +1816,24 @@ def main() -> None:
     loc[3] = -1
     o, l = b2(q, kr, vr, loc, q_offset=qoff, local_blocks=True)
     identity = bool(torch.all(o[3] == 0) and torch.all(torch.isneginf(l[3])))
+    # ... on the tick body too (one packed row).
+    q1 = rnd(8, 16, 1, 128)
+    o, l = ticked(b2, lambda: b2(q1, kr, vr, loc, q_offset=qoff,
+                                 local_blocks=True))
+    identity = identity and bool(torch.all(o[3] == 0)
+                                 and torch.all(torch.isneginf(l[3])))
     read0 = gate(b2(q, kr, vr, loc.clamp(min=0), q_offset=qoff),
                  cuda_decode.paged_decode_plain(q, kr, vr, loc, q_offset=qoff,
                                                 local_blocks=True))
     local_teeth = {"all_remote_row_is_identity": identity,
+                   "tick_past_frontier_unread": local_unnamed,
                    "remote_read_as_block0": {"pass": read0[0],
                                              "rel": read0[2],
                                              "dlse": read0[3]}}
-    print(f"B2 local_blocks: all-remote row exactly (0, -inf): {identity}; "
+    print(f"B2 local_blocks: all-remote row exactly (0, -inf) (the tick "
+          f"and the 64-row chunk): {identity}; the rank's pool past each "
+          f"frontier poisoned, unread bit for bit at the tick: "
+          f"{len(local_unnamed)} calls; "
           f"remote entries read as block 0 -> relative |dout| "
           f"{read0[2]:.3e}, |dlse| {read0[3]:.3e}, rejected: "
           f"{not read0[0]}", flush=True)
@@ -2772,7 +3068,8 @@ def main() -> None:
         for w in wrappers.values():
             w.launches = 0
             for extra in ("tree_launches", "local_launches",
-                          "tiled_launches", "cast_tiled_launches"):
+                          "tiled_launches", "cast_tiled_launches",
+                          "tick_launches"):
                 if hasattr(w, extra):
                     setattr(w, extra, 0)
             if hasattr(w, "tiled_tq"):
@@ -2801,6 +3098,7 @@ def main() -> None:
     # rows run every slot's rows through B2 at that Tq), by Tq bucket.
     b2w = cuda_decode.attention_cuda_decode_paged
     launches["flash_decode_paged_tiled"] = b2w.tiled_launches
+    launches["flash_decode_paged_tick"] = b2w.tick_launches
     serve_tiled_tq = dict(sorted(b2w.tiled_tq.items()))
     serve_tiled["serve"] = tiled_by_tq()
     print(f"serve: {rec['requests']} requests, {rec['tokens_generated']} "
@@ -2815,12 +3113,19 @@ def main() -> None:
         fail(f"serve generated {rec['tokens_generated']} tokens")
     if any(rec["leaks"][k] for k in rec["leaks"]):
         fail(f"serve leaked: {rec['leaks']}")
-    for n in ("flash_decode_paged", "flash_decode_paged_tiled", "flash_fwd"):
+    for n in ("flash_decode_paged", "flash_decode_paged_tiled",
+              "flash_decode_paged_tick", "flash_fwd"):
         if launches[n] == 0:
             fail(f"serve never launched {n}")
+    # Every one-row tick ran on the tick body: B2's launches are its
+    # multi-row ones and its ticks, nothing on the split body.
+    off_tick = (launches["flash_decode_paged"] - b2w.tiled_launches
+                - b2w.tick_launches)
     print(f"serve: B2's multi-row body launched {b2w.tiled_launches} times "
-          f"(by Tq bucket {json.dumps(serve_tiled_tq)}), its split body "
-          f"{launches['flash_decode_paged'] - b2w.tiled_launches}", flush=True)
+          f"(by Tq bucket {json.dumps(serve_tiled_tq)}), its tick body "
+          f"{b2w.tick_launches}, its split body {off_tick}", flush=True)
+    if off_tick:
+        fail("serve: a one-row paged tick ran off the tick body")
     single_tokens = {r.uid: r.tokens for r in serve_rep.results}
     single_pool_bytes = server.pool_bytes()
 
@@ -2892,6 +3197,7 @@ def main() -> None:
 
     plain_rep, breakdown = wave_breakdown("serve", {
         "B2 multi-row body": ("decode_tiled",),
+        "B2 tick body (decode ticks)": ("decode_tick",),
         "flash_decode (B1/B2 split body + merge)": ("decode_split",
                                                      "merge_splits"),
         "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul})
@@ -2959,6 +3265,8 @@ def main() -> None:
         for n in ("flash_decode", "flash_decode_paged",
                   "flash_decode_paged_q8q"):
             counts[n + "_tiled"] = wrappers[n].tiled_launches
+        for n in ("flash_decode_paged", "flash_decode_paged_q8q"):
+            counts[n + "_tick"] = wrappers[n].tick_launches
         serve_tiled[label] = tiled_by_tq()
         return rec, rec["decode_ticks"], counts
 
@@ -2984,6 +3292,12 @@ def main() -> None:
             == n_layers * q_steps):
         fail(f"int8 serve: B5 launched {q_launches['flash_decode_paged_q8q']}"
              f" times over {q_steps} int8 steps")
+    # ... each an int8 decode tick, on the tick body.
+    if q_launches["flash_decode_paged_q8q_tick"] != \
+            q_launches["flash_decode_paged_q8q"]:
+        fail(f"int8 serve: {q_launches['flash_decode_paged_q8q_tick']} of "
+             f"B5's {q_launches['flash_decode_paged_q8q']} launches on the "
+             f"tick body")
     if not (q_launches["flash_decode"] and q_launches["flash_fwd"]) or \
             q_launches["flash_decode_paged"]:
         fail(f"int8 serve staged launches {q_launches}")
@@ -3015,11 +3329,12 @@ def main() -> None:
     print(f"int8-cast serve, paged: {x_rec['requests']} requests, "
           f"{x_rec['tokens_generated']} tokens, int8 steps "
           f"{x_steps}, B2 launches "
-          f"{x_launches['flash_decode_paged']}", flush=True)
+          f"{x_launches['flash_decode_paged']} (on the tick body "
+          f"{x_launches['flash_decode_paged_tick']})", flush=True)
     if x_rec["outcomes"] != {"budget": 4} or not (
             x_steps > 0 and x_launches["flash_decode_paged"]
-            == n_layers * x_steps) or \
-            x_launches["flash_decode_paged_q8q"]:
+            == n_layers * x_steps == x_launches["flash_decode_paged_tick"]) \
+            or x_launches["flash_decode_paged_q8q"]:
         fail(f"int8-cast serve: {x_rec['outcomes']}, "
              f"{x_launches['flash_decode_paged']} B2 launches over "
              f"{x_steps} int8 steps")
@@ -3028,7 +3343,7 @@ def main() -> None:
     # cache; its device time split the same way, B5 apart; and how many of
     # its greedy tokens equal the exact wave's (reported, not gated).
     q8_rep, q8_breakdown = wave_breakdown("int8 serve", {
-        "flash_decode_paged_q8q (B5)": ("decode_split_kernel<signed char, "
+        "flash_decode_paged_q8q (B5)": ("decode_tick_kernel<signed char, "
                                         "signed char",
                                         "decode_tiled_kernel<1,",
                                         "decode_tiled_kernel<2,"),
@@ -3161,6 +3476,7 @@ def main() -> None:
     spec_wave, spec_breakdown = wave_breakdown("spec serve (oracle)", {
         "B2 multi-row body (tree and chain verify ticks, tails)": (
             "decode_tiled",),
+        "B2 tick body (decode ticks)": ("decode_tick",),
         "flash_decode (B2/B1 split body) + merges": ("decode_split",
                                                      "merge_splits"),
         "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul},
@@ -3176,7 +3492,7 @@ def main() -> None:
           f"{json.dumps(spec_wave.spec)}; phase wall "
           f"{time.monotonic() - t0:.2f}s", flush=True)
     # The same oracle wave on the paged int8 pool: B5's verify ticks on the
-    # multi-row body, B1's staged prompt tails, B5's split body on the
+    # multi-row body, B1's staged prompt tails, B5's tick body on the
     # decode ticks between.
     spec8_wave, spec8_breakdown = wave_breakdown(
         "spec serve (oracle, paged int8)", {
@@ -3184,8 +3500,9 @@ def main() -> None:
                                                  "decode_tiled_kernel<2,"),
             "B1 multi-row body (staged prompt tails)": (
                 "decode_tiled_kernel<0, false",),
-            "decode split body (B5 ticks, B1) + merges": ("decode_split",
-                                                          "merge_splits"),
+            "B5 tick body (decode ticks)": ("decode_tick",),
+            "decode split body (B1) + merges": ("decode_split",
+                                                "merge_splits"),
             "flash_fwd (B3)": ("flash_fwd",), "matmul": matmul},
         speculate=True, draft_k=4, quantize=True,
         drafter=oracle_drafter(trace, spec_refs[True], tcfg.vocab_size))
@@ -3257,6 +3574,13 @@ def main() -> None:
             if (lc["flash_decode_paged_tiled"] > 0) != (label == "exact"):
                 fail(f"sharded serve ({label}) rank {rank}: multi-row B2 "
                      f"launches {lc['flash_decode_paged_tiled']}")
+            # ... and its one-row ticks all on the tick body.
+            if not (lc["flash_decode_paged_tick"] > 0
+                    and lc["flash_decode_paged_local"]
+                    == lc["flash_decode_paged_tick"]
+                    + lc["flash_decode_paged_tiled"]):
+                fail(f"sharded serve ({label}) rank {rank}: ticks off the "
+                     f"tick body: {lc}")
             if r["colls"] != want_colls:
                 fail(f"sharded serve ({label}) rank {rank}: collectives "
                      f"{r['colls']}, expected {want_colls}")
@@ -3443,15 +3767,19 @@ def main() -> None:
     meta = {
         "flash_decode": ("cuda", csrc + "flash_decode.cu",
                          "tree_attention_tpu/ops/pallas_decode.py:179"),
-        "flash_decode_paged": ("cuda", csrc + "flash_decode.cu",
-                               "tree_attention_tpu/ops/pallas_decode.py:344"),
+        "flash_decode_paged_tick": (
+            "cuda", csrc + "decode_tick.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:344"),
         "flash_decode_q8q": ("cuda", csrc + "flash_decode.cu",
                              "tree_attention_tpu/ops/pallas_decode.py:266"),
-        "flash_decode_paged_q8q": (
-            "cuda", csrc + "flash_decode.cu",
+        "flash_decode_paged_q8q_tick": (
+            "cuda", csrc + "decode_tick.cu",
             "tree_attention_tpu/ops/pallas_decode.py:461"),
-        "flash_decode_paged_local": (
-            "cuda", csrc + "flash_decode.cu",
+        "flash_decode_paged_local_tick": (
+            "cuda", csrc + "decode_tick.cu",
+            "tree_attention_tpu/ops/pallas_decode.py:344"),
+        "flash_decode_paged_local_tiled": (
+            "cuda", csrc + "flash_decode_tiled.cu",
             "tree_attention_tpu/ops/pallas_decode.py:344"),
         "flash_decode_paged_tiled": (
             "cuda", csrc + "flash_decode_tiled.cu",
@@ -3489,19 +3817,22 @@ def main() -> None:
         "flash_dkv": ("cuda", csrc + "flash_bwd.cu",
                       "tree_attention_tpu/ops/pallas_bwd.py:118"),
     }
-    # Main-path launches: B1 in the decode phase, B2 in the serve phase, B3
-    # in the serve and the train phases, B6/B7 in the train phase, B5 in
-    # the int8 serve, B4 in the int8 decode and the contiguous int8 serve.
+    # Main-path launches: B1 in the decode phase, B2's ticks in the serve
+    # phase, B3 in the serve and the train phases, B6/B7 in the train
+    # phase, B5's ticks in the int8 serve, B4 in the int8 decode and the
+    # contiguous int8 serve.
     main_launches = dict(launches)
     for n, count in train_launches.items():
         main_launches[n] = main_launches.get(n, 0) + count
-    main_launches["flash_decode_paged_q8q"] = q_launches[
-        "flash_decode_paged_q8q"]
+    main_launches["flash_decode_paged_q8q_tick"] = q_launches[
+        "flash_decode_paged_q8q_tick"]
     main_launches["flash_decode_q8q"] = (decode_recs["int8"]["launches"]
                                          + c_launches["flash_decode_q8q"])
-    # B2 local_blocks: rank 0's launches in the two-rank exact sharded serve.
-    main_launches["flash_decode_paged_local"] = sh["exact"][0]["launches"][
-        "flash_decode_paged_local"]
+    # B2 local_blocks: rank 0's launches in the two-rank exact sharded
+    # serve, ticks and chunks.
+    for name in ("tick", "tiled"):
+        main_launches[f"flash_decode_paged_local_{name}"] = sh["exact"][0][
+            "launches"][f"flash_decode_paged_{name}"]
     # B2's multi-row body: its launches in the plain serve (prompt tails).
     main_launches["flash_decode_paged_tiled"] = launches[
         "flash_decode_paged_tiled"]
@@ -3562,7 +3893,7 @@ def main() -> None:
                 "yardstick_sdpa_dequant_ms"]
         if head.get("call_ms") is not None:
             entry["call_ms"] = head["call_ms"]
-        if name in ("flash_decode", "flash_decode_paged"):
+        if name in ("flash_decode", "flash_decode_paged_tick"):
             # The int8-cast route through this kernel.
             cast = next(c for c in mine if c["case"].startswith("int8"))
             entry["int8_cast"] = {k: cast[k] for k in (
@@ -3571,7 +3902,8 @@ def main() -> None:
             entry["launches_int8"] = (
                 decode_recs["int8-cast"]["launches"] if name == "flash_decode"
                 else x_launches[name])
-            entry["launches_int8_serve_staged"] = q_launches[name]
+            entry["launches_int8_serve_staged"] = q_launches[
+                name.replace("_tick", "")]
         if name in ("flash_decode_tree", "flash_decode_paged_tree"):
             # The int8-cast route through the tree variant.
             cast = next(c for c in mine if c["case"].startswith("int8"))
@@ -3582,16 +3914,11 @@ def main() -> None:
             entry["launches_per_run"] = {
                 label: r["tree_launches"] for label, r in spec_runs.items()
                 if r["tree_kernel"] + "_tree" == name and r["route"] != "q8"}
-        if name == "flash_decode_paged_local":
-            # The 64-row chunk on rank 0 of W = 2 (B2's multi-row body).
-            entry["chunk_tq64"] = next(
-                {k: c[k] for k in ("case", "ms", "call_ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms",
-                                   "max_rel_err")}
-                for c in mine if c["case"].startswith("W2 rank0 exact")
-                and "Tq64" in c["case"])
+        if name.startswith("flash_decode_paged_local"):
+            # Each rank's ticks (chunks) in the two-rank serves.
+            counter = name.replace("_local", "")
             entry["launches_per_rank"] = {
-                label: [r["launches"][name] for r in ranks]
+                label: [r["launches"][counter] for r in ranks]
                 for label, ranks in sh.items()}
             entry["int8_block_scales"] = next(
                 {k: c[k] for k in ("case", "ms", "call_ms", "plain_ms",
@@ -3603,7 +3930,8 @@ def main() -> None:
             # Which body ran the head case (cuda_decode.decode_body: every
             # variant but f32 with more than one packed row or a tree takes
             # the multi-row one).
-            entry["body"] = ("tiled" if name.endswith(("_tiled", "_tree"))
+            entry["body"] = ("tick" if name.endswith("_tick") else
+                             "tiled" if name.endswith(("_tiled", "_tree"))
                              else "split")
         if name in ("flash_decode_tiled", "flash_decode_paged_tiled",
                     "flash_decode_paged_q8q_tiled",
@@ -3627,6 +3955,19 @@ def main() -> None:
                 label: r["tiled_launches"] for label, r in spec_runs.items()
                 if r["route"] == "q8"
                 and r["tree_kernel"] == name.replace("_cast_tiled", "")}
+        if name.endswith("_tick"):
+            # The tick body (decode_tick_kernel): one launch a tick, its
+            # cluster size at the head case, and its launches per serve.
+            entry["kernel"] = "decode_tick_kernel"
+            entry["cluster_at_head"] = cuda_decode.decode_geometry(
+                "tick", 1, 8, 16, 640).ctas
+            if name == "flash_decode_paged_tick":
+                entry["launches_per_serve"] = {
+                    "serve (exact)": launches[name],
+                    "int8-cast serve": x_launches[name],
+                    "int8 serve": q_launches[name]}
+            if name == "flash_decode_paged_q8q_tick":
+                entry["launches_per_serve"] = {"int8 serve": q_launches[name]}
         if name == "flash_decode_paged_tiled":
             entry["launches_per_serve"] = {
                 "serve (prompt-tail ticks)": launches[name],
@@ -3665,6 +4006,8 @@ def main() -> None:
                    x_launches,
                    "int8_serve_breakdown": q8_breakdown,
                    "int8_step_vs_plain": q8_step, "q8_gate_teeth": q8_teeth,
+                   "tick_ptxas": kptx, "tick_bits": tick_bits,
+                   "tick_teeth": tick_teeth,
                    "mixed_step": {"logits_err": logit_err, "kv_err": kv_err,
                                   "kv_max": kv_max},
                    "serve_breakdown": breakdown, "train": trec,

@@ -19,10 +19,12 @@ B4 and B5 run on the main path:
   slots of 640 tokens in 64-token blocks, 16 heads x 128): the decode tick
   (Tq 1), chain verify ticks (Tq 8, 32) and tree verify ticks (Tq 8, 32);
 - B2 at the same serve shapes: the tick, tree verify ticks at Tq 8 and 32,
-  the prompt-tail buckets Tq 8, 16, 32 and 64, one rank's 64-row chunk of a
-  pool sharded two ways; and its cast route over the int8 pool with
-  per-block scales: the tick, the Tq-8 tree verify tick and the rank's
-  64-row chunk;
+  the prompt-tail buckets Tq 8, 16, 32 and 64, one rank's tick and 64-row
+  chunk of a pool sharded two ways; and its cast route over the int8 pool
+  with per-block scales: the tick, the Tq-8 tree verify tick and the
+  rank's 64-row chunk;
+- one long paged slot (B1 H16, 1000 blocks of 64 tokens: the reference
+  workload through a table), B2 and B5 with per-block scales, at one row;
 - B7 (dK/dV) at the training shape (B2 H16 T4096 causal).
 
 The checkout's kernels are built first, one ``nvcc`` per source in
@@ -34,8 +36,9 @@ compare them on one card.
 Each time is device time from ``torch.profiler``, mean of 10 calls with
 the L2 flushed before each, the larger of two traced runs: ``kernel_ms``
 counts the kernel's own launches (for the decode kernels the split or
-multi-row body and the merge), ``by_kernel_ms`` splits them by body
-(``decode_split``, ``decode_tiled``, ``merge_splits``), ``call_ms`` counts
+multi-row or tick body and the merge), ``by_kernel_ms`` splits them by
+body (``decode_split``, ``decode_tiled``, ``decode_tick``,
+``merge_splits``), ``call_ms`` counts
 every kernel of the call. Prints one JSON line and writes it to
 ``chiprun_out/kernel_times_<label>.json``.
 """
@@ -48,7 +51,8 @@ import os
 import subprocess
 import sys
 
-DECODE_BODIES = ("decode_split", "decode_tiled", "merge_splits")
+DECODE_BODIES = ("decode_split", "decode_tiled", "decode_tick",
+                 "merge_splits")
 
 
 def tree_masks(B: int, tq: int, seed: int):
@@ -213,6 +217,11 @@ def main(argv=None) -> None:
     order = [r * 40 + i for i in range(40) for r in range(2)]
     gtable = torch.tensor(order, dtype=torch.int32, device=dev).reshape(8, 10)
     loc = torch.where(gtable < 40, gtable, -1).to(torch.int32)
+    q = rnd(8, 16, 1, 128)
+    qoff = offsets(8, nb * blk, 1)
+    cases["B2 local_blocks tick Tq1, rank 0 of W=2"] = device_ms(
+        lambda: b2(q, kp[:40], vp[:40], loc, q_offset=qoff,
+                   local_blocks=True, local_shards=2))
     q = rnd(8, 16, 64, 128)
     qoff = offsets(8, nb * blk, 64)
     cases["B2 local_blocks chunk Tq64, rank 0 of W=2"] = device_ms(
@@ -224,6 +233,23 @@ def main(argv=None) -> None:
                    block_scales=(kbs[:40], vbs[:40]), local_blocks=True,
                    local_shards=2))
     del kp, vp, kp8, vp8
+
+    # One long paged slot: the reference workload through a table.
+    kp, vp = rnd(1000, 16, 64, 128), rnd(1000, 16, 64, 128)
+    table = torch.randperm(1000, generator=g, device=dev)[None].to(
+        torch.int32)
+    q = rnd(1, 16, 1, 128)
+    qoff = torch.full((1,), 63999, dtype=torch.int32, device=dev)
+    cases["B2 long paged slot B1 H16 NB1000 Tq1"] = device_ms(
+        lambda: b2(q, kp, vp, table, q_offset=qoff))
+    (kp8, kbs), (vp8, vbs) = (
+        (c.reshape(kp.shape), sc[..., 0]) for c, sc in (
+            cd.quantize_symmetric_int8(x.reshape(1000, 16, -1), 2)
+            for x in (kp, vp)))
+    del kp, vp
+    cases["B5 long paged slot B1 H16 NB1000 Tq1, per-block scales"] = \
+        device_ms(lambda: b5(q, kp8, vp8, table, kbs, vbs, q_offset=qoff))
+    del kp8, vp8
 
     q, k, v, dout = (rnd(2, 16, 4096, 128) for _ in range(4))
     out, lse = cuda_attention.attention_cuda_fwd(q, k, v, causal=True)

@@ -2,7 +2,9 @@
 
 The multi-row decode body (``csrc/decode_tiled.cuh``
 ``decode_tiled_kernel``: B1, B2, B4 and B5, and the cast route over B1/B2,
-with more than one packed row or a tree mask), the split body's merge
+with more than one packed row or a tree mask), the tick body
+(``csrc/decode_tick.cu`` ``decode_tick_kernel``: the one-row paged launches
+of B2, its cast route and B5), the split body's merge
 (``csrc/decode.cuh``
 ``merge_splits_kernel``) and B7's tensor-core body (``csrc/flash_bwd.cu``
 ``flash_dkv_wgmma_kernel``) run only on the card; what surrounds them is
@@ -17,10 +19,14 @@ Python that these tests reach:
   ``local_blocks`` the multi-row body's splits are sized on the rank's
   share of the keys (the split body's on the logical length); on the
   contiguous layout also with a ``kv_offset`` (a ``tree_decode`` shard),
-  a shard wholly past the frontier, and without the causal rule;
+  a shard wholly past the frontier, and without the causal rule; the tick
+  body's units (``tick_units``): every visible held key of a slot in
+  exactly one CTA of its cluster, no unit past the frontier, no remote
+  entry dereferenced, and its cluster size per shape;
 - (c) the merge's grouping of the partials (the warps of a row take runs
   of 32, one weight per lane): a CPU model built on ``merge_partials``
-  equals the flat merge;
+  equals the flat merge; so does a model of the tick body's merge inside
+  its cluster (rank 0 over up to 8 CTA states, in rank order);
 - (d) B7's walk of (query head, Q tile) per K/V tile (``cuda_bwd
   .dkv_walk``): it starts at the first live Q tile (held against the JAX
   package's ``causal_first_live_q``), leaves no live tile out and takes no
@@ -71,7 +77,7 @@ BF16, F32, CAST, Q8Q = 1, 0, 2, 3
     (BF16, 2, True, False, "tiled"),    # the fewest rows that take it
     (BF16, 127, True, False, "tiled"),  # past one 64-row Q tile
     (BF16, 512, True, False, "tiled"),  # GQA 4 x 128 (sharded chunks)
-    (BF16, 1, True, False, "split"),    # the lean decode tick
+    (BF16, 1, True, False, "tick"),     # the decode tick: the cluster body
     (F32, 8, True, False, "split"),     # f32 stays on the CUDA cores
     (F32, 8, True, True, "split"),
     (CAST, 8, True, True, "tiled"),     # int8 K/V widened (q8 route), tree
@@ -83,7 +89,7 @@ BF16, F32, CAST, Q8Q = 1, 0, 2, 3
     (BF16, 1, False, True, "tiled"),    # B1 one-row tree
     (Q8Q, 32, True, True, "tiled"),     # B5 tree verify tick, Tq 32
     (Q8Q, 1, True, True, "tiled"),      # B5 one-row tree
-    (Q8Q, 1, True, False, "split"),     # B5's decode tick
+    (Q8Q, 1, True, False, "tick"),      # B5's decode tick
     (Q8Q, 8, False, True, "tiled"),     # contiguous q8q tree (B4)
     (CAST, 16, False, False, "tiled"),  # B1 over int8 K/V (cast route)
     (CAST, 64, True, False, "tiled"),   # B2 over int8 pools (cast route)
@@ -92,16 +98,24 @@ BF16, F32, CAST, Q8Q = 1, 0, 2, 3
     (Q8Q, 1, False, False, "split"),    # B4 at the reference workload
     (Q8Q, 1, False, True, "tiled"),     # B4 one-row tree
     (CAST, 1, False, False, "split"),   # B1's cast route, one row
-    (CAST, 1, True, False, "split"),    # B2's cast route: the int8 tick
+    (CAST, 1, True, False, "tick"),     # B2's cast route: the int8 tick
     (CAST, 1, True, True, "tiled"),     # ... one-row tree
     (F32, 1, False, True, "split"),     # an f32 tree stays on CUDA cores
+    (F32, 1, True, False, "split"),     # an f32 paged tick too
+    # B2's local_blocks tick (one rank's slice of the sharded pool) and
+    # B5's tick with channel scales: the flag and the scales' kind do not
+    # enter the rule.
+    pytest.param(BF16, 1, True, False, "tick", id="local_blocks-tick"),
+    pytest.param(Q8Q, 1, True, False, "tick", id="b5-channel-scales-tick"),
 ])
 def test_decode_body_rule(variant, rows, paged, tree, body):
     """The rule is static in the operands: every variant but f32 with more
-    than one packed row or a tree mask -> the multi-row body. The layout
-    (``paged``, each case's launch) does not enter it, nor do the
-    local_blocks flag and per-block scales: both bodies carry them."""
-    assert cd.decode_body(variant, rows, tree) == body
+    than one packed row or a tree mask -> the multi-row body; with one
+    packed row and no mask, the tick body through a block table
+    (``paged``) and the split body over contiguous K/V. The local_blocks
+    flag and per-block or channel scales do not enter it: the bodies that
+    take the paged layout carry them all."""
+    assert cd.decode_body(variant, rows, tree, paged) == body
 
 
 def test_decode_launchers_check_the_built_library(monkeypatch):
@@ -110,9 +124,10 @@ def test_decode_launchers_check_the_built_library(monkeypatch):
     on a library built otherwise."""
 
     class Lib:
-        def __init__(self, name, warps, keys):
+        def __init__(self, name, warps, keys, cluster=cd._TICK_MAX_CLUSTER):
             self.flash_decode_warps_per_cta = lambda: warps
             setattr(self, f"{name}_keys", lambda: keys)
+            self.decode_tick_max_cluster = lambda: cluster
             self.flash_decode_launch = lambda *a: 0
             setattr(self, f"{name}_launch", lambda *a: 0)
 
@@ -123,12 +138,19 @@ def test_decode_launchers_check_the_built_library(monkeypatch):
         name, 4, 32 if name == "flash_decode_tiled_cast" else 64))
     with pytest.raises(RuntimeError, match="keys per tile"):
         cd._launchers()
+    # The tick body's library built with another largest cluster.
+    monkeypatch.setattr(_build, "library", lambda name: Lib(
+        name, cd._SPLIT_WARPS, cd._TILED_KEYS, cluster=4))
+    with pytest.raises(RuntimeError, match="largest cluster"):
+        cd._launchers()
     monkeypatch.setattr(_build, "library", lambda name: Lib(
         name, cd._SPLIT_WARPS, cd._TILED_KEYS))
-    split, tiled = cd._launchers()
+    split, tiled, tick = cd._launchers()
     assert sorted(tiled) == [BF16, CAST, Q8Q]  # a library per variant
+    assert cd._TICK_KEYS == cd._TILED_KEYS  # the mock's one keys value
     # Every decode library is built at once (one nvcc each, in parallel).
-    assert set(built[-1]) == {"flash_decode", *cd._TILED_LIBS.values()}
+    assert set(built[-1]) == {"flash_decode", *cd._TILED_LIBS.values(),
+                              "decode_tick"}
 
 
 def test_cpu_wrapper_counts_no_multi_row_launch():
@@ -178,6 +200,42 @@ def test_cpu_b4_and_cast_wrappers_count_no_multi_row_launch():
                        getattr(w, "cast_tiled_launches", None))
                       for w in (b1, b2, b4)]
     assert counts[0][3] is not None and counts[1][3] is not None
+
+
+def test_cpu_tick_wrappers_count_no_tick_launch():
+    """B2 and B5 carry the tick body's counter (``.tick_launches``); a CPU
+    call at the tick's shape (one packed row through a table: bf16, the
+    cast route with per-block scales, B5 with channel scales) counts on no
+    counter of a body and equals the plain version."""
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((2, 2, 1, 16), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((6, 2, 4, 16), np.float32)
+                             ).bfloat16() for _ in range(2))
+    kq, vq = (torch.from_numpy(rng.integers(-127, 128, (6, 2, 4, 16)
+                                            ).astype(np.int8))
+              for _ in range(2))
+    bs = tuple(torch.from_numpy(rng.uniform(0.005, 0.03, (6, 2))
+                                .astype(np.float32)) for _ in range(2))
+    cs = tuple(torch.from_numpy(rng.uniform(0.005, 0.03, (2, 2, 1, 16))
+                                .astype(np.float32)) for _ in range(2))
+    table = torch.tensor([[0, 1, 2], [5, 4, 3]], dtype=torch.int32)
+    qo = torch.tensor([6, 11], dtype=torch.int32)
+    b2, b5 = cd.attention_cuda_decode_paged, cd.attention_cuda_decode_paged_q8q
+    counts = [(w.launches, w.tiled_launches, w.tick_launches)
+              for w in (b2, b5)]
+    calls = (
+        (lambda f: f(q.bfloat16(), k, v, table, q_offset=qo),
+         b2, cd.paged_decode_plain),
+        (lambda f: f(q.bfloat16(), kq, vq, table, q_offset=qo,
+                     block_scales=bs), b2, cd.paged_decode_plain),
+        (lambda f: f(q, kq, vq, table, *cs, q_offset=qo), b5,
+         cd.paged_decode_q8q_plain),
+    )
+    for call, wrapper, plain in calls:
+        got, want = call(wrapper), call(plain)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert counts == [(w.launches, w.tiled_launches, w.tick_launches)
+                      for w in (b2, b5)]
 
 
 # -- (b) the split geometry ---------------------------------------------------
@@ -246,6 +304,59 @@ def test_split_geometry_covers_every_visible_pair_once(tq, G, W):
     assert int(count.max()) <= 1  # no (row, key) twice, visible or not
     frontier = torch.from_numpy(qoff)[:, None] + tq
     assert not torch.any(read & (keys[None] >= frontier))
+
+
+@pytest.mark.parametrize("blk", [16, 64, 100])
+@pytest.mark.parametrize("W", [1, 2, 4])
+def test_tick_geometry_covers_every_visible_key_once(W, blk):
+    """The tick body at Tq 1 (``tick_units``, the kernel's arithmetic):
+    over each slot's cluster, every visible key the rank holds is streamed
+    by exactly one CTA, once; no unit runs past the slot's frontier, so no
+    key past it is copied and no table entry past it is read; a remote
+    entry (W > 1, rank 0's signed table) is never dereferenced. Slots:
+    empty, one key, ending on a block edge, full, and random; blocks of 16
+    and 64 keys (whole blocks a unit) and 100 (a block in 64-key pieces)."""
+    rng = np.random.default_rng(W * 1000 + blk)
+    Tk = NB * blk
+    table = torch.from_numpy(_tables(W, rng))
+    qoff = rng.integers(0, Tk, size=B)
+    qoff[:3] = (-1, 0, 3 * blk - 1)  # empty, one key, ends on a block edge
+    body = cd.decode_body(BF16, 1, paged=True)
+    assert body == "tick"
+    for hkv in (HKV, 16):  # a small grid (larger clusters) and the serve's
+        geo = cd.decode_geometry(body, 1, B, hkv, Tk, shards=W)
+        assert geo.ctas == geo.splits and geo.ctas in (1, 2, 4, 8)
+        for b in range(B):
+            j1 = max(0, min(Tk, int(qoff[b]) + 1))
+            held = (table[b] >= 0).repeat_interleave(blk)
+            count = torch.zeros(Tk, dtype=torch.int32)
+            for rank in range(geo.ctas):
+                for nb, row0, n in cd.tick_units(geo, rank, int(qoff[b]), 1,
+                                                 Tk, blk):
+                    start = nb * blk + row0
+                    # A unit stays in its block and ends at the frontier:
+                    # no table entry past the slot's is read.
+                    assert 1 <= n <= min(blk, cd._TICK_KEYS)
+                    assert row0 + n <= blk and start + n <= j1
+                    if table[b, nb] < 0:  # remote: dropped, never read
+                        continue
+                    count[start:start + n] += 1
+            visible = (torch.arange(Tk) < j1) & held
+            assert torch.all(count[visible] == 1)
+            assert int(count[~visible].sum()) == 0
+
+
+def test_tick_cluster_fills_the_card():
+    """The cluster per row: two CTAs per SM at the serve tick (8 slots x 16
+    KV heads -> 2), the largest cluster for one long slot (the reference
+    workload through a table, 16 heads -> 8), one CTA where the table
+    holds a single stage of keys."""
+    geo = cd.decode_geometry("tick", 1, 8, 16, 640)
+    assert (geo.ctas, geo.split_len) == (2, cd._TICK_KEYS)
+    assert 8 * 16 * geo.ctas <= cd._TICK_TARGET_CTAS
+    assert cd.decode_geometry("tick", 1, 1, 16, 64000).ctas == 8
+    assert cd.decode_geometry("tick", 1, 1, 16, 64).ctas == 1
+    assert cd.decode_geometry("tick", 1, 64, 16, 64000).ctas == 1
 
 
 @pytest.mark.parametrize("R,W", [(64, 2), (64, 4), (8, 4), (1, 2), (1, 4)])
@@ -366,6 +477,55 @@ def test_merge_grouping_equals_the_flat_merge(S):
         torch.testing.assert_close(got[1][fin], flat[1][fin], atol=1e-6,
                                    rtol=1e-5)
     assert torch.all(flat[0][0] == 0) and torch.all(torch.isneginf(flat[1][0]))
+
+
+def _merge_in_cluster(acc, m, l):
+    """``decode_tick_kernel``'s merge of a cluster's ``C`` CTA states —
+    unnormalised ``acc`` ``(C, rows, D)``, ``m`` and ``l`` ``(C, rows)`` —
+    on rank 0, in rank order: the max of the m, then each rank's weight
+    (0 for a rank with no visible key), and the sums."""
+    M = torch.full(m.shape[1:], -torch.inf)
+    for r in range(m.shape[0]):
+        M = torch.maximum(M, m[r])
+    num = torch.zeros(acc.shape[1:])
+    den = torch.zeros(m.shape[1:])
+    for r in range(m.shape[0]):
+        w = torch.where(torch.isneginf(m[r]), 0.0, torch.exp(m[r] - M))
+        den = den + w * l[r]
+        num = num + w[..., None] * acc[r]
+    empty = den <= 0
+    out = torch.where(empty[..., None], 0.0,
+                      num / torch.where(empty, 1.0, den)[..., None])
+    return out, torch.where(empty, -torch.inf, M + torch.log(den))
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+def test_cluster_merge_equals_the_flat_merge(C):
+    """The tick body's in-cluster merge of ``C`` CTAs' states equals the
+    flat ``merge_partials`` of the same partials as ``(acc / l, m + log
+    l)``; a CTA with no visible key is the identity, and a row no CTA saw
+    (every state the identity) is exactly ``(0, -inf)``."""
+    rng = np.random.default_rng(C)
+    rows, D = 6, 8
+    m = torch.from_numpy(rng.standard_normal((C, rows)).astype(np.float32)
+                         * 3)
+    l = torch.from_numpy(rng.uniform(1.0, 50.0, (C, rows)).astype(np.float32))
+    acc = torch.from_numpy(rng.standard_normal((C, rows, D), np.float32)) \
+        * l[..., None]
+    idle = torch.from_numpy(rng.random((C, rows)) < 0.3)
+    idle[:, 0] = True  # row 0: no CTA saw a key
+    m[idle], l[idle] = -torch.inf, 0.0
+    acc[idle] = 0.0
+    flat = merge_partials(
+        torch.where(idle[..., None], 0.0, acc / l.clamp_min(1e-30)[..., None]),
+        torch.where(idle, -torch.inf, m + torch.log(l)))
+    got = _merge_in_cluster(acc, m, l)
+    torch.testing.assert_close(got[0], flat[0], atol=1e-6, rtol=1e-5)
+    assert torch.equal(torch.isneginf(got[1]), torch.isneginf(flat[1]))
+    fin = torch.isfinite(flat[1])
+    torch.testing.assert_close(got[1][fin], flat[1][fin], atol=1e-6,
+                               rtol=1e-5)
+    assert torch.all(got[0][0] == 0) and torch.all(torch.isneginf(got[1][0]))
 
 
 # -- (d) B7's walk ------------------------------------------------------------
@@ -936,3 +1096,78 @@ def test_cast_multi_row_body_matches_plain_on_gpu():
                                 torch.stack([l for _, l in parts]))
         assert _gate(merged, b2(q, pk, pv, table, q_offset=qo,
                                 block_scales=per_block))
+
+
+@pytest.mark.gpu
+def test_tick_body_matches_plain_on_gpu():
+    """The tick body (one packed row through a block table) on the card
+    against its plain version: B2 bf16, the cast route with per-block
+    scales, B5 with per-block and with channel scales, at D 64 and 128 over
+    16- and 64-token blocks, ragged slots (one with no visible key); B2
+    under local_blocks over two ranks, merged, against unsharded B2. Each
+    launch counts on ``.tick_launches``; NaN written into the keys past
+    each slot's frontier inside its last block changes nothing, bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode (the geometry and the merge are tested above)")
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(7)
+    b2, b5 = cd.attention_cuda_decode_paged, cd.attention_cuda_decode_paged_q8q
+
+    def counted(w, fn):
+        before = w.tick_launches
+        out = fn()
+        assert w.tick_launches == before + 1
+        return out
+
+    qo = torch.tensor([639, 130, -1, 191], dtype=torch.int32, device=dev)
+    for D in (64, 128):
+        for blk in (16, 64):
+            nb = 640 // blk
+            N = 4 * nb  # the slots' blocks are disjoint
+            k, v = (torch.randn(N, 8, blk, D, generator=g).to(
+                dev, torch.bfloat16) for _ in range(2))
+            kq, vq = (torch.randint(-127, 128, (N, 8, blk, D), generator=g,
+                                    dtype=torch.int8).to(dev)
+                      for _ in range(2))
+            per_block = tuple((torch.rand(N, 8, generator=g) * 0.03 + 0.005
+                               ).to(dev) for _ in range(2))
+            channel = tuple((torch.rand(4, 8, 1, D, generator=g) * 0.03
+                             + 0.005).to(dev) for _ in range(2))
+            table = torch.randperm(N, generator=g).reshape(4, nb).to(
+                dev, torch.int32)
+            q = torch.randn(4, 8, 1, D, generator=g).to(dev, torch.bfloat16)
+            got = counted(b2, lambda: b2(q, k, v, table, q_offset=qo))
+            assert _gate(got, cd.paged_decode_plain(q, k, v, table,
+                                                    q_offset=qo)), (D, blk)
+            kn, vn = k.clone(), v.clone()
+            for b, o in enumerate(qo.tolist()):
+                j1 = o + 1
+                if j1 > 0 and j1 % blk:
+                    pb = int(table[b, j1 // blk])
+                    kn[pb, :, j1 % blk:] = torch.nan
+                    vn[pb, :, j1 % blk:] = torch.nan
+            nan = b2(q, kn, vn, table, q_offset=qo)
+            assert torch.equal(nan[0], got[0]) and torch.equal(nan[1], got[1])
+            got = counted(b2, lambda: b2(q, kq, vq, table, q_offset=qo,
+                                         block_scales=per_block))
+            assert _gate(got, cd.paged_decode_plain(
+                q, kq, vq, table, q_offset=qo, block_scales=per_block))
+            for ks, vs in (per_block, channel):
+                got = counted(b5, lambda: b5(q, kq, vq, table, ks, vs,
+                                             q_offset=qo))
+                assert _gate(got, cd.paged_decode_q8q_plain(
+                    q, kq, vq, table, ks, vs, q_offset=qo)), (D, blk)
+            parts = []
+            for r in range(2):
+                loc = table - r * (N // 2)
+                loc = torch.where((loc >= 0) & (loc < N // 2), loc, -1).to(
+                    torch.int32)
+                sl = slice(r * (N // 2), (r + 1) * (N // 2))
+                parts.append(counted(b2, lambda: b2(
+                    q, k[sl], v[sl], loc, q_offset=qo, local_blocks=True,
+                    local_shards=2)))
+            merged = merge_partials(torch.stack([o.float() for o, _ in parts]),
+                                    torch.stack([l for _, l in parts]))
+            assert _gate(merged, b2(q, k, v, table, q_offset=qo))

@@ -23,7 +23,8 @@
 // commute out of it) and p after the softmax sum l has taken it, so l is
 // over the dequantized scores and the scalar belongs to the V values — the
 // TPU kernels' fold order (_decode_softmax_fold). They are read through the
-// table by the key's own block: scale[table[b, j / blk] * Hkv + h].
+// table by the key's own block: scale[table[b, j / blk] * Hkv + h] (by the
+// multi-row body and the tick body: only paged int8 pools carry them).
 //
 // What bounds it on the card: decode streams every visible KV byte once and
 // does a few operations per byte per packed query row, so at the serving
@@ -32,7 +33,7 @@
 // are packed (row r = g*Tq + t), exactly the TPU kernel's packing, so a KV
 // head's stream serves its whole GQA group.
 //
-// Two bodies, chosen statically by the wrapper (ops/cuda_decode.py
+// Three bodies, chosen statically by the wrapper (ops/cuda_decode.py
 // decode_body):
 // - the multi-row body (decode_tiled.cuh; tensor cores) takes every launch
 //   with more than one packed row per KV head, or a tree mask, whose
@@ -41,13 +42,17 @@
 //   the table): prompt tails and staged chunks, verify ticks, the sharded
 //   pool's chunks. It reads each key once per 64 packed rows, so it is
 //   bound by the visible K/V bytes;
-// - the split body (this file; CUDA cores) takes the rest: one packed row
-//   without a mask (the serving decode tick, the reference workload) of
-//   every variant, and f32 at any row count (the reference pins f32
-//   products at HIGHEST). At one row a warp it reads each key once and is
-//   bound by bytes as well; its 8-row tile (f32 only) re-streams every key
-//   for every 8 rows. It is built at one row for every variant, and with
-//   the 8-row tile and the tree mask for f32 only.
+// - the tick body (decode_tick.cu; a thread block cluster per row) takes
+//   every one-row launch through the table without a mask whose operands
+//   are not f32: the serving decode tick of B2, its cast route and B5;
+// - the split body (this file; CUDA cores) takes the rest: one contiguous
+//   packed row without a mask (the reference workload: B1, B4, B1's cast
+//   route), and f32 at any row count on either layout (the reference pins
+//   f32 products at HIGHEST). At one row a warp it reads each key once and
+//   is bound by bytes as well; its 8-row tile (f32 only) re-streams every
+//   key for every 8 rows. It is built at one contiguous row for every
+//   variant, and through the table, with the 8-row tile and the tree mask
+//   for f32 only.
 //
 // The split body (decode_split_kernel; CUDA cores):
 // - One WARP is one (KV split, Q tile of RW packed rows, b*Hkv) work item
@@ -59,7 +64,7 @@
 //   a time so several lines are in flight — more keys per chunk for int8,
 //   whose lines are half a bf16 line. Scores are lane partial dots + a warp
 //   all-reduce. RW is 1 when a KV head has a single query row (MHA decode,
-//   the reference workload and the serving decode tick): a lean variant
+//   the reference workload): a lean variant
 //   whose low register count keeps more warps — more loads — in flight per
 //   SM, and which holds two chunks, issuing the next chunk's loads before
 //   it folds in the current one, so a warp's loads do not stop while it
@@ -155,8 +160,7 @@ __device__ __forceinline__ float dot(const QReg<TQ, N>& q,
   }
 }
 
-template <typename TQ, typename TKV, int D, bool kPaged, bool kScales, int RW,
-          bool kTree>
+template <typename TQ, typename TKV, int D, bool kPaged, int RW, bool kTree>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_split_kernel(const Args a) {
   constexpr int N = D / 32;
@@ -167,7 +171,6 @@ decode_split_kernel(const Args a) {
   // 4 f32 lines each (the same 128 bytes of K and V a lane at D = 128).
   constexpr int kKeysPerChunk =
       kInt8KV ? 16 : (std::is_same<TKV, float>::value && RW == 1 ? 4 : 8);
-  constexpr int kScaleSlots = kScales ? kKeysPerChunk : 1;
   const TQ* __restrict__ q = static_cast<const TQ*>(a.q);
   const TKV* __restrict__ k = static_cast<const TKV*>(a.k);
   const TKV* __restrict__ v = static_cast<const TKV*>(a.v);
@@ -222,13 +225,12 @@ decode_split_kernel(const Args a) {
   // block size (every serving pool), a division otherwise.
   const int blk_shift = (a.blk & (a.blk - 1)) == 0 ? __ffs(a.blk) - 1 : -1;
 
-  // A chunk of keys: each lane's share of their K and V lines (and
-  // per-block scalars), held in registers; bit c of `loaded`: key j + c was
+  // A chunk of keys: each lane's share of their K and V lines, held in
+  // registers; bit c of `loaded`: key j + c was
   // loaded (below j1 and, under local_blocks, on a block this rank holds),
   // the same for every lane of the warp.
   struct Chunk {
     ta::Line<TKV, N> kl[kKeysPerChunk], vl[kKeysPerChunk];
-    float ksc[kScaleSlots], vsc[kScaleSlots];
     uint32_t loaded;
   };
   auto load_chunk = [&](int j, Chunk& ch) {
@@ -251,10 +253,6 @@ decode_split_kernel(const Args a) {
         size_t base;
         if constexpr (kPaged) {
           base = (((size_t)pb * a.Hkv + h) * a.blk + in_blk) * D;
-          if constexpr (kScales) {
-            ch.ksc[c] = a.ks[pb * a.Hkv + h];
-            ch.vsc[c] = a.vs[pb * a.Hkv + h];
-          }
         } else {
           base = ((size_t)bh * a.Tk + jj) * D;
         }
@@ -264,10 +262,6 @@ decode_split_kernel(const Args a) {
       } else {
         ch.kl[c].zero();
         ch.vl[c].zero();
-        if constexpr (kScales) {
-          ch.ksc[c] = 0.f;
-          ch.vsc[c] = 0.f;
-        }
       }
     }
   };
@@ -282,8 +276,7 @@ decode_split_kernel(const Args a) {
       float mx = ta::kNegInf;
 #pragma unroll
       for (int c = 0; c < kKeysPerChunk; ++c) {
-        float sc = dot(qr[r], ch.kl[c]) * qmul[r];
-        if constexpr (kScales) sc *= ch.ksc[c];  // this key's K scalar
+        const float sc = dot(qr[r], ch.kl[c]) * qmul[r];
         const int jj = j + c;
         bool rule;
         if constexpr (kTree) {
@@ -307,9 +300,7 @@ decode_split_kernel(const Args a) {
       for (int c = 0; c < kKeysPerChunk; ++c) {
         const float p = s[c] == ta::kNegInf ? 0.f : expf(s[c] - m_new);
         psum += p;
-        // l takes p unscaled; the block's V scalar joins before the P
-        // rounding (int8 V counts as bf16).
-        const float pv = ta::round_as(kScales ? p * ch.vsc[c] : p, v);
+        const float pv = ta::round_as(p, v);  // int8 V counts as bf16
         float vf[N];
         ch.vl[c].unpack(vf);
 #pragma unroll
@@ -354,64 +345,59 @@ decode_split_kernel(const Args a) {
   }
 }
 
-template <typename TQ, typename TKV, typename TO, int D, bool kPaged,
-          bool kScales, int RW, bool kTree = false>
+template <typename TQ, typename TKV, typename TO, int D, bool kPaged, int RW,
+          bool kTree = false>
 cudaError_t launch(const Args& a, int split_ctas, cudaStream_t stream) {
   const int BH = a.B * a.Hkv;
   dim3 grid(split_ctas, (a.R + RW - 1) / RW, BH);
-  decode_split_kernel<TQ, TKV, D, kPaged, kScales, RW, kTree>
+  decode_split_kernel<TQ, TKV, D, kPaged, RW, kTree>
       <<<grid, kWarps * 32, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return merge_splits<TO, D>(a, split_ctas * kWarps, stream);
 }
 
-template <typename TQ, typename TKV, typename TO, bool kPaged, bool kScales>
+// f32 at 1 or 8 rows a warp (the 8-row tile also with the tree mask); every
+// other variant at one contiguous row only: its multi-row launches and tree
+// masks run on the multi-row body (decode_tiled.cuh), its one-row paged
+// launches on the tick body (decode_tick.cu).
+template <typename TQ, typename TKV, typename TO, bool kPaged>
 cudaError_t by_shape(int rows_per_warp, int D, const Args& a, int ctas,
                      cudaStream_t st) {
-  // Every variant but f32 runs its 8-row tiles and tree masks on the
-  // multi-row body (decode_tiled.cuh), so the split body is built for it at
-  // one row only.
-  constexpr bool kLeanOnly = !std::is_same<TQ, float>::value;
-  if (a.tree != nullptr) {  // the tree variant: the 8-row Q tile only
-    if constexpr (!kLeanOnly) {
+  constexpr bool kF32 = std::is_same<TQ, float>::value;
+  if constexpr (kF32) {
+    if (a.tree != nullptr) {  // the tree variant: the 8-row Q tile only
       if (rows_per_warp == 8 && D == 64)
-        return launch<TQ, TKV, TO, 64, kPaged, kScales, 8, true>(a, ctas, st);
+        return launch<TQ, TKV, TO, 64, kPaged, 8, true>(a, ctas, st);
       if (rows_per_warp == 8 && D == 128)
-        return launch<TQ, TKV, TO, 128, kPaged, kScales, 8, true>(a, ctas,
-                                                                  st);
+        return launch<TQ, TKV, TO, 128, kPaged, 8, true>(a, ctas, st);
+      return cudaErrorInvalidValue;
     }
-    return cudaErrorInvalidValue;
+    if (rows_per_warp == 8 && D == 64)
+      return launch<TQ, TKV, TO, 64, kPaged, 8>(a, ctas, st);
+    if (rows_per_warp == 8 && D == 128)
+      return launch<TQ, TKV, TO, 128, kPaged, 8>(a, ctas, st);
+  } else {
+    if (a.tree != nullptr || kPaged) return cudaErrorInvalidValue;
   }
   if (rows_per_warp == 1 && D == 64)
-    return launch<TQ, TKV, TO, 64, kPaged, kScales, 1>(a, ctas, st);
+    return launch<TQ, TKV, TO, 64, kPaged, 1>(a, ctas, st);
   if (rows_per_warp == 1 && D == 128)
-    return launch<TQ, TKV, TO, 128, kPaged, kScales, 1>(a, ctas, st);
-  if constexpr (!kLeanOnly) {
-    if (rows_per_warp == 8 && D == 64)
-      return launch<TQ, TKV, TO, 64, kPaged, kScales, 8>(a, ctas, st);
-    if (rows_per_warp == 8 && D == 128)
-      return launch<TQ, TKV, TO, 128, kPaged, kScales, 8>(a, ctas, st);
-  }
+    return launch<TQ, TKV, TO, 128, kPaged, 1>(a, ctas, st);
   return cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TKV, typename TO>
 cudaError_t by_layout(int paged, int rows_per_warp, int D, const Args& a,
                       int ctas, cudaStream_t st) {
-  const bool scales = a.ks != nullptr;
-  if (!paged)
-    return scales ? cudaErrorInvalidValue
-                  : by_shape<TQ, TKV, TO, false, false>(rows_per_warp, D, a,
-                                                        ctas, st);
-  if constexpr (std::is_same<TKV, int8_t>::value) {
-    if (scales)
-      return by_shape<TQ, TKV, TO, true, true>(rows_per_warp, D, a, ctas,
-                                               st);
+  if (a.ks != nullptr) return cudaErrorInvalidValue;  // the tick body's
+  if (!paged) return by_shape<TQ, TKV, TO, false>(rows_per_warp, D, a, ctas,
+                                                 st);
+  if constexpr (std::is_same<TQ, float>::value) {
+    return by_shape<TQ, TKV, TO, true>(rows_per_warp, D, a, ctas, st);
   } else {
-    if (scales) return cudaErrorInvalidValue;  // only int8 pools scale
+    return cudaErrorInvalidValue;  // paged, not f32: another body's
   }
-  return by_shape<TQ, TKV, TO, true, false>(rows_per_warp, D, a, ctas, st);
 }
 
 }  // namespace
@@ -423,9 +409,9 @@ int flash_decode_warps_per_cta() { return kWarps; }
 
 // variant: 0 = f32 q/k/v/out; 1 = bf16 q/k/v/out; 2 = bf16 q, int8 k/v, bf16
 // out (the cast route); 3 = int8 q with per-row f32 scales qs (BH, R), int8
-// k/v, bf16 out (q8q). paged: 0 = k/v are (B*Hkv, Tk, D); 1 = k/v are
-// (N, Hkv, blk, D) pools read through table (B, NB), Tk = NB*blk. ks/vs:
-// per-block (N, Hkv) f32 scalars of an int8 pool, or null. rows_per_warp:
+// k/v, bf16 out (q8q). paged: 0 = k/v are (B*Hkv, Tk, D); 1 (f32 only) =
+// k/v are (N, Hkv, blk, D) pools read through table (B, NB), Tk = NB*blk.
+// ks/vs: null (per-block scalars are the tick body's). rows_per_warp:
 // 1 or (f32 only) 8 packed query rows per warp (the Q tile). o_part/lse_part hold
 // split_ctas * warps_per_cta partials. local_blocks (paged only): the table
 // is signed and a negative entry is a block another rank holds — never

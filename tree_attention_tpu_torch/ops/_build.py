@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_decode", "flash_decode_tiled", "flash_decode_tiled_cast",
-           "flash_decode_tiled_q8q", "flash_fwd", "flash_bwd")
+           "flash_decode_tiled_q8q", "decode_tick", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

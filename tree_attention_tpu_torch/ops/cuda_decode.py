@@ -2,8 +2,8 @@
 B4 and B5 (int8 Q x int8 K).
 
 Counterpart of ``tree_attention_tpu/ops/pallas_decode.py``; the kernels are
-``csrc/flash_decode.cu`` and ``csrc/decode_tiled.cuh`` (design notes and the
-bound there). Same
+``csrc/flash_decode.cu``, ``csrc/decode_tiled.cuh`` and
+``csrc/decode_tick.cu`` (design notes and the bound there). Same
 ``(out, lse)`` contract: each KV head's ``G*Tq`` query rows are packed into
 one tile, a key at global position ``kv_offset + j`` is visible to packed
 row ``r`` iff ``kv_offset + j <= q_offset[b] + r % Tq`` (causal), scores and
@@ -38,24 +38,34 @@ B2's ``local_blocks`` variant (one rank's slice of a sequence-sharded pool)
 on ``attention_cuda_decode_paged.local_launches``, and each wrapper's tree
 variant on its ``.tree_launches``.
 
-Two bodies compute every launch, chosen by the static rule
-:func:`decode_body`. The multi-row body (``csrc/decode_tiled.cuh``, tensor
-cores) takes every launch with more than one packed row per KV head, or a
-tree mask, whatever its operands but f32: exact bf16 (B1 on either layout,
-B2 with or without ``local_blocks``), the int8 cast route over B1/B2 (with
-or without per-block scales and ``local_blocks``) and q8q (B4 contiguous,
-B5 through a block table): prompt tails, staged int8 admission's chunks,
-verify ticks, the sharded pool's chunks. It reads each key once per 64
-packed rows; bytes bound it. Each operand variant has a library of its own
-(``csrc/flash_decode_tiled.cu``, ``_cast.cu``, ``_q8q.cu``). The split body
-(``csrc/flash_decode.cu``, CUDA cores) takes the rest: one packed row
-without a mask (the decode tick, ``--mode decode``) of every variant, and
+Three bodies compute every launch, chosen by the static rule
+:func:`decode_body`. The tick body (``csrc/decode_tick.cu``) takes every
+one-row paged launch without a tree mask whose operands are not f32: B2
+exact bf16 (with or without ``local_blocks``), B2's int8 cast route (with
+or without per-block scales) and B5 (per-block or channel scales) — the
+serving decode tick. A thread block cluster of up to 8 CTAs per (slot, KV
+head) splits the slot's own visible blocks, the copy engine streams whole
+blocks into a shared-memory ring, and the cluster merges its CTAs' states
+through distributed shared memory: one launch, no partials in global
+memory; counted on the wrapper's ``.tick_launches``. The multi-row body
+(``csrc/decode_tiled.cuh``, tensor cores) takes every launch with more
+than one packed row per KV head, or a tree mask, whatever its operands but
+f32: exact bf16 (B1 on either layout, B2 with or without ``local_blocks``),
+the int8 cast route over B1/B2 (with or without per-block scales and
+``local_blocks``) and q8q (B4 contiguous, B5 through a block table):
+prompt tails, staged int8 admission's chunks, verify ticks, the sharded
+pool's chunks. It reads each key once per 64 packed rows; bytes bound it.
+Each operand variant has a library of its own
+(``csrc/flash_decode_tiled.cu``, ``_cast.cu``, ``_q8q.cu``). The split
+body (``csrc/flash_decode.cu``, CUDA cores) takes the rest: one contiguous
+packed row without a mask (``--mode decode``: B1, B4, B1's cast route) and
 f32. A warp owns 1 packed row (then it reads each key once, and bytes
-bound it) or, in f32, 8, and then re-reads the keys for every 8 rows. Both
-write per-split partials that one merge kernel combines. Launches of the
-multi-row body also count on the wrapper's ``.tiled_launches`` and, by Tq,
-``.tiled_tq`` (B1, B2, B4, B5); the cast route's also on B1's or B2's
-``.cast_tiled_launches``. :func:`decode_geometry` sizes each body's splits.
+bound it) or, in f32, 8, and then re-reads the keys for every 8 rows. The
+multi-row and split bodies write per-split partials that one merge kernel
+combines. Launches of the multi-row body also count on the wrapper's
+``.tiled_launches`` and, by Tq, ``.tiled_tq`` (B1, B2, B4, B5); the cast
+route's also on B1's or B2's ``.cast_tiled_launches``.
+:func:`decode_geometry` sizes each body's grid.
 """
 
 from __future__ import annotations
@@ -89,12 +99,20 @@ _TARGET_WARPS = 4096
 _TARGET_CTAS = 528
 # Fewest keys a split streams (below this the merge costs more than it buys).
 _MIN_SPLIT_KEYS = 64
+# CTAs the tick body aims for: two per SM on 132 SMs, as many as its
+# largest ring (bf16 at D 128: 3 stages of 32 KB) lets an SM hold.
+_TICK_TARGET_CTAS = 264
 # What the built library says of itself, checked at load: warps per CTA of
 # the split body; keys per tile of the multi-row body (its split lengths
 # are multiples); packed rows a multi-row CTA takes (16 a warp).
 _SPLIT_WARPS = 4
 _TILED_KEYS = 64
 _TILED_ROWS = (16, 32, 64)
+# ... and of the tick body: keys a ring stage holds (a unit of the split is
+# a block, or a piece of a longer block, of at most this many keys), and
+# the largest cluster of CTAs a row may take.
+_TICK_KEYS = 64
+_TICK_MAX_CLUSTER = 8
 
 # The kernels' dtype codes, and the decode kernel's operand variants
 # (``csrc/flash_decode.cu``): 0/1 exact, then the two int8 routes.
@@ -110,29 +128,39 @@ BlockScales = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _launchers():
-    """``(split, {variant: multi-row})``: the split body's C entry and the
-    multi-row body's of each operand variant, after checking what each
-    built library says of itself."""
+    """``(split, {variant: multi-row}, tick)``: the split body's C entry,
+    the multi-row body's of each operand variant and the tick body's,
+    after checking what each built library says of itself."""
     global _lib_fns
     if _lib_fns is None:
-        _build.build(("flash_decode", *_TILED_LIBS.values()))  # in parallel
+        _build.build(("flash_decode", *_TILED_LIBS.values(),
+                      "decode_tick"))  # in parallel
         lib = _build.library("flash_decode")
         tlibs = {v: (n, _build.library(n)) for v, n in _TILED_LIBS.items()}
+        tick_lib = _build.library("decode_tick")
         built = (lib.flash_decode_warps_per_cta(),
-                 *(getattr(t, f"{n}_keys")() for n, t in tlibs.values()))
-        want = (_SPLIT_WARPS,) + (_TILED_KEYS,) * len(tlibs)
+                 *(getattr(t, f"{n}_keys")() for n, t in tlibs.values()),
+                 tick_lib.decode_tick_keys(),
+                 tick_lib.decode_tick_max_cluster())
+        want = ((_SPLIT_WARPS,) + (_TILED_KEYS,) * len(tlibs)
+                + (_TICK_KEYS, _TICK_MAX_CLUSTER))
         if built != want:
             raise RuntimeError(
                 f"the decode libraries were built with (warps per CTA, keys "
-                f"per tile of each multi-row library) {built}, "
-                f"ops/cuda_decode.py says {want}")
+                f"per tile of each multi-row library, the tick's keys per "
+                f"stage and largest cluster) {built}, ops/cuda_decode.py "
+                f"says {want}")
         split = lib.flash_decode_launch
         tiled = {v: getattr(t, f"{n}_launch") for v, (n, t) in tlibs.items()}
         for fn in (split, *tiled.values()):  # one signature: see _launch
             fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 15
                            + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        _lib_fns = (split, tiled)
+        tick = tick_lib.decode_tick_launch
+        tick.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                         + [ctypes.c_float, ctypes.c_void_p])
+        tick.restype = ctypes.c_int
+        _lib_fns = (split, tiled, tick)
     return _lib_fns
 
 
@@ -143,31 +171,38 @@ def _rows_per_warp(rows: int, tree: bool = False) -> int:
     return 1 if rows == 1 and not tree else 8
 
 
-def decode_body(variant: int, rows: int, tree: bool = False) -> str:
-    """Which body a launch runs, by a static rule on its operands:
-    ``"tiled"`` — the multi-row body on the tensor cores — for a launch
-    with ``rows`` = G*Tq > 1 packed rows per KV head or a tree mask whose
-    operands are not f32: exact bf16 (``variant`` 1: B1, B2), the int8
-    cast route over B1/B2 (2) and q8q (3: B4 contiguous, B5 through a
-    block table); ``"split"`` for every other launch: one packed row
-    without a mask (the lean decode tick, the reference workload) and f32
-    (the reference pins f32 products at HIGHEST: no tensor cores). The
-    layout, the ``local_blocks`` flag and per-block scales do not enter
-    the rule: both bodies take them, and the multi-row body takes any
-    block size, kv_offset and row count, so no shape it receives is
-    turned away."""
-    multi = rows > 1 or tree
-    return ("tiled" if multi and variant != _DTYPES[torch.float32]
-            else "split")
+def decode_body(variant: int, rows: int, tree: bool = False,
+                paged: bool = False) -> str:
+    """Which body a launch runs, by a static rule on its operands. Every
+    variant but f32 (exact bf16, ``variant`` 1: B1, B2; the int8 cast
+    route over B1/B2, 2; q8q, 3: B4 contiguous, B5 through a block table):
+    ``"tiled"`` — the multi-row body on the tensor cores — for ``rows`` =
+    G*Tq > 1 packed rows per KV head or a tree mask; ``"tick"`` — the
+    cluster body — for one packed row without a mask through a block table
+    (``paged``: the serving decode tick of B2 and B5). ``"split"`` for
+    every other launch: one contiguous packed row without a mask (the
+    reference workload: B1, B4) and f32 (the reference pins f32 products
+    at HIGHEST: no tensor cores). The ``local_blocks`` flag and per-block
+    scales do not enter the rule: the tick and multi-row bodies take them
+    (and the split body, for f32 pools, ``local_blocks``), with any block
+    size and kv_offset, so no shape a body receives is turned away."""
+    if variant == _DTYPES[torch.float32]:
+        return "split"
+    if rows > 1 or tree:
+        return "tiled"
+    return "tick" if paged else "split"
 
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
     """A launch's grid. ``rows``: packed rows of a work item (its Q tile),
     ``q_tiles`` of them per KV head; ``split_len``: the logical keys a split
-    covers; ``splits``: the partials each row gets (merged after);
+    covers (the tick body: the keys of a ring stage, its splits following
+    each slot's own length, :func:`tick_units`); ``splits``: the partials
+    each row gets (merged after; the tick body's inside its cluster);
     ``ctas``: CTAs along the keys (the split body packs ``_SPLIT_WARPS``
-    splits, one per warp, into a CTA; the multi-row body one)."""
+    splits, one per warp, into a CTA; the multi-row body one; the tick body
+    one cluster of ``ctas`` per row)."""
 
     body: str
     rows: int
@@ -189,7 +224,20 @@ def decode_geometry(body: str, R: int, B: int, Hkv: int, Tk: int, *,
     split body's stay sized on the logical length: each of its warps
     checks its range chunk by chunk, so a long split of mostly remote
     chunks serializes the checks that short splits spread over warps
-    (``PERF.md`` §6 has both sizings of both bodies on the card)."""
+    (``PERF.md`` §6 has both sizings of both bodies on the card).
+
+    The tick body takes one cluster of CTAs per KV head's row: the largest
+    of 1, 2, 4, 8 that keeps ``B * Hkv`` clusters within
+    ``_TICK_TARGET_CTAS`` (two CTAs per SM) and gives each CTA at least a
+    stage of the table's width; each cluster then splits its own slot's
+    visible blocks (:func:`tick_units`)."""
+    if body == "tick":
+        stages = -(-Tk // _TICK_KEYS)
+        c = 1
+        while (c < _TICK_MAX_CLUSTER and 2 * c * B * Hkv <= _TICK_TARGET_CTAS
+               and 2 * c <= stages):
+            c *= 2
+        return Geometry(body, 1, 1, _TICK_KEYS, c, c)
     held = Tk // max(shards, 1) if body == "tiled" else Tk
     if body == "tiled":
         rows = next((r for r in _TILED_ROWS if R <= r), _TILED_ROWS[-1])
@@ -221,6 +269,29 @@ def split_keys(geo: Geometry, split: int, q_offset: int, Tq: int, Tk: int,
     if causal:
         hi = min(hi, q_offset - kv_offset + Tq)
     return range(j0, max(j0, hi))
+
+
+def tick_units(geo: Geometry, rank: int, q_offset: int, Tq: int, Tk: int,
+               blk: int, kv_offset: int = 0) -> list:
+    """The units CTA ``rank`` of a row's cluster streams on the tick body,
+    as ``(logical block, first row in it, rows)`` — the kernel's own
+    arithmetic: the slot's visible keys ``[0, q_offset - kv_offset + Tq)``
+    are cut into units (a block's rows, or ``geo.split_len``-key pieces of
+    a longer block), and the ``n`` units split ``[rank * n // C, (rank + 1)
+    * n // C)`` over the cluster's ``C = geo.ctas`` CTAs. A unit's rows end
+    at the frontier, so no key past it is copied and no table entry past
+    it is read; under ``local_blocks`` the kernel drops a unit whose table
+    entry is negative before it reads a byte of it."""
+    U = min(blk, geo.split_len)
+    upb = -(-blk // U)
+    j1 = min(Tk, q_offset - kv_offset + Tq)
+    n = 0 if j1 <= 0 else (j1 // blk) * upb + -(-(j1 % blk) // U)
+    units = []
+    for u in range(rank * n // geo.ctas, (rank + 1) * n // geo.ctas):
+        nb, piece = divmod(u, upb)
+        row0 = piece * U
+        units.append((nb, row0, min(U, blk - row0, j1 - nb * blk - row0)))
+    return units
 
 
 def tree_bits_rows(tree_mask: torch.Tensor, n_q_per_kv: int,
@@ -524,27 +595,24 @@ def _check_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
 def _launch(wrapper, qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB,
             causal, scale, qs=None, block_scales=None, local_blocks=False,
             tree_mask=None, shards=1):
-    """Run a body (:func:`decode_body`) and its merge on packed ``qp``
-    ``(B, Hkv, R, D)``; returns ``out`` ``(B, Hkv, R, D)`` (bf16 for the
-    int8 variants) and ``lse`` ``(B, Hkv, R)``. ``local_blocks``: the paged
-    table is signed (negative = a block another rank holds), the pool
-    sharded over ``shards`` ranks. ``tree_mask``: the tree variant, its
-    bits packed here on the device. A launch of the multi-row body counts
-    on ``wrapper.tiled_launches`` and, by Tq, in ``wrapper.tiled_tq``; the
-    cast route's also on ``wrapper.cast_tiled_launches``."""
-    split_fn, tiled_fns = _launchers()
+    """Run a body (:func:`decode_body`) and, but for the tick body, its
+    merge on packed ``qp`` ``(B, Hkv, R, D)``; returns ``out`` ``(B, Hkv,
+    R, D)`` (bf16 for the int8 variants) and ``lse`` ``(B, Hkv, R)``.
+    ``local_blocks``: the paged table is signed (negative = a block another
+    rank holds), the pool sharded over ``shards`` ranks. ``tree_mask``: the
+    tree variant, its bits packed here on the device. A launch of the tick
+    body counts on ``wrapper.tick_launches``; of the multi-row body on
+    ``wrapper.tiled_launches`` and, by Tq, in ``wrapper.tiled_tq``, the cast
+    route's also on ``wrapper.cast_tiled_launches``."""
+    split_fn, tiled_fns, tick_fn = _launchers()
     B, Hkv, R, D = qp.shape
     tree = tree_mask is not None
-    geo = decode_geometry(decode_body(variant, R, tree),
+    geo = decode_geometry(decode_body(variant, R, tree, table is not None),
                           R, B, Hkv, Tk, tree=tree, shards=shards)
     bits = (tree_bits_rows(tree_mask.to(qp.device), R // Tq, Hkv)
             .contiguous() if tree else None)
     qp, k, v = qp.contiguous(), k.contiguous(), v.contiguous()
     dev = qp.device
-    o_part = torch.empty((geo.splits, B * Hkv, R, D), dtype=torch.float32,
-                         device=dev)
-    lse_part = torch.empty((geo.splits, B * Hkv, R), dtype=torch.float32,
-                           device=dev)
     out = torch.empty((B, Hkv, R, D), device=dev,
                       dtype=qp.dtype if variant in _DTYPES.values()
                       else torch.bfloat16)
@@ -557,6 +625,24 @@ def _launch(wrapper, qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
+    ks, vs = (None, None) if block_scales is None else block_scales
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if geo.body == "tick":
+        # One launch: the cluster merges its CTAs' states on chip.
+        wrapper.tick_launches += 1
+        err = tick_fn(
+            qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(qs), ptr(ks),
+            ptr(vs), offs.data_ptr(), table.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), variant, D, B, Hkv, R, Tq, Tk, blk, NB,
+            geo.ctas, int(local_blocks), float(scale), stream)
+        if err:
+            raise RuntimeError(
+                f"decode_tick kernel launch failed: CUDA error {err}")
+        return out, lse
+    o_part = torch.empty((geo.splits, B * Hkv, R, D), dtype=torch.float32,
+                         device=dev)
+    lse_part = torch.empty((geo.splits, B * Hkv, R), dtype=torch.float32,
+                           device=dev)
     if geo.body == "tiled":
         # The multi-row body takes rows a CTA and partials where the split
         # body takes rows a warp and CTAs along the keys.
@@ -568,14 +654,11 @@ def _launch(wrapper, qp, k, v, offs, table, *, variant, Tq, Tk, blk, NB,
     else:
         fn, rows, ctas = split_fn, geo.rows, geo.ctas
     err = fn(
-        qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(qs),
-        ptr(None if block_scales is None else block_scales[0]),
-        ptr(None if block_scales is None else block_scales[1]),
-        offs.data_ptr(), ptr(table), ptr(bits), o_part.data_ptr(),
+        qp.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(qs), ptr(ks),
+        ptr(vs), offs.data_ptr(), ptr(table), ptr(bits), o_part.data_ptr(),
         lse_part.data_ptr(), out.data_ptr(), lse.data_ptr(), variant, D,
         int(table is not None), rows, B, Hkv, R, Tq, Tk, blk, NB, ctas,
-        geo.split_len, int(causal), int(local_blocks), float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        geo.split_len, int(causal), int(local_blocks), float(scale), stream)
     if err:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {err}")
     return out, lse
@@ -644,8 +727,8 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
     ``(N, Hkv, block, D)`` pools (q's dtype, or int8 with q in bf16) through
     the ``(B, NB)`` int32 table; slot ``b``'s queries sit at
     ``q_offset[b]``. ``block_scales`` ``(k_scale, v_scale)``, each ``(N,
-    Hkv)`` f32, dequantize int8 pools per block. Table entries past a
-    slot's length are never read.
+    Hkv)`` f32, dequantize int8 pools per block. The pool blocks that
+    table entries past a slot's length name are never read.
 
     ``local_blocks``: the pools are one rank's slice of a sequence-sharded
     pool and the table is signed — entries in ``[0, N)`` are local blocks,
@@ -657,7 +740,8 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
     ``.tree_launches``, the others on ``.launches``; launches of the
     multi-row body (bf16 or int8, more than one packed row or a tree) also
     on ``.tiled_launches`` and, by Tq, in ``.tiled_tq``, and with int8 pools
-    on ``.cast_tiled_launches``."""
+    on ``.cast_tiled_launches``; of the tick body (bf16 or int8, one packed
+    row, no tree: the decode tick) also on ``.tick_launches``."""
     _check_tree(q, tree_mask)
     if local_blocks and tree_mask is not None:
         raise ValueError("tree_mask is not supported under local_blocks "
@@ -696,6 +780,7 @@ attention_cuda_decode_paged.tree_launches = 0
 attention_cuda_decode_paged.tiled_launches = 0
 attention_cuda_decode_paged.tiled_tq = {}  # multi-row launches by Tq
 attention_cuda_decode_paged.cast_tiled_launches = 0  # ... with int8 pools
+attention_cuda_decode_paged.tick_launches = 0  # one-row ticks, any variant
 
 
 def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
@@ -749,7 +834,9 @@ def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
     table in the kernel) or channel ``(B, Hkv, 1, D)`` scales (folded as in
     B4). Launches count as B1's do (``.launches``, ``.tree_launches``;
     ``.tiled_launches`` and ``.tiled_tq`` for the multi-row body, which
-    takes more than one packed row or a tree)."""
+    takes more than one packed row or a tree), and those of the tick body
+    (one packed row, no tree: the int8 decode tick) on
+    ``.tick_launches``."""
     _check_tree(q, tree_mask)
     if q.device.type == "cpu":
         return paged_decode_q8q_plain(q, k_q, v_q, block_table, k_scale,
@@ -780,6 +867,7 @@ attention_cuda_decode_paged_q8q.launches = 0
 attention_cuda_decode_paged_q8q.tree_launches = 0
 attention_cuda_decode_paged_q8q.tiled_launches = 0
 attention_cuda_decode_paged_q8q.tiled_tq = {}  # multi-row launches by Tq
+attention_cuda_decode_paged_q8q.tick_launches = 0  # one-row ticks
 
 
 def attention_cuda_decode_q8(q, k_q, v_q, k_scale, v_scale, *,
