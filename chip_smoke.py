@@ -40,7 +40,12 @@ failure exits non-zero:
    offset, causal and not) under the same gates; and
    B3, B6, B7 timed at B1 H16 T16384 causal (no plain version there); and
    the gradients of the Tq < 128 training route (B1 forward, blockwise
-   backward) against its plain forward, under the same row gate.
+   backward) against its plain forward, under the same row gate; and B6/B7
+   with a non-zero lse cotangent at the training shape (``delta =
+   rowsum(dO * O) - dlse``, as the tree merge gives them) against their
+   plain versions, the one-key dq rows (``dlse K_0 scale`` now) held to the
+   row gate plus their rounding bound, the gate shown rejecting ``dlse``
+   left out of delta.
    The int8 routes under the same row gate: B4 at the reference workload
    and at GQA Hq32 Hkv8 Tq16 with per-batch offsets and a ragged Tk, B5 at
    the serve decode tick with per-block and with channel scales, B1 over
@@ -195,6 +200,26 @@ failure exits non-zero:
    the single-rank serve reported; and ``--mode decode --mesh seq=2`` at
    the reference workload
    (its time: two ranks sharing one card, not a scaling figure).
+   Then sequence-parallel training on two ranks sharing the card (the same
+   spawning, over gloo): ``tree_attention`` alone at B2 H16 T4096 D128
+   causal bf16 in the contiguous and zigzag layouts, each rank's out/lse
+   against the rows of the unsharded B3 under the row gate and its
+   dq/dk/dv under a random ``dout`` and non-zero ``dlse`` against the rows
+   of the unsharded B6/B7 under the gradient gate plus the rounding the
+   merge adds (each partial's output cotangent cast to bf16:
+   ``cuda_bwd.merge_cotangent_allowance``, six standard deviations; the
+   row gate alone is printed beside it), the gates shown
+   rejecting each rank's reduce-scatter returning the previous rank's rows
+   and the lse cotangent dropped; then ``cli.main`` with ``TRAIN_ARGS``
+   (2 steps, then 1 + 1 timed) ``--mesh seq=2 --dist-backend gloo`` in both
+   layouts: finite losses, the ranks' parameters equal (digest), per rank
+   B3 twice and B6/B7 once per layer, step and attended (query block, key
+   block) pair (``tree_runs``), no B1, per layer and step 3 all-gathers, 2
+   MAX and 3 reduce-scatters (forward, its recomputation, backward) and
+   one gradient all-reduce per step; the first loss within 1e-2 of phase
+   5's (same seed and batch); one zigzag step's wall and rank 0's device
+   time by kernel group. Their times: two ranks sharing one card, not a
+   scaling figure.
 4. Time ``--mode decode`` at the reference workload (B=1, 16 heads x 128,
    64000 KV tokens, one query) through the contiguous decode kernel (B1),
    and with ``--kv-quant int8`` (B4) and ``int8-cast`` (B1 over int8 K/V);
@@ -321,6 +346,26 @@ def hgmma_counts(build) -> dict:
                 out[name] = sum("HGMMA" in line
                                 for line in block.splitlines())
     return out
+
+
+def rows_close(a, b):
+    """Hold ``a = (out, lse)`` against the plain ``b``: every query row's
+    |dout| within TOL_OUT_REL of that row's largest plain |out| (an empty
+    row must be exactly 0 on both sides), the same empty rows, |dlse|
+    within TOL_LSE. Returns ``(ok, |dout|, relative |dout|, |dlse|)``."""
+    import torch
+
+    (o1, l1), (o2, l2) = a, b
+    if not (torch.isfinite(o1).all() and o1.shape == o2.shape):
+        return False, math.inf, math.inf, math.inf
+    d = (o1.float() - o2.float()).abs()
+    row = o2.float().abs().amax(-1, keepdim=True)
+    rel = (d / row.clamp_min(1e-30)).max().item()
+    fin = torch.isfinite(l2)
+    el = (l1[fin] - l2[fin]).abs().max().item() if fin.any() else 0.0
+    ok = (torch.equal(torch.isneginf(l1), torch.isneginf(l2))
+          and rel <= TOL_OUT_REL and el <= TOL_LSE)
+    return ok, d.max().item(), rel, el
 
 
 MESH_ARGS = ["--mesh", "seq=2", "--dist-backend", "gloo"]
@@ -467,20 +512,19 @@ def _sharded_rank(rank: int, world: int, port: int, device: str,
     return out
 
 
-def _sharded_rank_main(rank, world, port, out_q, *args) -> None:
+def _rank_main(target, rank, world, port, out_q, *args) -> None:
     try:
-        out_q.put((rank, True, _sharded_rank(rank, world, port, *args)))
+        out_q.put((rank, True, target(rank, world, port, *args)))
     except BaseException:  # reported to the parent, which fails
         import traceback
 
         out_q.put((rank, False, traceback.format_exc()))
 
 
-def run_sharded_ranks(world: int = 2, device: str = "cuda",
-                      serve_args: list = SERVE_ARGS,
-                      decode_args: list = DECODE_MESH_ARGS) -> list:
-    """Spawn ``world`` ranks on ``cuda:0`` over gloo and return their
-    results in rank order; a rank that raises, dies or outlives
+def run_ranks(target, world: int, *args, what: str = "sharded") -> list:
+    """Spawn ``world`` ranks running ``target(rank, world, port, *args)``
+    (each joins a gloo group on ``localhost:port``) and return their results
+    in rank order; a rank that raises, dies or outlives
     ``SHARDED_TIMEOUT_S`` fails the script, and every rank still running
     is killed."""
     import multiprocessing
@@ -492,9 +536,8 @@ def run_sharded_ranks(world: int = 2, device: str = "cuda",
         port = sock.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
     out_q = ctx.Queue()
-    procs = [ctx.Process(target=_sharded_rank_main,
-                         args=(r, world, port, out_q, device, serve_args,
-                               decode_args))
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, r, world, port, out_q, *args))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -504,7 +547,7 @@ def run_sharded_ranks(world: int = 2, device: str = "cuda",
         while len(results) < world:
             left = deadline - time.monotonic()
             if left <= 0:
-                fail(f"sharded ranks did not finish within "
+                fail(f"{what} ranks did not finish within "
                      f"{SHARDED_TIMEOUT_S} s")
             try:
                 rank, ok, payload = out_q.get(timeout=min(left, 1.0))
@@ -512,23 +555,312 @@ def run_sharded_ranks(world: int = 2, device: str = "cuda",
                 dead = [r for r, p in enumerate(procs)
                         if p.exitcode not in (None, 0) and r not in results]
                 if dead:
-                    fail(f"sharded ranks {dead} died")
+                    fail(f"{what} ranks {dead} died")
                 continue
             if not ok:
-                fail(f"sharded rank {rank} raised:\n{payload}")
+                fail(f"{what} rank {rank} raised:\n{payload}")
             results[rank] = payload
         for p in procs:
             p.join(timeout=max(deadline - time.monotonic(), 1.0))
             if p.exitcode != 0:
-                fail(f"a sharded rank exited with {p.exitcode}")
+                fail(f"a {what} rank exited with {p.exitcode}")
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
                 p.join(5)
+    return [results[r] for r in range(world)]
+
+
+def run_sharded_ranks(world: int = 2, device: str = "cuda",
+                      serve_args: list = SERVE_ARGS,
+                      decode_args: list = DECODE_MESH_ARGS) -> list:
+    """The two-rank serve and decode phase (:func:`_sharded_rank`) on
+    ``cuda:0`` over gloo; ``device`` "cpu" with small arguments rehearses
+    it without the card."""
+    results = run_ranks(_sharded_rank, world, device, serve_args,
+                        decode_args)
     if results[1]["decode_printed"]:
         fail("rank 1 printed a decode record: only rank 0 prints")
-    return [results[r] for r in range(world)]
+    return results
+
+
+# The two-rank training phase: TRAIN_ARGS with fewer steps (2, then 1 + 1
+# timed), and tree_attention alone at the training attention shape.
+TRAIN_MESH_ARGS = TRAIN_ARGS + ["--steps", "2", "--iters", "1"]
+TREE_SHAPE = (2, 16, 4096, 128)  # B, H, T, D
+LAYOUTS = ("contiguous", "zigzag")
+
+
+def tree_runs(layout: str, world: int, rank: int) -> int:
+    """Attention launches (B3 forward, or B6 and B7 each) of one
+    single-chunk causal ``tree_attention`` call on ``rank``: the (query
+    block, key block) pairs whose key block is not past the query block.
+    Contiguous: W blocks, rank ``r`` holds key block ``r``; zigzag: 2W
+    half-blocks, rank ``r`` holds ``r`` and ``2W-1-r``."""
+    if layout == "contiguous":
+        return world - rank
+    return (2 * world - rank) + (rank + 1)
+
+
+def _train_rank(rank: int, world: int, port: int, device: str,
+                train_args: list, tree_shape: tuple) -> dict:
+    """One rank of the two-rank training phase. (a) ``tree_attention``
+    alone in both layouts: this rank's out/lse against the rows of the
+    unsharded B3, its dq/dk/dv under a random ``dout`` and non-zero
+    ``dlse`` against the rows of the unsharded B6/B7, and the gates on two
+    planted faults (the reduce-scatter handing each rank the previous
+    rank's slice; the lse cotangent dropped before B6/B7). (b)
+    ``cli.main --mode train`` on the mesh in both layouts, every kernel's
+    launches and the collectives counted over the run. ``device`` "cpu"
+    with a small shape rehearses it without the card (plain versions,
+    nothing counted)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    import torch
+    import torch.distributed as dist
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.ops import (
+        cuda_attention,
+        cuda_bwd,
+        cuda_decode,
+        vjp,
+    )
+    from tree_attention_tpu_torch.parallel import (
+        COLLECTIVES,
+        initialize_distributed,
+        make_mesh,
+    )
+    from tree_attention_tpu_torch.parallel import tree as ttree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, created = initialize_distributed("gloo", device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    mesh = make_mesh({"seq": world})
+    out = {"tree": {}, "train": {}}
+    try:
+        B, H, T, D = tree_shape
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+        g = torch.Generator(device=dev).manual_seed(11)
+        q, k, v, dout = (torch.randn(B, H, T, D, generator=g, device=dev
+                                     ).to(dtype) for _ in range(4))
+        dlse = torch.randn(B, H, T, generator=g, device=dev)
+        # The whole sequence on one rank: B3, then B6/B7 with the same
+        # dout and dlse.
+        ref_o, ref_l = cuda_attention.attention_cuda_fwd(q, k, v,
+                                                         causal=True)
+        ref_g = cuda_bwd.attention_cuda_bwd(q, k, v, ref_o, ref_l, dout,
+                                            dlse, causal=True)
+        lse_f, delta = cuda_bwd.bwd_residuals(ref_o, ref_l, dout, dlse)
+        one_key = cuda_bwd.dq_one_key_bound(q, k, v, dout, delta,
+                                            causal=True, dlse=dlse)
+        # An f32 reference (plain, on the bf16 values) to tell the two
+        # bf16 paths' own errors apart.
+        f32 = [t.float() for t in (q, k, v, dout)]
+        f32_g = cuda_bwd.bwd_plain(
+            *f32[:3], *cuda_attention.fwd_plain(*f32[:3], causal=True),
+            f32[3], dlse, causal=True)
+        del f32
+
+        def rel_to(a, ref):
+            """Each row's largest |a - ref| over the row's largest |ref|,
+            the worst row."""
+            return ((a.float() - ref).abs().amax(-1) / ref.abs().amax(-1)
+                    .clamp_min(1e-30)).max().item()
+        for layout in LAYOUTS:
+            rows = torch.from_numpy(ttree.local_positions(T, mesh, layout)
+                                    ).to(dev)
+            # The sharded backward's own rounding: each partial's output
+            # cotangent cast to bf16 (cuda_bwd.merge_cotangent_allowance).
+            allow = [x.index_select(2, rows)
+                     for x in cuda_bwd.merge_cotangent_allowance(
+                         q, k, v, dout, lse_f,
+                         ttree.partial_key_groups(T, world, layout),
+                         causal=True)]
+
+            def mine(x):
+                return x.index_select(2, rows)
+
+            def attend():
+                leaves = [mine(t).requires_grad_() for t in (q, k, v)]
+                o, lse = ttree.tree_attention(*leaves, mesh=mesh,
+                                              causal=True, layout=layout)
+                torch.autograd.backward([o, lse], [mine(dout), mine(dlse)])
+                return (o.detach(), lse.detach()), tuple(t.grad
+                                                         for t in leaves)
+
+            want = (mine(ref_o), mine(ref_l))
+            want_g = tuple(mine(x) for x in ref_g)
+            mine_key = tuple(mine(x) for x in one_key)
+            attend()  # warm-up
+            sync()
+            t0 = time.monotonic()
+            res, grads = attend()
+            sync()
+            ms = (time.monotonic() - t0) * 1e3
+            fwd = rows_close(res, want)
+            bwd = cuda_bwd.grad_rows_close(grads, want_g, TOL_GRAD_REL,
+                                           mine_key, allow)
+            row_gate_alone = cuda_bwd.grad_rows_close(
+                grads, want_g, TOL_GRAD_REL, mine_key)
+            # Planted: each rank's reduce-scatter returns the previous
+            # rank's rows ...
+            scatter = ttree.scatter_rows
+            ttree.scatter_rows = lambda x, *a, **kw: scatter(x.roll(1, 0),
+                                                             *a, **kw)
+            try:
+                with torch.no_grad():
+                    wrong = ttree.tree_attention(
+                        *(mine(t) for t in (q, k, v)), mesh=mesh,
+                        causal=True, layout=layout)
+            finally:
+                ttree.scatter_rows = scatter
+            # ... and the backward runs without the lse cotangent (B6/B7,
+            # or the blockwise backward of runs below 128 rows).
+            bwd_fns = {n: getattr(vjp, n) for n in ("attention_cuda_bwd",
+                                                     "attention_bwd_blockwise")}
+            for n, fn in bwd_fns.items():
+                setattr(vjp, n, lambda *a, _fn=fn, **kw: _fn(*a[:6], None,
+                                                             **kw))
+            try:
+                _, no_dlse = attend()
+            finally:
+                for n, fn in bwd_fns.items():
+                    setattr(vjp, n, fn)
+            out["tree"][layout] = {
+                "fwd": fwd, "bwd": bwd, "bwd_row_gate_alone": row_gate_alone,
+                "vs_f32": {"sharded": [rel_to(a, mine(f)) for a, f in
+                                       zip(grads, f32_g)],
+                           "unsharded": [rel_to(a, mine(f)) for a, f in
+                                         zip(want_g, f32_g)]},
+                "allowance_over_row_tol": [
+                    (a / (TOL_GRAD_REL * w.float().abs().amax(-1, keepdim=True)
+                          ).clamp_min(1e-30)).median().item()
+                    for a, w in zip(allow, want_g)],
+                "fwd_bwd_ms": ms,
+                "wrong_slice": rows_close(wrong, want),
+                "dlse_dropped": cuda_bwd.grad_rows_close(
+                    no_dlse, want_g, TOL_GRAD_REL, mine_key, allow)}
+        del q, k, v, dout, dlse, ref_o, ref_l, ref_g, delta, one_key, lse_f
+        del f32_g
+        del want, want_g, mine_key, res, grads, wrong, no_dlse, allow
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        counters = {
+            "flash_fwd": (cuda_attention.attention_cuda_fwd, "launches"),
+            "flash_dq": (cuda_bwd.attention_cuda_dq, "launches"),
+            "flash_dkv": (cuda_bwd.attention_cuda_dkv, "launches"),
+            "flash_decode": (cuda_decode.attention_cuda_decode, "launches"),
+            "flash_decode_tiled": (cuda_decode.attention_cuda_decode,
+                                   "tiled_launches"),
+        }
+        for layout in LAYOUTS:
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            c0 = dict(COLLECTIVES)
+            buf = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                cli.main(train_args + MESH_ARGS + ["--seq-layout", layout])
+            sync()
+            lines = buf.getvalue().strip().splitlines()
+            out["train"][layout] = {
+                "rec": json.loads(lines[-1]) if lines else None,
+                "wall_s": time.monotonic() - t0,
+                "launches": {n: getattr(fn, a)
+                             for n, (fn, a) in counters.items()},
+                "colls": {f"{a}/{c}": n - c0.get((a, c), 0)
+                          for (a, c), n in COLLECTIVES.items()
+                          if n - c0.get((a, c), 0)}}
+        if dev.type == "cuda":
+            out["step_split"] = _traced_mesh_step(dev, mesh, train_args,
+                                                  traced=rank == 0)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return out
+
+
+def _traced_mesh_step(dev, mesh, train_args: list, traced: bool) -> dict:
+    """Where one zigzag training step on the mesh spends its wall: the
+    median of three untraced steps, and on the traced rank one more step's
+    device time by kernel group (torch.profiler; the other rank's kernels,
+    on the same card, are not in it). The rest of the wall is the host:
+    gloo's collectives and the launches."""
+    import torch
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.data import make_lm_batch
+    from tree_attention_tpu_torch.models import (
+        default_optimizer,
+        init_train_state,
+        make_train_step,
+    )
+    from tree_attention_tpu_torch.utils.config import parse_args
+
+    targs = parse_args(train_args + ["--seq-layout", "zigzag"])
+    tcfg = cli.transformer_config(targs)
+    opt = default_optimizer()
+    state = init_train_state(tcfg, opt, seed=0, device=dev, mesh=mesh)
+    step = make_train_step(tcfg, opt, mesh=mesh)
+    batch = make_lm_batch(torch.Generator().manual_seed(5), targs.batch,
+                          targs.seq_len, tcfg.vocab_size, dev, mesh=mesh)
+    state, _ = step(state, batch)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out = {"step_walls_ms": walls, "step_wall_ms": sorted(walls)[1]}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with (torch.profiler.profile(activities=acts) if traced
+          else contextlib.nullcontext()) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    if traced:
+        groups = {"flash_fwd (B3)": ("flash_fwd",),
+                  "flash_dq (B6)": ("flash_dq",),
+                  "flash_dkv (B7)": ("flash_dkv",),
+                  "matmul": ("nvjet", "gemm", "gemv", "sm90", "cutlass",
+                             "cublas")}
+        split = {g: 0.0 for g in (*groups, "other")}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            low = e.name.lower()
+            key = next((g for g, keys in groups.items()
+                        if any(x in low for x in keys)), "other")
+            split[key] += e.time_range.elapsed_us() / 1e3
+        busy = sum(split.values())
+        out.update(by_group_ms=split, busy_ms=busy,
+                   idle_share=(1 - busy / out["step_wall_ms"]) if busy
+                   else None)
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_ranks(world: int = 2, device: str = "cuda",
+                    train_args: list = TRAIN_MESH_ARGS,
+                    tree_shape: tuple = TREE_SHAPE) -> list:
+    """The two-rank training phase (:func:`_train_rank`) on ``cuda:0``
+    over gloo; ``device`` "cpu" with small arguments rehearses it."""
+    results = run_ranks(_train_rank, world, device, train_args, tree_shape,
+                        what="training")
+    if any(r["train"][layout]["rec"] is not None
+           for r in results[1:] for layout in LAYOUTS):
+        fail("a rank other than 0 printed a train record")
+    return results
 
 
 SPEC_ARGS = ["--speculate", "--draft-k", "4"]
@@ -1110,23 +1442,7 @@ def main() -> None:
                  f"bound")
         return ms, "cuda_events", ms
 
-    def gate(a, b):
-        """Hold ``a = (out, lse)`` against the plain ``b``: every query
-        row's |dout| within TOL_OUT_REL of that row's largest plain |out|
-        (an empty row must be exactly 0 on both sides), the same empty
-        rows, |dlse| within TOL_LSE. Returns ``(ok, |dout|, relative
-        |dout|, |dlse|)``."""
-        (o1, l1), (o2, l2) = a, b
-        if not (torch.isfinite(o1).all() and o1.shape == o2.shape):
-            return False, math.inf, math.inf, math.inf
-        d = (o1.float() - o2.float()).abs()
-        row = o2.float().abs().amax(-1, keepdim=True)
-        rel = (d / row.clamp_min(1e-30)).max().item()
-        fin = torch.isfinite(l2)
-        el = (l1[fin] - l2[fin]).abs().max().item() if fin.any() else 0.0
-        ok = (torch.equal(torch.isneginf(l1), torch.isneginf(l2))
-              and rel <= TOL_OUT_REL and el <= TOL_LSE)
-        return ok, d.max().item(), rel, el
+    gate = rows_close
 
     def visible_pairs(qoff, tq, tk):
         """Sum over batch rows and queries of keys visible under the causal
@@ -2945,6 +3261,56 @@ def main() -> None:
     if halved[0] or skipped[0] or dq_shift[0]:
         fail("the gradient gate accepts a planted fault at the training "
              "shape")
+    # B6/B7 with a non-zero lse cotangent, as the tree merge's weights give
+    # them (delta = rowsum(dO * O) - dlse), against their plain versions at
+    # the training shape; the one-key dq rows, no longer 0 (dlse K_0
+    # scale), held to the row gate plus the cancellation's rounding bound;
+    # the gate shown rejecting dlse left out of delta.
+    out_t, lse_t = cuda_attention.attention_cuda_fwd(q, k, v, causal=True)
+    dlse_t = torch.randn(lse_t.shape, generator=g, device=dev)
+    _, delta_d = cuda_bwd.bwd_residuals(out_t, lse_t, dout, dlse_t)
+    one_key_d = cuda_bwd.dq_one_key_bound(q, k, v, dout, delta_d,
+                                          causal=True, dlse=dlse_t)
+
+    def bwd_kernels(dl):
+        return (cuda_bwd.attention_cuda_dq(q, k, v, dout, lse_f, dl,
+                                           causal=True),
+                *cuda_bwd.attention_cuda_dkv(q, k, v, dout, lse_f, dl,
+                                             causal=True))
+
+    want_d = (cuda_bwd.dq_plain(q, k, v, dout, lse_f, delta_d, causal=True),
+              *cuda_bwd.dkv_plain(q, k, v, dout, lse_f, delta_d,
+                                  causal=True))
+    got_d = bwd_kernels(delta_d)
+    with_dlse = gate_rows(got_d, want_d, one_key_d)
+    dlse_left_out = gate_rows(bwd_kernels(delta), want_d, one_key_d)
+    rows_d, bound_d = one_key_d
+    sel = rows_d.expand_as(bound_d)
+    allowed_d = (TOL_GRAD_REL * want_d[0].float().abs().amax(-1, keepdim=True)
+                 + bound_d)
+    dlse_bwd = {
+        "pass": with_dlse[0], "max_abs_err": with_dlse[1],
+        "max_rel_err": with_dlse[2],
+        "one_key_max_diff_over_allowed": (
+            (got_d[0].float() - want_d[0].float()).abs()[sel]
+            / allowed_d.expand_as(bound_d)[sel]).max().item(),
+        "one_key_max_abs_plain": want_d[0].float().abs()[sel].max().item(),
+        "dlse_left_out": {"pass": dlse_left_out[0],
+                          "max_rel_err": dlse_left_out[2]}}
+    print(f"B6/B7 with a non-zero dlse (train shape): |d| "
+          f"{with_dlse[1]:.3e}, relative {with_dlse[2]:.3e} (tol "
+          f"{TOL_GRAD_REL}); one-key dq rows at "
+          f"{dlse_bwd['one_key_max_diff_over_allowed']:.3e} of their "
+          f"allowance; dlse left out of delta -> relative "
+          f"{dlse_left_out[2]:.3e}, rejected {not dlse_left_out[0]}",
+          flush=True)
+    if not with_dlse[0]:
+        fail(f"B6/B7 with a non-zero dlse differ from plain: relative "
+             f"{with_dlse[2]:.3e}")
+    if dlse_left_out[0]:
+        fail("the gradient gate accepts dlse left out of delta")
+    del out_t, lse_t, dlse_t, delta_d, one_key_d, want_d, got_d, rows_d
+    del bound_d, sel, allowed_d
     # The one-key dq rows at the training shape (row 0 of every head): the
     # kernel against the plain version there, beside their bound, and the
     # row gate without the one-key rule (reported, not gated).
@@ -3618,6 +3984,97 @@ def main() -> None:
              f"{[r['decode_launches'] for r in sharded]}, median "
              f"{mdec['median_s']} s")
 
+    # -- 3e. two ranks sharing the card: sequence-parallel training -------
+    from tree_attention_tpu_torch.parallel import tree as ttree
+
+    margs = parse_args(TRAIN_MESH_ARGS)
+    m_layers = margs.n_layers
+    m_steps = margs.steps + 1 + margs.iters  # --steps, warmup, --iters
+    B_t, H_t, T_t, D_t = TREE_SHAPE
+    if ttree.gather_chunk(None, batch=B_t, heads=H_t, head_dim=D_t,
+                          itemsize=2, n_shards=2, tq_local=T_t // 2) \
+            != T_t // 2:
+        fail("tree_attention gathers the training shape in more than one "
+             "chunk; tree_runs counts one")
+    trained = run_train_ranks()
+    for rank, r in enumerate(trained):
+        for layout in LAYOUTS:
+            t = r["tree"][layout]
+            print(f"tree_attention ({layout}, B{B_t} H{H_t} T{T_t} "
+                  f"D{D_t} causal), rank {rank} of 2 on one card over gloo:"
+                  f" out relative {t['fwd'][2]:.3e}, |dlse| "
+                  f"{t['fwd'][3]:.3e} (tol {TOL_OUT_REL}/{TOL_LSE}); "
+                  f"dq/dk/dv relative {t['bwd'][2]:.3e} (tol "
+                  f"{TOL_GRAD_REL}; the row gate alone "
+                  f"{t['bwd_row_gate_alone'][2]:.3e}, the merge's rounding "
+                  f"allowance a median "
+                  f"{max(t['allowance_over_row_tol']):.3f} of the row "
+                  f"tolerance; worst row against f32, dq/dk/dv: sharded "
+                  f"{[round(x, 5) for x in t['vs_f32']['sharded']]}, "
+                  f"unsharded "
+                  f"{[round(x, 5) for x in t['vs_f32']['unsharded']]}); "
+                  f"forward + backward "
+                  f"{t['fwd_bwd_ms']:.2f} ms (host clock; two ranks "
+                  f"sharing one card, not a scaling figure); planted: "
+                  f"previous rank's slice -> relative "
+                  f"{t['wrong_slice'][2]:.3e}, dlse dropped -> relative "
+                  f"{t['dlse_dropped'][2]:.3e}; both rejected: "
+                  f"{not (t['wrong_slice'][0] or t['dlse_dropped'][0])}",
+                  flush=True)
+            if not (t["fwd"][0] and t["bwd"][0]):
+                fail(f"tree_attention ({layout}) rank {rank} differs from "
+                     f"unsharded B3/B6/B7: {t['fwd']} {t['bwd']}")
+            if t["wrong_slice"][0] or t["dlse_dropped"][0]:
+                fail(f"tree_attention ({layout}) rank {rank}: the gates "
+                     f"accept a planted fault")
+    per_step = {"tree_attention/all_gather": 3 * m_layers,
+                "tree_attention/pmax": 2 * m_layers,
+                "tree_attention/psum_scatter": 3 * m_layers,
+                "train_step/psum_grads": 1}
+    for layout in LAYOUTS:
+        mrec = trained[0]["train"][layout]["rec"]
+        for rank, r in enumerate(trained):
+            t = r["train"][layout]
+            n = m_layers * m_steps * tree_runs(layout, 2, rank)
+            want_l = {"flash_fwd": 2 * n, "flash_dq": n, "flash_dkv": n,
+                      "flash_decode": 0, "flash_decode_tiled": 0}
+            want_c = {k: c * m_steps for k, c in per_step.items()}
+            print(f"sharded train ({layout}), rank {rank} of 2 on one card "
+                  f"over gloo: launches {json.dumps(t['launches'])} over "
+                  f"{m_steps} steps (expected {json.dumps(want_l)}), "
+                  f"collectives {json.dumps(t['colls'])}, wall incl. init "
+                  f"{t['wall_s']:.2f}s", flush=True)
+            if t["launches"] != want_l:
+                fail(f"sharded train ({layout}) rank {rank}: launches "
+                     f"{t['launches']}, expected {want_l}")
+            if t["colls"] != want_c:
+                fail(f"sharded train ({layout}) rank {rank}: collectives "
+                     f"{t['colls']}, expected {want_c}")
+        if layout == "zigzag":
+            sp = trained[0]["step_split"]
+            print(f"sharded train step (zigzag, rank 0 of 2 on one card; "
+                  f"two ranks sharing one card, not a scaling figure): "
+                  f"median wall {sp['step_wall_ms']:.2f} ms of "
+                  f"{[round(w, 2) for w in sp['step_walls_ms']]}; rank 0's "
+                  f"device time " + (json.dumps(
+                      {k: round(v, 3) for k, v in sp["by_group_ms"].items()})
+                      + f", busy {sp['busy_ms']:.2f} ms, idle share "
+                      f"{sp['idle_share']:.4f}" if sp.get("busy_ms")
+                      else "not measured"), flush=True)
+        print(f"sharded train ({layout}): losses {mrec['losses']}, step "
+              f"median {mrec['median_s'] * 1e3:.2f} ms ({mrec['clock']}), "
+              f"{mrec['tokens_per_sec']} tok/s (two ranks sharing one card, "
+              f"not a scaling figure), parameters equal across ranks "
+              f"{mrec['params_equal_across_ranks']}", flush=True)
+        if not (len(mrec["losses"]) == margs.steps
+                and all(math.isfinite(x) for x in mrec["losses"])):
+            fail(f"sharded train ({layout}) losses {mrec['losses']}")
+        if mrec["params_equal_across_ranks"] is not True \
+                or mrec["collectives_per_step"] != per_step \
+                or mrec["seq_layout"] != layout:
+            fail(f"sharded train ({layout}) record: {mrec}")
+    torch.cuda.empty_cache()
+
     # -- 4. decode: the reference workload through B1, then int8 through
     # B4 and through B1 over int8 K/V ---------------------------------------
     decode_recs = {}
@@ -3672,6 +4129,15 @@ def main() -> None:
               "flash_dkv": n_layers * steps_run}
     if train_launches != expect:
         fail(f"train launches {train_launches}, expected {expect}")
+    # The two-rank runs' first loss (same seed, parameters and batch).
+    first = {layout: trained[0]["train"][layout]["rec"]["losses"][0]
+             for layout in LAYOUTS}
+    print(f"sharded train first loss vs single rank {trec['losses'][0]:.6f}:"
+          f" {json.dumps(first)} (tol {TOL_STEP_LOSS})", flush=True)
+    if not all(abs(x - trec["losses"][0]) <= TOL_STEP_LOSS
+               for x in first.values()):
+        fail(f"sharded train first loss {first} vs single rank "
+             f"{trec['losses'][0]}")
 
     # -- 6. one training step, kernel path against plain path --------------
     from tree_attention_tpu_torch.data import make_lm_batch
@@ -3824,6 +4290,10 @@ def main() -> None:
     main_launches = dict(launches)
     for n, count in train_launches.items():
         main_launches[n] = main_launches.get(n, 0) + count
+    # ... and rank 0's in the two-rank training runs.
+    for n in train_launches:
+        main_launches[n] += sum(trained[0]["train"][layout]["launches"][n]
+                                for layout in LAYOUTS)
     main_launches["flash_decode_paged_q8q_tick"] = q_launches[
         "flash_decode_paged_q8q_tick"]
     main_launches["flash_decode_q8q"] = (decode_recs["int8"]["launches"]
@@ -3989,6 +4459,9 @@ def main() -> None:
             entry["launches_serve"] = launches[name]
             entry["launches_train"] = train_launches[name]
         if name in train_launches:
+            entry["launches_sharded_train_per_rank"] = {
+                layout: [r["train"][layout]["launches"][name]
+                         for r in trained] for layout in LAYOUTS}
             entry["train_shape"] = next(
                 {k: c[k] for k in ("ms", "plain_ms", "bound_ms",
                                    "library_ms")}
@@ -4038,7 +4511,8 @@ def main() -> None:
                                for r in sharded],
                    "sharded_tokens_equal_to_single": sharded_agree,
                    "ptxas": ptxas, "hgmma_sass": hgmma, "tile_edges": edges,
-                   "one_key_rows": one_key_rows,
+                   "one_key_rows": one_key_rows, "dlse_bwd": dlse_bwd,
+                   "sharded_train": trained,
                    "kernels": kernels}, f, indent=1)
     print(f"chip_smoke: total wall {time.monotonic() - t_start:.1f}s",
           flush=True)

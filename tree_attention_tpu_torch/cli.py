@@ -25,9 +25,11 @@ Under ``--mesh seq=W`` the CLI runs once per rank, e.g.::
 
 ``decode`` then shards the KV sequence over the ranks and merges their
 partials with the tree all-reduce (record ``tree_decode``); ``serve`` with
-``--kv-shard seq`` serves from a sequence-sharded paged pool. The process
-group forms before any device work and is destroyed on exit; only rank 0
-prints the record.
+``--kv-shard seq`` serves from a sequence-sharded paged pool; ``train``
+shards every sequence over the ranks (``--seq-layout contiguous|zigzag``),
+each layer's attention through ``tree_attention``, and sums the gradients
+over the ranks once per step. The process group forms before any device
+work and is destroyed on exit; only rank 0 prints the record.
 """
 
 from __future__ import annotations
@@ -47,9 +49,11 @@ from tree_attention_tpu_torch.obs.metrics import TRAIN_STEPS, TRAIN_TOKENS
 from tree_attention_tpu_torch.parallel.mesh import (
     AXIS_SEQ,
     Mesh,
+    check_ranks_agree,
     dist_info,
     initialize_distributed,
     make_mesh,
+    seq_sharded,
 )
 from tree_attention_tpu_torch.utils import resolve_device
 from tree_attention_tpu_torch.utils.config import RunConfig, parse_args
@@ -76,10 +80,6 @@ def check_kv_quant(cfg: RunConfig) -> Optional[str]:
             f"{cfg.impl} cannot serve a quantized buffer"
         )
     return kernel
-
-
-def _seq_sharded(mesh: Optional[Mesh]) -> bool:
-    return mesh is not None and mesh.axis_size(AXIS_SEQ) > 1
 
 
 def _quantize_across(k: torch.Tensor, v: torch.Tensor, mesh: Mesh):
@@ -125,7 +125,7 @@ def run_decode(cfg: RunConfig, dev: torch.device,
     shape = dict(batch=cfg.batch, heads=cfg.heads, kv_heads=hkv,
                  q_len=cfg.q_len, seq_len=cfg.seq_len,
                  head_dim=cfg.head_dim, dtype=_DTYPES[cfg.dtype], device=dev)
-    sharded = _seq_sharded(mesh)
+    sharded = seq_sharded(mesh)
     if sharded:
         if cfg.impl not in ("auto", "plain"):
             raise SystemExit(f"--mesh runs the decode kernels or their "
@@ -216,12 +216,19 @@ def transformer_config(cfg: RunConfig):
         max_seq_len=max(cfg.seq_len, 128),
         dtype=_DTYPES[cfg.dtype],
         attn_impl="plain" if cfg.impl == "plain" else "auto",
+        seq_layout=cfg.seq_layout,
     )
 
 
-def run_train(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
-    """LM training steps (the JAX CLI's ``_run_train`` on one device: no
-    mesh, corpus or elastic restarts), then one more step timed."""
+def run_train(cfg: RunConfig, dev: torch.device,
+              mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+    """LM training steps (the JAX CLI's ``_run_train`` without a corpus or
+    elastic restarts), then one more step timed. On a mesh that shards
+    ``seq`` every rank draws the same global batches and trains its rows
+    (:func:`~tree_attention_tpu_torch.models.make_train_step`); rank 0
+    writes the checkpoints, after a barrier, and every rank restores them.
+    The record then carries the mesh, the layout, the collectives of one
+    step, and the ranks' equal-parameter check after the last step."""
     from tree_attention_tpu_torch.checkpoint import (
         Checkpointer,
         load_model_config,
@@ -232,7 +239,9 @@ def run_train(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
         default_optimizer,
         init_train_state,
         make_train_step,
+        params_digest,
     )
+    from tree_attention_tpu_torch.parallel.tree import COLLECTIVES
 
     if cfg.steps < 1:
         # The timing below reuses the last training batch; with no steps
@@ -240,10 +249,16 @@ def run_train(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
         raise SystemExit("train mode requires --steps >= 1")
     if cfg.resume and not cfg.ckpt_dir:
         raise SystemExit("--resume requires --ckpt-dir")
+    sharded = seq_sharded(mesh)
+    if sharded and cfg.impl not in ("auto", "plain"):
+        raise SystemExit(f"--mesh trains through the kernels or their plain "
+                         f"versions; --impl {cfg.impl} cannot")
+    rank = mesh.rank if sharded else 0
     tcfg = transformer_config(cfg)
     opt = default_optimizer()
-    state = init_train_state(tcfg, opt, seed=cfg.seed, device=dev)
-    step = make_train_step(tcfg, opt)
+    state = init_train_state(tcfg, opt, seed=cfg.seed, device=dev,
+                             mesh=mesh)
+    step = make_train_step(tcfg, opt, mesh=mesh)
     log.info("transformer: %d params, %d layers, d_model %d, seq %d",
              count_params(state[0]), tcfg.n_layers, tcfg.d_model,
              cfg.seq_len)
@@ -266,26 +281,48 @@ def run_train(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
     end = start + cfg.steps
 
     def next_batch(i: int) -> Dict[str, torch.Tensor]:
-        # Batch i is a pure function of (seed, i): a resume replays nothing.
+        # Batch i is a pure function of (seed, i): a resume replays nothing,
+        # and every rank of a mesh draws the same global batch.
         g = torch.Generator().manual_seed((cfg.seed + 1) * 1_000_003 + i)
-        return make_lm_batch(g, cfg.batch, cfg.seq_len, tcfg.vocab_size, dev)
+        try:
+            return make_lm_batch(g, cfg.batch, cfg.seq_len, tcfg.vocab_size,
+                                 dev, mesh=mesh)
+        except ValueError as e:
+            raise SystemExit(f"error: {e}") from None
+
+    def save(i: int, force: bool = False) -> bool:
+        """Checkpoint step ``i`` when due (or ``force``); on a mesh rank 0
+        writes once every rank has finished the step."""
+        if not (force or i % ckpt.save_interval_steps == 0):
+            return False
+        if sharded:
+            dist.barrier(group=mesh.group(AXIS_SEQ))
+        if rank == 0:
+            ckpt.save(i, state, cfg=tcfg, force=True)
+        return True
 
     losses = []
+    colls: Dict[str, int] = {}
     saved_last = True
     for i in range(start, end):
         batch = next_batch(i)
+        c0 = dict(COLLECTIVES)
         state, loss = step(state, batch)
+        if i == start:
+            colls = {f"{a}/{c}": v - c0.get((a, c), 0)
+                     for (a, c), v in COLLECTIVES.items()
+                     if v - c0.get((a, c), 0)}
         losses.append(float(loss))
         TRAIN_STEPS.inc()
         TRAIN_TOKENS.inc(cfg.batch * cfg.seq_len)
         log.info("step %d: loss %.4f", i, losses[-1])
         if ckpt is not None:
-            saved_last = ckpt.save(i, state, cfg=tcfg)
+            saved_last = save(i)
     if ckpt is not None:
         if not saved_last:
             # The save interval skipped the final step; the resumable
             # state must include all completed work.
-            ckpt.save(end - 1, state, cfg=tcfg, force=True)
+            save(end - 1, force=True)
         ckpt.close()
     # Throughput of the step on the last batch. The timed steps update the
     # state in place too; they come after the last checkpoint and their
@@ -295,10 +332,21 @@ def run_train(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
     toks = cfg.batch * cfg.seq_len
     log.info("train step: median %.4fs (%.0f tokens/s)", stats.median,
              toks / stats.median)
+    mesh_rec: Dict[str, Any] = {}
+    if sharded:
+        # Equal gradients and equal updates keep the parameters equal:
+        # checked, not assumed.
+        check_ranks_agree(params_digest(state[0]), mesh,
+                          "parameters after training")
+        mesh_rec = {**_mesh_record(cfg, mesh, dev),
+                    "seq_layout": tcfg.seq_layout,
+                    "collectives_per_step": colls,
+                    "params_equal_across_ranks": True}
     return {
         "mode": "train",
         "device": device_name(dev),
         "losses": losses,
+        **mesh_rec,
         "tokens_per_sec": round(toks / stats.median, 1),
         "clock": stats.clock,
         **stats.as_dict(),
@@ -367,7 +415,7 @@ def run_serve(cfg: RunConfig, dev: torch.device,
     if cfg.kv_shard == "seq" and cfg.kv_layout != "paged":
         raise SystemExit("--kv-shard seq requires --kv-layout paged (it "
                          "shards the block pool)")
-    if _seq_sharded(mesh) and cfg.kv_layout != "paged":
+    if seq_sharded(mesh) and cfg.kv_layout != "paged":
         raise SystemExit("--mesh serves from the paged layout: a contiguous "
                          "cache sharded over seq is a later slice of the "
                          "port (ROADMAP)")
@@ -414,7 +462,7 @@ def run_serve(cfg: RunConfig, dev: torch.device,
     log.info("served %d requests on %d slot(s): %.1f tokens/s aggregate",
              len(report.results), cfg.slots, report.tokens_per_sec)
     mesh_rec = {}
-    if _seq_sharded(mesh):
+    if seq_sharded(mesh):
         _check_ranks_agree(report, mesh)
         mesh_rec = {**_mesh_record(cfg, mesh, dev),
                     "kv_shard": cfg.kv_shard}
@@ -438,18 +486,10 @@ def run_serve(cfg: RunConfig, dev: torch.device,
 def _check_ranks_agree(report, mesh: Mesh) -> None:
     """Every rank must have served the same tokens: the merged attention
     comes out of an all-reduce, so logits and greedy tokens agree by
-    construction — checked here, not assumed, with one MAX all-reduce of
-    each rank's digest and its negation."""
+    construction — checked here, not assumed."""
     flat = [t for r in report.results for t in [r.uid, *r.tokens, -1]]
-    digest = zlib.crc32(",".join(map(str, flat)).encode())
-    on = (torch.device("cuda", torch.cuda.current_device())
-          if dist.get_backend() == "nccl" else torch.device("cpu"))
-    both = torch.tensor([digest, -digest], dtype=torch.int64, device=on)
-    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=mesh.group(AXIS_SEQ))
-    if int(both[0]) != digest or int(-both[1]) != digest:
-        raise RuntimeError(
-            f"rank {mesh.rank}: the ranks served different tokens (digest "
-            f"{digest}, max {int(both[0])}, min {int(-both[1])})")
+    check_ranks_agree(zlib.crc32(",".join(map(str, flat)).encode()), mesh,
+                      "served tokens")
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -478,17 +518,16 @@ def main(argv: Optional[list] = None) -> int:
                 raise SystemExit(f"error: {e}") from None
         log.info("device=%s mode=%s%s", device_name(dev), cfg.mode,
                  f" mesh={dict(mesh.shape)}" if mesh is not None else "")
-        if mesh is not None and cfg.mode in ("generate", "train") \
-                and mesh.size > 1:
+        if mesh is not None and cfg.mode == "generate" and mesh.size > 1:
             raise SystemExit(
-                f"--mode {cfg.mode} on a mesh is a later slice of the port "
-                "(ROADMAP): decode and serve run on one")
+                "--mode generate on a mesh is a later slice of the port "
+                "(ROADMAP): decode, serve and train run on one")
         if cfg.mode == "decode":
             record = run_decode(cfg, dev, mesh)
         elif cfg.mode == "generate":
             record = run_generate(cfg, dev)
         elif cfg.mode == "train":
-            record = run_train(cfg, dev)
+            record = run_train(cfg, dev, mesh)
         else:
             record, _, _ = run_serve(cfg, dev, mesh)
         if rank == 0:

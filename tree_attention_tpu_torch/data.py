@@ -17,11 +17,21 @@ from tree_attention_tpu_torch.utils import resolve_device
 
 def make_lm_batch(generator: torch.Generator, batch: int, seq_len: int,
                   vocab_size: int,
-                  device: Union[str, torch.device] = "cuda"
-                  ) -> Dict[str, torch.Tensor]:
+                  device: Union[str, torch.device] = "cuda", *,
+                  mesh=None) -> Dict[str, torch.Tensor]:
     """Random next-token batch: ``targets`` is ``inputs`` shifted left by
     one, both ``(batch, seq_len)`` int64, drawn on the generator's device
-    and placed on ``device``."""
+    and placed on ``device``. With a ``mesh`` the sizes must divide over
+    its ``data`` and ``seq`` axes; the batch is the GLOBAL one, the same on
+    every rank for the same generator seed (the sharded train step takes
+    it whole and each rank picks its rows)."""
+    if mesh is not None:
+        for dim, name, size in (("batch", "data", batch),
+                                ("seq_len", "seq", seq_len)):
+            if name in mesh.shape and size % mesh.shape[name]:
+                raise ValueError(
+                    f"{dim}={size} not divisible by mesh axis "
+                    f"'{name}'={mesh.shape[name]}")
     tokens = torch.randint(0, vocab_size, (batch, seq_len + 1),
                            generator=generator, device=generator.device)
     tokens = tokens.to(resolve_device(device))

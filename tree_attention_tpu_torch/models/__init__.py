@@ -26,6 +26,8 @@ from tree_attention_tpu_torch.models.train import (  # noqa: F401
     init_train_state,
     loss_and_grads,
     make_train_step,
+    params_digest,
+    shard_batch,
 )
 from tree_attention_tpu_torch.models.transformer import (  # noqa: F401
     TransformerConfig,

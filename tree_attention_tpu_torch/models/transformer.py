@@ -8,6 +8,12 @@ per-layer weights stacked on a leading ``n_layers`` axis — so
 the same thing. Norms, RoPE and the softmax run in float32; weights and
 activations in ``cfg.dtype``. :func:`forward` is differentiable (training
 goes through :func:`loss_fn`); serving callers wrap it in ``no_grad``.
+
+Under a mesh whose ``seq`` axis is larger than 1 (one process per rank),
+:func:`forward` and :func:`loss_fn` take the GLOBAL batch on every rank and
+compute this rank's ``T / W`` rows (``cfg.seq_layout``: contiguous, or the
+causally balanced zigzag), each layer's attention through
+:func:`~tree_attention_tpu_torch.parallel.tree.tree_attention`.
 """
 
 from __future__ import annotations
@@ -21,6 +27,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tree_attention_tpu_torch.ops import flash_attention
+from tree_attention_tpu_torch.parallel.mesh import Mesh, seq_sharded
+from tree_attention_tpu_torch.parallel.tree import (
+    SEQ_LAYOUTS,
+    local_positions,
+    tree_attention,
+)
 from tree_attention_tpu_torch.utils import resolve_device
 
 Params = Dict[str, Any]
@@ -46,12 +58,16 @@ class TransformerConfig:
     attn_impl: str = "auto"      # "auto" (kernels) | "plain" (their plain
     #                              versions on any device)
     remat: bool = True           # recompute each layer body in the backward
+    seq_layout: str = "contiguous"  # contiguous | zigzag (mesh seq > 1)
 
     def __post_init__(self):
         if self.attn_impl not in ("auto", "plain"):
             raise ValueError(
                 f"attn_impl must be 'auto' or 'plain', got {self.attn_impl!r}"
             )
+        if self.seq_layout not in SEQ_LAYOUTS:
+            raise ValueError(f"seq_layout must be one of {SEQ_LAYOUTS}, got "
+                             f"{self.seq_layout!r}")
         if self.n_heads % self.n_kv_heads:
             raise ValueError(
                 f"n_heads ({self.n_heads}) must be a multiple of "
@@ -179,14 +195,27 @@ def unheads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, T, H * D)
 
 
+def local_rows(t: int, mesh: Mesh, cfg: TransformerConfig,
+               device: torch.device) -> torch.Tensor:
+    """The natural positions of this rank's rows of a length-``t``
+    sequence under ``cfg.seq_layout`` (int64, on ``device``)."""
+    return torch.from_numpy(local_positions(t, mesh, cfg.seq_layout)).to(
+        device)
+
+
 def _attention_block(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                     cfg: TransformerConfig) -> torch.Tensor:
+                     cfg: TransformerConfig,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     q = rope(heads(x @ p["wq"], cfg.n_heads, cfg.d_head), positions,
              cfg.rope_theta)
     k = rope(heads(x @ p["wk"], cfg.n_kv_heads, cfg.d_head), positions,
              cfg.rope_theta)
     v = heads(x @ p["wv"], cfg.n_kv_heads, cfg.d_head)
-    out, _ = flash_attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    if seq_sharded(mesh):
+        out, _ = tree_attention(q, k, v, mesh=mesh, causal=True,
+                                impl=cfg.attn_impl, layout=cfg.seq_layout)
+    else:
+        out, _ = flash_attention(q, k, v, causal=True, impl=cfg.attn_impl)
     return unheads(out) @ p["wo"]
 
 
@@ -195,45 +224,62 @@ def _mlp_block(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_body(x: torch.Tensor, p: Params, positions: torch.Tensor,
-                cfg: TransformerConfig) -> torch.Tensor:
+                cfg: TransformerConfig,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     x = x + _attention_block(p, rms_norm(x, p["ln1"], cfg.norm_eps),
-                             positions, cfg)
+                             positions, cfg, mesh)
     return x + _mlp_block(p, rms_norm(x, p["ln2"], cfg.norm_eps))
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
+def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+            *, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Token ids ``(B, T)`` -> logits ``(B, T, vocab)`` float32. Under grad
     mode with ``cfg.remat``, each layer body is checkpointed: its
     activations are recomputed in the backward (attention's forward kernel
-    runs twice per layer and step), as JAX's ``jax.checkpoint``."""
+    runs twice per layer and step), as JAX's ``jax.checkpoint``.
+
+    With a ``mesh`` that shards ``seq``: ``tokens`` is the global batch
+    (the same on every rank) and the result this rank's ``(B, T/W,
+    vocab)`` logits, its rows in :func:`local_rows` order, each at its
+    natural position (RoPE reads it). Under remat the backward recomputes
+    each layer's tree-attention collectives too, in the same order on
+    every rank."""
     T = tokens.shape[1]
     if T > cfg.max_seq_len:
         raise ValueError(
             f"sequence length {T} exceeds max_seq_len={cfg.max_seq_len}"
         )
-    positions = torch.arange(T, device=tokens.device)
+    if seq_sharded(mesh):
+        positions = local_rows(T, mesh, cfg, tokens.device)
+        tokens = tokens[:, positions]
+    else:
+        mesh = None
+        positions = torch.arange(T, device=tokens.device)
     x = params["embed"][tokens.long()]
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p = layer(params, i)
         if remat:
-            x = checkpoint(_layer_body, x, p, positions, cfg,
+            x = checkpoint(_layer_body, x, p, positions, cfg, mesh,
                            use_reentrant=False)
         else:
-            x = _layer_body(x, p, positions, cfg)
+            x = _layer_body(x, p, positions, cfg, mesh)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return (x @ params["wout"]).float()
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token next-token negative log-likelihood in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - logits.gather(-1, targets.long()[..., None])[..., 0]
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy in float32. ``targets``/``mask``:
     ``(B, T)``."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
-    nll = logz - gold
+    nll = token_nll(logits, targets)
     if mask is None:
         return nll.mean()
     mask = mask.float()
@@ -241,8 +287,21 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(params: Params, batch: Mapping[str, torch.Tensor],
-            cfg: TransformerConfig) -> torch.Tensor:
+            cfg: TransformerConfig, *,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Batch = ``{"inputs": (B, T) ids, "targets": (B, T) ids, optional
-    "mask"}``, targets pre-shifted at the data layer (contiguous layout)."""
-    logits = forward(params, batch["inputs"], cfg)
-    return cross_entropy_loss(logits, batch["targets"], batch.get("mask"))
+    "mask"}``, targets pre-shifted at the data layer (contiguous layout).
+
+    With a ``mesh`` that shards ``seq`` (the global batch on every rank):
+    this rank's NLL sum over its rows divided by the GLOBAL token (or
+    mask) count, so that the ranks' losses SUM to the global mean."""
+    logits = forward(params, batch["inputs"], cfg, mesh=mesh)
+    targets, mask = batch["targets"], batch.get("mask")
+    if not seq_sharded(mesh):
+        return cross_entropy_loss(logits, targets, mask)
+    rows = local_rows(targets.shape[1], mesh, cfg, targets.device)
+    nll = token_nll(logits, targets[:, rows])
+    if mask is None:
+        return nll.sum() / targets.numel()
+    mask = mask.float()
+    return (nll * mask[:, rows]).sum() / mask.sum().clamp_min(1.0)

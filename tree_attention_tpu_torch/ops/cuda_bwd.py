@@ -140,23 +140,30 @@ def dkv_plain(q, k, v, dout, lse, delta, *, causal: bool = False,
 
 def dq_one_key_bound(q, k, v, dout, delta, *, causal: bool = False,
                      scale: Optional[float] = None, q_offset: Offset = 0,
-                     kv_offset: Offset = 0
+                     kv_offset: Offset = 0,
+                     dlse: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """How far two correct dq may differ on the rows where dq is 0 by
-    cancellation: ``(rows, bound)``, the ``(B, 1, Tq, 1)`` bool of the
-    query rows that see exactly one key, and the ``(B, Hq, Tq, D)`` f32
-    bound on ``|dq_a - dq_b|`` there.
+    """How far two correct dq may differ by rounding on the rows where dq
+    rests on a cancellation: ``(rows, bound)``, the ``(B, 1, Tq, 1)`` bool
+    of the query rows that see exactly one key, and the ``(B, Hq, Tq, D)``
+    f32 bound on the rounding part of ``|dq_a - dq_b|`` there.
 
     Such a row sees key 0 alone: p = 1 and O = V_0, so the exact ds =
-    dO.V_0^T - delta is 0 and dq holds only rounding. Each side forms
-    dO.V_0^T as an f32 sum of D products, off by at most
-    ``D * eps * sum|dO * V_0|`` (eps = 2^-23, one addition's error rounded
-    or truncated), and subtracts ``delta``, which is itself within that of
-    the same sum (here ``|dO.V_0^T - delta|`` as computed, plus the sum's
-    own error); p is at most ``exp(2 * D * eps * sum|q * k_0| * scale)``
-    (the recomputed score against lse); ds goes to K's dtype and dq to
-    q's (two roundings, each within 2^-8 relative), and dq = ds * K_0 *
-    scale. The bound is twice one side's."""
+    dO.V_0^T - delta is the lse cotangent ``dlse`` of the row (``delta =
+    rowsum(dO * O) - dlse``; 0 without one) and dq = dlse * K_0 * scale:
+    without ``dlse`` it holds only rounding. Each side forms dO.V_0^T as
+    an f32 sum of D products, off by at most ``D * eps * sum|dO * V_0|``
+    (eps = 2^-23, one addition's error rounded or truncated), and
+    subtracts ``delta``, which is itself within that of the same sum plus
+    one rounding of its ``dlse`` term (here ``|dO.V_0^T - delta - dlse|``
+    as computed, plus the sum's own error and ``eps |dlse|``); p is at most
+    a factor ``f = exp(2 * D * eps * sum|q * k_0| * scale)`` from 1 (the
+    recomputed score against lse), which moves ds by the cancellation's
+    error times f and by ``|dlse| (f - 1)``; ds goes to K's dtype and dq
+    to q's (two roundings, each within 2^-8 relative), and dq = ds * K_0
+    * scale. The bound is twice one side's. The roundings of the
+    ``dlse`` part itself are relative to dq and are the row gate's
+    (:func:`grad_rows_close` adds the two)."""
     B, Hq, Tq, D = q.shape
     Tk = k.shape[2]
     if causal:
@@ -170,27 +177,103 @@ def dq_one_key_bound(q, k, v, dout, delta, *, causal: bool = False,
     k0 = k[:, :, :1].float().repeat_interleave(G, 1)  # (B, Hq, 1, D)
     v0 = v[:, :, :1].float().repeat_interleave(G, 1)
     sc = default_scale(D, scale)
-    err = D * torch.finfo(torch.float32).eps
+    eps = torch.finfo(torch.float32).eps
+    err = D * eps
     dov = dout.float() * v0
-    ds = ((2 * err * dov.abs().sum(-1) + (dov.sum(-1) - delta).abs())
-          * torch.exp(2 * err * sc * (q.float() * k0).abs().sum(-1))
-          * (1 + 2.0 ** -6))
+    resid = dov.sum(-1) - delta
+    cot = torch.zeros_like(resid) if dlse is None else dlse.float().abs()
+    if dlse is not None:
+        resid = resid - dlse.float()
+    f = torch.exp(2 * err * sc * (q.float() * k0).abs().sum(-1))
+    ds = ((2 * err * dov.abs().sum(-1) + resid.abs() + eps * cot) * f
+          * (1 + 2.0 ** -6) + cot * (f - 1))
     return rows[:, None, :, None], 2 * ds[..., None] * k0.abs() * sc
+
+
+def merge_cotangent_allowance(q, k, v, dout, lse, key_groups, *,
+                              causal: bool = False,
+                              scale: Optional[float] = None,
+                              q_offset: Offset = 0, kv_offset: Offset = 0,
+                              sigmas: float = 6.0
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """What a sequence-sharded backward may add to ``(dq, dk, dv)`` over
+    the unsharded one by rounding: ``(dq, dk, dv)``-shaped f32 allowances.
+    ``lse`` is the whole sequence's, as from :func:`bwd_residuals`;
+    ``key_groups`` holds, for each cast of a partial's output cotangent to
+    Q's dtype, a ``(Tk,)`` int tensor naming the partial each key is in
+    (``parallel.tree.partial_key_groups``).
+
+    Sharded (``parallel/tree.py tree_attention``), a partial's output
+    cotangent ``dO_p = c dO`` (``c = exp(lse_p - lse)``, the merge weight)
+    reaches B6/B7 rounded to nearest at each cast: each element off by at
+    most half an ulp, ``2^-8`` of itself in bf16, which as a uniform error
+    has a standard deviation of ``2^-8 / sqrt(3)`` of it. That moves ``ds
+    = p (dO_p.V - delta_p)`` by ``p e.(V - O_p)``, with ``e`` the error
+    relative to ``c``: variance ``p^2 m / 3 * 2^-16``, ``m = sum_d dO_d^2
+    (V_kd - O_p,d)^2`` with ``O_p`` the partial's own output (its softmax
+    over its keys), summed over the casts. The signs being independent,
+    the errors add in quadrature over the summed rows too; the allowance
+    is ``sigmas`` standard deviations: ``dq[q] = s sqrt(sum_k p^2 m K^2)``,
+    ``dk[k] = s sqrt(sum_q p^2 m Q^2)``, ``dv[k] = s' sqrt(sum_q p^2 n
+    dO^2)`` (``n`` casts), with ``s' = sigmas 2^-8 / sqrt(3)`` and ``s = s'
+    scale``. It matters where ds cancels (the dk rows of keys only the
+    last few queries see); the row gate covers the rest."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    G = _group(q, k)
+    sc = default_scale(D, scale)
+    u = sigmas * 2.0 ** -8 / math.sqrt(3)
+    zeros = torch.zeros_like(lse, dtype=torch.float32)
+    out = ([], [], [])
+    for b in range(B):
+        sl = slice(b, b + 1)
+        p, _ = _p_ds(q[sl], k[sl], v[sl], dout[sl], lse[sl], zeros[sl],
+                     causal=causal, scale=scale,
+                     q_offset=_row(q_offset, b), kv_offset=_row(kv_offset, b))
+        do2 = dout[sl].float().reshape(1, Hkv, G, Tq, D) ** 2
+        vf = v[sl].float()                           # (1, Hkv, Tk, D)
+        m = torch.zeros_like(p)                      # (1, Hkv, G, Tq, Tk)
+        for groups in key_groups:
+            for g in torch.unique(groups).tolist():
+                cols = (groups == g).nonzero()[:, 0].to(p.device)
+                pg, vg = p[..., cols], vf[:, :, cols]
+                og = (torch.einsum("bhgqk,bhkd->bhgqd", pg, vg)
+                      / pg.sum(-1, keepdim=True).clamp_min(1e-30))
+                m[..., cols] += (
+                    torch.einsum("bhgqd,bhkd->bhgqk", do2, vg * vg)
+                    - 2 * torch.einsum("bhgqd,bhkd->bhgqk", do2 * og, vg)
+                    + (do2 * og * og).sum(-1, keepdim=True)).clamp_min(0)
+        a = p * p * m
+        q2 = q[sl].float().reshape(1, Hkv, G, Tq, D) ** 2
+        out[0].append((torch.einsum("bhgqk,bhkd->bhgqd", a,
+                                    k[sl].float() ** 2).sqrt() * u * sc
+                       ).reshape(1, Hq, Tq, D))
+        out[1].append(torch.einsum("bhgqk,bhgqd->bhkd", a, q2).sqrt()
+                      * u * sc)
+        out[2].append(torch.einsum("bhgqk,bhgqd->bhkd", p * p, do2).sqrt()
+                      * u * math.sqrt(len(key_groups)))
+        del p, m, a
+    return tuple(torch.cat(x) for x in out)
 
 
 def grad_rows_close(got: Sequence[torch.Tensor], want: Sequence[torch.Tensor],
                     tol: float,
-                    one_key: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                    one_key: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    extra: Optional[Sequence[torch.Tensor]] = None
                     ) -> Tuple[bool, float, float]:
     """Hold gradients ``got`` against their plain versions ``want`` row by
     row: each row (a dq row per query, a dk or dv row per key) within
     ``tol`` of that row's largest plain |value|, so a row that is 0 in the
     plain version must be exactly 0. With ``one_key`` (from
     :func:`dq_one_key_bound`; ``got[0]`` is then dq) dq's rows that see
-    exactly one key are held to that bound instead. Returns ``(ok, max
-    |d|, max relative |d|)``, the last in units of the row scale, so that
-    it passes at or below ``tol`` (a one-key row's bound counts as ``tol``
-    of its scale)."""
+    exactly one key may differ by that rounding bound more: the bound
+    covers the cancellation, the row gate what an lse cotangent leaves in
+    those rows. ``extra`` (one tensor per gradient, e.g. from
+    :func:`merge_cotangent_allowance`) is added to every element's
+    allowance. Returns ``(ok, max |d|, max relative |d|)``, the last in
+    units of the row scale, so that it passes at or below ``tol`` (a
+    row's added allowance counts as ``tol`` of its scale)."""
     ok, eabs, erel = True, 0.0, 0.0
     for i, (a, b) in enumerate(zip(got, want)):
         if not (a.shape == b.shape and torch.isfinite(a).all()):
@@ -198,7 +281,9 @@ def grad_rows_close(got: Sequence[torch.Tensor], want: Sequence[torch.Tensor],
         d = (a.float() - b.float()).abs()
         allowed = tol * b.float().abs().amax(-1, keepdim=True)
         if i == 0 and one_key is not None:
-            allowed = torch.where(one_key[0], one_key[1], allowed)
+            allowed = torch.where(one_key[0], allowed + one_key[1], allowed)
+        if extra is not None:
+            allowed = allowed + extra[i]
         ok = ok and bool((d <= allowed).all())
         eabs = max(eabs, d.max().item())
         erel = max(erel, (d * tol / allowed.clamp_min(1e-30)).max().item())

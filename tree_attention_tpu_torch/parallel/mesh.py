@@ -8,8 +8,8 @@ and the collectives are ``torch.distributed`` calls on one process group per
 mesh axis.
 
 Only the ``seq`` axis may be larger than 1 here: sharding over ``data`` and
-``model`` belongs to sharded training (ROADMAP, slice 4b). So the ``seq``
-group is the whole world.
+``model`` is a later item of the port (ROADMAP queue A; slice 4b shards the
+sequence only). So the ``seq`` group is the whole world.
 
 Environment (read by :func:`initialize_distributed`):
 
@@ -185,9 +185,9 @@ def make_mesh(axes: Optional[Mapping[str, int]] = None) -> Mesh:
     wide = [n for n, s in shape.items() if s > 1 and n != AXIS_SEQ]
     if wide:
         raise NotImplementedError(
-            f"mesh axes {wide} > 1: data and model sharding belong to "
-            "sharded training (ROADMAP, slice 4b); this port shards the "
-            "sequence axis only")
+            f"mesh axes {wide} > 1: data and model sharding are a later "
+            "item of the port (ROADMAP queue A; slice 4b shards the "
+            "sequence axis only)")
     coords, rem = {}, rank
     for name in reversed(names):
         coords[name] = rem % shape[name]
@@ -196,6 +196,11 @@ def make_mesh(axes: Optional[Mapping[str, int]] = None) -> Mesh:
     groups = {n: (dist.group.WORLD if shape[n] > 1 else None)
               for n in names}
     return Mesh(shape=shape, coords=coords, groups=groups, rank=rank)
+
+
+def seq_sharded(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` shards the sequence (its ``seq`` axis exceeds 1)."""
+    return mesh is not None and mesh.axis_size(AXIS_SEQ) > 1
 
 
 def prune_axes(mesh: Optional[Mesh], axes: Mapping[str, Optional[str]]
@@ -218,3 +223,21 @@ def shard_along(mesh: Mesh, x: torch.Tensor, axis_name: str,
                          f"over {n} '{axis_name}' shards")
     step = x.shape[dim] // n
     return x.narrow(dim, mesh.axis_index(axis_name) * step, step)
+
+
+def check_ranks_agree(digest: int, mesh: Mesh, what: str,
+                      axis: str = AXIS_SEQ) -> None:
+    """Raise unless every rank on ``axis`` passed the same ``digest``
+    (``0 <= digest < 2^63``): one MAX all-reduce of the digest and its
+    negation (on the card under NCCL, else on the CPU)."""
+    if mesh.axis_size(axis) < 2:
+        return
+    on = (torch.device("cuda", torch.cuda.current_device())
+          if dist.get_backend(mesh.group(axis)) == "nccl"
+          else torch.device("cpu"))
+    both = torch.tensor([digest, -digest], dtype=torch.int64, device=on)
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=mesh.group(axis))
+    if int(both[0]) != digest or int(-both[1]) != digest:
+        raise RuntimeError(
+            f"rank {mesh.rank}: the ranks hold different {what} (digest "
+            f"{digest}, max {int(both[0])}, min {int(-both[1])})")

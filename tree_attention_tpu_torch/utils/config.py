@@ -68,6 +68,7 @@ class RunConfig:
 
     # Train mode.
     steps: int = 3
+    seq_layout: str = "contiguous"  # contiguous | zigzag (train, seq > 1)
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 1
     resume: bool = False
@@ -143,7 +144,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(torchrun --nproc-per-node 2); only seq may exceed "
                         "1. decode: the KV sequence sharded over the ranks "
                         "and merged by the tree all-reduce; serve: with "
-                        "--kv-shard seq")
+                        "--kv-shard seq; train: the sequence sharded over "
+                        "the ranks, attention by tree_attention")
     p.add_argument("--dist-backend", choices=["nccl", "gloo"],
                    default=d.dist_backend,
                    help="process-group backend under --mesh (default: nccl "
@@ -185,6 +187,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-new-tokens", type=int, default=d.max_new_tokens)
     p.add_argument("--steps", type=int, default=d.steps,
                    help="train-mode steps")
+    p.add_argument("--seq-layout", choices=["contiguous", "zigzag"],
+                   default=d.seq_layout,
+                   help="train under --mesh seq=W: how the sequence maps "
+                        "to ranks; zigzag gives rank r the half-blocks r "
+                        "and 2W-1-r, so every rank's causal work is equal")
     p.add_argument("--ckpt-dir", default=d.ckpt_dir,
                    help="train: checkpoint directory (enables saving)")
     p.add_argument("--ckpt-every", type=int, default=d.ckpt_every,
