@@ -185,7 +185,24 @@ failure exits non-zero:
    tick and spec tok/s beside non-spec tok/s are reported, with the oracle
    wave's device split, exact and on the paged and contiguous int8 pools.
    Every serve's launches of the multi-row body are reported by kernel and
-   Tq. Then two ranks on the one card (spawned processes on ``cuda:0`` over
+   Tq. Then the radix prefix cache (``--prefix-cache --prefix-share 0.75
+   --prefix-len 384`` on the serve phase's trace): exact, ``--kv-quant
+   int8`` and ``int8-cast`` on the paged layout (hits share pool blocks;
+   int8 hits dequantize them into the staging cache) and exact on the
+   contiguous one (8 requests on 4 slots; hits gather from the cache's
+   pool), each beside the same trace with the cache off: every request
+   retires with its budget, hits happen and ``tokens_reused`` is the
+   requests' ``prefix_hit_tokens`` (whole blocks, at most the prefix's),
+   the pool drains to tree-owned blocks, the prompt tokens computed are
+   the prompts less their matched tokens, every block the paged index
+   adopted holds the bytes it held at adoption (an exact hit moves none),
+   the one-row paged ticks run on the tick body, every emitted greedy
+   token is within 0.1 of its position's largest logit on the cache-off
+   path (teacher-forced replay), and that gate is shown rejecting a hit
+   whose table row names the wrong shared blocks and an int8 hit whose
+   dequantized prefix was dropped; TTFT, tok/s and prefill tokens with
+   the cache on and off, and one traced serve's device split, are
+   reported. Then two ranks on the one card (spawned processes on ``cuda:0`` over
    gloo; NCCL refuses two ranks on one device): ``--mesh seq=2 --kv-shard
    seq`` at the same width, exact and ``--kv-quant int8`` (16 requests
    each): every request retires with its budget, each rank's pool drains
@@ -1274,6 +1291,324 @@ def spec_phase(dev, params, cfg, serve_args, trace, refs, engine_kw,
           f"tokens equal to the sampled plain serve's "
           f"{same}/{rep.tokens_generated} (reported, not gated)", flush=True)
     del server
+    return out
+
+
+# The prefix phase: the serve phase's trace with three quarters of its
+# prompts opening on one shared 384-token prefix (six 64-token blocks).
+PREFIX_ARGS = ["--prefix-cache", "--prefix-share", "0.75",
+               "--prefix-len", "384"]
+# Its four serves: (flags beside the serve phase's, layout, q8 route).
+PREFIX_SERVES = {
+    "exact paged": ([], "paged", None),
+    "int8 paged (B5)": (["--kv-quant", "int8"], "paged", "q8q"),
+    "int8-cast paged": (["--kv-quant", "int8-cast"], "paged", "q8"),
+    # 8 requests on 4 slots: the second four admit after the first four
+    # published.
+    "exact contiguous (B1)": (["--kv-layout", "contiguous", "--requests",
+                               "8", "--slots", "4"], "contiguous", None),
+}
+
+
+@contextlib.contextmanager
+def prefix_watch():
+    """Watch a serve's prefix work from outside the engine: the prompt
+    tokens its chunks computed, and the bytes (K, V; int8 codes with their
+    scales) of every block the paged index adopted, read from the pool at
+    adoption. ``fault`` plants one of two faults for the gate to reject:
+    ``"table"`` — each paged hit's table row names the wrong shared blocks
+    (every matched entry past the first names the first matched block; a
+    permutation of the entries would not do: each key carries its rotary
+    position, and attention over a set of keys ignores where they sit);
+    ``"dequant"`` — an int8 paged hit's dequantized prefix dropped (zero
+    rows, staging length 0)."""
+    import torch
+
+    from tree_attention_tpu_torch.models import gather_kv_blocks
+    from tree_attention_tpu_torch.serving import engine
+
+    seen = {"prefill_tokens": 0, "blocks": {}, "fault": None}
+    cls = engine.SlotServer
+    consume, publish, hit = (cls._consume_chunk, cls._publish_prefix,
+                             cls._paged_hit)
+    dequant = engine.insert_dequant_prefix
+
+    def counted(self, slot, n, last):
+        seen["prefill_tokens"] += n
+        return consume(self, slot, n, last)
+
+    def snapped(self, slot):
+        held = {id(x) for x in self._slot_nodes[slot]}
+        publish(self, slot)
+        new = [x.block_id for x in self._slot_nodes[slot]
+               if id(x) not in held]
+        if self._paged_prefix and new:
+            c = self.cache
+            parts = gather_kv_blocks(
+                c.k, c.v, torch.tensor(new),
+                *((c.k_scale, c.v_scale) if self.quantize else ()))
+            for i, b in enumerate(new):
+                seen["blocks"][b] = [p[i].clone() for p in parts]
+
+    def wrong_row(self, slot, resv):
+        matched = hit(self, slot, resv)
+        if seen["fault"] == "table" and len(resv[1]) > 1:
+            self._host_table[slot, 1:len(resv[1])] = \
+                self._host_table[slot, 0]
+        return matched
+
+    def dropped(staging, *args):
+        if seen["fault"] != "dequant":
+            return dequant(staging, *args)
+        staging.k.zero_()
+        staging.v.zero_()
+        staging.length.zero_()
+        return staging
+
+    cls._consume_chunk, cls._publish_prefix, cls._paged_hit = (
+        counted, snapped, wrong_row)
+    engine.insert_dequant_prefix = dropped
+    try:
+        yield seen
+    finally:
+        cls._consume_chunk, cls._publish_prefix, cls._paged_hit = (
+            consume, publish, hit)
+        engine.insert_dequant_prefix = dequant
+
+
+def prefix_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
+                 split_by=None, groups=None, prefix_args=PREFIX_ARGS,
+                 serves=PREFIX_SERVES, faults=("table", "dequant")) -> dict:
+    """Phase 3f: the radix prefix cache at the serve width, through
+    ``cli.run_serve`` (what ``cli.main --mode serve --prefix-cache``
+    runs) on the serve phase's trace with ``prefix_args``: the four
+    ``PREFIX_SERVES``, each beside the same trace served with the same
+    flags and the cache off. Gates: every request retires with its budget;
+    hits > 0 and ``tokens_reused`` equal to the requests' summed
+    ``prefix_hit_tokens``, each a multiple of the block and at most the
+    shared prefix's whole blocks; the pool drains to tree-owned blocks;
+    the prompt tokens computed equal the prompts less their matched
+    tokens; every block the paged index adopted still holds the bytes it
+    held at adoption (the exact hit moves none: ``hit_bytes_moved`` 0);
+    the one-row paged ticks run on the tick body; every emitted greedy
+    token lies within ``tol_logits`` of its position's largest logit on
+    the cache-off path (:func:`replay_margin`), and the gate rejects the
+    two planted faults of :func:`prefix_watch`. With ``split_by``, one
+    traced exact paged serve's device time by kernel ``groups``. ``card``
+    (the card's name and power limit) heads each serve's line. On a CPU
+    the launch counts are not read."""
+    import torch
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.models import gather_kv_blocks
+    from tree_attention_tpu_torch.serving import SlotServer, synthetic_trace
+    from tree_attention_tpu_torch.utils.config import parse_args
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counts():
+        c = {n: w.launches for n, w in wrappers.items()}
+        for n, w in wrappers.items():
+            for extra in ("tiled_launches", "tick_launches",
+                          "cast_tiled_launches"):
+                if getattr(w, extra, 0):
+                    c[n + "_" + extra.replace("_launches", "")] = getattr(
+                        w, extra)
+        c["tiled_by_tq"] = {n: dict(sorted(w.tiled_tq.items()))
+                            for n, w in wrappers.items()
+                            if getattr(w, "tiled_tq", None)}
+        return c
+
+    def serve(argv, fault=None):
+        """One serve with the counts set to 0 just before it and read just
+        after; its record, server, report, trace, launches and watch."""
+        c = parse_args(argv)
+        with prefix_watch() as seen:
+            seen["fault"] = fault
+            reset_counts()
+            rec, server, rep = cli.run_serve(c, dev)
+            sync()
+            launches = counts()
+        reqs = synthetic_trace(
+            c.requests, prompt_len=c.prompt_len,
+            prompt_jitter=c.prompt_jitter, max_new_tokens=c.max_new_tokens,
+            arrival_every=c.arrival_every, vocab_size=server.cfg.vocab_size,
+            seed=c.seed + 1, prefix_share=c.prefix_share,
+            prefix_len=c.prefix_len)
+        return rec, server, rep, reqs, launches, seen
+
+    def margin(server, rep, reqs, layout, route):
+        return replay_margin(server.params, server.cfg, rep.results, reqs,
+                             route is not None, layout, dev,
+                             server.kv_block if layout == "paged" else 64,
+                             route or "q8q")
+
+    out = {"serves": {}, "faults": {}}
+    for label, (flags, layout, route) in serves.items():
+        argv = serve_args + prefix_args + flags
+        c = parse_args(argv)
+        block = c.prefix_block
+        most = c.prefix_len // block * block
+        n_req, n_new = c.requests, c.max_new_tokens
+        off_rec, _, off_rep, _, off_launches, off_seen = serve(
+            [a for a in argv if a != "--prefix-cache"])
+        rec, server, rep, reqs, launches, seen = serve(argv)
+        pre = rep.prefix
+        hit_tokens = [r.prefix_hit_tokens for r in rep.results]
+        prompts = {r.uid: len(r.prompt) for r in reqs}
+        leaks = server.leak_report()
+        # The blocks the tree holds now, and their bytes at adoption.
+        tree = []
+        stack = list(server._prefix._root.children.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            tree.append(node.block_id)
+        changed = None
+        if layout == "paged":
+            cache = server.cache
+            parts = gather_kv_blocks(
+                cache.k, cache.v, torch.tensor(tree),
+                *((cache.k_scale, cache.v_scale) if route else ()))
+            changed = sum(
+                not all(torch.equal(p[i], s) for p, s in
+                        zip(parts, seen["blocks"][b]))
+                for i, b in enumerate(tree))
+        same = sum(a == b for x, y in zip(rep.results, off_rep.results)
+                   for a, b in zip(x.tokens, y.tokens))
+        r = {
+            "record": rec, "cache_off": {k: off_rec[k] for k in (
+                "tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "tbt_p50_s",
+                "tbt_p95_s", "wall_s")},
+            "prefix": pre, "prefix_hit_tokens": hit_tokens,
+            "prefill_tokens": seen["prefill_tokens"],
+            "prefill_tokens_cache_off": off_seen["prefill_tokens"],
+            "leaks": leaks, "tree_blocks": len(tree),
+            "tree_blocks_changed_since_adoption": changed,
+            "tokens_equal_to_cache_off": same,
+            "launches": launches, "launches_cache_off": off_launches,
+            "replay_margin": margin(server, rep, reqs, layout, route),
+        }
+        out["serves"][label] = r
+        if label == "exact paged":
+            # For the traced serve below: a fresh engine of this one's
+            # configuration, weights and trace.
+            traced_kw = dict(
+                slots=c.slots, cache_len=server.cache_len,
+                prefill_chunk=c.prefill_chunk,
+                prefill_budget=c.prefill_budget, kv_block=server.kv_block,
+                kv_blocks=server.kv_blocks, prefix_cache=True,
+                prefix_block=c.prefix_block, temperature=c.temperature)
+            traced_run = (server.params, server.cfg, reqs, rep.wall_s)
+        print(f"prefix serve ({label}; {card}): cache on / off "
+              f"{rec['tokens_per_sec']} / {off_rec['tokens_per_sec']} tok/s, "
+              f"ttft p50 {rec['ttft_p50_s']} / {off_rec['ttft_p50_s']} s, "
+              f"p95 {rec['ttft_p95_s']} / {off_rec['ttft_p95_s']} s, "
+              f"prefill tokens computed {r['prefill_tokens']} / "
+              f"{r['prefill_tokens_cache_off']}; prefix {json.dumps(pre)}; "
+              f"hit tokens {hit_tokens}; tree blocks {len(tree)} (changed "
+              f"since adoption: {changed}); leaks {json.dumps(leaks)}; "
+              f"tokens equal to the cache-off serve's {same}/"
+              f"{rep.tokens_generated}, replay margin "
+              f"{r['replay_margin']:.3e} (tol {tol_logits}); launches "
+              f"{json.dumps(launches)}", flush=True)
+        if rep.outcomes != {"budget": n_req} or \
+                rep.tokens_generated != n_req * n_new:
+            fail(f"prefix serve ({label}): outcomes {rep.outcomes}, "
+                 f"{rep.tokens_generated} tokens")
+        if not (pre["hits"] > 0 and pre["tokens_reused"] == sum(hit_tokens)
+                and all(h % block == 0 and h <= most for h in hit_tokens)):
+            fail(f"prefix serve ({label}): prefix {pre}, hit tokens "
+                 f"{hit_tokens}")
+        if leaks["blocks_private"] or leaks["blocks_reserved"] or \
+                leaks["pins"] or leaks["blocks_used"] != (
+                    leaks["blocks_cached"] if layout == "paged" else 0):
+            fail(f"prefix serve ({label}) leaked: {leaks}")
+        if r["prefill_tokens"] != sum(prompts[x.uid] - x.prefix_hit_tokens
+                                      for x in rep.results) or \
+                r["prefill_tokens_cache_off"] != sum(prompts.values()):
+            fail(f"prefix serve ({label}): {r['prefill_tokens']} / "
+                 f"{r['prefill_tokens_cache_off']} prefill tokens computed")
+        if layout == "paged" and (changed or not tree):
+            fail(f"prefix serve ({label}): {changed} of {len(tree)} tree "
+                 f"blocks changed since their adoption")
+        if label == "exact paged" and pre["hit_bytes_moved"]:
+            fail(f"prefix serve ({label}): the hits moved "
+                 f"{pre['hit_bytes_moved']} device bytes")
+        if not r["replay_margin"] <= tol_logits:
+            fail(f"prefix serve ({label}): an emitted token is "
+                 f"{r['replay_margin']} below its position's largest logit "
+                 f"on the cache-off path")
+        if on_card:
+            # The kernels of the path ran: the one-row decode ticks (all on
+            # the tick body where paged) and B3 for the chunks of 128 rows
+            # and more.
+            tick = {(None, "paged"): "flash_decode_paged",
+                    ("q8", "paged"): "flash_decode_paged",
+                    ("q8q", "paged"): "flash_decode_paged_q8q",
+                    (None, "contiguous"): "flash_decode"}[(route, layout)]
+            ticks = launches.get(tick + "_tick", 0)
+            multi = launches.get(tick + ("_cast_tiled" if route == "q8"
+                                         else "_tiled"), 0)
+            if not launches["flash_fwd"] or not launches[tick] or (
+                    layout == "paged" and route is None
+                    and ticks + multi != launches[tick]) or (
+                    layout == "paged" and route is not None
+                    and ticks != launches[tick]):
+                fail(f"prefix serve ({label}): launches {launches}")
+        del server
+    # The gate's teeth: each planted fault must push a token past it.
+    for fault in faults:
+        flags = (["--kv-quant", "int8", "--requests", "8"]
+                 if fault == "dequant" else
+                 ["--requests", "8", "--slots", "4"])
+        route = "q8q" if fault == "dequant" else None
+        _, server, rep, reqs, _, _ = serve(
+            serve_args + prefix_args + flags, fault=fault)
+        m = margin(server, rep, reqs, "paged", route)
+        out["faults"][fault] = {"replay_margin": m, "prefix": rep.prefix}
+        print(f"prefix serve, planted fault {fault!r}: hits "
+              f"{rep.prefix['hits']}, replay margin {m:.3e} (the gate, "
+              f"{tol_logits}, must reject it)", flush=True)
+        if not rep.prefix["hits"] or m <= tol_logits:
+            fail(f"prefix serve: the gate passed the planted fault {fault!r}"
+                 f" (margin {m}, hits {rep.prefix['hits']})")
+        del server
+    if split_by is not None:
+        # The exact paged prefix serve once more, traced (serve() alone,
+        # the weights' set-up outside the trace): its device time by
+        # kernel group beside the untraced serve's wall above.
+        params, cfg, reqs, wall_s = traced_run
+        engine = SlotServer(params, cfg, **traced_kw)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            prof_rep = engine.serve(reqs)
+            sync()
+        split, by_kernel = split_by(prof, groups)
+        busy = sum(split.values())
+        wall_ms = wall_s * 1e3
+        out["breakdown"] = {
+            "serve_wall_ms": wall_ms,
+            "traced_serve_wall_ms": prof_rep.wall_s * 1e3,
+            "device_busy_ms": busy,
+            "idle_share": (1 - busy / wall_ms) if busy else None,
+            "by_group_ms": split,
+            "top_kernels_ms": dict(sorted(by_kernel.items(),
+                                          key=lambda kv: -kv[1])[:12]),
+            "prefix": prof_rep.prefix,
+        }
+        print(f"prefix serve breakdown (exact paged, 16 requests): "
+              + (json.dumps({k: round(v, 3) for k, v in split.items()})
+                 + f" busy {busy:.2f} ms (traced) of {wall_ms:.2f} ms "
+                 f"untraced wall, idle share "
+                 f"{out['breakdown']['idle_share']:.4f}"
+                 if busy else "device time not measured"), flush=True)
+        del engine, params
     return out
 
 
@@ -3892,6 +4227,24 @@ def main() -> None:
     del server, params
     torch.cuda.empty_cache()
 
+    # -- 3f. the radix prefix cache ---------------------------------------
+    # The serve phase's trace with a shared 384-token prefix, through the
+    # CLI's --prefix-cache on the paged layout (exact, int8, int8-cast) and
+    # the contiguous one, each beside the cache-off serve (prefix_phase).
+    t0 = time.monotonic()
+    prefix = prefix_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
+                          TOL_LOGITS, split_by, {
+                              "B2 tick body (decode ticks)": (
+                                  "decode_tick",),
+                              "B2 multi-row body (tails, suffix chunks)": (
+                                  "decode_tiled",),
+                              "flash_decode (split body) + merges": (
+                                  "decode_split", "merge_splits"),
+                              "flash_fwd (B3)": ("flash_fwd",),
+                              "matmul": matmul})
+    print(f"prefix phase wall {time.monotonic() - t0:.2f}s", flush=True)
+    torch.cuda.empty_cache()
+
     # -- 3c. two ranks sharing the card: the sequence-sharded pool ---------
     sharded = run_sharded_ranks()
     sh = {label: [r[label] for r in sharded] for label in ("exact", "int8")}
@@ -4396,6 +4749,13 @@ def main() -> None:
                                    "yardstick_sdpa_dequant_ms",
                                    "max_rel_err")}
                 for c in mine if " int8 " in c["case"])
+        # The prefix phase's launches of this kernel, by serve (its own
+        # counts: set to 0 before each serve, read after it).
+        by_serve = {label: r["launches"][name]
+                    for label, r in prefix["serves"].items()
+                    if r["launches"].get(name)}
+        if by_serve:
+            entry["launches_prefix_serves"] = by_serve
         if name.startswith("flash_decode"):
             # Which body ran the head case (cuda_decode.decode_body: every
             # variant but f32 with more than one packed row or a tree takes
@@ -4512,7 +4872,7 @@ def main() -> None:
                    "sharded_tokens_equal_to_single": sharded_agree,
                    "ptxas": ptxas, "hgmma_sass": hgmma, "tile_edges": edges,
                    "one_key_rows": one_key_rows, "dlse_bwd": dlse_bwd,
-                   "sharded_train": trained,
+                   "sharded_train": trained, "prefix": prefix,
                    "kernels": kernels}, f, indent=1)
     print(f"chip_smoke: total wall {time.monotonic() - t_start:.1f}s",
           flush=True)

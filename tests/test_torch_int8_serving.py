@@ -34,6 +34,7 @@ from tree_attention_tpu_torch import cli
 from tree_attention_tpu_torch import models as tm
 from tree_attention_tpu_torch import obs
 from tree_attention_tpu_torch import serving as ts
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
            d_head=16, d_ff=192)

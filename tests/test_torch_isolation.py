@@ -44,6 +44,7 @@ PORT_MODULES = [
     "tree_attention_tpu_torch.serving",
     "tree_attention_tpu_torch.serving.block_pool",
     "tree_attention_tpu_torch.serving.engine",
+    "tree_attention_tpu_torch.serving.prefix_cache",
     "tree_attention_tpu_torch.serving.speculation",
     "tree_attention_tpu_torch.utils",
     "tree_attention_tpu_torch.utils.config",

@@ -64,6 +64,7 @@ from tree_attention_tpu_torch.ops import cuda_decode as cd
 from tree_attention_tpu_torch.ops.reference import merge_partials
 from tree_attention_tpu_torch.ops.tuning import DKV_TILES
 from tree_attention_tpu_torch.serving import ShardedBlockAllocator
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 BF16, F32, CAST, Q8Q = 1, 0, 2, 3
 

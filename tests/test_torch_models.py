@@ -20,6 +20,7 @@ import torch
 from tree_attention_tpu import models as jm
 
 from tree_attention_tpu_torch import models as tm
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import __graft_entry__  # noqa: E402  (the JAX flagship config)

@@ -27,6 +27,7 @@ from tree_attention_tpu_torch.ops import cuda_attention, cuda_decode
 from tree_attention_tpu_torch.ops import decode as tdecode
 from tree_attention_tpu_torch.ops import reference as tref
 from tree_attention_tpu_torch.ops import tuning as ttuning
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
 

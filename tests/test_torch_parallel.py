@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from tree_attention_tpu_torch.ops.cuda_decode import quantize_kv_channelwise
 from tree_attention_tpu_torch.parallel import mesh as tmesh
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 TOL_F32 = 2e-5
 TOL_OUT_ROW, TOL_LSE_Q8 = 1e-2, 1e-4

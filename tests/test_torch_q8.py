@@ -28,6 +28,7 @@ from tree_attention_tpu.ops import pallas_decode as jpd
 
 from tree_attention_tpu_torch.models import decode as tdec
 from tree_attention_tpu_torch.ops import cuda_decode as cd
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 TOL_OUT_ROW, TOL_LSE = 1e-2, 1e-4
 

@@ -40,6 +40,7 @@ from tree_attention_tpu_torch.ops.decode import paged_local_partial
 from tree_attention_tpu_torch.serving.block_pool import (
     ShardedBlockAllocator as TSharded,
 )
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL_F32 = 2e-5

@@ -23,6 +23,7 @@ from tree_attention_tpu_torch import serving as ts
 from tree_attention_tpu_torch.serving.block_pool import (
     BlockAllocator as TAlloc,
 )
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 J_CFG = jm.TransformerConfig(
     vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -152,15 +153,35 @@ def test_serving_metrics_record_when_enabled(params):
 
 
 def test_block_allocator_matches_jax_op_for_op():
+    """Every transition, the cached-block ones included: publish, an
+    evictor (the prefix tree's seam: FIFO over cached blocks) that counts
+    toward ``available()`` and that a dry ``alloc`` calls, eviction
+    through ``free_cached``."""
     rng = np.random.default_rng(7)
     ja, ta = JAlloc(12), TAlloc(12)
-    owned, cached = [], []
+    owned = []
+    cached = {id(ja): [], id(ta): []}
+
+    def evictor(alloc):
+        mine = cached[id(alloc)]
+
+        def evict_one():
+            if not mine:
+                return False
+            alloc.free_cached(mine.pop(0))
+            return True
+
+        alloc.set_evictor(evict_one, lambda: len(mine))
+
+    for alloc in (ja, ta):
+        evictor(alloc)
     for _ in range(400):
         op = rng.integers(0, 7)
         if op == 0:
             n = int(rng.integers(0, 5))
             assert ja.reserve(n) == ta.reserve(n)
-        elif op == 1 and ja.reserved > 0 and ja.free_count > 0:
+        elif op == 1 and ja.reserved > 0 and (ja.free_count
+                                              or cached[id(ja)]):
             b = ja.alloc()
             assert ta.alloc() == b
             owned.append(b)
@@ -176,17 +197,39 @@ def test_block_allocator_matches_jax_op_for_op():
             b = owned.pop(int(rng.integers(len(owned))))
             ja.publish(b)
             ta.publish(b)
-            cached.append(b)
-        elif op == 5 and cached:
-            b = cached.pop(int(rng.integers(len(cached))))
-            ja.free_cached(b)
-            ta.free_cached(b)
+            for alloc in (ja, ta):
+                cached[id(alloc)].append(b)
+        elif op == 5 and cached[id(ja)]:
+            i = int(rng.integers(len(cached[id(ja)])))
+            for alloc in (ja, ta):
+                alloc.free_cached(cached[id(alloc)].pop(i))
         elif op == 6 and owned:
             b = owned.pop(int(rng.integers(len(owned))))
             ja.unmap_private(b)
             ta.unmap_private(b)
         assert (ja.used, ja.free_count, ja.reserved, ja.gen,
-                ja.available()) == (ta.used, ta.free_count, ta.reserved,
-                                    ta.gen, ta.available())
+                ja.evictable(), ja.available()) == (
+                    ta.used, ta.free_count, ta.reserved, ta.gen,
+                    ta.evictable(), ta.available())
+        assert cached[id(ja)] == cached[id(ta)]
+    # Drain: publish every owned block, reserve all that is available and
+    # allocate it — the free list runs dry and each further block comes
+    # from the evictor.
+    for b in owned:
+        for alloc in (ja, ta):
+            alloc.publish(b)
+            cached[id(alloc)].append(b)
+    n = ja.available()
+    assert ja.reserve(n) and ta.reserve(n)
+    owned = [ja.alloc() for _ in range(ja.reserved)]
+    assert [ta.alloc() for _ in range(ta.reserved)] == owned
+    assert ja.free_count == ta.free_count == 0
+    assert cached[id(ja)] == cached[id(ta)] == []
+    for b in owned:
+        ja.free_private(b)
+        ta.free_private(b)
+    assert (ja.used, ja.free_count, ja.gen) == (ta.used, ta.free_count,
+                                                ta.gen)
+    cached = cached[id(ta)]
     with pytest.raises(AssertionError):
         ta.free_private(cached[0] if cached else ta._pop_free())

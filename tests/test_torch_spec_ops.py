@@ -39,6 +39,7 @@ from tree_attention_tpu_torch.ops import cuda_decode as cd
 from tree_attention_tpu_torch.ops.decode import flash_decode
 from tree_attention_tpu_torch.ops.reference import attention_packed
 from tree_attention_tpu_torch.serving import speculation as tspec
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 TOL_F32 = 2e-5
 TOL_OUT_ROW, TOL_LSE_Q8 = 1e-2, 1e-4

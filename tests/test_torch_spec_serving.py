@@ -49,6 +49,7 @@ from tree_attention_tpu_torch.serving.block_pool import (
     BlockAllocator as TAlloc,
 )
 from tree_attention_tpu_torch.utils.config import parse_args
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
            d_head=16, d_ff=128)

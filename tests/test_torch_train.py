@@ -36,6 +36,7 @@ from tree_attention_tpu_torch.checkpoint import (
 )
 from tree_attention_tpu_torch.data import make_lm_batch, make_qkv
 from tree_attention_tpu_torch.ops import cuda_bwd
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 J_CFG = jm.TransformerConfig(
     vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -46,16 +47,6 @@ T_CFG = tm.TransformerConfig(
     d_head=16, d_ff=192, max_seq_len=128, dtype=torch.float32,
 )
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """Tiny shapes: torch's default of one thread per core only contends
-    with the JAX runtime's threads here (a tiny train step ran ~50x slower
-    with 8 threads than with 2 in one process with JAX loaded)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _flat(tree):

@@ -49,6 +49,7 @@ from tree_attention_tpu_torch.models.transformer import LAYER_KEYS
 from tree_attention_tpu_torch.ops import cuda_attention, cuda_bwd
 from tree_attention_tpu_torch.parallel import mesh as tmesh
 from tree_attention_tpu_torch.parallel import tree as ttree
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 TOL, TOL_GRAD = 2e-5, 3e-5
 D = 16
@@ -282,16 +283,6 @@ def ranks(tmp_path_factory):
                                       str(tmp / "ckpt"))
         runs = {w: f.result() for w, f in runs.items()}
     return runs.__getitem__
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """Tiny shapes: torch's threads only contend with JAX's here (as in
-    ``test_torch_train``)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("name,world", [

@@ -29,19 +29,10 @@ from tree_attention_tpu_torch.ops import attention_naive, block_utils
 from tree_attention_tpu_torch.ops import cuda_attention, cuda_bwd
 from tree_attention_tpu_torch.ops import flash_attention
 from tree_attention_tpu_torch.ops.vjp import attention_bwd_blockwise
+from tests.torch_threads import few_torch_threads  # noqa: F401
 
 TOL = 2e-4
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_torch_threads():
-    """Tiny shapes: torch's default of one thread per core only contends
-    with the JAX runtime's threads here (a tiny train step ran ~50x slower
-    with 8 threads than with 2 in one process with JAX loaded)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(seed, B=1, Hq=4, Hkv=4, Tq=256, Tk=256, D=64):

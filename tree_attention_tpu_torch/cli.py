@@ -419,9 +419,25 @@ def run_serve(cfg: RunConfig, dev: torch.device,
         raise SystemExit("--mesh serves from the paged layout: a contiguous "
                          "cache sharded over seq is a later slice of the "
                          "port (ROADMAP)")
+    if not 0.0 <= cfg.prefix_share <= 1.0:
+        raise SystemExit("--prefix-share must be in [0, 1]")
+    if cfg.prefix_cache and (cfg.prefix_block < 1
+                             or cfg.prefix_block & (cfg.prefix_block - 1)):
+        raise SystemExit("--prefix-block must be a power of two >= 1")
+    if cfg.kv_layout == "paged" and cfg.prefix_cache \
+            and cfg.kv_block is not None and cfg.kv_block != cfg.prefix_block:
+        raise SystemExit(
+            f"--prefix-block {cfg.prefix_block} must equal --kv-block "
+            f"{cfg.kv_block} under --kv-layout paged (or pass only one "
+            f"of them)")
     kernel = check_kv_quant(cfg)
     cache_len = round_cache_len(
         cfg.prompt_len + cfg.prompt_jitter + cfg.max_new_tokens, mesh)
+    if cfg.prefix_cache and cfg.prefix_block > cache_len:
+        raise SystemExit(
+            f"--prefix-block {cfg.prefix_block} exceeds the trace's slot "
+            f"capacity {cache_len} (prompt-len + jitter + max-new-tokens, "
+            f"rounded)")
     tcfg = transformer_config(dataclasses.replace(cfg, seq_len=cache_len))
     params = init_params(tcfg, cfg.seed, dev)
     drafter = cfg.drafter
@@ -438,7 +454,7 @@ def run_serve(cfg: RunConfig, dev: torch.device,
                                     draft_cfg)
     try:
         # The engine refuses what it does not serve (--draft-k out of
-        # [1, 31], --speculate under --mesh).
+        # [1, 31], --speculate or --prefix-cache under --mesh).
         server = SlotServer(
             params, tcfg, slots=cfg.slots, cache_len=cache_len,
             temperature=cfg.temperature, top_k=cfg.top_k, seed=cfg.seed + 2,
@@ -449,14 +465,16 @@ def run_serve(cfg: RunConfig, dev: torch.device,
             kv_blocks=cfg.kv_blocks, quantize=kernel is not None,
             quant_kernel=kernel or "q8q", mesh=mesh, kv_shard=cfg.kv_shard,
             speculate=cfg.speculate, draft_k=cfg.draft_k, drafter=drafter,
+            prefix_cache=cfg.prefix_cache, prefix_block=cfg.prefix_block,
         )
-    except ValueError as e:
+    except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}") from None
     trace = synthetic_trace(
         cfg.requests, prompt_len=cfg.prompt_len,
         prompt_jitter=cfg.prompt_jitter, max_new_tokens=cfg.max_new_tokens,
         arrival_every=cfg.arrival_every, vocab_size=tcfg.vocab_size,
-        seed=cfg.seed + 1,
+        seed=cfg.seed + 1, prefix_share=cfg.prefix_share,
+        prefix_len=cfg.prefix_len,
     )
     report = server.serve(trace)
     log.info("served %d requests on %d slot(s): %.1f tokens/s aggregate",
@@ -476,6 +494,8 @@ def run_serve(cfg: RunConfig, dev: torch.device,
         **({"kv_quant": cfg.kv_quant} if kernel else {}),
         **({"speculate": {"draft_k": cfg.draft_k, "drafter": cfg.drafter}}
            if cfg.speculate else {}),
+        **({"prefix_cache": {"block": cfg.prefix_block}}
+           if cfg.prefix_cache else {}),
         **mesh_rec,
         **report.as_dict(),
         "leaks": server.leak_report(),

@@ -308,23 +308,151 @@ def quantize_paged_blocks(k: torch.Tensor, v: torch.Tensor, block: int
     return k_q, v_q, k_s, v_s
 
 
+def gather_kv_blocks(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                     ids: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """Stack paged pool blocks ``ids`` for one read: ``(nb, L, Hkv, block,
+    D)`` K and V rows, plus ``(nb, L, Hkv)`` per-block scale scalars for an
+    int8 pool. ``pool_k``/``pool_v`` are a :class:`PagedKVCache`'s ``(L, N
+    + 1, Hkv, block, D)`` buffers; padded ``ids`` clip into ``[0, N)`` (the
+    drop block is never read) and the caller ignores their rows. Returns
+    copies."""
+    idx = ids.to(pool_k.device).long().clamp(0, pool_k.shape[1] - 2)
+    out = [pool_k[:, idx].transpose(0, 1), pool_v[:, idx].transpose(0, 1)]
+    if k_scale is not None:
+        out += [k_scale[:, idx].transpose(0, 1),
+                v_scale[:, idx].transpose(0, 1)]
+    return tuple(t.contiguous() for t in out)
+
+
+def scatter_kv_blocks(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                      ids: torch.Tensor, k_rows: torch.Tensor,
+                      v_rows: torch.Tensor,
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None,
+                      ks_rows: Optional[torch.Tensor] = None,
+                      vs_rows: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The inverse of :func:`gather_kv_blocks`, in place: ``(nb, L, Hkv,
+    block, D)`` rows land in pool blocks ``ids`` (entries ``>= N`` go to the
+    drop block, as the JAX scatter drops them); an int8 pool also takes its
+    ``(nb, L, Hkv)`` per-block scalars. Returns the pool tensors (and the
+    scale tensors when given)."""
+    n = pool_k.shape[1] - 1
+    idx = ids.to(pool_k.device).long().clamp(0, n)
+    pool_k[:, idx] = k_rows.transpose(0, 1).to(pool_k.dtype)
+    pool_v[:, idx] = v_rows.transpose(0, 1).to(pool_v.dtype)
+    if k_scale is None:
+        return pool_k, pool_v
+    k_scale[:, idx] = ks_rows.transpose(0, 1).to(k_scale.dtype)
+    v_scale[:, idx] = vs_rows.transpose(0, 1).to(v_scale.dtype)
+    return pool_k, pool_v, k_scale, v_scale
+
+
+def insert_dequant_prefix(staging: KVCache, pool_k: torch.Tensor,
+                          pool_v: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, ids: torch.Tensor,
+                          matched: int) -> KVCache:
+    """Dequantize matched int8 pool blocks into the B=1 staging cache, in
+    place: the int8 paged prefix hit. The slot reads the matched int8
+    blocks through its table, but the suffix's exact staged prefill needs
+    the prefix as activations: ``matched`` tokens (``int8 x block scale``,
+    in f32, cast to the staging dtype) land at positions ``[0, matched)``
+    of staging slot 0 and its length becomes ``matched``. ``ids`` ``(nb,)``
+    name the matched blocks in prompt order (padding repeats a valid id;
+    rows at ``>= matched`` keep their old values); ``nb * block`` must fit
+    the staging capacity. ``pool_k``/``pool_v`` ``(L, N + 1, Hkv, block,
+    D)`` int8 and ``k_scale``/``v_scale`` ``(L, N + 1, Hkv)``, as a
+    :class:`PagedQuantKVCache` holds them."""
+    nb, blk = ids.shape[0], pool_k.shape[3]
+    span = nb * blk
+    idx = ids.to(pool_k.device).long().clamp(0, pool_k.shape[1] - 2)
+    valid = (torch.arange(span, device=pool_k.device)
+             < matched)[None, None, :, None]
+    for buf, pool, scale in ((staging.k, pool_k, k_scale),
+                             (staging.v, pool_v, v_scale)):
+        rows = pool[:, idx].float() * scale[:, idx][..., None, None]
+        L, _, Hkv, _, D = rows.shape  # (L, nb, Hkv, block, D)
+        rows = rows.transpose(1, 2).reshape(L, Hkv, span, D)
+        buf[:, 0, :, :span] = torch.where(valid, rows.to(buf.dtype),
+                                          buf[:, 0, :, :span])
+    staging.length.fill_(matched)
+    return staging
+
+
+def insert_prefix_blocks(cache: KVCache, pool_k: torch.Tensor,
+                         pool_v: torch.Tensor, ids: torch.Tensor,
+                         matched: int, slot: int) -> KVCache:
+    """Copy ``matched`` tokens of pooled prefix KV into one cache slot, in
+    place: the contiguous prefix-cache hit. ``pool_k``/``pool_v`` are ``(P
+    + 1, L, Hkv, block, D)`` block pools (row ``P`` the drop row),
+    ``ids`` ``(nb,)`` the pool rows holding the matched prefix in prompt
+    order (padding may repeat a valid id: rows at ``>= matched`` are
+    masked off), and the copy lands at token positions ``[0, matched)`` of
+    slot ``slot``, whose ``length`` becomes ``matched``. Bytes at ``>= nb *
+    block`` are untouched and those in ``[matched, nb * block)`` keep their
+    values; ``nb * block`` must not exceed the capacity."""
+    nb, blk = ids.shape[0], pool_k.shape[3]
+    span = nb * blk
+    idx = ids.to(pool_k.device).long()
+    valid = (torch.arange(span, device=pool_k.device)
+             < matched)[None, None, :, None]
+    for buf, pool in ((cache.k, pool_k), (cache.v, pool_v)):
+        rows = pool[idx]                       # (nb, L, Hkv, block, D)
+        _, L, Hkv, _, D = rows.shape
+        rows = rows.permute(1, 2, 0, 3, 4).reshape(L, Hkv, span, D)
+        buf[:, slot, :, :span] = torch.where(valid, rows.to(buf.dtype),
+                                             buf[:, slot, :, :span])
+    cache.length[slot] = matched
+    return cache
+
+
+def extract_prefix_blocks(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          slot: int, ids: torch.Tensor, start_block: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Publish one slot's prefix KV into pool rows, in place: the inverse
+    of :func:`insert_prefix_blocks`. Token rows ``[start_block * block,
+    (start_block + nb) * block)`` of slot ``slot`` land in pool rows
+    ``ids`` (prompt order). Padded ``ids`` name the drop row ``P`` (or
+    beyond) and change nothing of ``[0, P)``; source positions past the
+    capacity clamp to its last row and pair only with such ids. Returns
+    ``(pool_k, pool_v)``."""
+    nb, blk = ids.shape[0], pool_k.shape[3]
+    drop = pool_k.shape[0] - 1
+    idx = ids.to(pool_k.device).long().clamp(0, drop)
+    cap = cache_k.shape[3]
+    pos = (start_block * blk
+           + torch.arange(nb * blk, device=pool_k.device)).clamp(max=cap - 1)
+    for pool, buf in ((pool_k, cache_k), (pool_v, cache_v)):
+        rows = buf[:, slot][:, :, pos]          # (L, Hkv, nb * block, D)
+        L, Hkv, _, D = rows.shape
+        pool[idx] = rows.reshape(L, Hkv, nb, blk, D).permute(
+            2, 0, 1, 3, 4).to(pool.dtype)
+    return pool_k, pool_v
+
+
 def paged_insert_slot(cache: PagedQuantKVCache, slot: int,
                       k_rows: torch.Tensor, v_rows: torch.Tensor, plen: int,
                       k_scale: torch.Tensor, v_scale: torch.Tensor, *,
-                      mesh: Optional[Mesh] = None,
+                      lo: int = 0, mesh: Optional[Mesh] = None,
                       kv_shard: str = "replicated"
                       ) -> PagedQuantKVCache:
     """Place a B=1 quantized prompt into one slot's mapped blocks, in place.
 
     ``k_rows``/``v_rows`` are ``(L, 1, Hkv, T, D)`` int8; token positions
-    ``[0, plen)`` scatter through the slot's table row (other rows go to
+    ``[lo, plen)`` scatter through the slot's table row (other rows go to
     the drop block), the per-block scales ``(L, nb, Hkv)`` of the blocks
-    that hold a prompt row land in the pool's scale arrays through the
-    same row, and the slot's length becomes ``plen``. The caller maps
-    blocks covering ``[0, plen)`` first. On a sequence-sharded pool
-    (``kv_shard="seq"`` under ``mesh``) the row is rebased to this rank's
-    ids, and rows and scales of blocks another rank holds go to the drop
-    block."""
+    from ``lo // block`` that hold a prompt row land in the pool's scale
+    arrays through the same row, and the slot's length becomes ``plen``.
+    ``lo`` is the int8 prefix hit's block-aligned matched length: the
+    matched blocks are shared (tree-owned, with their own scales) and are
+    never rewritten. The caller maps blocks covering ``[0, plen)`` first.
+    On a sequence-sharded pool (``kv_shard="seq"`` under ``mesh``) the row
+    is rebased to this rank's ids, and rows and scales of blocks another
+    rank holds go to the drop block."""
     L, _, Hkv, T, D = k_rows.shape
     N, blk = cache.blocks, cache.block
     row = cache.table[slot].long()
@@ -333,14 +461,14 @@ def paged_insert_slot(cache: PagedQuantKVCache, slot: int,
     NB = row.shape[0]
     dev = row.device
     pos = torch.arange(T, device=dev)
-    ok = (pos < plen) & (pos < NB * blk)
+    ok = (pos >= lo) & (pos < plen) & (pos < NB * blk)
     pb = torch.where(ok, row[(pos // blk).clamp(max=NB - 1)], N)
     off = pos % blk
     for pool, rows in ((cache.k, k_rows), (cache.v, v_rows)):
         pool[:, pb, :, off] = rows[:, 0].permute(2, 0, 1, 3).to(pool.dtype)
     nbk = k_scale.shape[1]
     idx = torch.arange(nbk, device=dev)
-    ok = (idx * blk < plen) & (idx < NB)
+    ok = (idx >= lo // blk) & (idx * blk < plen) & (idx < NB)
     pb_s = torch.where(ok, row[idx.clamp(max=NB - 1)], N)
     cache.k_scale[:, pb_s] = k_scale
     cache.v_scale[:, pb_s] = v_scale

@@ -63,10 +63,31 @@ CPU) greedy and sampled slots commit exactly the non-speculative stream.
 On a GPU the decode kernel at a verify tick's Tq rounds differently from
 Tq 1, and the streams part where the model's top logits nearly tie.
 
+``prefix_cache=True`` reuses shared prompt prefixes across requests
+(:mod:`~tree_attention_tpu_torch.serving.prefix_cache`, RadixAttention,
+arXiv:2312.07104). An admission matches its prompt against a radix tree of
+published ``block``-token spans (at least one suffix token stays to
+prefill), keeps the matched path pinned until it retires, and prefills only
+the suffix: its first chunk starts at the matched length. When the final
+chunk completes, the prompt's whole blocks are published.
+
+- **Paged** (:class:`PagedPrefixIndex` over the block pool): a hit writes
+  the matched block ids into the slot's table row and reserves only the
+  blocks it does not share — exact serving moves zero device bytes. A
+  publish ADOPTS the slot's private prompt blocks: the tree owns them now,
+  the table and the bytes stay. Under int8 the hit also dequantizes the
+  matched blocks into the staging cache (the suffix's exact chunks attend
+  them); the final staged chunk's insert starts at the matched length, so
+  a shared block is never rewritten.
+- **Contiguous** (:class:`PrefixCache`, a pool of exact rows of its own): a
+  hit gathers the matched rows into the slot (into the staging cache under
+  int8), a publish scatters the slot's new whole blocks (the staging
+  cache's exact rows under int8) into the pool.
+
 Left for later slices of the port (see ROADMAP): whole-prompt admission,
-the prefix cache, speculation on a mesh, forks and tree-sibling decode, KV
-tiering, disaggregation, cancellation/deadlines/drain and the HTTP ingress,
-tracing and the flight recorder.
+speculation and the prefix cache on a mesh, forks and tree-sibling decode,
+KV tiering, disaggregation, cancellation/deadlines/drain and the HTTP
+ingress, tracing and the flight recorder.
 """
 
 from __future__ import annotations
@@ -86,6 +107,7 @@ from tree_attention_tpu_torch.models.decode import (
     forward_step,
     init_cache,
     init_paged_cache,
+    insert_dequant_prefix,
     paged_insert_slot,
     quantize_cache,
     quantize_paged_blocks,
@@ -103,6 +125,10 @@ from tree_attention_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh
 from tree_attention_tpu_torch.serving.block_pool import (
     BlockAllocator,
     ShardedBlockAllocator,
+)
+from tree_attention_tpu_torch.serving.prefix_cache import (
+    PagedPrefixIndex,
+    PrefixCache,
 )
 from tree_attention_tpu_torch.serving.speculation import (
     DraftProposal,
@@ -196,6 +222,9 @@ class RequestResult:
     outcome: str
     ttft_s: float = 0.0  # visible -> first sampled token, wall seconds
     cum_logprob: float = 0.0  # sum of the model log-probs of the tokens
+    # Prompt tokens served from the prefix cache at admission (0: cold or
+    # the cache off).
+    prefix_hit_tokens: int = 0
 
 
 @dataclasses.dataclass
@@ -211,6 +240,9 @@ class ServeReport:
     steps: int = 0  # batched per-tick steps run (decode and mixed ticks)
     tbt_s: List[float] = dataclasses.field(default_factory=list)
     slo: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Prefix reuse over THIS run (hits, misses, tokens_reused, ...: the
+    # cache's lifetime stats diffed over the serve() call); empty when off.
+    prefix: Dict[str, Any] = dataclasses.field(default_factory=dict)
     kv: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # Speculative decoding (drafter, draft_k, proposed/accepted draft
     # tokens, acceptance_rate, verify ticks); empty when off.
@@ -259,6 +291,7 @@ class ServeReport:
             **{k: round(v, 4) for k, v in self.completion_percentiles().items()},
             **{k: round(v, 5) for k, v in self.latency_percentiles().items()},
             **({"slo": self.slo} if self.slo else {}),
+            **({"prefix": self.prefix} if self.prefix else {}),
             **({"kv": self.kv} if self.kv else {}),
             **({"spec": self.spec} if self.spec else {}),
         }
@@ -428,6 +461,20 @@ class SlotServer:
         ``draft_k + 1`` tokens.
       drafter: ``"ngram"`` (default), ``"ngram-tree"``, or any
         :class:`~.speculation.Drafter` (e.g. ``DraftModelDrafter``).
+      admission: ``"chunked"`` (the only one ported; ``"whole"`` raises).
+      prefix_cache: reuse shared prompt prefixes (module docstring); not
+        with a mesh yet.
+      prefix_block: tokens per prefix block (a power of two, at most
+        ``cache_len``). On the paged layout it is the pool's block:
+        ``kv_block`` defaults to it and must equal it when given.
+      prefix_pool_blocks: how many blocks the prefix tree may retain (paged:
+        a cap inside the one pool, default none; contiguous: the size of
+        its own pool, default 64).
+      block_pool / prefix_index: serve from a caller's allocator (paged
+        only; ``kv_blocks`` must agree with it) and a caller's
+        :class:`PagedPrefixIndex` built over that same allocator at
+        ``kv_block`` granularity.
+      host_blocks: KV tiering's host tier; a later slice (must be 0).
     """
 
     def __init__(
@@ -455,9 +502,37 @@ class SlotServer:
         speculate: bool = False,
         draft_k: int = 4,
         drafter: Union[str, Drafter, None] = None,
+        admission: str = "chunked",
+        prefix_cache: bool = False,
+        prefix_block: int = 64,
+        prefix_pool_blocks: Optional[int] = None,
+        block_pool: Optional[BlockAllocator] = None,
+        prefix_index: Optional[PagedPrefixIndex] = None,
+        host_blocks: int = 0,
     ):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
+        if admission not in ("chunked", "whole"):
+            raise ValueError(
+                f"admission must be 'chunked' or 'whole', got {admission!r}")
+        if admission == "whole":
+            raise NotImplementedError(
+                "whole-prompt admission is a later slice of the port "
+                "(ROADMAP queue A, item 4); serve with admission='chunked'")
+        if host_blocks < 0:
+            raise ValueError(f"host_blocks must be >= 0, got {host_blocks}")
+        if host_blocks:
+            raise NotImplementedError(
+                "host_blocks KV tiering (serving/host_pool.py) is a later "
+                "slice of the port (ROADMAP queue A, item 4)")
+        if mesh is not None and (prefix_cache or prefix_index is not None):
+            raise NotImplementedError(
+                "the prefix cache on a mesh is a later slice of the port "
+                "(ROADMAP queue A, item 2); serve it on one device")
+        if block_pool is not None and kv_layout != "paged":
+            raise ValueError(
+                "block_pool sharing requires kv_layout='paged' (the "
+                "contiguous layout has no block ledger to share)")
         if speculate and mesh is not None:
             raise ValueError(
                 "speculate=True under a mesh is not ported yet (ROADMAP); "
@@ -516,11 +591,36 @@ class SlotServer:
         self.quant_kernel = quant_kernel
         self._paged = kv_layout == "paged"
         if self._paged:
-            self.kv_block = 64 if kv_block is None else kv_block
+            if kv_block is None:
+                # Match granularity == page size: a matched prefix is whole
+                # table entries.
+                kv_block = prefix_block if prefix_cache else 64
+            elif prefix_cache and kv_block != prefix_block:
+                raise ValueError(
+                    f"paged layout: prefix_block ({prefix_block}) must "
+                    f"equal kv_block ({kv_block}) — radix matching happens "
+                    f"at page granularity (pass one of them, or equal "
+                    f"values)")
+            self.kv_block = kv_block
             self._npb = -(-cache_len // self.kv_block)  # table width
             self.kv_blocks = (slots * self._npb if kv_blocks is None
                               else kv_blocks)
-            if kv_shard == "seq":
+            if block_pool is not None:
+                # One ledger: this engine's capacity is the pool's.
+                if kv_blocks is not None and kv_blocks != block_pool.blocks:
+                    raise ValueError(
+                        f"kv_blocks {kv_blocks} contradicts the shared "
+                        f"block_pool's capacity {block_pool.blocks}")
+                if kv_shard == "seq" and (
+                        not isinstance(block_pool, ShardedBlockAllocator)
+                        or block_pool.shards != self._seq_shards):
+                    raise ValueError(
+                        "kv_shard='seq' with a shared block_pool needs a "
+                        f"ShardedBlockAllocator over {self._seq_shards} "
+                        "shards (one placement rule)")
+                self.kv_blocks = block_pool.blocks
+                self._pool = block_pool
+            elif kv_shard == "seq":
                 # Round up to whole per-shard slices: extra blocks only
                 # ever add capacity.
                 w = self._seq_shards
@@ -547,6 +647,49 @@ class SlotServer:
             # The one exact B=1 staging cache of staged admission.
             self._staging: KVCache = init_cache(cfg, 1, cache_len,
                                                 device=self.device)
+
+        # Prefix reuse: the radix tree and, per slot, the nodes it matched
+        # or published (pinned until it retires), where its prefill starts
+        # (the matched length) and the tokens its hit reused.
+        self._prefix: Union[PagedPrefixIndex, PrefixCache, None] = None
+        if prefix_index is not None:
+            if not self._paged:
+                raise ValueError("prefix_index sharing requires paged "
+                                 "serving (kv_layout='paged')")
+            if block_pool is None or prefix_index.alloc is not block_pool:
+                raise ValueError("prefix_index must be built over the same "
+                                 "shared block_pool (one ledger, one tree)")
+            if prefix_index.block != self.kv_block:
+                raise ValueError(
+                    f"prefix_index block {prefix_index.block} must equal "
+                    f"kv_block {self.kv_block} (radix matching happens at "
+                    f"page granularity)")
+            self._prefix = prefix_index
+        elif prefix_cache:
+            if prefix_block > cache_len:
+                raise ValueError(f"prefix_block {prefix_block} exceeds "
+                                 f"cache_len {cache_len}")
+            if self._paged:
+                self._prefix = PagedPrefixIndex(
+                    block=self.kv_block, alloc=self._pool,
+                    max_cached=prefix_pool_blocks)
+            else:
+                self._prefix = PrefixCache(
+                    cfg, block=prefix_block,
+                    blocks=(64 if prefix_pool_blocks is None
+                            else prefix_pool_blocks),
+                    device=self.device)
+        self._paged_prefix = isinstance(self._prefix, PagedPrefixIndex)
+        self._slot_nodes: List[list] = [[] for _ in range(slots)]
+        self._prefill_start: List[int] = [0] * slots
+        self._slot_prefix_hit: List[int] = [0] * slots
+        # Device KV bytes the hits moved: a contiguous hit's gather, an
+        # int8 paged hit's dequantized rows; 0 for an exact paged hit.
+        self._hit_bytes_moved = 0
+        self._kv_token_bytes = (2 * cfg.n_layers * cfg.n_kv_heads
+                                * cfg.d_head * cfg.dtype.itemsize)
+        self._kv_token_bytes_q = 2 * cfg.n_layers * cfg.n_kv_heads \
+            * cfg.d_head
         self.tok = torch.zeros((slots,), dtype=torch.int32, device=self.device)
         self._lp = torch.zeros((slots,), dtype=torch.float32,
                                device=self.device)
@@ -675,16 +818,20 @@ class SlotServer:
         in the staging cache by ``n`` tokens. The final chunk samples the
         slot's first token from its last row (parked in the token vector
         until the tick's fetch), zeroes the staging cache's stale tail,
-        quantizes the prompt and inserts it into the slot."""
-        first = self._prefill_pos[slot] == 0
+        quantizes the prompt, inserts it into the slot and publishes its
+        prefix. A prefix hit's staging already holds the matched rows: the
+        first chunk starts the staged length there, and the paged insert
+        leaves the shared blocks below it alone."""
+        start = self._prefill_start[slot]
+        first = self._prefill_pos[slot] == start
         plen = len(self._prompt_np[slot])
         mat = np.zeros((1, self._chunk_bucket(n)), np.int32)
         mat[0, :n] = self._consume_chunk(slot, n, last)
         staging = self._staging
         if first:
             staging = dataclasses.replace(staging,
-                                          length=torch.zeros_like(
-                                              staging.length))
+                                          length=torch.full_like(
+                                              staging.length, start))
         n_t = torch.tensor([n], dtype=torch.int32, device=self.device)
         logits, self._staging = forward_step(
             self.params, torch.from_numpy(mat).to(self.device), staging,
@@ -707,12 +854,16 @@ class SlotServer:
             self._sync_table()
             kq, vq, ks, vs = quantize_paged_blocks(k, v, self.kv_block)
             paged_insert_slot(self.cache, slot, kq, vq, plen, ks, vs,
-                              **self._fs_kw)
-            return
-        qc = quantize_cache(KVCache(k=k, v=v, length=self._staging.length))
-        for name in ("k", "v", "k_scale", "v_scale"):
-            getattr(self.cache, name)[:, slot] = getattr(qc, name)[:, 0]
-        self.cache.length[slot] = plen
+                              lo=start, **self._fs_kw)
+        else:
+            qc = quantize_cache(KVCache(k=k, v=v,
+                                        length=self._staging.length))
+            for name in ("k", "v", "k_scale", "v_scale"):
+                getattr(self.cache, name)[:, slot] = getattr(qc, name)[:, 0]
+            self.cache.length[slot] = plen
+        # The staging cache holds the prompt's exact rows: publish before
+        # the next prompt overwrites them.
+        self._publish_prefix(slot)
 
     # -- scheduler --------------------------------------------------------
 
@@ -745,10 +896,24 @@ class SlotServer:
                     f"the request"
                 )
 
-    def _paged_reserve(self, req: Request) -> Optional[int]:
-        """Reserve the admission's worst-case blocks; ``None`` defers it."""
-        need = -(-(len(req.prompt) + req.max_new_tokens) // self.kv_block)
-        return need if self._pool.reserve(need) else None
+    def _paged_reserve(self, req: Request) -> Optional[tuple]:
+        """Match the prompt (pinning the path) and reserve the admission's
+        worst-case private blocks: its whole span less the matched blocks
+        it shares. ``None`` defers the admission (the pins are released);
+        otherwise ``(matched, nodes, needed)``, the match recorded."""
+        total = -(-(len(req.prompt) + req.max_new_tokens) // self.kv_block)
+        matched, nodes = 0, []
+        if self._paged_prefix:
+            matched, nodes = self._prefix.match(
+                np.asarray(req.prompt, np.int32), record=False)
+        needed = total - len(nodes)
+        if not self._pool.reserve(needed):
+            if nodes:
+                self._prefix.release(nodes)
+            return None
+        if self._paged_prefix:
+            self._prefix.record_match(matched)
+        return matched, nodes, needed
 
     def _ensure_blocks(self, slot: int, tokens_needed: int) -> None:
         """Map blocks covering ``[0, tokens_needed)`` of ``slot`` — before
@@ -774,7 +939,7 @@ class SlotServer:
             self._table_dirty = False
 
     def _admit(self, req: Request, slot: int, tick: int, visible_at: float,
-               needed: Optional[int]) -> None:
+               resv: Optional[tuple]) -> None:
         waited = max(time.monotonic() - visible_at, 0.0)
         self._slot_req[slot] = req
         self._slot_tokens[slot] = []
@@ -796,14 +961,109 @@ class SlotServer:
             self._hist_buf[slot, :plen] = self._prompt_np[slot]
             self._hist_len[slot] = plen
         if self._paged:
-            self._slot_reserve[slot] = needed
+            # _paged_reserve took the reservation (and pinned the matched
+            # path); the slot owns both now.
+            self._slot_reserve[slot] = resv[2]
             self._slot_private[slot] = set()
             self._slot_nblocks[slot] = 0
-        self._prefill_pos[slot] = 0
+        # Prefix reuse comes first: the matched length is where the
+        # prefill starts.
+        if self._paged_prefix:
+            matched = self._paged_hit(slot, resv)
+        else:
+            matched = self._prefix_admit(slot)
+        self._prefill_start[slot] = matched
+        self._prefill_pos[slot] = matched
+        self._slot_prefix_hit[slot] = matched
         self._slot_state[slot] = "prefill"
         self._prefill_fifo.append(slot)
         if obs.REGISTRY.enabled:
             _QUEUE_WAIT.observe(waited)
+
+    def _prefix_admit(self, slot: int) -> int:
+        """The contiguous hit: match the prompt (pinned until retire) and
+        gather the matched rows into the batch slot, or into the staging
+        cache under int8 (pool rows are exact; the final chunk quantizes).
+        Returns the matched token count (0: the cache off, or cold)."""
+        if self._prefix is None:
+            return 0
+        matched, nodes = self._prefix.match(self._prompt_np[slot])
+        self._slot_nodes[slot] = nodes
+        if not matched:
+            return 0
+        if self.quantize:
+            self._prefix.copy_into(self._staging, 0, nodes, matched)
+        else:
+            self._prefix.copy_into(self.cache, slot, nodes, matched)
+        self._hit_bytes_moved += matched * self._kv_token_bytes
+        return matched
+
+    def _paged_hit(self, slot: int, resv: tuple) -> int:
+        """The paged hit: the matched path's block ids go into the slot's
+        table row — host bookkeeping, zero device KV bytes on the exact
+        pool (the device sees the new int32 row at the next sync). Under
+        int8 the matched blocks are also dequantized into staging slot 0,
+        so the suffix's exact staged chunks attend them; re-quantizing
+        would reproduce their bytes, and the final insert leaves them
+        alone. The bucket cap is floor-div: the window ``nb * kv_block``
+        must fit the staging cache, and a match is at most ``(cache_len -
+        1) // kv_block`` blocks."""
+        matched, nodes, _ = resv
+        self._slot_nodes[slot] = nodes
+        if not matched:
+            return 0
+        for j, node in enumerate(nodes):
+            self._host_table[slot, j] = node.block_id
+        self._slot_nblocks[slot] = len(nodes)
+        self._table_dirty = True
+        if self.quantize:
+            nb = _bucket(len(nodes), self.cache_len // self.kv_block,
+                         floor=1)
+            ids = np.zeros((nb,), np.int64)
+            ids[:len(nodes)] = [n.block_id for n in nodes]
+            insert_dequant_prefix(
+                self._staging, self.cache.k, self.cache.v,
+                self.cache.k_scale, self.cache.v_scale,
+                torch.from_numpy(ids), matched)
+            self._hit_bytes_moved += matched * self._kv_token_bytes_q
+        return matched
+
+    def _publish_prefix(self, slot: int) -> None:
+        """At final-chunk completion: publish the prompt's whole blocks
+        and swap the slot's pinned path for the published one. The paged
+        index adopts the slot's private prompt blocks (ownership moves to
+        the tree; table and bytes stay, exact and int8 alike). The
+        contiguous pool takes a scatter of the new blocks' exact rows: from
+        the batch slot, or from the staging cache under int8."""
+        if self._prefix is None:
+            return
+        prompt = self._prompt_np[slot]
+        if self._paged_prefix:
+            private = self._slot_private[slot]
+            phys = {j: int(self._host_table[slot, j])
+                    for j in range(len(prompt) // self.kv_block)
+                    if int(self._host_table[slot, j]) in private}
+            path, adopted = self._prefix.adopt(prompt, phys,
+                                               self._slot_nodes[slot])
+            for j in adopted:
+                private.discard(int(self._host_table[slot, j]))
+            # The admission's pins carried over into ``path``.
+            self._slot_nodes[slot] = path
+            return
+        path, new_ids, start = self._prefix.insert(prompt)
+        if new_ids:
+            src, src_slot = ((self._staging, 0) if self.quantize
+                             else (self.cache, slot))
+            self._prefix.publish_from(src, src_slot, new_ids, start)
+        # Insert pinned the whole path; only then drop the admission's pins
+        # (a matched node at refcount 0 could be evicted by the insert).
+        self._prefix.release(self._slot_nodes[slot])
+        self._slot_nodes[slot] = path
+
+    def prefix_stats(self) -> Dict[str, Any]:
+        """The prefix cache's lifetime counters (hits, misses,
+        tokens_reused, ...); empty when the cache is off."""
+        return {} if self._prefix is None else dict(self._prefix.stats())
 
     def _plan_chunks(self) -> List[tuple]:
         """Budget pass: FIFO over prefilling slots, each taking up to a
@@ -877,11 +1137,15 @@ class SlotServer:
         back to the pool and the reservation they used is restored
         (``unmap_private``), so the later re-allocation cannot fail and
         rolled-back KV never leaks capacity. Runs after the tick's
-        compaction was queued; the device table changes at the next sync."""
+        compaction was queued; the device table changes at the next sync.
+        Prefix blocks (shared on a hit, adopted at publish) lie inside the
+        prompt, below ``keep``: only private blocks unmap."""
         keep = -(-self._slot_clen[slot] // self.kv_block)
         while self._slot_nblocks[slot] > keep:
             j = self._slot_nblocks[slot] - 1
             bid = int(self._host_table[slot, j])
+            assert bid in self._slot_private[slot], (
+                f"slot {slot}: rollback reached shared block {bid}")
             self._pool.unmap_private(bid)
             self._slot_private[slot].discard(bid)
             self._slot_reserve[slot] += 1
@@ -925,10 +1189,11 @@ class SlotServer:
             tree |= not np.array_equal(pack.depth, np.arange(r))
         for slot, n, last in plan:
             self._ensure_blocks(slot, self._prefill_pos[slot] + n)
-            first = self._prefill_pos[slot] == 0
+            first = self._prefill_pos[slot] == self._prefill_start[slot]
             mat[slot, :n] = self._consume_chunk(slot, n, last)
             n_vec[slot] = n
             reset[slot] = first
+            reset_val[slot] = self._prefill_start[slot]
             emit[slot] = last
             # A final chunk's last row draws the slot's first token.
             rows[slot, n - 1] = last
@@ -1050,6 +1315,7 @@ class SlotServer:
             outcome=outcome,
             ttft_s=self._slot_ttft[slot],
             cum_logprob=self._slot_cum_lp[slot],
+            prefix_hit_tokens=self._slot_prefix_hit[slot],
         ))
         self.slo.observe_request(self._slot_ttft[slot],
                                  self._slot_max_tbt[slot])
@@ -1057,7 +1323,13 @@ class SlotServer:
         self._slot_tokens[slot] = []
         self._slot_state[slot] = "free"
         self._prompt_np[slot] = None
+        if self._prefix is not None and self._slot_nodes[slot]:
+            # The request's pinned prefix path becomes evictable.
+            self._prefix.release(self._slot_nodes[slot])
+            self._slot_nodes[slot] = []
         if self._paged:
+            # Blocks the tree adopted stay cached; the slot's remaining
+            # private blocks (decode tail, partial prompt block) free.
             for bid in self._slot_private[slot]:
                 self._pool.free_private(bid)
             self._slot_private[slot] = set()
@@ -1067,6 +1339,9 @@ class SlotServer:
             self._host_table[slot, :] = 0  # stale ids must never be read
             self._slot_nblocks[slot] = 0
             self._table_dirty = True
+            # Released pins can grow evictability without touching the
+            # free list: let a deferred admission retry.
+            self._pool.gen += 1
         if obs.REGISTRY.enabled:
             _REQUESTS.labels(outcome=outcome).inc()
 
@@ -1084,15 +1359,18 @@ class SlotServer:
 
     def leak_report(self) -> Dict[str, int]:
         """The no-leak invariant as numbers: after a drained run no slot
-        holds blocks or reservations (no prefix tree: ``blocks_used`` must
-        be 0)."""
+        holds blocks, reservations or prefix pins, and the only blocks in
+        use are the prefix tree's (``blocks_used == blocks_cached``; 0
+        without the cache on the paged layout)."""
         return {
             "blocks_private": (sum(len(s) for s in self._slot_private)
                                if self._paged else 0),
             "blocks_used": self._pool.used if self._paged else 0,
             "blocks_reserved": self._pool.reserved if self._paged else 0,
-            "blocks_cached": 0,
-            "pins": 0,
+            "blocks_cached": (self._prefix.blocks_used
+                              if self._prefix is not None else 0),
+            "pins": (self._prefix.total_pins()
+                     if self._prefix is not None else 0),
         }
 
     # -- the tick loop ----------------------------------------------------
@@ -1115,6 +1393,8 @@ class SlotServer:
         tick = decode_ticks = occupancy = tokens = steps = 0
         spec0 = (self._spec_proposed, self._spec_accepted, self._spec_ticks,
                  self._spec_verifies, self._spec_tree_ticks)
+        prefix0 = self.prefix_stats()
+        hit_bytes0 = self._hit_bytes_moved
         if self._paged:
             self._peak_blocks_used = self._pool.used
             self._defer_gen = -1
@@ -1138,17 +1418,17 @@ class SlotServer:
             while free and pending:
                 if self.quantize and self._prefill_fifo:
                     break  # staged admission: one prompt in flight
-                needed = None
+                resv = None
                 if self._paged:
                     if self._defer_gen == self._pool.gen:
                         break  # availability cannot have grown
-                    needed = self._paged_reserve(pending[0])
-                    if needed is None:
+                    resv = self._paged_reserve(pending[0])
+                    if resv is None:
                         self._defer_gen = self._pool.gen
                         break
                 req = pending.popleft()
                 self._admit(req, free.pop(0), tick,
-                            visible_wall.pop(req.uid, now), needed)
+                            visible_wall.pop(req.uid, now), resv)
 
             if not pending and all(st == "free" for st in self._slot_state):
                 if source.exhausted:
@@ -1215,10 +1495,12 @@ class SlotServer:
                 mat[live_idx, 0] = self._tok_host[live_idx]
                 for slot, n, last in plan:
                     self._ensure_blocks(slot, self._prefill_pos[slot] + n)
-                    first = self._prefill_pos[slot] == 0
+                    first = (self._prefill_pos[slot]
+                             == self._prefill_start[slot])
                     mat[slot, :n] = self._consume_chunk(slot, n, last)
                     n_vec[slot] = n
                     reset[slot] = first
+                    reset_val[slot] = self._prefill_start[slot]
                     emit[slot] = last
                 self._sync_table()
                 fused = self._step(torch.from_numpy(mat).to(self.device),
@@ -1230,6 +1512,12 @@ class SlotServer:
                 fused = self._step(self.tok[:, None], n_vec, reset,
                                    reset_val, emit)
                 steps += 1
+            if self._prefix is not None:
+                # The tick's final chunks completed their prompts in the
+                # cache: publish them (staged chunks published already).
+                for slot, _, last in plan:
+                    if last:
+                        self._publish_prefix(slot)
 
             awaits = [i for i, st in enumerate(self._slot_state)
                       if st == "await"]
@@ -1329,6 +1617,25 @@ class SlotServer:
                     # This rank's pool rows, its drop block aside.
                     pool_bytes_rank=self.pool_bytes(),
                 )
+        prefix_snap: Dict[str, Any] = {}
+        if self._prefix is not None:
+            p1 = self.prefix_stats()
+            reused = p1["tokens_reused"] - prefix0["tokens_reused"]
+            prompt_tokens = sum(r.prompt_len for r in results)
+            prefix_snap = {
+                "hits": p1["hits"] - prefix0["hits"],
+                "misses": p1["misses"] - prefix0["misses"],
+                "tokens_reused": reused,
+                "reused_ratio": round(reused / prompt_tokens, 4)
+                if prompt_tokens else 0.0,
+                "evictions": p1["evictions"] - prefix0["evictions"],
+                "pool_blocks_used": p1["pool_blocks_used"],
+                "pool_blocks": p1["pool_blocks"],
+                # Device KV bytes the run's hits moved: 0 for exact paged
+                # hits, the gather for contiguous ones, the dequantized
+                # rows for int8 paged ones.
+                "hit_bytes_moved": self._hit_bytes_moved - hit_bytes0,
+            }
         spec_snap: Dict[str, Any] = {}
         if self._speculate:
             prop = self._spec_proposed - spec0[0]
@@ -1366,6 +1673,7 @@ class SlotServer:
             steps=steps,
             tbt_s=tbt,
             slo=self.slo.snapshot(),
+            prefix=prefix_snap,
             kv=kv_snap,
             spec=spec_snap,
         )

@@ -84,12 +84,17 @@ class RunConfig:
     slo_ttft: float = 1.0
     slo_tbt: float = 0.2
     kv_layout: str = "paged"  # paged | contiguous
-    kv_block: Optional[int] = None  # tokens per pool block (pow2; None -> 64)
+    kv_block: Optional[int] = None  # tokens per pool block (pow2; None ->
+    #                                 --prefix-block with the cache on, else 64)
     kv_blocks: Optional[int] = None  # pool blocks (None -> slots * table)
     kv_shard: str = "replicated"  # replicated | seq (shard the block pool)
     speculate: bool = False  # draft-and-verify speculative decoding
     draft_k: int = 4         # max draft tokens per slot per verify tick
     drafter: str = "ngram"   # ngram | ngram-tree | model
+    prefix_cache: bool = False  # radix prefix KV reuse across requests
+    prefix_block: int = 64   # match/publish granularity (tokens, pow2)
+    prefix_share: float = 0.0  # trace: fraction of requests sharing a prefix
+    prefix_len: int = 0      # trace: shared prefix length (tokens)
 
     # Observability.
     log_level: str = "info"
@@ -218,7 +223,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    default=d.kv_layout)
     p.add_argument("--kv-block", type=int, default=d.kv_block,
                    help="serve: tokens per KV pool block (power of two; "
-                        "default 64)")
+                        "default --prefix-block with the prefix cache on, "
+                        "else 64)")
     p.add_argument("--kv-blocks", type=int, default=d.kv_blocks,
                    help="serve: total paged pool capacity in blocks")
     p.add_argument("--kv-shard", choices=["replicated", "seq"],
@@ -246,6 +252,23 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(SpecInfer, arXiv:2305.09781; the tree variants of "
                         "the decode kernels); 'model' = a half-depth draft "
                         "transformer (same widths and vocab, --seed+3)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   default=d.prefix_cache,
+                   help="serve: reuse the KV of previously served prompt "
+                        "prefixes (a radix tree of --prefix-block spans; "
+                        "RadixAttention, arXiv:2312.07104) — paged hits "
+                        "share pool blocks, contiguous ones gather from "
+                        "the cache's own pool")
+    p.add_argument("--prefix-block", type=int, default=d.prefix_block,
+                   help="serve: prefix match/publish granularity in tokens "
+                        "(power of two; the pool block under --kv-layout "
+                        "paged)")
+    p.add_argument("--prefix-share", type=float, default=d.prefix_share,
+                   help="serve: fraction of the synthetic trace's requests "
+                        "whose prompt starts with a shared prefix")
+    p.add_argument("--prefix-len", type=int, default=d.prefix_len,
+                   help="serve: length of the trace's shared prefix in "
+                        "tokens (0 = no sharing)")
     p.add_argument("--log-level",
                    choices=["debug", "info", "warning", "error"],
                    default=d.log_level)
