@@ -237,6 +237,22 @@ failure exits non-zero:
    5's (same seed and batch); one zigzag step's wall and rank 0's device
    time by kernel group. Their times: two ranks sharing one card, not a
    scaling figure.
+   Then live HTTP serving (phase 3g, after phase 7: ``ingress_phase``):
+   the serve phase's engine behind an ``IngressServer`` on 127.0.0.1 port
+   0, ``--max-queue 4``, clients on ``http.client`` in threads of this
+   process: the 16 prompts at once (8 over SSE, 8 whole bodies, each
+   honouring 429's Retry-After), a client gone after its 4th token, a
+   deadline passed on arrival and one that expires in flight, a burst of
+   12 past the queue bound, ``POST /admin/drain`` (202), a POST after it
+   (503) and ``join()``; then ``--kv-quant int8`` with a prompt cancelled
+   after its first staged chunk and a client gone after its 2nd token.
+   Gates: every result within 0.1 of its positions' largest logits
+   (teacher-forced replay), SSE streams and whole bodies equal to their
+   results, the scripted outcomes, the drained pools leak-free, B2's tick
+   body and B3 (B5's under int8) launched, and the gates shown rejecting a
+   cancel that leaks its blocks and one streamed token swapped; client
+   TTFT and TBT p50/p95, tokens/s, status counts and the phase's wall are
+   printed beside the card's name and power limit.
 4. Time ``--mode decode`` at the reference workload (B=1, 16 heads x 128,
    64000 KV tokens, one query) through the contiguous decode kernel (B1),
    and with ``--kv-quant int8`` (B4) and ``int8-cast`` (B1 over int8 K/V);
@@ -268,6 +284,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
@@ -1609,6 +1626,458 @@ def prefix_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
                  f"{out['breakdown']['idle_share']:.4f}"
                  if busy else "device time not measured"), flush=True)
         del engine, params
+    return out
+
+
+INGRESS_ARGS = ["--max-queue", "4"]
+
+
+def _http_client(port, body, *, stream=True, retry=True, close_after=None,
+                 path="/v1/completions", timeout=300):
+    """One HTTP client of the ingress phase, on ``http.client``: POST
+    ``body`` (again after each 429, once its ``Retry-After`` passed, when
+    ``retry``), then read the SSE stream (closing the socket after
+    ``close_after`` tokens) or the whole body. Returns the statuses seen,
+    the ``Retry-After`` values, and for the accepted POST its uid, tokens,
+    finish reason, the seconds from the POST to the first token event and
+    between token events."""
+    import http.client
+
+    out = {"statuses": [], "retry_after": [], "uid": None, "tokens": [],
+           "finish": None, "ttft_s": None, "gaps_s": []}
+    if not stream:
+        body = {**body, "stream": False}
+    while True:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+        t_post = time.monotonic()
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out["statuses"].append(resp.status)
+        if resp.status == 429 and retry:
+            wait = int(resp.getheader("Retry-After"))
+            out["retry_after"].append(wait)
+            resp.read()
+            conn.close()
+            time.sleep(wait)
+            continue
+        break
+    if resp.status == 429:
+        out["retry_after"].append(int(resp.getheader("Retry-After")))
+    if resp.status != 200:
+        out["body"] = resp.read().decode()
+        conn.close()
+        return out
+    if not stream:
+        whole = json.loads(resp.read())
+        conn.close()
+        out["uid"] = int(whole["id"].split("-")[1])
+        out["tokens"] = whole["choices"][0]["token_ids"]
+        out["finish"] = whole["choices"][0]["finish_reason"]
+        return out
+    last = None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        line = line.strip()
+        if not line.startswith(b"data: "):
+            continue
+        if line[6:] == b"[DONE]":
+            break
+        ev = json.loads(line[6:])
+        now = time.monotonic()
+        out["uid"] = int(ev["id"].split("-")[1])
+        ch = ev["choices"][0]
+        if ch["token_ids"]:
+            if last is None:
+                out["ttft_s"] = now - t_post
+            else:
+                out["gaps_s"].append(now - last)
+            last = now
+            out["tokens"].extend(ch["token_ids"])
+        if ch["finish_reason"] is not None:
+            out["finish"] = ch["finish_reason"]
+        if close_after is not None and len(out["tokens"]) >= close_after:
+            break  # vanish mid-stream: the server's next write fails
+    resp.close()
+    conn.close()
+    return out
+
+
+def _in_threads(calls):
+    """Run each ``(fn, kwargs)`` on a thread of its own, all started
+    together; their results in order."""
+    import threading
+
+    res = [None] * len(calls)
+
+    def run(i, fn, kw):
+        res[i] = fn(**kw)
+
+    threads = [threading.Thread(target=run, args=(i, fn, kw))
+               for i, (fn, kw) in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return res
+
+
+def leaks_clean(lr) -> bool:
+    """The drained engine holds no request's blocks, reservation or pin:
+    the pool holds only the prefix tree's blocks (none without it)."""
+    return (lr["blocks_private"] == 0 and lr["blocks_reserved"] == 0
+            and lr["pins"] == 0 and lr["blocks_used"] == lr["blocks_cached"])
+
+
+@contextlib.contextmanager
+def ingress_faults(fault):
+    """Plant one of two faults for the ingress gates to reject:
+    ``"leak"`` — a cancel's retire forgets the slot's private blocks
+    instead of freeing them; ``"swap"`` — the third token delivered to a
+    stream is replaced by the next token id."""
+    from tree_attention_tpu_torch.serving import engine
+
+    cls = engine.SlotServer
+    retire, deliver = cls._retire, cls._deliver_token
+    seen = {"delivered": 0}
+
+    def leaky(self, slot, tick, outcome, results):
+        if outcome == engine.OUTCOME_CANCELLED:
+            self._slot_private[slot] = set()
+        return retire(self, slot, tick, outcome, results)
+
+    def swapped(self, req, tok):
+        seen["delivered"] += 1
+        if seen["delivered"] == 3:
+            tok = (tok + 1) % self.cfg.vocab_size
+        return deliver(self, req, tok)
+
+    if fault == "leak":
+        cls._retire = leaky
+    else:
+        cls._deliver_token = swapped
+    try:
+        yield
+    finally:
+        cls._retire, cls._deliver_token = retire, deliver
+
+
+def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
+                  ingress_args=INGRESS_ARGS, deadline_s=0.5) -> dict:
+    """Phase 3g: live HTTP serving. An :class:`IngressServer` (port 0 on
+    127.0.0.1) over the serve phase's engine (``cli.build_server`` on
+    ``serve_args`` + ``ingress_args``), its clients threads of this
+    process on ``http.client``:
+
+    (a) the serve phase's 16 prompts, greedy, 8 over SSE and 8 whole
+        bodies, all at once, each honouring 429's ``Retry-After``;
+    (b) one SSE client that closes its socket after its 4th token;
+    (c) one request whose deadline has passed on arrival and one (a short
+        prompt, long budget) whose ``deadline_s`` expires in flight;
+    (d) a burst of 12 past the queue bound, taking its 429s;
+    (e) ``POST /admin/drain`` (202), a POST after it (503), ``join()``;
+    (f) the same over ``--kv-quant int8``: one prompt cancelled while it
+        stages (``SlotServer.cancel``, the handlers' seam, called on the
+        engine thread right after the prompt's first staged chunk, as an
+        ``on_token`` callback would), one client gone after its 2nd token,
+        two served.
+
+    Gates: every result's tokens within ``tol_logits`` of their position's
+    largest logit (:func:`replay_margin`); each SSE stream and whole body
+    equal to its result's tokens (a vanished client's read tokens a prefix
+    of them); outcomes as scripted; the drained engine leak-free (exact and
+    int8); B2's tick body and B3 launched (B5's tick body and B3 under
+    int8), read from the wrappers' counts, set to 0 before each ingress
+    starts and read after its ``join()``; and the two faults of
+    :func:`ingress_faults` rejected. Client TTFT (POST to the first token
+    event) and TBT p50/p95, tokens/s, the status counts and the wall are
+    printed beside ``card``."""
+    import torch
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.obs import percentile
+    from tree_attention_tpu_torch.serving import (
+        IngressServer,
+        synthetic_trace,
+    )
+    from tree_attention_tpu_torch.utils.config import parse_args
+
+    on_card = dev.type == "cuda"
+    t_phase = time.monotonic()
+
+    def pctl(vals, p):
+        return percentile(sorted(vals), p)
+
+    def counts():
+        c = {n: w.launches for n, w in wrappers.items()}
+        for n, w in wrappers.items():
+            for extra in ("tiled_launches", "tick_launches"):
+                if getattr(w, extra, 0):
+                    c[n + "_" + extra.replace("_launches", "")] = getattr(
+                        w, extra)
+        return c
+
+    def start(server, keepalive_s=0.02):
+        reset_counts()
+        srv = IngressServer(server, max_queue=c.max_queue,
+                            default_max_tokens=c.max_new_tokens,
+                            keepalive_s=keepalive_s)
+        return srv, srv.start()
+
+    def finish(srv):
+        """Drain over HTTP, a POST after it, join; the report, the two
+        statuses and the launches."""
+        d = _http_client(srv.port, {}, path="/admin/drain", stream=False)
+        late = _http_client(srv.port, {"prompt": [1, 2], "max_tokens": 2},
+                            retry=False)
+        rep = srv.join(timeout=300)
+        if on_card:
+            torch.cuda.synchronize()
+        launches = counts()
+        srv.stop()
+        if rep is None:
+            fail(f"ingress: the engine did not drain ({srv.engine_error!r})")
+        return rep, d["statuses"], late["statuses"], launches
+
+    def check_streams(clients, rep, label):
+        """Every client's tokens against its result; returns the results
+        by uid."""
+        by_uid = {r.uid: r for r in rep.results}
+        for cl in clients:
+            if cl["uid"] is None:
+                continue
+            res = list(map(int, by_uid[cl["uid"]].tokens))
+            if cl.get("closed"):
+                ok = res[:len(cl["tokens"])] == cl["tokens"]
+            else:
+                ok = res == cl["tokens"]
+            if not ok:
+                return False, f"{label}: uid {cl['uid']} streamed " \
+                    f"{cl['tokens']} but its result holds {res}"
+        return True, None
+
+    def margin(server, rep, prompts, quant):
+        done = [r for r in rep.results if r.tokens]
+        reqs = [types.SimpleNamespace(uid=r.uid, prompt=prompts[r.uid])
+                for r in done]
+        return replay_margin(server.params, server.cfg, done, reqs, quant,
+                             "paged", dev, server.kv_block)
+
+    c = parse_args(serve_args + ingress_args)
+    trace = synthetic_trace(
+        c.requests, prompt_len=c.prompt_len, prompt_jitter=c.prompt_jitter,
+        max_new_tokens=c.max_new_tokens, arrival_every=c.arrival_every,
+        vocab_size=c.vocab_size, seed=c.seed + 1)
+    prompts = [[int(t) for t in r.prompt] for r in trace]
+    n_new = c.max_new_tokens
+    out = {"card": card}
+
+    # -- exact: (a)-(e) ----------------------------------------------------
+    server, cache_len, _ = cli.build_server(c, dev)
+    srv, port = start(server)
+    t0 = time.monotonic()
+    a = _in_threads([(_http_client, dict(
+        port=port, body={"prompt": p, "max_tokens": n_new},
+        stream=i % 2 == 0)) for i, p in enumerate(prompts)])
+    a_wall = time.monotonic() - t0
+    b = _http_client(port, {"prompt": prompts[0], "max_tokens": n_new},
+                     close_after=4)
+    b["closed"] = True
+    short = prompts[1][:16]
+    c_late = _in_threads([
+        (_http_client, dict(port=port, body={
+            "prompt": prompts[2], "max_tokens": n_new, "deadline_s": 1e-6})),
+        (_http_client, dict(port=port, body={
+            "prompt": short, "max_tokens": cache_len - len(short) - 8,
+            "deadline_s": deadline_s}))])
+    d = _in_threads([(_http_client, dict(
+        port=port, body={"prompt": prompts[i % len(prompts)],
+                         "max_tokens": 8}, retry=False))
+        for i in range(12)])
+    rep, drain_st, late_st, launches = finish(srv)
+    by_prompt = {}
+    for cl, p in zip(a, prompts):
+        by_prompt[cl["uid"]] = p
+    by_prompt[b["uid"]] = prompts[0]
+    by_prompt[c_late[0]["uid"]] = prompts[2]
+    by_prompt[c_late[1]["uid"]] = short
+    for i, cl in enumerate(d):
+        if cl["uid"] is not None:
+            by_prompt[cl["uid"]] = prompts[i % len(prompts)]
+    res = {r.uid: r for r in rep.results}
+    ttft = [cl["ttft_s"] for cl in a if cl["ttft_s"] is not None]
+    gaps = [g for cl in a for g in cl["gaps_s"]]
+    statuses = {}
+    for cl in a + [b] + c_late + d:
+        for s in cl["statuses"]:
+            statuses[str(s)] = statuses.get(str(s), 0) + 1
+    toks_a = sum(len(cl["tokens"]) for cl in a)
+    # What HTTP adds to TTFT: each SSE client's (POST to first token event)
+    # less the engine's own TTFT of the same request (submission to the
+    # tick's fetch).
+    http_gap = [cl["ttft_s"] - res[cl["uid"]].ttft_s for cl in a
+                if cl["ttft_s"] is not None]
+    exact = {
+        "ttft_p50_s": pctl(ttft, 0.5), "ttft_p95_s": pctl(ttft, 0.95),
+        "engine_ttft_p50_s": pctl([res[cl["uid"]].ttft_s for cl in a
+                                    if cl["ttft_s"] is not None], 0.5),
+        "http_ttft_over_engine_p50_s": pctl(http_gap, 0.5),
+        "http_ttft_over_engine_max_s": max(http_gap),
+        "tbt_p50_s": pctl(gaps, 0.5), "tbt_p95_s": pctl(gaps, 0.95),
+        "tokens_per_sec": toks_a / a_wall, "wave_wall_s": a_wall,
+        "client_statuses": statuses,
+        "retry_after_s": sorted({r for cl in a + d
+                                 for r in cl["retry_after"]}),
+        "drain_status": drain_st, "post_after_drain": late_st,
+        "outcomes": rep.outcomes, "engine": rep.as_dict(),
+        "leaks": server.leak_report(), "launches": launches,
+        "replay_margin": margin(server, rep, by_prompt, False),
+        "cancelled_tokens": len(res[b["uid"]].tokens),
+        "deadline_in_flight_tokens": len(res[c_late[1]["uid"]].tokens),
+    }
+    out["exact"] = exact
+    print(f"ingress (exact, 8 slots, max queue {c.max_queue}; {card}): "
+          f"client TTFT p50/p95 {exact['ttft_p50_s']:.4f} / "
+          f"{exact['ttft_p95_s']:.4f} s (over the engine's own TTFT of the "
+          f"same requests: p50 {exact['http_ttft_over_engine_p50_s']:.4f}, "
+          f"max {exact['http_ttft_over_engine_max_s']:.4f} s), TBT p50/p95 "
+          f"{exact['tbt_p50_s']:.5f} / {exact['tbt_p95_s']:.5f} s, "
+          f"{exact['tokens_per_sec']:.1f} tok/s over the 16-request wave "
+          f"({a_wall:.2f} s); statuses {json.dumps(statuses)} (drain "
+          f"{drain_st}, a POST after it {late_st}), Retry-After "
+          f"{exact['retry_after_s']}; outcomes {json.dumps(rep.outcomes)}; "
+          f"leaks {json.dumps(exact['leaks'])}; replay margin "
+          f"{exact['replay_margin']:.3e} (tol {tol_logits}); launches "
+          f"{json.dumps(launches)}", flush=True)
+    ok, why = check_streams(a + [b] + c_late + d, rep, "ingress (exact)")
+    if not ok:
+        fail(why)
+    want = {cl["uid"]: "budget" for cl in a}
+    want[b["uid"]] = "cancelled"
+    want[c_late[0]["uid"]] = want[c_late[1]["uid"]] = "deadline"
+    for cl in d:
+        if cl["uid"] is not None:
+            want[cl["uid"]] = "budget"
+    got = {u: res[u].outcome for u in want}
+    if got != want or any(len(res[cl["uid"]].tokens) != n_new for cl in a):
+        fail(f"ingress (exact): outcomes {got}, scripted {want}")
+    if not (4 <= exact["cancelled_tokens"] < n_new
+            and res[c_late[0]["uid"]].admit_tick == -1
+            and 1 <= exact["deadline_in_flight_tokens"]
+            < cache_len - len(short) - 8):
+        fail(f"ingress (exact): cancelled with {exact['cancelled_tokens']} "
+             f"tokens, deadline on arrival admitted at "
+             f"{res[c_late[0]['uid']].admit_tick}, deadline in flight with "
+             f"{exact['deadline_in_flight_tokens']} tokens")
+    if not any(429 in cl["statuses"] for cl in d) or not all(
+            r >= 1 for cl in d for r in cl["retry_after"]) or \
+            drain_st != [202] or late_st != [503]:
+        fail(f"ingress (exact): statuses {statuses}, drain {drain_st}, "
+             f"POST after the drain {late_st}")
+    if not leaks_clean(exact["leaks"]):
+        fail(f"ingress (exact) leaked: {exact['leaks']}")
+    if not exact["replay_margin"] <= tol_logits:
+        fail(f"ingress (exact): an emitted token is "
+             f"{exact['replay_margin']} below its position's largest logit")
+    if on_card and not (launches.get("flash_decode_paged_tick")
+                        and launches["flash_fwd"]):
+        fail(f"ingress (exact): launches {launches}")
+
+    # -- the gates' teeth: a leaking cancel, a swapped streamed token ------
+    teeth = {}
+    for fault in ("leak", "swap"):
+        with ingress_faults(fault):
+            srv, port = start(server)
+            cl = _http_client(port, {"prompt": prompts[3],
+                                     "max_tokens": 16},
+                              close_after=2 if fault == "leak" else None)
+            cl["closed"] = fault == "leak"
+            frep = finish(srv)[0]
+        if fault == "leak":
+            lr = server.leak_report()
+            teeth[fault] = {"leaks": lr, "rejected": not leaks_clean(lr)}
+        else:
+            okf, why = check_streams([cl], frep, "planted swap")
+            teeth[fault] = {"rejected": not okf, "why": why}
+        print(f"ingress, planted fault {fault!r}: {json.dumps(teeth[fault])}"
+              f" (the gate must reject it)", flush=True)
+        if not teeth[fault]["rejected"]:
+            fail(f"ingress: the gate passed the planted fault {fault!r}")
+    out["faults"] = teeth
+    del server, srv
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (f) int8 -----------------------------------------------------------
+    c8 = parse_args(serve_args + ingress_args + ["--kv-quant", "int8"])
+    server, _, _ = cli.build_server(c8, dev)
+    srv, port = start(server)
+    staged = {}
+    run_staged = server._run_staged_chunk
+
+    def staged_then_cancel(slot, n, last):
+        """The first staged prompt is cancelled after its first chunk: the
+        next sweep retires it mid-stage."""
+        run_staged(slot, n, last)
+        if not staged and not last:
+            staged.update(server.slots_snapshot()[slot])
+            server.cancel(staged["uid"])
+
+    server._run_staged_chunk = staged_then_cancel
+    f1 = _http_client(port, {"prompt": prompts[4], "max_tokens": 16})
+    del server._run_staged_chunk
+    f2 = _http_client(port, {"prompt": prompts[5], "max_tokens": n_new},
+                      close_after=2)
+    f2["closed"] = True
+    f3 = _in_threads([(_http_client, dict(
+        port=port, body={"prompt": prompts[i], "max_tokens": 16},
+        stream=i % 2 == 0)) for i in (6, 7)])
+    rep8, drain8, late8, launches8 = finish(srv)
+    res8 = {r.uid: r for r in rep8.results}
+    prom8 = {f1["uid"]: prompts[4], f2["uid"]: prompts[5],
+             f3[0]["uid"]: prompts[6], f3[1]["uid"]: prompts[7]}
+    int8 = {
+        "staged_cancel": {"uid": f1["uid"], "snapshot": staged,
+                          "outcome": res8[f1["uid"]].outcome,
+                          "tokens": len(res8[f1["uid"]].tokens),
+                          "admit_tick": res8[f1["uid"]].admit_tick},
+        "tick_cancel_tokens": len(res8[f2["uid"]].tokens),
+        "outcomes": rep8.outcomes, "engine": rep8.as_dict(),
+        "leaks": server.leak_report(), "launches": launches8,
+        "drain_status": drain8, "post_after_drain": late8,
+        "replay_margin": margin(server, rep8, prom8, True),
+    }
+    out["int8"] = int8
+    print(f"ingress (int8; {card}): staged cancel "
+          f"{json.dumps(int8['staged_cancel'])}; client gone after 2 tokens "
+          f"retired with {int8['tick_cancel_tokens']}; outcomes "
+          f"{json.dumps(rep8.outcomes)}; leaks {json.dumps(int8['leaks'])}; "
+          f"replay margin {int8['replay_margin']:.3e}; launches "
+          f"{json.dumps(launches8)}", flush=True)
+    ok, why = check_streams([f1, f2] + f3, rep8, "ingress (int8)")
+    if not ok:
+        fail(why)
+    want8 = {f1["uid"]: "cancelled", f2["uid"]: "cancelled",
+             f3[0]["uid"]: "budget", f3[1]["uid"]: "budget"}
+    if {u: res8[u].outcome for u in want8} != want8 or \
+            staged.get("uid") != f1["uid"] or res8[f1["uid"]].tokens or \
+            res8[f1["uid"]].admit_tick < 0 or \
+            not 2 <= int8["tick_cancel_tokens"] < n_new:
+        fail(f"ingress (int8): {json.dumps(int8['staged_cancel'])}, "
+             f"outcomes {rep8.outcomes}, scripted {want8}")
+    if not leaks_clean(int8["leaks"]):
+        fail(f"ingress (int8) leaked: {int8['leaks']}")
+    if not int8["replay_margin"] <= tol_logits:
+        fail(f"ingress (int8): an emitted token is "
+             f"{int8['replay_margin']} below its position's largest logit")
+    if on_card and not (launches8.get("flash_decode_paged_q8q_tick")
+                        and launches8["flash_fwd"]):
+        fail(f"ingress (int8): launches {launches8}")
+    del server, srv
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"ingress phase wall {out['wall_s']:.2f}s ({card})", flush=True)
     return out
 
 
@@ -4581,6 +5050,13 @@ def main() -> None:
     del state, step, batch
     torch.cuda.empty_cache()
 
+    # -- 3g. live HTTP serving --------------------------------------------
+    # The serve phase's engine behind the HTTP ingress, exact then int8:
+    # SSE and whole-body clients, a disconnect, deadlines, 429s, a drain.
+    ingress = ingress_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
+                            TOL_LOGITS)
+    torch.cuda.empty_cache()
+
     # -- 8. report -------------------------------------------------------
     csrc = "tree_attention_tpu_torch/csrc/"
     meta = {
@@ -4756,6 +5232,13 @@ def main() -> None:
                     if r["launches"].get(name)}
         if by_serve:
             entry["launches_prefix_serves"] = by_serve
+        # The ingress phase's launches of this kernel (its own counts, set
+        # to 0 before each ingress starts, read after its drain).
+        by_ingress = {label: ingress[label]["launches"][name]
+                      for label in ("exact", "int8")
+                      if ingress[label]["launches"].get(name)}
+        if by_ingress:
+            entry["launches_ingress"] = by_ingress
         if name.startswith("flash_decode"):
             # Which body ran the head case (cuda_decode.decode_body: every
             # variant but f32 with more than one packed row or a tree takes
@@ -4873,7 +5356,7 @@ def main() -> None:
                    "ptxas": ptxas, "hgmma_sass": hgmma, "tile_edges": edges,
                    "one_key_rows": one_key_rows, "dlse_bwd": dlse_bwd,
                    "sharded_train": trained, "prefix": prefix,
-                   "kernels": kernels}, f, indent=1)
+                   "ingress": ingress, "kernels": kernels}, f, indent=1)
     print(f"chip_smoke: total wall {time.monotonic() - t_start:.1f}s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

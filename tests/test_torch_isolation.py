@@ -27,6 +27,7 @@ PORT_MODULES = [
     "tree_attention_tpu_torch.obs",
     "tree_attention_tpu_torch.obs.metrics",
     "tree_attention_tpu_torch.obs.slo",
+    "tree_attention_tpu_torch.obs.tracing",
     "tree_attention_tpu_torch.ops",
     "tree_attention_tpu_torch.ops._build",
     "tree_attention_tpu_torch.ops.block_utils",
@@ -44,10 +45,12 @@ PORT_MODULES = [
     "tree_attention_tpu_torch.serving",
     "tree_attention_tpu_torch.serving.block_pool",
     "tree_attention_tpu_torch.serving.engine",
+    "tree_attention_tpu_torch.serving.ingress",
     "tree_attention_tpu_torch.serving.prefix_cache",
     "tree_attention_tpu_torch.serving.speculation",
     "tree_attention_tpu_torch.utils",
     "tree_attention_tpu_torch.utils.config",
+    "tree_attention_tpu_torch.utils.httpd",
     "tree_attention_tpu_torch.utils.logging",
     "tree_attention_tpu_torch.utils.profiling",
 ]
@@ -57,6 +60,7 @@ def _run(args, **kw):
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "CUDA_VISIBLE_DEVICES")}
     env["PYTHONPATH"] = ROOT
+    env["OMP_NUM_THREADS"] = "1"  # tiny shapes: one intra-op thread
     return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120, **kw)
 

@@ -40,14 +40,20 @@ def _np_tree(tree):
 
 
 @pytest.fixture(scope="module")
+def flagship():
+    """The JAX flagship's parameters (bf16) as numpy, drawn once."""
+    return _np_tree(jm.init_params(jax.random.PRNGKey(1),
+                                   __graft_entry__._flagship()))
+
+
+@pytest.fixture(scope="module")
 def small():
     jp = jm.init_params(jax.random.PRNGKey(0), J_SMALL)
     return jp, tm.params_from_jax(_np_tree(jp), device="cpu")
 
 
-def test_params_from_jax_round_trip():
-    jp = _np_tree(jm.init_params(jax.random.PRNGKey(1),
-                                 __graft_entry__._flagship()))
+def test_params_from_jax_round_trip(flagship):
+    jp = flagship
     tp = tm.params_from_jax(jp, device="cpu")
 
     def bits(t):
@@ -67,7 +73,8 @@ def test_params_from_jax_round_trip():
         np.testing.assert_array_equal(bits(t), ref, err_msg=name)
 
 
-def test_forward_matches_jax_flagship():
+def test_forward_matches_jax_flagship(flagship):
+    """The flagship in float32, on its bf16 parameters widened."""
     jcfg = dataclasses.replace(__graft_entry__._flagship(), dtype=jnp.float32)
     tcfg = tm.TransformerConfig(
         vocab_size=jcfg.vocab_size, d_model=jcfg.d_model,
@@ -75,8 +82,9 @@ def test_forward_matches_jax_flagship():
         n_kv_heads=jcfg.n_kv_heads, d_head=jcfg.d_head, d_ff=jcfg.d_ff,
         dtype=torch.float32,
     )
-    jp = jm.init_params(jax.random.PRNGKey(2), jcfg)
-    tp = tm.params_from_jax(_np_tree(jp), device="cpu")
+    np_params = jax.tree.map(lambda a: a.astype(np.float32), flagship)
+    jp = jax.tree.map(jnp.asarray, np_params)
+    tp = tm.params_from_jax(np_params, device="cpu")
     toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 48))
     ref = np.asarray(jm.forward(jp, jnp.asarray(toks, jnp.int32), jcfg))
     got = tm.forward(tp, torch.from_numpy(toks), tcfg).numpy()

@@ -6,6 +6,11 @@ with the same float32 parameters, on the paged and the contiguous layouts,
 including a trace whose prompt chunks ride the Tq >= 128 bucket (the
 gather-then-B3 route of the port). The block allocator is held against the
 JAX allocator op for op, and every drained engine reports no leaked blocks.
+
+JAX engines are module-cached per configuration (each pays its own jit
+compiles). The port's contiguous serve is held to the JAX paged engine's
+tokens for the same trace: the JAX suite holds its two layouts
+token-identical (``tests/test_serving_paged.py``).
 """
 
 import jax
@@ -34,19 +39,19 @@ T_CFG = tm.TransformerConfig(
     d_head=16, d_ff=192, dtype=torch.float32,
 )
 
-# (name, engine kwargs, trace kwargs)
+# (name, engine kwargs, trace kwargs, the JAX reference's case)
 CASES = {
     "paged": (dict(slots=3, cache_len=32, prefill_chunk=8, kv_block=8),
               dict(n_requests=6, prompt_len=20, prompt_jitter=6,
-                   max_new_tokens=5)),
+                   max_new_tokens=5), "paged"),
     "contiguous": (dict(slots=3, cache_len=32, prefill_chunk=8,
                         kv_layout="contiguous"),
                    dict(n_requests=6, prompt_len=20, prompt_jitter=6,
-                        max_new_tokens=5)),
+                        max_new_tokens=5), "paged"),
     "paged-chunk128": (dict(slots=2, cache_len=164, prefill_chunk=128,
                             kv_block=16),
                        dict(n_requests=3, prompt_len=150, prompt_jitter=10,
-                            max_new_tokens=4)),
+                            max_new_tokens=4), "paged-chunk128"),
 }
 
 
@@ -60,15 +65,37 @@ def _tokens(report):
     return {r.uid: list(map(int, r.tokens)) for r in report.results}
 
 
+_JAX = {}
+
+
+def _jax_engine(jp, case):
+    """The JAX engine of ``case``'s configuration, built once."""
+    if case not in _JAX:
+        _JAX[case] = js.SlotServer(jp, J_CFG, **CASES[case][0])
+    return _JAX[case]
+
+
+_REFS = {}
+
+
+def _jax_ref(jp, case):
+    """The JAX engine's serve of ``case``'s trace, served once."""
+    if case not in _REFS:
+        _REFS[case] = _jax_engine(jp, case).serve(
+            js.synthetic_trace(vocab_size=256, seed=1, **CASES[case][1]))
+    return _REFS[case]
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_slot_server_greedy_token_identical(params, case):
     jp, tp = params
-    engine_kw, trace_kw = CASES[case]
+    engine_kw, trace_kw, ref_case = CASES[case]
+    assert CASES[ref_case][1] == trace_kw  # the same trace
     jtrace = js.synthetic_trace(vocab_size=256, seed=1, **trace_kw)
     ttrace = ts.synthetic_trace(vocab_size=256, seed=1, **trace_kw)
     for a, b in zip(jtrace, ttrace):
         np.testing.assert_array_equal(a.prompt, b.prompt)
-    ref = js.SlotServer(jp, J_CFG, **engine_kw).serve(jtrace)
+    ref = _jax_ref(jp, ref_case)
     server = ts.SlotServer(tp, T_CFG, **engine_kw)
     got = server.serve(ttrace)
     assert _tokens(got) == _tokens(ref)
@@ -111,19 +138,16 @@ def test_over_subscribed_pool_defers_and_drains(params):
 
 
 def test_eos_retires_early(params):
+    """On the paged case's engines (the JAX one module-cached)."""
     jp, tp = params
     trace_kw = dict(n_requests=3, prompt_len=8, max_new_tokens=6,
                     vocab_size=256, seed=6)
-    probe = ts.SlotServer(tp, T_CFG, slots=2, cache_len=24,
-                          prefill_chunk=8).serve(
-        ts.synthetic_trace(**trace_kw))
+    server = ts.SlotServer(tp, T_CFG, **CASES["paged"][0])
+    probe = server.serve(ts.synthetic_trace(**trace_kw))
     eos = probe.results[0].tokens[2]  # a token the model does emit
-    ref = js.SlotServer(jp, J_CFG, slots=2, cache_len=24,
-                        prefill_chunk=8).serve(
+    ref = _jax_engine(jp, "paged").serve(
         js.synthetic_trace(eos_id=eos, **trace_kw))
-    got = ts.SlotServer(tp, T_CFG, slots=2, cache_len=24,
-                        prefill_chunk=8).serve(
-        ts.synthetic_trace(eos_id=eos, **trace_kw))
+    got = server.serve(ts.synthetic_trace(eos_id=eos, **trace_kw))
     assert _tokens(got) == _tokens(ref)
     assert got.outcomes == ref.outcomes
     assert "eos" in got.outcomes

@@ -12,7 +12,9 @@ one JSON record on stdout:
 tokens, 16 heads x 128, one query by default) with CUDA events (over an int8
 cache with ``--kv-quant``); ``generate``
 prefills a random prompt and decodes; ``serve`` drains a synthetic request
-trace through the continuous-batching :class:`SlotServer`; ``train`` takes
+trace through the continuous-batching :class:`SlotServer`, or with
+``--serve-http PORT`` serves live HTTP clients until SIGTERM drains it
+(:class:`~tree_attention_tpu_torch.serving.IngressServer`); ``train`` takes
 ``--steps`` optimizer steps on random next-token batches (with
 ``--ckpt-dir``/``--resume`` checkpointing) and times one more. Everything
 runs on the GPU unless ``--device cpu`` is given; with no usable GPU the CLI
@@ -45,6 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from tree_attention_tpu_torch import obs
 from tree_attention_tpu_torch.obs.metrics import TRAIN_STEPS, TRAIN_TOKENS
 from tree_attention_tpu_torch.parallel.mesh import (
     AXIS_SEQ,
@@ -380,16 +383,15 @@ def run_generate(cfg: RunConfig, dev: torch.device) -> Dict[str, Any]:
             **({"kv_quant": cfg.kv_quant} if kernel else {})}
 
 
-def run_serve(cfg: RunConfig, dev: torch.device,
-              mesh: Optional[Mesh] = None
-              ) -> Tuple[Dict[str, Any], Any, Any]:
-    """Drain a synthetic trace through the SlotServer; returns the JSON
-    record, the drained server and its ``ServeReport``. Under a mesh every
-    rank serves the same trace; with ``--kv-shard seq`` from its slice of
-    the sharded pool. The ranks' token streams are checked equal at the end
-    (one all-reduce)."""
+def build_server(cfg: RunConfig, dev: torch.device,
+                 mesh: Optional[Mesh] = None) -> Tuple[Any, int, str]:
+    """The serve mode's engine from the flags: the model from ``--seed``,
+    slots sized from ``--prompt-len`` + ``--prompt-jitter`` +
+    ``--max-new-tokens``. Returns ``(server, cache_len, kernel)``,
+    ``kernel`` the q8 route or None. Every flag check of serve mode
+    happens here and exits with its message."""
     from tree_attention_tpu_torch.models import init_params, round_cache_len
-    from tree_attention_tpu_torch.serving import SlotServer, synthetic_trace
+    from tree_attention_tpu_torch.serving import SlotServer
 
     if cfg.max_new_tokens < 1:
         raise SystemExit("--max-new-tokens must be >= 1")
@@ -430,6 +432,10 @@ def run_serve(cfg: RunConfig, dev: torch.device,
             f"--prefix-block {cfg.prefix_block} must equal --kv-block "
             f"{cfg.kv_block} under --kv-layout paged (or pass only one "
             f"of them)")
+    if cfg.max_queue < 1:
+        raise SystemExit("--max-queue must be >= 1")
+    if cfg.default_deadline is not None and cfg.default_deadline <= 0:
+        raise SystemExit("--default-deadline must be > 0 seconds")
     kernel = check_kv_quant(cfg)
     cache_len = round_cache_len(
         cfg.prompt_len + cfg.prompt_jitter + cfg.max_new_tokens, mesh)
@@ -469,6 +475,39 @@ def run_serve(cfg: RunConfig, dev: torch.device,
         )
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}") from None
+    return server, cache_len, kernel
+
+
+def _serve_record(cfg: RunConfig, dev: torch.device, cache_len: int,
+                  kernel: Optional[str]) -> Dict[str, Any]:
+    """The serve record's fields that describe the engine."""
+    return {
+        "mode": "serve",
+        "device": device_name(dev),
+        "slots": cfg.slots,
+        "cache_len": cache_len,
+        "prefill_chunk": cfg.prefill_chunk,
+        "kv_layout": cfg.kv_layout,
+        **({"kv_quant": cfg.kv_quant} if kernel else {}),
+        **({"speculate": {"draft_k": cfg.draft_k, "drafter": cfg.drafter}}
+           if cfg.speculate else {}),
+        **({"prefix_cache": {"block": cfg.prefix_block}}
+           if cfg.prefix_cache else {}),
+    }
+
+
+def run_serve(cfg: RunConfig, dev: torch.device,
+              mesh: Optional[Mesh] = None
+              ) -> Tuple[Dict[str, Any], Any, Any]:
+    """Drain a synthetic trace through the SlotServer; returns the JSON
+    record, the drained server and its ``ServeReport``. Under a mesh every
+    rank serves the same trace; with ``--kv-shard seq`` from its slice of
+    the sharded pool. The ranks' token streams are checked equal at the end
+    (one all-reduce)."""
+    from tree_attention_tpu_torch.serving import synthetic_trace
+
+    server, cache_len, kernel = build_server(cfg, dev, mesh)
+    tcfg = server.cfg
     trace = synthetic_trace(
         cfg.requests, prompt_len=cfg.prompt_len,
         prompt_jitter=cfg.prompt_jitter, max_new_tokens=cfg.max_new_tokens,
@@ -485,22 +524,53 @@ def run_serve(cfg: RunConfig, dev: torch.device,
         mesh_rec = {**_mesh_record(cfg, mesh, dev),
                     "kv_shard": cfg.kv_shard}
     record = {
-        "mode": "serve",
-        "device": device_name(dev),
-        "slots": cfg.slots,
-        "cache_len": cache_len,
-        "prefill_chunk": cfg.prefill_chunk,
-        "kv_layout": cfg.kv_layout,
-        **({"kv_quant": cfg.kv_quant} if kernel else {}),
-        **({"speculate": {"draft_k": cfg.draft_k, "drafter": cfg.drafter}}
-           if cfg.speculate else {}),
-        **({"prefix_cache": {"block": cfg.prefix_block}}
-           if cfg.prefix_cache else {}),
+        **_serve_record(cfg, dev, cache_len, kernel),
         **mesh_rec,
         **report.as_dict(),
         "leaks": server.leak_report(),
     }
     return record, server, report
+
+
+def run_serve_http(cfg: RunConfig, dev: torch.device) -> Optional[
+        Dict[str, Any]]:
+    """``--serve-http``: serve live HTTP clients through the
+    :class:`~tree_attention_tpu_torch.serving.IngressServer` until SIGTERM
+    or SIGINT (or ``POST /admin/drain``) drains it; returns the record of
+    the drained run (the ingress's settings, the ``ServeReport``, the leak
+    report), or None if the engine thread crashed
+    instead of draining."""
+    from tree_attention_tpu_torch.serving import (
+        IngressServer,
+        install_drain_signals,
+    )
+
+    server, cache_len, kernel = build_server(cfg, dev)
+    ingress = IngressServer(
+        server, port=cfg.serve_http, max_queue=cfg.max_queue,
+        default_deadline_s=cfg.default_deadline,
+        default_max_tokens=cfg.max_new_tokens)
+    install_drain_signals(ingress)
+    port = ingress.start()
+    log.info("serving HTTP on http://127.0.0.1:%d/v1/completions (%d "
+             "slot(s), cache_len %d, max queue %d%s); SIGTERM drains", port,
+             cfg.slots, cache_len, cfg.max_queue,
+             f", default deadline {cfg.default_deadline}s"
+             if cfg.default_deadline is not None else "")
+    report = ingress.join()  # until the drain (or a crash)
+    ingress.stop()
+    if report is None:
+        # The engine thread died instead of draining: a crash must not pass
+        # for a clean exit.
+        log.error("engine loop crashed: %r", ingress.engine_error)
+        return None
+    return {
+        **_serve_record(cfg, dev, cache_len, kernel),
+        "ingress": {"port": port, "max_queue": cfg.max_queue,
+                    "default_deadline_s": cfg.default_deadline},
+        **report.as_dict(),
+        "leaks": server.leak_report(),
+    }
 
 
 def _check_ranks_agree(report, mesh: Mesh) -> None:
@@ -517,6 +587,7 @@ def main(argv: Optional[list] = None) -> int:
     axes = cfg.mesh_axes()
     mesh = None
     created = False
+    armed = False
     try:
         if axes is not None:
             # The process group forms before any device work; the rank's
@@ -538,6 +609,10 @@ def main(argv: Optional[list] = None) -> int:
                 raise SystemExit(f"error: {e}") from None
         log.info("device=%s mode=%s%s", device_name(dev), cfg.mode,
                  f" mesh={dict(mesh.shape)}" if mesh is not None else "")
+        if cfg.metrics_out or cfg.trace_events:
+            obs.configure(metrics_out=cfg.metrics_out,
+                          trace_events=cfg.trace_events)
+            armed = True
         if mesh is not None and cfg.mode == "generate" and mesh.size > 1:
             raise SystemExit(
                 "--mode generate on a mesh is a later slice of the port "
@@ -548,12 +623,25 @@ def main(argv: Optional[list] = None) -> int:
             record = run_generate(cfg, dev)
         elif cfg.mode == "train":
             record = run_train(cfg, dev, mesh)
+        elif cfg.serve_http is not None:
+            if mesh is not None:
+                raise SystemExit(
+                    "--serve-http serves one engine in one process; --mesh "
+                    "runs one process per rank, and only one of them could "
+                    "take the HTTP requests")
+            record = run_serve_http(cfg, dev)
+            if record is None:
+                return 1
         else:
             record, _, _ = run_serve(cfg, dev, mesh)
         if rank == 0:
             print(json.dumps(record))
         return 0
     finally:
+        if armed:
+            sinks = obs.shutdown()
+            if any(sinks.values()):
+                log.info("telemetry written: %s", json.dumps(sinks))
         if created:
             dist.destroy_process_group()
 

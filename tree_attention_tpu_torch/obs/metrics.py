@@ -4,16 +4,20 @@ Counterpart of ``tree_attention_tpu/obs/metrics.py`` (the same registry,
 kept as the port's own copy). The registry starts disabled; every mutation
 method's first action is one attribute check and an early return, so hot
 paths pay nothing unless a run enables telemetry. Thread-safe when enabled.
-The JSON and Prometheus exports wait for the slice that ports the metrics
-endpoint.
+:meth:`MetricsRegistry.snapshot` / :meth:`~MetricsRegistry.write_json` back
+``--metrics-out``; the Prometheus export waits for the slice that ports the
+metrics endpoint.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 import threading
+import time
 from bisect import bisect_left
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -127,6 +131,17 @@ class _Metric:
                 self._children[key] = child
         return child
 
+    def _samples(self) -> Iterable[Tuple[Dict[str, str], Any]]:
+        """(labels-dict, value-payload) pairs under the registry lock."""
+        if not self._label_names:
+            yield {}, self._value_payload()
+            return
+        for key, child in self._children.items():
+            yield dict(zip(self._label_names, key)), child._value_payload()
+
+    def _value_payload(self) -> Any:  # pragma: no cover - overridden
+        raise NotImplementedError
+
     def _guard_unlabeled(self) -> None:
         if self._label_names:
             raise ValueError(
@@ -157,6 +172,9 @@ class Counter(_Metric):
         self._guard_unlabeled()
         return self._value
 
+    def _value_payload(self) -> float:
+        return self._value
+
 
 class Gauge(_Metric):
     """A value that can go up and down (capacities, fill levels, flags)."""
@@ -181,8 +199,14 @@ class Gauge(_Metric):
         with self._lock:
             self._value += value
 
+    def dec(self, value: float = 1) -> None:
+        self.inc(-value)
+
     def value(self) -> float:
         self._guard_unlabeled()
+        return self._value
+
+    def _value_payload(self) -> float:
         return self._value
 
 
@@ -190,7 +214,8 @@ class Histogram(_Metric):
     """Fixed-bucket histogram (per-bucket counts + sum + count).
 
     Buckets are upper bounds; an implicit ``+Inf`` bucket catches the rest.
-    Counts are kept per band.
+    Counts are kept per band; the export is cumulative (the Prometheus
+    ``le`` convention).
     """
 
     _type = "histogram"
@@ -222,6 +247,14 @@ class Histogram(_Metric):
             self._counts[idx] += 1
             self._sum += value
             self._count += 1
+
+    def _value_payload(self) -> Dict[str, Any]:
+        cum, total = [], 0
+        for le, c in zip(self._buckets, self._counts):
+            total += c
+            cum.append([le, total])
+        cum.append(["+Inf", self._count])
+        return {"count": self._count, "sum": self._sum, "buckets": cum}
 
     def quantile(self, p: float) -> float:
         """Estimate the ``p``-quantile (``0 <= p <= 1``) from the bucket
@@ -329,6 +362,53 @@ class MetricsRegistry:
         return self._register(
             Histogram, name, help, labels, buckets=buckets
         )  # type: ignore
+
+    # -- export -----------------------------------------------------------
+
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-able dump of every metric (the ``--metrics-out`` payload)."""
+        from tree_attention_tpu_torch.utils.logging import _process_index
+
+        out: List[Dict[str, Any]] = []
+        with self._lock:
+            for name in sorted(self._metrics):
+                m = self._metrics[name]
+                samples = [
+                    {"labels": lbls, **(
+                        v if isinstance(v, dict) else {"value": v}
+                    )}
+                    for lbls, v in m._samples()
+                ]
+                out.append({
+                    "name": m.name, "type": m._type, "help": m.help,
+                    "samples": samples,
+                })
+        return {
+            "captured_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
+            "process_index": _process_index(),
+            "metrics": out,
+        }
+
+    def to_json(self, indent: Optional[int] = None) -> str:
+        return json.dumps(self.snapshot(), indent=indent)
+
+    def write_json(self, path: str) -> None:
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            f.write(self.to_json(indent=2))
+            f.write("\n")
+
+    # -- test support -----------------------------------------------------
+
+    def reset(self) -> None:
+        """Zero every value (keeps registrations). For tests."""
+        with self._lock:
+            for m in self._metrics.values():
+                if not m._label_names:
+                    m._init_value()
+                for child in m._children.values():
+                    child._init_value()
 
     def get(self, name: str) -> Optional[_Metric]:
         return self._metrics.get(name)

@@ -133,6 +133,15 @@ class SLOMonitor:
             self._retired += 1
         return met
 
+    def observe_miss(self) -> None:
+        """One retired request that categorically missed the SLO without
+        producing latency samples: deadline-expired, shed under load, or
+        errored. Counted as a goodput failure; its (nonexistent) latencies
+        stay out of the percentile windows."""
+        with self._lock:
+            self._met.append(False)
+            self._retired += 1
+
     # -- reading ----------------------------------------------------------
 
     def goodput(self) -> float:

@@ -2,7 +2,8 @@
 exact or int8 (``SlotServer(quantize=True)``), on one rank or over a
 sequence-sharded pool (``SlotServer(mesh=..., kv_shard="seq")``), with
 shared prompt prefixes reused through a radix tree
-(``SlotServer(prefix_cache=True)``)."""
+(``SlotServer(prefix_cache=True)``); served live over HTTP by
+:class:`IngressServer` (SSE streaming, cancellation, deadlines, drain)."""
 
 from tree_attention_tpu_torch.serving.block_pool import (  # noqa: F401
     BlockAllocator,
@@ -13,6 +14,13 @@ from tree_attention_tpu_torch.serving.prefix_cache import (  # noqa: F401
     PrefixCache,
 )
 from tree_attention_tpu_torch.serving.engine import (  # noqa: F401
+    OUTCOME_BUDGET,
+    OUTCOME_CANCELLED,
+    OUTCOME_DEADLINE,
+    OUTCOME_EOS,
+    OUTCOME_ERROR,
+    OUTCOME_SHED,
+    OUTCOMES,
     Request,
     RequestResult,
     RequestSource,
@@ -20,4 +28,9 @@ from tree_attention_tpu_torch.serving.engine import (  # noqa: F401
     SlotServer,
     StaticRequestSource,
     synthetic_trace,
+)
+from tree_attention_tpu_torch.serving.ingress import (  # noqa: F401
+    IngressServer,
+    QueueRequestSource,
+    install_drain_signals,
 )

@@ -84,18 +84,44 @@ chunk completes, the prompt's whole blocks are published.
   int8), a publish scatters the slot's new whole blocks (the staging
   cache's exact rows under int8) into the pool.
 
+**Live serving.** :meth:`SlotServer.serve` takes a pre-built trace (every
+request validated up front) or a live :class:`RequestSource` (the HTTP
+ingress's :class:`~tree_attention_tpu_torch.serving.ingress.QueueRequestSource`):
+requests appear as clients submit them, an invalid one finishes with outcome
+``error`` instead of raising, and the loop idles on
+:meth:`RequestSource.wait` between arrivals. Each tick starts with the
+control sweep: mailboxed cancellations (:meth:`~SlotServer.cancel`; queued
+requests finish unserved, in-flight ones retire mid-prefill, mid-stage or
+mid-stream), expired ``deadline_s`` (queued, then in flight), and a
+:meth:`~SlotServer.request_drain` (the source closes, the queue sheds,
+in-flight requests finish). Every exit arc retires through the one
+``_retire``, which frees exactly what a finished request frees. Per-request
+``on_token`` / ``on_finish`` callbacks run on the engine thread, fed from
+the tick's one host fetch.
+
 Left for later slices of the port (see ROADMAP): whole-prompt admission,
 speculation and the prefix cache on a mesh, forks and tree-sibling decode,
-KV tiering, disaggregation, cancellation/deadlines/drain and the HTTP
-ingress, tracing and the flight recorder.
+KV tiering, disaggregation, the flight recorder and the request ledger.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    List,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Set,
+    Tuple,
+    Union,
+)
 
 import numpy as np
 import torch
@@ -187,8 +213,17 @@ _SPEC_ACCEPT_RATIO = obs.gauge(
     "lifetime accepted/proposed draft-token ratio (set per verify tick)",
 )
 
-OUTCOME_EOS = "eos"        # sampled the request's eos_id
-OUTCOME_BUDGET = "budget"  # hit max_new_tokens
+# The one retire-outcome vocabulary: every way a request leaves the engine,
+# threaded unchanged through ``serving_requests_total{outcome}`` and
+# ``ServeReport.outcomes``.
+OUTCOME_EOS = "eos"              # sampled the request's eos_id
+OUTCOME_BUDGET = "budget"        # hit max_new_tokens
+OUTCOME_CANCELLED = "cancelled"  # client cancelled (disconnect) mid-flight
+OUTCOME_DEADLINE = "deadline"    # per-request deadline expired
+OUTCOME_SHED = "shed"            # dropped unserved (drain)
+OUTCOME_ERROR = "error"          # live-submitted request failed validation
+OUTCOMES = (OUTCOME_EOS, OUTCOME_BUDGET, OUTCOME_CANCELLED,
+            OUTCOME_DEADLINE, OUTCOME_SHED, OUTCOME_ERROR)
 
 
 @dataclasses.dataclass
@@ -197,16 +232,37 @@ class Request:
     ticks (0 = queued at start); ``eos_id`` stops generation early (the EOS
     token is included in the output). ``temperature``/``top_k`` override
     the engine's defaults; ``seed`` salts the request's sampling key
-    (default: its uid)."""
+    (default: its uid).
+
+    The ingress-facing fields all default off:
+
+    - ``deadline_s`` — absolute ``time.monotonic()`` deadline; expired in
+      the queue the request finishes unserved, expired in flight it retires
+      with outcome ``deadline``.
+    - ``on_token`` / ``on_finish`` — streaming callbacks, called ON THE
+      ENGINE THREAD as tokens commit and at retire. They must hand off fast
+      and should not raise (a raising callback is logged and dropped; the
+      request keeps running).
+    - ``visible_at`` — the ``time.monotonic()`` at which a live source
+      took the request, so its queue-wait and TTFT clocks start when the
+      client's request entered the system.
+    - ``trace`` — ``(trace_id, parent span_id)`` of the request's W3C
+      traceparent (adopted or minted by the ingress); ``None`` = untraced.
+    """
 
     uid: int
     prompt: Sequence[int]
     max_new_tokens: int
     arrival_tick: int = 0
     eos_id: Optional[int] = None
+    deadline_s: Optional[float] = None
+    on_token: Optional[Callable[[int], None]] = None
+    on_finish: Optional[Callable[["RequestResult"], None]] = None
+    visible_at: Optional[float] = None
     temperature: Optional[float] = None
     top_k: Optional[int] = None
     seed: Optional[int] = None
+    trace: Optional[Tuple[str, str]] = None
 
 
 @dataclasses.dataclass
@@ -215,11 +271,11 @@ class RequestResult:
     tokens: List[int]
     prompt_len: int
     arrival_tick: int
-    admit_tick: int
+    admit_tick: int  # -1: never admitted (cancelled/expired/shed/invalid)
     finish_tick: int
     queue_wait_s: float
     completion_s: float  # visible -> finished, wall seconds
-    outcome: str
+    outcome: str  # one of OUTCOMES
     ttft_s: float = 0.0  # visible -> first sampled token, wall seconds
     cum_logprob: float = 0.0  # sum of the model log-probs of the tokens
     # Prompt tokens served from the prefix cache at admission (0: cold or
@@ -354,7 +410,10 @@ class RequestSource:
     """Where the tick loop gets its work: :meth:`poll` once per tick for
     newly visible requests, :meth:`next_arrival` to fast-forward across
     idle gaps, :meth:`wait` to block briefly when a live feeder has nothing
-    yet. The base class is an empty, exhausted source."""
+    yet (returning early when work arrives), :meth:`close` when draining.
+    The base class is an empty, exhausted source;
+    :class:`StaticRequestSource` wraps a fixed trace, and the ingress's
+    ``QueueRequestSource`` is the thread-safe live feeder."""
 
     def poll(self, tick: int) -> List[Request]:
         return []
@@ -740,6 +799,13 @@ class SlotServer:
         self._tok_host = np.zeros((slots,), np.int32)
         self.slo = SLOMonitor(ttft_slo=slo_ttft, tbt_slo=slo_tbt,
                               window=slo_window)
+        # Each in-flight request's trace span (admit -> retire; tracer on).
+        self._slot_span: List[Optional[Any]] = [None] * slots
+        # Control mailboxes, written from any thread (an ingress handler, a
+        # signal handler) and swept by the tick loop at tick start.
+        self._ctl_lock = threading.Lock()
+        self._cancel_uids: Set[int] = set()
+        self._draining = False
 
     # -- the per-tick program ---------------------------------------------
 
@@ -979,6 +1045,20 @@ class SlotServer:
         self._prefill_fifo.append(slot)
         if obs.REGISTRY.enabled:
             _QUEUE_WAIT.observe(waited)
+        if obs.TRACER.active:
+            # The request's life as one span (admit -> retire), and the
+            # step point of its flow from the ingress.
+            self._slot_span[slot] = obs.span(
+                f"request:{req.uid}", cat="serving", args={
+                    "rid": req.uid, "slot": slot, "admit_tick": tick,
+                    "prompt_len": len(req.prompt),
+                    "queue_wait_s": round(waited, 6),
+                    **({"prefix_hit_len": matched}
+                       if self._prefix is not None else {}),
+                    **({"trace_id": req.trace[0]} if req.trace else {}),
+                })
+            if req.trace is not None:
+                obs.flow("t", obs.flow_id(req.trace[0]))
 
     def _prefix_admit(self, slot: int) -> int:
         """The contiguous hit: match the prompt (pinned until retire) and
@@ -1250,6 +1330,7 @@ class SlotServer:
                 self._slot_tokens[i].append(int(t))
                 self._slot_cum_lp[i] += float(alllp[i][rows_used[j]])
                 self._hist_buf[i, hl + j] = int(t)
+                self._deliver_token(req, int(t))
                 tbt.append(gap if j == 0 else 0.0)
                 if obs.REGISTRY.enabled:
                     _TOKENS.inc()
@@ -1297,13 +1378,18 @@ class SlotServer:
         return emitted
 
     def _retire(self, slot: int, tick: int, outcome: str,
-                results: List[RequestResult]) -> None:
-        """Free a slot: record its result, return its blocks and unspent
-        reservation, mark it free."""
+                results) -> None:
+        """Free a slot on ANY outcome arc: the happy ones (eos, budget) and
+        the robustness ones (cancelled, deadline) release the same things
+        — prefix pins, private paged blocks (a verify tick's rolled-back
+        tail among them), the unspent reservation, and the int8 staging
+        latch of a prompt cancelled mid-stage (its staged rows are garbage
+        the next admission's first chunk overwrites) — so retiring a
+        request mid-prefill or mid-stream is this, earlier."""
         req = self._slot_req[slot]
         admit_tick, visible_at = self._slot_admit[slot]
         now = time.monotonic()
-        results.append(RequestResult(
+        result = RequestResult(
             uid=req.uid,
             tokens=list(self._slot_tokens[slot]),
             prompt_len=len(req.prompt),
@@ -1316,9 +1402,28 @@ class SlotServer:
             ttft_s=self._slot_ttft[slot],
             cum_logprob=self._slot_cum_lp[slot],
             prefix_hit_tokens=self._slot_prefix_hit[slot],
-        ))
-        self.slo.observe_request(self._slot_ttft[slot],
-                                 self._slot_max_tbt[slot])
+        )
+        results.append(result)
+        if outcome in (OUTCOME_EOS, OUTCOME_BUDGET):
+            self.slo.observe_request(self._slot_ttft[slot],
+                                     self._slot_max_tbt[slot])
+        elif outcome in (OUTCOME_DEADLINE, OUTCOME_SHED, OUTCOME_ERROR):
+            # The server failed this request; a client's cancellation is
+            # not the server's SLO miss.
+            self.slo.observe_miss()
+        if slot in self._prefill_fifo:
+            # Retired mid-prefill: out of the chunk plan (under int8 this
+            # releases the one-prompt-at-a-time staging latch).
+            self._prefill_fifo.remove(slot)
+        span = self._slot_span[slot]
+        if span is not None:
+            span.set(outcome=outcome, tokens=len(result.tokens),
+                     ttft_s=round(self._slot_ttft[slot], 6))
+            if obs.TRACER.active and req.trace is not None:
+                # The flow's finish, inside the still-open request span.
+                obs.flow("f", obs.flow_id(req.trace[0]))
+            span.__exit__(None, None, None)
+            self._slot_span[slot] = None
         self._slot_req[slot] = None
         self._slot_tokens[slot] = []
         self._slot_state[slot] = "free"
@@ -1329,7 +1434,8 @@ class SlotServer:
             self._slot_nodes[slot] = []
         if self._paged:
             # Blocks the tree adopted stay cached; the slot's remaining
-            # private blocks (decode tail, partial prompt block) free.
+            # private blocks (decode tail, partial prompt block, a verify
+            # tick's rolled-back tail) free.
             for bid in self._slot_private[slot]:
                 self._pool.free_private(bid)
             self._slot_private[slot] = set()
@@ -1344,6 +1450,7 @@ class SlotServer:
             self._pool.gen += 1
         if obs.REGISTRY.enabled:
             _REQUESTS.labels(outcome=outcome).inc()
+        self._deliver_finish(req, result)
 
     def pool_bytes(self) -> int:
         """Device bytes of this rank's pool blocks (K, V and int8 scales;
@@ -1373,23 +1480,137 @@ class SlotServer:
                      if self._prefix is not None else 0),
         }
 
+    # -- control mailboxes (any thread) -----------------------------------
+
+    def cancel(self, uid: int) -> None:
+        """Cancel request ``uid`` (any thread; e.g. a client disconnect).
+        The next tick's sweep applies it: a queued request finishes
+        unserved, an in-flight one retires mid-prefill, mid-stage or
+        mid-stream (slot freed, prefix pins released, paged blocks back in
+        the pool). An unknown or finished uid is a no-op."""
+        with self._ctl_lock:
+            self._cancel_uids.add(uid)
+
+    def request_drain(self) -> None:
+        """Begin a graceful drain (any thread; e.g. a SIGTERM handler): the
+        loop closes its source, sheds the queue (outcome ``shed``), runs
+        the in-flight requests to completion and returns."""
+        with self._ctl_lock:
+            self._draining = True
+
+    @property
+    def draining(self) -> bool:
+        with self._ctl_lock:
+            return self._draining
+
+    @property
+    def all_slots_free(self) -> bool:
+        """True when no request occupies a slot (one list read: safe to
+        poll from other threads)."""
+        return all(st == "free" for st in self._slot_state)
+
+    def _take_control(self) -> Tuple[Set[int], bool]:
+        """Drain the cancel mailbox and read the drain flag (loop side)."""
+        with self._ctl_lock:
+            cancels = self._cancel_uids
+            self._cancel_uids = set()
+            return cancels, self._draining
+
+    def slots_snapshot(self) -> List[Dict[str, Any]]:
+        """Per-slot live view (state, occupant uid, tokens generated,
+        committed cache length; blocks mapped when paged), readable from
+        other threads while the engine runs: every read is one list index,
+        so a snapshot is at worst a tick stale, never torn."""
+        out: List[Dict[str, Any]] = []
+        for i in range(self.slots):
+            req = self._slot_req[i]
+            out.append({
+                "slot": i,
+                "state": self._slot_state[i],
+                "uid": None if req is None else req.uid,
+                "tokens": len(self._slot_tokens[i]),
+                "clen": self._slot_clen[i],
+                **({"nblocks": self._slot_nblocks[i]}
+                   if self._paged else {}),
+            })
+        return out
+
+    # -- per-request callbacks (engine thread) -----------------------------
+
+    def _deliver_token(self, req: Request, tok: int) -> None:
+        if req.on_token is not None:
+            try:
+                req.on_token(tok)
+            except Exception:
+                log.exception("on_token callback failed (rid %s)", req.uid)
+
+    def _deliver_finish(self, req: Request, result: RequestResult) -> None:
+        if req.on_finish is not None:
+            try:
+                req.on_finish(result)
+            except Exception:
+                log.exception("on_finish callback failed (rid %s)", req.uid)
+
+    def _finish_unadmitted(self, req: Request, tick: int, outcome: str,
+                           results, visible_at: float, now: float) -> None:
+        """Retire a request that never reached a slot (cancelled,
+        deadline-expired or shed while queued; an invalid live request):
+        no engine resource to release, only its result, the outcome
+        counter, the SLO verdict and the client's callback."""
+        res = RequestResult(
+            uid=req.uid, tokens=[], prompt_len=len(req.prompt),
+            arrival_tick=req.arrival_tick, admit_tick=-1, finish_tick=tick,
+            queue_wait_s=max(now - visible_at, 0.0),
+            completion_s=max(now - visible_at, 0.0), outcome=outcome,
+        )
+        results.append(res)
+        if outcome in (OUTCOME_DEADLINE, OUTCOME_SHED, OUTCOME_ERROR):
+            # A categorical SLO miss: the server failed to serve it (a
+            # client's cancellation is not the server's miss).
+            self.slo.observe_miss()
+        if obs.REGISTRY.enabled:
+            _REQUESTS.labels(outcome=outcome).inc()
+        if obs.TRACER.active:
+            obs.instant("request_rejected", cat="serving", args={
+                "rid": req.uid, "tick": tick, "outcome": outcome})
+        self._deliver_finish(req, res)
+
     # -- the tick loop ----------------------------------------------------
 
+    @torch.no_grad()
     def serve(self, requests: Union[Sequence[Request], RequestSource],
               max_ticks: Optional[int] = None) -> ServeReport:
-        """Run the tick loop until the request source drains. A pre-built
-        trace is validated up front; ``max_ticks`` bounds runaway loops
-        (raises if work remains)."""
-        if isinstance(requests, RequestSource):
+        """Run the tick loop until the request source drains.
+
+        ``requests`` is a pre-built trace (every request validated up
+        front, a bad one raises) or a live :class:`RequestSource` (invalid
+        requests finish with outcome ``error``; the loop idles on
+        :meth:`RequestSource.wait`). Each tick starts with the control
+        sweep: cancellations, then expired deadlines, then a drain.
+        ``max_ticks`` bounds runaway loops (raises if work remains). Grad
+        mode is thread-local: the whole loop runs under ``no_grad`` on
+        whichever thread calls it."""
+        live = isinstance(requests, RequestSource)
+        if live:
             source = requests
         else:
             for r in requests:
                 self._validate(r)
             source = StaticRequestSource(requests)
-        pending: deque = deque()
-        results: List[RequestResult] = []
+            with self._ctl_lock:
+                # A previous run's stale mailbox must not cancel or drain a
+                # fresh trace (uids recycle). A live source keeps it: a
+                # drain or cancel issued between starting the engine thread
+                # and the loop's first tick is honoured.
+                self._cancel_uids.clear()
+                self._draining = False
+        pending: deque = deque()  # visible, validated, unadmitted
+        cancel_carry: Dict[int, int] = {}  # unmatched cancels, sweep TTL
+        # A live server runs indefinitely: its retention is bounded (the
+        # report covers the most recent window); a finite trace keeps all.
+        results: Any = deque(maxlen=4096) if live else []
         visible_wall: Dict[int, float] = {}
-        tbt: List[float] = []
+        tbt: Any = deque(maxlen=1 << 16) if live else []
         tick = decode_ticks = occupancy = tokens = steps = 0
         spec0 = (self._spec_proposed, self._spec_accepted, self._spec_ticks,
                  self._spec_verifies, self._spec_tree_ticks)
@@ -1408,9 +1629,74 @@ class SlotServer:
                 )
             now = time.monotonic()
             for r in source.poll(tick):
-                self._validate(r)
+                vis = r.visible_at if r.visible_at is not None else now
+                try:
+                    self._validate(r)
+                except ValueError as e:
+                    # A live request must not kill the loop serving
+                    # everyone else (a static trace was validated above).
+                    log.warning("rejecting request %s: %s", r.uid, e)
+                    self._finish_unadmitted(r, tick, OUTCOME_ERROR, results,
+                                            vis, now)
+                    continue
                 pending.append(r)
-                visible_wall[r.uid] = now
+                visible_wall[r.uid] = vis
+                if obs.TRACER.active:
+                    obs.instant("request_queued", cat="serving",
+                                args={"rid": r.uid, "tick": tick})
+
+            # The control sweep, on the loop thread: cancellation beats
+            # deadline beats drain (a disconnected client's request is
+            # 'cancelled' even if its deadline also passed). EOS and budget
+            # retired at the end of the previous tick, so a request that
+            # finished and expired on the same tick keeps its outcome.
+            cancels, draining = self._take_control()
+            cancels |= set(cancel_carry)
+            if cancels:
+                matched = set()
+                for r in [r for r in pending if r.uid in cancels]:
+                    pending.remove(r)
+                    matched.add(r.uid)
+                    self._finish_unadmitted(
+                        r, tick, OUTCOME_CANCELLED, results,
+                        visible_wall.pop(r.uid, now), now)
+                for i, rq in enumerate(self._slot_req):
+                    if rq is not None and rq.uid in cancels:
+                        matched.add(rq.uid)
+                        self._retire(i, tick, OUTCOME_CANCELLED, results)
+                # A cancel can race its own request's submission (the
+                # submit lands after this tick's poll, the cancel before
+                # this sweep): unmatched uids are carried for two sweeps;
+                # unknown or finished ones age out as no-ops.
+                for uid in cancels - matched:
+                    if uid not in cancel_carry:
+                        cancel_carry[uid] = 2
+                    else:
+                        cancel_carry[uid] -= 1
+                        if cancel_carry[uid] <= 0:
+                            del cancel_carry[uid]
+                for uid in matched:
+                    cancel_carry.pop(uid, None)
+            # Expired in the queue: finish unserved (admitting work that
+            # can no longer meet its deadline steals ticks from work that
+            # can); expired in flight: retire, the streamed tokens stand.
+            for r in [r for r in pending
+                      if r.deadline_s is not None and now >= r.deadline_s]:
+                pending.remove(r)
+                self._finish_unadmitted(r, tick, OUTCOME_DEADLINE, results,
+                                        visible_wall.pop(r.uid, now), now)
+            for i, rq in enumerate(self._slot_req):
+                if (rq is not None and rq.deadline_s is not None
+                        and now >= rq.deadline_s):
+                    self._retire(i, tick, OUTCOME_DEADLINE, results)
+            if draining:
+                # Graceful drain: no new work, the queue sheds, in-flight
+                # slots step on to completion.
+                source.close()
+                while pending:
+                    r = pending.popleft()
+                    self._finish_unadmitted(r, tick, OUTCOME_SHED, results,
+                                            visible_wall.pop(r.uid, now), now)
 
             # Admit: oldest visible request per free slot; a paged
             # admission that cannot reserve its worst case waits (FIFO).
@@ -1431,12 +1717,15 @@ class SlotServer:
                             visible_wall.pop(req.uid, now), resv)
 
             if not pending and all(st == "free" for st in self._slot_state):
-                if source.exhausted:
+                if source.exhausted or draining:
                     break
                 nxt = source.next_arrival()
                 if nxt is not None:
                     tick = max(tick + 1, nxt)
                 else:
+                    # A live feeder: block until a submission (or close)
+                    # wakes the source; the timeout only bounds how late a
+                    # mailboxed drain is seen while idle.
                     source.wait(0.05)
                 continue
 
@@ -1445,6 +1734,15 @@ class SlotServer:
                         if st == "live"]
             if obs.REGISTRY.enabled:
                 _SLOTS_OCCUPIED.set(len(live_idx))
+            # The tick's span (closed after the fetch and retires; a shared
+            # no-op while the tracer is off).
+            tick_span = obs.span(
+                "serving:tick", cat="serving",
+                args=None if not obs.TRACER.active else {
+                    "tick": tick, "occupancy": len(live_idx),
+                    "prefilling": len(self._prefill_fifo),
+                    "chunk_tokens": sum(n for _, n, _ in plan),
+                    "queue_depth": len(pending)})
             S = self.slots
             n_vec = np.zeros((S,), np.int32)
             reset = np.zeros((S,), np.int32)
@@ -1546,6 +1844,7 @@ class SlotServer:
                     first = int(self._tok_host[i])
                     self._slot_tokens[i] = [first]
                     self._slot_cum_lp[i] = float(lp_host[i])
+                    self._deliver_token(req, first)
                     self._slot_state[i] = "live"
                     # The committed rows are the prompt; the first token is
                     # the pending tip.
@@ -1561,6 +1860,10 @@ class SlotServer:
                     if obs.REGISTRY.enabled:
                         _TOKENS.inc()
                         _TTFT.observe(self._slot_ttft[i])
+                    if obs.TRACER.active:
+                        obs.instant("first_token", cat="serving", args={
+                            "rid": req.uid, "slot": i, "tick": tick,
+                            "ttft_s": round(self._slot_ttft[i], 6)})
                     if req.eos_id is not None and first == req.eos_id:
                         self._retire(i, tick, OUTCOME_EOS, results)
                     elif req.max_new_tokens <= 1:
@@ -1577,6 +1880,7 @@ class SlotServer:
                         tok_i = int(self._tok_host[i])
                         self._slot_tokens[i].append(tok_i)
                         self._slot_cum_lp[i] += float(lp_host[i])
+                        self._deliver_token(req, tok_i)
                         tokens += 1
                         gap = max(now2 - self._last_tok_t[i], 0.0)
                         tbt.append(gap)
@@ -1591,6 +1895,7 @@ class SlotServer:
                             self._retire(i, tick, OUTCOME_EOS, results)
                         elif len(self._slot_tokens[i]) >= req.max_new_tokens:
                             self._retire(i, tick, OUTCOME_BUDGET, results)
+            tick_span.__exit__(None, None, None)
             if self._paged:
                 self._peak_blocks_used = max(self._peak_blocks_used,
                                              self._pool.used)
@@ -1598,6 +1903,11 @@ class SlotServer:
             self.slo.maybe_export(now)
             tick += 1
 
+        with self._ctl_lock:
+            # This run consumed its control state: the engine is reusable
+            # (a completed drain must not drain the next run).
+            self._cancel_uids.clear()
+            self._draining = False
         wall = time.monotonic() - t0
         self.slo.export_gauges()
         kv_snap: Dict[str, Any] = {}

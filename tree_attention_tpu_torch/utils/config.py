@@ -95,10 +95,17 @@ class RunConfig:
     prefix_block: int = 64   # match/publish granularity (tokens, pow2)
     prefix_share: float = 0.0  # trace: fraction of requests sharing a prefix
     prefix_len: int = 0      # trace: shared prefix length (tokens)
+    # HTTP ingress: --serve-http turns serve mode into a live streaming
+    # front end instead of a synthetic-trace run.
+    serve_http: Optional[int] = None  # port (0 = OS-picked, logged)
+    max_queue: int = 64      # ingress admission-queue bound (429 past it)
+    default_deadline: Optional[float] = None  # seconds; None = no default
 
     # Observability.
     log_level: str = "info"
     log_file: Optional[str] = None
+    metrics_out: Optional[str] = None   # registry snapshot (JSON) at exit
+    trace_events: Optional[str] = None  # Chrome-trace JSONL span sink
 
     def mesh_axes(self) -> Optional[Dict[str, int]]:
         return parse_mesh_spec(self.mesh) if self.mesh else None
@@ -269,10 +276,42 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefix-len", type=int, default=d.prefix_len,
                    help="serve: length of the trace's shared prefix in "
                         "tokens (0 = no sharing)")
+    p.add_argument("--serve-http", type=int, default=d.serve_http,
+                   metavar="PORT",
+                   help="serve mode: run the streaming HTTP ingress on "
+                        "localhost:PORT (0 picks a free port, logged) "
+                        "instead of draining a synthetic trace — POST "
+                        "/v1/completions with SSE token streaming, "
+                        "client-disconnect cancellation, per-request "
+                        "deadlines, 429+Retry-After backpressure; SIGTERM "
+                        "drains gracefully (finish in-flight, then print "
+                        "the record). The slot capacity is still sized "
+                        "from --prompt-len/--prompt-jitter/"
+                        "--max-new-tokens")
+    p.add_argument("--max-queue", type=int, default=d.max_queue,
+                   help="--serve-http: max requests queued ahead of their "
+                        "first token; submissions past it get 429 with "
+                        "Retry-After derived from the queue depth and the "
+                        "SLO monitor's windowed TTFT")
+    p.add_argument("--default-deadline", type=float,
+                   default=d.default_deadline, metavar="SEC",
+                   help="--serve-http: deadline for requests that carry no "
+                        "deadline_s — expired in the queue they finish "
+                        "unserved, in flight they retire with outcome "
+                        "'deadline'")
     p.add_argument("--log-level",
                    choices=["debug", "info", "warning", "error"],
                    default=d.log_level)
     p.add_argument("--log-file", default=d.log_file)
+    p.add_argument("--metrics-out", default=d.metrics_out, metavar="PATH",
+                   help="write the metrics registry (tokens, requests by "
+                        "outcome, HTTP answers by code, ...) as JSON at "
+                        "exit; under --mesh each rank writes PATH.pK")
+    p.add_argument("--trace-events", default=d.trace_events, metavar="PATH",
+                   help="emit host-side spans (serving ticks, each "
+                        "request's life, the ingress's submissions) as "
+                        "Chrome-trace JSONL, one JSON event per line "
+                        "(Perfetto loads it)")
     return p
 
 
