@@ -253,6 +253,32 @@ failure exits non-zero:
    cancel that leaks its blocks and one streamed token swapped; client
    TTFT and TBT p50/p95, tokens/s, status counts and the phase's wall are
    printed beside the card's name and power limit.
+   Then whole-prompt admission and the host-RAM KV tier (phase 3h, after
+   3g: ``whole_tier_phase``). (a) The serve phase's trace with
+   ``--admission whole``: exact paged, ``--kv-quant int8`` paged (B5
+   ticks), exact contiguous (8 requests on 4 slots, B1 ticks), exact paged
+   with ``--prefix-cache --prefix-share 0.75 --prefix-len 384`` (hits run
+   their suffix as one-slot steps) and with ``--speculate --drafter
+   ngram``, beside the chunked serve of the same trace run first in the
+   phase: every request retires with its budget, the pools drain, the
+   replay gate, B3 once per layer per cold admission at Tq = Tk = the
+   prompt's bucket (512 or 640) and no prompt chunk without the cache, the
+   one-row paged ticks on the tick body; a traced 8-request wave of each
+   admission with its D2H copies against its ticks (whole: at most one a
+   tick); a lone 512-token request's TTFT, whole and chunked; the gate
+   shown rejecting an insert one block off in the slot's table row. (b)
+   ``--prefix-cache --host-blocks 64`` on a 34-block pool with 2 slots,
+   exact and int8: 8 prompts on 8 distinct 384-token prefixes cold, then
+   the same prefixes with new suffixes: pass 1 demotes, every pass-2
+   request hits its whole prefix and restores happen, every adopted block
+   holds its adoption bytes (and scales) wherever it lives now, the replay
+   gate, the pools drain with nothing staged; the same trace with
+   ``--kv-tiering off`` and with a pool that keeps everything (pass-2
+   TTFT), a third pass traced (the tier's D2H and H2D copies, GB/s, the
+   idle share), the pinned bytes; the bytes gate shown rejecting a restore
+   that scatters its host rows in reverse order (the replay gate cannot
+   see a permutation of visible blocks) and both gates one that skips its
+   scatter.
 4. Time ``--mode decode`` at the reference workload (B=1, 16 heads x 128,
    64000 KV tokens, one query) through the contiguous decode kernel (B1),
    and with ``--kv-quant int8`` (B4) and ``int8-cast`` (B1 over int8 K/V);
@@ -1428,13 +1454,7 @@ def prefix_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
             torch.cuda.synchronize()
 
     def counts():
-        c = {n: w.launches for n, w in wrappers.items()}
-        for n, w in wrappers.items():
-            for extra in ("tiled_launches", "tick_launches",
-                          "cast_tiled_launches"):
-                if getattr(w, extra, 0):
-                    c[n + "_" + extra.replace("_launches", "")] = getattr(
-                        w, extra)
+        c = launch_counts(wrappers)
         c["tiled_by_tq"] = {n: dict(sorted(w.tiled_tq.items()))
                             for n, w in wrappers.items()
                             if getattr(w, "tiled_tq", None)}
@@ -1810,15 +1830,6 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     def pctl(vals, p):
         return percentile(sorted(vals), p)
 
-    def counts():
-        c = {n: w.launches for n, w in wrappers.items()}
-        for n, w in wrappers.items():
-            for extra in ("tiled_launches", "tick_launches"):
-                if getattr(w, extra, 0):
-                    c[n + "_" + extra.replace("_launches", "")] = getattr(
-                        w, extra)
-        return c
-
     def start(server, keepalive_s=0.02):
         reset_counts()
         srv = IngressServer(server, max_queue=c.max_queue,
@@ -1835,7 +1846,7 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
         rep = srv.join(timeout=300)
         if on_card:
             torch.cuda.synchronize()
-        launches = counts()
+        launches = launch_counts(wrappers)
         srv.stop()
         if rep is None:
             fail(f"ingress: the engine did not drain ({srv.engine_error!r})")
@@ -2078,6 +2089,600 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     del server, srv
     out["wall_s"] = time.monotonic() - t_phase
     print(f"ingress phase wall {out['wall_s']:.2f}s ({card})", flush=True)
+    return out
+
+
+WHOLE_ARGS = ["--admission", "whole"]
+# Phase 3h (a): the five whole-admission serves of the serve phase's trace:
+# (flags beside it, layout, q8 route, prefix cache on).
+WHOLE_SERVES = {
+    "exact paged": ([], "paged", None, False),
+    "int8 paged (B5)": (["--kv-quant", "int8"], "paged", "q8q", False),
+    "exact contiguous (B1)": (["--kv-layout", "contiguous", "--requests",
+                               "8", "--slots", "4"], "contiguous", None,
+                              False),
+    "exact paged, prefix cache": (PREFIX_ARGS, "paged", None, True),
+    "exact paged, speculative": (["--speculate", "--drafter", "ngram",
+                                  "--draft-k", "4"], "paged", None, False),
+}
+# Phase 3h (b): the tier's engine: 2 slots of 512-token prompts and 32 new
+# tokens (9 blocks of 64 each), a 34-block pool (the slots' 18 beside two
+# prompts' 8 published blocks each), a 64-block host tier.
+TIER_ARGS = ["--slots", "2", "--prompt-len", "512", "--prompt-jitter", "0",
+             "--max-new-tokens", "32", "--prefix-cache", "--kv-blocks", "34",
+             "--host-blocks", "64"]
+TIER_PREFIXES, TIER_PREFIX_LEN = 8, 384
+
+
+@contextlib.contextmanager
+def shared_weights():
+    """Draw the serving model's weights once per (config, seed, device)
+    for the serves inside: every ``cli.build_server`` draws the same
+    weights from the same seed, and at the serve width the numpy draw
+    takes seconds. Serving never writes the weights; training does, and
+    runs outside."""
+    from tree_attention_tpu_torch import models
+
+    draw, memo = models.init_params, {}
+
+    def drawn(cfg, seed=0, device="cuda"):
+        key = (repr(cfg), seed, str(device))
+        if key not in memo:
+            memo[key] = draw(cfg, seed, device)
+        return memo[key]
+
+    models.init_params = drawn
+    try:
+        yield
+    finally:
+        models.init_params = draw
+
+
+def launch_counts(wrappers) -> dict:
+    """Every wrapper's launches, and its per-body counts where non-zero
+    (``<name>_tick``, ``_tiled``, ``_cast_tiled``, ``_tree``)."""
+    c = {n: w.launches for n, w in wrappers.items()}
+    for n, w in wrappers.items():
+        for extra in ("tiled_launches", "tick_launches",
+                      "cast_tiled_launches", "tree_launches"):
+            if getattr(w, extra, 0):
+                c[n + "_" + extra.replace("_launches", "")] = getattr(w,
+                                                                      extra)
+    return c
+
+
+@contextlib.contextmanager
+def whole_watch():
+    """Watch whole admission from outside the engine: the prefill buckets,
+    the prompt chunks consumed (cold whole prefills consume none), and the
+    (Tq, Tk) of every B3 call. ``fault`` ``"insert"`` plants an insert that
+    writes the prompt one block off in the slot's table row (block ``j``'s
+    rows land in the table's entry ``j + 1``)."""
+    from tree_attention_tpu_torch.ops import decode as decode_ops
+    from tree_attention_tpu_torch.serving import engine
+
+    seen = {"buckets": [], "chunks": 0, "b3": {}, "fault": None}
+    cls = engine.SlotServer
+    prefill, consume = cls._prefill, cls._consume_chunk
+    insert, fwd = engine.paged_insert_slot, decode_ops.attention_cuda_fwd
+
+    def prefilled(self, slot, prompt):
+        mini = prefill(self, slot, prompt)
+        seen["buckets"].append(mini.k.shape[3])
+        return mini
+
+    def counted(self, slot, n, last):
+        seen["chunks"] += 1
+        return consume(self, slot, n, last)
+
+    def shifted(cache, slot, *args, **kw):
+        if seen["fault"] != "insert":
+            return insert(cache, slot, *args, **kw)
+        row = cache.table[slot].clone()
+        cache.table[slot, 1:] = row[:-1]
+        try:
+            return insert(cache, slot, *args, **kw)
+        finally:
+            cache.table[slot] = row
+
+    def b3(q, k, v, *args, **kw):
+        key = f"{q.shape[2]}x{k.shape[2]}"
+        seen["b3"][key] = seen["b3"].get(key, 0) + 1
+        return fwd(q, k, v, *args, **kw)
+
+    cls._prefill, cls._consume_chunk = prefilled, counted
+    engine.paged_insert_slot, decode_ops.attention_cuda_fwd = shifted, b3
+    try:
+        yield seen
+    finally:
+        cls._prefill, cls._consume_chunk = prefill, consume
+        engine.paged_insert_slot, decode_ops.attention_cuda_fwd = insert, fwd
+
+
+@contextlib.contextmanager
+def tier_watch():
+    """Watch the host tier from outside the engine: the bytes (K, V; int8
+    codes with their scales) of every block the paged index adopted, read
+    at adoption and keyed by radix node (a restore moves a node to a new
+    block and its bytes must come with it), and the blocks each copy moves
+    (``d2h_blocks``: the flushes' rows; ``h2d_blocks``: the restores' rows,
+    padding included). ``fault`` plants one of two
+    faults: ``"reverse"`` — a restore that scatters its host rows in reverse
+    order (a permutation of whole blocks that every query sees: attention
+    is blind to it, since each key carries its rotary position, so only the
+    bytes gate can reject it); ``"skip"`` — a restore whose scatter never
+    runs (the fresh blocks keep a former occupant's bytes)."""
+    import torch
+
+    from tree_attention_tpu_torch.models import gather_kv_blocks
+    from tree_attention_tpu_torch.serving import engine, host_pool
+
+    seen = {"nodes": {}, "fault": None, "d2h_blocks": 0, "h2d_blocks": 0}
+    cls, pool = engine.SlotServer, host_pool.HostBlockPool
+    publish, read, commit = cls._publish_prefix, pool.read, pool.commit
+    scatter = engine.scatter_kv_blocks
+
+    def snapped(self, slot):
+        held = {id(x) for x in self._slot_nodes[slot]}
+        publish(self, slot)
+        new = [x for x in self._slot_nodes[slot] if id(x) not in held]
+        if new:
+            c = self.cache
+            parts = gather_kv_blocks(
+                c.k, c.v, torch.tensor([x.block_id for x in new]),
+                *((c.k_scale, c.v_scale) if self.quantize else ()))
+            for i, x in enumerate(new):
+                seen["nodes"][id(x)] = (x, [p[i].clone() for p in parts])
+
+    def reversed_rows(self, rows, pad_to=None):
+        if seen["fault"] == "reverse":
+            rows = list(rows)[::-1]
+        out = read(self, rows, pad_to)
+        seen["h2d_blocks"] += out[0].shape[0]
+        return out
+
+    def counted(self, rows, *args):
+        seen["d2h_blocks"] += len(rows)
+        return commit(self, rows, *args)
+
+    def skipped(*args):
+        if seen["fault"] != "skip":
+            return scatter(*args)
+
+    cls._publish_prefix, pool.read, pool.commit = (snapped, reversed_rows,
+                                                   counted)
+    engine.scatter_kv_blocks = skipped
+    try:
+        yield seen
+    finally:
+        cls._publish_prefix, pool.read, pool.commit = publish, read, commit
+        engine.scatter_kv_blocks = scatter
+
+
+def tier_bytes_changed(server, seen) -> tuple:
+    """``(changed, checked)``: of the adopted nodes still in the tree on the
+    device tier, how many blocks hold other bytes (and scales) than at
+    adoption; host-tier nodes are read from their host rows."""
+    import torch
+
+    from tree_attention_tpu_torch.models import gather_kv_blocks
+    from tree_attention_tpu_torch.serving import TIER_DEVICE
+
+    live = set()
+    stack = list(server._prefix._root.children.values())
+    while stack:
+        node = stack.pop()
+        stack.extend(node.children.values())
+        live.add(id(node))
+    c, hp = server.cache, server._host_pool
+    changed = checked = 0
+    for key, (node, snap) in seen["nodes"].items():
+        if key not in live:
+            continue
+        if node.tier == TIER_DEVICE:
+            parts = [p[0] for p in gather_kv_blocks(
+                c.k, c.v, torch.tensor([node.block_id]),
+                *((c.k_scale, c.v_scale) if server.quantize else ()))]
+        else:
+            parts = [p[node.block_id] for p in hp._parts()]
+        checked += 1
+        changed += not all(torch.equal(p.to(s.device), s)
+                           for p, s in zip(parts, snap))
+    return changed, checked
+
+
+def tier_trace(n: int, seed: int, vocab: int):
+    """``n`` requests of the tier trace: request ``i`` opens on the ``i %
+    8``-th of 8 fixed 384-token prefixes (one seed for every pass), then a
+    128-token suffix of its own (``seed``)."""
+    from tree_attention_tpu_torch.serving import synthetic_trace
+
+    return synthetic_trace(
+        n, prompt_len=512, prompt_jitter=0, max_new_tokens=32,
+        vocab_size=vocab, seed=seed, prefix_share=1.0,
+        prefix_len=TIER_PREFIX_LEN, prefix_count=TIER_PREFIXES,
+        prefix_seed=99)
+
+
+def d2h_copies(prof, cuda_dev) -> dict:
+    """Device memcpy events of a trace by kind (name, e.g. ``Memcpy DtoH
+    (Device -> Pinned)``): count and summed ms."""
+    out = {}
+    for e in prof.events():
+        if e.device_type == cuda_dev and e.name.startswith("Memcpy"):
+            n, ms = out.get(e.name, (0, 0.0))
+            out[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return {k: {"count": n, "ms": ms} for k, (n, ms) in out.items()}
+
+
+def whole_tier_phase(dev, card, serve_args, wrappers, reset_counts,
+                     tol_logits, split_by=None,
+                     groups=None, whole_serves=WHOLE_SERVES,
+                     tier_args=TIER_ARGS,
+                     faults=("insert", "reverse", "skip")) -> dict:
+    """Phase 3h: whole-prompt admission and the host-RAM KV tier at the
+    serve width.
+
+    (a) The serve phase's trace through ``cli.run_serve`` with
+        ``--admission whole``, the five ``WHOLE_SERVES``. Gates: every
+        request retires with its budget and the pools drain; every emitted
+        greedy token within ``tol_logits`` of its position's largest logit
+        (:func:`replay_margin`); B3 once per layer per cold admission at Tq
+        = Tk = its bucket and no prefill chunk where nothing is cached; the
+        one-row paged ticks on the tick body (B2; B5 under int8); in a
+        traced 8-request wave, no more D2H copies than ticks (one fetch a
+        tick, none at admission), beside the chunked wave's. The planted
+        fault ``"insert"`` (:func:`whole_watch`) must fail the replay gate.
+        Reported beside the chunked serve of the same trace, run first in
+        this phase (a warm process, as the whole serves find it): TTFT and
+        TBT p50/p95, tok/s; a lone 512-token request's TTFT, whole and
+        chunked (median of three, alternating).
+    (b) The tier: ``cli.build_server`` on ``serve_args`` + ``tier_args``
+        (exact, then ``--kv-quant int8``), pass 1 the 8 prefixes of
+        :func:`tier_trace` cold, pass 2 the same prefixes in the same order
+        with new suffixes (the LRU worst case). Gates: pass 1 demotes;
+        every pass-2 request hits its whole prefix and restores happen;
+        every block the index adopted holds its adoption bytes (and
+        scales) wherever it lives now (:func:`tier_bytes_changed`); the
+        replay gate over both passes; the pools drain with nothing staged.
+        Of the planted faults of :func:`tier_watch`, ``"reverse"`` must
+        fail the bytes gate (the replay gate cannot see a permutation of
+        visible blocks; its margin is reported) and ``"skip"`` both gates.
+        Reported: pass-2 TTFT p50 with the
+        tier, with ``--kv-tiering off`` (cold recompute) and with a pool
+        that keeps everything on the device; blocks demoted and restored;
+        the pinned bytes; a third pass traced: the tier's D2H and H2D
+        copies (ms, GB/s) and the serve's idle share.
+
+    Launch counts are set to 0 just before each serve and read just after.
+    The serves share one draw of the weights (:func:`shared_weights`).
+    ``card`` (the card's name and power limit) heads each line. On a CPU
+    the launch counts and the traces are not read."""
+    with shared_weights():
+        return _whole_tier_phase(dev, card, serve_args, wrappers,
+                                 reset_counts, tol_logits, split_by, groups,
+                                 whole_serves, tier_args, faults)
+
+
+def _whole_tier_phase(dev, card, serve_args, wrappers, reset_counts,
+                      tol_logits, split_by, groups, whole_serves, tier_args,
+                      faults) -> dict:
+    import torch
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.serving import (
+        Request,
+        SlotServer,
+        synthetic_trace,
+    )
+    from tree_attention_tpu_torch.utils.config import parse_args
+
+    on_card = dev.type == "cuda"
+    cuda_dev = torch.autograd.DeviceType.CUDA
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def trace_of(c, vocab):
+        return synthetic_trace(
+            c.requests, prompt_len=c.prompt_len,
+            prompt_jitter=c.prompt_jitter, max_new_tokens=c.max_new_tokens,
+            arrival_every=c.arrival_every, vocab_size=vocab,
+            seed=c.seed + 1, prefix_share=c.prefix_share,
+            prefix_len=c.prefix_len)
+
+    def margin(server, results, reqs, layout, route):
+        return replay_margin(server.params, server.cfg, results, reqs,
+                             route is not None, layout, dev,
+                             server.kv_block if layout == "paged" else 64,
+                             route or "q8q")
+
+    def lat(rep):
+        return {k: round(v, 5) for k, v in rep.latency_percentiles().items()}
+
+    out = {"whole": {}, "tier": {}, "faults": {}}
+    # -- (a) whole admission ------------------------------------------------
+    # The chunked serve of the same trace first: the yardstick.
+    crec, _, _ = cli.run_serve(parse_args(serve_args), dev)
+    sync()
+    out["chunked"] = {k: crec[k] for k in (
+        "tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "tbt_p50_s",
+        "tbt_p95_s", "wall_s")}
+    for label, (flags, layout, route, cached) in whole_serves.items():
+        argv = serve_args + WHOLE_ARGS + flags
+        c = parse_args(argv)
+        with whole_watch() as seen:
+            reset_counts()
+            rec, server, rep = cli.run_serve(c, dev)
+            sync()
+            launches = launch_counts(wrappers)
+        reqs = trace_of(c, server.cfg.vocab_size)
+        n_req, n_new, L = c.requests, c.max_new_tokens, server.cfg.n_layers
+        leaks = server.leak_report()
+        big = sum(b for b in seen["buckets"] if b >= 128)
+        r = {"record": {k: rec[k] for k in (
+                 "tokens_per_sec", "ttft_p50_s", "ttft_p95_s", "tbt_p50_s",
+                 "tbt_p95_s", "wall_s", "ticks", "steps")},
+             "prefill_buckets": sorted(seen["buckets"]),
+             "chunks": seen["chunks"], "b3_tq_x_tk": seen["b3"],
+             "launches": launches, "leaks": leaks,
+             "prefix": rep.prefix, "spec": rep.spec,
+             "replay_margin": margin(server, rep.results, reqs, layout,
+                                     route)}
+        out["whole"][label] = r
+        print(f"whole serve ({label}; {card}): {rec['tokens_per_sec']} tok/s"
+              f", ttft p50 {rec['ttft_p50_s']} p95 {rec['ttft_p95_s']} s, "
+              f"tbt p50 {rec['tbt_p50_s']} p95 {rec['tbt_p95_s']} s; "
+              f"prefills by bucket {sorted(seen['buckets'])}, chunks "
+              f"{seen['chunks']}, B3 calls by Tq x Tk "
+              f"{json.dumps(seen['b3'])}; replay margin "
+              f"{r['replay_margin']:.3e} (tol {tol_logits}); leaks "
+              f"{json.dumps(leaks)}; launches {json.dumps(launches)}",
+              flush=True)
+        if rep.outcomes != {"budget": n_req} or \
+                rep.tokens_generated != n_req * n_new:
+            fail(f"whole serve ({label}): outcomes {rep.outcomes}, "
+                 f"{rep.tokens_generated} tokens")
+        if not leaks_clean(leaks) or (not cached and leaks["blocks_used"]):
+            fail(f"whole serve ({label}) leaked: {leaks}")
+        if not r["replay_margin"] <= tol_logits:
+            fail(f"whole serve ({label}): an emitted token is "
+                 f"{r['replay_margin']} below its position's largest logit")
+        cold = len(seen["buckets"])
+        if not cached and (cold != n_req or seen["chunks"]):
+            fail(f"whole serve ({label}): {cold} whole prefills and "
+                 f"{seen['chunks']} prompt chunks for {n_req} cold prompts")
+        if any(b < 128 for b in seen["buckets"]) or not all(
+                f"{b}x{b}" in seen["b3"] for b in seen["buckets"]):
+            fail(f"whole serve ({label}): prefill buckets "
+                 f"{seen['buckets']}, B3 calls {seen['b3']}")
+        if on_card:
+            tick = {(None, "paged"): "flash_decode_paged",
+                    ("q8q", "paged"): "flash_decode_paged_q8q",
+                    (None, "contiguous"): "flash_decode"}[(route, layout)]
+            prefills = sum(n for k, n in seen["b3"].items()
+                           if k.split("x")[0] == k.split("x")[1])
+            off_tick = (launches[tick] - launches.get(tick + "_tick", 0)
+                        - launches.get(tick + "_tiled", 0))
+            if launches["flash_fwd"] != sum(seen["b3"].values()) or \
+                    prefills < L * cold or not launches[tick] or (
+                    layout == "paged" and (
+                        off_tick or not launches.get(tick + "_tick"))):
+                fail(f"whole serve ({label}): launches {launches}, B3 "
+                     f"calls {seen['b3']} for {cold} cold prefills")
+            if not cached and launches["flash_fwd"] != L * cold:
+                fail(f"whole serve ({label}): B3 launched "
+                     f"{launches['flash_fwd']} times, not {L} x {cold}")
+        if label == "exact paged":
+            params, cfg = server.params, server.cfg
+            engine_kw = dict(slots=c.slots, cache_len=server.cache_len,
+                             prefill_chunk=c.prefill_chunk,
+                             kv_block=server.kv_block)
+        del server
+    for fault in faults[:1]:
+        c = parse_args(serve_args + WHOLE_ARGS + ["--requests", "8"])
+        with whole_watch() as seen:
+            seen["fault"] = fault
+            _, server, rep = cli.run_serve(c, dev)
+        m = margin(server, rep.results, trace_of(c, server.cfg.vocab_size),
+                   "paged", None)
+        out["faults"][fault] = {"replay_margin": m}
+        print(f"whole serve, planted fault {fault!r}: replay margin "
+              f"{m:.3e} (the gate, {tol_logits}, must reject it)", flush=True)
+        if m <= tol_logits:
+            fail(f"whole serve: the gate passed the planted fault {fault!r}")
+        del server
+    # A lone request of the trace's prompt length (512) alone: its TTFT,
+    # whole against chunked (warm engines, alternating, median of three).
+    c0 = parse_args(serve_args)
+    rng = __import__("numpy").random.default_rng(5)
+    lone = rng.integers(0, cfg.vocab_size, c0.prompt_len).astype("int32")
+    engines = {adm: SlotServer(params, cfg, admission=adm, **engine_kw)
+               for adm in ("whole", "chunked")}
+    ttft = {adm: [] for adm in engines}
+    for i in range(4):
+        for adm, eng in engines.items():
+            res = eng.serve([Request(uid=i, prompt=lone,
+                                     max_new_tokens=1)]).results[0]
+            if i:  # the first serve of each warms it up
+                ttft[adm].append(res.ttft_s)
+    out["lone_ttft_s"] = {adm: sorted(v)[1] for adm, v in ttft.items()}
+    # One traced 8-request wave per admission: D2H copies against ticks.
+    wave = synthetic_trace(8, prompt_len=c0.prompt_len,
+                           prompt_jitter=c0.prompt_jitter,
+                           max_new_tokens=c0.max_new_tokens,
+                           vocab_size=cfg.vocab_size, seed=7)
+    out["waves"] = {}
+    for adm, eng in engines.items():
+        if not on_card:
+            break
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            wrep = eng.serve(wave)
+            sync()
+        copies = d2h_copies(prof, cuda_dev)
+        d2h = sum(v["count"] for k, v in copies.items() if "DtoH" in k)
+        w = {"ticks": wrep.ticks, "d2h_copies": d2h, "copies": copies}
+        if split_by is not None:
+            split, _ = split_by(prof, groups)
+            busy = sum(split.values())
+            w.update(device_busy_ms=busy, traced_wall_ms=wrep.wall_s * 1e3,
+                     by_group_ms=split)
+        out["waves"][adm] = w
+    del engines
+    print(f"whole admission ({card}): lone {c0.prompt_len}-token request "
+          f"TTFT whole / chunked {out['lone_ttft_s']['whole']:.4f} / "
+          f"{out['lone_ttft_s']['chunked']:.4f} s; serve whole / "
+          f"chunked ttft p50 "
+          f"{out['whole']['exact paged']['record']['ttft_p50_s']} / "
+          f"{crec['ttft_p50_s']} s, tok/s "
+          f"{out['whole']['exact paged']['record']['tokens_per_sec']} / "
+          f"{crec['tokens_per_sec']}; traced 8-request waves: "
+          + json.dumps({a: {k: w[k] for k in w if k != "copies"}
+                        for a, w in out["waves"].items()}), flush=True)
+    for adm, w in out["waves"].items():
+        if adm == "whole" and w["d2h_copies"] > w["ticks"]:
+            fail(f"whole admission: {w['d2h_copies']} D2H copies in "
+                 f"{w['ticks']} ticks (more than the tick's one fetch)")
+
+    # -- (b) the host-RAM KV tier ---------------------------------------------
+    def tier_run(flags, passes=2, fault=None, traced=False):
+        c = parse_args(serve_args + tier_args + flags)
+        with tier_watch() as seen:
+            seen["fault"] = fault
+            server, _, _ = cli.build_server(c, dev)
+            vocab = server.cfg.vocab_size
+            reps, trs, counts = [], [], []
+            for p in range(passes):
+                tr = tier_trace(TIER_PREFIXES, 200 + p, vocab)
+                reset_counts()
+                if traced and p == passes - 1 and on_card:
+                    seen["d2h_blocks"] = seen["h2d_blocks"] = 0
+                    with torch.profiler.profile(activities=[
+                            torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+                        reps.append(server.serve(tr))
+                        sync()
+                    seen["prof"] = prof
+                else:
+                    reps.append(server.serve(tr))
+                    sync()
+                counts.append(launch_counts(wrappers))
+                trs.append(tr)
+            changed = (tier_bytes_changed(server, seen)
+                       if server._host_pool is not None else (0, 0))
+        return server, reps, trs, counts, changed, seen
+
+    tier_kv = ("demotions", "restores", "host_drops", "host_blocks_used")
+    for label, flags in (("exact", []), ("int8", ["--kv-quant", "int8"])):
+        route = "q8q" if flags else None
+        server, reps, trs, counts, (changed, checked), _ = tier_run(flags)
+        hits2 = [x.prefix_hit_tokens for x in reps[1].results]
+        m = max(margin(server, rep.results, tr, "paged", route)
+                for rep, tr in zip(reps, trs))
+        hp, leaks = server._host_pool, server.leak_report()
+        r = {"passes": [{"record": {**lat(rep), "tokens_per_sec": round(
+                 rep.tokens_per_sec, 1), "wall_s": round(rep.wall_s, 4)},
+                         "kv": {k: rep.kv.get(k) for k in tier_kv},
+                         "prefix": rep.prefix} for rep in reps],
+             "pass2_hit_tokens": hits2, "bytes_changed": changed,
+             "bytes_checked": checked, "replay_margin": m, "leaks": leaks,
+             "pending_after_drain": len(hp.pending),
+             "pinned_bytes": hp.nbytes, "pinned": hp.k.is_pinned(),
+             "launches": counts}
+        out["tier"][label] = r
+        print(f"tiered serve ({label}; {card}): pass 1 / 2 "
+              f"{json.dumps([p['kv'] for p in r['passes']])}, pass-2 ttft "
+              f"p50 {r['passes'][1]['record']['ttft_p50_s']} s, hit tokens "
+              f"{hits2}; adopted blocks changed {changed} of {checked}; "
+              f"replay margin {m:.3e} (tol {tol_logits}); host tier "
+              f"{hp.nbytes / 2**20:.1f} MiB pinned {r['pinned']}; leaks "
+              f"{json.dumps(leaks)}; launches pass 2 {json.dumps(counts[1])}",
+              flush=True)
+        if any(rep.outcomes != {"budget": TIER_PREFIXES} for rep in reps):
+            fail(f"tiered serve ({label}): outcomes "
+                 f"{[rep.outcomes for rep in reps]}")
+        if not reps[0].kv["demotions"] or not reps[1].kv["restores"] or \
+                hits2 != [TIER_PREFIX_LEN] * TIER_PREFIXES:
+            fail(f"tiered serve ({label}): pass 1 kv {reps[0].kv}, pass 2 "
+                 f"kv {reps[1].kv}, hit tokens {hits2}")
+        if changed or not checked:
+            fail(f"tiered serve ({label}): {changed} of {checked} adopted "
+                 f"blocks changed")
+        if not m <= tol_logits:
+            fail(f"tiered serve ({label}): replay margin {m}")
+        if not leaks_clean(leaks) or hp.pending or (on_card and not
+                                                   r["pinned"]):
+            fail(f"tiered serve ({label}): leaks {leaks}, pending "
+                 f"{hp.pending}, pinned {r['pinned']}")
+        if on_card:
+            tick = "flash_decode_paged_q8q" if route else "flash_decode_paged"
+            if any(not n.get(tick + "_tick") or n[tick] != n.get(
+                    tick + "_tick", 0) + n.get(tick + "_tiled", 0)
+                    for n in counts):
+                fail(f"tiered serve ({label}): launches {counts}")
+        del server
+    # The same trace with the tier off (cold recompute), with a pool that
+    # keeps everything, and a third pass traced (the tier's copies).
+    for label, flags in (("tiering off", ["--kv-tiering", "off"]),
+                         ("device pool keeps all", ["--kv-tiering", "off",
+                                                    "--kv-blocks", "98"])):
+        _, reps, _, _, _, _ = tier_run(flags)
+        out["tier"][label] = {"passes": [
+            {"record": lat(rep), "prefix": rep.prefix} for rep in reps]}
+    server, reps, _, _, _, seen = tier_run([], passes=3, traced=True)
+    if on_card:
+        prof = seen.pop("prof")
+        copies = d2h_copies(prof, cuda_dev)
+        blk = (2 * server.cfg.n_layers * server.cfg.n_kv_heads
+               * server.kv_block * server.cfg.d_head
+               * server.cfg.dtype.itemsize)
+        kv = reps[2].kv
+        tiered = {"copies": copies, "block_bytes": blk, "pass3_kv": kv}
+        for kind, blocks in (("DtoH (Device -> Pinned)", seen["d2h_blocks"]),
+                             ("HtoD (Pinned -> Device)", seen["h2d_blocks"])):
+            e = copies.get(f"Memcpy {kind}")
+            if e and blocks:
+                tiered[kind] = {"ms": e["ms"], "count": e["count"],
+                                "blocks": blocks,
+                                "gb_per_s": blocks * blk / e["ms"] / 1e6}
+        if split_by is not None:
+            split, _ = split_by(prof, groups)
+            busy = sum(split.values())
+            wall = reps[2].wall_s * 1e3
+            tiered.update(device_busy_ms=busy, traced_wall_ms=wall,
+                          untraced_pass2_wall_ms=reps[1].wall_s * 1e3,
+                          idle_share=1 - busy / (reps[1].wall_s * 1e3)
+                          if busy else None)
+        out["tier"]["traced pass 3"] = tiered
+    del server
+    for fault in faults[1:]:
+        server, reps, trs, _, (changed, checked), _ = tier_run(
+            [], fault=fault)
+        m = max(margin(server, rep.results, tr, "paged", None)
+                for rep, tr in zip(reps, trs))
+        out["faults"][fault] = {"replay_margin": m,
+                                "bytes_changed": changed,
+                                "bytes_checked": checked}
+        print(f"tiered serve, planted fault {fault!r}: adopted blocks "
+              f"changed {changed} of {checked}, replay margin {m:.3e} (the "
+              f"bytes gate must reject it"
+              + ("; the replay gate too)" if fault == "skip" else ")"),
+              flush=True)
+        if not changed or (fault == "skip" and m <= tol_logits):
+            fail(f"tiered serve: a gate passed the planted fault {fault!r} "
+                 f"(changed {changed}, margin {m})")
+        del server
+    t = out["tier"]
+    print(f"tiered serve ({card}): pass-2 ttft p50 tier on / off / device "
+          f"pool keeps all {t['exact']['passes'][1]['record']['ttft_p50_s']}"
+          f" / {t['tiering off']['passes'][1]['record']['ttft_p50_s']} / "
+          f"{t['device pool keeps all']['passes'][1]['record']['ttft_p50_s']}"
+          f" s; traced pass 3: "
+          + json.dumps({k: v for k, v in t.get("traced pass 3", {}).items()
+                        if k != "copies"}), flush=True)
     return out
 
 
@@ -3925,6 +4530,19 @@ def main() -> None:
            4 * q.numel() * 2 + 2 * 16 * 4096 * 4,
            4.0 * 128 * causal_pairs(2, 16, 4096, 4096, 0, 0))
     del q, k, v
+    # ... and whole admission's cold prefill (phase 3h): one prompt, Tq =
+    # Tk = its bucket, query offset 0.
+    for t in (512, 640):
+        q, k, v = (rnd(1, 16, t, 128) for _ in range(3))
+        record("flash_fwd", f"whole prefill B1 H16 Tq=Tk{t} causal",
+               lambda: cuda_attention.attention_cuda_fwd(q, k, v,
+                                                         causal=True),
+               lambda: cuda_attention.fwd_plain(q, k, v, causal=True),
+               lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True),
+               4 * q.numel() * 2 + 16 * t * 4,
+               4.0 * 128 * causal_pairs(1, 16, t, t, 0, 0))
+        del q, k, v
     torch.cuda.empty_cache()
 
     # -- 2b. the backward kernels B6 and B7 against their plain versions ---
@@ -4617,8 +5235,9 @@ def main() -> None:
                  True: {r.uid: r.tokens for r in q8_rep.results}}
     spec_kw = dict(slots=8, cache_len=640, prefill_chunk=256, kv_block=64)
     t0 = time.monotonic()
-    spec = spec_phase(dev, params, tcfg, SERVE_ARGS, trace, spec_refs,
-                      spec_kw, wrappers, reset_counts, TOL_LOGITS)
+    with shared_weights():
+        spec = spec_phase(dev, params, tcfg, SERVE_ARGS, trace, spec_refs,
+                          spec_kw, wrappers, reset_counts, TOL_LOGITS)
     for label, r in spec["cli"].items():
         if "kv_quant none" in label:
             same = sum(a == b for uid, toks in r["tokens"].items()
@@ -4701,16 +5320,17 @@ def main() -> None:
     # CLI's --prefix-cache on the paged layout (exact, int8, int8-cast) and
     # the contiguous one, each beside the cache-off serve (prefix_phase).
     t0 = time.monotonic()
-    prefix = prefix_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
-                          TOL_LOGITS, split_by, {
-                              "B2 tick body (decode ticks)": (
-                                  "decode_tick",),
-                              "B2 multi-row body (tails, suffix chunks)": (
-                                  "decode_tiled",),
-                              "flash_decode (split body) + merges": (
-                                  "decode_split", "merge_splits"),
-                              "flash_fwd (B3)": ("flash_fwd",),
-                              "matmul": matmul})
+    with shared_weights():
+        prefix = prefix_phase(
+            dev, smi, SERVE_ARGS, wrappers, reset_counts, TOL_LOGITS,
+            split_by, {
+                "B2 tick body (decode ticks)": ("decode_tick",),
+                "B2 multi-row body (tails, suffix chunks)": (
+                    "decode_tiled",),
+                "flash_decode (split body) + merges": (
+                    "decode_split", "merge_splits"),
+                "flash_fwd (B3)": ("flash_fwd",),
+                "matmul": matmul})
     print(f"prefix phase wall {time.monotonic() - t0:.2f}s", flush=True)
     torch.cuda.empty_cache()
 
@@ -5053,8 +5673,23 @@ def main() -> None:
     # -- 3g. live HTTP serving --------------------------------------------
     # The serve phase's engine behind the HTTP ingress, exact then int8:
     # SSE and whole-body clients, a disconnect, deadlines, 429s, a drain.
-    ingress = ingress_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
-                            TOL_LOGITS)
+    with shared_weights():
+        ingress = ingress_phase(dev, smi, SERVE_ARGS, wrappers,
+                                reset_counts, TOL_LOGITS)
+    torch.cuda.empty_cache()
+
+    # -- 3h. whole-prompt admission and the host-RAM KV tier ---------------
+    t0 = time.monotonic()
+    whole_tier = whole_tier_phase(
+        dev, smi, SERVE_ARGS, wrappers, reset_counts, TOL_LOGITS,
+        split_by=split_by, groups={
+            "B2 tick body (decode ticks)": ("decode_tick",),
+            "B2 multi-row body": ("decode_tiled",),
+            "flash_decode (split body) + merges": ("decode_split",
+                                                   "merge_splits"),
+            "flash_fwd (B3)": ("flash_fwd",),
+            "matmul": matmul})
+    print(f"whole/tier phase wall {time.monotonic() - t0:.2f}s", flush=True)
     torch.cuda.empty_cache()
 
     # -- 8. report -------------------------------------------------------
@@ -5239,6 +5874,20 @@ def main() -> None:
                       if ingress[label]["launches"].get(name)}
         if by_ingress:
             entry["launches_ingress"] = by_ingress
+        # Phase 3h's launches of this kernel: the whole-admission serves,
+        # and the tiered serves' passes (its own counts, set to 0 before
+        # each serve or pass, read after it).
+        by_whole = {label: r["launches"][name]
+                    for label, r in whole_tier["whole"].items()
+                    if r["launches"].get(name)}
+        if by_whole:
+            entry["launches_whole"] = by_whole
+        by_tier = {f"{label} pass {i + 1}": n[name]
+                   for label in ("exact", "int8")
+                   for i, n in enumerate(whole_tier["tier"][label][
+                       "launches"]) if n.get(name)}
+        if by_tier:
+            entry["launches_tiered"] = by_tier
         if name.startswith("flash_decode"):
             # Which body ran the head case (cuda_decode.decode_body: every
             # variant but f32 with more than one packed row or a tree takes
@@ -5301,6 +5950,14 @@ def main() -> None:
             # its recomputation under remat).
             entry["launches_serve"] = launches[name]
             entry["launches_train"] = train_launches[name]
+            # Whole admission's cold prefill: Tq = Tk = the bucket.
+            entry["whole_prefill_shapes"] = [
+                {k: c[k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")}
+                for c in mine if c["case"].startswith("whole prefill")]
+            entry["launches_whole_by_tq_x_tk"] = {
+                label: r["b3_tq_x_tk"]
+                for label, r in whole_tier["whole"].items()}
         if name in train_launches:
             entry["launches_sharded_train_per_rank"] = {
                 layout: [r["train"][layout]["launches"][name]
@@ -5356,7 +6013,8 @@ def main() -> None:
                    "ptxas": ptxas, "hgmma_sass": hgmma, "tile_edges": edges,
                    "one_key_rows": one_key_rows, "dlse_bwd": dlse_bwd,
                    "sharded_train": trained, "prefix": prefix,
-                   "ingress": ingress, "kernels": kernels}, f, indent=1)
+                   "ingress": ingress, "whole_tier": whole_tier,
+                   "kernels": kernels}, f, indent=1)
     print(f"chip_smoke: total wall {time.monotonic() - t_start:.1f}s",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,6 +30,7 @@ its own jit compiles.
 from __future__ import annotations
 
 import http.client
+import io
 import json
 import os
 import signal
@@ -38,7 +39,6 @@ import sys
 import threading
 import time
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -53,6 +53,7 @@ from tree_attention_tpu_torch import models as tm
 from tree_attention_tpu_torch import obs
 from tree_attention_tpu_torch import serving as ts
 from tree_attention_tpu_torch.serving import ingress as ting
+from tests.torch_params import seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -81,8 +82,7 @@ SHAPES = {
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jm.init_params(jax.random.PRNGKey(0), J_CFG)
-    return jp, tm.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return seeded_params(T_CFG)
 
 
 _ENGINES = {}
@@ -652,6 +652,44 @@ def test_zz_http_drain_lifecycle(live):
     assert report.outcomes.get("deadline", 0) >= 1
     assert leak_free(live.engine)
     live.stop()
+
+
+class _FakeReq:
+    """What ``IngressServer.handle`` touches of a request handler: the
+    headers, the body in ``rfile``, the reply in ``wfile``."""
+
+    def __init__(self, path, body):
+        self.path = path
+        self.headers = {"Content-Length": str(len(body))}
+        self.rfile = io.BytesIO(body)
+        self.wfile = io.BytesIO()
+        self.status = None
+
+    def send_response(self, code):
+        self.status = code
+
+    def send_header(self, key, value):
+        pass
+
+    def end_headers(self):
+        pass
+
+
+def test_routes_read_the_request_body_they_ignore(params):
+    """Every route but completions reads its request body to the end
+    before it replies: a socket closed with unread bytes is reset, and the
+    reset can take the reply with it (a drain POSTed with a JSON body lost
+    its 202 that way)."""
+    srv = ts.IngressServer(ts.SlotServer(params[1], T_CFG, **ENGINE),
+                           max_queue=2)
+    body = json.dumps({"stream": False, "pad": "x" * 4096}).encode()
+    for method, path, code in (("GET", "/ingress/stats", 200),
+                               ("POST", "/nowhere", 404),
+                               ("POST", "/admin/drain", 202)):
+        req = _FakeReq(path, body)
+        srv.handle(method, req)
+        assert req.status == code and req.rfile.tell() == len(body), path
+    assert srv.draining
 
 
 # -- tracing and the CLI ----------------------------------------------------

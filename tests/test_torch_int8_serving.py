@@ -34,6 +34,7 @@ from tree_attention_tpu_torch import cli
 from tree_attention_tpu_torch import models as tm
 from tree_attention_tpu_torch import obs
 from tree_attention_tpu_torch import serving as ts
+from tests.torch_params import seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -45,8 +46,7 @@ L, HKV, D = 2, 2, 16
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jm.init_params(jax.random.PRNGKey(0), J_CFG)
-    return jp, tm.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return seeded_params(T_CFG)
 
 
 def _codes(rng, shape):
@@ -57,8 +57,9 @@ def _steps(jp, tp, jcache, tcache, n=2):
     """``n`` greedy decode steps on both packages from the same tokens."""
     tok = np.array([[3], [17], [101]], np.int32)
     out = []
+    jstep = jax.jit(jm.forward_step, static_argnums=3)
     for _ in range(n):
-        jl, jcache = jm.forward_step(jp, jnp.asarray(tok), jcache, J_CFG)
+        jl, jcache = jstep(jp, jnp.asarray(tok), jcache, J_CFG)
         tl, tcache = tm.forward_step(tp, torch.from_numpy(tok), tcache,
                                      T_CFG)
         out.append((np.asarray(jl), tl.numpy()))

@@ -20,6 +20,7 @@ import torch
 from tree_attention_tpu import models as jm
 
 from tree_attention_tpu_torch import models as tm
+from tests.torch_params import seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -48,8 +49,7 @@ def flagship():
 
 @pytest.fixture(scope="module")
 def small():
-    jp = jm.init_params(jax.random.PRNGKey(0), J_SMALL)
-    return jp, tm.params_from_jax(_np_tree(jp), device="cpu")
+    return seeded_params(T_SMALL)
 
 
 def test_params_from_jax_round_trip(flagship):
@@ -86,7 +86,8 @@ def test_forward_matches_jax_flagship(flagship):
     jp = jax.tree.map(jnp.asarray, np_params)
     tp = tm.params_from_jax(np_params, device="cpu")
     toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 48))
-    ref = np.asarray(jm.forward(jp, jnp.asarray(toks, jnp.int32), jcfg))
+    ref = np.asarray(jax.jit(jm.forward, static_argnums=2)(
+        jp, jnp.asarray(toks, jnp.int32), jcfg))
     got = tm.forward(tp, torch.from_numpy(toks), tcfg).numpy()
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-4)
 
@@ -119,12 +120,13 @@ def test_forward_step_matches_jax(small, layout):
     jp, tp = small
     jc, tc = _caches(layout)
     rng = np.random.default_rng(4)
+    jstep = jax.jit(jm.forward_step, static_argnums=3)
     for tq, n in ((16, [16, 9, 0]), (16, [1, 16, 5]), (1, None)):
         toks = rng.integers(0, 256, (3, tq)).astype(np.int32)
         kw_j = {} if n is None else {"n_tokens": jnp.asarray(n, jnp.int32)}
         kw_t = {} if n is None else {
             "n_tokens": torch.tensor(n, dtype=torch.int32)}
-        jl, jc = jm.forward_step(jp, jnp.asarray(toks), jc, J_SMALL, **kw_j)
+        jl, jc = jstep(jp, jnp.asarray(toks), jc, J_SMALL, **kw_j)
         tl, tc = tm.forward_step(tp, torch.from_numpy(toks), tc, T_SMALL,
                                  **kw_t)
         valid = np.ones((3, tq), bool) if n is None else \

@@ -15,6 +15,7 @@ and P rounded to bf16 on both sides) and 1e-2 on lse.
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from tree_attention_tpu.ops import decode as jdecode
@@ -233,8 +234,8 @@ def test_flash_decode_matches_jax(paged, tq):
         tk_, tv_ = torch.from_numpy(np.array(jk)), torch.from_numpy(
             np.array(jv))
         kw_j = kw_t = {}
-    ref = jdecode.flash_decode(jnp.asarray(q), jk, jv,
-                               q_position=jnp.asarray(pos), **kw_j)
+    ref = jax.jit(jdecode.flash_decode)(jnp.asarray(q), jk, jv,
+                                        q_position=jnp.asarray(pos), **kw_j)
     port = tdecode.flash_decode(torch.from_numpy(q), tk_, tv_,
                                 q_position=torch.from_numpy(pos), **kw_t)
     _close(port, ref, "float32")
@@ -259,11 +260,13 @@ def test_blockwise_and_naive_match_jax(causal):
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     kw = dict(causal=causal, q_offset=40, kv_offset=0)
+    static = ("causal", "q_offset", "kv_offset", "block_size")
     _close(tref.attention_blockwise(tq, tk, tv, block_size=32, **kw),
-           jref.attention_blockwise(jq, jk, jv, block_size=32, **kw),
-           "float32")
+           jax.jit(jref.attention_blockwise, static_argnames=static)(
+               jq, jk, jv, block_size=32, **kw), "float32")
     _close(tref.attention_naive(tq, tk, tv, **kw),
-           jref.attention_naive(jq, jk, jv, **kw), "float32")
+           jax.jit(jref.attention_naive, static_argnames=static[:3])(
+               jq, jk, jv, **kw), "float32")
 
 
 def test_merge_partials_matches_jax():

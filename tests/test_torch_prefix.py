@@ -19,7 +19,8 @@ Counterparts of ``tests/test_serving_prefix.py`` and the prefix cases of
   bit for bit (pure copies, and int8 x f32 scale products).
 - **Contracts.** A paged exact hit moves zero device bytes (the shared
   blocks' bytes are read back unchanged); the metrics flow; the CLI flags
-  and the record; every combination left to a later slice raises.
+  and the record; the prefix cache on a mesh, left to a later slice,
+  raises.
 """
 
 import contextlib
@@ -55,6 +56,7 @@ from tree_attention_tpu_torch.serving.prefix_cache import (
     PagedPrefixIndex as TIndex,
     PrefixCache as TCache,
 )
+from tests.torch_params import seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -106,8 +108,7 @@ def _tokens(report):
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jm.init_params(jax.random.PRNGKey(0), J_CFG)
-    return jp, tm.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return seeded_params(T_CFG)
 
 
 _RUNS = {}
@@ -464,7 +465,8 @@ def test_kv_block_moves_match_jax():
     prefix, the contiguous pool's insert and extract (an id past the pool
     dropped, a window past the capacity), and the staged insert with
     ``lo`` leaving the shared blocks and their scales alone. Bit for bit
-    (copies; the dequantization is one f32 product either side)."""
+    (copies; the dequantization is one f32 product either side). The JAX
+    side runs jitted, as the engine runs it."""
     rng = np.random.default_rng(0)
     L, N, H, B, D, T = 2, 6, 2, 4, 8, 24
     t = torch.from_numpy
@@ -477,7 +479,7 @@ def test_kv_block_moves_match_jax():
         pad = np.full((L, 1) + x.shape[2:], fill, x.dtype)
         return np.concatenate([x, pad], 1)
 
-    want = jd.gather_kv_blocks(jnp.asarray(pk), jnp.asarray(pv),
+    want = jax.jit(jd.gather_kv_blocks)(jnp.asarray(pk), jnp.asarray(pv),
                                jnp.asarray(ids), jnp.asarray(ks),
                                jnp.asarray(vs))
     got = td.gather_kv_blocks(t(port_pool(pk)), t(port_pool(pv)), t(ids),
@@ -488,7 +490,7 @@ def test_kv_block_moves_match_jax():
     rows = [_rand(rng, 4, L, H, B, D, dtype=np.int8) for _ in range(2)] + \
         [_rand(rng, 4, L, H) for _ in range(2)]
     sids = np.asarray([2, 0, N, N + 3], np.int32)  # the last two drop
-    want = jd.scatter_kv_blocks(jnp.asarray(pk), jnp.asarray(pv),
+    want = jax.jit(jd.scatter_kv_blocks)(jnp.asarray(pk), jnp.asarray(pv),
                                 jnp.asarray(sids), *map(jnp.asarray,
                                                         rows[:2]),
                                 jnp.asarray(ks), jnp.asarray(vs),
@@ -502,7 +504,7 @@ def test_kv_block_moves_match_jax():
     staging = _rand(rng, L, 1, H, T, D)
     j_st = jm.KVCache(k=jnp.asarray(staging), v=jnp.asarray(staging),
                       length=jnp.zeros((1,), jnp.int32))
-    want = jd.insert_dequant_prefix(j_st, jnp.asarray(pk), jnp.asarray(pv),
+    want = jax.jit(jd.insert_dequant_prefix)(j_st, jnp.asarray(pk), jnp.asarray(pv),
                                     jnp.asarray(ks), jnp.asarray(vs),
                                     jnp.asarray(ids), jnp.int32(13))
     t_st = tm.KVCache(k=t(staging.copy()), v=t(staging.copy()),
@@ -520,7 +522,7 @@ def test_kv_block_moves_match_jax():
     j_c = jm.KVCache(k=jnp.asarray(cache), v=jnp.asarray(cache),
                      length=jnp.zeros((3,), jnp.int32))
     pids = np.asarray([4, 1, 3, 1], np.int32)
-    want = jd.insert_prefix_blocks(j_c, *map(jnp.asarray, pool),
+    want = jax.jit(jd.insert_prefix_blocks)(j_c, *map(jnp.asarray, pool),
                                    jnp.asarray(pids), jnp.int32(10),
                                    jnp.int32(1))
     t_c = tm.KVCache(k=t(cache.copy()), v=t(cache.copy()),
@@ -534,7 +536,7 @@ def test_kv_block_moves_match_jax():
 
     for start, pids in ((1, [3, 0, P, P]), (4, [2, P, P, P])):
         pids = np.asarray(pids, np.int32)
-        want = jd.extract_prefix_blocks(
+        want = jax.jit(jd.extract_prefix_blocks)(
             *map(jnp.asarray, pool), jnp.asarray(cache), jnp.asarray(cache),
             jnp.int32(2), jnp.asarray(pids), jnp.int32(start))
         tp = [t(np.concatenate([p, np.zeros_like(p[:1])])) for p in pool]
@@ -552,7 +554,7 @@ def test_kv_block_moves_match_jax():
                               v_scale=jnp.asarray(vs),
                               table=jnp.asarray(table),
                               length=jnp.zeros((1,), jnp.int32))
-    want = jd.paged_insert_slot(jc, jnp.int32(0), jnp.asarray(k_rows),
+    want = jax.jit(jd.paged_insert_slot)(jc, jnp.int32(0), jnp.asarray(k_rows),
                                 jnp.asarray(v_rows), jnp.int32(19),
                                 jnp.asarray(r_ks), jnp.asarray(r_vs), lo=8)
     tc = td.PagedQuantKVCache(k=t(port_pool(pk)), v=t(port_pool(pv)),
@@ -710,17 +712,25 @@ def test_shared_prefix_index_checks(params):
 
 
 def test_out_of_slice_combinations_raise(params):
-    """Whole-prompt admission, the prefix cache on a mesh, KV tiering's
-    host tier: each refused at construction, naming its ROADMAP item."""
+    """The prefix cache on a mesh, and so KV tiering there, is refused at
+    construction, naming its ROADMAP item. Whole-prompt admission and the
+    host tier, refused here before they were ported, now construct (their
+    parity: tests/test_torch_whole.py, tests/test_torch_tiered.py)."""
     from tree_attention_tpu_torch.parallel.mesh import make_mesh
+    from tree_attention_tpu_torch.serving.host_pool import HostBlockPool
 
     _, tp = params
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.SlotServer(tp, T_CFG, **ENGINE, **PREFIX, admission="whole")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 2"):
         ts.SlotServer(tp, T_CFG, **ENGINE, **PREFIX,
                       mesh=make_mesh({"seq": 1}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.SlotServer(tp, T_CFG, **ENGINE, **PREFIX, host_blocks=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TIndex(block=4, alloc=TAlloc(4), host_pool=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 2"):
+        ts.SlotServer(tp, T_CFG, **ENGINE, **PREFIX, host_blocks=4,
+                      mesh=make_mesh({"seq": 1}))
+    whole = ts.SlotServer(tp, T_CFG, **ENGINE, **PREFIX, admission="whole")
+    assert whole.admission == "whole"
+    tiered = ts.SlotServer(tp, T_CFG, **ENGINE, **PREFIX, host_blocks=4)
+    assert tiered._host_pool.blocks == 4 and tiered._prefix.host is \
+        tiered._host_pool
+    hp = HostBlockPool(2, n_layers=1, n_kv_heads=1, block=4, d_head=2,
+                       dtype=torch.float32)
+    assert TIndex(block=4, alloc=TAlloc(4), host_pool=hp).host is hp

@@ -17,7 +17,8 @@ the merge). Here:
   ``SlotServer(mesh=cpu_mesh(2), kv_shard="seq")``, exact and int8, with
   both ranks' tokens equal, each rank's pool half the whole pool's, the
   pools drained, and exactly 1 MAX + 2 SUM per layer and step issued (int8:
-  plus the one SUM per step that carries the anchor scales);
+  plus the one SUM per step that carries the anchor scales); int8 under
+  whole-prompt admission equals JAX's ``admission="whole"`` on the mesh;
 - ``--mode serve --mesh seq=2 --kv-shard seq`` and ``--mode decode --mesh
   seq=2`` through the CLI on two processes: only rank 0 prints.
 """
@@ -128,6 +129,7 @@ def _close(port, ref, atol=TOL_F32):
 
 @pytest.mark.parametrize("tq", [1, 3])
 def test_b2_local_blocks_plain_matches_jax(tq):
+    import jax
     import jax.numpy as jnp
 
     from tree_attention_tpu.ops.decode import paged_local_partial as jplp
@@ -135,7 +137,7 @@ def test_b2_local_blocks_plain_matches_jax(tq):
 
     q, k, v, tbl, qpos, _, _ = _local_case(0, tq, False)
     jx = [jnp.asarray(x) for x in (q, k, v, tbl, qpos)]
-    ref = jplp(*jx[:4], q_position=jx[4])
+    ref = jax.jit(jplp)(*jx[:4], q_position=jx[4])
     ker = attention_pallas_decode(*jx[:3], causal=True, q_offset=jx[4],
                                   kv_offset=0, block_table=jx[3],
                                   local_blocks=True, interpret=True)
@@ -160,13 +162,15 @@ def test_b2_local_blocks_plain_matches_jax(tq):
 
 
 def test_paged_local_partial_int8_matches_jax():
+    import jax
     import jax.numpy as jnp
 
     from tree_attention_tpu.ops.decode import paged_local_partial as jplp
 
     q, k, v, tbl, qpos, ks, vs = _local_case(1, 2, True)
     jx = [jnp.asarray(x) for x in (q, k, v, tbl, qpos, ks, vs)]
-    ref = jplp(*jx[:4], q_position=jx[4], k_scale=jx[5], v_scale=jx[6])
+    ref = jax.jit(jplp)(*jx[:4], q_position=jx[4], k_scale=jx[5],
+                        v_scale=jx[6])
     t = [torch.from_numpy(x) for x in (q, k, v, tbl, qpos, ks, vs)]
     got = paged_local_partial(*t[:4], q_position=t[4], k_scale=t[5],
                               v_scale=t[6])
@@ -177,18 +181,23 @@ def test_paged_local_partial_int8_matches_jax():
 # -- the seq-sharded engine --------------------------------------------------
 
 def _rank_serve(rank, world, np_params):
-    """Serve the trace exact and int8 from this rank's slice of the pool;
-    returns per mode the tokens, the collectives per layer and step, the
+    """Serve the trace exact and int8 (and int8 under whole-prompt
+    admission) from this rank's slice of the pool; returns per mode the
+    tokens, the collectives per layer and step, the
     pool bytes and the leak report."""
     from tree_attention_tpu_torch.parallel import COLLECTIVES, make_mesh
 
     mesh = make_mesh({"seq": world})
     params = tm.params_from_jax(np_params, device="cpu")
     out = {}
-    for quant in (False, True):
+    for quant in (False, True, "whole"):
         c0 = dict(COLLECTIVES)
+        # "whole": int8 under whole-prompt admission (the B=1 prefill is
+        # whole on each rank; the insert writes the rank's blocks).
         server = ts.SlotServer(params, T_CFG, mesh=mesh, kv_shard="seq",
-                               quantize=quant, **ENGINE_KW)
+                               quantize=bool(quant),
+                               admission="whole" if quant == "whole"
+                               else "chunked", **ENGINE_KW)
         rep = server.serve(ts.synthetic_trace(**TRACE_KW))
         colls = {k: v - c0.get(k, 0) for k, v in COLLECTIVES.items()
                  if v - c0.get(k, 0)}
@@ -205,12 +214,13 @@ def jax_params():
     import jax
 
     from tree_attention_tpu import models as jm
+    from tests.torch_params import seeded_params, to_numpy
 
     cfg = jm.TransformerConfig(
         vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
         d_head=16, d_ff=192, dtype=jax.numpy.float32)
-    jp = jm.init_params(jax.random.PRNGKey(0), cfg)
-    return cfg, jp, jax.tree.map(np.asarray, jp)
+    jp, tp = seeded_params(T_CFG)
+    return cfg, jp, jax.tree.map(to_numpy, tp)
 
 
 @pytest.fixture(scope="module")
@@ -254,6 +264,32 @@ def test_seq_sharded_server_matches_replicated_and_jax(jax_params,
         if quant:
             want_colls[("paged_anchor_scales", "psum")] = r["steps"]
         assert r["colls"] == want_colls
+
+
+def test_seq_sharded_whole_admission_matches_jax(jax_params,
+                                                 sharded_serves):
+    """Whole-prompt admission on the sharded int8 pool (tests/
+    test_serving_seq_shard.py's ``(True, "whole")`` case): both ranks'
+    tokens equal JAX's ``SlotServer(mesh=cpu_mesh(2), kv_shard="seq",
+    admission="whole")``; the prefill runs on each rank's whole B=1 cache,
+    so every collective is the decode steps' (1 MAX + 2 SUM per layer, the
+    anchor SUM per step); the pools drain."""
+    from tree_attention_tpu import serving as js
+    from tree_attention_tpu.parallel.mesh import cpu_mesh
+
+    jcfg, jp, _ = jax_params
+    jref = js.SlotServer(jp, jcfg, mesh=cpu_mesh(2), kv_shard="seq",
+                         quantize=True, admission="whole",
+                         **ENGINE_KW).serve(js.synthetic_trace(**TRACE_KW))
+    for r in (x["whole"] for x in sharded_serves):
+        assert r["tokens"] == _tokens(jref)
+        assert r["outcomes"] == {"budget": TRACE_KW["n_requests"]}
+        assert r["leaks"]["blocks_used"] == r["leaks"]["blocks_reserved"] == 0
+        n = T_CFG.n_layers * r["steps"]
+        assert r["colls"] == {("paged_tree_decode", "pmax"): n,
+                              ("paged_tree_decode", "psum_num"): n,
+                              ("paged_tree_decode", "psum_den"): n,
+                              ("paged_anchor_scales", "psum"): r["steps"]}
 
 
 def test_seq_shard_rejects_the_contiguous_layout():

@@ -13,7 +13,6 @@ tokens for the same trace: the JAX suite holds its two layouts
 token-identical (``tests/test_serving_paged.py``).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +27,7 @@ from tree_attention_tpu_torch import serving as ts
 from tree_attention_tpu_torch.serving.block_pool import (
     BlockAllocator as TAlloc,
 )
+from tests.torch_params import seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401
 
 J_CFG = jm.TransformerConfig(
@@ -57,8 +57,7 @@ CASES = {
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jm.init_params(jax.random.PRNGKey(0), J_CFG)
-    return jp, tm.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return seeded_params(T_CFG)
 
 
 def _tokens(report):

@@ -39,6 +39,7 @@ from tree_attention_tpu_torch.ops import cuda_decode as cd
 from tree_attention_tpu_torch.ops.decode import flash_decode
 from tree_attention_tpu_torch.ops.reference import attention_packed
 from tree_attention_tpu_torch.serving import speculation as tspec
+from tests.torch_params import seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401
 
 TOL_F32 = 2e-5
@@ -281,8 +282,7 @@ L, HKV, D = 2, 2, 16
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jm.init_params(jax.random.PRNGKey(0), J_CFG)
-    return jp, tm.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return seeded_params(T_CFG)
 
 
 def _caches(layout, seed):
@@ -384,7 +384,7 @@ def test_forward_step_tree_matches_jax(params, layout):
     jc, tc = _caches(layout, 11)
     toks, depth, mask, n = _tree_step_inputs(np.random.default_rng(12))
     length = np.asarray(jc.length)
-    jl, jc = jm.forward_step(
+    jl, jc = jax.jit(jm.forward_step, static_argnums=3)(
         jp, jnp.asarray(toks), jc, J_CFG, n_tokens=jnp.asarray(n),
         positions=jnp.asarray(length[:, None] + depth),
         tree_mask=jnp.asarray(mask))
@@ -470,8 +470,8 @@ def test_compact_decode_window_matches_jax(layout):
     src[2, 1:3] = [2, 3]
     n = np.array([4, 0, 3], np.int32)
     before = [x.clone() for x in (tc.k, tc.v)]
-    jout = jdec.compact_decode_window(jc, jnp.asarray(start),
-                                      jnp.asarray(src), jnp.asarray(n))
+    jout = jax.jit(jdec.compact_decode_window)(
+        jc, jnp.asarray(start), jnp.asarray(src), jnp.asarray(n))
     tout = tm.compact_decode_window(tc, *_t(start, src, n))
     paged = layout.startswith("paged")
     for got, want in zip(_kv_of(tout, paged), (np.asarray(jout.k),

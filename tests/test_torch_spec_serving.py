@@ -29,7 +29,6 @@ import contextlib
 import io
 import json
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,6 +48,7 @@ from tree_attention_tpu_torch.serving.block_pool import (
     BlockAllocator as TAlloc,
 )
 from tree_attention_tpu_torch.utils.config import parse_args
+from tests.torch_params import seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -75,8 +75,7 @@ CLEAN = {"blocks_private": 0, "blocks_used": 0, "blocks_reserved": 0,
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jm.init_params(jax.random.PRNGKey(0), J_CFG)
-    return jp, tm.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return seeded_params(T_CFG)
 
 
 def _reqs(mod, n_new=N_NEW, eos=None, **kw):
@@ -226,9 +225,8 @@ def test_host_drafters_match_jax(params):
     # The draft model's greedy chain: the same half-depth model in both.
     jp, tp = params
     dcfg = dict(CFG, n_layers=1)
-    jdp = jm.init_params(jax.random.PRNGKey(3),
-                         jm.TransformerConfig(**dcfg, dtype=jnp.float32))
-    tdp = tm.params_from_jax(jax.tree.map(np.asarray, jdp), device="cpu")
+    jdp, tdp = seeded_params(tm.TransformerConfig(**dcfg,
+                                                  dtype=torch.float32), 3)
     jd = jspec.DraftModelDrafter(
         jdp, jm.TransformerConfig(**dcfg, dtype=jnp.float32))
     td = tspec.DraftModelDrafter(

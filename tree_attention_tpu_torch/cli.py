@@ -432,6 +432,19 @@ def build_server(cfg: RunConfig, dev: torch.device,
             f"--prefix-block {cfg.prefix_block} must equal --kv-block "
             f"{cfg.kv_block} under --kv-layout paged (or pass only one "
             f"of them)")
+    if cfg.host_blocks < 0:
+        raise SystemExit("--host-blocks must be >= 0")
+    host_blocks = host_tier_blocks(cfg)
+    if host_blocks:
+        if cfg.kv_layout != "paged":
+            raise SystemExit(
+                "--host-blocks KV tiering requires --kv-layout paged (the "
+                "tier demotes pool blocks; the contiguous layout has none)")
+        if not cfg.prefix_cache:
+            raise SystemExit(
+                "--host-blocks KV tiering requires --prefix-cache (demotion "
+                "is what radix eviction becomes; with no radix tree "
+                "nothing ever demotes)")
     if cfg.max_queue < 1:
         raise SystemExit("--max-queue must be >= 1")
     if cfg.default_deadline is not None and cfg.default_deadline <= 0:
@@ -465,17 +478,24 @@ def build_server(cfg: RunConfig, dev: torch.device,
             params, tcfg, slots=cfg.slots, cache_len=cache_len,
             temperature=cfg.temperature, top_k=cfg.top_k, seed=cfg.seed + 2,
             prefill_chunk=cfg.prefill_chunk,
-            prefill_budget=cfg.prefill_budget,
+            prefill_budget=cfg.prefill_budget, admission=cfg.admission,
             slo_ttft=cfg.slo_ttft, slo_tbt=cfg.slo_tbt,
             kv_layout=cfg.kv_layout, kv_block=cfg.kv_block,
             kv_blocks=cfg.kv_blocks, quantize=kernel is not None,
             quant_kernel=kernel or "q8q", mesh=mesh, kv_shard=cfg.kv_shard,
             speculate=cfg.speculate, draft_k=cfg.draft_k, drafter=drafter,
             prefix_cache=cfg.prefix_cache, prefix_block=cfg.prefix_block,
+            host_blocks=host_blocks,
         )
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}") from None
     return server, cache_len, kernel
+
+
+def host_tier_blocks(cfg: RunConfig) -> int:
+    """The engine's ``host_blocks``: ``--host-blocks``, or 0 under
+    ``--kv-tiering off``."""
+    return cfg.host_blocks if cfg.kv_tiering == "on" else 0
 
 
 def _serve_record(cfg: RunConfig, dev: torch.device, cache_len: int,
@@ -486,6 +506,7 @@ def _serve_record(cfg: RunConfig, dev: torch.device, cache_len: int,
         "device": device_name(dev),
         "slots": cfg.slots,
         "cache_len": cache_len,
+        "admission": cfg.admission,
         "prefill_chunk": cfg.prefill_chunk,
         "kv_layout": cfg.kv_layout,
         **({"kv_quant": cfg.kv_quant} if kernel else {}),
@@ -493,6 +514,8 @@ def _serve_record(cfg: RunConfig, dev: torch.device, cache_len: int,
            if cfg.speculate else {}),
         **({"prefix_cache": {"block": cfg.prefix_block}}
            if cfg.prefix_cache else {}),
+        **({"kv_tiering": {"host_blocks": host_tier_blocks(cfg)}}
+           if host_tier_blocks(cfg) else {}),
     }
 
 

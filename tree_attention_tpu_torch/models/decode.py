@@ -434,25 +434,34 @@ def extract_prefix_blocks(pool_k: torch.Tensor, pool_v: torch.Tensor,
     return pool_k, pool_v
 
 
-def paged_insert_slot(cache: PagedQuantKVCache, slot: int,
-                      k_rows: torch.Tensor, v_rows: torch.Tensor, plen: int,
-                      k_scale: torch.Tensor, v_scale: torch.Tensor, *,
+def paged_insert_slot(cache: Union[PagedKVCache, PagedQuantKVCache],
+                      slot: int, k_rows: torch.Tensor, v_rows: torch.Tensor,
+                      plen: int, k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None, *,
                       lo: int = 0, mesh: Optional[Mesh] = None,
                       kv_shard: str = "replicated"
-                      ) -> PagedQuantKVCache:
-    """Place a B=1 quantized prompt into one slot's mapped blocks, in place.
+                      ) -> Union[PagedKVCache, PagedQuantKVCache]:
+    """Place a B=1 prefilled prompt into one slot's mapped blocks, in place.
 
-    ``k_rows``/``v_rows`` are ``(L, 1, Hkv, T, D)`` int8; token positions
-    ``[lo, plen)`` scatter through the slot's table row (other rows go to
-    the drop block), the per-block scales ``(L, nb, Hkv)`` of the blocks
-    from ``lo // block`` that hold a prompt row land in the pool's scale
-    arrays through the same row, and the slot's length becomes ``plen``.
-    ``lo`` is the int8 prefix hit's block-aligned matched length: the
-    matched blocks are shared (tree-owned, with their own scales) and are
-    never rewritten. The caller maps blocks covering ``[0, plen)`` first.
-    On a sequence-sharded pool (``kv_shard="seq"`` under ``mesh``) the row
-    is rebased to this rank's ids, and rows and scales of blocks another
-    rank holds go to the drop block."""
+    ``k_rows``/``v_rows`` are ``(L, 1, Hkv, T, D)``: exact rows for a
+    :class:`PagedKVCache` (whole-prompt admission), int8 rows for a
+    :class:`PagedQuantKVCache`, whose per-block scales ``k_scale`` /
+    ``v_scale`` ``(L, nb, Hkv)`` come along. Token positions ``[lo, plen)``
+    scatter through the slot's table row; every other row goes to the drop
+    block, which no table entry names, so the many pad rows writing it are
+    harmless. The scales of the blocks from ``lo // block`` that hold a
+    prompt row land in the pool's scale arrays through the same row, and
+    the slot's length becomes ``plen``. ``lo`` is the int8 prefix hit's
+    block-aligned matched length: the matched blocks are shared
+    (tree-owned, with their own scales) and are never rewritten. The
+    caller maps blocks covering ``[0, plen)`` first. On a
+    sequence-sharded pool (``kv_shard="seq"`` under ``mesh``) the row is
+    rebased to this rank's ids, and rows and scales of blocks another rank
+    holds go to the drop block."""
+    quant = isinstance(cache, PagedQuantKVCache)
+    if quant != (k_scale is not None):
+        raise ValueError("an int8 pool takes its block scales; an exact "
+                         "pool takes none")
     L, _, Hkv, T, D = k_rows.shape
     N, blk = cache.blocks, cache.block
     row = cache.table[slot].long()
@@ -466,12 +475,13 @@ def paged_insert_slot(cache: PagedQuantKVCache, slot: int,
     off = pos % blk
     for pool, rows in ((cache.k, k_rows), (cache.v, v_rows)):
         pool[:, pb, :, off] = rows[:, 0].permute(2, 0, 1, 3).to(pool.dtype)
-    nbk = k_scale.shape[1]
-    idx = torch.arange(nbk, device=dev)
-    ok = (idx >= lo // blk) & (idx * blk < plen) & (idx < NB)
-    pb_s = torch.where(ok, row[idx.clamp(max=NB - 1)], N)
-    cache.k_scale[:, pb_s] = k_scale
-    cache.v_scale[:, pb_s] = v_scale
+    if quant:
+        nbk = k_scale.shape[1]
+        idx = torch.arange(nbk, device=dev)
+        ok = (idx >= lo // blk) & (idx * blk < plen) & (idx < NB)
+        pb_s = torch.where(ok, row[idx.clamp(max=NB - 1)], N)
+        cache.k_scale[:, pb_s] = k_scale
+        cache.v_scale[:, pb_s] = v_scale
     cache.length[slot] = plen
     return cache
 

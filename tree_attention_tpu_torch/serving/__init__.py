@@ -2,14 +2,21 @@
 exact or int8 (``SlotServer(quantize=True)``), on one rank or over a
 sequence-sharded pool (``SlotServer(mesh=..., kv_shard="seq")``), with
 shared prompt prefixes reused through a radix tree
-(``SlotServer(prefix_cache=True)``); served live over HTTP by
+(``SlotServer(prefix_cache=True)``) and kept in a host-RAM tier under the
+pool (``SlotServer(host_blocks=N)``, :class:`HostBlockPool`); admitted in
+chunks or whole (``admission="whole"``); served live over HTTP by
 :class:`IngressServer` (SSE streaming, cancellation, deadlines, drain)."""
 
 from tree_attention_tpu_torch.serving.block_pool import (  # noqa: F401
     BlockAllocator,
     ShardedBlockAllocator,
 )
+from tree_attention_tpu_torch.serving.host_pool import (  # noqa: F401
+    HostBlockPool,
+)
 from tree_attention_tpu_torch.serving.prefix_cache import (  # noqa: F401
+    TIER_DEVICE,
+    TIER_HOST,
     PagedPrefixIndex,
     PrefixCache,
 )

@@ -6,8 +6,10 @@ slot; ownership is single-writer:
 
 - a **free** block belongs to the allocator's free list;
 - a **private** block belongs to exactly one slot;
-- a **cached** block belongs to one radix-tree node (the prefix cache, a
-  later slice of the port; the hooks below are its seam).
+- a **cached** block belongs to one radix-tree node (the prefix cache);
+- a **demoted** block left the tree toward the host tier of KV tiering:
+  its bytes must survive on the device until the staged D2H copy lands
+  them in host RAM (:meth:`BlockAllocator.free_demoted`).
 
 **Reservation-based admission** turns an over-subscribed pool into a clean
 scheduling decision: an admission reserves its worst-case block count up
@@ -45,8 +47,11 @@ _BLOCKS_FREE_SHARD = obs.gauge(
     labels=("shard",),
 )
 
-# Block ownership states (the debug ledger's vocabulary).
-_FREE, _PRIVATE, _CACHED = 0, 1, 2
+# Block ownership states (the debug ledger's vocabulary). A _DEMOTED
+# block is owned by the host tier's staging queue: the radix tree evicted
+# it toward host RAM, the D2H copy has not run yet, and the block must
+# not be reused until the flush lands it and calls ``free_demoted``.
+_FREE, _PRIVATE, _CACHED, _DEMOTED = 0, 1, 2, 3
 
 
 class BlockAllocator:
@@ -76,6 +81,13 @@ class BlockAllocator:
         self.gen = 0
         self._evict_one: Optional[Callable[[], bool]] = None
         self._evictable: Optional[Callable[[], int]] = None
+        # Demotion staging: with a host tier under the pool, eviction
+        # DEMOTES blocks (state _DEMOTED) instead of freeing them, and the
+        # flusher runs the batched D2H copy that finally frees them.
+        # ``demote_batch`` is how many leaves one dry alloc demotes before
+        # it flushes: one batched copy per batch, not one per block.
+        self._flush_demotions: Optional[Callable[[], int]] = None
+        self.demote_batch = 8
 
     # -- the free list (subclass seam) ------------------------------------
     #
@@ -124,6 +136,14 @@ class BlockAllocator:
         self._evict_one = evict_one
         self._evictable = evictable
 
+    def set_demote_flusher(self, flush: Callable[[], int]) -> None:
+        """``flush()`` must complete every pending demotion's D2H copy
+        and :meth:`free_demoted` the device blocks, returning how many it
+        freed. The engine registers it when KV tiering is on; :meth:`alloc`
+        calls it only when a backed reservation finds the free list dry
+        (the common flush point is the end of the engine's tick)."""
+        self._flush_demotions = flush
+
     # -- reservations -----------------------------------------------------
 
     def reserve(self, n: int) -> bool:
@@ -151,9 +171,20 @@ class BlockAllocator:
         assert self.reserved > 0, "alloc without a backing reservation"
         self.reserved -= 1
         while not self.free_count:
-            # Load-bearing call — NOT inside an assert (python -O strips
-            # assert statements, and the eviction must still run).
-            if self._evict_one is None or not self._evict_one():
+            # Load-bearing calls — NOT inside an assert (python -O strips
+            # assert statements, and the eviction must still run). With a
+            # host tier, evict_one() DEMOTES (the block parks in state
+            # _DEMOTED, not on the free list), so a dry alloc demotes a
+            # small batch of leaves and flushes the staged copy once.
+            n = 0
+            while not self.free_count and n < self.demote_batch:
+                if self._evict_one is None or not self._evict_one():
+                    break
+                n += 1
+            if not self.free_count and self._flush_demotions is not None \
+                    and self._flush_demotions() > 0:
+                continue
+            if not self.free_count:
                 raise AssertionError(
                     "allocator invariant broken: a backed reservation "
                     "found neither a free block nor an evictable leaf"
@@ -203,6 +234,39 @@ class BlockAllocator:
         self._push_free(bid)
         self.gen += 1
 
+    # -- the host tier's transitions --------------------------------------
+
+    def demote_cached(self, bid: int) -> None:
+        """The radix tree demotes a refcount-0 leaf toward the host tier:
+        the block leaves the tree but is NOT free yet — its bytes must
+        survive on the device until the staged D2H copy reads them
+        (:meth:`free_demoted`). Not counted available, so the reservation
+        soundness holds through the staging window."""
+        assert self._state[bid] == _CACHED, (
+            f"block {bid} demoted while not tree-owned"
+        )
+        self._state[bid] = _DEMOTED
+
+    def undemote(self, bid: int) -> None:
+        """Cancel a pending demotion: a prefix hit matched the demoted
+        node before its copy ran, so the device bytes are still canonical
+        — ownership goes straight back to the tree (zero copies)."""
+        assert self._state[bid] == _DEMOTED, (
+            f"block {bid} un-demoted while not staged (state "
+            f"{self._state[bid]})"
+        )
+        self._state[bid] = _CACHED
+
+    def free_demoted(self, bid: int) -> None:
+        """The staged D2H copy of the block is ordered: the device block
+        is reusable."""
+        assert self._state[bid] == _DEMOTED, (
+            f"block {bid} flushed while not staged for demotion"
+        )
+        self._state[bid] = _FREE
+        self._push_free(bid)
+        self.gen += 1
+
 
 class ShardedBlockAllocator(BlockAllocator):
     """The sequence-sharded pool's ledger: ``blocks`` global block ids
@@ -216,7 +280,8 @@ class ShardedBlockAllocator(BlockAllocator):
     shards and each shard holds about ``1/W`` of every slot's keys.
     Reservations stay GLOBAL: any block can serve any slot through the
     table, so ``available()`` over the pooled free count is exactly what
-    :meth:`alloc` needs.
+    :meth:`alloc` needs. Ownership states, eviction and demotion are
+    inherited unchanged.
     """
 
     def __init__(self, blocks: int, shards: int):

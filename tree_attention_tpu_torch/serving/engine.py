@@ -22,6 +22,16 @@ tick loop:
 Slot lifecycle: ``free -> prefill -> await -> live -> free``; a slot's
 first token is sampled by its final chunk and fetched with the tick.
 
+``admission="whole"`` is the blocking alternative: the admission prefills
+the whole prompt at once, on a B=1 cache of the prompt's power-of-two
+bucket (one per bucket, allocated at its first use; B3 over the bucket
+from 128 rows), zeroes the pad rows, samples the first token from row
+``plen - 1`` into the device token vector, and inserts the rows (quantized
+per block or per channel under int8) into the slot, which parks in
+``await`` until the tick's one host fetch reads the token. A prefix hit
+runs only its suffix, as one-slot mixed steps the other slots ride inertly;
+int8 with the prefix cache on runs the staged path to completion.
+
 The layouts are ``kv_layout="paged"`` (default: one block pool under every
 slot, block tables, the B2 kernel streams blocks in place) and
 ``"contiguous"`` (per-slot regions, the B1 kernel). Prompt chunks of a
@@ -99,9 +109,19 @@ in-flight requests finish). Every exit arc retires through the one
 ``on_token`` / ``on_finish`` callbacks run on the engine thread, fed from
 the tick's one host fetch.
 
-Left for later slices of the port (see ROADMAP): whole-prompt admission,
-speculation and the prefix cache on a mesh, forks and tree-sibling decode,
-KV tiering, disaggregation, the flight recorder and the request ledger.
+**KV tiering.** ``host_blocks > 0`` (paged layout, prefix cache on) puts a
+host-RAM tier under the pool
+(:class:`~tree_attention_tpu_torch.serving.host_pool.HostBlockPool`, pinned
+on a GPU): radix eviction demotes blocks instead of forgetting them, the
+tick's end flushes the staged demotions (one gather and a ``non_blocking``
+D2H copy, no sync), and a prefix hit on a demoted path restores it before
+its suffix runs — pending demotions cancel with zero copies, flushed ones
+land in fresh blocks of the slot's reservation through one batched H2D
+copy and scatter.
+
+Left for later slices of the port (see ROADMAP): speculation and the
+prefix cache (so KV tiering) on a mesh, forks and tree-sibling decode,
+disaggregation, the flight recorder and the request ledger.
 """
 
 from __future__ import annotations
@@ -131,6 +151,7 @@ from tree_attention_tpu_torch.models.decode import (
     KVCache,
     compact_decode_window,
     forward_step,
+    gather_kv_blocks,
     init_cache,
     init_paged_cache,
     insert_dequant_prefix,
@@ -139,6 +160,7 @@ from tree_attention_tpu_torch.models.decode import (
     quantize_paged_blocks,
     sample_rows,
     sample_slots,
+    scatter_kv_blocks,
 )
 from tree_attention_tpu_torch.ops.cuda_decode import resolve_q8_kernel
 from tree_attention_tpu_torch.models.transformer import (
@@ -152,7 +174,9 @@ from tree_attention_tpu_torch.serving.block_pool import (
     BlockAllocator,
     ShardedBlockAllocator,
 )
+from tree_attention_tpu_torch.serving.host_pool import HostBlockPool
 from tree_attention_tpu_torch.serving.prefix_cache import (
+    TIER_DEVICE,
     PagedPrefixIndex,
     PrefixCache,
 )
@@ -520,7 +544,9 @@ class SlotServer:
         ``draft_k + 1`` tokens.
       drafter: ``"ngram"`` (default), ``"ngram-tree"``, or any
         :class:`~.speculation.Drafter` (e.g. ``DraftModelDrafter``).
-      admission: ``"chunked"`` (the only one ported; ``"whole"`` raises).
+      admission: ``"chunked"`` (default: prefill chunks ride the tick's
+        step) or ``"whole"`` (blocking whole-prompt prefill at admission;
+        module docstring).
       prefix_cache: reuse shared prompt prefixes (module docstring); not
         with a mesh yet.
       prefix_block: tokens per prefix block (a power of two, at most
@@ -533,7 +559,11 @@ class SlotServer:
         only; ``kv_blocks`` must agree with it) and a caller's
         :class:`PagedPrefixIndex` built over that same allocator at
         ``kv_block`` granularity.
-      host_blocks: KV tiering's host tier; a later slice (must be 0).
+      host_blocks: KV tiering: the host-RAM tier's capacity in blocks (0
+        = off). Radix eviction then demotes refcount-0 blocks into pinned
+        host memory instead of freeing them, and a prefix hit on a demoted
+        path restores them (module docstring). Needs the paged layout and
+        ``prefix_cache=True``; not with a shared ``prefix_index``.
     """
 
     def __init__(
@@ -574,16 +604,12 @@ class SlotServer:
         if admission not in ("chunked", "whole"):
             raise ValueError(
                 f"admission must be 'chunked' or 'whole', got {admission!r}")
-        if admission == "whole":
-            raise NotImplementedError(
-                "whole-prompt admission is a later slice of the port "
-                "(ROADMAP queue A, item 4); serve with admission='chunked'")
         if host_blocks < 0:
             raise ValueError(f"host_blocks must be >= 0, got {host_blocks}")
-        if host_blocks:
-            raise NotImplementedError(
-                "host_blocks KV tiering (serving/host_pool.py) is a later "
-                "slice of the port (ROADMAP queue A, item 4)")
+        if host_blocks and kv_layout != "paged":
+            raise ValueError(
+                "host_blocks KV tiering requires kv_layout='paged' (the "
+                "tier demotes pool blocks; the contiguous layout has none)")
         if mesh is not None and (prefix_cache or prefix_index is not None):
             raise NotImplementedError(
                 "the prefix cache on a mesh is a later slice of the port "
@@ -646,9 +672,13 @@ class SlotServer:
         self.prefill_budget = (slots * self.prefill_chunk
                                if prefill_budget is None else prefill_budget)
         self.kv_layout = kv_layout
+        self.admission = admission
         self.quantize = quantize
         self.quant_kernel = quant_kernel
         self._paged = kv_layout == "paged"
+        # KV tiering's host tier (created with the paged pool below; the
+        # prefix index attaches to it).
+        self._host_pool: Optional[HostBlockPool] = None
         if self._paged:
             if kv_block is None:
                 # Match granularity == page size: a matched prefix is whole
@@ -687,6 +717,25 @@ class SlotServer:
                 self._pool = ShardedBlockAllocator(self.kv_blocks, w)
             else:
                 self._pool = BlockAllocator(self.kv_blocks)
+            if host_blocks:
+                if prefix_index is not None:
+                    raise ValueError(
+                        "host_blocks tiering with a shared prefix_index: "
+                        "build the index with its own host_pool instead "
+                        "(the tier belongs to the shared tree, not one "
+                        "engine)")
+                if not prefix_cache:
+                    raise ValueError(
+                        "host_blocks KV tiering requires prefix_cache=True "
+                        "(demotion is what radix eviction becomes; with no "
+                        "radix tree nothing ever demotes)")
+                self.attach_host_tier(HostBlockPool(
+                    host_blocks, n_layers=cfg.n_layers,
+                    n_kv_heads=cfg.n_kv_heads, block=self.kv_block,
+                    d_head=cfg.d_head,
+                    dtype=torch.int8 if quantize else cfg.dtype,
+                    quantized=quantize,
+                    pin_memory=self.device.type == "cuda"))
             self._host_table = np.zeros((slots, self._npb), np.int32)
             self._table_dirty = False
             self._slot_nblocks = [0] * slots
@@ -702,10 +751,16 @@ class SlotServer:
         else:
             self.cache = init_cache(cfg, slots, cache_len, device=self.device,
                                     quantize=quantize)
-        if quantize:
-            # The one exact B=1 staging cache of staged admission.
+        # Staged int8 admission's one exact B=1 staging cache: chunked int8
+        # admission and, with the prefix cache on, whole int8 admission,
+        # whose hits and publishes need exact staged rows.
+        if quantize and (admission == "chunked" or prefix_cache
+                         or prefix_index is not None):
             self._staging: KVCache = init_cache(cfg, 1, cache_len,
                                                 device=self.device)
+        # Whole-prompt admission's B=1 prefill caches, one per prompt
+        # bucket, allocated at the bucket's first admission and reused.
+        self._whole_caches: Dict[int, KVCache] = {}
 
         # Prefix reuse: the radix tree and, per slot, the nodes it matched
         # or published (pinned until it retires), where its prefill starts
@@ -731,7 +786,8 @@ class SlotServer:
             if self._paged:
                 self._prefix = PagedPrefixIndex(
                     block=self.kv_block, alloc=self._pool,
-                    max_cached=prefix_pool_blocks)
+                    max_cached=prefix_pool_blocks,
+                    host_pool=self._host_pool)
             else:
                 self._prefix = PrefixCache(
                     cfg, block=prefix_block,
@@ -931,6 +987,214 @@ class SlotServer:
         # the next prompt overwrites them.
         self._publish_prefix(slot)
 
+    # -- whole-prompt admission -------------------------------------------
+
+    def _whole_suffix(self, slot: int, n: int, last: bool) -> None:
+        """One suffix chunk of a whole-admission prefix hit: ``slot``
+        consumes ``n`` prompt rows while every other slot rides inert. Their
+        row 0 comes from the DEVICE token vector (an ``await`` slot's parked
+        first token exists only there until the tick's fetch), so their
+        tokens pass through. The first chunk resets the slot's length to
+        the matched length (where the paged hit's table row meets the
+        device); the final chunk samples the first token."""
+        S = self.slots
+        first = self._prefill_pos[slot] == self._prefill_start[slot]
+        mat = np.zeros((S, self._chunk_bucket(n)), np.int32)
+        mat[slot, :n] = self._consume_chunk(slot, n, last)
+        n_vec = np.zeros((S,), np.int32)
+        reset = np.zeros((S,), np.int32)
+        reset_val = np.zeros((S,), np.int32)
+        emit = np.zeros((S,), bool)
+        n_vec[slot] = n
+        reset[slot] = first
+        reset_val[slot] = self._prefill_start[slot]
+        emit[slot] = last
+        others = torch.from_numpy(np.arange(S) != slot).to(self.device)
+        tokens = torch.from_numpy(mat).to(self.device)
+        tokens[:, 0] = torch.where(others, self.tok, tokens[:, 0])
+        self._sync_table()
+        self._step(tokens, n_vec, reset, reset_val, emit)
+
+    def _whole_cache(self, bucket: int) -> KVCache:
+        """The B=1 prefill cache of one prompt bucket: allocated at the
+        bucket's first admission, then reused (its length reset)."""
+        mini = self._whole_caches.get(bucket)
+        if mini is None:
+            cfg = self.cfg
+            shape = (cfg.n_layers, 1, cfg.n_kv_heads, bucket, cfg.d_head)
+            mini = self._whole_caches[bucket] = KVCache(
+                k=torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                v=torch.zeros(shape, dtype=cfg.dtype, device=self.device),
+                length=torch.zeros((1,), dtype=torch.int32,
+                                   device=self.device))
+        mini.length.zero_()
+        return mini
+
+    def _prefill(self, slot: int, prompt: np.ndarray) -> KVCache:
+        """The cold whole prefill: the prompt, padded to its bucket, in
+        one step over the bucket's B=1 cache. Pad rows at positions >=
+        ``plen`` are zeroed in place after the step (every row was written
+        by this step, the pad rows from pad tokens), so the insert and the
+        int8 scales see an unpadded prefill. The first token is sampled
+        from row ``plen - 1`` into the slot's entry of the device token
+        vector: no host sync. Returns the filled cache."""
+        plen = len(prompt)
+        bucket = _bucket(plen, self.cache_len, multiple=self._seq_shards)
+        mat = np.zeros((1, bucket), np.int32)
+        mat[0, :plen] = prompt
+        mini = self._whole_cache(bucket)
+        logits, mini = forward_step(self.params,
+                                    torch.from_numpy(mat).to(self.device),
+                                    mini, self.cfg)
+        mini.k[:, :, :, plen:] = 0
+        mini.v[:, :, :, plen:] = 0
+        tok, lp = sample_slots(logits[:, plen - 1],
+                               self._temp_np[slot:slot + 1],
+                               self._topk_np[slot:slot + 1],
+                               self._keys[slot:slot + 1],
+                               np.zeros((1,), np.int64), np.ones((1,), bool))
+        self.tok[slot] = tok[0]
+        self._lp[slot] = lp[0]
+        return mini
+
+    def _insert(self, slot: int, mini: KVCache, plen: int) -> None:
+        """Place a filled B=1 prefill cache into the slot: through its
+        table row (mapped over ``[0, plen)`` first) on the paged layout,
+        into the slot's region on the contiguous one (rows past the bucket
+        keep the previous occupant's bytes: masked future, overwritten
+        before they become visible). Under int8 the rows are quantized per
+        block (paged) or per channel (contiguous) first."""
+        if self._paged:
+            self._ensure_blocks(slot, plen)
+            self._sync_table()
+            if self.quantize:
+                kq, vq, ks, vs = quantize_paged_blocks(mini.k, mini.v,
+                                                       self.kv_block)
+                paged_insert_slot(self.cache, slot, kq, vq, plen, ks, vs,
+                                  **self._fs_kw)
+            else:
+                paged_insert_slot(self.cache, slot, mini.k, mini.v, plen,
+                                  **self._fs_kw)
+            return
+        bucket = mini.k.shape[3]
+        if self.quantize:
+            mini = quantize_cache(mini)
+            self.cache.k_scale[:, slot] = mini.k_scale[:, 0]
+            self.cache.v_scale[:, slot] = mini.v_scale[:, 0]
+        self.cache.k[:, slot, :, :bucket] = mini.k[:, 0]
+        self.cache.v[:, slot, :, :bucket] = mini.v[:, 0]
+        self.cache.length[slot] = plen
+
+    def _admit_whole(self, req: Request, slot: int, matched: int) -> None:
+        """Blocking admission: the whole remaining prompt prefills before
+        the admission returns; the slot then parks in ``await``. Three
+        shapes:
+
+        - cold, exact (or int8 with the prefix cache off): :meth:`_prefill`
+          on the bucket's B=1 cache, then :meth:`_insert`;
+        - a prefix hit, exact: the hit already placed ``matched`` tokens
+          (table row or gather), so only the suffix runs, as
+          :meth:`_whole_suffix` chunks;
+        - int8 with the prefix cache on (hit or cold): the staged path runs
+          to completion — exact chunks into the staging cache, quantize and
+          insert at the final chunk — since the hit and the publish need
+          exact staged rows."""
+        plen = len(req.prompt)
+        if self.quantize and self._prefix is not None:
+            pos = matched
+            while pos < plen:
+                n = min(self.prefill_chunk, plen - pos)
+                self._run_staged_chunk(slot, n, pos + n == plen)
+                pos += n  # the final chunk published from staging
+            return
+        if matched:
+            pos = matched
+            while pos < plen:
+                n = min(self.prefill_chunk, plen - pos)
+                self._ensure_blocks(slot, pos + n)
+                self._whole_suffix(slot, n, pos + n == plen)
+                pos += n
+            self._publish_prefix(slot)
+            return
+        mini = self._prefill(slot, self._prompt_np[slot])
+        self._insert(slot, mini, plen)
+        self._publish_prefix(slot)
+
+    # -- KV tiering -------------------------------------------------------
+
+    def attach_host_tier(self, host_pool: HostBlockPool) -> None:
+        """Make ``host_pool`` this engine's KV demotion tier and register
+        the staged flush on the allocator (a dry allocation forces it)."""
+        self._host_pool = host_pool
+        self._pool.set_demote_flusher(self._flush_demotions)
+
+    def _flush_demotions(self) -> int:
+        """Complete every staged demotion: one gather of the pending
+        device blocks (padded to a power-of-two count; pad entries gather
+        block 0 and are ignored), one ``non_blocking`` copy into their
+        pinned host rows per run of consecutive rows, then the device
+        blocks free — every later write to them is queued on this stream,
+        after the copy. Called at the end of each tick and after a drain,
+        and by a dry allocator mid-tick. Nothing pending: no launch, no
+        sync. Returns how many device blocks it freed."""
+        hp = self._host_pool
+        if hp is None or not hp.pending:
+            return 0
+        items = hp.take_pending()
+        bids = [b for _, b in items]
+        nb = _bucket(len(bids), max(self._npb, len(bids)), floor=1)
+        ids = np.zeros((nb,), np.int64)
+        ids[:len(bids)] = bids
+        ids_t = torch.from_numpy(ids).to(self.device)
+        if self.quantize:
+            out = gather_kv_blocks(self.cache.k, self.cache.v, ids_t,
+                                   self.cache.k_scale, self.cache.v_scale)
+        else:
+            out = gather_kv_blocks(self.cache.k, self.cache.v, ids_t)
+        hp.commit([r for r, _ in items], *out)
+        for b in bids:
+            self._pool.free_demoted(b)
+        if obs.TRACER.active:
+            obs.instant("kv_demote_flush", cat="serving",
+                        args={"blocks": len(bids)})
+        return len(bids)
+
+    def _restore_demoted(self, slot: int, nodes: list) -> None:
+        """Bring a pinned path's host-tier nodes back onto the device:
+        still-pending demotions cancel in place (zero copies); flushed ones
+        take fresh blocks from the slot's reservation and land through one
+        batched H2D copy (pinned rows, padded to a power-of-two count) and
+        one scatter, whose pad entries go to the drop block."""
+        demoted = self._prefix.demoted_in(nodes)
+        if not demoted:
+            return
+
+        def take_one() -> int:
+            assert self._slot_reserve[slot] > 0, (
+                f"slot {slot} restore outgrew its block reservation")
+            bid = self._pool.alloc()
+            self._slot_reserve[slot] -= 1
+            return bid
+
+        rows, bids = self._prefix.restore_nodes(demoted, take_one)
+        if rows:
+            hp = self._host_pool
+            nb = _bucket(len(bids), self._npb, floor=1)
+            ids = np.full((nb,), self.kv_blocks, np.int64)  # pad: dropped
+            ids[:len(bids)] = bids
+            staged = [t.to(self.device, non_blocking=True)
+                      for t in hp.read(rows, pad_to=nb)]
+            ids_t = torch.from_numpy(ids).to(self.device)
+            if self.quantize:
+                scatter_kv_blocks(self.cache.k, self.cache.v, ids_t,
+                                  staged[0], staged[1], self.cache.k_scale,
+                                  self.cache.v_scale, staged[2], staged[3])
+            else:
+                scatter_kv_blocks(self.cache.k, self.cache.v, ids_t,
+                                  staged[0], staged[1])
+            for row in rows:
+                hp.release(row, restored=True)
+
     # -- scheduler --------------------------------------------------------
 
     def _validate(self, req: Request) -> None:
@@ -964,15 +1228,18 @@ class SlotServer:
 
     def _paged_reserve(self, req: Request) -> Optional[tuple]:
         """Match the prompt (pinning the path) and reserve the admission's
-        worst-case private blocks: its whole span less the matched blocks
-        it shares. ``None`` defers the admission (the pins are released);
-        otherwise ``(matched, nodes, needed)``, the match recorded."""
+        worst-case private blocks: its whole span less the matched
+        device-tier blocks it shares. ``None`` defers the admission (the
+        pins are released); otherwise ``(matched, nodes, needed)``, the
+        match recorded."""
         total = -(-(len(req.prompt) + req.max_new_tokens) // self.kv_block)
         matched, nodes = 0, []
         if self._paged_prefix:
             matched, nodes = self._prefix.match(
                 np.asarray(req.prompt, np.int32), record=False)
-        needed = total - len(nodes)
+        # A matched node on the host tier still costs one reservation: its
+        # restore takes a fresh device block (consumed in _paged_hit).
+        needed = total - sum(1 for n in nodes if n.tier == TIER_DEVICE)
         if not self._pool.reserve(needed):
             if nodes:
                 self._prefix.release(nodes)
@@ -1041,8 +1308,15 @@ class SlotServer:
         self._prefill_start[slot] = matched
         self._prefill_pos[slot] = matched
         self._slot_prefix_hit[slot] = matched
-        self._slot_state[slot] = "prefill"
-        self._prefill_fifo.append(slot)
+        if self.admission == "chunked":
+            self._slot_state[slot] = "prefill"
+            self._prefill_fifo.append(slot)
+        else:
+            self._admit_whole(req, slot, matched)
+            # The first token is parked in the device token vector; the slot
+            # sits out this tick's step (n = 0 holds it) and goes live when
+            # the tick's one host fetch reads it: no sync per admission.
+            self._slot_state[slot] = "await"
         if obs.REGISTRY.enabled:
             _QUEUE_WAIT.observe(waited)
         if obs.TRACER.active:
@@ -1079,7 +1353,8 @@ class SlotServer:
         return matched
 
     def _paged_hit(self, slot: int, resv: tuple) -> int:
-        """The paged hit: the matched path's block ids go into the slot's
+        """The paged hit: demoted nodes of the matched path are restored
+        first (KV tiering); then the path's block ids go into the slot's
         table row — host bookkeeping, zero device KV bytes on the exact
         pool (the device sees the new int32 row at the next sync). Under
         int8 the matched blocks are also dequantized into staging slot 0,
@@ -1092,6 +1367,10 @@ class SlotServer:
         self._slot_nodes[slot] = nodes
         if not matched:
             return 0
+        if self._host_pool is not None:
+            # Demoted path nodes come back first (their bytes are the
+            # admission's restore cost).
+            self._restore_demoted(slot, nodes)
         for j, node in enumerate(nodes):
             self._host_table[slot, j] = node.block_id
         self._slot_nblocks[slot] = len(nodes)
@@ -1171,7 +1450,8 @@ class SlotServer:
         self._prefill_pos[slot] = pos + n
         if last:
             self._slot_state[slot] = "await"
-            self._prefill_fifo.remove(slot)
+            if slot in self._prefill_fifo:  # whole admission never enqueues
+                self._prefill_fifo.remove(slot)
         if obs.REGISTRY.enabled:
             _PREFILL_CHUNKS.inc()
         return rows
@@ -1468,8 +1748,9 @@ class SlotServer:
         """The no-leak invariant as numbers: after a drained run no slot
         holds blocks, reservations or prefix pins, and the only blocks in
         use are the prefix tree's (``blocks_used == blocks_cached``; 0
-        without the cache on the paged layout)."""
-        return {
+        without the cache on the paged layout; with KV tiering,
+        ``host_blocks_used`` is the host tier's retained cache)."""
+        out = {
             "blocks_private": (sum(len(s) for s in self._slot_private)
                                if self._paged else 0),
             "blocks_used": self._pool.used if self._paged else 0,
@@ -1479,6 +1760,10 @@ class SlotServer:
             "pins": (self._prefix.total_pins()
                      if self._prefix is not None else 0),
         }
+        if self._host_pool is not None:
+            # Host-tier occupancy is retained cache, like blocks_cached.
+            out["host_blocks_used"] = self._host_pool.used
+        return out
 
     # -- control mailboxes (any thread) -----------------------------------
 
@@ -1616,6 +1901,8 @@ class SlotServer:
                  self._spec_verifies, self._spec_tree_ticks)
         prefix0 = self.prefix_stats()
         hit_bytes0 = self._hit_bytes_moved
+        host0 = (self._host_pool.stats() if self._host_pool is not None
+                 else None)
         if self._paged:
             self._peak_blocks_used = self._pool.used
             self._defer_gen = -1
@@ -1900,6 +2187,11 @@ class SlotServer:
                 self._peak_blocks_used = max(self._peak_blocks_used,
                                              self._pool.used)
                 self._pool.publish_gauges()
+            if self._host_pool is not None:
+                # The staged D2H flush point: the demotions this tick's
+                # evictions enqueued, in one batch behind the tick's work.
+                self._flush_demotions()
+                self._host_pool.publish_gauge()
             self.slo.maybe_export(now)
             tick += 1
 
@@ -1908,6 +2200,11 @@ class SlotServer:
             # (a completed drain must not drain the next run).
             self._cancel_uids.clear()
             self._draining = False
+        if self._host_pool is not None:
+            # A drained run leaves no demotion staged (staged blocks would
+            # read as leaked capacity).
+            self._flush_demotions()
+            self._host_pool.publish_gauge()
         wall = time.monotonic() - t0
         self.slo.export_gauges()
         kv_snap: Dict[str, Any] = {}
@@ -1920,6 +2217,15 @@ class SlotServer:
                 "blocks_free": self._pool.free_count,
                 "peak_blocks_used": self._peak_blocks_used,
             }
+            if self._host_pool is not None:
+                h1 = self._host_pool.stats()
+                kv_snap.update({
+                    "host_blocks": h1["host_blocks"],
+                    "host_blocks_used": h1["host_blocks_used"],
+                    "demotions": h1["demotions"] - host0["demotions"],
+                    "restores": h1["restores"] - host0["restores"],
+                    "host_drops": h1["host_drops"] - host0["host_drops"],
+                })
             if self.kv_shard == "seq":
                 kv_snap.update(
                     kv_shard="seq", shards=self._seq_shards,

@@ -280,7 +280,12 @@ class IngressServer(DaemonHTTPServer):
         path = req.path.split("?", 1)[0].rstrip("/") or "/"
         if method == "POST" and path == "/v1/completions":
             self._completions(req)
-        elif method == "POST" and path == "/admin/drain":
+            return
+        # The other routes ignore a request body, but read it all the same:
+        # a socket closed with unread bytes is reset, and the reset can
+        # reach the client before it has read the reply.
+        self._discard_body(req)
+        if method == "POST" and path == "/admin/drain":
             # A remote drain (a supervisor's): answered before the drain
             # completes; /ingress/stats says when the engine is done.
             self.drain()
@@ -318,6 +323,15 @@ class IngressServer(DaemonHTTPServer):
         out["slots"] = self.engine.slots
         out["goodput"] = round(self.engine.slo.goodput(), 4)
         return out
+
+    @staticmethod
+    def _discard_body(req: BaseHTTPRequestHandler) -> None:
+        try:
+            n = int(req.headers.get("Content-Length", 0))
+        except ValueError:
+            return
+        if n > 0:
+            req.rfile.read(n)
 
     def _reply_counted(self, req, route: str, code: int, body: str,
                        ctype: str, headers: Optional[dict] = None) -> None:

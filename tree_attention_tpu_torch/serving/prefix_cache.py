@@ -32,9 +32,11 @@ Matches are capped at ``len(prompt) - 1`` tokens (rounded down to the
 block size): the suffix keeps at least one token, because sampling the
 first output token needs a forward row.
 
-The host tier of KV tiering (a demoted node's ``tier``, ``host_pool``) is
-a later slice of the port (ROADMAP queue A, item 4): ``TIER_DEVICE`` is the
-only tier a node takes here, and a ``host_pool`` is refused.
+KV tiering puts a host tier under the paged index
+(:class:`~tree_attention_tpu_torch.serving.host_pool.HostBlockPool`): its
+eviction then DEMOTES the victim's block into a host row (the node stays,
+its ``tier`` ``TIER_HOST``), and a hit on a demoted path restores it
+(:meth:`PagedPrefixIndex.restore_nodes`).
 """
 
 from __future__ import annotations
@@ -83,8 +85,8 @@ def _block_key(toks: List[int], j: int, block: int) -> Tuple[int, ...]:
     return tuple(toks[j * block:(j + 1) * block])
 
 
-# Node tiers: a DEVICE node's ``block_id`` names a device pool block. The
-# host tier of KV tiering (a demoted node) is a later slice of the port.
+# Node tiers: a DEVICE node's ``block_id`` names a device pool block; a
+# HOST node's names a row of the host tier (a demoted block).
 TIER_DEVICE, TIER_HOST = 0, 1
 
 
@@ -185,19 +187,25 @@ class _RadixBase:
             total += n.refs
         return total
 
-    def _lru_leaf(self) -> Optional[_Node]:
-        """The least recently used refcount-0 leaf, or None when every
-        block is pinned (directly or through a pinned descendant)."""
+    def _lru_scan(self, victim) -> Optional[_Node]:
+        """The least recently used node satisfying ``victim(node)``, or
+        None: the one traversal every victim rule (classic leaf eviction,
+        device-tier demotion, host-tier drop) parameterizes."""
         best: Optional[_Node] = None
         stack = list(self._root.children.values())
         while stack:
             n = stack.pop()
             stack.extend(n.children.values())
-            if n.children or n.refs:
+            if not victim(n):
                 continue
             if best is None or n.last_use < best.last_use:
                 best = n
         return best
+
+    def _lru_leaf(self) -> Optional[_Node]:
+        """The least recently used refcount-0 leaf, or None when every
+        block is pinned (directly or through a pinned descendant)."""
+        return self._lru_scan(lambda n: not n.children and not n.refs)
 
 
 class PrefixCache(_RadixBase):
@@ -366,22 +374,22 @@ class PagedPrefixIndex(_RadixBase):
     ``max_cached`` bounds the blocks the tree may retain (``None``: as many
     as eviction pressure allows). The index registers itself as the
     allocator's evictor, so a slot allocation under a dry free list
-    recycles an LRU refcount-0 leaf. ``host_pool`` (the host tier of KV
-    tiering) is a later slice of the port and must be None.
+    recycles an LRU refcount-0 leaf. With ``host_pool`` (a
+    :class:`~tree_attention_tpu_torch.serving.host_pool.HostBlockPool`)
+    that recycling DEMOTES the victim into a host row instead of
+    forgetting it, and :meth:`restore_nodes` brings a matched demoted path
+    back (module docstring of ``host_pool``).
     """
 
     def __init__(self, *, block: int, alloc: BlockAllocator,
                  max_cached: Optional[int] = None,
                  host_pool: Optional[Any] = None):
-        if host_pool is not None:
-            raise NotImplementedError(
-                "a host_pool under the prefix index is KV tiering "
-                "(serving/host_pool.py), a later slice of the port "
-                "(ROADMAP queue A, item 4)")
         self._init_tree(block)
         self.alloc = alloc
         self.max_cached = max_cached
         self._cached = 0  # device blocks the tree owns
+        self._host_cached = 0  # demoted nodes (host-tier rows)
+        self.host = host_pool
         alloc.set_evictor(self.evict_one, self.evictable_blocks)
 
     @property
@@ -389,7 +397,7 @@ class PagedPrefixIndex(_RadixBase):
         return self._cached
 
     def stats(self) -> Dict[str, Any]:
-        return {
+        out = {
             "hits": self.hits,
             "misses": self.misses,
             "tokens_reused": self.tokens_reused,
@@ -398,6 +406,9 @@ class PagedPrefixIndex(_RadixBase):
             "pool_blocks": (self.max_cached if self.max_cached is not None
                             else self.alloc.blocks),
         }
+        if self.host is not None:
+            out.update(self.host.stats())
+        return out
 
     def match(self, prompt: np.ndarray,
               record: bool = True) -> Tuple[int, List[_Node]]:
@@ -468,13 +479,63 @@ class PagedPrefixIndex(_RadixBase):
             _POOL_USED.set(self._cached)
         return path, adopted
 
-    # -- eviction (the allocator's hook) ----------------------------------
+    # -- eviction and demotion (the allocator's hook) ---------------------
+
+    def _lru_device_victim(self) -> Optional[_Node]:
+        """The LRU refcount-0 DEVICE-tier node with no device-tier
+        children, or None when every device block is pinned. Without a host
+        tier this is the classic refcount-0 leaf; with one, a device node
+        whose children were all demoted is a victim too (demoting it keeps
+        the node and its host subtree's prefix)."""
+        return self._lru_scan(
+            lambda n: n.tier == TIER_DEVICE and not n.refs
+            and not any(c.tier == TIER_DEVICE for c in n.children.values()))
+
+    def _drop_host_lru(self) -> bool:
+        """The host tier's own LRU eviction: delete the least recently used
+        refcount-0 host-tier LEAF from the tree (leaf-only, so no prefix is
+        orphaned). A still-pending demotion's device block frees directly:
+        its copy never ran and never will."""
+        best = self._lru_scan(
+            lambda n: n.tier == TIER_HOST and not n.refs and not n.children)
+        if best is None:
+            return False
+        del best.parent.children[best.key]
+        bid = self.host.drop(best.block_id)
+        if bid is not None:
+            self.alloc.free_demoted(bid)
+        self._host_cached -= 1
+        return True
 
     def evict_one(self) -> bool:
-        """Free one LRU refcount-0 leaf's block into the allocator; False
-        when every block is pinned."""
-        victim = self._lru_leaf()
+        """Recycle one LRU refcount-0 device victim: DEMOTE it into the host
+        tier when one is attached (the node survives; a later match
+        restores it), evict it otherwise (or when the host tier is pinned
+        full even after dropping its own LRU). False when every device
+        block is pinned."""
+        victim = self._lru_device_victim()
         if victim is None:
+            return False
+        if self.host is not None:
+            row = self.host.alloc()
+            while row is None and self._drop_host_lru():
+                row = self.host.alloc()
+            if row is not None:
+                self.alloc.demote_cached(victim.block_id)
+                self.host.enqueue(row, victim.block_id)
+                victim.tier = TIER_HOST
+                victim.block_id = row
+                self._cached -= 1
+                self._host_cached += 1
+                self.evictions += 1
+                if obs.REGISTRY.enabled:
+                    _POOL_USED.set(self._cached)
+                return True
+            log.debug("host tier pinned full; falling back to eviction")
+        # Classic eviction: the prefix is forgotten. A device victim with
+        # host children reaches here only when the host tier could not take
+        # it, and then it must not orphan them.
+        if victim.children:
             return False
         del victim.parent.children[victim.key]
         self.alloc.free_cached(victim.block_id)
@@ -485,21 +546,62 @@ class PagedPrefixIndex(_RadixBase):
         return True
 
     def evictable_blocks(self) -> int:
-        """Blocks in fully unpinned subtrees: exactly what repeated
-        :meth:`evict_one` calls reach (leaf-first eviction drains an
-        unpinned subtree; a pinned descendant protects its ancestors)."""
+        """DEVICE blocks in fully unpinned subtrees: exactly what repeated
+        :meth:`evict_one` calls reach (device-leaf-first eviction drains an
+        unpinned subtree; a pinned descendant protects its ancestors).
+        Host-tier nodes hold no device block and count 0."""
 
         def walk(node: _Node) -> Tuple[bool, int, int]:
             has_pin = node.refs > 0
-            blocks = 1
+            dev_blocks = 1 if node.tier == TIER_DEVICE else 0
             kid_evictable = 0
             for c in node.children.values():
                 p, b, e = walk(c)
                 has_pin |= p
-                blocks += b
+                dev_blocks += b
                 kid_evictable += e
             if has_pin:
-                return True, blocks, kid_evictable
-            return False, blocks, blocks
+                return True, dev_blocks, kid_evictable
+            return False, dev_blocks, dev_blocks
 
         return sum(walk(c)[2] for c in self._root.children.values())
+
+    # -- restore (the engine's hit path) -----------------------------------
+
+    def demoted_in(self, nodes: List[_Node]) -> List[_Node]:
+        """The host-tier nodes of a matched (pinned) path, in path order."""
+        return [n for n in nodes if n.tier == TIER_HOST]
+
+    def restore_nodes(self, nodes: List[_Node], alloc_device: Any
+                      ) -> Tuple[List[int], List[int]]:
+        """Bring a pinned path's demoted nodes back to the device tier.
+
+        A still-PENDING demotion cancels (the device bytes never left: the
+        block goes straight back to the tree, zero copies); a flushed one
+        takes a fresh device block from ``alloc_device()`` (the admission's
+        reservation backs it) and joins the batched H2D copy the caller
+        runs. Returns ``(host_rows, new_bids)``, equal-length lists of the
+        rows to copy and their destination blocks; the caller reads the
+        rows (:meth:`HostBlockPool.read`), scatters them, then releases
+        them. Tiers and ownership flip here."""
+        rows: List[int] = []
+        bids: List[int] = []
+        for n in nodes:
+            assert n.tier == TIER_HOST and n.refs > 0, \
+                "restore of an unpinned or device-tier node"
+            row = n.block_id
+            bid = self.host.cancel_pending(row)
+            if bid is not None:
+                self.alloc.undemote(bid)
+            else:
+                bid = alloc_device()
+                self.alloc.publish(bid)  # private -> tree-owned
+                rows.append(row)
+                bids.append(bid)
+            n.block_id = bid
+            n.tier = TIER_DEVICE
+            self._cached += 1
+            self._host_cached -= 1
+        if obs.REGISTRY.enabled:
+            _POOL_USED.set(self._cached)
+        return rows, bids

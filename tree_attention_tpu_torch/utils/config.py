@@ -81,6 +81,7 @@ class RunConfig:
     arrival_every: int = 0
     prefill_chunk: int = 256
     prefill_budget: Optional[int] = None
+    admission: str = "chunked"  # chunked (stall-free) | whole (blocking)
     slo_ttft: float = 1.0
     slo_tbt: float = 0.2
     kv_layout: str = "paged"  # paged | contiguous
@@ -88,6 +89,10 @@ class RunConfig:
     #                                 --prefix-block with the cache on, else 64)
     kv_blocks: Optional[int] = None  # pool blocks (None -> slots * table)
     kv_shard: str = "replicated"  # replicated | seq (shard the block pool)
+    # KV tiering: radix eviction demotes blocks into pinned host RAM
+    # instead of freeing them; a later prefix hit restores them.
+    host_blocks: int = 0     # host-tier capacity in blocks (0 = no tier)
+    kv_tiering: str = "on"   # on | off — off ignores --host-blocks
     speculate: bool = False  # draft-and-verify speculative decoding
     draft_k: int = 4         # max draft tokens per slot per verify tick
     drafter: str = "ngram"   # ngram | ngram-tree | model
@@ -222,6 +227,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="serve: max prompt tokens one tick writes per slot")
     p.add_argument("--prefill-budget", type=int, default=d.prefill_budget,
                    help="serve: max prompt tokens per tick over all slots")
+    p.add_argument("--admission", choices=["chunked", "whole"],
+                   default=d.admission,
+                   help="serve: 'chunked' fuses prefill chunks into the "
+                        "per-tick mixed step (stall-free); 'whole' prefills "
+                        "each admitted prompt at once, blocking (one B=1 "
+                        "pass over the prompt's bucket, then an insert)")
     p.add_argument("--slo-ttft", type=float, default=d.slo_ttft,
                    metavar="SEC")
     p.add_argument("--slo-tbt", type=float, default=d.slo_tbt,
@@ -241,6 +252,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "rows and decode merges the ranks' partials with "
                         "the tree monoid (one MAX and two SUM all-reduces "
                         "per layer and step); needs --kv-layout paged")
+    p.add_argument("--host-blocks", type=int, default=d.host_blocks,
+                   help="serve: host-RAM KV tier capacity in blocks (0 = "
+                        "no tier). With the paged layout and --prefix-cache, "
+                        "radix eviction DEMOTES refcount-0 blocks into "
+                        "pinned host memory (one batched gather and D2H "
+                        "copy per tick) instead of freeing them, and a "
+                        "prefix hit on a demoted path restores it with one "
+                        "batched H2D copy and scatter")
+    p.add_argument("--kv-tiering", choices=["on", "off"],
+                   default=d.kv_tiering,
+                   help="serve: 'off' ignores --host-blocks (radix eviction "
+                        "frees blocks): the A/B switch at one config")
     p.add_argument("--speculate", action="store_true", default=d.speculate,
                    help="serve: draft-and-verify speculative decoding "
                         "(arXiv:2211.17192) on the mixed-Tq tick — a host "
