@@ -14,7 +14,7 @@ greedy: tokens exact):
   cancel/admit walk on the port alone drains clean.
 - **HTTP layer.** One loopback :class:`IngressServer` over the port's
   engine: SSE and whole bodies agree and equal JAX's tokens; bad bodies
-  (the fork fields among them) get 400; a disconnect cancels and frees; a
+  (invalid fork fields among them) get 400; a disconnect cancels and frees; a
   deadline is shed over the wire; 429 with ``Retry-After``;
   ``/ingress/stats``; a traceparent rides the request into the trace; the
   drain lifecycle (202, 503, ``join()``).
@@ -373,8 +373,8 @@ def test_static_trace_raises_and_resets_stale_mailboxes(params):
     assert not eng.draining
     snap = eng.slots_snapshot()
     assert [s["state"] for s in snap] == ["free", "free"]
-    assert set(snap[0]) == {"slot", "state", "uid", "tokens", "clen",
-                            "nblocks"}
+    assert set(snap[0]) == {"slot", "state", "uid", "index", "tokens",
+                            "clen", "nblocks"}
 
 
 def test_raising_callbacks_are_dropped_and_misses_counted(params):
@@ -515,9 +515,9 @@ def test_http_bad_requests_rejected(live):
         ({"prompt": [1], "max_tokens": "abc"}, "non-numeric"),
         ({"prompt": [1], "deadline_s": "soon"}, "non-numeric"),
         ({"prompt": [1], "n": 0}, ">= 1"),
-        ({"prompt": [1], "n": 2}, "queue A, item 4"),
-        ({"prompt": [1], "best_of": 3}, "queue A, item 4"),
-        ({"prompt": [1], "fork_at": 2}, "queue A, item 4"),
+        ({"prompt": [1], "n": 2, "best_of": 3}, "requires n == 1"),
+        ({"prompt": [1], "best_of": 0}, "best_of must be >= 1"),
+        ({"prompt": [1], "fork_at": 0}, "fork_at must be >= 1"),
         ({"prompt": [1], "temperature": -1}, "temperature"),
     ]:
         conn, resp = _post(live.port, body)

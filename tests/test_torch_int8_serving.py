@@ -168,7 +168,7 @@ def test_int8_slot_server_greedy_token_identical(params, layout):
     assert got.outcomes == ref.outcomes == {"budget": 3}
     assert server.leak_report() == {
         "blocks_private": 0, "blocks_used": 0, "blocks_reserved": 0,
-        "blocks_cached": 0, "pins": 0,
+        "blocks_shared": 0, "blocks_cached": 0, "pins": 0,
     }
 
 

@@ -19,6 +19,10 @@ the merge). Here:
   pools drained, and exactly 1 MAX + 2 SUM per layer and step issued (int8:
   plus the one SUM per step that carries the anchor scales); int8 under
   whole-prompt admission equals JAX's ``admission="whole"`` on the mesh;
+  copy-on-write fork families (``n = 2`` on prompts ending mid-block, so
+  each fork copies a tail block, on one rank or across the two) equal
+  JAX's families on ``cpu_mesh(2)``, exact and int8, both ranks alike and
+  drained with no shared block left;
 - ``--mode serve --mesh seq=2 --kv-shard seq`` and ``--mode decode --mesh
   seq=2`` through the CLI on two processes: only rank 0 prints.
 """
@@ -56,6 +60,20 @@ ENGINE_KW = dict(slots=2, cache_len=32, prefill_chunk=8, prefill_budget=16,
                  kv_block=4)
 TRACE_KW = dict(n_requests=3, prompt_len=12, prompt_jitter=3,
                 max_new_tokens=5, vocab_size=256, seed=1)
+
+
+def _family_trace(mod):
+    """Two ``n = 2`` families on prompts of 13 and 14 tokens: each fork
+    shares 3 whole blocks and copies the partial one."""
+    rng = np.random.default_rng(3)
+    return [mod.Request(uid=u, prompt=rng.integers(0, 256, n).astype(
+                np.int32), max_new_tokens=5, n=2)
+            for u, n in enumerate((13, 14))]
+
+
+def _branches(report):
+    return {(r.uid, r.index): list(map(int, r.tokens))
+            for r in report.results}
 
 
 def _tokens(report):
@@ -206,6 +224,54 @@ def _rank_serve(rank, world, np_params):
                       "pool_bytes": server.pool_bytes(),
                       "blocks": server.cache.blocks,
                       "leaks": server.leak_report(), "kv": rep.kv}
+        if quant != "whole":
+            # Fork families on the sharded pool, on the same engine.
+            c0 = dict(COLLECTIVES)
+            fam = server.serve(_family_trace(ts))
+            out[quant]["family"] = {
+                "branches": _branches(fam), "kv": fam.kv,
+                "leaks": server.leak_report(),
+                "fork_copies": COLLECTIVES.get(("fork_copy", "psum"), 0)
+                - c0.get(("fork_copy", "psum"), 0)}
+    out["copies"] = _rank_copies(mesh)
+    return out
+
+
+def _pool(quant, blocks, lo=0):
+    """A pool whose block ``g`` (global id ``lo + g``) holds ``lo + g``
+    everywhere (its scales ``(lo + g) / 100``), with its drop block."""
+    ids = torch.arange(lo, lo + blocks + 1, dtype=torch.float32)
+    fill = ids.view(1, -1, 1, 1, 1).expand(2, -1, 2, 4, 16)
+    kw = dict(table=torch.zeros((1, 4), dtype=torch.int32),
+              length=torch.zeros((1,), dtype=torch.int32))
+    if not quant:
+        return tm.PagedKVCache(k=fill.clone(), v=-fill.clone(), **kw)
+    sc = (ids / 100).view(1, -1, 1).expand(2, -1, 2)
+    return tm.PagedQuantKVCache(k=fill.to(torch.int8), v=(-fill).to(
+        torch.int8), k_scale=sc.clone(), v_scale=-sc.clone(), **kw)
+
+
+COPIES = ((1, 2), (1, 6), (5, 2), (7, 4))  # rank 0 holds 0-3, rank 1 4-7
+
+
+def _rank_copies(mesh):
+    """``copy_pool_block`` on this rank's slice of an 8-block pool, exact
+    and int8, over ``COPIES`` (within a rank and across); returns the
+    slices and the SUMs issued."""
+    from tree_attention_tpu_torch.parallel import COLLECTIVES
+
+    rank = mesh.axis_index("seq")
+    out = {}
+    for quant in (False, True):
+        cache = _pool(quant, 4, lo=4 * rank)
+        c0 = COLLECTIVES.get(("fork_copy", "psum"), 0)
+        for src, dst in COPIES:
+            cache = tm.copy_pool_block(cache, src, dst, mesh=mesh,
+                                       kv_shard="seq")
+        names = ("k", "v", "k_scale", "v_scale") if quant else ("k", "v")
+        out[quant] = ({n: getattr(cache, n)[:, :4].numpy().copy()
+                       for n in names},
+                      COLLECTIVES.get(("fork_copy", "psum"), 0) - c0)
     return out
 
 
@@ -250,8 +316,8 @@ def test_seq_sharded_server_matches_replicated_and_jax(jax_params,
         assert r["tokens"] == want  # both ranks, the same tokens
         assert r["outcomes"] == {"budget": TRACE_KW["n_requests"]}
         assert r["leaks"] == {"blocks_private": 0, "blocks_used": 0,
-                              "blocks_reserved": 0, "blocks_cached": 0,
-                              "pins": 0}
+                              "blocks_reserved": 0, "blocks_shared": 0,
+                              "blocks_cached": 0, "pins": 0}
         # Half the whole pool on each rank.
         assert 2 * r["pool_bytes"] == rep_server.pool_bytes()
         assert r["blocks"] == rep_server.kv_blocks // 2
@@ -264,6 +330,55 @@ def test_seq_sharded_server_matches_replicated_and_jax(jax_params,
         if quant:
             want_colls[("paged_anchor_scales", "psum")] = r["steps"]
         assert r["colls"] == want_colls
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["exact", "int8"])
+def test_seq_sharded_family_matches_jax(jax_params, sharded_serves, quant):
+    """``n = 2`` families on the sharded pool: both ranks' branches equal
+    JAX's ``SlotServer(mesh=cpu_mesh(2), kv_shard="seq")`` family (the
+    fork-slot path) and the port's replicated family; shared blocks as JAX
+    counts them; the ranks drain with no shared block."""
+    from tree_attention_tpu import serving as js
+    from tree_attention_tpu.parallel.mesh import cpu_mesh
+
+    jcfg, jp, np_params = jax_params
+    jref = js.SlotServer(jp, jcfg, mesh=cpu_mesh(2), kv_shard="seq",
+                         quantize=quant, tree_sampling=False,
+                         **ENGINE_KW).serve(_family_trace(js))
+    tparams = tm.params_from_jax(np_params, device="cpu")
+    single = ts.SlotServer(tparams, T_CFG, quantize=quant,
+                           **ENGINE_KW).serve(_family_trace(ts))
+    want = _branches(jref)
+    assert _branches(single) == want
+    assert sorted(want) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    copies = []
+    for r in (x[quant]["family"] for x in sharded_serves):
+        assert r["branches"] == want
+        assert r["kv"]["forks"] == jref.kv["forks"] == 2
+        assert r["kv"]["fork_blocks_shared"] == jref.kv["fork_blocks_shared"]
+        assert r["leaks"]["blocks_shared"] == 0
+        assert r["leaks"]["blocks_used"] == r["leaks"]["blocks_reserved"] == 0
+        copies.append(r["fork_copies"])
+    # Both ranks take the same copy decisions (a cross-rank copy is one
+    # SUM on each).
+    assert copies[0] == copies[1] <= 2
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["exact", "int8"])
+def test_sharded_copy_pool_block_matches_the_whole_pool(sharded_serves,
+                                                        quant):
+    """The ranks' slices after the copies, put side by side, equal the
+    copies on the whole pool; a copy within a rank issues no collective,
+    one across ranks one SUM on each rank."""
+    whole = _pool(quant, 8)
+    for src, dst in COPIES:
+        whole = tm.copy_pool_block(whole, src, dst)
+    for name in ("k", "v") + (("k_scale", "v_scale") if quant else ()):
+        got = np.concatenate([r["copies"][quant][0][name]
+                              for r in sharded_serves], 1)
+        np.testing.assert_array_equal(got, getattr(whole, name)[:, :8]
+                                      .numpy(), err_msg=name)
+    assert [r["copies"][quant][1] for r in sharded_serves] == [2, 2]
 
 
 def test_seq_sharded_whole_admission_matches_jax(jax_params,

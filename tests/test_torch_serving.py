@@ -102,7 +102,7 @@ def test_slot_server_greedy_token_identical(params, case):
     assert got.tokens_generated == ref.tokens_generated
     assert server.leak_report() == {
         "blocks_private": 0, "blocks_used": 0, "blocks_reserved": 0,
-        "blocks_cached": 0, "pins": 0,
+        "blocks_shared": 0, "blocks_cached": 0, "pins": 0,
     }
 
 

@@ -70,7 +70,7 @@ LAYOUTS = {
     "contig-int8": {"kv_layout": "contiguous", "quantize": True},
 }
 CLEAN = {"blocks_private": 0, "blocks_used": 0, "blocks_reserved": 0,
-         "blocks_cached": 0, "pins": 0}
+         "blocks_shared": 0, "blocks_cached": 0, "pins": 0}
 
 
 @pytest.fixture(scope="module")

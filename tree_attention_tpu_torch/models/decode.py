@@ -15,6 +15,7 @@ Counterpart of ``tree_attention_tpu/models/decode.py``:
   decode slots (one token) and prefill chunks share one step; ``positions``
   and ``tree_mask`` make it the verify step of speculative tree decoding.
 - :func:`compact_decode_window` — the device half of a tree-draft commit.
+- :func:`copy_pool_block` — a copy-on-write fork's tail-block copy.
 - :func:`sample_rows` / :func:`sample_slots` — per-row sampling, each draw
   keyed by the request's key and the token's stream index
   (:func:`fold_in`).
@@ -349,6 +350,55 @@ def scatter_kv_blocks(pool_k: torch.Tensor, pool_v: torch.Tensor,
     k_scale[:, idx] = ks_rows.transpose(0, 1).to(k_scale.dtype)
     v_scale[:, idx] = vs_rows.transpose(0, 1).to(v_scale.dtype)
     return pool_k, pool_v, k_scale, v_scale
+
+
+def copy_pool_block(cache: Union[PagedKVCache, "PagedQuantKVCache"],
+                    src: int, dst: int, *, mesh: Optional[Mesh] = None,
+                    kv_shard: str = "replicated"
+                    ) -> Union[PagedKVCache, "PagedQuantKVCache"]:
+    """A copy-on-write fork's one device copy, in place: pool block ``src``
+    into the freshly allocated block ``dst`` — K and V rows of every layer,
+    and under int8 (:class:`PagedQuantKVCache`) the per-block scales, so
+    the copy is self-contained: a forked child's first appended row
+    quantizes under the copied tail block's scale (its anchor). Full
+    ancestor blocks are shared by refcount and never copied; only the
+    partial tail block a branch will append into is. ``src == dst`` writes
+    the same bytes back. Ids are GLOBAL.
+
+    On a sequence-sharded pool (``kv_shard="seq"`` under ``mesh``) each
+    block lives on one rank, and every rank calls this alike (they take the
+    same decisions): when both blocks are on one rank that rank copies
+    locally and nobody else moves a byte; otherwise the rank holding
+    ``src`` reads it (the others contribute zeros) into one f32 buffer,
+    one SUM all-reduce carries it (counted as ``("fork_copy", "psum")``),
+    and the rank holding ``dst`` writes it. No rank reads a block it does
+    not hold."""
+    quant = isinstance(cache, PagedQuantKVCache)
+    parts = [cache.k, cache.v] + ([cache.k_scale, cache.v_scale]
+                                  if quant else [])
+    if _seq_shards(mesh, kv_shard) <= 1:
+        if src != dst:
+            for t in parts:
+                t[:, dst] = t[:, src]
+        return cache
+    nl = cache.blocks
+    rank = mesh.axis_index(AXIS_SEQ)
+    s_rank, s_loc = divmod(int(src), nl)
+    d_rank, d_loc = divmod(int(dst), nl)
+    if s_rank == d_rank:
+        if rank == s_rank and s_loc != d_loc:
+            for t in parts:
+                t[:, d_loc] = t[:, s_loc]
+        return cache
+    sizes = [t[:, 0].numel() for t in parts]
+    buf = torch.zeros(sum(sizes), dtype=torch.float32, device=cache.k.device)
+    if rank == s_rank:
+        torch.cat([t[:, s_loc].float().flatten() for t in parts], out=buf)
+    all_reduce(buf, mesh, AXIS_SEQ, "fork_copy", "psum")
+    if rank == d_rank:
+        for t, chunk in zip(parts, buf.split(sizes)):
+            t[:, d_loc] = chunk.view(t[:, d_loc].shape).to(t.dtype)
+    return cache
 
 
 def insert_dequant_prefix(staging: KVCache, pool_k: torch.Tensor,

@@ -5,8 +5,9 @@ from autograd through :func:`.transformer.loss_fn`, whose attention
 backward is the flash recompute (kernels B6/B7 on the card, see
 ``ops/vjp.py``). The optimizer is the JAX package's
 ``optax.chain(clip_by_global_norm(1.0), adamw(3e-4, b1=0.9, b2=0.95,
-weight_decay=0.01))`` as ``torch.nn.utils.clip_grad_norm_`` followed by
-``torch.optim.AdamW`` over every parameter; the moments keep each
+weight_decay=0.01))`` as :func:`clip_by_global_norm` (optax's rule: scale
+by ``max_norm / norm`` only when the global norm reaches the bound)
+followed by ``torch.optim.AdamW`` over every parameter; the moments keep each
 parameter's dtype, as optax's do. Unlike JAX's immutable train state, the
 step updates the parameters and the optimizer state in place.
 
@@ -99,6 +100,21 @@ def init_train_state(cfg: TransformerConfig, optimizer: OptimizerSpec, *,
     return params, optimizer.init(params)
 
 
+def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+    """Clip ``grads`` (an iterable of tensors) in place as
+    ``optax.clip_by_global_norm(max_norm)`` does: one global L2 norm over
+    every gradient (f32 sums), and where it is at least ``max_norm`` each
+    gradient becomes ``g / norm * max_norm`` (the norm cast to its dtype);
+    below the bound every gradient is left bit for bit. The choice is a
+    device ``where``: no host sync. Returns the norm."""
+    grads = list(grads)
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+    return norm
+
+
 def loss_and_grads(params: Params, batch: Mapping[str, torch.Tensor],
                    cfg: TransformerConfig, mesh: Optional[Mesh] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -142,8 +158,7 @@ def make_train_step(cfg: TransformerConfig, optimizer: OptimizerSpec, *,
         loss, grads = loss_and_grads(params, batch, cfg, mesh)
         if seq_sharded(mesh):
             loss = sum_over_ranks(loss, grads, mesh)
-        torch.nn.utils.clip_grad_norm_(list(grads.values()),
-                                       optimizer.grad_clip)
+        clip_by_global_norm(grads.values(), optimizer.grad_clip)
         opt.step()
         return state, loss
 

@@ -4,8 +4,11 @@ sequence-sharded pool (``SlotServer(mesh=..., kv_shard="seq")``), with
 shared prompt prefixes reused through a radix tree
 (``SlotServer(prefix_cache=True)``) and kept in a host-RAM tier under the
 pool (``SlotServer(host_blocks=N)``, :class:`HostBlockPool`); admitted in
-chunks or whole (``admission="whole"``); served live over HTTP by
-:class:`IngressServer` (SSE streaming, cancellation, deadlines, drain)."""
+chunks or whole (``admission="whole"``); several completions of one
+prompt (``Request(n=, best_of=, fork_at=)``, ``SlotServer.fork``) as
+copy-on-write fork families over shared pool blocks; served live over
+HTTP by :class:`IngressServer` (SSE streaming, cancellation, deadlines,
+drain)."""
 
 from tree_attention_tpu_torch.serving.block_pool import (  # noqa: F401
     BlockAllocator,

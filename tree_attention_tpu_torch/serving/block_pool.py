@@ -9,7 +9,10 @@ slot; ownership is single-writer:
 - a **cached** block belongs to one radix-tree node (the prefix cache);
 - a **demoted** block left the tree toward the host tier of KV tiering:
   its bytes must survive on the device until the staged D2H copy lands
-  them in host RAM (:meth:`BlockAllocator.free_demoted`).
+  them in host RAM (:meth:`BlockAllocator.free_demoted`);
+- a **shared** block is a copy-on-write fork's full ancestor: refcounted by
+  the slots whose tables map it, never written again (every owner appends
+  past it), freed by its last owner's :meth:`BlockAllocator.release_shared`.
 
 **Reservation-based admission** turns an over-subscribed pool into a clean
 scheduling decision: an admission reserves its worst-case block count up
@@ -22,7 +25,7 @@ Pure host integers — no device state.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 from tree_attention_tpu_torch import obs
 
@@ -50,8 +53,10 @@ _BLOCKS_FREE_SHARD = obs.gauge(
 # Block ownership states (the debug ledger's vocabulary). A _DEMOTED
 # block is owned by the host tier's staging queue: the radix tree evicted
 # it toward host RAM, the D2H copy has not run yet, and the block must
-# not be reused until the flush lands it and calls ``free_demoted``.
-_FREE, _PRIVATE, _CACHED, _DEMOTED = 0, 1, 2, 3
+# not be reused until the flush lands it and calls ``free_demoted``. A
+# _SHARED block is owned by SLOTS (a fork family's branches), not the radix
+# tree: it is never cached, demoted or evicted.
+_FREE, _PRIVATE, _CACHED, _DEMOTED, _SHARED = 0, 1, 2, 3, 4
 
 
 class BlockAllocator:
@@ -79,6 +84,11 @@ class BlockAllocator:
         # recount until the counter moves — pool state can't have
         # improved in between.
         self.gen = 0
+        # Copy-on-write forks: the owner refcount of each _SHARED block,
+        # and the lifetime count of share edges taken (one per bid a
+        # fork_shared call names).
+        self._shared_refs: Dict[int, int] = {}
+        self.fork_shares = 0
         self._evict_one: Optional[Callable[[], bool]] = None
         self._evictable: Optional[Callable[[], int]] = None
         # Demotion staging: with a host tier under the pool, eviction
@@ -225,6 +235,60 @@ class BlockAllocator:
         self._push_free(bid)
         self.reserved += 1
 
+    # -- copy-on-write fork sharing ---------------------------------------
+
+    @property
+    def shared_count(self) -> int:
+        """_SHARED blocks alive (each once, whatever its refcount): a
+        drained engine reads 0."""
+        return len(self._shared_refs)
+
+    def shared_refs(self, bid: int) -> int:
+        """Owner refcount of a shared block (0 when not shared)."""
+        return self._shared_refs.get(bid, 0)
+
+    def fork_shared(self, bids: Iterable[int]) -> List[int]:
+        """A fork shares full ancestor blocks between parent and child:
+        each ``bid`` must be privately owned (the first fork: it becomes
+        _SHARED with two owners) or already shared (another branch forks
+        the same history: one owner more). The bytes never move or change
+        — shared blocks are full and every owner only appends past them —
+        so the refcount is the whole safety story (vLLM's copy-on-write
+        fork over PagedAttention block tables, arXiv:2309.06180). Sharing
+        a free, cached or demoted block raises. Returns the bids: the
+        child's shared set, which the caller ledgers (and the parent's) so
+        both retires release."""
+        out: List[int] = []
+        for bid in bids:
+            if self._state[bid] == _PRIVATE:
+                self._state[bid] = _SHARED
+                self._shared_refs[bid] = 2
+            elif self._state[bid] == _SHARED:
+                self._shared_refs[bid] += 1
+            else:
+                raise AssertionError(
+                    f"block {bid} fork-shared while neither private nor "
+                    f"shared (state {self._state[bid]}): sharing a free, "
+                    f"cached or demoted block would double-own it")
+            self.fork_shares += 1
+            out.append(bid)
+        return out
+
+    def release_shared(self, bid: int) -> None:
+        """One owner of a shared block retires. The last release frees
+        it (availability grows: a generation bump); earlier ones only drop
+        the refcount."""
+        refs = self._shared_refs.get(bid)
+        assert refs is not None and self._state[bid] == _SHARED, (
+            f"block {bid} shared-released while not shared")
+        if refs > 1:
+            self._shared_refs[bid] = refs - 1
+            return
+        del self._shared_refs[bid]
+        self._state[bid] = _FREE
+        self._push_free(bid)
+        self.gen += 1
+
     def free_cached(self, bid: int) -> None:
         """The radix tree evicts a refcount-0 leaf's block."""
         assert self._state[bid] == _CACHED, (
@@ -281,7 +345,8 @@ class ShardedBlockAllocator(BlockAllocator):
     Reservations stay GLOBAL: any block can serve any slot through the
     table, so ``available()`` over the pooled free count is exactly what
     :meth:`alloc` needs. Ownership states, eviction and demotion are
-    inherited unchanged.
+    inherited unchanged, copy-on-write sharing too: every rank keeps the
+    same ledger, so every rank sees the same share and release events.
     """
 
     def __init__(self, blocks: int, shards: int):

@@ -20,7 +20,10 @@ tick loop:
    token budget frees its blocks and is refilled at the next admission.
 
 Slot lifecycle: ``free -> prefill -> await -> live -> free``; a slot's
-first token is sampled by its final chunk and fetched with the tick.
+first token is sampled by its final chunk and fetched with the tick. A fork
+family's sibling slots wait in ``fpend`` from the family's admission until
+the parent's first token, then go ``live`` (a mid-stream branch goes
+``free -> live``).
 
 ``admission="whole"`` is the blocking alternative: the admission prefills
 the whole prompt at once, on a B=1 cache of the prompt's power-of-two
@@ -119,8 +122,31 @@ its suffix runs — pending demotions cancel with zero copies, flushed ones
 land in fresh blocks of the slot's reservation through one batched H2D
 copy and scatter.
 
+**Copy-on-write forks.** A request with ``n > 1`` (or ``best_of > 1``)
+is a fork FAMILY: one prefill, then ``n - 1`` siblings forked off the
+parent the tick its first token lands (vLLM's fork over PagedAttention
+block tables, arXiv:2309.06180). Admission reserves the whole family
+atomically (one slot per branch, siblings parked in ``fpend``; the
+parent's blocks plus each sibling's worst-case new blocks). A fork shares
+every full ancestor block — radix-cached ones take one more pin, the
+parent's private ones move to the allocator's refcounted ``shared`` state
+on both sides — and copies only the partial tail block
+(:func:`copy_pool_block`, under int8 with its block scales). Each
+sibling's first token is drawn from the parent's stashed prompt-end logits
+under its own key: branch ``b > 0`` draws its ``j``-th token under
+``fold_in(fold_in(key, b), j)``, branch 0 under the request's own
+``fold_in(key, j)``. ``best_of`` streams only the branch of highest
+cumulative log-probability, at the family's last retire.
+:meth:`SlotServer.fork` (a mailbox swept at tick start, like ``cancel``)
+and ``Request.fork_at`` branch a live request mid-stream. Every branch
+finishes as its own :class:`RequestResult` under the family's uid, tagged
+by ``index``. The reference's default for small families, the token-tree
+sibling decode (``tree_sampling=True``: every branch in one slot), is a
+later slice; this engine runs the fork-slot path, whose tokens the
+reference documents as the same.
+
 Left for later slices of the port (see ROADMAP): speculation and the
-prefix cache (so KV tiering) on a mesh, forks and tree-sibling decode,
+prefix cache (so KV tiering) on a mesh, the token-tree sibling decode,
 disaggregation, the flight recorder and the request ledger.
 """
 
@@ -150,6 +176,8 @@ from tree_attention_tpu_torch import obs
 from tree_attention_tpu_torch.models.decode import (
     KVCache,
     compact_decode_window,
+    copy_pool_block,
+    fold_in,
     forward_step,
     gather_kv_blocks,
     init_cache,
@@ -236,6 +264,16 @@ _SPEC_ACCEPT_RATIO = obs.gauge(
     "serving_spec_acceptance_ratio",
     "lifetime accepted/proposed draft-token ratio (set per verify tick)",
 )
+_FORKS = obs.counter(
+    "serving_forks_total",
+    "copy-on-write forks performed (n>1 siblings, best-of-n branches, "
+    "and mid-generation fork(uid) branches)",
+)
+_FORK_SHARED = obs.counter(
+    "serving_fork_blocks_shared_total",
+    "full ancestor KV blocks a fork SHARED (radix pins + refcounted "
+    "CoW blocks) instead of copying or recomputing them",
+)
 
 # The one retire-outcome vocabulary: every way a request leaves the engine,
 # threaded unchanged through ``serving_requests_total{outcome}`` and
@@ -272,6 +310,16 @@ class Request:
       client's request entered the system.
     - ``trace`` — ``(trace_id, parent span_id)`` of the request's W3C
       traceparent (adopted or minted by the ingress); ``None`` = untraced.
+
+    Copy-on-write forks (module docstring): ``n > 1`` serves ``n``
+    completions of one prompt as one prefill and ``n - 1`` forked
+    siblings; ``best_of = k`` runs ``k`` branches and streams only the
+    winner by cumulative log-probability (requires ``n == 1``); ``fork_at
+    = j`` forks the request itself after its ``j``-th emitted token (the
+    live loop checks it from the second token on, as the JAX engine
+    does). Branch events go to ``on_branch_token(index, tok)`` /
+    ``on_branch_finish(index, result)`` when set; otherwise only branch 0
+    reaches ``on_token`` / ``on_finish``.
     """
 
     uid: int
@@ -287,6 +335,12 @@ class Request:
     top_k: Optional[int] = None
     seed: Optional[int] = None
     trace: Optional[Tuple[str, str]] = None
+    n: int = 1
+    best_of: Optional[int] = None
+    fork_at: Optional[int] = None
+    on_branch_token: Optional[Callable[[int, int], None]] = None
+    on_branch_finish: Optional[
+        Callable[[int, "RequestResult"], None]] = None
 
 
 @dataclasses.dataclass
@@ -305,6 +359,32 @@ class RequestResult:
     # Prompt tokens served from the prefix cache at admission (0: cold or
     # the cache off).
     prefix_hit_tokens: int = 0
+    # Fork-family branch index: 0 = the parent (or the only branch); a
+    # family finishes once per branch, all under its one uid.
+    index: int = 0
+
+
+@dataclasses.dataclass
+class _ForkFamily:
+    """Host bookkeeping of one ``n > 1`` / best-of-n request.
+
+    Admission reserves the whole family atomically: the parent's
+    worst-case blocks plus each sibling's worst-case NEW blocks (its total
+    less the full ancestor blocks it will share), and one slot per branch
+    (siblings park in ``fpend``, so two half-admitted families never
+    deadlock each other). The siblings fork the tick the parent's first
+    token lands, before its EOS check (a one-token parent still yields
+    ``n`` samples)."""
+
+    req: Request
+    parent_slot: int
+    sibling_slots: List[int]
+    sib_reserve: int  # worst-case new blocks per sibling
+    hold: int         # unspent family reservation (siblings not forked)
+    best_of: bool
+    branches: int
+    forked: bool = False
+    done: List[RequestResult] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -391,12 +471,17 @@ def synthetic_trace(
     prefix_len: int = 0,
     prefix_count: int = 1,
     prefix_seed: Optional[int] = None,
+    n: int = 1,
+    best_of: int = 0,
+    fork_at: int = 0,
 ) -> List[Request]:
     """A reproducible request trace — the JAX engine's generator, draw for
     draw, so both engines serve the same prompts: random prompts with
     ``+-prompt_jitter`` lengths, arrivals every ``arrival_every`` ticks, and
     optionally a ``prefix_share`` of requests starting with one of
-    ``prefix_count`` shared ``prefix_len``-token prefixes."""
+    ``prefix_count`` shared ``prefix_len``-token prefixes. ``n`` /
+    ``best_of`` / ``fork_at`` stamp the fork fields onto every request
+    (``best_of`` and ``fork_at`` only when above 1 and 0)."""
     if not 0.0 <= prefix_share <= 1.0:
         raise ValueError(f"prefix_share must be in [0, 1], "
                          f"got {prefix_share}")
@@ -425,7 +510,9 @@ def synthetic_trace(
             prompt = rng.integers(0, vocab_size, size=plen).astype(np.int32)
         reqs.append(Request(
             uid=i, prompt=prompt, max_new_tokens=max_new_tokens,
-            arrival_tick=i * arrival_every, eos_id=eos_id,
+            arrival_tick=i * arrival_every, eos_id=eos_id, n=max(n, 1),
+            best_of=best_of if best_of > 1 else None,
+            fork_at=fork_at if fork_at > 0 else None,
         ))
     return reqs
 
@@ -564,6 +651,9 @@ class SlotServer:
         host memory instead of freeing them, and a prefix hit on a demoted
         path restores them (module docstring). Needs the paged layout and
         ``prefix_cache=True``; not with a shared ``prefix_index``.
+      tree_sampling: the JAX engine's token-tree sibling decode of small
+        fork families; not ported yet (``True`` raises). Families run the
+        fork-slot path: one slot per branch.
     """
 
     def __init__(
@@ -598,7 +688,14 @@ class SlotServer:
         block_pool: Optional[BlockAllocator] = None,
         prefix_index: Optional[PagedPrefixIndex] = None,
         host_blocks: int = 0,
+        tree_sampling: bool = False,
     ):
+        if tree_sampling:
+            raise NotImplementedError(
+                "tree_sampling=True (the token-tree sibling decode of fork "
+                "families) is a later slice of the port (ROADMAP queue A, "
+                "item A4.2); families run the fork-slot path "
+                "(tree_sampling=False)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if admission not in ("chunked", "whole"):
@@ -862,6 +959,23 @@ class SlotServer:
         self._ctl_lock = threading.Lock()
         self._cancel_uids: Set[int] = set()
         self._draining = False
+        # Copy-on-write forks: each slot's branch index and its shared
+        # (refcounted) ancestor blocks, the live families by uid, the
+        # one-shot device-length resets of freshly forked slots, the fork
+        # mailbox and its carry (uid -> sweeps left), the next branch index
+        # per uid, each family parent's stashed prompt-end logits, and the
+        # lifetime fork counts.
+        self._slot_index: List[int] = [0] * slots
+        self._slot_shared: List[set] = [set() for _ in range(slots)]
+        self._families: Dict[int, _ForkFamily] = {}
+        self._live_reset: Dict[int, int] = {}
+        self._fork_uids: List[int] = []
+        self._fork_carry: Dict[int, int] = {}
+        self._uid_next_index: Dict[int, int] = {}
+        self._slot_logits: List[Optional[torch.Tensor]] = [None] * slots
+        self._last_rows: Optional[torch.Tensor] = None
+        self._forks_life = 0
+        self._fork_shared_life = 0
 
     # -- the per-tick program ---------------------------------------------
 
@@ -918,7 +1032,10 @@ class SlotServer:
         row = (n_t - 1).clamp(min=0).long()
         if verify is None:
             sidx = np.asarray([len(t) for t in self._slot_tokens], np.int64)
-            tok_s, lp_s = sample_slots(logits[ar, row], self._temp_np,
+            # Each slot's last-row logits (a family parent's final chunk
+            # stashes its row for the siblings' first draws).
+            self._last_rows = logits[ar, row]
+            tok_s, lp_s = sample_slots(self._last_rows, self._temp_np,
                                        self._topk_np, self._keys, sidx, emit)
         else:
             # One sampling pass: the emit slots' last rows are marked in
@@ -960,6 +1077,7 @@ class SlotServer:
             self.cfg, n_tokens=n_t)
         if not last:
             return
+        self._stash_logits(slot, logits[0, n - 1])
         tok, lp = sample_slots(logits[:, n - 1], self._temp_np[slot:slot + 1],
                                self._topk_np[slot:slot + 1],
                                self._keys[slot:slot + 1],
@@ -1014,6 +1132,8 @@ class SlotServer:
         tokens[:, 0] = torch.where(others, self.tok, tokens[:, 0])
         self._sync_table()
         self._step(tokens, n_vec, reset, reset_val, emit)
+        if last:
+            self._stash_logits(slot, self._last_rows[slot])
 
     def _whole_cache(self, bucket: int) -> KVCache:
         """The B=1 prefill cache of one prompt bucket: allocated at the
@@ -1048,6 +1168,7 @@ class SlotServer:
                                     mini, self.cfg)
         mini.k[:, :, :, plen:] = 0
         mini.v[:, :, :, plen:] = 0
+        self._stash_logits(slot, logits[0, plen - 1])
         tok, lp = sample_slots(logits[:, plen - 1],
                                self._temp_np[slot:slot + 1],
                                self._topk_np[slot:slot + 1],
@@ -1205,6 +1326,30 @@ class SlotServer:
             raise ValueError(f"request {req.uid}: temperature must be >= 0")
         if req.top_k is not None and req.top_k < 0:
             raise ValueError(f"request {req.uid}: top_k must be >= 0")
+        if req.n < 1:
+            raise ValueError(f"request {req.uid}: n must be >= 1")
+        if req.best_of is not None and req.best_of > 1 and req.n != 1:
+            raise ValueError(
+                f"request {req.uid}: best_of runs server-side selection "
+                f"and streams ONE winner — it requires n == 1")
+        if req.fork_at is not None and req.fork_at < 1:
+            raise ValueError(f"request {req.uid}: fork_at must be >= 1")
+        branches = self._branches(req)
+        if branches > 1:
+            if not self._paged:
+                raise ValueError(
+                    f"request {req.uid}: n/best_of > 1 forks over shared "
+                    f"KV blocks — it requires kv_layout='paged'")
+            if self._speculate:
+                raise ValueError(
+                    f"request {req.uid}: n/best_of > 1 is not supported "
+                    f"with speculate=True (fork branches are sampled; "
+                    f"speculation is greedy-only)")
+            if branches > self.slots:
+                raise ValueError(
+                    f"request {req.uid}: {branches} parallel branches "
+                    f"exceed the engine's {self.slots} slots (the whole "
+                    f"family decodes concurrently)")
         if req.max_new_tokens < 1:
             raise ValueError(
                 f"request {req.uid}: max_new_tokens must be >= 1, "
@@ -1225,13 +1370,37 @@ class SlotServer:
                     f"holds {self.kv_blocks}; raise --kv-blocks or shrink "
                     f"the request"
                 )
+            if branches > 1:
+                # Each sibling's worst case is its NEW blocks only:
+                # everything below the fork point is shared.
+                fam = need + (branches - 1) * (
+                    need - (plen - 1) // self.kv_block)
+                if fam > self.kv_blocks:
+                    raise ValueError(
+                        f"request {req.uid}: a {branches}-branch family "
+                        f"worst-cases at {fam} KV blocks (shared ancestors "
+                        f"counted once) but the pool holds "
+                        f"{self.kv_blocks}; raise --kv-blocks or shrink "
+                        f"the request")
+
+    @staticmethod
+    def _branches(req: Request) -> int:
+        """How many completions ``req`` fans out to: ``best_of`` when
+        server-side selection is on, else ``n``; at least 1."""
+        bo = req.best_of if req.best_of is not None else 0
+        return max(int(req.n), int(bo), 1)
 
     def _paged_reserve(self, req: Request) -> Optional[tuple]:
         """Match the prompt (pinning the path) and reserve the admission's
         worst-case private blocks: its whole span less the matched
-        device-tier blocks it shares. ``None`` defers the admission (the
-        pins are released); otherwise ``(matched, nodes, needed)``, the
-        match recorded."""
+        device-tier blocks it shares. A fork family reserves ATOMICALLY:
+        the parent's blocks plus each sibling's worst-case new blocks (its
+        span less the full blocks below the prompt's last row), so the
+        siblings' forks never fail and two half-reserved families never
+        deadlock the pool. ``None`` defers the admission (the pins are
+        released); otherwise ``(matched, nodes, needed, fam_extra)``, the
+        match recorded; the family holds ``fam_extra`` until its forks
+        consume it."""
         total = -(-(len(req.prompt) + req.max_new_tokens) // self.kv_block)
         matched, nodes = 0, []
         if self._paged_prefix:
@@ -1240,13 +1409,18 @@ class SlotServer:
         # A matched node on the host tier still costs one reservation: its
         # restore takes a fresh device block (consumed in _paged_hit).
         needed = total - sum(1 for n in nodes if n.tier == TIER_DEVICE)
-        if not self._pool.reserve(needed):
+        branches = self._branches(req)
+        fam_extra = 0
+        if branches > 1:
+            sib = total - (len(req.prompt) - 1) // self.kv_block
+            fam_extra = (branches - 1) * sib
+        if not self._pool.reserve(needed + fam_extra):
             if nodes:
                 self._prefix.release(nodes)
             return None
         if self._paged_prefix:
             self._prefix.record_match(matched)
-        return matched, nodes, needed
+        return matched, nodes, needed, fam_extra
 
     def _ensure_blocks(self, slot: int, tokens_needed: int) -> None:
         """Map blocks covering ``[0, tokens_needed)`` of ``slot`` — before
@@ -1284,9 +1458,10 @@ class SlotServer:
         self._temp_np[slot] = (self.temperature if req.temperature is None
                                else req.temperature)
         self._topk_np[slot] = self.top_k if req.top_k is None else req.top_k
-        salt = req.seed if req.seed is not None else req.uid
-        self._keys[slot] = (self.seed * 1_000_003 + salt) \
-            & 0x7FFF_FFFF_FFFF_FFFF
+        self._keys[slot] = self._branch_key(req, 0)
+        self._slot_index[slot] = 0
+        self._slot_shared[slot] = set()
+        self._slot_logits[slot] = None
         self.slo.observe_queue_wait(waited)
         self._prompt_np[slot] = np.asarray(req.prompt, np.int32)
         if self._speculate:
@@ -1363,7 +1538,7 @@ class SlotServer:
         alone. The bucket cap is floor-div: the window ``nb * kv_block``
         must fit the staging cache, and a match is at most ``(cache_len -
         1) // kv_block`` blocks."""
-        matched, nodes, _ = resv
+        matched, nodes = resv[0], resv[1]
         self._slot_nodes[slot] = nodes
         if not matched:
             return 0
@@ -1455,6 +1630,331 @@ class SlotServer:
         if obs.REGISTRY.enabled:
             _PREFILL_CHUNKS.inc()
         return rows
+
+    # -- copy-on-write forks ----------------------------------------------
+
+    def _branch_key(self, req: Request, index: int) -> int:
+        """Branch ``index``'s sampling key: the request's key (from the
+        engine seed and the request's ``seed``, or its uid) for branch 0 —
+        a family's branch 0 is the plain stream of the same request — and
+        ``fold_in(key, index)`` for every other branch. Draw ``j`` of a
+        branch is then keyed ``fold_in(branch key, j)``."""
+        salt = req.seed if req.seed is not None else req.uid
+        key = (self.seed * 1_000_003 + salt) & 0x7FFF_FFFF_FFFF_FFFF
+        return key if index == 0 else fold_in(key, index)
+
+    def _stash_logits(self, slot: int, row: torch.Tensor) -> None:
+        """Keep a family parent's prompt-end logits ``(V,)`` until its
+        siblings fork: each draws its first token from them."""
+        req = self._slot_req[slot]
+        if req is not None and req.uid in self._families:
+            self._slot_logits[slot] = row.clone()
+
+    def _admit_family(self, req: Request, parent_slot: int,
+                      free: List[int], resv: tuple) -> None:
+        """Take the rest of an ``n > 1`` / best-of-n family at admission:
+        one ``fpend`` slot per sibling, taken now, and the block hold
+        :meth:`_paged_reserve` already took. The siblings fork in the
+        awaits pass of the tick the parent's first token lands."""
+        branches = self._branches(req)
+        fam_extra = resv[3]
+        sibs = [free.pop(0) for _ in range(branches - 1)]
+        for s in sibs:
+            self._slot_state[s] = "fpend"
+        self._families[req.uid] = _ForkFamily(
+            req=req, parent_slot=parent_slot, sibling_slots=sibs,
+            sib_reserve=fam_extra // (branches - 1), hold=fam_extra,
+            best_of=bool(req.best_of and req.best_of > 1),
+            branches=branches)
+        self._uid_next_index[req.uid] = branches
+
+    def _fork_family(self, fam: _ForkFamily, parent_slot: int, tick: int,
+                     now2: float, results) -> int:
+        """Fork every reserved sibling off the parent whose first token
+        just landed — before the parent's EOS check. Each sibling's block
+        budget moves from the family hold to its slot; each sibling's first
+        token (drawn from the parent's stashed logits) surfaces through ONE
+        extra fetch per family, and the sibling goes live like a final
+        chunk's slot, EOS and budget checks included. Returns the first
+        tokens emitted."""
+        req = fam.req
+        for j, child in enumerate(fam.sibling_slots):
+            self._fork_child(parent_slot, child, 1 + j, [], fam.sib_reserve,
+                             tick)
+            fam.hold -= fam.sib_reserve
+        fam.forked = True
+        self._slot_logits[parent_slot] = None
+        # The family's one extra fetch: the siblings' first tokens and
+        # their log-probabilities.
+        fh = torch.stack([self.tok, self._lp.view(torch.int32)],
+                         1).cpu().numpy()
+        tok_h = fh[:, 0]
+        lp_h = np.ascontiguousarray(fh[:, 1]).view(np.float32)
+        emitted = 0
+        for j, child in enumerate(fam.sibling_slots):
+            t0 = int(tok_h[child])
+            self._tok_host[child] = t0
+            self._slot_tokens[child] = [t0]
+            self._slot_cum_lp[child] = float(lp_h[child])
+            self._slot_state[child] = "live"
+            self._slot_clen[child] = len(self._prompt_np[child])
+            self._push_token(req, t0, 1 + j)
+            _, vis = self._slot_admit[child]
+            self._slot_ttft[child] = max(now2 - vis, 0.0)
+            self._last_tok_t[child] = now2
+            emitted += 1
+            self.slo.observe_ttft(self._slot_ttft[child])
+            if obs.REGISTRY.enabled:
+                _TOKENS.inc()
+                _TTFT.observe(self._slot_ttft[child])
+            if obs.TRACER.active:
+                obs.instant("first_token", cat="serving", args={
+                    "rid": req.uid, "slot": child, "tick": tick,
+                    "index": 1 + j,
+                    "ttft_s": round(self._slot_ttft[child], 6)})
+            if req.eos_id is not None and t0 == req.eos_id:
+                self._retire(child, tick, OUTCOME_EOS, results)
+            elif req.max_new_tokens <= 1:
+                self._retire(child, tick, OUTCOME_BUDGET, results)
+        return emitted
+
+    def _fork_child(self, parent_slot: int, child_slot: int, index: int,
+                    tokens_prefix: List[int], resv_blocks: int,
+                    tick: int) -> None:
+        """THE copy-on-write fork: give ``child_slot`` the parent's history
+        up to the fork point by SHARING every full ancestor block —
+        radix-cached ones take one more pin, parent-private ones move into
+        the allocator's refcounted shared state on both sides — and
+        copying ONLY the partial tail block (:func:`copy_pool_block`,
+        queued on the engine's stream before any step that reads the
+        child's table row; none when the fork point is block-aligned).
+
+        - An admission sibling (``tokens_prefix == []``): the fork point is
+          the prompt's end; the child's first token is drawn from the
+          parent's stashed prompt-end logits under the child's key and
+          parked in the device vectors (state ``await``).
+        - A mid-stream branch (``tokens_prefix`` = the parent's emitted
+          tokens): the fork point is the last committed row; parent and
+          child both consume the shared tip next, each into its own block,
+          and draw their next tokens under their own keys.
+
+        ``resv_blocks`` is the child's worst-case new-block budget, already
+        reserved by the caller. The child's device length is reset to the
+        fork point at its first consuming tick."""
+        req = self._slot_req[parent_slot]
+        prompt = self._prompt_np[parent_slot]
+        plen = len(prompt)
+        if tokens_prefix:
+            tip = int(tokens_prefix[-1])
+            L = plen + len(tokens_prefix) - 1
+        else:
+            tip = 0  # the sibling's own first draw replaces it
+            L = plen
+        B = self.kv_block
+        nshare = L // B
+        # Shared ancestors, radix tier first: the child pins the parent's
+        # matched or published path like a second admission...
+        pnodes = self._slot_nodes[parent_slot]
+        n_pin = min(nshare, len(pnodes))
+        self._slot_nodes[child_slot] = (self._prefix.repin(pnodes[:n_pin])
+                                        if n_pin else [])
+        # ... then the refcount for the rest (the parent's private decode
+        # blocks, or its prompt blocks when the prefix cache is off).
+        share_bids = [int(self._host_table[parent_slot, j])
+                      for j in range(n_pin, nshare)]
+        self._slot_shared[child_slot] = set(self._pool.fork_shared(
+            share_bids))
+        for bid in share_bids:
+            self._slot_private[parent_slot].discard(bid)
+            self._slot_shared[parent_slot].add(bid)
+        self._host_table[child_slot, :nshare] = \
+            self._host_table[parent_slot, :nshare]
+        self._host_table[child_slot, nshare:] = 0
+        self._slot_reserve[child_slot] = resv_blocks
+        self._slot_private[child_slot] = set()
+        self._slot_nblocks[child_slot] = nshare
+        need_copy = L % B != 0
+        if need_copy:
+            src = int(self._host_table[parent_slot, nshare])
+            assert self._slot_reserve[child_slot] > 0, (
+                f"fork into slot {child_slot} outgrew its reservation")
+            dst = self._pool.alloc()
+            self._slot_reserve[child_slot] -= 1
+            self._host_table[child_slot, nshare] = dst
+            self._slot_private[child_slot].add(dst)
+            self._slot_nblocks[child_slot] = nshare + 1
+            self.cache = copy_pool_block(self.cache, src, dst,
+                                         **self._fs_kw)
+        self._table_dirty = True
+        self._keys[child_slot] = self._branch_key(req, index)
+        # Host mirrors: from here the child is an ordinary slot.
+        self._slot_req[child_slot] = req
+        self._slot_index[child_slot] = index
+        self._slot_tokens[child_slot] = list(tokens_prefix)
+        self._prompt_np[child_slot] = prompt
+        self._slot_admit[child_slot] = self._slot_admit[parent_slot]
+        self._slot_wait[child_slot] = self._slot_wait[parent_slot]
+        self._slot_ttft[child_slot] = (self._slot_ttft[parent_slot]
+                                       if tokens_prefix else 0.0)
+        self._slot_max_tbt[child_slot] = 0.0
+        self._slot_prefix_hit[child_slot] = nshare * B
+        self._slot_cum_lp[child_slot] = (self._slot_cum_lp[parent_slot]
+                                         if tokens_prefix else 0.0)
+        self._temp_np[child_slot] = self._temp_np[parent_slot]
+        self._topk_np[child_slot] = self._topk_np[parent_slot]
+        self._prefill_start[child_slot] = self._prefill_pos[child_slot] = 0
+        self._slot_clen[child_slot] = L
+        self._live_reset[child_slot] = L
+        self._last_tok_t[child_slot] = self._last_tok_t[parent_slot]
+        if tokens_prefix:
+            # Mid-stream branch: live at once; its next tick re-consumes
+            # the shared tip (parked host- and device-side).
+            self._slot_state[child_slot] = "live"
+            self._tok_host[child_slot] = tip
+            self.tok[child_slot] = tip
+        else:
+            # Admission sibling: its own first draw from the parent's
+            # prompt-end logits, parked in the device vectors.
+            row = self._slot_logits[parent_slot]
+            assert row is not None, "fork family lost its logits stash"
+            tok, lp = sample_slots(
+                row[None], self._temp_np[child_slot:child_slot + 1],
+                self._topk_np[child_slot:child_slot + 1],
+                self._keys[child_slot:child_slot + 1],
+                np.zeros((1,), np.int64), np.ones((1,), bool))
+            self.tok[child_slot] = tok[0]
+            self._lp[child_slot] = lp[0]
+            self._slot_state[child_slot] = "await"
+        if obs.TRACER.active:
+            self._slot_span[child_slot] = obs.span(
+                f"request:{req.uid}", cat="serving", args={
+                    "rid": req.uid, "slot": child_slot, "admit_tick": tick,
+                    "prompt_len": plen, "index": index,
+                    "fork_of_slot": parent_slot})
+            obs.instant("fork", cat="serving", args={
+                "rid": req.uid, "tick": tick, "parent_slot": parent_slot,
+                "child_slot": child_slot, "index": index,
+                "shared_blocks": nshare, "copied_blocks": int(need_copy),
+                "at_tokens": len(tokens_prefix)})
+        self._forks_life += 1
+        self._fork_shared_life += nshare
+        if obs.REGISTRY.enabled:
+            _FORKS.inc()
+            if nshare:
+                _FORK_SHARED.inc(nshare)
+
+    def _fork_live(self, uid: int, tick: int, pend_uids: Set[int]) -> str:
+        """One mailboxed ``fork(uid)``: branch the request's lowest-index
+        live slot onto a free slot. Returns ``"done"`` (forked, or a no-op
+        for an unknown or finished uid), ``"wait"`` (the request is queued,
+        prefilling or awaiting its first token: not forkable yet) or
+        ``"retry"`` (no free slot or blocks)."""
+        if self._speculate or not self._paged:
+            log.warning("fork(%d) ignored: forking needs a paged, "
+                        "non-speculative engine", uid)
+            return "done"
+        parent = None
+        for i, rq in enumerate(self._slot_req):
+            if rq is None or rq.uid != uid:
+                continue
+            if self._slot_state[i] != "live":
+                return "wait"
+            if parent is None \
+                    or self._slot_index[i] < self._slot_index[parent]:
+                parent = i
+        if parent is None:
+            return "wait" if uid in pend_uids else "done"
+        req = self._slot_req[parent]
+        toks = self._slot_tokens[parent]
+        if len(toks) >= req.max_new_tokens:
+            return "done"  # retiring this tick: nothing left to branch
+        free = [i for i, st in enumerate(self._slot_state) if st == "free"]
+        if not free:
+            return "retry"
+        L = len(self._prompt_np[parent]) + max(len(toks) - 1, 0)
+        need = (-(-(len(req.prompt) + req.max_new_tokens) // self.kv_block)
+                - L // self.kv_block)
+        if not self._pool.reserve(need):
+            return "retry"
+        idx = self._uid_next_index.get(uid, self._branches(req))
+        self._uid_next_index[uid] = idx + 1
+        self._fork_child(parent, free[0], idx, list(toks), need, tick)
+        return "done"
+
+    def _apply_forks(self, forks: List[int], tick: int, pending) -> None:
+        """The control sweep's fork arc: apply mailboxed forks and retry
+        deferred ones. A fork whose request exists but is not live yet
+        ("wait") stays carried at full TTL; scarcity ("retry") burns one
+        of 3 tries per sweep, then the fork expires; unknown uids age out
+        as no-ops."""
+        for uid in forks:
+            if uid not in self._fork_carry:
+                self._fork_carry[uid] = 3
+        pend_uids = {r.uid for r in pending}
+        for uid in list(self._fork_carry):
+            verdict = self._fork_live(uid, tick, pend_uids)
+            if verdict == "done":
+                self._fork_carry.pop(uid, None)
+            elif verdict == "wait":
+                self._fork_carry[uid] = 3
+            else:
+                self._fork_carry[uid] -= 1
+                if self._fork_carry[uid] <= 0:
+                    del self._fork_carry[uid]
+                    log.warning("fork(%d) expired unserved (slots/blocks "
+                                "stayed scarce)", uid)
+
+    def _family_branch_done(self, fam: _ForkFamily,
+                            result: RequestResult) -> None:
+        """A branch retired: collect it; the LAST one joins the family
+        (best-of-n then streams its winner)."""
+        fam.done.append(result)
+        if len(fam.done) >= fam.branches:
+            self._families.pop(fam.req.uid, None)
+            if fam.best_of:
+                self._emit_best_of(fam)
+
+    def _cancel_unforked(self, fam: _ForkFamily, parent_result: RequestResult,
+                         tick: int, results) -> None:
+        """The parent retired before its first token (cancel or deadline
+        mid-prefill): free the siblings' ``fpend`` slots, return the
+        family's block hold, and finish each sibling unserved with the
+        parent's outcome (one result per requested completion)."""
+        if fam.hold:
+            self._pool.unreserve(fam.hold)
+            fam.hold = 0
+        for j, s in enumerate(fam.sibling_slots):
+            self._slot_state[s] = "free"
+            res = dataclasses.replace(parent_result, index=1 + j, tokens=[],
+                                      cum_logprob=0.0, ttft_s=0.0)
+            results.append(res)
+            fam.done.append(res)
+            if parent_result.outcome in (OUTCOME_DEADLINE, OUTCOME_SHED,
+                                         OUTCOME_ERROR):
+                self.slo.observe_miss()
+            if obs.REGISTRY.enabled:
+                _REQUESTS.labels(outcome=res.outcome).inc()
+            self._notify_finish(fam.req, res, fam)
+        fam.sibling_slots = []
+
+    def _emit_best_of(self, fam: _ForkFamily) -> None:
+        """Best-of-n join: the winner by cumulative log-probability (ties
+        to the lowest index) among cleanly finished branches (every branch
+        failed: among all), streamed now as index 0."""
+        req = fam.req
+        happy = [r for r in fam.done
+                 if r.outcome in (OUTCOME_EOS, OUTCOME_BUDGET)]
+        winner = max(happy or fam.done,
+                     key=lambda r: (r.cum_logprob, -r.index))
+        if obs.TRACER.active:
+            obs.instant("best_of_selected", cat="serving", args={
+                "rid": req.uid, "index": winner.index,
+                "cum_logprob": round(winner.cum_logprob, 6),
+                "branches": len(fam.done)})
+        out = dataclasses.replace(winner, index=0)
+        for t in winner.tokens:
+            self._deliver_token(req, 0, t)
+        self._deliver_finish(req, 0, out)
 
     # -- speculation ------------------------------------------------------
 
@@ -1610,7 +2110,7 @@ class SlotServer:
                 self._slot_tokens[i].append(int(t))
                 self._slot_cum_lp[i] += float(alllp[i][rows_used[j]])
                 self._hist_buf[i, hl + j] = int(t)
-                self._deliver_token(req, int(t))
+                self._push_token(req, int(t), self._slot_index[i])
                 tbt.append(gap if j == 0 else 0.0)
                 if obs.REGISTRY.enabled:
                     _TOKENS.inc()
@@ -1682,6 +2182,7 @@ class SlotServer:
             ttft_s=self._slot_ttft[slot],
             cum_logprob=self._slot_cum_lp[slot],
             prefix_hit_tokens=self._slot_prefix_hit[slot],
+            index=self._slot_index[slot],
         )
         results.append(result)
         if outcome in (OUTCOME_EOS, OUTCOME_BUDGET):
@@ -1708,6 +2209,7 @@ class SlotServer:
         self._slot_tokens[slot] = []
         self._slot_state[slot] = "free"
         self._prompt_np[slot] = None
+        self._slot_logits[slot] = None
         if self._prefix is not None and self._slot_nodes[slot]:
             # The request's pinned prefix path becomes evictable.
             self._prefix.release(self._slot_nodes[slot])
@@ -1719,6 +2221,12 @@ class SlotServer:
             for bid in self._slot_private[slot]:
                 self._pool.free_private(bid)
             self._slot_private[slot] = set()
+            # Fork-shared ancestors: this owner's refcount drops on every
+            # exit arc; the last branch's release frees the block.
+            for bid in self._slot_shared[slot]:
+                self._pool.release_shared(bid)
+            self._slot_shared[slot] = set()
+            self._live_reset.pop(slot, None)
             if self._slot_reserve[slot]:
                 self._pool.unreserve(self._slot_reserve[slot])
                 self._slot_reserve[slot] = 0
@@ -1730,7 +2238,19 @@ class SlotServer:
             self._pool.gen += 1
         if obs.REGISTRY.enabled:
             _REQUESTS.labels(outcome=outcome).inc()
-        self._deliver_finish(req, result)
+        # Family bookkeeping: a parent retiring before its first token takes
+        # its unforked siblings with it; the branch's finish is delivered
+        # (held back under best-of), and the family collects the branch —
+        # the last one joins.
+        fam = self._families.get(req.uid)
+        if fam is not None and slot == fam.parent_slot and not fam.forked:
+            self._cancel_unforked(fam, result, tick, results)
+        self._notify_finish(req, result, fam)
+        if fam is not None:
+            self._family_branch_done(fam, result)
+        if not any(rq is not None and rq.uid == req.uid
+                   for rq in self._slot_req):
+            self._uid_next_index.pop(req.uid, None)
 
     def pool_bytes(self) -> int:
         """Device bytes of this rank's pool blocks (K, V and int8 scales;
@@ -1746,7 +2266,8 @@ class SlotServer:
 
     def leak_report(self) -> Dict[str, int]:
         """The no-leak invariant as numbers: after a drained run no slot
-        holds blocks, reservations or prefix pins, and the only blocks in
+        holds blocks (private or fork-shared), reservations or prefix pins,
+        and the only blocks in
         use are the prefix tree's (``blocks_used == blocks_cached``; 0
         without the cache on the paged layout; with KV tiering,
         ``host_blocks_used`` is the host tier's retained cache)."""
@@ -1755,6 +2276,9 @@ class SlotServer:
                                if self._paged else 0),
             "blocks_used": self._pool.used if self._paged else 0,
             "blocks_reserved": self._pool.reserved if self._paged else 0,
+            # Fork-shared ancestors still refcounted by a slot: 0 after a
+            # drain, like blocks_private.
+            "blocks_shared": self._pool.shared_count if self._paged else 0,
             "blocks_cached": (self._prefix.blocks_used
                               if self._prefix is not None else 0),
             "pins": (self._prefix.total_pins()
@@ -1775,6 +2299,25 @@ class SlotServer:
         the pool). An unknown or finished uid is a no-op."""
         with self._ctl_lock:
             self._cancel_uids.add(uid)
+
+    def fork(self, uid: int) -> None:
+        """Branch live request ``uid`` mid-stream (any thread). The next
+        tick's sweep applies it: the request's lowest-index live branch
+        gets a fresh slot whose table SHARES every full ancestor block,
+        with only the partial tail block copied, and samples on under its
+        own key; it finishes as one more indexed :class:`RequestResult`
+        under the same uid. Scarce slots or blocks defer the fork for up to
+        3 sweeps; a uid not live yet (queued, prefilling) waits; an unknown
+        or finished uid ages out as a no-op."""
+        with self._ctl_lock:
+            self._fork_uids.append(uid)
+
+    def _take_forks(self) -> List[int]:
+        """Drain the fork mailbox (loop side), oldest first."""
+        with self._ctl_lock:
+            out = self._fork_uids
+            self._fork_uids = []
+            return out
 
     def request_drain(self) -> None:
         """Begin a graceful drain (any thread; e.g. a SIGTERM handler): the
@@ -1813,6 +2356,7 @@ class SlotServer:
                 "slot": i,
                 "state": self._slot_state[i],
                 "uid": None if req is None else req.uid,
+                "index": self._slot_index[i] if req is not None else 0,
                 "tokens": len(self._slot_tokens[i]),
                 "clen": self._slot_clen[i],
                 **({"nblocks": self._slot_nblocks[i]}
@@ -1822,43 +2366,77 @@ class SlotServer:
 
     # -- per-request callbacks (engine thread) -----------------------------
 
-    def _deliver_token(self, req: Request, tok: int) -> None:
-        if req.on_token is not None:
+    def _deliver_token(self, req: Request, index: int, tok: int) -> None:
+        """Raw token delivery: the branch callback when set (any index),
+        else ``on_token`` for branch 0 only."""
+        if req.on_branch_token is not None:
+            try:
+                req.on_branch_token(index, tok)
+            except Exception:
+                log.exception("on_branch_token failed (rid %s)", req.uid)
+            return
+        if index == 0 and req.on_token is not None:
             try:
                 req.on_token(tok)
             except Exception:
                 log.exception("on_token callback failed (rid %s)", req.uid)
 
-    def _deliver_finish(self, req: Request, result: RequestResult) -> None:
-        if req.on_finish is not None:
+    def _deliver_finish(self, req: Request, index: int,
+                        result: RequestResult) -> None:
+        if req.on_branch_finish is not None:
+            try:
+                req.on_branch_finish(index, result)
+            except Exception:
+                log.exception("on_branch_finish failed (rid %s)", req.uid)
+            return
+        if index == 0 and req.on_finish is not None:
             try:
                 req.on_finish(result)
             except Exception:
                 log.exception("on_finish callback failed (rid %s)", req.uid)
 
+    def _push_token(self, req: Request, tok: int, index: int = 0) -> None:
+        fam = self._families.get(req.uid)
+        if fam is not None and fam.best_of:
+            # Server-side selection: nothing streams until the family
+            # joins and the winner is replayed.
+            return
+        self._deliver_token(req, index, tok)
+
+    def _notify_finish(self, req: Request, result: RequestResult,
+                       fam: Optional[_ForkFamily]) -> None:
+        if fam is not None and fam.best_of:
+            return  # the family's join emits the one winner's finish
+        self._deliver_finish(req, result.index, result)
+
     def _finish_unadmitted(self, req: Request, tick: int, outcome: str,
                            results, visible_at: float, now: float) -> None:
         """Retire a request that never reached a slot (cancelled,
         deadline-expired or shed while queued; an invalid live request):
-        no engine resource to release, only its result, the outcome
-        counter, the SLO verdict and the client's callback."""
-        res = RequestResult(
-            uid=req.uid, tokens=[], prompt_len=len(req.prompt),
-            arrival_tick=req.arrival_tick, admit_tick=-1, finish_tick=tick,
-            queue_wait_s=max(now - visible_at, 0.0),
-            completion_s=max(now - visible_at, 0.0), outcome=outcome,
-        )
-        results.append(res)
-        if outcome in (OUTCOME_DEADLINE, OUTCOME_SHED, OUTCOME_ERROR):
-            # A categorical SLO miss: the server failed to serve it (a
-            # client's cancellation is not the server's miss).
-            self.slo.observe_miss()
-        if obs.REGISTRY.enabled:
-            _REQUESTS.labels(outcome=outcome).inc()
+        no engine resource to release, only its results, the outcome
+        counter, the SLO verdict and the client's callbacks. A family
+        finishes whole: one result per requested completion."""
+        branches = self._branches(req)
+        for index in range(branches):
+            res = RequestResult(
+                uid=req.uid, tokens=[], prompt_len=len(req.prompt),
+                arrival_tick=req.arrival_tick, admit_tick=-1,
+                finish_tick=tick, queue_wait_s=max(now - visible_at, 0.0),
+                completion_s=max(now - visible_at, 0.0), outcome=outcome,
+                index=index,
+            )
+            results.append(res)
+            if outcome in (OUTCOME_DEADLINE, OUTCOME_SHED, OUTCOME_ERROR):
+                # A categorical SLO miss: the server failed to serve it (a
+                # client's cancellation is not the server's miss).
+                self.slo.observe_miss()
+            if obs.REGISTRY.enabled:
+                _REQUESTS.labels(outcome=outcome).inc()
+            self._deliver_finish(req, index, res)
         if obs.TRACER.active:
             obs.instant("request_rejected", cat="serving", args={
-                "rid": req.uid, "tick": tick, "outcome": outcome})
-        self._deliver_finish(req, res)
+                "rid": req.uid, "tick": tick, "outcome": outcome,
+                "branches": branches})
 
     # -- the tick loop ----------------------------------------------------
 
@@ -1903,6 +2481,7 @@ class SlotServer:
         hit_bytes0 = self._hit_bytes_moved
         host0 = (self._host_pool.stats() if self._host_pool is not None
                  else None)
+        fork0 = (self._forks_life, self._fork_shared_life)
         if self._paged:
             self._peak_blocks_used = self._pool.used
             self._defer_gen = -1
@@ -1984,13 +2563,23 @@ class SlotServer:
                     r = pending.popleft()
                     self._finish_unadmitted(r, tick, OUTCOME_SHED, results,
                                             visible_wall.pop(r.uid, now), now)
+            # Copy-on-write forks: mailboxed fork(uid)s branch live
+            # requests onto free slots (deferred ones retry from the carry).
+            forks = self._take_forks()
+            if forks or self._fork_carry:
+                self._apply_forks(forks, tick, pending)
 
             # Admit: oldest visible request per free slot; a paged
-            # admission that cannot reserve its worst case waits (FIFO).
+            # admission that cannot reserve its worst case waits (FIFO). A
+            # fork family admits atomically: the parent's slot and one
+            # ``fpend`` slot per sibling, or it waits.
             free = [i for i, st in enumerate(self._slot_state) if st == "free"]
             while free and pending:
                 if self.quantize and self._prefill_fifo:
                     break  # staged admission: one prompt in flight
+                branches = self._branches(pending[0])
+                if branches > len(free):
+                    break
                 resv = None
                 if self._paged:
                     if self._defer_gen == self._pool.gen:
@@ -2000,8 +2589,13 @@ class SlotServer:
                         self._defer_gen = self._pool.gen
                         break
                 req = pending.popleft()
-                self._admit(req, free.pop(0), tick,
-                            visible_wall.pop(req.uid, now), resv)
+                slot = free.pop(0)
+                if branches > 1:
+                    # The family exists before the admission runs: whole
+                    # admission stashes the prompt-end logits inside it.
+                    self._admit_family(req, slot, free, resv)
+                self._admit(req, slot, tick, visible_wall.pop(req.uid, now),
+                            resv)
 
             if not pending and all(st == "free" for st in self._slot_state):
                 if source.exhausted or draining:
@@ -2041,6 +2635,12 @@ class SlotServer:
                                         + len(self._slot_tokens[i]))
                     n_vec[i] = 1
                     emit[i] = True
+                # A freshly forked slot's device length learns the fork
+                # point at its first consuming tick.
+                for i in list(self._live_reset):
+                    if self._slot_state[i] == "live":
+                        reset[i] = 1
+                        reset_val[i] = self._live_reset.pop(i)
             fused = None
             verified = False
             spec_plan: Dict[int, PackedSpec] = {}
@@ -2091,6 +2691,9 @@ class SlotServer:
                 fused = self._step(torch.from_numpy(mat).to(self.device),
                                    n_vec, reset, reset_val, emit)
                 steps += 1
+                for slot, _, last in plan:
+                    if last:
+                        self._stash_logits(slot, self._last_rows[slot])
             elif live_idx:
                 # Pure-decode tick: the tokens stay on the device.
                 self._sync_table()
@@ -2131,7 +2734,7 @@ class SlotServer:
                     first = int(self._tok_host[i])
                     self._slot_tokens[i] = [first]
                     self._slot_cum_lp[i] = float(lp_host[i])
-                    self._deliver_token(req, first)
+                    self._push_token(req, first, self._slot_index[i])
                     self._slot_state[i] = "live"
                     # The committed rows are the prompt; the first token is
                     # the pending tip.
@@ -2151,6 +2754,14 @@ class SlotServer:
                         obs.instant("first_token", cat="serving", args={
                             "rid": req.uid, "slot": i, "tick": tick,
                             "ttft_s": round(self._slot_ttft[i], 6)})
+                    # A family forks HERE, before the parent's EOS and
+                    # budget checks: a one-token parent still yields n
+                    # independent samples.
+                    fam = self._families.get(req.uid)
+                    if fam is not None and not fam.forked \
+                            and i == fam.parent_slot:
+                        tokens += self._fork_family(fam, i, tick, now2,
+                                                    results)
                     if req.eos_id is not None and first == req.eos_id:
                         self._retire(i, tick, OUTCOME_EOS, results)
                     elif req.max_new_tokens <= 1:
@@ -2167,7 +2778,7 @@ class SlotServer:
                         tok_i = int(self._tok_host[i])
                         self._slot_tokens[i].append(tok_i)
                         self._slot_cum_lp[i] += float(lp_host[i])
-                        self._deliver_token(req, tok_i)
+                        self._push_token(req, tok_i, self._slot_index[i])
                         tokens += 1
                         gap = max(now2 - self._last_tok_t[i], 0.0)
                         tbt.append(gap)
@@ -2178,6 +2789,14 @@ class SlotServer:
                         if obs.REGISTRY.enabled:
                             _TOKENS.inc()
                             _TBT.observe(gap)
+                        if (req.fork_at is not None
+                                and self._slot_index[i] == 0
+                                and len(self._slot_tokens[i])
+                                == req.fork_at):
+                            # The replayable mid-stream branch: the
+                            # request forks itself through the mailbox an
+                            # API caller would use.
+                            self.fork(req.uid)
                         if req.eos_id is not None and tok_i == req.eos_id:
                             self._retire(i, tick, OUTCOME_EOS, results)
                         elif len(self._slot_tokens[i]) >= req.max_new_tokens:
@@ -2217,6 +2836,11 @@ class SlotServer:
                 "blocks_free": self._pool.free_count,
                 "peak_blocks_used": self._peak_blocks_used,
             }
+            if self._forks_life - fork0[0]:
+                # Copy-on-write fork accounting for THIS run.
+                kv_snap["forks"] = self._forks_life - fork0[0]
+                kv_snap["fork_blocks_shared"] = (self._fork_shared_life
+                                                 - fork0[1])
             if self._host_pool is not None:
                 h1 = self._host_pool.stats()
                 kv_snap.update({

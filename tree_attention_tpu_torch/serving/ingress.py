@@ -1,14 +1,19 @@
 """Streaming HTTP ingress for the serving engine.
 
-Counterpart of ``tree_attention_tpu/serving/ingress.py`` for one engine and
-single-completion requests:
+Counterpart of ``tree_attention_tpu/serving/ingress.py`` for one engine:
 
 - ``POST /v1/completions`` — the OpenAI completions shape (``prompt`` as a
-  token-id list, ``max_tokens``, ``stream``), answered as an SSE token
-  stream (or, with ``"stream": false``, one JSON body) fed from the
-  engine's one host fetch per tick: the engine's ``on_token`` callback
-  hands each token to a per-request queue and the handler thread drains
-  it, so streaming adds no device sync.
+  token-id list, ``max_tokens``, ``stream``, and the sampling and fork
+  fields ``temperature``, ``top_k``, ``seed``, ``n``, ``best_of``,
+  ``fork_at``), answered as an SSE token stream (or, with ``"stream":
+  false``, one JSON body) fed from the engine's one host fetch per tick:
+  the engine's per-branch callbacks hand each token to a per-request queue
+  and the handler thread drains it, so streaming adds no device sync.
+  ``n > 1`` completions interleave on ONE stream, each event's
+  ``choices[0].index`` naming its branch, one finish per branch, then
+  ``[DONE]``; a whole body carries ``n`` choices. ``best_of`` streams only
+  the winning branch (as index 0) once the family has finished; branches a
+  ``fork_at`` adds stream under their own index but never hold the close.
 - **Client-disconnect cancellation** — a write to a vanished client (or the
   keepalive probe between tokens) raises; the handler calls
   :meth:`SlotServer.cancel`, and the next tick's control sweep retires the
@@ -25,10 +30,6 @@ single-completion requests:
   submissions get 503), sheds the queued backlog, finishes the in-flight
   requests, and lets ``serve()`` return; :meth:`IngressServer.join`
   collects its report.
-
-Bodies asking for several completions (``n > 1``, ``best_of > 1``) or a
-self-fork (``fork_at``) get 400: forks are a later slice of the port
-(ROADMAP queue A, item 4).
 
 Threading: the engine loop runs on its own thread under ``no_grad``
 (:meth:`SlotServer.serve`), on that thread's current CUDA stream, so every
@@ -96,8 +97,6 @@ _RETRY_AFTER_MAX_S = 60
 # A handler gives up on an engine thread that died after this much
 # silence (a live engine may be silent longer: its deadline_s bounds it).
 _DEAD_ENGINE_S = 30.0
-FORKS_REFUSED = ("n > 1, best_of > 1 and fork_at need forks, a later slice "
-                 "of the port (ROADMAP queue A, item 4)")
 
 
 class QueueRequestSource(RequestSource):
@@ -384,6 +383,10 @@ class IngressServer(DaemonHTTPServer):
 
         events: "queue.Queue" = queue.Queue()
         deadline = body.get("deadline_s", self.default_deadline_s)
+        # The finishes that end the response: one per completion, or ONE
+        # for best_of (the engine streams only the winner, as index 0).
+        best_of = body.get("best_of")
+        n_expected = 1 if (best_of or 0) > 1 else body["n"]
         request = Request(
             uid=uid,
             prompt=np.asarray(body["prompt"], np.int32),
@@ -394,9 +397,12 @@ class IngressServer(DaemonHTTPServer):
             temperature=body.get("temperature"),
             top_k=body.get("top_k"),
             seed=body.get("seed"),
+            n=body["n"],
+            best_of=best_of,
+            fork_at=body.get("fork_at"),
             trace=parsed,
-            on_token=lambda t: events.put(("token", t)),
-            on_finish=lambda res: events.put(("finish", res)),
+            on_branch_token=lambda i, t: events.put(("token", (i, t))),
+            on_branch_finish=lambda i, res: events.put(("finish", (i, res))),
         )
         # Whichever comes first — first token, finish, or a disconnect —
         # releases the request's one unit of admission-queue depth.
@@ -426,9 +432,10 @@ class IngressServer(DaemonHTTPServer):
             return
         try:
             if body.get("stream", True):
-                self._stream_sse(req, uid, events, dequeue_once)
+                self._stream_sse(req, uid, events, dequeue_once, n_expected)
             else:
-                self._respond_whole(req, uid, events, dequeue_once)
+                self._respond_whole(req, uid, events, dequeue_once,
+                                    n_expected)
         except BaseException as e:
             # Any handler failure — a vanished client (BrokenPipe,
             # ConnectionReset, timeouts) or a bug — cancels the engine
@@ -441,7 +448,7 @@ class IngressServer(DaemonHTTPServer):
                 log.exception("completions handler failed (rid %d)", uid)
             self.engine.cancel(uid)
             dequeue_once()
-            self._await_finish(events)
+            self._await_finish(events, n_expected)
             raise  # DaemonHTTPServer swallows the socket kinds
 
     def _parse_body(self, req: BaseHTTPRequestHandler):
@@ -467,24 +474,29 @@ class IngressServer(DaemonHTTPServer):
         try:
             body["max_tokens"] = int(body.get("max_tokens",
                                               self.default_max_tokens))
+            body["n"] = int(body.get("n", 1))
             for key, cast in (("deadline_s", float), ("eos_id", int),
                               ("temperature", float), ("top_k", int),
-                              ("seed", int), ("n", int), ("best_of", int),
+                              ("seed", int), ("best_of", int),
                               ("fork_at", int)):
                 if body.get(key) is not None:
                     body[key] = cast(body[key])
         except (TypeError, ValueError) as e:
             return None, (f"non-numeric max_tokens/deadline_s/eos_id/"
                           f"temperature/top_k/seed/n/best_of/fork_at: {e}")
-        if body.get("n", 1) < 1 or (body.get("best_of") or 1) < 1:
-            return None, "body.n and body.best_of must be >= 1"
-        if (body.get("n", 1) > 1 or (body.get("best_of") or 1) > 1
-                or body.get("fork_at") is not None):
-            return None, FORKS_REFUSED
+        if body["n"] < 1:
+            return None, "body.n must be >= 1"
+        if body.get("best_of") is not None and body["best_of"] < 1:
+            return None, "body.best_of must be >= 1"
+        if (body.get("best_of") or 0) > 1 and body["n"] != 1:
+            return None, ("body.best_of runs server-side selection and "
+                          "streams ONE winner — it requires n == 1")
         if body.get("temperature") is not None and body["temperature"] < 0:
             return None, "body.temperature must be >= 0"
         if body.get("top_k") is not None and body["top_k"] < 0:
             return None, "body.top_k must be >= 0 (0 = off)"
+        if body.get("fork_at") is not None and body["fork_at"] < 1:
+            return None, "body.fork_at must be >= 1"
         return body, None
 
     def _retry_after(self, depth: int) -> int:
@@ -505,26 +517,33 @@ class IngressServer(DaemonHTTPServer):
             _QUEUE_DEPTH.set(depth)
 
     @staticmethod
-    def _await_finish(events: "queue.Queue") -> None:
+    def _await_finish(events: "queue.Queue", n_expected: int = 1) -> None:
         """After a disconnect: drain callback events until the engine
-        retires the request (or goes silent), so the queue and the Request
-        the engine holds can be collected."""
+        retires every expected branch of the request (or goes silent), so
+        the queue and the Request the engine holds can be collected."""
+        seen = 0
         while True:
             try:
-                kind, _ = events.get(timeout=_DEAD_ENGINE_S)
+                kind, payload = events.get(timeout=_DEAD_ENGINE_S)
             except queue.Empty:
                 return  # engine gone; nothing more to free
-            if kind == "finish":
-                return
+            if kind == "finish" and payload[0] < n_expected:
+                seen += 1
+                if seen >= n_expected:
+                    return
 
     # -- response writers --------------------------------------------------
 
     def _stream_sse(self, req: BaseHTTPRequestHandler, uid: int,
-                    events: "queue.Queue", dequeue_once) -> None:
-        """One ``data:`` event per committed token, one finish event, then
-        ``[DONE]``. Keepalive comments between tokens probe for a vanished
-        client; ~30 s of silence from a DEAD engine thread cancels with an
-        error event (a live engine's silence is bounded by deadline_s)."""
+                    events: "queue.Queue", dequeue_once,
+                    n_expected: int = 1) -> None:
+        """One ``data:`` event per committed token (its branch in
+        ``choices[0].index``), one finish event per branch, then ``[DONE]``
+        once the ``n_expected`` branches finished. Keepalive comments
+        between tokens probe for a vanished client; ~30 s of silence from a
+        DEAD engine thread cancels with an error event (a live engine may
+        be silent longer — a best-of family streams nothing until it joins
+        — and its silence is bounded by deadline_s)."""
         if obs.REGISTRY.enabled:
             _HTTP_REQUESTS.labels(route="completions", code="200").inc()
         req.send_response(200)
@@ -532,6 +551,7 @@ class IngressServer(DaemonHTTPServer):
         req.send_header("Cache-Control", "no-cache")
         req.end_headers()
         silent = 0
+        finished = 0
         while True:
             try:
                 kind, payload = events.get(timeout=self.keepalive_s)
@@ -554,21 +574,29 @@ class IngressServer(DaemonHTTPServer):
                 continue
             silent = 0
             dequeue_once()
+            idx, item = payload
             if kind == "token":
-                req.wfile.write(_sse_token(uid, payload))
+                req.wfile.write(_sse_token(uid, item, idx))
                 req.wfile.flush()
                 continue
-            req.wfile.write(_sse_finish(uid, payload))
-            req.wfile.write(b"data: [DONE]\n\n")
+            req.wfile.write(_sse_finish(uid, item, idx))
+            if idx < n_expected:
+                finished += 1
+            if finished >= n_expected:
+                req.wfile.write(b"data: [DONE]\n\n")
+                req.wfile.flush()
+                return
             req.wfile.flush()
-            return
 
     def _respond_whole(self, req: BaseHTTPRequestHandler, uid: int,
-                       events: "queue.Queue", dequeue_once) -> None:
-        """``"stream": false``: wait for the finish and answer one JSON
-        body. 30 s of silence from a DEAD engine thread cancels with a
-        503; a live engine's silence only keeps the wait going."""
-        while True:
+                       events: "queue.Queue", dequeue_once,
+                       n_expected: int = 1) -> None:
+        """``"stream": false``: wait for every expected branch's finish and
+        answer one JSON body, its ``choices`` by index. 30 s of silence
+        from a DEAD engine thread cancels with a 503; a live engine's
+        silence only keeps the wait going."""
+        finished: List[RequestResult] = []
+        while len(finished) < n_expected:
             try:
                 kind, payload = events.get(timeout=_DEAD_ENGINE_S)
             except queue.Empty:
@@ -583,21 +611,25 @@ class IngressServer(DaemonHTTPServer):
                 return
             # A generating request holds a slot, not the admission queue.
             dequeue_once()
-            if kind == "finish":
-                break
-        result: RequestResult = payload
-        reason = FINISH_REASONS.get(result.outcome, result.outcome)
-        code = 200 if result.tokens or reason in ("stop", "length") else 503
+            idx, item = payload
+            if kind == "finish" and idx < n_expected:
+                finished.append(item)
+        finished.sort(key=lambda r: r.index)
+        code = 200 if any(
+            r.tokens or FINISH_REASONS.get(r.outcome, r.outcome)
+            in ("stop", "length") for r in finished) else 503
+        usage = _usage(finished[0])
+        usage["completion_tokens"] = sum(len(r.tokens) for r in finished)
         self._reply_counted(req, "completions", code, json.dumps({
             "id": f"cmpl-{uid}",
             "object": "text_completion",
             "choices": [{
-                "index": 0,
-                "text": _render(result.tokens),
-                "token_ids": list(result.tokens),
-                "finish_reason": reason,
-            }],
-            "usage": _usage(result),
+                "index": r.index,
+                "text": _render(r.tokens),
+                "token_ids": list(r.tokens),
+                "finish_reason": FINISH_REASONS.get(r.outcome, r.outcome),
+            } for r in finished],
+            "usage": usage,
         }, indent=2), "application/json")
 
 
@@ -616,20 +648,20 @@ def _usage(result: RequestResult) -> Dict[str, int]:
             "prefix_hit_tokens": result.prefix_hit_tokens}
 
 
-def _sse_token(uid: int, tok: int) -> bytes:
+def _sse_token(uid: int, tok: int, index: int = 0) -> bytes:
     return ("data: " + json.dumps({
         "id": f"cmpl-{uid}",
         "object": "text_completion",
-        "choices": [{"index": 0, "text": f"{int(tok)} ",
+        "choices": [{"index": index, "text": f"{int(tok)} ",
                      "token_ids": [int(tok)], "finish_reason": None}],
     }) + "\n\n").encode()
 
 
-def _sse_finish(uid: int, result: RequestResult) -> bytes:
+def _sse_finish(uid: int, result: RequestResult, index: int = 0) -> bytes:
     return ("data: " + json.dumps({
         "id": f"cmpl-{uid}",
         "object": "text_completion",
-        "choices": [{"index": 0, "text": "", "token_ids": [],
+        "choices": [{"index": index, "text": "", "token_ids": [],
                      "finish_reason": FINISH_REASONS.get(result.outcome,
                                                          result.outcome)}],
         "usage": _usage(result),
