@@ -303,7 +303,28 @@ failure exits non-zero:
    block and a tail block shared by refcount. Phase 3c's two ranks also
    serve one ``n = 2`` family on the sharded pool: its branches equal its
    independent twins on the same ranks, the ranks agree, and its
-   agreement with the single-rank family is printed.
+   agreement with the single-rank family is printed. Phase 3i's engines run
+   the fork-slot path (``tree_sampling`` off).
+   Then token-tree sibling families (phase 3j: ``tree_phase``): ``n = 4``
+   with 8 new tokens and ``n = 8`` with 4 on the serve's prompts, greedy,
+   exact and int8, each in ONE slot (the fork-slot path: one a branch),
+   the replay gate, B2's (B5's) ``tree`` variant once per layer per tree
+   tick; ``n = 8`` on a one-slot engine; sampled families on short prompts
+   held by the logit gate (every row that drew a branch's token against
+   the teacher-forced replay of the branch's tokens), a
+   second serve bit-identical, and an ``n = 2`` family whose branch 0 stops
+   on an EOS so the survivor at rank 1 is compacted and decodes on; the
+   gate shown rejecting a mask that lets branches see their siblings' rows
+   and a collapse that skips the compaction. Then disaggregated serving
+   (phase 3k: ``disagg_phase``): the 16-request trace through
+   ``--serve-disagg --prefill-slots 2``, exact and int8, against the fused
+   serve (tokens, or the replay gate where they part), both workers on one
+   pool (``data_ptr``), every handoff naming the same block ids with the
+   allocator's counts unchanged and no device kernel or copy traced, the
+   decode worker at Tq 1, ``blocks_transferred`` equal to the handed-off
+   private blocks, the pool drained; the gates shown rejecting a handoff
+   that copies the blocks into a second pool and one that reserves again
+   instead of transferring.
 4. Time ``--mode decode`` at the reference workload (B=1, 16 heads x 128,
    64000 KV tokens, one query) through the contiguous decode kernel (B1),
    and with ``--kv-quant int8`` (B4) and ``int8-cast`` (B1 over int8 K/V);
@@ -1080,7 +1101,8 @@ def oracle_drafter(requests, refs, vocab: int, wrong_every: int = 3):
 
 
 def replay_margin(params, cfg, results, requests, quant: bool, layout: str,
-                  dev, block: int = 64, quant_kernel: str = "q8q") -> float:
+                  dev, block: int = 64, quant_kernel: str = "q8q",
+                  rows_out: Optional[list] = None) -> float:
     """Teacher-forced re-scoring of a greedy serve's emitted tokens through
     the non-speculative kernel path: each request's prompt prefilled
     exactly (an int8 cache then takes it quantized as staged admission
@@ -1088,7 +1110,9 @@ def replay_margin(params, cfg, results, requests, quant: bool, layout: str,
     one), then every emitted token but the last in one step (an int8
     cache's through the serve's ``quant_kernel`` route). Returns the
     largest (row's max logit - emitted token's logit) over every emitted
-    token; a greedy token the model would not pick shows there."""
+    token; a greedy token the model would not pick shows there.
+    ``rows_out``, when given, gets each result's replayed logits rows (row
+    ``j`` predicts token ``j``), for sampled tokens too."""
     import numpy as np
     import torch
 
@@ -1141,6 +1165,8 @@ def replay_margin(params, cfg, results, requests, quant: bool, layout: str,
         rows = rows.float()
         margin = rows.amax(-1) - rows.gather(1, toks[:, None])[:, 0]
         worst = max(worst, margin.max().item())
+        if rows_out is not None:
+            rows_out.append(rows)
     return worst
 
 
@@ -3012,8 +3038,12 @@ def _fork_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     def engine(extra=()):
         key = tuple(extra)
         if key not in engines:
-            engines[key] = cli.build_server(
-                parse_args(serve_args + list(extra)), dev)[0]
+            eng = cli.build_server(parse_args(serve_args + list(extra)),
+                                   dev)[0]
+            # This phase holds the fork-slot path; the token-tree sibling
+            # decode of the families that fit its rule is phase 3j's.
+            eng._tree_sampling = False
+            engines[key] = eng
         return engines[key]
 
     server = engine()
@@ -3395,6 +3425,767 @@ def _fork_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     return out
 
 
+TREE_FAULTS = ("sibling_mask", "skip_collapse_compaction")
+TREE_SHORT_PROMPT = 16  # the fault-sensitive families' prompt length
+
+
+@contextlib.contextmanager
+def tree_watch(fault=None):
+    """Watch token-tree sibling families from outside the engine: for each
+    serve, the most slots one request held at once, and the tree ticks'
+    bundle rows. ``fault`` plants one of :data:`TREE_FAULTS`: a mask bit
+    letting every branch see its siblings' rows (the whole bundle lower
+    triangular), or a collapse that leaves a survivor at rank > 0 where
+    its rows were written."""
+    import numpy as np
+
+    from tree_attention_tpu_torch.serving import engine
+    from tree_attention_tpu_torch.serving.speculation import PackedSpec
+
+    cls = engine.SlotServer
+    step, pack, compact, fwd = cls._step, engine.pack_siblings, \
+        engine.compact_decode_window, engine.forward_step
+    seen = {"max_slots_per_uid": 0, "bundle_rows": [], "capture": False,
+            "rows": [], "tree_tq": {}}
+
+    def forwarded(*args, **kwargs):
+        logits, cache = fwd(*args, **kwargs)
+        seen["logits"] = logits
+        return logits, cache
+
+    def stepped(self, tokens, n_vec, reset, reset_val, emit, verify=None):
+        per_uid = {}
+        for rq in self._slot_req:
+            if rq is not None:
+                per_uid[rq.uid] = per_uid.get(rq.uid, 0) + 1
+        seen["max_slots_per_uid"] = max([seen["max_slots_per_uid"],
+                                         *per_uid.values()])
+        # The rows that draw this step's tokens: each tree branch's last
+        # bundle row, each plain live slot's one row; ``(uid, index, j)``:
+        # the row predicts the branch's token ``j``.
+        want = []
+        if any(self._slot_state[i] == "live" and f.forked
+               for i, f in self._tree_fams.items()):
+            tq = int(tokens.shape[1])
+            seen["tree_tq"][tq] = seen["tree_tq"].get(tq, 0) + 1
+        for i, fam in self._tree_fams.items():
+            if self._slot_state[i] == "live" and fam.forked:
+                seen["bundle_rows"].append(int(n_vec[i]))
+                _, order, s = self._pack_tree(fam)
+                want += [(i, r * s + s - 1, fam.req.uid, fam.br_index[b],
+                          len(fam.br_tokens[b]))
+                         for r, b in enumerate(order)]
+        for i, st in enumerate(self._slot_state):
+            if st == "live" and i not in self._tree_fams and emit[i]:
+                want.append((i, 0, self._slot_req[i].uid,
+                             self._slot_index[i], len(self._slot_tokens[i])))
+        out = step(self, tokens, n_vec, reset, reset_val, emit, verify)
+        if seen["capture"]:
+            lg = seen["logits"]
+            seen["rows"] += [(uid, idx, j, lg[i, r].float().clone())
+                             for i, r, uid, idx, j in want]
+        return out
+
+    def packed(suffixes):
+        p = pack(suffixes)
+        if fault == "sibling_mask":
+            p = PackedSpec(row_tokens=p.row_tokens,
+                           row_parents=p.row_parents, depth=p.depth,
+                           anc=np.tril(np.ones_like(p.anc)))
+        return p
+
+    def compacted(cache, *args):
+        return cache if fault == "skip_collapse_compaction" else \
+            compact(cache, *args)
+
+    cls._step = stepped
+    engine.pack_siblings = packed
+    engine.compact_decode_window = compacted
+    engine.forward_step = forwarded
+    try:
+        yield seen
+    finally:
+        cls._step = step
+        engine.pack_siblings = pack
+        engine.compact_decode_window = compact
+        engine.forward_step = fwd
+
+
+def tree_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
+               faults=TREE_FAULTS) -> dict:
+    """Phase 3j: token-tree sibling families at the serve width, through
+    ``SlotServer.serve`` (engines from ``cli.build_server`` on
+    ``serve_args``; the serve phase's prompts, 512 +- 64 tokens, and short
+    ones of :data:`TREE_SHORT_PROMPT` tokens). Every family fits the tree
+    rule (``k * (max_new - 1) <= 32``): ``n = 4`` with 8 new tokens (28
+    bundle rows) and ``n = 8`` with 4 (24 rows).
+
+    (a) Greedy, exact then ``--kv-quant int8``: the families on the tree
+        engine against the same families on the fork-slot path
+        (``tree_sampling`` off). Gates: each family held ONE slot (the
+        fork-slot path one per branch); every emitted token within
+        ``tol_logits`` of its position's largest logit (the replay gate,
+        :func:`replay_margin`); the tokens equal to the fork-slot family's
+        (where two branches part on a bf16 near-tie, the replay gate
+        holds them and the count is printed); the ``tree`` variant of B2
+        (exact) or B5 (int8) launched exactly once per layer per tree tick
+        and the plain ticks on the tick body; the pool drained.
+    (b) ``n = 8`` on a one-slot engine serves all eight branches.
+    (c) Sampled (temperature 1.0, top-k 50, fixed seeds) on short prompts,
+        exact then int8: every logits row that drew a branch's token (each
+        branch's last bundle row of every tree tick, each plain row after a
+        collapse) against the row of the teacher-forced replay of that
+        branch's tokens on the plain decode path (the logit gate: within
+        ``tol_logits``), a second serve bit-identical, the branches not all
+        equal; the tokens equal to the fork-slot family's under the same
+        seeds (printed). An ``n = 2`` family whose branch 0 stops on an EOS
+        only it drew: the survivor at rank 1 is compacted to the front of
+        the window and decodes on to its budget, under the same gate.
+    (d) Each planted fault of ``faults`` reruns (c)'s exact families (the
+        faults sit in the host's packing and collapse, which both
+        precisions share) and must fail the logit gate.
+
+    Launch counts are set to 0 just before each serve and read just after.
+    On a CPU the launch counts are not read."""
+    with shared_weights():
+        return _tree_phase(dev, card, serve_args, wrappers, reset_counts,
+                           tol_logits, faults)
+
+
+def _tree_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
+                faults) -> dict:
+    import numpy as np
+    import torch
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.serving import Request, synthetic_trace
+    from tree_attention_tpu_torch.utils.config import parse_args
+
+    t_phase = time.monotonic()
+    on_card = dev.type == "cuda"
+    c = parse_args(serve_args)
+    engines = {}
+
+    def engine(extra=(), tree=True):
+        key = (tuple(extra), tree)
+        if key not in engines:
+            eng = cli.build_server(parse_args(serve_args + list(extra)),
+                                   dev)[0]
+            eng._tree_sampling = tree
+            engines[key] = eng
+        return engines[key]
+
+    server = engine()
+    blk = server.kv_block
+    n_layers = server.cfg.n_layers
+    base = synthetic_trace(2, prompt_len=c.prompt_len,
+                           prompt_jitter=c.prompt_jitter, max_new_tokens=8,
+                           vocab_size=server.cfg.vocab_size,
+                           seed=c.seed + 21)
+    prompts = {0: np.asarray(base[0].prompt, np.int32),
+               1: np.asarray(base[1].prompt, np.int32)}
+    rng = np.random.default_rng(c.seed + 22)
+    for u in (2, 3):
+        prompts[u] = rng.integers(0, server.cfg.vocab_size,
+                                  TREE_SHORT_PROMPT).astype(np.int32)
+    shapes = {0: (4, 8), 1: (8, 4), 2: (4, 8), 3: (8, 4)}  # uid: (n, new)
+    sample = dict(temperature=1.0, top_k=50)
+    out = {"card": card, "prompt_lens": {u: len(p)
+                                         for u, p in prompts.items()},
+           "faults": {}, "n_layers": n_layers}
+
+    def families(uids, eos=None, seeds=None, **kw):
+        return [Request(uid=u, prompt=prompts[u],
+                        max_new_tokens=shapes[u][1], n=shapes[u][0],
+                        eos_id=eos, seed=None if seeds is None else seeds[u],
+                        **kw) for u in uids]
+
+    def branches(rep):
+        return {(r.uid, r.index): list(map(int, r.tokens))
+                for r in rep.results}
+
+    def serve(eng, reqs, label, seen):
+        reset_counts()
+        m0 = seen["max_slots_per_uid"]
+        seen["max_slots_per_uid"] = 0
+        seen["tree_tq"] = {}
+        t0 = time.monotonic()
+        rep = eng.serve(reqs)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = launch_counts(wrappers)
+        tiled_tq = {n: dict(sorted(w.tiled_tq.items()))
+                    for n, w in wrappers.items()
+                    if getattr(w, "tiled_tq", None)}
+        tree_tq = {n: dict(sorted(w.tree_tq.items()))
+                   for n, w in wrappers.items()
+                   if getattr(w, "tree_tq", None)}
+        slots = seen["max_slots_per_uid"]
+        seen["max_slots_per_uid"] = max(m0, slots)
+        lr = eng.leak_report()
+        if not (leaks_clean(lr) and lr["blocks_shared"] == 0
+                and not eng._tree_fams and not eng._families):
+            fail(f"tree serve ({label}): the engine holds resources after "
+                 f"the drain: {lr}")
+        return {"rep": rep, "launches": launches, "tiled_tq": tiled_tq,
+                "tree_tq": tree_tq, "wall_s": wall, "max_slots_per_uid": slots,
+                "tree_ticks_by_tq": dict(sorted(seen["tree_tq"].items()))}
+
+    def logit_gap(eng, rep, quant, rows):
+        """The largest |logit| gap between the rows that drew a serve's
+        tokens (``rows``: ``(uid, index, j, row)``) and the teacher-forced
+        replay of each branch's tokens on the plain decode path."""
+        replay = []
+        replay_margin(eng.params, eng.cfg, rep.results,
+                      [Request(uid=r.uid, prompt=prompts[r.uid],
+                               max_new_tokens=1) for r in rep.results],
+                      quant, "paged", dev, blk, rows_out=replay)
+        by = {(r.uid, r.index): x for r, x in zip(rep.results, replay)}
+        gap = 0.0
+        for uid, idx, j, row in rows:
+            gap = max(gap, (row - by[(uid, idx)][j]).abs().max().item())
+        return gap
+
+    def captured(eng, reqs, label, seen):
+        seen["capture"], seen["rows"] = True, []
+        try:
+            r = serve(eng, reqs, label, seen)
+        finally:
+            seen["capture"] = False
+        r["rows"] = seen["rows"]
+        return r
+
+    def greedy_margin(eng, rep, quant):
+        return replay_margin(eng.params, eng.cfg, rep.results,
+                             [Request(uid=r.uid, prompt=prompts[r.uid],
+                                      max_new_tokens=1)
+                              for r in rep.results], quant, "paged", dev,
+                             blk)
+
+    seeds = {0: 501, 1: 502, 2: 503, 3: 504}
+
+    def sampled_check(eng, fork, quant, label, seen, eos_case):
+        """(c) on ``eng``: the logit gate, determinism, diversity
+        and the fork-slot comparison; then the EOS/collapse family."""
+        s1 = captured(eng, families((2, 3), seeds=seeds, **sample),
+                      f"{label} sampled", seen)
+        s2 = serve(eng, families((2, 3), seeds=seeds, **sample),
+                   f"{label} sampled again", seen)
+        f1 = serve(fork, families((2, 3), seeds=seeds, **sample),
+                   f"{label} sampled fork-slot", seen)
+        b1, bf = branches(s1["rep"]), branches(f1["rep"])
+        r = {"logit_gap": logit_gap(eng, s1["rep"], quant, s1["rows"]),
+             "rows_checked": len(s1["rows"]),
+             "bit_identical": b1 == branches(s2["rep"]),
+             "distinct_branches": [len({tuple(b1[(u, i)])
+                                        for i in range(shapes[u][0])})
+                                   for u in (2, 3)],
+             "tokens_equal_fork_slot": sum(
+                 a == b for k in b1 for a, b in zip(b1[k], bf[k])),
+             # Drawn from the same prompt-end logits (one prefill step of
+             # the same shape on both engines) under the same keys.
+             "first_tokens_equal_fork_slot": sorted(b1) == sorted(bf)
+             and all(b1[k][:1] == bf[k][:1] for k in b1),
+             "tokens": sum(len(t) for t in b1.values()),
+             "tree_families": s1["rep"].kv.get("tree_families", 0),
+             "max_slots_per_uid": s1["max_slots_per_uid"]}
+        # The survivor at rank 1: branch 0 of an n = 2 family on prompt 2
+        # stops on a token only it drew (not its first; the latest such of
+        # its first six, so the survivor's suffix is long when it is
+        # compacted), branch 1 runs on.
+        def pair(eos=None):
+            return [Request(uid=2, prompt=prompts[2], max_new_tokens=8, n=2,
+                            eos_id=eos, seed=seeds[2], **sample)]
+
+        if "eos" not in eos_case:
+            p0 = branches(serve(eng, pair(), f"{label} n=2", seen)["rep"])
+            b0, b1_ = p0[(2, 0)], p0[(2, 1)]
+            eos_case["eos"] = next(
+                (b0[j] for j in range(5, 0, -1)
+                 if b0[j] not in b0[:j] and b0[j] not in b1_), None)
+        eos = eos_case["eos"]
+        if eos is not None:
+            e = captured(eng, pair(eos), f"{label} eos", seen)
+            ef = serve(fork, pair(eos), f"{label} eos fork-slot", seen)
+            got = {rr.index: rr for rr in e["rep"].results}
+            eb, efb = branches(e["rep"]), branches(ef["rep"])
+            r["eos"] = {
+                "eos_token": int(eos),
+                "branch0": [got[0].outcome, len(got[0].tokens)],
+                "survivor": [got[1].outcome, len(got[1].tokens)],
+                "tree_ticks": e["rep"].kv.get("tree_ticks", 0),
+                "logit_gap": logit_gap(eng, e["rep"], quant, e["rows"]),
+                "rows_checked": len(e["rows"]),
+                "tokens_equal_fork_slot": sum(
+                    a == b for k in eb for a, b in zip(eb[k], efb[k])),
+                "first_tokens_equal_fork_slot": sorted(eb) == sorted(efb)
+                and all(eb[k][:1] == efb[k][:1] for k in eb),
+                "tokens": sum(len(t) for t in eb.values())}
+        return r
+
+    with tree_watch() as seen:
+        # -- (a) greedy families, exact then int8 ---------------------------
+        serve(server, families((0,)), "warm-up", seen)
+        for quant in (False, True):
+            extra = ["--kv-quant", "int8"] if quant else []
+            eng, fork = engine(extra), engine(extra, tree=False)
+            label = "int8" if quant else "exact"
+            t = serve(eng, families((0, 1)), f"{label} tree", seen)
+            f = serve(fork, families((0, 1)), f"{label} fork-slot", seen)
+            tb, fb = branches(t["rep"]), branches(f["rep"])
+            kv = t["rep"].kv
+            tree_kernel = ("flash_decode_paged_q8q" if quant
+                           else "flash_decode_paged")
+            a = {"tokens_equal_fork_slot": sum(
+                     x == y for k in tb for x, y in zip(tb[k], fb[k])),
+                 "tokens": sum(len(v) for v in tb.values()),
+                 "replay_margin": greedy_margin(eng, t["rep"], quant),
+                 "tree_families": kv.get("tree_families", 0),
+                 "tree_ticks": kv.get("tree_ticks", 0),
+                 "tree_launches": t["launches"].get(tree_kernel + "_tree",
+                                                    0),
+                 "tiled_tq": t["tiled_tq"].get(tree_kernel, {}),
+                 "tree_launches_by_tq": t["tree_tq"].get(tree_kernel, {}),
+                 "tree_ticks_by_tq": t["tree_ticks_by_tq"],
+                 "max_slots_per_uid": t["max_slots_per_uid"],
+                 "fork_slot_max_slots_per_uid": f["max_slots_per_uid"],
+                 "bundle_rows_max": max(seen["bundle_rows"] or [0]),
+                 "launches": t["launches"],
+                 "fork_slot_launches": f["launches"],
+                 "wall_s": [t["wall_s"], f["wall_s"]],
+                 "tokens_per_sec": [t["rep"].tokens_per_sec,
+                                    f["rep"].tokens_per_sec],
+                 "peak_blocks_used": [kv["peak_blocks_used"],
+                                      f["rep"].kv["peak_blocks_used"]]}
+            out[f"a_{label}"] = a
+            print(f"tree families, greedy {label} ({card}): n=4 x 8 and n=8 "
+                  f"x 4 on {[len(prompts[u]) for u in (0, 1)]}-token "
+                  f"prompts: tree families {a['tree_families']}, one slot "
+                  f"each (max slots a request held {a['max_slots_per_uid']}"
+                  f", fork-slot path {a['fork_slot_max_slots_per_uid']}), "
+                  f"tree ticks {a['tree_ticks']} (by Tq "
+                  f"{a['tree_ticks_by_tq']}), {tree_kernel} tree launches "
+                  f"{a['tree_launches']} (by Tq, counted where they launch "
+                  f"{a['tree_launches_by_tq']}), multi-row launches by Tq "
+                  f"{a['tiled_tq']} (prompt chunks ride 32-row chunks "
+                  f"while a tree family is admitted), "
+                  f"tokens equal to the fork-slot family "
+                  f"{a['tokens_equal_fork_slot']} of {a['tokens']}, replay "
+                  f"margin {a['replay_margin']:.3e} (tol {tol_logits}), "
+                  f"peak blocks tree/fork-slot {a['peak_blocks_used']}, "
+                  f"tok/s {[round(x, 1) for x in a['tokens_per_sec']]}, "
+                  f"launches {json.dumps(a['launches'])}", flush=True)
+            if not (a["tree_families"] == 2 and a["max_slots_per_uid"] == 1
+                    and a["fork_slot_max_slots_per_uid"] == 8
+                    and a["replay_margin"] <= tol_logits
+                    and t["rep"].outcomes == {"budget": 12}):
+                fail(f"tree family gates ({label}): {a}")
+            if on_card and not (
+                    a["tree_launches"] == n_layers * a["tree_ticks"] > 0
+                    and sum(a["tree_ticks_by_tq"].values())
+                    == a["tree_ticks"]
+                    and sum(a["tree_launches_by_tq"].values())
+                    == a["tree_launches"]
+                    and a["tree_launches_by_tq"] == {
+                        tq: n * n_layers
+                        for tq, n in a["tree_ticks_by_tq"].items()}
+                    and all(a["tiled_tq"].get(tq, 0) >= n for tq, n in
+                            a["tree_launches_by_tq"].items())):
+                fail(f"tree family launches ({label}): {tree_kernel}'s "
+                     f"tree variant must run once per layer per tree tick "
+                     f"at the tick's Tq, on the multi-row body: {a}")
+
+        # -- (b) n = 8 on one slot --------------------------------------------
+        one = engine(["--slots", "1"])
+        o = serve(one, families((1,)), "n=8 on one slot", seen)
+        out["b"] = {"branches": sorted(i for _, i in branches(o["rep"])),
+                    "tree_families": o["rep"].kv.get("tree_families", 0),
+                    "launches": o["launches"]}
+        print(f"tree family n=8 on a one-slot engine ({card}): branches "
+              f"{out['b']['branches']}, launches "
+              f"{json.dumps(o['launches'])}", flush=True)
+        if out["b"]["branches"] != list(range(8)) \
+                or out["b"]["tree_families"] != 1:
+            fail(f"n=8 on one slot: {out['b']}")
+
+        # -- (c) sampled families on short prompts ----------------------------
+        eos_cases = {False: {}, True: {}}
+        for quant in (False, True):
+            extra = ["--kv-quant", "int8"] if quant else []
+            label = "int8" if quant else "exact"
+            cc = sampled_check(engine(extra), engine(extra, tree=False),
+                               quant, label, seen, eos_cases[quant])
+            out[f"c_{label}"] = cc
+            print(f"tree families, sampled {label} ({card}): logit gap to "
+                  f"the replay {cc['logit_gap']:.3e} over "
+                  f"{cc['rows_checked']} rows (tol {tol_logits}), "
+                  f"second serve bit-identical {cc['bit_identical']}, "
+                  f"distinct branches {cc['distinct_branches']}, tokens "
+                  f"equal to the fork-slot families "
+                  f"{cc['tokens_equal_fork_slot']} of {cc['tokens']} (every "
+                  f"branch's first token equal "
+                  f"{cc['first_tokens_equal_fork_slot']}); "
+                  f"EOS/collapse {json.dumps(cc.get('eos'))}", flush=True)
+            ok = (cc["logit_gap"] <= tol_logits and cc["bit_identical"]
+                  and cc["first_tokens_equal_fork_slot"]
+                  and min(cc["distinct_branches"]) >= 2
+                  and cc["tree_families"] == 2
+                  and cc["max_slots_per_uid"] == 1)
+            e = cc.get("eos")
+            if e is None or not (e["branch0"][0] == "eos"
+                                 and e["survivor"] == ["budget", 8]
+                                 and e["first_tokens_equal_fork_slot"]
+                                 and e["logit_gap"] <= tol_logits):
+                ok = False
+            if not ok:
+                fail(f"sampled tree family gates ({label}): {cc}")
+    out["wall_s_clean"] = time.monotonic() - t_phase
+
+    # -- (d) the gates' teeth -------------------------------------------------
+    for fault in faults:
+        with tree_watch(fault) as fseen:
+            ref = out["c_exact"]
+            cc = sampled_check(engine(), engine(tree=False), False,
+                               f"fault {fault} exact", fseen,
+                               eos_cases[False])
+            e = cc.get("eos") or {}
+            caught = {"exact": {
+                "gaps": [cc["logit_gap"], e.get("logit_gap", 0.0)],
+                "logit_gap": cc["logit_gap"] > tol_logits
+                or e.get("logit_gap", 0.0) > tol_logits,
+                "fork_slot_tokens":
+                    cc["tokens_equal_fork_slot"]
+                    < ref["tokens_equal_fork_slot"]
+                    or e.get("tokens_equal_fork_slot", 0)
+                    < ref["eos"]["tokens_equal_fork_slot"]}}
+        out["faults"][fault] = caught
+        print(f"tree planted fault {fault!r} ({card}): gates that rejected "
+              f"it {caught} (logit gaps: the families', the EOS pair's)",
+              flush=True)
+        if not all(v["logit_gap"] for v in caught.values()):
+            fail(f"tree phase: the logit gate passed the planted fault "
+                 f"{fault!r}: {caught}")
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"tree phase wall ({card}) {out['wall_s']:.2f}s", flush=True)
+    return out
+
+
+DISAGG_ARGS = ["--serve-disagg", "--prefill-slots", "2"]
+DISAGG_FAULTS = ("copy_into_second_pool", "re_reserve")
+
+
+@contextlib.contextmanager
+def disagg_watch(fault=None):
+    """Watch the handoffs of :class:`DisaggServer` from outside: per
+    adoption, the private blocks the prefill slot held, the blocks the
+    allocator counted transferred, whether the decode slot's table row
+    names the same block ids, the allocator's availability, reservations
+    and generation before and after (a handoff moves none of them), and on
+    the card the device kernels and copies the adoption issued (traced:
+    none, so no KV byte moves); every decode-worker step's Tq.
+
+    ``fault`` plants one of :data:`DISAGG_FAULTS`: a decode worker with a
+    pool of its own into which each handoff copies the blocks, or an
+    adoption that returns the prefill side's reservation and reserves it
+    again instead of transferring the blocks."""
+    import torch
+
+    from tree_attention_tpu_torch.serving import disagg
+
+    cls = disagg.DisaggServer
+    adopt, relay, init = cls._adopt, cls._relay_pool, cls.__init__
+    seen = {"handoffs": [], "decode_tq": [], "traced_handoffs": 0}
+
+    def adopted(self, p, d, tick):
+        pf, dc, pool = self.prefill, self.decode, self.pool
+        bids = sorted(pf._slot_private[p])
+        nb = pf._slot_nblocks[p]
+        row = [int(x) for x in pf._host_table[p, :nb]]
+        before = (pool.available(), pool.reserved, pool.gen)
+        t0 = pool.transferred
+        on_card = pf.device.type == "cuda"
+        trace = on_card and seen["traced_handoffs"] < 8
+        if trace:
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        if fault == "re_reserve":
+            resv = pf._slot_reserve[p]
+            pool.unreserve(resv)
+            pool.reserve(resv)
+            tp = pool.transfer_private
+            pool.transfer_private = lambda b: 0
+            try:
+                adopt(self, p, d, tick)
+            finally:
+                pool.transfer_private = tp
+        else:
+            adopt(self, p, d, tick)
+        if fault == "copy_into_second_pool":
+            for name in self._pool_fields:
+                src, dst = getattr(pf.cache, name), getattr(dc.cache, name)
+                dst[:, row] = src[:, row]
+        device_ops = None
+        if trace:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            device_ops = sum(1 for e in prof.events() if e.device_type
+                             == torch.autograd.DeviceType.CUDA)
+            seen["traced_handoffs"] += 1
+        seen["handoffs"].append({
+            "private": len(bids), "transferred": pool.transferred - t0,
+            "same_ids": [int(x) for x in dc._host_table[d, :nb]] == row,
+            "ledger_unchanged": before == (pool.available(), pool.reserved,
+                                           pool.gen),
+            "device_ops": device_ops})
+
+    def relayed(self, src, dst):
+        if fault != "copy_into_second_pool":
+            relay(self, src, dst)
+
+    def built(self, *a, **kw):
+        init(self, *a, **kw)
+        if fault == "copy_into_second_pool":
+            # The decode worker keeps a pool of its own.
+            for name in self._pool_fields:
+                setattr(self.decode.cache, name,
+                        getattr(self.prefill.cache, name).clone())
+        step = self.decode._step
+
+        def decode_step(tokens, *args, **kwargs):
+            seen["decode_tq"].append(int(tokens.shape[1]))
+            return step(tokens, *args, **kwargs)
+
+        self.decode._step = decode_step
+
+    cls._adopt, cls._relay_pool, cls.__init__ = adopted, relayed, built
+    try:
+        yield seen
+    finally:
+        cls._adopt, cls._relay_pool, cls.__init__ = adopt, relay, init
+
+
+def disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
+                 faults=DISAGG_FAULTS) -> dict:
+    """Phase 3k: disaggregated prefill/decode serving at the serve width:
+    the serve phase's 16-request trace (512 +- 64-token prompts, 64 new
+    tokens) through ``--serve-disagg --prefill-slots 2`` (6 decode slots
+    over one pool), exact then ``--kv-quant int8``, against the fused
+    engine's serve of the same trace.
+
+    Gates: the tokens equal the fused serve's, or where a stream parts on
+    a bf16 near-tie every emitted token is within ``tol_logits`` of its
+    position's largest logit (the replay gate); both workers' caches on
+    the same pool storage (``data_ptr``, and int8's block scales) before
+    and after; every handoff: the decode slot's table row names the prefill
+    slot's block ids, the allocator counted exactly its private blocks
+    transferred, its availability, reservations and generation unchanged,
+    and (on the card, the first 8 handoffs traced) no device kernel or copy
+    issued — no KV byte moved; every decode-worker step at Tq 1; B3 for the
+    prefill chunks and the decode ticks on the tick body (B2, or B5 under
+    int8) counted; the leak report drained with ``blocks_transferred`` equal
+    to the handed-off private blocks. Each planted fault of ``faults`` must
+    fail a gate. Launch counts are set to 0 just before each serve and read
+    just after; on a CPU they are not read."""
+    with shared_weights():
+        return _disagg_phase(dev, card, serve_args, wrappers, reset_counts,
+                             tol_logits, faults)
+
+
+def _disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
+                  faults) -> dict:
+    import torch
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.serving import synthetic_trace
+    from tree_attention_tpu_torch.utils.config import parse_args
+
+    t_phase = time.monotonic()
+    on_card = dev.type == "cuda"
+    c = parse_args(serve_args)
+    out = {"card": card, "faults": {}}
+
+    def trace(vocab):
+        return synthetic_trace(
+            c.requests, prompt_len=c.prompt_len,
+            prompt_jitter=c.prompt_jitter, max_new_tokens=c.max_new_tokens,
+            arrival_every=c.arrival_every, vocab_size=vocab,
+            seed=c.seed + 1, prefix_share=c.prefix_share,
+            prefix_len=c.prefix_len)
+
+    def tokens(rep):
+        return {r.uid: list(map(int, r.tokens)) for r in rep.results}
+
+    def run(extra, seen, label, requests=None):
+        srv = cli.build_server(parse_args(serve_args + DISAGG_ARGS + extra),
+                               dev)[0]
+        shared0 = srv.pool_shared()
+        n0 = len(seen["handoffs"])
+        seen["decode_tq"].clear()
+        tr = trace(srv.cfg.vocab_size)[:requests]
+        reset_counts()
+        t0 = time.monotonic()
+        rep = srv.serve(tr)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = launch_counts(wrappers)
+        hs = seen["handoffs"][n0:]
+        lr = srv.leak_report()
+        r = {"srv": srv, "rep": rep, "trace": tr, "launches": launches,
+             "wall_s": wall, "pool_shared": [shared0, srv.pool_shared()],
+             "handoff": rep.handoff, "leaks": lr,
+             "handed_private": sum(h["private"] for h in hs),
+             "transferred_each": all(h["transferred"] == h["private"]
+                                     for h in hs),
+             "same_ids": all(h["same_ids"] for h in hs),
+             "ledger_unchanged": all(h["ledger_unchanged"] for h in hs),
+             "device_ops": [h["device_ops"] for h in hs
+                            if h["device_ops"] is not None],
+             "decode_tq": sorted(set(seen["decode_tq"])),
+             "drained": leaks_clean(lr) and srv.all_slots_free}
+        return r
+
+    def gates(r, fused, quant):
+        rep = r["rep"]
+        t = tokens(rep)
+        fz = {u: v for u, v in tokens(fused["rep"]).items() if u in t}
+        r["tokens_equal_fused"] = sum(a == b for k in t
+                                      for a, b in zip(t[k], fz[k]))
+        r["tokens"] = sum(len(v) for v in t.values())
+        r["replay_margin"] = 0.0 if t == fz else replay_margin(
+            r["srv"].params, r["srv"].cfg, rep.results, r["trace"], quant,
+            "paged", dev, r["srv"].kv_block)
+        return {
+            "tokens": t == fz or r["replay_margin"] <= tol_logits,
+            "pool_shared": all(r["pool_shared"]),
+            "handoffs": rep.handoff["handoffs"] == len(r["trace"]),
+            "transferred": r["transferred_each"]
+            and rep.handoff["blocks_transferred"] == r["handed_private"]
+            > 0,
+            "same_ids": r["same_ids"],
+            "ledger_unchanged": r["ledger_unchanged"],
+            "no_device_op": not any(r["device_ops"]),
+            "decode_tq_1": r["decode_tq"] == [1],
+            "drained": r["drained"]}
+
+    fused = {}
+    for quant in (True, False):
+        extra = ["--kv-quant", "int8"] if quant else []
+        fused_eng = cli.build_server(parse_args(serve_args + extra), dev)[0]
+        tr = trace(fused_eng.cfg.vocab_size)
+        reset_counts()
+        rep = fused_eng.serve(tr)
+        fused[quant] = {"rep": rep, "launches": launch_counts(wrappers)}
+    runs = {}
+    with disagg_watch() as seen:
+        for quant in (False, True):
+            label = "int8" if quant else "exact"
+            extra = ["--kv-quant", "int8"] if quant else []
+            r = run(extra, seen, label)
+            g = gates(r, fused[quant], quant)
+            decode_kernel = ("flash_decode_paged_q8q_tick" if quant
+                             else "flash_decode_paged_tick")
+            rec = {k: r[k] for k in (
+                "launches", "wall_s", "pool_shared", "handoff", "leaks",
+                "handed_private", "device_ops", "decode_tq",
+                "tokens_equal_fused", "tokens", "replay_margin")}
+            rec.update(gates=g, tokens_per_sec=[
+                r["rep"].tokens_per_sec, fused[quant]["rep"].tokens_per_sec],
+                tbt_p95_s=[r["rep"].latency_percentiles()["tbt_p95_s"],
+                           fused[quant]["rep"].latency_percentiles()[
+                               "tbt_p95_s"]],
+                ttft_p50_s=[r["rep"].latency_percentiles()["ttft_p50_s"],
+                            fused[quant]["rep"].latency_percentiles()[
+                                "ttft_p50_s"]],
+                fused_launches=fused[quant]["launches"])
+            runs[label] = rec
+            print(f"disagg serve {label} ({card}): 16 requests, 2 prefill + "
+                  f"6 decode slots: tokens equal to the fused serve "
+                  f"{r['tokens_equal_fused']} of {r['tokens']} (replay "
+                  f"margin {r['replay_margin']:.3e}, tol {tol_logits}), "
+                  f"handoff {json.dumps(r['handoff'])}, handed-off private "
+                  f"blocks {r['handed_private']}, device ops in the traced "
+                  f"handoffs {r['device_ops']}, decode-worker Tq "
+                  f"{r['decode_tq']}, pools shared {r['pool_shared']}, "
+                  f"tok/s disagg/fused "
+                  f"{[round(x, 1) for x in rec['tokens_per_sec']]}, TBT p95 "
+                  f"{rec['tbt_p95_s']}, TTFT p50 {rec['ttft_p50_s']}, "
+                  f"launches {json.dumps(r['launches'])}, gates {g}",
+                  flush=True)
+            if not all(g.values()):
+                fail(f"disagg gates ({label}): {g}: {rec}")
+            if on_card and not (r["launches"].get("flash_fwd")
+                                and r["launches"].get(decode_kernel)):
+                fail(f"disagg serve ({label}): B3 or the decode tick body "
+                     f"never launched: {r['launches']}")
+            del r
+            torch.cuda.empty_cache() if on_card else None
+    out["runs"] = runs
+    # The timings: the watch traces handoffs inside the watched serves, so
+    # an exact pair is served again unwatched, in turns (after a short
+    # warm-up of the fresh pair).
+    pair_eng = cli.build_server(parse_args(serve_args + DISAGG_ARGS), dev)[0]
+    pair_eng.serve(trace(pair_eng.cfg.vocab_size)[:2])
+    timed = {"disagg": [], "fused": []}
+    for label in ("disagg", "fused", "disagg", "fused"):
+        eng = pair_eng if label == "disagg" else fused_eng
+        # The client's side: each request's on_token times, so the pair's
+        # inter-token gaps are read as a stream sees them, the serialized
+        # prefill ticks included (its report's TBT leaves them out).
+        stamps = {}
+
+        def stamped(r):
+            got = stamps.setdefault(r.uid, [])
+            return dataclasses.replace(
+                r, on_token=lambda tok: got.append(time.monotonic()))
+
+        t_rep = eng.serve([stamped(r) for r in trace(eng.cfg.vocab_size)])
+        if on_card:
+            torch.cuda.synchronize()
+        lat = t_rep.latency_percentiles()
+        gaps = sorted(b - a for ts in stamps.values()
+                      for a, b in zip(ts, ts[1:]))
+        timed[label].append({
+            "tokens_per_sec": t_rep.tokens_per_sec,
+            "ttft_p50_s": lat["ttft_p50_s"], "tbt_p50_s": lat["tbt_p50_s"],
+            "tbt_p95_s": lat["tbt_p95_s"],
+            "client_tbt_p50_s": gaps[len(gaps) // 2],
+            "client_tbt_p95_s": gaps[min(len(gaps) - 1,
+                                         int(0.95 * len(gaps)))],
+            "wall_s": t_rep.wall_s,
+            **({k: t_rep.handoff[k] for k in ("prefill_tick_s",
+                                              "decode_tick_s")}
+               if t_rep.handoff else {})})
+    out["timed_unwatched"] = timed
+    print(f"disagg ({card}), unwatched exact serves in turns (disagg, "
+          f"fused, disagg, fused; tbt: the report's, for the pair the decode "
+          f"worker's own tick time; client_tbt: the gaps between a stream's "
+          f"on_token callbacks): " + json.dumps(
+              {k: [{m: round(x, 5) for m, x in r.items()} for r in v]
+               for k, v in timed.items()}), flush=True)
+    del pair_eng, fused_eng
+    out["wall_s_clean"] = time.monotonic() - t_phase
+    for fault in faults:
+        with disagg_watch(fault) as fseen:
+            # The faults sit in the handoff, which every request takes:
+            # the first 8 of the trace show them.
+            r = run([], fseen, f"fault {fault}", requests=8)
+            g = gates(r, fused[False], False)
+        out["faults"][fault] = [k for k, v in g.items() if not v]
+        print(f"disagg planted fault {fault!r} ({card}): gates that "
+              f"rejected it {out['faults'][fault]}", flush=True)
+        if not out["faults"][fault]:
+            fail(f"disagg phase: every gate passed the planted fault "
+                 f"{fault!r}")
+        del r
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"disagg phase wall ({card}) {out['wall_s']:.2f}s", flush=True)
+    return out
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -3403,7 +4194,8 @@ def fail(msg: str) -> None:
 # The phases of main() in the order they run; ``--phases`` picks some. The
 # build (phase 1) always runs; the report (phase 8) needs them all. A name
 # on the left runs the phases on the right too: what it reads of theirs.
-PHASES = ("2", "3", "3f", "3c", "3e", "4", "5", "6", "7", "3g", "3h", "3i")
+PHASES = ("2", "3", "3f", "3c", "3e", "4", "5", "6", "7", "3g", "3h", "3i",
+          "3j", "3k")
 PHASE_NEEDS = {"3b": ("3",), "3d": ("3",), "7": ("6", "7")}
 
 
@@ -3671,8 +4463,9 @@ def main() -> None:
                           "tick_launches"):
                 if hasattr(w, extra):
                     setattr(w, extra, 0)
-            if hasattr(w, "tiled_tq"):
-                w.tiled_tq.clear()
+            for by_tq in ("tiled_tq", "tree_tq"):
+                if hasattr(w, by_tq):
+                    getattr(w, by_tq).clear()
 
     # The multi-row body's launches of a serve, by kernel and Tq.
     multi_row = {"B1": cuda_decode.attention_cuda_decode,
@@ -6491,6 +7284,18 @@ def main() -> None:
                            TOL_LOGITS)
         torch.cuda.empty_cache()
 
+    if "3j" in run:
+        # -- 3j. token-tree sibling families ----------------------------------
+        trees = tree_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
+                           TOL_LOGITS)
+        torch.cuda.empty_cache()
+
+    if "3k" in run:
+        # -- 3k. disaggregated prefill/decode ---------------------------------
+        disagg = disagg_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
+                              TOL_LOGITS)
+        torch.cuda.empty_cache()
+
     if run != set(PHASES):
         # A partial run has no whole kernels line: its phases' own lines
         # above carry their gates and numbers.
@@ -6612,6 +7417,13 @@ def main() -> None:
         if not main_launches[name + "_tree"]:
             fail(f"the speculative serves never launched {name}'s tree "
                  f"variant")
+    # Phase 3j's tree families and phase 3k's disaggregated serves: their
+    # own counts (set to 0 before each serve, read after it).
+    tree_launches = {f"tree families greedy {q}": trees[f"a_{q}"]["launches"]
+                     for q in ("exact", "int8")}
+    tree_launches["n=8 on one slot"] = trees["b"]["launches"]
+    disagg_launches = {f"disagg {q}": disagg["runs"][q]["launches"]
+                       for q in ("exact", "int8")}
     fork_launches = {
         "family n=2 (4 requests)": forks["a"]["launches"]["family"],
         "independent twins (8 requests)": forks["a"]["launches"][
@@ -6712,6 +7524,22 @@ def main() -> None:
                    if n.get(name)}
         if by_fork:
             entry["launches_fork"] = by_fork
+        by_tree = {label: n[name] for label, n in tree_launches.items()
+                   if n.get(name)}
+        if by_tree:
+            entry["launches_tree_families"] = by_tree
+        if name in ("flash_decode_paged_tree", "flash_decode_paged_q8q_tree"):
+            q = "int8" if "q8q" in name else "exact"
+            entry["tree_family_ticks"] = trees[f"a_{q}"]["tree_ticks"]
+            # Counted by the wrapper where it launches the tree variant.
+            entry["tree_family_launches_by_tq"] = trees[f"a_{q}"][
+                "tree_launches_by_tq"]
+            if not by_tree:
+                fail(f"the tree families never launched {name}")
+        by_disagg = {label: n[name] for label, n in disagg_launches.items()
+                     if n.get(name)}
+        if by_disagg:
+            entry["launches_disagg"] = by_disagg
         if name.startswith("flash_decode"):
             # Which body ran the head case (cuda_decode.decode_body: every
             # variant but f32 with more than one packed row or a tree takes
@@ -6839,6 +7667,9 @@ def main() -> None:
                    "sharded_train": trained, "prefix": prefix,
                    "ingress": ingress, "whole_tier": whole_tier,
                    "forks": forks, "sharded_family": sh_family,
+                   "tree_families": trees, "disagg": {
+                       "runs": disagg["runs"], "faults": disagg["faults"],
+                       "wall_s": disagg["wall_s"]},
                    "kernels": kernels}, f, indent=1)
     print(f"chip_smoke: total wall {time.monotonic() - t_start:.1f}s",
           flush=True)

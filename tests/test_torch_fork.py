@@ -3,9 +3,8 @@
 Counterparts of ``tests/test_serving_fork.py``, at its tiny model (2
 layers, 4 heads over 2 KV heads, d_head 16, ``cache_len`` 32, ``kv_block``
 4, ``prefill_chunk`` 4; f32, weights from ``seeded_params``). The JAX
-engines run the fork-slot path (``tree_sampling=False``), the path the
-port implements; the reference documents its token-tree default as giving
-the same tokens.
+engines and the port's run the fork-slot path (``tree_sampling=False``);
+the token-tree default is ``tests/test_torch_tree.py``'s.
 
 - **The allocator.** One random operation sequence (reserve, alloc, free,
   publish, fork_shared, release_shared, and the audited misuses: sharing a
@@ -25,8 +24,9 @@ the same tokens.
   branches differ; branch 0 is the ``n = 1`` stream. ``fork_at`` shares
   its prefix then diverges; an unknown uid in the fork mailbox ages out; a
   fork issued while the request prefills waits; best-of streams only the
-  winner. Validation raises JAX's messages on the same shapes, and
-  ``tree_sampling=True`` raises ``NotImplementedError``. Cancels before
+  winner. Validation raises JAX's messages on the same shapes. Every port
+  engine here passes ``tree_sampling=False``: the token-tree path is
+  ``tests/test_torch_tree.py``'s. Cancels before
   the fork and mid-family, and a seeded random fork/join/cancel walk, drain
   clean.
 - **HTTP.** One loopback ``IngressServer``: ``n = 3`` over SSE (indexed
@@ -121,7 +121,8 @@ def _run(params, case):
         jserver = js.SlotServer(jp, J_CFG, tree_sampling=False,
                                 **BASE, **CASES[case])
         jrep = jserver.serve(_trace(js), max_ticks=400)
-        server = ts.SlotServer(tp, T_CFG, **BASE, **CASES[case])
+        server = ts.SlotServer(tp, T_CFG, tree_sampling=False, **BASE,
+                               **CASES[case])
         rep = server.serve(_trace(ts), max_ticks=400)
         _RUNS[case] = dict(jrep=jrep, jleaks=jserver.leak_report(), rep=rep,
                            server=server)
@@ -351,7 +352,9 @@ _ENGINES = {}
 def _engine(params, **kw):
     key = tuple(sorted(kw.items()))
     if key not in _ENGINES:
-        _ENGINES[key] = ts.SlotServer(params[1], T_CFG, **BASE, **kw)
+        _ENGINES[key] = ts.SlotServer(params[1], T_CFG,
+                                      **{"tree_sampling": False, **BASE,
+                                         **kw})
     return _ENGINES[key]
 
 
@@ -432,7 +435,8 @@ def test_validation_matches_jax(params):
     jp, tp = params
     jeng = js.SlotServer(jp, J_CFG, slots=3, tree_sampling=False,
                          kv_blocks=12, **BASE)
-    teng = ts.SlotServer(tp, T_CFG, slots=3, kv_blocks=12, **BASE)
+    teng = ts.SlotServer(tp, T_CFG, slots=3, tree_sampling=False,
+                         kv_blocks=12, **BASE)
     jcon = js.SlotServer(jp, J_CFG, slots=3, kv_layout="contiguous", **BASE)
     tcon = ts.SlotServer(tp, T_CFG, slots=3, kv_layout="contiguous", **BASE)
     p = _prompt(13)
@@ -456,8 +460,6 @@ def test_validation_matches_jax(params):
     spec = ts.SlotServer(tp, T_CFG, slots=3, speculate=True, **BASE)
     with pytest.raises(ValueError, match="speculate"):
         spec._validate(ts.Request(uid=0, prompt=p, max_new_tokens=5, n=2))
-    with pytest.raises(NotImplementedError, match="queue A, item A4.2"):
-        ts.SlotServer(tp, T_CFG, slots=3, tree_sampling=True, **BASE)
 
 
 @pytest.mark.parametrize("kw", [dict(n=3), dict(best_of=4),
@@ -573,7 +575,7 @@ def test_random_fork_join_cancel_walk_drains_clean(params):
 
 # -- HTTP --------------------------------------------------------------------
 
-LIVE = dict(slots=6, temperature=0.8, seed=5)
+LIVE = dict(slots=6, temperature=0.8, seed=5, tree_sampling=False)
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,7 @@ PORT_MODULES = [
     "tree_attention_tpu_torch.parallel.tree",
     "tree_attention_tpu_torch.serving",
     "tree_attention_tpu_torch.serving.block_pool",
+    "tree_attention_tpu_torch.serving.disagg",
     "tree_attention_tpu_torch.serving.engine",
     "tree_attention_tpu_torch.serving.host_pool",
     "tree_attention_tpu_torch.serving.ingress",

@@ -1172,3 +1172,32 @@ def test_tick_body_matches_plain_on_gpu():
             merged = merge_partials(torch.stack([o.float() for o, _ in parts]),
                                     torch.stack([l for _, l in parts]))
             assert _gate(merged, b2(q, k, v, table, q_offset=qo))
+
+
+def test_cpu_tree_calls_count_no_tree_launch():
+    """Each decode wrapper keeps its own ``.tree_tq`` (the ``tree``
+    variant's launches by Tq, beside ``.tree_launches``); a CPU call with a
+    tree mask counts on neither and equals the plain version."""
+    rng = np.random.default_rng(2)
+    wrappers = (cd.attention_cuda_decode, cd.attention_cuda_decode_paged,
+                cd.attention_cuda_decode_q8q,
+                cd.attention_cuda_decode_paged_q8q)
+    assert len({id(w.tree_tq) for w in wrappers}) == len(wrappers)
+    assert all(isinstance(w.tree_tq, dict) for w in wrappers)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 8, 16), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 40, 16),
+                                                 np.float32))
+            for _ in range(2))
+    # Two branches of four rows each, every row seeing its own ancestors.
+    mask = torch.zeros((2, 8, 8), dtype=torch.bool)
+    for r in (0, 4):
+        mask[:, r:r + 4, r:r + 4] = torch.tril(torch.ones(4, 4,
+                                                          dtype=torch.bool))
+    qo = torch.tensor([30, 11], dtype=torch.int32)
+    b1 = cd.attention_cuda_decode
+    before = (b1.launches, b1.tree_launches, dict(b1.tree_tq))
+    got = b1(q, k, v, causal=True, q_offset=qo, tree_mask=mask)
+    want = cd.decode_plain(q, k, v, causal=True, q_offset=qo,
+                           tree_mask=mask)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (b1.launches, b1.tree_launches, dict(b1.tree_tq)) == before

@@ -22,7 +22,9 @@ the merge). Here:
   copy-on-write fork families (``n = 2`` on prompts ending mid-block, so
   each fork copies a tail block, on one rank or across the two) equal
   JAX's families on ``cpu_mesh(2)``, exact and int8, both ranks alike and
-  drained with no shared block left;
+  drained with no shared block left; the same families fall back to fork
+  slots there (no tree mask on ``local_blocks``), and on a replicated pool
+  under the mesh decode as token trees equal to JAX's;
 - ``--mode serve --mesh seq=2 --kv-shard seq`` and ``--mode decode --mesh
   seq=2`` through the CLI on two processes: only rank 0 prints.
 """
@@ -234,6 +236,12 @@ def _rank_serve(rank, world, np_params):
                 "fork_copies": COLLECTIVES.get(("fork_copy", "psum"), 0)
                 - c0.get(("fork_copy", "psum"), 0)}
     out["copies"] = _rank_copies(mesh)
+    # The families on a REPLICATED pool under the same mesh: every rank
+    # holds the whole pool, so they decode as token trees.
+    rep_server = ts.SlotServer(params, T_CFG, mesh=mesh, **ENGINE_KW)
+    fam = rep_server.serve(_family_trace(ts))
+    out["replicated_family"] = {"branches": _branches(fam), "kv": fam.kv,
+                                "leaks": rep_server.leak_report()}
     return out
 
 
@@ -362,6 +370,31 @@ def test_seq_sharded_family_matches_jax(jax_params, sharded_serves, quant):
     # Both ranks take the same copy decisions (a cross-rank copy is one
     # SUM on each).
     assert copies[0] == copies[1] <= 2
+
+
+def test_mesh_tree_families_replicated_tree_sharded_fork_slots(
+        jax_params, sharded_serves):
+    """The token-tree sibling decode under a mesh: on a replicated pool
+    both ranks decode the ``n = 2`` families as trees, with the branches of
+    JAX's tree families on ``cpu_mesh(2)``; on the sequence-sharded pool
+    (B2 ``local_blocks`` takes no tree mask) they fall back to fork slots,
+    as in JAX."""
+    from tree_attention_tpu import serving as js
+    from tree_attention_tpu.parallel.mesh import cpu_mesh
+
+    jcfg, jp, _ = jax_params
+    jref = js.SlotServer(jp, jcfg, mesh=cpu_mesh(2),
+                         **ENGINE_KW).serve(_family_trace(js))
+    assert jref.kv["tree_families"] == 2
+    for x in sharded_serves:
+        r = x["replicated_family"]
+        assert r["branches"] == _branches(jref)
+        assert r["kv"]["tree_families"] == 2
+        assert r["kv"]["forks"] == jref.kv["forks"] == 2
+        assert r["leaks"]["blocks_used"] == r["leaks"]["blocks_reserved"] \
+            == r["leaks"]["blocks_private"] == 0
+        for quant in (False, True):
+            assert "tree_families" not in x[quant]["family"]["kv"]
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["exact", "int8"])

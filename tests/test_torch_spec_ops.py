@@ -292,6 +292,12 @@ def _caches(layout, seed):
     length = np.array([7, 4, 11], np.int32)
     int8 = layout.endswith("int8")
 
+    def own(x):
+        # The port's tensors get their own buffers: ``jnp.asarray`` may
+        # alias a numpy array (it does for int8 on the CPU), and the port's
+        # in-place writes must not reach an input JAX has yet to read.
+        return torch.from_numpy(x.copy())
+
     def data(shape):
         if int8:
             return rng.integers(-60, 61, size=shape).astype(np.int8)
@@ -303,18 +309,18 @@ def _caches(layout, seed):
         if not int8:
             return (jm.KVCache(k=jnp.asarray(k), v=jnp.asarray(v),
                                length=jnp.asarray(length)),
-                    tm.KVCache(k=torch.from_numpy(k), v=torch.from_numpy(v),
-                               length=torch.from_numpy(length)))
+                    tm.KVCache(k=own(k), v=own(v),
+                               length=own(length)))
         ks = rng.uniform(0.01, 0.05, (L, 3, HKV, 1, D)).astype(np.float32)
         vs = rng.uniform(0.01, 0.05, (L, 3, HKV, 1, D)).astype(np.float32)
         return (jm.QuantKVCache(k=jnp.asarray(k), v=jnp.asarray(v),
                                 k_scale=jnp.asarray(ks),
                                 v_scale=jnp.asarray(vs),
                                 length=jnp.asarray(length)),
-                tm.QuantKVCache(k=torch.from_numpy(k), v=torch.from_numpy(v),
-                                k_scale=torch.from_numpy(ks),
-                                v_scale=torch.from_numpy(vs),
-                                length=torch.from_numpy(length)))
+                tm.QuantKVCache(k=own(k), v=own(v),
+                                k_scale=own(ks),
+                                v_scale=own(vs),
+                                length=own(length)))
     # Fragmented tables; distinct slots never share a block.
     N, blk = 18, 4
     table = rng.permutation(N).reshape(3, 6).astype(np.int32)
@@ -329,8 +335,8 @@ def _caches(layout, seed):
                                 table=jnp.asarray(table),
                                 length=jnp.asarray(length)),
                 tm.PagedKVCache(k=drop(k), v=drop(v),
-                                table=torch.from_numpy(table),
-                                length=torch.from_numpy(length)))
+                                table=own(table),
+                                length=own(length)))
     ks = rng.uniform(0.01, 0.05, size=(L, N, HKV)).astype(np.float32)
     vs = rng.uniform(0.01, 0.05, size=(L, N, HKV)).astype(np.float32)
     return (jm.PagedQuantKVCache(k=jnp.asarray(k), v=jnp.asarray(v),
@@ -340,8 +346,8 @@ def _caches(layout, seed):
                                  length=jnp.asarray(length)),
             tm.PagedQuantKVCache(k=drop(k), v=drop(v), k_scale=drop(ks),
                                  v_scale=drop(vs),
-                                 table=torch.from_numpy(table),
-                                 length=torch.from_numpy(length)))
+                                 table=own(table),
+                                 length=own(length)))
 
 
 def _tree_step_inputs(rng, Tq=6):

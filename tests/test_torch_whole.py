@@ -339,7 +339,9 @@ def test_paged_insert_slot_matches_jax(quant):
         kw = dict(k=torch.from_numpy(np.concatenate([pool, drop], 1)),
                   v=torch.from_numpy(np.concatenate([pool, drop], 1)),
                   table=torch.from_numpy(table),
-                  length=torch.from_numpy(length))
+                  # Its own buffer: the port sets the length in place, and
+                  # ``jnp.asarray`` may alias the numpy array JAX reads.
+                  length=torch.from_numpy(length.copy()))
         args = [torch.from_numpy(rows_k), torch.from_numpy(rows_v), plen]
         if quant:
             sdrop = np.ones((L, 1, Hkv), np.float32)

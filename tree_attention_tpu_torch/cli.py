@@ -391,7 +391,7 @@ def build_server(cfg: RunConfig, dev: torch.device,
     ``kernel`` the q8 route or None. Every flag check of serve mode
     happens here and exits with its message."""
     from tree_attention_tpu_torch.models import init_params, round_cache_len
-    from tree_attention_tpu_torch.serving import SlotServer
+    from tree_attention_tpu_torch.serving import DisaggServer, SlotServer
 
     if cfg.max_new_tokens < 1:
         raise SystemExit("--max-new-tokens must be >= 1")
@@ -449,6 +449,7 @@ def build_server(cfg: RunConfig, dev: torch.device,
         raise SystemExit("--max-queue must be >= 1")
     if cfg.default_deadline is not None and cfg.default_deadline <= 0:
         raise SystemExit("--default-deadline must be > 0 seconds")
+    decode_slots = disagg_decode_slots(cfg, mesh)
     kernel = check_kv_quant(cfg)
     cache_len = round_cache_len(
         cfg.prompt_len + cfg.prompt_jitter + cfg.max_new_tokens, mesh)
@@ -471,25 +472,60 @@ def build_server(cfg: RunConfig, dev: torch.device,
                                         n_layers=max(tcfg.n_layers // 2, 1))
         drafter = DraftModelDrafter(init_params(draft_cfg, cfg.seed + 3, dev),
                                     draft_cfg)
+    engine_kw = dict(
+        cache_len=cache_len, temperature=cfg.temperature, top_k=cfg.top_k,
+        seed=cfg.seed + 2, prefill_chunk=cfg.prefill_chunk,
+        prefill_budget=cfg.prefill_budget, slo_ttft=cfg.slo_ttft,
+        slo_tbt=cfg.slo_tbt, kv_block=cfg.kv_block, kv_blocks=cfg.kv_blocks,
+        quantize=kernel is not None, quant_kernel=kernel or "q8q",
+        mesh=mesh, kv_shard=cfg.kv_shard, speculate=cfg.speculate,
+        draft_k=cfg.draft_k, drafter=drafter, prefix_cache=cfg.prefix_cache,
+        prefix_block=cfg.prefix_block, host_blocks=host_blocks)
     try:
         # The engine refuses what it does not serve (--draft-k out of
         # [1, 31], --speculate or --prefix-cache under --mesh).
-        server = SlotServer(
-            params, tcfg, slots=cfg.slots, cache_len=cache_len,
-            temperature=cfg.temperature, top_k=cfg.top_k, seed=cfg.seed + 2,
-            prefill_chunk=cfg.prefill_chunk,
-            prefill_budget=cfg.prefill_budget, admission=cfg.admission,
-            slo_ttft=cfg.slo_ttft, slo_tbt=cfg.slo_tbt,
-            kv_layout=cfg.kv_layout, kv_block=cfg.kv_block,
-            kv_blocks=cfg.kv_blocks, quantize=kernel is not None,
-            quant_kernel=kernel or "q8q", mesh=mesh, kv_shard=cfg.kv_shard,
-            speculate=cfg.speculate, draft_k=cfg.draft_k, drafter=drafter,
-            prefix_cache=cfg.prefix_cache, prefix_block=cfg.prefix_block,
-            host_blocks=host_blocks,
-        )
+        if cfg.serve_disagg:
+            # The disaggregated pair: SlotServer's serving surface, so the
+            # ingress drives it unchanged.
+            server = DisaggServer(params, tcfg,
+                                  prefill_slots=cfg.prefill_slots,
+                                  decode_slots=decode_slots, **engine_kw)
+        else:
+            server = SlotServer(params, tcfg, slots=cfg.slots,
+                                admission=cfg.admission,
+                                kv_layout=cfg.kv_layout, **engine_kw)
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"error: {e}") from None
     return server, cache_len, kernel
+
+
+def disagg_decode_slots(cfg: RunConfig,
+                        mesh: Optional[Mesh] = None) -> Optional[int]:
+    """``--serve-disagg``'s decode-worker slots (``--decode-slots``, or
+    ``--slots`` less ``--prefill-slots``), after its flag checks; None
+    without the flag."""
+    if not cfg.serve_disagg:
+        return None
+    if cfg.kv_layout != "paged":
+        raise SystemExit("--serve-disagg requires --kv-layout paged: the "
+                         "zero-copy handoff IS paged-block ownership "
+                         "transfer")
+    if cfg.admission != "chunked":
+        raise SystemExit("--serve-disagg requires --admission chunked (the "
+                         "prefill pool is a chunked-prefill worker)")
+    if mesh is not None:
+        raise SystemExit("--serve-disagg serves one device; --mesh is not "
+                         "ported for the disaggregated pair yet (ROADMAP)")
+    if cfg.prefill_slots < 1:
+        raise SystemExit("--prefill-slots must be >= 1")
+    decode_slots = (cfg.decode_slots if cfg.decode_slots is not None
+                    else cfg.slots - cfg.prefill_slots)
+    if decode_slots < 1:
+        raise SystemExit(
+            f"--serve-disagg needs >= 1 decode slot: --slots {cfg.slots} "
+            f"minus --prefill-slots {cfg.prefill_slots} leaves "
+            f"{decode_slots} (pass --decode-slots or raise --slots)")
+    return decode_slots
 
 
 def host_tier_blocks(cfg: RunConfig) -> int:
@@ -516,6 +552,9 @@ def _serve_record(cfg: RunConfig, dev: torch.device, cache_len: int,
            if cfg.prefix_cache else {}),
         **({"kv_tiering": {"host_blocks": host_tier_blocks(cfg)}}
            if host_tier_blocks(cfg) else {}),
+        **({"disagg": {"prefill_slots": cfg.prefill_slots,
+                       "decode_slots": disagg_decode_slots(cfg)}}
+           if cfg.serve_disagg else {}),
     }
 
 

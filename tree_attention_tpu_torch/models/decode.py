@@ -944,7 +944,9 @@ def sample_rows(logits: torch.Tensor, temperature: np.ndarray,
     Args:
       logits: ``(S, Tq, V)``.
       temperature, top_k: ``(S,)`` host arrays (0 = greedy / top-k off).
-      keys: one request key per slot (used where it samples).
+      keys: one request key per slot (used where it samples), or an
+        ``(S, Tq)`` array of one key per row (the token-tree sibling
+        decode: each branch's rows draw under that branch's key).
       sample_idx: ``(S, Tq)`` host stream indices.
       active: ``(S, Tq)`` host bool — the rows whose draw is kept.
 
@@ -956,6 +958,7 @@ def sample_rows(logits: torch.Tensor, temperature: np.ndarray,
     V = lf.shape[-1]
     draws = np.asarray(active, bool) & (np.asarray(temperature)[:, None] > 0)
     gen = None
+    per_row = np.ndim(keys) == 2
     for i in np.flatnonzero(draws.any(1)):
         lg = lf[i]
         k = int(top_k[i])
@@ -966,7 +969,8 @@ def sample_rows(logits: torch.Tensor, temperature: np.ndarray,
         if gen is None:
             gen = torch.Generator(device=lf.device)
         for j in np.flatnonzero(draws[i]):
-            gen.manual_seed(fold_in(keys[i], sample_idx[i, j]))
+            key = keys[i][j] if per_row else keys[i]
+            gen.manual_seed(fold_in(int(key), sample_idx[i, j]))
             tok[i, j] = torch.multinomial(probs[j], 1, generator=gen)[0]
     lp = F.log_softmax(lf, -1).gather(-1, tok[..., None])[..., 0]
     return tok.int(), lp

@@ -36,7 +36,7 @@ nothing else: a build or launch failure raises. ``.launches`` counts the
 kernel launches of each kernel wrapper; the cast route counts under B1/B2,
 B2's ``local_blocks`` variant (one rank's slice of a sequence-sharded pool)
 on ``attention_cuda_decode_paged.local_launches``, and each wrapper's tree
-variant on its ``.tree_launches``.
+variant on its ``.tree_launches`` and, by Tq, its ``.tree_tq``.
 
 Three bodies compute every launch, chosen by the static rule
 :func:`decode_body`. The tick body (``csrc/decode_tick.cu``) takes every
@@ -669,13 +669,14 @@ def _pack(q: torch.Tensor, n_kv_heads: int) -> torch.Tensor:
     return q.reshape(B, n_kv_heads, (Hq // n_kv_heads) * Tq, D)
 
 
-def _count(wrapper, tree_mask) -> None:
-    """One launch on the wrapper's count: ``.tree_launches`` for the tree
-    variant, ``.launches`` otherwise."""
+def _count(wrapper, tree_mask, Tq: int) -> None:
+    """One launch on the wrapper's count: ``.tree_launches`` and, by Tq,
+    ``.tree_tq`` for the tree variant, ``.launches`` otherwise."""
     if tree_mask is None:
         wrapper.launches += 1
     else:
         wrapper.tree_launches += 1
+        wrapper.tree_tq[Tq] = wrapper.tree_tq.get(Tq, 0) + 1
 
 
 def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
@@ -686,10 +687,10 @@ def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
     """B1: ``q`` ``(B, Hq, Tq, D)`` against contiguous ``k``/``v``
     ``(B, Hkv, Tk, D)`` of q's dtype, or int8 (q then runs in bf16);
     offsets scalar or ``(B,)``. Launches with ``tree_mask`` count on
-    ``.tree_launches``, the others on ``.launches``; launches of the
-    multi-row body (bf16 or int8, more than one packed row or a tree) also
-    on ``.tiled_launches`` and, by Tq, in ``.tiled_tq``, and with int8 K/V
-    on ``.cast_tiled_launches``."""
+    ``.tree_launches`` (by Tq in ``.tree_tq``), the others on
+    ``.launches``; launches of the multi-row body (bf16 or int8, more than
+    one packed row or a tree) also on ``.tiled_launches`` and, by Tq, in
+    ``.tiled_tq``, and with int8 K/V on ``.cast_tiled_launches``."""
     _check_tree(q, tree_mask, causal)
     if q.device.type == "cpu":
         return decode_plain(q, k, v, causal=causal, scale=scale,
@@ -700,7 +701,7 @@ def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
     if Tk == 0:
         return empty_result(q)
     offs = offsets(q_offset, kv_offset, B, q.device).contiguous()
-    _count(attention_cuda_decode, tree_mask)
+    _count(attention_cuda_decode, tree_mask, q.shape[2])
     out, lse = _launch(attention_cuda_decode, _pack(_cast_q(q, k), Hkv), k,
                        v, offs, None, variant=variant, Tq=q.shape[2], Tk=Tk,
                        blk=1, NB=0, causal=causal,
@@ -710,6 +711,7 @@ def attention_cuda_decode(q: torch.Tensor, k: torch.Tensor,
 
 attention_cuda_decode.launches = 0
 attention_cuda_decode.tree_launches = 0
+attention_cuda_decode.tree_tq = {}  # tree launches by Tq
 attention_cuda_decode.tiled_launches = 0
 attention_cuda_decode.tiled_tq = {}  # multi-row launches by Tq
 attention_cuda_decode.cast_tiled_launches = 0  # ... with int8 K/V
@@ -736,11 +738,12 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
     out; a row with no local visible key comes back ``(0, -inf)``;
     ``local_shards``, the ranks the pool is sharded over, sizes the
     multi-row body's splits on this rank's share of the keys. Such
-    launches count on ``.local_launches``, the tree variant's (``tree_mask``) on
-    ``.tree_launches``, the others on ``.launches``; launches of the
-    multi-row body (bf16 or int8, more than one packed row or a tree) also
-    on ``.tiled_launches`` and, by Tq, in ``.tiled_tq``, and with int8 pools
-    on ``.cast_tiled_launches``; of the tick body (bf16 or int8, one packed
+    launches count on ``.local_launches``, the tree variant's
+    (``tree_mask``) on ``.tree_launches`` (by Tq in ``.tree_tq``), the
+    others on ``.launches``; launches of the multi-row body (bf16 or int8,
+    more than one packed row or a tree) also on ``.tiled_launches`` and,
+    by Tq, in ``.tiled_tq``, and with int8 pools on
+    ``.cast_tiled_launches``; of the tick body (bf16 or int8, one packed
     row, no tree: the decode tick) also on ``.tick_launches``."""
     _check_tree(q, tree_mask)
     if local_blocks and tree_mask is not None:
@@ -762,7 +765,7 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
     if local_blocks:
         attention_cuda_decode_paged.local_launches += 1
     else:
-        _count(attention_cuda_decode_paged, tree_mask)
+        _count(attention_cuda_decode_paged, tree_mask, q.shape[2])
     out, lse = _launch(attention_cuda_decode_paged,
                        _pack(_cast_q(q, k), Hkv), k, v, offs,
                        block_table.contiguous(), variant=variant,
@@ -777,6 +780,7 @@ def attention_cuda_decode_paged(q: torch.Tensor, k: torch.Tensor,
 attention_cuda_decode_paged.launches = 0
 attention_cuda_decode_paged.local_launches = 0
 attention_cuda_decode_paged.tree_launches = 0
+attention_cuda_decode_paged.tree_tq = {}  # tree launches by Tq
 attention_cuda_decode_paged.tiled_launches = 0
 attention_cuda_decode_paged.tiled_tq = {}  # multi-row launches by Tq
 attention_cuda_decode_paged.cast_tiled_launches = 0  # ... with int8 pools
@@ -792,9 +796,9 @@ def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
     """B4: ``q`` ``(B, Hq, Tq, D)`` against contiguous int8 ``k_q``/``v_q``
     ``(B, Hkv, Tk, D)`` with channel scales ``(B, Hkv, 1, D)``; Q folded
     and quantized per packed row, int8 x int8 -> int32 scores. Launches
-    count as B1's do (``.launches``, ``.tree_launches``; ``.tiled_launches``
-    and ``.tiled_tq`` for the multi-row body, which takes more than one
-    packed row or a tree)."""
+    count as B1's do (``.launches``, ``.tree_launches``, ``.tree_tq``;
+    ``.tiled_launches`` and ``.tiled_tq`` for the multi-row body, which
+    takes more than one packed row or a tree)."""
     _check_tree(q, tree_mask, causal)
     if q.device.type == "cpu":
         return decode_q8q_plain(q, k_q, v_q, k_scale, v_scale, causal=causal,
@@ -807,7 +811,7 @@ def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
         return empty_result(q)
     codes, qs = _fold_quantize_q(q, Hkv, k_scale, scale)
     offs = offsets(q_offset, kv_offset, B, q.device).contiguous()
-    _count(attention_cuda_decode_q8q, tree_mask)
+    _count(attention_cuda_decode_q8q, tree_mask, q.shape[2])
     out, lse = _launch(attention_cuda_decode_q8q, codes, k_q, v_q, offs,
                        None, variant=_Q8Q,
                        Tq=q.shape[2], Tk=Tk, blk=1, NB=0, causal=causal,
@@ -817,6 +821,7 @@ def attention_cuda_decode_q8q(q: torch.Tensor, k_q: torch.Tensor,
 
 attention_cuda_decode_q8q.launches = 0
 attention_cuda_decode_q8q.tree_launches = 0
+attention_cuda_decode_q8q.tree_tq = {}  # tree launches by Tq
 attention_cuda_decode_q8q.tiled_launches = 0
 attention_cuda_decode_q8q.tiled_tq = {}  # multi-row launches by Tq
 
@@ -832,10 +837,10 @@ def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
     """B5: B4 through the ``(B, NB)`` int32 table over int8 ``(N, Hkv,
     block, D)`` pools, with per-block ``(N, Hkv)`` scales (read through the
     table in the kernel) or channel ``(B, Hkv, 1, D)`` scales (folded as in
-    B4). Launches count as B1's do (``.launches``, ``.tree_launches``;
-    ``.tiled_launches`` and ``.tiled_tq`` for the multi-row body, which
-    takes more than one packed row or a tree), and those of the tick body
-    (one packed row, no tree: the int8 decode tick) on
+    B4). Launches count as B1's do (``.launches``, ``.tree_launches``,
+    ``.tree_tq``; ``.tiled_launches`` and ``.tiled_tq`` for the multi-row
+    body, which takes more than one packed row or a tree), and those of
+    the tick body (one packed row, no tree: the int8 decode tick) on
     ``.tick_launches``."""
     _check_tree(q, tree_mask)
     if q.device.type == "cpu":
@@ -853,7 +858,7 @@ def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
     codes, qs = _fold_quantize_q(q, Hkv, None if per_block else k_scale,
                                  scale)
     offs = offsets(q_offset, 0, B, q.device).contiguous()
-    _count(attention_cuda_decode_paged_q8q, tree_mask)
+    _count(attention_cuda_decode_paged_q8q, tree_mask, q.shape[2])
     out, lse = _launch(attention_cuda_decode_paged_q8q, codes, k_q, v_q,
                        offs, block_table.contiguous(),
                        variant=_Q8Q, Tq=q.shape[2], Tk=NB * blk, blk=blk,
@@ -865,6 +870,7 @@ def attention_cuda_decode_paged_q8q(q: torch.Tensor, k_q: torch.Tensor,
 
 attention_cuda_decode_paged_q8q.launches = 0
 attention_cuda_decode_paged_q8q.tree_launches = 0
+attention_cuda_decode_paged_q8q.tree_tq = {}  # tree launches by Tq
 attention_cuda_decode_paged_q8q.tiled_launches = 0
 attention_cuda_decode_paged_q8q.tiled_tq = {}  # multi-row launches by Tq
 attention_cuda_decode_paged_q8q.tick_launches = 0  # one-row ticks

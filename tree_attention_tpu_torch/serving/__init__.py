@@ -6,9 +6,11 @@ shared prompt prefixes reused through a radix tree
 pool (``SlotServer(host_blocks=N)``, :class:`HostBlockPool`); admitted in
 chunks or whole (``admission="whole"``); several completions of one
 prompt (``Request(n=, best_of=, fork_at=)``, ``SlotServer.fork``) as
-copy-on-write fork families over shared pool blocks; served live over
-HTTP by :class:`IngressServer` (SSE streaming, cancellation, deadlines,
-drain)."""
+copy-on-write fork families over shared pool blocks, or as token trees
+in one slot (``tree_sampling=True``, the default); prefill and decode on
+two engines over one pool (:class:`DisaggServer`, a handoff that moves no
+KV byte); served live over HTTP by :class:`IngressServer` (SSE streaming,
+cancellation, deadlines, drain)."""
 
 from tree_attention_tpu_torch.serving.block_pool import (  # noqa: F401
     BlockAllocator,
@@ -38,6 +40,9 @@ from tree_attention_tpu_torch.serving.engine import (  # noqa: F401
     SlotServer,
     StaticRequestSource,
     synthetic_trace,
+)
+from tree_attention_tpu_torch.serving.disagg import (  # noqa: F401
+    DisaggServer,
 )
 from tree_attention_tpu_torch.serving.ingress import (  # noqa: F401
     IngressServer,

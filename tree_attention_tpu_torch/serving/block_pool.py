@@ -89,6 +89,9 @@ class BlockAllocator:
         # fork_shared call names).
         self._shared_refs: Dict[int, int] = {}
         self.fork_shares = 0
+        # Lifetime count of blocks handed between slot tables through
+        # :meth:`transfer_private` (disaggregated serving).
+        self.transferred = 0
         self._evict_one: Optional[Callable[[], bool]] = None
         self._evictable: Optional[Callable[[], int]] = None
         # Demotion staging: with a host tier under the pool, eviction
@@ -288,6 +291,28 @@ class BlockAllocator:
         self._state[bid] = _FREE
         self._push_free(bid)
         self.gen += 1
+
+    def transfer_private(self, bids: Iterable[int]) -> int:
+        """Audited ownership handoff of private blocks between slot tables
+        (disaggregated serving: a prefill worker's finished slot hands its
+        blocks to a decode worker, which writes the same ids into its own
+        table; DistServe, arXiv:2401.09670). No block changes state: each
+        stays private, owned by exactly one slot before and after, and the
+        unspent reservation the callers move stays counted in
+        :attr:`reserved` throughout — so availability is untouched (no
+        generation bump). Transferring a block that is not privately owned
+        (a double handoff, a cached or free block) raises. Returns the
+        number of blocks transferred."""
+        n = 0
+        for bid in bids:
+            if self._state[bid] != _PRIVATE:
+                raise AssertionError(
+                    f"block {bid} transferred while not privately owned "
+                    f"(state {self._state[bid]}) — handoff of a cached/"
+                    f"free block would double-own it")
+            n += 1
+        self.transferred += n
+        return n
 
     def free_cached(self, bid: int) -> None:
         """The radix tree evicts a refcount-0 leaf's block."""

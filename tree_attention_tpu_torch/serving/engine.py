@@ -140,14 +140,31 @@ cumulative log-probability, at the family's last retire.
 :meth:`SlotServer.fork` (a mailbox swept at tick start, like ``cancel``)
 and ``Request.fork_at`` branch a live request mid-stream. Every branch
 finishes as its own :class:`RequestResult` under the family's uid, tagged
-by ``index``. The reference's default for small families, the token-tree
-sibling decode (``tree_sampling=True``: every branch in one slot), is a
-later slice; this engine runs the fork-slot path, whose tokens the
-reference documents as the same.
+by ``index``.
+
+**Token-tree sibling decode** (``tree_sampling=True``, the default): a
+family that fits the tree rule (paged pool, no speculation, a mask-capable
+attention path, ``k * (max_new_tokens - 1) <= 32`` rows and the slot's
+window) decodes every branch in ONE slot. The slot's committed rows freeze
+at the shared ancestors (``base_len``); each tick replays every live
+branch's divergent suffix as rows ``[r*s, (r+1)*s)`` of one verify-shaped
+bundle (:func:`~.speculation.pack_siblings`) under a per-branch
+lower-triangular ancestor mask, so the tick runs the ``tree`` variant of
+B2 (exact) or B5 (int8), and each branch's next token is the draw at its
+last row, keyed exactly as the fork-slot path keys it (branch ``b``'s
+``j``-th token under ``fold_in(branch key, j)``): the two paths give the
+same tokens under one seed. A retiring branch shrinks the slot's window
+and reservation the same tick; one survivor is compacted to the front of
+the window (:func:`compact_decode_window`) and the slot returns to plain
+decode. ``fork(uid)`` on a plain live slot converts it into a two-branch
+tree where the rule allows. A family outside the rule runs the fork-slot
+path: one slot per branch.
 
 Left for later slices of the port (see ROADMAP): speculation and the
-prefix cache (so KV tiering) on a mesh, the token-tree sibling decode,
-disaggregation, the flight recorder and the request ledger.
+prefix cache (so KV tiering) on a mesh, the flight recorder and the
+request ledger. Disaggregated prefill/decode serving is
+:class:`~tree_attention_tpu_torch.serving.disagg.DisaggServer`, two of these
+engines over one block pool.
 """
 
 from __future__ import annotations
@@ -216,6 +233,7 @@ from tree_attention_tpu_torch.serving.speculation import (
     accept_stochastic_path,
     make_drafter,
     pack_proposal,
+    pack_siblings,
 )
 from tree_attention_tpu_torch.utils.logging import get_logger
 
@@ -385,6 +403,45 @@ class _ForkFamily:
     branches: int
     forked: bool = False
     done: List[RequestResult] = dataclasses.field(default_factory=list)
+    # Token-tree sibling decode: the family's branches share ONE slot. The
+    # slot's committed rows freeze at ``base_len`` (the shared ancestors);
+    # branch ``b``'s tokens past ``fork_len - 1`` are its divergent suffix,
+    # replayed every tick. ``br_index`` is each branch's result index (and
+    # key index); ``br_live`` False once it retired.
+    tree: bool = False
+    base_len: int = 0
+    fork_len: int = 0
+    br_tokens: List[List[int]] = dataclasses.field(default_factory=list)
+    br_cum_lp: List[float] = dataclasses.field(default_factory=list)
+    br_live: List[bool] = dataclasses.field(default_factory=list)
+    br_index: List[int] = dataclasses.field(default_factory=list)
+    br_ttft: List[float] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Run:
+    """One ``serve()`` run's loop state, which the sections of a tick
+    (:meth:`SlotServer._poll`, ``_sweep``, ``_admit_pending``, ``_tick``)
+    share, and in :class:`~.disagg.DisaggServer` both workers' ticks."""
+
+    results: Any
+    tbt: Any
+    pending: deque = dataclasses.field(default_factory=deque)
+    # Unmatched cancels, by uid: the sweeps left before they age out.
+    cancel_carry: Dict[int, int] = dataclasses.field(default_factory=dict)
+    visible_wall: Dict[int, float] = dataclasses.field(default_factory=dict)
+    tick: int = 0
+    tokens: int = 0
+    steps: int = 0
+    decode_ticks: int = 0
+    occupancy: int = 0
+
+    @classmethod
+    def new(cls, live: bool) -> "_Run":
+        # A live server runs indefinitely: its retention is bounded (the
+        # report covers the most recent window); a finite trace keeps all.
+        return cls(results=deque(maxlen=4096) if live else [],
+                   tbt=deque(maxlen=1 << 16) if live else [])
 
 
 @dataclasses.dataclass
@@ -407,6 +464,10 @@ class ServeReport:
     # Speculative decoding (drafter, draft_k, proposed/accepted draft
     # tokens, acceptance_rate, verify ticks); empty when off.
     spec: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Disaggregated serving (handoffs, blocks transferred, queue peak,
+    # kv_bytes_moved, each worker's serialized tick seconds); empty for
+    # one engine.
+    handoff: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def tokens_per_sec(self) -> float:
@@ -454,6 +515,7 @@ class ServeReport:
             **({"prefix": self.prefix} if self.prefix else {}),
             **({"kv": self.kv} if self.kv else {}),
             **({"spec": self.spec} if self.spec else {}),
+            **({"handoff": self.handoff} if self.handoff else {}),
         }
 
 
@@ -579,6 +641,7 @@ class _Verify(NamedTuple):
     ridx: np.ndarray             # (S, Tq) stream index each row predicts
     rows: np.ndarray             # (S, Tq) bool: the rows whose draw is kept
     dev0: np.ndarray             # (S,) bool: row 0 from the device tokens
+    keys: Optional[np.ndarray] = None  # (S, Tq) per-row keys (tree slots)
 
 
 def _bucket(n: int, cap: int, floor: int = 8, multiple: int = 1) -> int:
@@ -651,10 +714,15 @@ class SlotServer:
         host memory instead of freeing them, and a prefix hit on a demoted
         path restores them (module docstring). Needs the paged layout and
         ``prefix_cache=True``; not with a shared ``prefix_index``.
-      tree_sampling: the JAX engine's token-tree sibling decode of small
-        fork families; not ported yet (``True`` raises). Families run the
-        fork-slot path: one slot per branch.
+      tree_sampling: decode a fork family that fits the tree rule as one
+        token tree in ONE slot (default; module docstring). ``False`` runs
+        every family on the fork-slot path: one slot per branch.
     """
+
+    # False on engines that cannot expand fork families (the prefill worker
+    # of a disaggregated pair: a family would need slots on both sides of
+    # the handoff).
+    _fork_ok = True
 
     def __init__(
         self,
@@ -688,14 +756,8 @@ class SlotServer:
         block_pool: Optional[BlockAllocator] = None,
         prefix_index: Optional[PagedPrefixIndex] = None,
         host_blocks: int = 0,
-        tree_sampling: bool = False,
+        tree_sampling: bool = True,
     ):
-        if tree_sampling:
-            raise NotImplementedError(
-                "tree_sampling=True (the token-tree sibling decode of fork "
-                "families) is a later slice of the port (ROADMAP queue A, "
-                "item A4.2); families run the fork-slot path "
-                "(tree_sampling=False)")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if admission not in ("chunked", "whole"):
@@ -927,6 +989,20 @@ class SlotServer:
         while cap * 2 <= min(32, cache_len):
             cap *= 2
         self._spec_rows_cap = cap
+        # Tree masks need a mask-capable attention path: a sequence-sharded
+        # pool (B2 ``local_blocks`` takes no tree mask) and an int8 pool
+        # under a mesh fall back to chains, and their families to fork
+        # slots, as in the JAX engine.
+        self._tree_ok = not (self._seq_shards > 1
+                             and (kv_layout == "contiguous" or quantize
+                                  or kv_shard == "seq"))
+        # Token-tree sibling families by slot (each also in _families, whose
+        # join and best-of machinery they share) and their lifetime counts.
+        self._tree_sampling = bool(tree_sampling)
+        self._tree_fams: Dict[int, _ForkFamily] = {}
+        self._tree_fams_life = 0
+        self._tree_branches_life = 0
+        self._tree_ticks = 0  # ticks that ran a sibling bundle
         self._slot_clen = [0] * slots
         self._hist_buf = np.zeros((slots, cache_len + 1), np.int32)
         self._hist_len = [0] * slots
@@ -976,6 +1052,11 @@ class SlotServer:
         self._last_rows: Optional[torch.Tensor] = None
         self._forks_life = 0
         self._fork_shared_life = 0
+        # The tick's trace span, and on a disaggregated prefill worker the
+        # handoff queue: slots whose first token landed park there (state
+        # ``handoff``) instead of going live.
+        self._tick_name = "serving:tick"
+        self._handoff: Optional[List[int]] = None
 
     # -- the per-tick program ---------------------------------------------
 
@@ -1030,19 +1111,21 @@ class SlotServer:
                                           **kw)
         ar = torch.arange(S, device=self.device)
         row = (n_t - 1).clamp(min=0).long()
+        # Each slot's last-row logits (a family parent's final chunk stashes
+        # its row for the siblings' first draws).
+        self._last_rows = logits[ar, row]
         if verify is None:
             sidx = np.asarray([len(t) for t in self._slot_tokens], np.int64)
-            # Each slot's last-row logits (a family parent's final chunk
-            # stashes its row for the siblings' first draws).
-            self._last_rows = logits[ar, row]
             tok_s, lp_s = sample_slots(self._last_rows, self._temp_np,
                                        self._topk_np, self._keys, sidx, emit)
         else:
             # One sampling pass: the emit slots' last rows are marked in
-            # ``rows`` beside the draft rows.
-            all_tok, all_lp = sample_rows(logits, self._temp_np,
-                                          self._topk_np, self._keys,
-                                          verify.ridx, verify.rows)
+            # ``rows`` beside the draft rows (and a tree slot's branch
+            # tips, each under its branch's key).
+            all_tok, all_lp = sample_rows(
+                logits, self._temp_np, self._topk_np,
+                self._keys if verify.keys is None else verify.keys,
+                verify.ridx, verify.rows)
             tok_s, lp_s = all_tok[ar, row], all_lp[ar, row]
         self.tok = torch.where(emit_t, tok_s, tokens[:, 0].int())
         self._lp = torch.where(emit_t, lp_s, self._lp)
@@ -1345,7 +1428,15 @@ class SlotServer:
                     f"request {req.uid}: n/best_of > 1 is not supported "
                     f"with speculate=True (fork branches are sampled; "
                     f"speculation is greedy-only)")
-            if branches > self.slots:
+            if not self._fork_ok:
+                raise ValueError(
+                    f"request {req.uid}: n/best_of > 1 is not supported "
+                    f"on this engine (disaggregated workers cannot "
+                    f"expand fork families; mid-generation fork(uid) "
+                    f"on the decode pool still works)")
+            if branches > self.slots and not self._tree_sibling_ok(req):
+                # A tree family decodes every branch in ONE slot; only the
+                # fork-slot path needs a slot per branch.
                 raise ValueError(
                     f"request {req.uid}: {branches} parallel branches "
                     f"exceed the engine's {self.slots} slots (the whole "
@@ -1371,10 +1462,15 @@ class SlotServer:
                     f"the request"
                 )
             if branches > 1:
-                # Each sibling's worst case is its NEW blocks only:
-                # everything below the fork point is shared.
-                fam = need + (branches - 1) * (
-                    need - (plen - 1) // self.kv_block)
+                if self._tree_sibling_ok(req):
+                    # One slot's frozen ancestors plus every branch's
+                    # replayed suffix.
+                    fam = -(-self._tree_span(req) // self.kv_block)
+                else:
+                    # Each sibling's worst case is its NEW blocks only:
+                    # everything below the fork point is shared.
+                    fam = need + (branches - 1) * (
+                        need - (plen - 1) // self.kv_block)
                 if fam > self.kv_blocks:
                     raise ValueError(
                         f"request {req.uid}: a {branches}-branch family "
@@ -1389,6 +1485,34 @@ class SlotServer:
         server-side selection is on, else ``n``; at least 1."""
         bo = req.best_of if req.best_of is not None else 0
         return max(int(req.n), int(bo), 1)
+
+    def _tree_span(self, req: Request) -> int:
+        """Worst-case token span of an admission tree family: the frozen
+        prompt rows plus every branch's full replayed suffix (each grows
+        to ``max_new - 1`` rows before its last token retires it), at
+        least the plain span the slot needs after a collapse to one
+        survivor."""
+        k = self._branches(req)
+        plen = len(req.prompt)
+        return max(plen + k * (req.max_new_tokens - 1),
+                   plen + req.max_new_tokens)
+
+    def _tree_sibling_ok(self, req: Request) -> bool:
+        """Whether this ``n > 1`` / best-of request decodes as a token
+        tree in ONE slot: the tree path is on, the pool is paged, the
+        engine neither speculates nor forbids families, the attention path
+        takes a tree mask, and the family's worst-case bundle fits both the
+        int32 bitmask's rows (``k * (max_new - 1) <= 32``) and the slot's
+        window. Otherwise the family runs the fork-slot path."""
+        k = self._branches(req)
+        if k <= 1 or not self._tree_sampling or not self._paged:
+            return False
+        if self._speculate or not self._tree_ok or not self._fork_ok:
+            return False
+        rows = k * (req.max_new_tokens - 1)
+        if rows > self._spec_rows_cap:
+            return False
+        return len(req.prompt) + rows <= self.cache_len
 
     def _paged_reserve(self, req: Request) -> Optional[tuple]:
         """Match the prompt (pinning the path) and reserve the admission's
@@ -1408,12 +1532,17 @@ class SlotServer:
                 np.asarray(req.prompt, np.int32), record=False)
         # A matched node on the host tier still costs one reservation: its
         # restore takes a fresh device block (consumed in _paged_hit).
-        needed = total - sum(1 for n in nodes if n.tier == TIER_DEVICE)
         branches = self._branches(req)
         fam_extra = 0
         if branches > 1:
-            sib = total - (len(req.prompt) - 1) // self.kv_block
-            fam_extra = (branches - 1) * sib
+            if self._tree_sibling_ok(req):
+                # A tree family: ONE slot holds the whole family; its
+                # reservation is the packed window's worst case.
+                total = -(-self._tree_span(req) // self.kv_block)
+            else:
+                sib = total - (len(req.prompt) - 1) // self.kv_block
+                fam_extra = (branches - 1) * sib
+        needed = total - sum(1 for n in nodes if n.tier == TIER_DEVICE)
         if not self._pool.reserve(needed + fam_extra):
             if nodes:
                 self._prefix.release(nodes)
@@ -1599,18 +1728,20 @@ class SlotServer:
         tokens_reused, ...); empty when the cache is off."""
         return {} if self._prefix is None else dict(self._prefix.stats())
 
-    def _plan_chunks(self) -> List[tuple]:
+    def _plan_chunks(self, max_n: Optional[int] = None) -> List[tuple]:
         """Budget pass: FIFO over prefilling slots, each taking up to a
-        chunk, at most ``prefill_budget`` prompt tokens in all. Returns
-        ``(slot, n, is_final)`` triples."""
+        chunk (at most ``max_n`` rows when given), at most
+        ``prefill_budget`` prompt tokens in all. Returns ``(slot, n,
+        is_final)`` triples."""
         plan = []
         budget = self.prefill_budget
+        chunk = (self.prefill_chunk if max_n is None
+                 else min(self.prefill_chunk, max_n))
         for slot in self._prefill_fifo:
             if budget <= 0:
                 break
             pos = self._prefill_pos[slot]
-            n = min(self.prefill_chunk, len(self._prompt_np[slot]) - pos,
-                    budget)
+            n = min(chunk, len(self._prompt_np[slot]) - pos, budget)
             if n <= 0:
                 continue
             budget -= n
@@ -1868,6 +1999,19 @@ class SlotServer:
         toks = self._slot_tokens[parent]
         if len(toks) >= req.max_new_tokens:
             return "done"  # retiring this tick: nothing left to branch
+        if parent in self._tree_fams:
+            log.warning("fork(%d) ignored: the slot already decodes a token "
+                        "tree (one conversion per request)", uid)
+            return "done"
+        t = len(toks)
+        if (self._tree_sampling and self._tree_ok and self._fork_ok
+                and req.uid not in self._families
+                and 2 * (req.max_new_tokens - t) <= self._spec_rows_cap
+                and len(self._prompt_np[parent]) + t - 1
+                + 2 * (req.max_new_tokens - t) <= self.cache_len):
+            # Tree conversion: both continuations share the slot — no new
+            # slot, no copied block.
+            return self._tree_convert_live(parent, uid, tick)
         free = [i for i, st in enumerate(self._slot_state) if st == "free"]
         if not free:
             return "retry"
@@ -1919,23 +2063,36 @@ class SlotServer:
         """The parent retired before its first token (cancel or deadline
         mid-prefill): free the siblings' ``fpend`` slots, return the
         family's block hold, and finish each sibling unserved with the
-        parent's outcome (one result per requested completion)."""
+        parent's outcome (one result per requested completion). A tree
+        family holds neither: its whole worst case was the parent slot's
+        reservation, which the retire freed."""
+        if fam.tree:
+            for j in range(1, fam.branches):
+                self._finish_unforked_branch(fam, parent_result, j, results)
+            return
         if fam.hold:
             self._pool.unreserve(fam.hold)
             fam.hold = 0
         for j, s in enumerate(fam.sibling_slots):
             self._slot_state[s] = "free"
-            res = dataclasses.replace(parent_result, index=1 + j, tokens=[],
-                                      cum_logprob=0.0, ttft_s=0.0)
-            results.append(res)
-            fam.done.append(res)
-            if parent_result.outcome in (OUTCOME_DEADLINE, OUTCOME_SHED,
-                                         OUTCOME_ERROR):
-                self.slo.observe_miss()
-            if obs.REGISTRY.enabled:
-                _REQUESTS.labels(outcome=res.outcome).inc()
-            self._notify_finish(fam.req, res, fam)
+            self._finish_unforked_branch(fam, parent_result, 1 + j, results)
         fam.sibling_slots = []
+
+    def _finish_unforked_branch(self, fam: _ForkFamily,
+                                parent_result: RequestResult, index: int,
+                                results) -> None:
+        """One never-started sibling finishes unserved with the parent's
+        outcome."""
+        res = dataclasses.replace(parent_result, index=index, tokens=[],
+                                  cum_logprob=0.0, ttft_s=0.0)
+        results.append(res)
+        fam.done.append(res)
+        if parent_result.outcome in (OUTCOME_DEADLINE, OUTCOME_SHED,
+                                     OUTCOME_ERROR):
+            self.slo.observe_miss()
+        if obs.REGISTRY.enabled:
+            _REQUESTS.labels(outcome=res.outcome).inc()
+        self._notify_finish(fam.req, res, fam)
 
     def _emit_best_of(self, fam: _ForkFamily) -> None:
         """Best-of-n join: the winner by cumulative log-probability (ties
@@ -1955,6 +2112,353 @@ class SlotServer:
         for t in winner.tokens:
             self._deliver_token(req, 0, t)
         self._deliver_finish(req, 0, out)
+
+    # -- token-tree sibling decode ------------------------------------------
+    #
+    # A tree family's k branches decode in ONE slot as one verify-shaped row
+    # bundle per tick. The slot's committed rows freeze at ``base_len`` (the
+    # shared ancestors: the prompt, or prompt + shared tokens for a live
+    # conversion); every live branch's divergent suffix is replayed into the
+    # window [base_len, base_len + k*s) each tick under tree_mask/positions,
+    # so a suffix row attends to the frozen ancestors and its own branch
+    # only. Each branch's last row draws its next token under the fork-slot
+    # path's key, so the two layouts give the same tokens. A retiring branch
+    # shrinks the window the same tick; one survivor collapses (its suffix
+    # compacted to the front of the window, the slot back on plain decode),
+    # none closes the slot.
+
+    def _admit_tree_family(self, req: Request, slot: int) -> None:
+        """Register a family that decodes as a token tree in ``slot`` (its
+        tree-shaped reservation already taken by :meth:`_paged_reserve`).
+        The branches start in the awaits pass of the tick the parent's
+        first token lands."""
+        branches = self._branches(req)
+        fam = _ForkFamily(
+            req=req, parent_slot=slot, sibling_slots=[], sib_reserve=0,
+            hold=0, best_of=bool(req.best_of and req.best_of > 1),
+            branches=branches, tree=True, base_len=len(req.prompt),
+            fork_len=1)
+        self._families[req.uid] = fam
+        self._tree_fams[slot] = fam
+        self._uid_next_index[req.uid] = branches
+        self._tree_fams_life += 1
+
+    def _tree_family_start(self, fam: _ForkFamily, slot: int, tick: int,
+                           now2: float, results) -> int:
+        """Branch the freshly live parent into its k tree siblings, before
+        any EOS check (a one-token parent still yields k samples). The
+        siblings' first tokens are drawn from the parent's stashed
+        prompt-end logits under their branch keys, as the fork-slot path
+        draws them: one small sampling pass and one fetch per family. Every
+        branch's first token then takes its EOS and budget checks here,
+        branch 0's included. Returns the sibling tokens emitted."""
+        req = fam.req
+        fam.forked = True
+        k = fam.branches
+        row = self._slot_logits[slot]
+        assert row is not None, "tree family lost its logits stash"
+        self._slot_logits[slot] = None
+        tok, lp = sample_rows(
+            row[None, None].expand(k - 1, 1, row.shape[-1]),
+            np.full((k - 1,), self._temp_np[slot], np.float32),
+            np.full((k - 1,), self._topk_np[slot], np.int32),
+            [self._branch_key(req, b) for b in range(1, k)],
+            np.zeros((k - 1, 1), np.int64), np.ones((k - 1, 1), bool))
+        # The family's one fetch: the siblings' first tokens and logprobs.
+        fh = torch.stack([tok[:, 0], lp[:, 0].view(torch.int32)],
+                         1).cpu().numpy()
+        lp_h = np.ascontiguousarray(fh[:, 1]).view(np.float32)
+        fam.br_tokens = [self._slot_tokens[slot]] + [
+            [int(t)] for t in fh[:, 0]]
+        fam.br_cum_lp = [self._slot_cum_lp[slot]] + [float(x) for x in lp_h]
+        fam.br_live = [True] * k
+        fam.br_index = list(range(k))
+        fam.br_ttft = [self._slot_ttft[slot]] * k
+        emitted = 0
+        dead: List[Tuple[int, str]] = []
+        for b in range(k):
+            t0 = fam.br_tokens[b][0]
+            if b > 0:
+                self._push_token(req, t0, b)
+                emitted += 1
+                self.slo.observe_ttft(fam.br_ttft[b])
+                if obs.REGISTRY.enabled:
+                    _TOKENS.inc()
+                    _TTFT.observe(fam.br_ttft[b])
+                if obs.TRACER.active:
+                    obs.instant("first_token", cat="serving", args={
+                        "rid": req.uid, "slot": slot, "tick": tick,
+                        "index": b, "tree": True,
+                        "ttft_s": round(fam.br_ttft[b], 6)})
+            if req.eos_id is not None and t0 == req.eos_id:
+                dead.append((b, OUTCOME_EOS))
+            elif req.max_new_tokens <= 1:
+                dead.append((b, OUTCOME_BUDGET))
+        nshare = fam.base_len // self.kv_block
+        self._forks_life += k - 1
+        self._fork_shared_life += (k - 1) * nshare
+        if obs.REGISTRY.enabled:
+            _FORKS.inc(k - 1)
+            if nshare:
+                _FORK_SHARED.inc((k - 1) * nshare)
+        if obs.TRACER.active:
+            for b in range(1, k):
+                obs.instant("fork", cat="serving", args={
+                    "rid": req.uid, "tick": tick, "parent_slot": slot,
+                    "child_slot": slot, "index": b, "tree": True,
+                    "shared_blocks": nshare, "copied_blocks": 0,
+                    "at_tokens": 0})
+        for b, outcome in dead:
+            self._tree_finish_branch(slot, fam, b, outcome, tick, now2,
+                                     results)
+        self._tree_settle(slot, fam, 0, [], bool(dead), tick)
+        return emitted
+
+    def _pack_tree(self, fam: _ForkFamily) -> Tuple[PackedSpec, List[int],
+                                                    int]:
+        """This tick's sibling bundle: every live branch's divergent suffix
+        (its tokens past the frozen ancestors), packed branch-major; all
+        have one length, since each branch gains one token a tick. Returns
+        ``(pack, the live branches in packed order, the suffix length)``."""
+        d = fam.fork_len - 1
+        order = [b for b in range(fam.branches) if fam.br_live[b]]
+        suffixes = [fam.br_tokens[b][d:] for b in order]
+        return pack_siblings(suffixes), order, len(suffixes[0])
+
+    def _tree_commit_all(self, tree_plan: Dict[int, tuple],
+                         alltok: np.ndarray, alllp: np.ndarray, now: float,
+                         tick: int, results: List[RequestResult],
+                         tbt: List[float]) -> int:
+        """The host half of a tree tick: each live branch's next token is
+        the draw at its LAST packed row (the rows before it re-read the
+        branch's own suffix). EOS and budget are checked per branch;
+        retires shrink the family the same tick. Returns the tokens
+        emitted."""
+        emitted = 0
+        for slot, (pack, order, s) in tree_plan.items():
+            fam = self._tree_fams.get(slot)
+            if fam is None:
+                continue
+            req = fam.req
+            self._tree_branches_life += len(order)
+            gap = max(now - self._last_tok_t[slot], 0.0)
+            self._last_tok_t[slot] = now
+            self._slot_max_tbt[slot] = max(self._slot_max_tbt[slot], gap)
+            self.slo.observe_tbt(gap)
+            dead: List[Tuple[int, str]] = []
+            for rank, b in enumerate(order):
+                r = rank * s + s - 1
+                t_new = int(alltok[slot, r])
+                fam.br_tokens[b].append(t_new)
+                fam.br_cum_lp[b] += float(alllp[slot, r])
+                self._push_token(req, t_new, fam.br_index[b])
+                emitted += 1
+                tbt.append(gap if rank == 0 else 0.0)
+                if obs.REGISTRY.enabled:
+                    _TOKENS.inc()
+                    _TBT.observe(gap if rank == 0 else 0.0)
+                if req.eos_id is not None and t_new == req.eos_id:
+                    dead.append((b, OUTCOME_EOS))
+                elif len(fam.br_tokens[b]) >= req.max_new_tokens:
+                    dead.append((b, OUTCOME_BUDGET))
+            for b, outcome in dead:
+                self._tree_finish_branch(slot, fam, b, outcome, tick, now,
+                                         results)
+            self._tree_settle(slot, fam, s, order, bool(dead), tick)
+        return emitted
+
+    def _tree_finish_branch(self, slot: int, fam: _ForkFamily, b: int,
+                            outcome: str, tick: int, now: float,
+                            results) -> None:
+        """One branch leaves the family: its result (tokens, cumulative
+        log-probability, its own outcome) is final now; the slot shrinks in
+        :meth:`_tree_settle`."""
+        fam.br_live[b] = False
+        req = fam.req
+        admit_tick, visible_at = self._slot_admit[slot]
+        res = RequestResult(
+            uid=req.uid, tokens=list(fam.br_tokens[b]),
+            prompt_len=len(req.prompt), arrival_tick=req.arrival_tick,
+            admit_tick=admit_tick, finish_tick=tick,
+            queue_wait_s=self._slot_wait[slot],
+            completion_s=max(now - visible_at, 0.0), outcome=outcome,
+            ttft_s=fam.br_ttft[b], cum_logprob=fam.br_cum_lp[b],
+            prefix_hit_tokens=self._slot_prefix_hit[slot],
+            index=fam.br_index[b])
+        results.append(res)
+        if outcome in (OUTCOME_EOS, OUTCOME_BUDGET):
+            self.slo.observe_request(fam.br_ttft[b],
+                                     self._slot_max_tbt[slot])
+        elif outcome in (OUTCOME_DEADLINE, OUTCOME_SHED, OUTCOME_ERROR):
+            self.slo.observe_miss()
+        if obs.REGISTRY.enabled:
+            _REQUESTS.labels(outcome=outcome).inc()
+        if obs.TRACER.active:
+            obs.instant("request_retired", cat="serving", args={
+                "rid": req.uid, "slot": slot, "tick": tick,
+                "outcome": outcome, "index": fam.br_index[b], "tree": True})
+        self._notify_finish(req, res, fam)
+        self._family_branch_done(fam, res)
+
+    def _tree_settle(self, slot: int, fam: _ForkFamily, s: int,
+                     order: List[int], retired_any: bool,
+                     tick: int) -> None:
+        """Normalize the slot after a tree tick (or the family's start):
+        two or more live branches keep the tree (the window's reservation
+        trimmed the tick a branch retired), one survivor collapses the slot
+        to plain decode, none closes it."""
+        k_live = sum(fam.br_live)
+        if k_live == 0:
+            self._tree_close(slot, fam)
+        elif k_live == 1:
+            self._tree_collapse(slot, fam, s, order)
+        elif retired_any:
+            span = max(fam.base_len
+                       + k_live * (fam.req.max_new_tokens - fam.fork_len),
+                       len(fam.req.prompt) + fam.req.max_new_tokens)
+            self._slot_trim(slot, -(-span // self.kv_block))
+
+    def _slot_trim(self, slot: int, need: int) -> None:
+        """Shrink ``slot`` to a ``need``-block worst case the tick its
+        occupant got smaller: private tail blocks past the need (rows of
+        retired branches) unmap — host bookkeeping, the device table
+        changes at the next sync — and the excess reservation returns to
+        the pool."""
+        while self._slot_nblocks[slot] > need:
+            j = self._slot_nblocks[slot] - 1
+            bid = int(self._host_table[slot, j])
+            if bid not in self._slot_private[slot]:
+                break  # shared ancestors never sit past the need
+            self._pool.unmap_private(bid)
+            self._slot_private[slot].discard(bid)
+            self._slot_reserve[slot] += 1
+            self._host_table[slot, j] = 0
+            self._slot_nblocks[slot] -= 1
+            self._table_dirty = True
+        excess = self._slot_nblocks[slot] + self._slot_reserve[slot] - need
+        give = min(max(excess, 0), self._slot_reserve[slot])
+        if give:
+            self._pool.unreserve(give)
+            self._slot_reserve[slot] -= give
+            self._pool.gen += 1
+
+    def _tree_collapse(self, slot: int, fam: _ForkFamily, s: int,
+                       order: List[int]) -> None:
+        """One branch left: move its replayed suffix to the front of the
+        window (:func:`compact_decode_window`; nothing moves when it is
+        already at rank 0), rebind the slot's mirrors and key to the
+        survivor's, park its tip, and hand the slot back to plain decode.
+        The survivor decodes on under the key its rows were drawn with."""
+        req = fam.req
+        b = fam.br_live.index(True)
+        if s > 0:
+            rank = order.index(b)
+            if rank > 0:
+                S = self.slots
+                src = np.tile(np.arange(s, dtype=np.int64), (S, 1))
+                src[slot] = rank * s + np.arange(s)
+                n = np.zeros((S,), np.int64)
+                n[slot] = s
+                start = np.zeros((S,), np.int64)
+                start[slot] = fam.base_len
+                self.cache = compact_decode_window(
+                    self.cache, *(torch.from_numpy(x).to(self.device)
+                                  for x in (start, src, n)))
+        self._slot_clen[slot] = fam.base_len + s
+        self._live_reset[slot] = fam.base_len + s
+        self._slot_tokens[slot] = fam.br_tokens[b]
+        self._slot_index[slot] = fam.br_index[b]
+        self._slot_cum_lp[slot] = fam.br_cum_lp[b]
+        self._slot_ttft[slot] = fam.br_ttft[b]
+        self._keys[slot] = self._branch_key(req, fam.br_index[b])
+        tip = int(fam.br_tokens[b][-1])
+        self._tok_host[slot] = tip
+        self.tok[slot] = tip
+        self._tree_fams.pop(slot, None)
+        self._slot_trim(slot, -(-(len(req.prompt) + req.max_new_tokens)
+                                // self.kv_block))
+        if obs.TRACER.active:
+            obs.instant("tree_collapse", cat="serving", args={
+                "rid": req.uid, "slot": slot, "index": fam.br_index[b],
+                "suffix": s})
+
+    def _tree_close(self, slot: int, fam: _ForkFamily) -> None:
+        """Every branch finished: close the request's span and free the
+        slot — pins, private blocks, unspent reservation — the tick the
+        last branch retired."""
+        self._tree_fams.pop(slot, None)
+        span = self._slot_span[slot]
+        if span is not None:
+            span.set(tokens=sum(len(t) for t in fam.br_tokens),
+                     branches=fam.branches, tree=True)
+            span.__exit__(None, None, None)
+            self._slot_span[slot] = None
+        uid = fam.req.uid
+        self._free_slot_resources(slot)
+        if not any(rq is not None and rq.uid == uid
+                   for rq in self._slot_req):
+            self._uid_next_index.pop(uid, None)
+
+    def _tree_retire_all(self, slot: int, fam: _ForkFamily, tick: int,
+                         outcome: str, results) -> None:
+        """Cancel, deadline or shed of a started tree family: every live
+        branch finishes with that outcome, then the slot closes."""
+        now = time.monotonic()
+        for b in range(fam.branches):
+            if fam.br_live[b]:
+                self._tree_finish_branch(slot, fam, b, outcome, tick, now,
+                                         results)
+        self._tree_close(slot, fam)
+
+    def _tree_convert_live(self, parent: int, uid: int, tick: int) -> str:
+        """A mid-stream ``fork(uid)`` as a tree conversion: the live slot
+        keeps its committed rows as the shared ancestors and decodes both
+        continuations as a two-branch tree — no new slot and no copied
+        block (both branches re-consume the tip as their first suffix
+        row). Host bookkeeping and the reservation's delta only."""
+        req = self._slot_req[parent]
+        toks = self._slot_tokens[parent]
+        t = len(toks)
+        plen = len(self._prompt_np[parent])
+        base_len = plen + t - 1
+        span = max(base_len + 2 * (req.max_new_tokens - t),
+                   plen + req.max_new_tokens)
+        delta = (-(-span // self.kv_block) - self._slot_nblocks[parent]
+                 - self._slot_reserve[parent])
+        if delta > 0:
+            if not self._pool.reserve(delta):
+                return "retry"
+            self._slot_reserve[parent] += delta
+        idx = self._uid_next_index.get(uid, self._branches(req))
+        self._uid_next_index[uid] = idx + 1
+        fam = _ForkFamily(
+            req=req, parent_slot=parent, sibling_slots=[], sib_reserve=0,
+            hold=0, best_of=False, branches=2, forked=True, tree=True,
+            base_len=base_len, fork_len=t, br_tokens=[toks, list(toks)],
+            br_cum_lp=[self._slot_cum_lp[parent]] * 2,
+            br_live=[True, True], br_index=[self._slot_index[parent], idx],
+            br_ttft=[self._slot_ttft[parent]] * 2)
+        self._families[req.uid] = fam
+        self._tree_fams[parent] = fam
+        self._tree_fams_life += 1
+        # Every tree tick resets the length to base_len: a pending fork or
+        # collapse reset is subsumed.
+        self._live_reset.pop(parent, None)
+        self._slot_clen[parent] = base_len
+        nshare = base_len // self.kv_block
+        self._forks_life += 1
+        self._fork_shared_life += nshare
+        if obs.REGISTRY.enabled:
+            _FORKS.inc()
+            if nshare:
+                _FORK_SHARED.inc(nshare)
+        if obs.TRACER.active:
+            obs.instant("fork", cat="serving", args={
+                "rid": req.uid, "tick": tick, "parent_slot": parent,
+                "child_slot": parent, "index": idx, "tree": True,
+                "shared_blocks": nshare, "copied_blocks": 0,
+                "at_tokens": t})
+        return "done"
 
     # -- speculation ------------------------------------------------------
 
@@ -2014,17 +2518,25 @@ class SlotServer:
             self._table_dirty = True
 
     def _verify_inputs(self, spec_plan: Dict[int, PackedSpec],
-                       plan: List[tuple], tq: int):
+                       plan: List[tuple], tq: int,
+                       tree_plan: Optional[Dict[int, tuple]] = None,
+                       decode: Optional[tuple] = None):
         """The verify tick's host matrices: draft windows (tip at row 0,
-        every spec slot reset to its committed length — the rollback) and
-        the tick's prefill chunks. Returns ``(mat, n_vec, reset, reset_val,
-        emit, verify)``, ``verify`` as :meth:`_step` takes it."""
+        every spec slot reset to its committed length — the rollback), tree
+        families' sibling bundles (reset to their frozen ancestors: every
+        suffix is replayed past them, each branch's rows under its key),
+        plain decode rows (``decode``: the ``(n_vec, reset, reset_val,
+        emit)`` the tick already set for them) and the tick's prefill
+        chunks. Returns ``(mat, n_vec, reset, reset_val, emit, verify)``,
+        ``verify`` as :meth:`_step` takes it."""
         S = self.slots
         mat = np.zeros((S, tq), np.int32)
         n_vec = np.zeros((S,), np.int32)
         reset = np.zeros((S,), np.int32)
         reset_val = np.zeros((S,), np.int32)
         emit = np.zeros((S,), bool)
+        if decode is not None:
+            n_vec, reset, reset_val, emit = (x.copy() for x in decode)
         # A staged final chunk parked its slot's first token in the device
         # token vector only: that slot's row 0 comes from there.
         dev0 = np.asarray([st == "await" for st in self._slot_state])
@@ -2047,6 +2559,29 @@ class SlotServer:
             depth[i, :r] = pack.depth
             bits[i, :r, :r] = pack.anc
             tree |= not np.array_equal(pack.depth, np.arange(r))
+        keys = None
+        if tree_plan:
+            tree = True
+            keys = np.asarray(self._keys, np.int64)[:, None].repeat(tq, 1)
+            for i, (pack, order, s) in tree_plan.items():
+                fam = self._tree_fams[i]
+                r = pack.rows
+                self._ensure_blocks(i, fam.base_len + r)
+                mat[i, :r] = pack.row_tokens
+                n_vec[i] = r
+                reset[i] = 1
+                reset_val[i] = fam.base_len
+                ridx[i, :r] = fam.fork_len + pack.depth
+                rows[i, s - 1:r:s] = True  # each branch's last row
+                depth[i, :r] = pack.depth
+                bits[i, :r, :r] = pack.anc
+                keys[i, :r] = np.repeat(
+                    [self._branch_key(fam.req, fam.br_index[b])
+                     for b in order], s)
+        for i in np.flatnonzero((n_vec == 1) & emit):
+            # Plain decode rows: the committed tip at row 0.
+            mat[i, 0] = self._tok_host[i]
+            rows[i, 0] = True
         for slot, n, last in plan:
             self._ensure_blocks(slot, self._prefill_pos[slot] + n)
             first = self._prefill_pos[slot] == self._prefill_start[slot]
@@ -2061,7 +2596,7 @@ class SlotServer:
         # Chain slots and prefill chunks ride the arange / lower-triangular
         # defaults of a tree tick: the causal rule, bit for bit.
         verify = _Verify(depth if tree else None, bits if tree else None,
-                         ridx, rows, dev0)
+                         ridx, rows, dev0, keys)
         return mat, n_vec, reset, reset_val, emit, verify
 
     def _spec_commit_all(self, spec_plan: Dict[int, PackedSpec],
@@ -2165,7 +2700,17 @@ class SlotServer:
         tail among them), the unspent reservation, and the int8 staging
         latch of a prompt cancelled mid-stage (its staged rows are garbage
         the next admission's first chunk overwrites) — so retiring a
-        request mid-prefill or mid-stream is this, earlier."""
+        request mid-prefill or mid-stream is this, earlier. A started tree
+        family retires every live branch with the outcome."""
+        tfam = self._tree_fams.get(slot)
+        if tfam is not None:
+            if tfam.forked:
+                self._tree_retire_all(slot, tfam, tick, outcome, results)
+                return
+            # Not started yet (prefilling or awaiting its first token):
+            # the plain retire below settles it, and _cancel_unforked
+            # finishes the other branches.
+            self._tree_fams.pop(slot)
         req = self._slot_req[slot]
         admit_tick, visible_at = self._slot_admit[slot]
         now = time.monotonic()
@@ -2205,6 +2750,28 @@ class SlotServer:
                 obs.flow("f", obs.flow_id(req.trace[0]))
             span.__exit__(None, None, None)
             self._slot_span[slot] = None
+        self._free_slot_resources(slot)
+        if obs.REGISTRY.enabled:
+            _REQUESTS.labels(outcome=outcome).inc()
+        # Family bookkeeping: a parent retiring before its first token takes
+        # its unforked siblings with it; the branch's finish is delivered
+        # (held back under best-of), and the family collects the branch —
+        # the last one joins.
+        fam = self._families.get(req.uid)
+        if fam is not None and slot == fam.parent_slot and not fam.forked:
+            self._cancel_unforked(fam, result, tick, results)
+        self._notify_finish(req, result, fam)
+        if fam is not None:
+            self._family_branch_done(fam, result)
+        if not any(rq is not None and rq.uid == req.uid
+                   for rq in self._slot_req):
+            self._uid_next_index.pop(req.uid, None)
+
+    def _free_slot_resources(self, slot: int) -> None:
+        """Release everything a slot holds — prefix pins, private paged
+        blocks, fork-shared refs, the unspent reservation — and mark it
+        free: the one exit arc of :meth:`_retire` and a tree family's
+        close."""
         self._slot_req[slot] = None
         self._slot_tokens[slot] = []
         self._slot_state[slot] = "free"
@@ -2236,21 +2803,6 @@ class SlotServer:
             # Released pins can grow evictability without touching the
             # free list: let a deferred admission retry.
             self._pool.gen += 1
-        if obs.REGISTRY.enabled:
-            _REQUESTS.labels(outcome=outcome).inc()
-        # Family bookkeeping: a parent retiring before its first token takes
-        # its unforked siblings with it; the branch's finish is delivered
-        # (held back under best-of), and the family collects the branch —
-        # the last one joins.
-        fam = self._families.get(req.uid)
-        if fam is not None and slot == fam.parent_slot and not fam.forked:
-            self._cancel_unforked(fam, result, tick, results)
-        self._notify_finish(req, result, fam)
-        if fam is not None:
-            self._family_branch_done(fam, result)
-        if not any(rq is not None and rq.uid == req.uid
-                   for rq in self._slot_req):
-            self._uid_next_index.pop(req.uid, None)
 
     def pool_bytes(self) -> int:
         """Device bytes of this rank's pool blocks (K, V and int8 scales;
@@ -2441,6 +2993,378 @@ class SlotServer:
     # -- the tick loop ----------------------------------------------------
 
     @torch.no_grad()
+    # -- the tick loop's sections --------------------------------------------
+
+    def _poll(self, run: _Run, source: RequestSource, now: float) -> None:
+        """Queue the source's newly visible requests; a request that fails
+        validation finishes with outcome ``error`` (a live request must not
+        kill the loop serving everyone else; a static trace was validated
+        up front)."""
+        for r in source.poll(run.tick):
+            vis = r.visible_at if r.visible_at is not None else now
+            try:
+                self._validate(r)
+            except ValueError as e:
+                log.warning("rejecting request %s: %s", r.uid, e)
+                self._finish_unadmitted(r, run.tick, OUTCOME_ERROR,
+                                        run.results, vis, now)
+                continue
+            run.pending.append(r)
+            run.visible_wall[r.uid] = vis
+            if obs.TRACER.active:
+                obs.instant("request_queued", cat="serving",
+                            args={"rid": r.uid, "tick": run.tick})
+
+    def _sweep(self, run: _Run, source: RequestSource, now: float,
+               cancels: Set[int], draining: bool,
+               workers: Sequence["SlotServer"] = ()) -> None:
+        """The control sweep, on the loop thread, over the slots of
+        ``workers`` (default: this engine): cancellation beats deadline
+        beats drain (a disconnected client's request is 'cancelled' even
+        if its deadline also passed). EOS and budget retired at the end of
+        the previous tick, so a request that finished and expired on the
+        same tick keeps its outcome."""
+        workers = workers or (self,)
+        cancels |= set(run.cancel_carry)
+        if cancels:
+            matched = set()
+            for r in [r for r in run.pending if r.uid in cancels]:
+                run.pending.remove(r)
+                matched.add(r.uid)
+                self._finish_unadmitted(
+                    r, run.tick, OUTCOME_CANCELLED, run.results,
+                    run.visible_wall.pop(r.uid, now), now)
+            for eng in workers:
+                for i, rq in enumerate(eng._slot_req):
+                    if rq is not None and rq.uid in cancels:
+                        matched.add(rq.uid)
+                        eng._retire(i, run.tick, OUTCOME_CANCELLED,
+                                    run.results)
+            # A cancel can race its own request's submission (the submit
+            # lands after this tick's poll, the cancel before this sweep):
+            # unmatched uids are carried for two sweeps; unknown or
+            # finished ones age out as no-ops.
+            for uid in cancels - matched:
+                if uid not in run.cancel_carry:
+                    run.cancel_carry[uid] = 2
+                else:
+                    run.cancel_carry[uid] -= 1
+                    if run.cancel_carry[uid] <= 0:
+                        del run.cancel_carry[uid]
+            for uid in matched:
+                run.cancel_carry.pop(uid, None)
+        # Expired in the queue: finish unserved (admitting work that can no
+        # longer meet its deadline steals ticks from work that can);
+        # expired in flight: retire, the streamed tokens stand.
+        for r in [r for r in run.pending
+                  if r.deadline_s is not None and now >= r.deadline_s]:
+            run.pending.remove(r)
+            self._finish_unadmitted(r, run.tick, OUTCOME_DEADLINE,
+                                    run.results,
+                                    run.visible_wall.pop(r.uid, now), now)
+        for eng in workers:
+            for i, rq in enumerate(eng._slot_req):
+                if (rq is not None and rq.deadline_s is not None
+                        and now >= rq.deadline_s):
+                    eng._retire(i, run.tick, OUTCOME_DEADLINE, run.results)
+        if draining:
+            # Graceful drain: no new work, the queue sheds, in-flight
+            # slots step on to completion.
+            source.close()
+            while run.pending:
+                r = run.pending.popleft()
+                self._finish_unadmitted(r, run.tick, OUTCOME_SHED,
+                                        run.results,
+                                        run.visible_wall.pop(r.uid, now), now)
+
+    def _admit_pending(self, run: _Run, now: float) -> None:
+        """Admit the oldest visible request per free slot; a paged
+        admission that cannot reserve its worst case waits (FIFO). A fork
+        family admits atomically: the parent's slot and one ``fpend`` slot
+        per sibling, or it waits."""
+        free = [i for i, st in enumerate(self._slot_state) if st == "free"]
+        pending = run.pending
+        while free and pending:
+            if self.quantize and self._prefill_fifo:
+                break  # staged admission: one prompt in flight
+            branches = self._branches(pending[0])
+            # A tree family needs ONE slot however many branches.
+            tree_adm = branches > 1 and self._tree_sibling_ok(pending[0])
+            if (1 if tree_adm else branches) > len(free):
+                break
+            resv = None
+            if self._paged:
+                if self._defer_gen == self._pool.gen:
+                    break  # availability cannot have grown
+                resv = self._paged_reserve(pending[0])
+                if resv is None:
+                    self._defer_gen = self._pool.gen
+                    break
+            req = pending.popleft()
+            slot = free.pop(0)
+            if branches > 1:
+                # The family exists before the admission runs: whole
+                # admission stashes the prompt-end logits inside it.
+                if tree_adm:
+                    self._admit_tree_family(req, slot)
+                else:
+                    self._admit_family(req, slot, free, resv)
+            self._admit(req, slot, run.tick,
+                        run.visible_wall.pop(req.uid, now), resv)
+
+    def _tick(self, run: _Run) -> None:
+        """One tick's step and its commits: plan the prefill chunks, run
+        the tick's one step (verify, tree, mixed or pure decode), fetch its
+        tokens once, land the first tokens of finished prompts (live, or
+        parked for the handoff on a prefill worker) and commit every live
+        slot's token, retiring on EOS and budget."""
+        tick, results, tbt = run.tick, run.results, run.tbt
+        # Every started tree family's live suffixes, packed into one
+        # bundle for its one slot (host work, like drafting).
+        tree_plan = {i: self._pack_tree(f)
+                     for i, f in self._tree_fams.items()
+                     if f.forked and self._slot_state[i] == "live"}
+        # While a tree family decodes, the chunks that share its step clamp
+        # to the int32 bitmask's 32 rows: the sibling bundle never rides a
+        # wider Tq. (The JAX engine clamps from the family's admission;
+        # staged int8 chunks never share the step.)
+        plan = self._plan_chunks(
+            max_n=32 if tree_plan and not self.quantize else None)
+        live_idx = [i for i, st in enumerate(self._slot_state)
+                    if st == "live"]
+        if obs.REGISTRY.enabled:
+            _SLOTS_OCCUPIED.set(len(live_idx))
+        # The tick's span (closed after the fetch and retires; a shared
+        # no-op while the tracer is off).
+        tick_span = obs.span(
+            self._tick_name, cat="serving",
+            args=None if not obs.TRACER.active else {
+                "tick": tick, "occupancy": len(live_idx),
+                "prefilling": len(self._prefill_fifo),
+                "chunk_tokens": sum(n for _, n, _ in plan),
+                "queue_depth": len(run.pending)})
+        S = self.slots
+        n_vec = np.zeros((S,), np.int32)
+        reset = np.zeros((S,), np.int32)
+        reset_val = np.zeros((S,), np.int32)
+        emit = np.zeros((S,), bool)
+        if not self._speculate:
+            for i in live_idx:
+                if i in tree_plan:
+                    continue
+                self._ensure_blocks(i, len(self._slot_req[i].prompt)
+                                    + len(self._slot_tokens[i]))
+                n_vec[i] = 1
+                emit[i] = True
+            # A freshly forked or adopted slot's device length learns its
+            # committed length at its first consuming tick.
+            for i in list(self._live_reset):
+                if self._slot_state[i] == "live" and i not in tree_plan:
+                    reset[i] = 1
+                    reset_val[i] = self._live_reset.pop(i)
+        fused = None
+        verified = False
+        spec_plan: Dict[int, PackedSpec] = {}
+        if self.quantize and plan:
+            # Staged chunks run first; the tick's step is then the
+            # decode-only step over the int8 cache.
+            for slot, n, last in plan:
+                self._run_staged_chunk(slot, n, last)
+            plan = []
+        if self._speculate and live_idx:
+            # THE verify tick: every live slot's draft window (tip at row
+            # 0; no proposal = a one-row decode) and the tick's prefill
+            # chunks in one step. A chunk wider than 32 rows cannot ride
+            # int32 tree masks: trees fall back to their root-path chains
+            # for that tick. A tick with no draft anywhere runs the Tq = 1
+            # shape.
+            chunk_tq = (self._chunk_bucket(max(n for _, n, _ in plan))
+                        if plan else 1)
+            for i in live_idx:
+                spec_plan[i] = self._draft_slot(i, chunk_tq <= 32)
+            rows_max = max(p.rows for p in spec_plan.values())
+            tq = self._spec_bucket(rows_max) if rows_max > 1 else 1
+            if plan:
+                tq = max(tq, chunk_tq)
+            mat, n_vec, reset, reset_val, emit, verify = \
+                self._verify_inputs(spec_plan, plan, tq)
+            self._sync_table()
+            fused = self._step(torch.from_numpy(mat).to(self.device),
+                               n_vec, reset, reset_val, emit, verify)
+            verified = True
+            self._spec_tree_ticks += verify.depth is not None
+            run.steps += 1
+        elif tree_plan:
+            # The tree tick: every tree family's sibling bundle, the plain
+            # live slots' decode rows and the tick's prefill chunks in one
+            # verify-shaped step under the ancestor masks (the ``tree``
+            # variant of B2, or B5 under int8).
+            rows_max = max(pk.rows for pk, _, _ in tree_plan.values())
+            tq = self._spec_bucket(rows_max)
+            if plan:
+                tq = max(tq, self._chunk_bucket(max(n for _, n, _ in plan)))
+            mat, n_vec, reset, reset_val, emit, verify = \
+                self._verify_inputs({}, plan, tq, tree_plan,
+                                    (n_vec, reset, reset_val, emit))
+            self._sync_table()
+            fused = self._step(torch.from_numpy(mat).to(self.device),
+                               n_vec, reset, reset_val, emit, verify)
+            verified = True
+            self._tree_ticks += 1
+            run.steps += 1
+            for slot, _, last in plan:
+                if last:
+                    self._stash_logits(slot, self._last_rows[slot])
+        elif plan:
+            # The mixed tick: decode rows + prefill chunks in one step.
+            mat = np.zeros((S, self._chunk_bucket(
+                max(n for _, n, _ in plan))), np.int32)
+            mat[live_idx, 0] = self._tok_host[live_idx]
+            for slot, n, last in plan:
+                self._ensure_blocks(slot, self._prefill_pos[slot] + n)
+                first = (self._prefill_pos[slot]
+                         == self._prefill_start[slot])
+                mat[slot, :n] = self._consume_chunk(slot, n, last)
+                n_vec[slot] = n
+                reset[slot] = first
+                reset_val[slot] = self._prefill_start[slot]
+                emit[slot] = last
+            self._sync_table()
+            fused = self._step(torch.from_numpy(mat).to(self.device),
+                               n_vec, reset, reset_val, emit)
+            run.steps += 1
+            for slot, _, last in plan:
+                if last:
+                    self._stash_logits(slot, self._last_rows[slot])
+        elif live_idx:
+            # Pure-decode tick: the tokens stay on the device.
+            self._sync_table()
+            fused = self._step(self.tok[:, None], n_vec, reset, reset_val,
+                               emit)
+            run.steps += 1
+        if self._prefix is not None:
+            # The tick's final chunks completed their prompts in the cache:
+            # publish them (staged chunks published already).
+            for slot, _, last in plan:
+                if last:
+                    self._publish_prefix(slot)
+
+        awaits = [i for i, st in enumerate(self._slot_state)
+                  if st == "await"]
+        if awaits or live_idx:
+            # THE per-tick host fetch: every new token of the tick and its
+            # logprob, one array (the token vector itself when no step ran:
+            # a staged final chunk parked its first token).
+            if fused is None:
+                fused = torch.stack([self.tok, self._lp.view(torch.int32)],
+                                    1)
+            fh = fused.cpu().numpy()
+            if verified:
+                # (S, 1 + Tq, 2): the token vector, then every row draw.
+                alltok = fh[:, 1:, 0]
+                alllp = np.ascontiguousarray(fh[:, 1:, 1]).view(np.float32)
+                fh = fh[:, 0]
+            self._tok_host = fh[:, 0].copy()
+            lp_host = np.ascontiguousarray(fh[:, 1]).view(np.float32)
+            now2 = time.monotonic()
+            if live_idx:
+                run.decode_ticks += 1
+                run.occupancy += len(live_idx)
+            park = self._handoff is not None
+            for i in awaits:
+                req = self._slot_req[i]
+                first = int(self._tok_host[i])
+                self._slot_tokens[i] = [first]
+                self._slot_cum_lp[i] = float(lp_host[i])
+                self._push_token(req, first, self._slot_index[i])
+                if not park:
+                    self._slot_state[i] = "live"
+                    # The committed rows are the prompt; the first token is
+                    # the pending tip.
+                    self._slot_clen[i] = len(req.prompt)
+                    if self._speculate:
+                        self._hist_buf[i, self._hist_len[i]] = first
+                        self._hist_len[i] += 1
+                _, vis = self._slot_admit[i]
+                self._slot_ttft[i] = max(now2 - vis, 0.0)
+                self._last_tok_t[i] = now2
+                run.tokens += 1
+                self.slo.observe_ttft(self._slot_ttft[i])
+                if obs.REGISTRY.enabled:
+                    _TOKENS.inc()
+                    _TTFT.observe(self._slot_ttft[i])
+                if obs.TRACER.active:
+                    obs.instant("first_token", cat="serving", args={
+                        "rid": req.uid, "slot": i, "tick": tick,
+                        "ttft_s": round(self._slot_ttft[i], 6)})
+                # A family forks HERE, before the parent's EOS and budget
+                # checks: a one-token parent still yields n independent
+                # samples.
+                fam = self._families.get(req.uid)
+                if fam is not None and not fam.forked \
+                        and i == fam.parent_slot:
+                    if fam.tree:
+                        # Every branch's first token, branch 0's EOS and
+                        # budget checks included, is handled there.
+                        run.tokens += self._tree_family_start(
+                            fam, i, tick, now2, results)
+                        continue
+                    run.tokens += self._fork_family(fam, i, tick, now2,
+                                                    results)
+                if req.eos_id is not None and first == req.eos_id:
+                    self._retire(i, tick, OUTCOME_EOS, results)
+                elif req.max_new_tokens <= 1:
+                    self._retire(i, tick, OUTCOME_BUDGET, results)
+                elif park:
+                    # A prefill worker's finished prompt parks in its slot
+                    # until a decode slot adopts it.
+                    self._slot_state[i] = "handoff"
+                    self._handoff.append(i)
+                    if obs.TRACER.active:
+                        obs.instant("handoff_queued", cat="serving", args={
+                            "rid": req.uid, "slot": i, "tick": tick})
+            if spec_plan:
+                # Live slots' tokens come from the accept walk over the
+                # fetched row draws: 1 to draft_k + 1 per slot.
+                run.tokens += self._spec_commit_all(
+                    spec_plan, alltok, alllp, mat.shape[1], now2, tick,
+                    results, tbt)
+            else:
+                if tree_plan:
+                    # Each live branch's token is its last row's draw;
+                    # retires shrink the family the same tick.
+                    run.tokens += self._tree_commit_all(
+                        tree_plan, alltok, alllp, now2, tick, results, tbt)
+                for i in live_idx:
+                    if i in tree_plan:
+                        continue
+                    req = self._slot_req[i]
+                    tok_i = int(self._tok_host[i])
+                    self._slot_tokens[i].append(tok_i)
+                    self._slot_cum_lp[i] += float(lp_host[i])
+                    self._push_token(req, tok_i, self._slot_index[i])
+                    run.tokens += 1
+                    gap = max(now2 - self._last_tok_t[i], 0.0)
+                    tbt.append(gap)
+                    self._last_tok_t[i] = now2
+                    self._slot_max_tbt[i] = max(self._slot_max_tbt[i], gap)
+                    self.slo.observe_tbt(gap)
+                    if obs.REGISTRY.enabled:
+                        _TOKENS.inc()
+                        _TBT.observe(gap)
+                    if (req.fork_at is not None
+                            and self._slot_index[i] == 0
+                            and len(self._slot_tokens[i]) == req.fork_at):
+                        # The replayable mid-stream branch: the request
+                        # forks itself through the mailbox an API caller
+                        # would use.
+                        self.fork(req.uid)
+                    if req.eos_id is not None and tok_i == req.eos_id:
+                        self._retire(i, tick, OUTCOME_EOS, results)
+                    elif len(self._slot_tokens[i]) >= req.max_new_tokens:
+                        self._retire(i, tick, OUTCOME_BUDGET, results)
+        tick_span.__exit__(None, None, None)
+
     def serve(self, requests: Union[Sequence[Request], RequestSource],
               max_ticks: Optional[int] = None) -> ServeReport:
         """Run the tick loop until the request source drains.
@@ -2467,14 +3391,7 @@ class SlotServer:
                 # and the loop's first tick is honoured.
                 self._cancel_uids.clear()
                 self._draining = False
-        pending: deque = deque()  # visible, validated, unadmitted
-        cancel_carry: Dict[int, int] = {}  # unmatched cancels, sweep TTL
-        # A live server runs indefinitely: its retention is bounded (the
-        # report covers the most recent window); a finite trace keeps all.
-        results: Any = deque(maxlen=4096) if live else []
-        visible_wall: Dict[int, float] = {}
-        tbt: Any = deque(maxlen=1 << 16) if live else []
-        tick = decode_ticks = occupancy = tokens = steps = 0
+        run = _Run.new(live)
         spec0 = (self._spec_proposed, self._spec_accepted, self._spec_ticks,
                  self._spec_verifies, self._spec_tree_ticks)
         prefix0 = self.prefix_stats()
@@ -2482,127 +3399,37 @@ class SlotServer:
         host0 = (self._host_pool.stats() if self._host_pool is not None
                  else None)
         fork0 = (self._forks_life, self._fork_shared_life)
+        tree0 = (self._tree_fams_life, self._tree_branches_life,
+                 self._tree_ticks)
         if self._paged:
             self._peak_blocks_used = self._pool.used
             self._defer_gen = -1
         t0 = time.monotonic()
 
         while True:
-            if max_ticks is not None and tick >= max_ticks:
+            if max_ticks is not None and run.tick >= max_ticks:
                 raise RuntimeError(
                     f"serve() exceeded max_ticks={max_ticks} with "
-                    f"{len(pending)} pending request(s)"
+                    f"{len(run.pending)} pending request(s)"
                 )
             now = time.monotonic()
-            for r in source.poll(tick):
-                vis = r.visible_at if r.visible_at is not None else now
-                try:
-                    self._validate(r)
-                except ValueError as e:
-                    # A live request must not kill the loop serving
-                    # everyone else (a static trace was validated above).
-                    log.warning("rejecting request %s: %s", r.uid, e)
-                    self._finish_unadmitted(r, tick, OUTCOME_ERROR, results,
-                                            vis, now)
-                    continue
-                pending.append(r)
-                visible_wall[r.uid] = vis
-                if obs.TRACER.active:
-                    obs.instant("request_queued", cat="serving",
-                                args={"rid": r.uid, "tick": tick})
-
-            # The control sweep, on the loop thread: cancellation beats
-            # deadline beats drain (a disconnected client's request is
-            # 'cancelled' even if its deadline also passed). EOS and budget
-            # retired at the end of the previous tick, so a request that
-            # finished and expired on the same tick keeps its outcome.
+            self._poll(run, source, now)
             cancels, draining = self._take_control()
-            cancels |= set(cancel_carry)
-            if cancels:
-                matched = set()
-                for r in [r for r in pending if r.uid in cancels]:
-                    pending.remove(r)
-                    matched.add(r.uid)
-                    self._finish_unadmitted(
-                        r, tick, OUTCOME_CANCELLED, results,
-                        visible_wall.pop(r.uid, now), now)
-                for i, rq in enumerate(self._slot_req):
-                    if rq is not None and rq.uid in cancels:
-                        matched.add(rq.uid)
-                        self._retire(i, tick, OUTCOME_CANCELLED, results)
-                # A cancel can race its own request's submission (the
-                # submit lands after this tick's poll, the cancel before
-                # this sweep): unmatched uids are carried for two sweeps;
-                # unknown or finished ones age out as no-ops.
-                for uid in cancels - matched:
-                    if uid not in cancel_carry:
-                        cancel_carry[uid] = 2
-                    else:
-                        cancel_carry[uid] -= 1
-                        if cancel_carry[uid] <= 0:
-                            del cancel_carry[uid]
-                for uid in matched:
-                    cancel_carry.pop(uid, None)
-            # Expired in the queue: finish unserved (admitting work that
-            # can no longer meet its deadline steals ticks from work that
-            # can); expired in flight: retire, the streamed tokens stand.
-            for r in [r for r in pending
-                      if r.deadline_s is not None and now >= r.deadline_s]:
-                pending.remove(r)
-                self._finish_unadmitted(r, tick, OUTCOME_DEADLINE, results,
-                                        visible_wall.pop(r.uid, now), now)
-            for i, rq in enumerate(self._slot_req):
-                if (rq is not None and rq.deadline_s is not None
-                        and now >= rq.deadline_s):
-                    self._retire(i, tick, OUTCOME_DEADLINE, results)
-            if draining:
-                # Graceful drain: no new work, the queue sheds, in-flight
-                # slots step on to completion.
-                source.close()
-                while pending:
-                    r = pending.popleft()
-                    self._finish_unadmitted(r, tick, OUTCOME_SHED, results,
-                                            visible_wall.pop(r.uid, now), now)
+            self._sweep(run, source, now, cancels, draining)
             # Copy-on-write forks: mailboxed fork(uid)s branch live
             # requests onto free slots (deferred ones retry from the carry).
             forks = self._take_forks()
             if forks or self._fork_carry:
-                self._apply_forks(forks, tick, pending)
+                self._apply_forks(forks, run.tick, run.pending)
+            self._admit_pending(run, now)
 
-            # Admit: oldest visible request per free slot; a paged
-            # admission that cannot reserve its worst case waits (FIFO). A
-            # fork family admits atomically: the parent's slot and one
-            # ``fpend`` slot per sibling, or it waits.
-            free = [i for i, st in enumerate(self._slot_state) if st == "free"]
-            while free and pending:
-                if self.quantize and self._prefill_fifo:
-                    break  # staged admission: one prompt in flight
-                branches = self._branches(pending[0])
-                if branches > len(free):
-                    break
-                resv = None
-                if self._paged:
-                    if self._defer_gen == self._pool.gen:
-                        break  # availability cannot have grown
-                    resv = self._paged_reserve(pending[0])
-                    if resv is None:
-                        self._defer_gen = self._pool.gen
-                        break
-                req = pending.popleft()
-                slot = free.pop(0)
-                if branches > 1:
-                    # The family exists before the admission runs: whole
-                    # admission stashes the prompt-end logits inside it.
-                    self._admit_family(req, slot, free, resv)
-                self._admit(req, slot, tick, visible_wall.pop(req.uid, now),
-                            resv)
-
-            if not pending and all(st == "free" for st in self._slot_state):
+            if not run.pending and all(st == "free"
+                                       for st in self._slot_state):
                 if source.exhausted or draining:
                     break
                 nxt = source.next_arrival()
                 if nxt is not None:
-                    tick = max(tick + 1, nxt)
+                    run.tick = max(run.tick + 1, nxt)
                 else:
                     # A live feeder: block until a submission (or close)
                     # wakes the source; the timeout only bounds how late a
@@ -2610,198 +3437,7 @@ class SlotServer:
                     source.wait(0.05)
                 continue
 
-            plan = self._plan_chunks()
-            live_idx = [i for i, st in enumerate(self._slot_state)
-                        if st == "live"]
-            if obs.REGISTRY.enabled:
-                _SLOTS_OCCUPIED.set(len(live_idx))
-            # The tick's span (closed after the fetch and retires; a shared
-            # no-op while the tracer is off).
-            tick_span = obs.span(
-                "serving:tick", cat="serving",
-                args=None if not obs.TRACER.active else {
-                    "tick": tick, "occupancy": len(live_idx),
-                    "prefilling": len(self._prefill_fifo),
-                    "chunk_tokens": sum(n for _, n, _ in plan),
-                    "queue_depth": len(pending)})
-            S = self.slots
-            n_vec = np.zeros((S,), np.int32)
-            reset = np.zeros((S,), np.int32)
-            reset_val = np.zeros((S,), np.int32)
-            emit = np.zeros((S,), bool)
-            if not self._speculate:
-                for i in live_idx:
-                    self._ensure_blocks(i, len(self._slot_req[i].prompt)
-                                        + len(self._slot_tokens[i]))
-                    n_vec[i] = 1
-                    emit[i] = True
-                # A freshly forked slot's device length learns the fork
-                # point at its first consuming tick.
-                for i in list(self._live_reset):
-                    if self._slot_state[i] == "live":
-                        reset[i] = 1
-                        reset_val[i] = self._live_reset.pop(i)
-            fused = None
-            verified = False
-            spec_plan: Dict[int, PackedSpec] = {}
-            if self.quantize and plan:
-                # Staged chunks run first; the tick's step is then the
-                # decode-only step over the int8 cache.
-                for slot, n, last in plan:
-                    self._run_staged_chunk(slot, n, last)
-                plan = []
-            if self._speculate and live_idx:
-                # THE verify tick: every live slot's draft window (tip at
-                # row 0; no proposal = a one-row decode) and the tick's
-                # prefill chunks in one step. A chunk wider than 32 rows
-                # cannot ride int32 tree masks: trees fall back to their
-                # root-path chains for that tick. A tick with no draft
-                # anywhere runs the Tq = 1 shape.
-                chunk_tq = (self._chunk_bucket(max(n for _, n, _ in plan))
-                            if plan else 1)
-                for i in live_idx:
-                    spec_plan[i] = self._draft_slot(i, chunk_tq <= 32)
-                rows_max = max(p.rows for p in spec_plan.values())
-                tq = self._spec_bucket(rows_max) if rows_max > 1 else 1
-                if plan:
-                    tq = max(tq, chunk_tq)
-                mat, n_vec, reset, reset_val, emit, verify = \
-                    self._verify_inputs(spec_plan, plan, tq)
-                self._sync_table()
-                fused = self._step(torch.from_numpy(mat).to(self.device),
-                                   n_vec, reset, reset_val, emit, verify)
-                verified = True
-                self._spec_tree_ticks += verify.depth is not None
-                steps += 1
-            elif plan:
-                # The mixed tick: decode rows + prefill chunks in one step.
-                mat = np.zeros((S, self._chunk_bucket(
-                    max(n for _, n, _ in plan))), np.int32)
-                mat[live_idx, 0] = self._tok_host[live_idx]
-                for slot, n, last in plan:
-                    self._ensure_blocks(slot, self._prefill_pos[slot] + n)
-                    first = (self._prefill_pos[slot]
-                             == self._prefill_start[slot])
-                    mat[slot, :n] = self._consume_chunk(slot, n, last)
-                    n_vec[slot] = n
-                    reset[slot] = first
-                    reset_val[slot] = self._prefill_start[slot]
-                    emit[slot] = last
-                self._sync_table()
-                fused = self._step(torch.from_numpy(mat).to(self.device),
-                                   n_vec, reset, reset_val, emit)
-                steps += 1
-                for slot, _, last in plan:
-                    if last:
-                        self._stash_logits(slot, self._last_rows[slot])
-            elif live_idx:
-                # Pure-decode tick: the tokens stay on the device.
-                self._sync_table()
-                fused = self._step(self.tok[:, None], n_vec, reset,
-                                   reset_val, emit)
-                steps += 1
-            if self._prefix is not None:
-                # The tick's final chunks completed their prompts in the
-                # cache: publish them (staged chunks published already).
-                for slot, _, last in plan:
-                    if last:
-                        self._publish_prefix(slot)
-
-            awaits = [i for i, st in enumerate(self._slot_state)
-                      if st == "await"]
-            if awaits or live_idx:
-                # THE per-tick host fetch: every new token of the tick and
-                # its logprob, one array (the token vector itself when no
-                # step ran: a staged final chunk parked its first token).
-                if fused is None:
-                    fused = torch.stack([self.tok,
-                                         self._lp.view(torch.int32)], 1)
-                fh = fused.cpu().numpy()
-                if verified:
-                    # (S, 1 + Tq, 2): the token vector, then every row draw.
-                    alltok = fh[:, 1:, 0]
-                    alllp = np.ascontiguousarray(fh[:, 1:, 1]).view(
-                        np.float32)
-                    fh = fh[:, 0]
-                self._tok_host = fh[:, 0].copy()
-                lp_host = np.ascontiguousarray(fh[:, 1]).view(np.float32)
-                now2 = time.monotonic()
-                if live_idx:
-                    decode_ticks += 1
-                    occupancy += len(live_idx)
-                for i in awaits:
-                    req = self._slot_req[i]
-                    first = int(self._tok_host[i])
-                    self._slot_tokens[i] = [first]
-                    self._slot_cum_lp[i] = float(lp_host[i])
-                    self._push_token(req, first, self._slot_index[i])
-                    self._slot_state[i] = "live"
-                    # The committed rows are the prompt; the first token is
-                    # the pending tip.
-                    self._slot_clen[i] = len(req.prompt)
-                    if self._speculate:
-                        self._hist_buf[i, self._hist_len[i]] = first
-                        self._hist_len[i] += 1
-                    _, vis = self._slot_admit[i]
-                    self._slot_ttft[i] = max(now2 - vis, 0.0)
-                    self._last_tok_t[i] = now2
-                    tokens += 1
-                    self.slo.observe_ttft(self._slot_ttft[i])
-                    if obs.REGISTRY.enabled:
-                        _TOKENS.inc()
-                        _TTFT.observe(self._slot_ttft[i])
-                    if obs.TRACER.active:
-                        obs.instant("first_token", cat="serving", args={
-                            "rid": req.uid, "slot": i, "tick": tick,
-                            "ttft_s": round(self._slot_ttft[i], 6)})
-                    # A family forks HERE, before the parent's EOS and
-                    # budget checks: a one-token parent still yields n
-                    # independent samples.
-                    fam = self._families.get(req.uid)
-                    if fam is not None and not fam.forked \
-                            and i == fam.parent_slot:
-                        tokens += self._fork_family(fam, i, tick, now2,
-                                                    results)
-                    if req.eos_id is not None and first == req.eos_id:
-                        self._retire(i, tick, OUTCOME_EOS, results)
-                    elif req.max_new_tokens <= 1:
-                        self._retire(i, tick, OUTCOME_BUDGET, results)
-                if spec_plan:
-                    # Live slots' tokens come from the accept walk over the
-                    # fetched row draws: 1 to draft_k + 1 per slot.
-                    tokens += self._spec_commit_all(
-                        spec_plan, alltok, alllp, mat.shape[1], now2, tick,
-                        results, tbt)
-                else:
-                    for i in live_idx:
-                        req = self._slot_req[i]
-                        tok_i = int(self._tok_host[i])
-                        self._slot_tokens[i].append(tok_i)
-                        self._slot_cum_lp[i] += float(lp_host[i])
-                        self._push_token(req, tok_i, self._slot_index[i])
-                        tokens += 1
-                        gap = max(now2 - self._last_tok_t[i], 0.0)
-                        tbt.append(gap)
-                        self._last_tok_t[i] = now2
-                        self._slot_max_tbt[i] = max(self._slot_max_tbt[i],
-                                                    gap)
-                        self.slo.observe_tbt(gap)
-                        if obs.REGISTRY.enabled:
-                            _TOKENS.inc()
-                            _TBT.observe(gap)
-                        if (req.fork_at is not None
-                                and self._slot_index[i] == 0
-                                and len(self._slot_tokens[i])
-                                == req.fork_at):
-                            # The replayable mid-stream branch: the
-                            # request forks itself through the mailbox an
-                            # API caller would use.
-                            self.fork(req.uid)
-                        if req.eos_id is not None and tok_i == req.eos_id:
-                            self._retire(i, tick, OUTCOME_EOS, results)
-                        elif len(self._slot_tokens[i]) >= req.max_new_tokens:
-                            self._retire(i, tick, OUTCOME_BUDGET, results)
-            tick_span.__exit__(None, None, None)
+            self._tick(run)
             if self._paged:
                 self._peak_blocks_used = max(self._peak_blocks_used,
                                              self._pool.used)
@@ -2812,7 +3448,7 @@ class SlotServer:
                 self._flush_demotions()
                 self._host_pool.publish_gauge()
             self.slo.maybe_export(now)
-            tick += 1
+            run.tick += 1
 
         with self._ctl_lock:
             # This run consumed its control state: the engine is reusable
@@ -2841,6 +3477,13 @@ class SlotServer:
                 kv_snap["forks"] = self._forks_life - fork0[0]
                 kv_snap["fork_blocks_shared"] = (self._fork_shared_life
                                                  - fork0[1])
+            if self._tree_fams_life - tree0[0]:
+                # Token-tree sibling decode for THIS run: families, branch
+                # rows committed (one per live branch a tick), tree ticks.
+                kv_snap["tree_families"] = self._tree_fams_life - tree0[0]
+                kv_snap["tree_branch_ticks"] = (self._tree_branches_life
+                                                - tree0[1])
+                kv_snap["tree_ticks"] = self._tree_ticks - tree0[2]
             if self._host_pool is not None:
                 h1 = self._host_pool.stats()
                 kv_snap.update({
@@ -2861,7 +3504,7 @@ class SlotServer:
         if self._prefix is not None:
             p1 = self.prefix_stats()
             reused = p1["tokens_reused"] - prefix0["tokens_reused"]
-            prompt_tokens = sum(r.prompt_len for r in results)
+            prompt_tokens = sum(r.prompt_len for r in run.results)
             prefix_snap = {
                 "hits": p1["hits"] - prefix0["hits"],
                 "misses": p1["misses"] - prefix0["misses"],
@@ -2899,19 +3542,19 @@ class SlotServer:
         log.info(
             "served %d request(s): %d tokens over %d decode tick(s), "
             "%.1f tok/s, mean occupancy %.2f/%d",
-            len(results), tokens, decode_ticks,
-            tokens / wall if wall > 0 else 0.0,
-            occupancy / max(decode_ticks, 1), self.slots,
+            len(run.results), run.tokens, run.decode_ticks,
+            run.tokens / wall if wall > 0 else 0.0,
+            run.occupancy / max(run.decode_ticks, 1), self.slots,
         )
         return ServeReport(
-            results=sorted(results, key=lambda r: r.uid),
-            ticks=tick,
+            results=sorted(run.results, key=lambda r: r.uid),
+            ticks=run.tick,
             wall_s=wall,
-            tokens_generated=tokens,
-            mean_occupancy=occupancy / max(decode_ticks, 1),
-            decode_ticks=decode_ticks,
-            steps=steps,
-            tbt_s=tbt,
+            tokens_generated=run.tokens,
+            mean_occupancy=run.occupancy / max(run.decode_ticks, 1),
+            decode_ticks=run.decode_ticks,
+            steps=run.steps,
+            tbt_s=run.tbt,
             slo=self.slo.snapshot(),
             prefix=prefix_snap,
             kv=kv_snap,

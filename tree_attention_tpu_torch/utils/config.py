@@ -105,6 +105,12 @@ class RunConfig:
     serve_http: Optional[int] = None  # port (0 = OS-picked, logged)
     max_queue: int = 64      # ingress admission-queue bound (429 past it)
     default_deadline: Optional[float] = None  # seconds; None = no default
+    # Disaggregated prefill/decode: two engines over one block pool, a
+    # handoff that moves no KV byte.
+    serve_disagg: bool = False
+    prefill_slots: int = 1   # prefill-worker slots under --serve-disagg
+    decode_slots: Optional[int] = None  # decode-worker slots (None ->
+    #                                     slots - prefill_slots)
 
     # Observability.
     log_level: str = "info"
@@ -322,6 +328,26 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "deadline_s — expired in the queue they finish "
                         "unserved, in flight they retire with outcome "
                         "'deadline'")
+    p.add_argument("--serve-disagg", action="store_true",
+                   default=d.serve_disagg,
+                   help="serve mode: disaggregated prefill/decode "
+                        "(DistServe arXiv:2401.09670, Splitwise "
+                        "arXiv:2311.18677) — a prefill worker "
+                        "(--prefill-slots) runs admission and chunked "
+                        "prefill only and hands each finished prompt to a "
+                        "decode worker (--decode-slots) by moving block "
+                        "ownership in ONE shared --kv-blocks pool (no KV "
+                        "byte moves); decode ticks never carry prefill "
+                        "rows. Composes with --serve-http; paged layout "
+                        "and chunked admission only")
+    p.add_argument("--prefill-slots", type=int, default=d.prefill_slots,
+                   help="--serve-disagg: the prefill worker's slots "
+                        "(prompts in chunked prefill or parked for "
+                        "handoff)")
+    p.add_argument("--decode-slots", type=int, default=d.decode_slots,
+                   help="--serve-disagg: the decode worker's slots "
+                        "(default: --slots minus --prefill-slots, so "
+                        "--slots stays the total)")
     p.add_argument("--log-level",
                    choices=["debug", "info", "warning", "error"],
                    default=d.log_level)
