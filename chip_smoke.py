@@ -256,7 +256,18 @@ failure exits non-zero:
    body and B3 (B5's under int8) launched, and the gates shown rejecting a
    cancel that leaks its blocks and one streamed token swapped; client
    TTFT and TBT p50/p95, tokens/s, status counts and the phase's wall are
-   printed beside the card's name and power limit.
+   printed beside the card's name and power limit. The telemetry plane
+   rides that phase: the trace served statically unarmed then armed (the
+   registry, the flight ring and a ``MetricsHTTPServer``; 4 requests of it
+   under int8), gated on equal tokens, launches and host reads of the card
+   (one fetch per tick that paid one), tok/s of both printed; the exact
+   HTTP serve armed, its endpoint scraped mid-serve (``/healthz`` 200
+   ``ok``, ``/metrics``, ``/slots``) and after the drain (``/healthz``
+   ``idle``, ``/flight``, ``/metrics`` = ``/metrics.json``), its records
+   gated against its report (ticks recorded = executed, tokens emitted,
+   the pool's blocks, each sweep arc = its outcomes); a callback wedging a
+   tick past ``stall_after`` must read 503 ``stalled`` and a raising tick
+   must leave an ``engine_error`` dump of the ticks before it.
    Then whole-prompt admission and the host-RAM KV tier (phase 3h, after
    3g: ``whole_tier_phase``). (a) The serve phase's trace with
    ``--admission whole``: exact paged, ``--kv-quant int8`` paged (B5
@@ -324,7 +335,10 @@ failure exits non-zero:
    decode worker at Tq 1, ``blocks_transferred`` equal to the handed-off
    private blocks, the pool drained; the gates shown rejecting a handoff
    that copies the blocks into a second pool and one that reserves again
-   instead of transferring.
+   instead of transferring. The exact pair serve runs with the flight ring
+   armed: every record tagged ``prefill`` or ``decode``, one of each per
+   executed tick, and the decode records' tokens plus each request's first
+   (sampled by the prefill worker) the report's.
 4. Time ``--mode decode`` at the reference workload (B=1, 16 heads x 128,
    64000 KV tokens, one query) through the contiguous decode kernel (B1),
    and with ``--kv-quant int8`` (B4) and ``int8-cast`` (B1 over int8 K/V);
@@ -1895,6 +1909,315 @@ def ingress_faults(fault):
         cls._retire, cls._deliver_token = retire, deliver
 
 
+# The flight recorder's ring in phases 3g and 3k: room for every tick of
+# their serves (each ~100-700 ticks), so the records are the whole run.
+FLIGHT_CAPACITY = 1 << 14
+
+
+@contextlib.contextmanager
+def host_fetch_watch():
+    """Count the host's reads of the card inside the block: ``.cpu()``,
+    ``.item()``, ``.tolist()``, ``.numpy()`` and ``.to(<cpu>)`` of a CUDA
+    tensor (``fetches``), and ``torch.cuda.synchronize`` and the events' and
+    streams' ``synchronize`` (``syncs``). A serve's one fetch a tick is its
+    ``.cpu()`` of the tick's tokens."""
+    import torch
+
+    seen = {"fetches": 0, "syncs": 0}
+
+    def to_cpu(a, kw):
+        t = a[0]
+        dst = kw.get("device", a[1] if len(a) > 1 else None)
+        if isinstance(dst, torch.Tensor):
+            dst = dst.device
+        return (t.is_cuda and isinstance(dst, (str, torch.device))
+                and torch.device(dst).type == "cpu")
+
+    def cuda_self(a, kw):
+        return a[0].is_cuda
+
+    patches = [(torch.Tensor, n, "fetches", cuda_self)
+               for n in ("cpu", "item", "tolist", "numpy")]
+    patches += [(torch.Tensor, "to", "fetches", to_cpu),
+                (torch.cuda, "synchronize", "syncs", None),
+                (torch.cuda.Event, "synchronize", "syncs", None),
+                (torch.cuda.Stream, "synchronize", "syncs", None)]
+    saved = []
+    for owner, name, key, pred in patches:
+        orig = getattr(owner, name)
+        saved.append((owner, name, owner.__dict__.get(name)))
+
+        def counted(*a, _orig=orig, _key=key, _pred=pred, **kw):
+            if _pred is None or _pred(a, kw):
+                seen[_key] += 1
+            return _orig(*a, **kw)
+
+        setattr(owner, name, counted)
+    try:
+        yield seen
+    finally:
+        for owner, name, own in reversed(saved):
+            if own is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, own)
+
+
+def _http_get(port, path, timeout=60):
+    """``(status, body)`` of one GET on 127.0.0.1 (an error status too)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def parse_prometheus(text: str) -> dict:
+    """Text exposition format 0.0.4 into ``{(series, labels): value}``;
+    raises on a line it cannot read."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, value = line.rsplit(" ", 1)
+        labels = ()
+        if head.endswith("}"):
+            head, _, rest = head[:-1].partition("{")
+            pairs = []
+            for pair in rest.split('",'):
+                k, _, v = pair.partition('="')
+                pairs.append((k, v.rstrip('"')))
+            labels = tuple(sorted(pairs))
+        out[(head, labels)] = float(value)
+    return out
+
+
+def json_samples(snapshot: dict) -> dict:
+    """A ``/metrics.json`` snapshot's counters and gauges, and its
+    histograms' ``_count`` and ``_sum``, keyed as :func:`parse_prometheus`
+    keys them."""
+    out = {}
+    for m in snapshot["metrics"]:
+        for s in m["samples"]:
+            labels = tuple(sorted((k, str(v)) for k, v in s["labels"].items()))
+            if m["type"] == "histogram":
+                out[(m["name"] + "_count", labels)] = float(s["count"])
+                out[(m["name"] + "_sum", labels)] = float(s["sum"])
+            else:
+                out[(m["name"], labels)] = float(s["value"])
+    return out
+
+
+# flight_ab's serves: the engine's first serve (it pays the engine's
+# warm-up, so it is gated but not timed), then the two settings in turns.
+FLIGHT_AB_TURNS = ("unarmed", "armed", "unarmed", "unarmed", "armed")
+
+
+def flight_ab(server, trace, wrappers, reset_counts, on_card) -> dict:
+    """One static trace (``trace()`` makes it) served on ``server``
+    unarmed and armed (the registry on, the flight recorder armed, a
+    ``MetricsHTTPServer`` attached to the engine), in the turns of
+    :data:`FLIGHT_AB_TURNS`. Each serve's launches (set to 0 just before
+    it, read just after), host reads of the card
+    (:func:`host_fetch_watch`), executed ticks and tok/s; an armed serve's
+    records and its ticks that paid a fetch (``host_sync``). The trace is
+    static and greedy, so every serve runs the same ticks: their tokens,
+    launches and host reads must be equal. The tok/s ratio is the armed
+    serves' mean over the warm unarmed serves' mean."""
+    import torch
+
+    from tree_attention_tpu_torch import obs
+    from tree_attention_tpu_torch.obs.http import MetricsHTTPServer
+
+    serves = []
+    for label in FLIGHT_AB_TURNS:
+        mhttp = None
+        spent = [0.0]  # host seconds building and appending the records
+        if label == "armed":
+            obs.FLIGHT.clear()
+            obs.FLIGHT.arm(capacity=FLIGHT_CAPACITY)
+            obs.REGISTRY.enable()
+            mhttp = MetricsHTTPServer(0)
+            mhttp.start()
+            mhttp.attach_engine(server)
+            build, append = server._tick_rec, obs.FLIGHT.record
+
+            def timed(fn):
+                def call(*a, **kw):
+                    t = time.perf_counter()
+                    try:
+                        return fn(*a, **kw)
+                    finally:
+                        spent[0] += time.perf_counter() - t
+                return call
+
+            server._tick_rec = timed(build)
+            obs.FLIGHT.record = timed(append)
+        try:
+            reset_counts()
+            with host_fetch_watch() as seen:
+                rep = server.serve(trace())
+            if on_card:
+                torch.cuda.synchronize()
+            launches = launch_counts(wrappers)
+        finally:
+            if mhttp is not None:
+                del server._tick_rec, obs.FLIGHT.record
+                mhttp.stop()
+                obs.REGISTRY.disable()
+                obs.FLIGHT.disarm()
+        rec = {"label": label, "launches": launches, **seen,
+               "ticks": rep.ticks, "tokens": rep.tokens_generated,
+               "tokens_per_sec": rep.tokens_per_sec,
+               "streams": {r.uid: list(map(int, r.tokens))
+                           for r in rep.results}}
+        if label == "armed":
+            recs = obs.FLIGHT.snapshot()["records"]
+            rec["host_sync_ticks"] = sum(1 for r in recs
+                                         if r.get("host_sync"))
+            rec["records"] = len(recs)
+            rec["record_us_per_tick"] = spent[0] * 1e6 / max(rep.ticks, 1)
+            rec["wall_s"] = rep.wall_s
+        serves.append(rec)
+    first = serves[0]
+    armed = [r for r in serves if r["label"] == "armed"]
+    warm = [r for r in serves[1:] if r["label"] == "unarmed"]
+
+    def same(key):
+        return all(r[key] == first[key] for r in serves)
+
+    out = {"unarmed": first, "armed": armed[0], "gates": {
+        "tokens_equal": same("streams"),
+        "launches_equal": same("launches"),
+        "fetches_equal": same("fetches") and same("syncs"),
+        "records_are_ticks": all(r["records"] == r["ticks"] == first["ticks"]
+                                 for r in armed),
+    }}
+    if on_card:  # a CPU tensor's reads are not the card's
+        out["gates"]["one_fetch_per_sync_tick"] = all(
+            r["fetches"] == r["host_sync_ticks"] for r in armed)
+    for r in serves:
+        r.pop("streams")
+    out["tokens_per_sec"] = [[r["label"], r["tokens_per_sec"]]
+                             for r in serves]
+    mean_a = sum(r["tokens_per_sec"] for r in armed) / len(armed)
+    mean_u = sum(r["tokens_per_sec"] for r in warm) / len(warm)
+    out["tok_s_armed_over_unarmed"] = mean_a / mean_u if mean_u else None
+    return out
+
+
+def flight_run_gates(rep, flight_snap, server) -> dict:
+    """The flight records of one drained serve against its report:
+    executed ticks recorded once each in order (sweep-only records
+    apart), Σ tokens emitted = the report's tokens, the last tick's pool
+    blocks = the pool's, and each sweep arc's count = its outcomes."""
+    recs = flight_snap["records"]
+    ticks = [r for r in recs if not r.get("sweep_only")]
+    outc = rep.outcomes
+    return {
+        "ring_holds_run": flight_snap["ticks_recorded"] == len(recs),
+        "ticks_recorded_equal_executed": [r["tick"] for r in ticks]
+        == list(range(rep.ticks)),
+        "tokens_emitted_equal_report": sum(r["tokens_emitted"]
+                                           for r in ticks)
+        == rep.tokens_generated,
+        "last_kv_blocks_used_equal_pool": bool(ticks) and
+        ticks[-1]["kv_blocks_used"] == server._pool.used,
+        "cancelled_equal_outcomes": sum(r["cancelled"] for r in recs)
+        == outc.get("cancelled", 0),
+        "deadline_equal_outcomes": sum(r["deadline_expired"] for r in recs)
+        == outc.get("deadline", 0),
+        "shed_equal_outcomes": sum(r["shed"] for r in recs)
+        == outc.get("shed", 0),
+    }
+
+
+def flight_faults(server, prompts, card, out_dir) -> dict:
+    """The flight recorder's two planted faults on a 2-request, 8-token
+    trace of ``server``: (a) an ``on_token`` callback that sleeps past a
+    0.5 s ``stall_after`` (the engine thread stuck inside a tick): the
+    endpoint's ``/healthz``, scraped from the callback while it sleeps,
+    must answer 503 ``stalled``; (b) a tick that raises: the ``--flight-out``
+    dump must exist with reason ``engine_error:...`` and hold the ticks
+    before the raise, and the error must reach the caller. ``server`` is
+    left mid-run by (b): the caller drops it."""
+    from tree_attention_tpu_torch import obs
+    from tree_attention_tpu_torch.obs.http import MetricsHTTPServer
+    from tree_attention_tpu_torch.serving import Request
+
+    def trace(on_token=None):
+        return [Request(uid=700 + i, prompt=prompts[i], max_new_tokens=8,
+                        on_token=on_token if i == 0 else None)
+                for i in range(2)]
+
+    res = {}
+    mhttp = MetricsHTTPServer(0, stall_after=0.5)
+    port = mhttp.start()
+    mhttp.attach_engine(server)
+    obs.FLIGHT.clear()
+    obs.FLIGHT.arm(capacity=FLIGHT_CAPACITY)
+    seen = []
+
+    def stuck(tok):
+        if len(seen) == 2:
+            return
+        seen.append(_http_get(port, "/healthz"))  # within the stall bound
+        if len(seen) == 1:
+            time.sleep(0.8)  # the tick wedges past stall_after
+            seen.append(_http_get(port, "/healthz"))
+
+    try:
+        server.serve(trace(stuck))
+        after = _http_get(port, "/healthz")
+    finally:
+        mhttp.stop()
+        obs.FLIGHT.disarm()
+    verdicts = [(s, json.loads(b)["status"]) for s, b in seen + [after]]
+    res["stall"] = {"healthz": verdicts,
+                    "caught": verdicts == [(200, "ok"), (503, "stalled"),
+                                           (200, "idle")]}
+    # (b) a tick that raises.
+    dump = os.path.join(out_dir, "flight_engine_error.json")
+    if os.path.exists(dump):
+        os.remove(dump)
+    step, calls = server._step, [0]
+
+    def boom(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise RuntimeError("planted tick fault")
+        return step(*a, **kw)
+
+    server._step = boom
+    obs.FLIGHT.clear()
+    obs.FLIGHT.arm(dump, capacity=FLIGHT_CAPACITY)
+    raised = None
+    try:
+        server.serve(trace())
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        obs.FLIGHT.disarm()
+        del server._step
+    data = json.load(open(dump)) if os.path.exists(dump) else {}
+    ticks = [r["tick"] for r in data.get("records", [])]
+    res["raise"] = {"raised": raised, "reason": data.get("reason"),
+                    "ticks": ticks,
+                    "caught": raised == "planted tick fault"
+                    and str(data.get("reason")).startswith("engine_error:")
+                    and len(ticks) >= 2
+                    and ticks == list(range(len(ticks)))}
+    print(f"flight recorder, planted faults ({card}): a callback wedging "
+          f"its tick past stall_after 0.5 s: /healthz {verdicts}; a tick "
+          f"that raises: {json.dumps(res['raise'])} (both must be caught)",
+          flush=True)
+    return res
+
+
 def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
                   ingress_args=INGRESS_ARGS, deadline_s=0.5) -> dict:
     """Phase 3g: live HTTP serving. An :class:`IngressServer` (port 0 on
@@ -1924,11 +2247,29 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     starts and read after its ``join()``; and the two faults of
     :func:`ingress_faults` rejected. Client TTFT (POST to the first token
     event) and TBT p50/p95, tokens/s, the status counts and the wall are
-    printed beside ``card``."""
+    printed beside ``card``.
+
+    The telemetry plane (slice 6f): the exact serve (a)-(e) runs with the
+    flight recorder armed and a ``MetricsHTTPServer`` (port 0) attached to
+    the engine: ``/healthz`` (200 ``ok``), ``/metrics`` and ``/slots``
+    scraped mid-serve, ``/healthz`` (200 ``idle``), ``/flight``,
+    ``/metrics`` and ``/metrics.json`` after the drain; gated by
+    :func:`flight_run_gates` on the ``/flight`` records, the ``/metrics``
+    text parsed equal to ``/metrics.json`` sample by sample, and its token
+    counter's growth equal to the report's tokens. Before it the trace is
+    served statically unarmed and armed (:func:`flight_ab`, and 4 requests
+    of it under int8): the same tokens, launches and host reads of the card,
+    one fetch per tick that paid one; the tok/s of both printed. Then
+    :func:`flight_faults` (a wedged tick seen as 503 ``stalled``, a
+    raising tick's ``engine_error`` dump) on that engine."""
+    import threading
+
     import torch
 
     from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch import obs
     from tree_attention_tpu_torch.obs import percentile
+    from tree_attention_tpu_torch.obs.http import MetricsHTTPServer
     from tree_attention_tpu_torch.serving import (
         IngressServer,
         synthetic_trace,
@@ -1996,9 +2337,63 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     n_new = c.max_new_tokens
     out = {"card": card}
 
+    def static_trace(n=None, max_new=n_new):
+        return lambda: [dataclasses.replace(r, max_new_tokens=max_new)
+                        for r in synthetic_trace(
+                            c.requests, prompt_len=c.prompt_len,
+                            prompt_jitter=c.prompt_jitter,
+                            max_new_tokens=n_new,
+                            arrival_every=c.arrival_every,
+                            vocab_size=c.vocab_size, seed=c.seed + 1)[:n]]
+
+    def print_ab(ab, label):
+        print(f"flight recorder A/B ({label}; {card}): unarmed / armed "
+              f"(registry, flight ring, endpoint): tok/s in turns "
+              f"{json.dumps(ab['tokens_per_sec'])} (the first, cold, "
+              f"untimed; armed over warm unarmed "
+              f"{ab['tok_s_armed_over_unarmed']:.4f}; building and "
+              f"appending a record {ab['armed']['record_us_per_tick']:.1f} "
+              f"us a tick), host reads "
+              f"{ab['unarmed']['fetches']} / {ab['armed']['fetches']} "
+              f"fetches and {ab['unarmed']['syncs']} / "
+              f"{ab['armed']['syncs']} syncs over {ab['armed']['ticks']} "
+              f"ticks ({ab['armed']['host_sync_ticks']} paid a fetch), "
+              f"launches {json.dumps(ab['unarmed']['launches'])} / "
+              f"{json.dumps(ab['armed']['launches'])}; gates "
+              f"{json.dumps(ab['gates'])}", flush=True)
+        if not all(ab["gates"].values()):
+            fail(f"flight recorder A/B ({label}): {ab['gates']}")
+
     # -- exact: (a)-(e) ----------------------------------------------------
     server, cache_len, _ = cli.build_server(c, dev)
+    t_tel = time.monotonic()
+    ab = flight_ab(server, static_trace(), wrappers, reset_counts, on_card)
+    print_ab(ab, f"exact, the {c.requests}-request trace")
+    # The wall this slice's checks add to the phase: the A/B serves, the
+    # faults' serves and the scrapes after the drain.
+    out["telemetry_wall_s"] = time.monotonic() - t_tel
+    # The HTTP serve, armed: the ring, the registry and the endpoint.
+    obs.FLIGHT.clear()
+    obs.FLIGHT.arm(capacity=FLIGHT_CAPACITY)
+    obs.REGISTRY.enable()
+    tok0 = obs.REGISTRY.get("serving_tokens_total").value()
+    mhttp = MetricsHTTPServer(0)
+    mport = mhttp.start()
+    mhttp.attach_engine(server)
+    live = {}
+
+    def scrape_live():
+        """Mid-serve: once the engine is ticking, one scrape of each."""
+        t_w = time.monotonic()
+        while time.monotonic() - t_w < 300 and not (
+                obs.FLIGHT.ticks_recorded >= 2 and not obs.FLIGHT.idle):
+            time.sleep(0.002)
+        for path in ("/healthz", "/metrics", "/slots"):
+            live[path] = _http_get(mport, path)
+
+    scraper = threading.Thread(target=scrape_live, daemon=True)
     srv, port = start(server)
+    scraper.start()
     t0 = time.monotonic()
     a = _in_threads([(_http_client, dict(
         port=port, body={"prompt": p, "max_tokens": n_new},
@@ -2019,6 +2414,14 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
                          "max_tokens": 8}, retry=False))
         for i in range(12)])
     rep, drain_st, late_st, launches = finish(srv)
+    scraper.join(60)
+    t_tel = time.monotonic()
+    after = {path: _http_get(mport, path) for path in (
+        "/healthz", "/flight", "/metrics", "/metrics.json")}
+    out["telemetry_wall_s"] += time.monotonic() - t_tel
+    mhttp.stop()
+    obs.REGISTRY.disable()
+    obs.FLIGHT.disarm()
     by_prompt = {}
     for cl, p in zip(a, prompts):
         by_prompt[cl["uid"]] = p
@@ -2107,6 +2510,59 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
                         and launches["flash_fwd"]):
         fail(f"ingress (exact): launches {launches}")
 
+    # -- the telemetry plane over that serve ---------------------------------
+    def status(resp):
+        code, body = resp
+        try:
+            return code, json.loads(body).get("status")
+        except ValueError:
+            return code, body[:80]
+
+    flight_snap = json.loads(after["/flight"][1])
+    fgates = flight_run_gates(rep, flight_snap, server)
+    prom_live = parse_prometheus(live["/metrics"][1]) \
+        if live.get("/metrics", (0,))[0] == 200 else {}
+    prom = parse_prometheus(after["/metrics"][1])
+    prom_plain = {k: v for k, v in prom.items()
+                  if not k[0].endswith("_bucket")}
+    jsamples = json_samples(json.loads(after["/metrics.json"][1]))
+    slots_live = json.loads(live["/slots"][1]) \
+        if live.get("/slots", (0,))[0] == 200 else []
+    fgates.update({
+        "healthz_live_ok": status(live.get("/healthz", (0, "")))
+        == (200, "ok"),
+        "healthz_after_idle": status(after["/healthz"]) == (200, "idle"),
+        "metrics_live_parsed": ("serving_tokens_total", ()) in prom_live,
+        "slots_live": len(slots_live) == c.slots,
+        "metrics_equal_metrics_json": prom_plain == jsamples,
+        "token_counter_equal_report": prom.get(("serving_tokens_total",
+                                                ())) - tok0
+        == rep.tokens_generated,
+    })
+    recs = flight_snap["records"]
+    exact["flight"] = {
+        "gates": fgates, "ab": ab,
+        "ticks_recorded": flight_snap["ticks_recorded"],
+        "executed_ticks": rep.ticks,
+        "sweep_only": sum(1 for r in recs if r.get("sweep_only")),
+        "arcs": {k: sum(r[k] for r in recs)
+                 for k in ("cancelled", "deadline_expired", "shed")},
+        "host_sync_ticks": sum(1 for r in recs if r.get("host_sync")),
+        "healthz": [status(live.get("/healthz", (0, ""))),
+                    status(after["/healthz"])],
+        "metrics_series": len(prom), "armed_launches": launches,
+    }
+    print(f"flight recorder (exact HTTP serve, armed; {card}): ticks "
+          f"recorded {flight_snap['ticks_recorded']} = executed "
+          f"{rep.ticks} + {exact['flight']['sweep_only']} sweep-only; "
+          f"arcs {json.dumps(exact['flight']['arcs'])} against outcomes "
+          f"{json.dumps(rep.outcomes)}; /healthz "
+          f"{exact['flight']['healthz']}; /metrics {len(prom)} series "
+          f"({len(jsamples)} in /metrics.json); launches "
+          f"{json.dumps(launches)}; gates {json.dumps(fgates)}", flush=True)
+    if not all(fgates.values()):
+        fail(f"flight recorder (exact HTTP serve): {fgates}")
+
     # -- the gates' teeth: a leaking cancel, a swapped streamed token ------
     teeth = {}
     for fault in ("leak", "swap"):
@@ -2128,6 +2584,17 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
         if not teeth[fault]["rejected"]:
             fail(f"ingress: the gate passed the planted fault {fault!r}")
     out["faults"] = teeth
+    # The flight recorder's planted faults (the last serves of this engine:
+    # the raising tick leaves it mid-run).
+    t_tel = time.monotonic()
+    out["flight_faults"] = flight_faults(
+        server, prompts, card, "chiprun_out" if on_card else
+        os.environ.get("TMPDIR", "/tmp"))
+    out["telemetry_wall_s"] += time.monotonic() - t_tel
+    for fault, r in out["flight_faults"].items():
+        if not r["caught"]:
+            fail(f"flight recorder: the planted fault {fault!r} was not "
+                 f"caught: {r}")
     del server, srv
     if on_card:
         torch.cuda.empty_cache()
@@ -2135,6 +2602,11 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     # -- (f) int8 -----------------------------------------------------------
     c8 = parse_args(serve_args + ingress_args + ["--kv-quant", "int8"])
     server, _, _ = cli.build_server(c8, dev)
+    t_tel = time.monotonic()
+    ab8 = flight_ab(server, static_trace(4, 16), wrappers, reset_counts,
+                    on_card)
+    print_ab(ab8, "int8, 4 requests of the trace, 16 new tokens")
+    out["telemetry_wall_s"] += time.monotonic() - t_tel
     srv, port = start(server)
     staged = {}
     run_staged = server._run_staged_chunk
@@ -2170,6 +2642,7 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
         "leaks": server.leak_report(), "launches": launches8,
         "drain_status": drain8, "post_after_drain": late8,
         "replay_margin": margin(server, rep8, prom8, True),
+        "flight_ab": ab8,
     }
     out["int8"] = int8
     print(f"ingress (int8; {card}): staged cancel "
@@ -2199,7 +2672,9 @@ def ingress_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
         fail(f"ingress (int8): launches {launches8}")
     del server, srv
     out["wall_s"] = time.monotonic() - t_phase
-    print(f"ingress phase wall {out['wall_s']:.2f}s ({card})", flush=True)
+    print(f"ingress phase wall {out['wall_s']:.2f}s, of which the flight "
+          f"recorder's A/B serves, faults and scrapes "
+          f"{out['telemetry_wall_s']:.2f}s ({card})", flush=True)
     return out
 
 
@@ -3999,6 +4474,7 @@ def _disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     import torch
 
     from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch import obs
     from tree_attention_tpu_torch.serving import synthetic_trace
     from tree_attention_tpu_torch.utils.config import parse_args
 
@@ -4025,9 +4501,16 @@ def _disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
         n0 = len(seen["handoffs"])
         seen["decode_tq"].clear()
         tr = trace(srv.cfg.vocab_size)[:requests]
+        armed = label == "exact"  # the flight ring, on one pair serve
+        if armed:
+            obs.FLIGHT.clear()
+            obs.FLIGHT.arm(capacity=FLIGHT_CAPACITY)
         reset_counts()
         t0 = time.monotonic()
-        rep = srv.serve(tr)
+        try:
+            rep = srv.serve(tr)
+        finally:
+            obs.FLIGHT.disarm()
         if on_card:
             torch.cuda.synchronize()
         wall = time.monotonic() - t0
@@ -4046,7 +4529,38 @@ def _disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
                             if h["device_ops"] is not None],
              "decode_tq": sorted(set(seen["decode_tq"])),
              "drained": leaks_clean(lr) and srv.all_slots_free}
+        if armed:
+            r["flight"] = obs.FLIGHT.snapshot()
+            obs.FLIGHT.clear()
         return r
+
+    def pair_flight_gates(r):
+        """The armed pair serve's records: every record worker-tagged,
+        each executed tick one prefill and one decode record in order, the
+        decode records' tokens the report's but each request's first
+        (the prefill worker samples it, as in the JAX pair)."""
+        rep, snap = r["rep"], r["flight"]
+        recs = snap["records"]
+        dec = [x for x in recs if x.get("worker") == "decode"]
+        pre = [x for x in recs if x.get("worker") == "prefill"
+               and not x.get("sweep_only")]
+        firsts = sum(1 for x in rep.results if x.tokens)
+        emitted = sum(x["tokens_emitted"] for x in dec)
+        r["flight_summary"] = {
+            "records": len(recs), "decode": len(dec), "prefill": len(pre),
+            "decode_tokens_emitted": emitted, "first_tokens": firsts,
+            "report_tokens": rep.tokens_generated}
+        return {
+            "workers": {x.get("worker") for x in recs}
+            == {"prefill", "decode"},
+            "ring_holds_run": snap["ticks_recorded"] == len(recs),
+            "ticks": [x["tick"] for x in dec] == [x["tick"] for x in pre]
+            == list(range(rep.ticks)),
+            "decode_tokens_plus_firsts_equal_report":
+            emitted + firsts == rep.tokens_generated,
+            "last_kv_blocks_used_equal_pool":
+            bool(dec) and dec[-1]["kv_blocks_used"] == r["srv"].pool.used,
+        }
 
     def gates(r, fused, quant):
         rep = r["rep"]
@@ -4086,6 +4600,14 @@ def _disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
             extra = ["--kv-quant", "int8"] if quant else []
             r = run(extra, seen, label)
             g = gates(r, fused[quant], quant)
+            if "flight" in r:
+                fg = pair_flight_gates(r)
+                out["flight"] = {"gates": fg, **r["flight_summary"]}
+                print(f"disagg flight recorder ({label}, armed; {card}): "
+                      f"{json.dumps(r['flight_summary'])}; gates "
+                      f"{json.dumps(fg)}", flush=True)
+                if not all(fg.values()):
+                    fail(f"disagg flight recorder: {fg}")
             decode_kernel = ("flash_decode_paged_q8q_tick" if quant
                              else "flash_decode_paged_tick")
             rec = {k: r[k] for k in (

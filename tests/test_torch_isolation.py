@@ -25,6 +25,8 @@ PORT_MODULES = [
     "tree_attention_tpu_torch.models.train",
     "tree_attention_tpu_torch.models.transformer",
     "tree_attention_tpu_torch.obs",
+    "tree_attention_tpu_torch.obs.flight",
+    "tree_attention_tpu_torch.obs.http",
     "tree_attention_tpu_torch.obs.metrics",
     "tree_attention_tpu_torch.obs.slo",
     "tree_attention_tpu_torch.obs.tracing",

@@ -32,6 +32,13 @@ shards every sequence over the ranks (``--seq-layout contiguous|zigzag``),
 each layer's attention through ``tree_attention``, and sums the gradients
 over the ranks once per step. The process group forms before any device
 work and is destroyed on exit; only rank 0 prints the record.
+
+Telemetry: ``--metrics-out`` and ``--trace-events`` write the registry and
+the span trace at exit; ``--flight-out`` arms the serving engines' tick
+flight recorder and dumps its ring at exit, on an engine error and on
+SIGTERM/SIGUSR1; ``--metrics-port`` serves ``/metrics``, ``/metrics.json``,
+``/healthz``, ``/flight`` and ``/slots`` live (rank 0 alone under a mesh;
+every rank records its own ring into its rank-suffixed ``--flight-out``).
 """
 
 from __future__ import annotations
@@ -559,16 +566,19 @@ def _serve_record(cfg: RunConfig, dev: torch.device, cache_len: int,
 
 
 def run_serve(cfg: RunConfig, dev: torch.device,
-              mesh: Optional[Mesh] = None
+              mesh: Optional[Mesh] = None, metrics_http: Any = None,
               ) -> Tuple[Dict[str, Any], Any, Any]:
     """Drain a synthetic trace through the SlotServer; returns the JSON
     record, the drained server and its ``ServeReport``. Under a mesh every
     rank serves the same trace; with ``--kv-shard seq`` from its slice of
     the sharded pool. The ranks' token streams are checked equal at the end
-    (one all-reduce)."""
+    (one all-reduce). ``metrics_http`` (the ``--metrics-port`` exporter,
+    if started) serves the engine's ``/slots``."""
     from tree_attention_tpu_torch.serving import synthetic_trace
 
     server, cache_len, kernel = build_server(cfg, dev, mesh)
+    if metrics_http is not None:
+        metrics_http.attach_engine(server)
     tcfg = server.cfg
     trace = synthetic_trace(
         cfg.requests, prompt_len=cfg.prompt_len,
@@ -594,20 +604,24 @@ def run_serve(cfg: RunConfig, dev: torch.device,
     return record, server, report
 
 
-def run_serve_http(cfg: RunConfig, dev: torch.device) -> Optional[
-        Dict[str, Any]]:
+def run_serve_http(cfg: RunConfig, dev: torch.device,
+                   metrics_http: Any = None) -> Optional[Dict[str, Any]]:
     """``--serve-http``: serve live HTTP clients through the
     :class:`~tree_attention_tpu_torch.serving.IngressServer` until SIGTERM
     or SIGINT (or ``POST /admin/drain``) drains it; returns the record of
     the drained run (the ingress's settings, the ``ServeReport``, the leak
     report), or None if the engine thread crashed
-    instead of draining."""
+    instead of draining. The drain's SIGTERM handler goes over the crash
+    handlers ``main`` installed: the drain exits through ``main``'s
+    telemetry flush, and a second SIGTERM reaches the crash handler."""
     from tree_attention_tpu_torch.serving import (
         IngressServer,
         install_drain_signals,
     )
 
     server, cache_len, kernel = build_server(cfg, dev)
+    if metrics_http is not None:
+        metrics_http.attach_engine(server)
     ingress = IngressServer(
         server, port=cfg.serve_http, max_queue=cfg.max_queue,
         default_deadline_s=cfg.default_deadline,
@@ -644,12 +658,35 @@ def _check_ranks_agree(report, mesh: Mesh) -> None:
                       "served tokens")
 
 
+def _start_metrics_http(cfg: RunConfig, rank: int) -> Any:
+    """``--metrics-port``: enable the registry and arm the flight recorder
+    (memory-only unless ``--flight-out`` gave it a sink) on every rank, and
+    start the live endpoint on rank 0 alone (one port per host; the other
+    ranks' rings reach their rank-suffixed ``--flight-out``). Returns the
+    started server, or None."""
+    if cfg.metrics_port is None:
+        return None
+    obs.REGISTRY.enable()
+    if not obs.FLIGHT.enabled:
+        obs.FLIGHT.arm()
+    if rank != 0:
+        return None
+    from tree_attention_tpu_torch.obs.http import MetricsHTTPServer
+
+    server = MetricsHTTPServer(cfg.metrics_port)
+    port = server.start()
+    log.info("telemetry endpoint: http://127.0.0.1:%d/metrics "
+             "(/metrics.json /healthz /flight /slots)", port)
+    return server
+
+
 def main(argv: Optional[list] = None) -> int:
     cfg = parse_args(argv)
     axes = cfg.mesh_axes()
     mesh = None
     created = False
     armed = False
+    metrics_http = None
     try:
         if axes is not None:
             # The process group forms before any device work; the rank's
@@ -671,10 +708,18 @@ def main(argv: Optional[list] = None) -> int:
                 raise SystemExit(f"error: {e}") from None
         log.info("device=%s mode=%s%s", device_name(dev), cfg.mode,
                  f" mesh={dict(mesh.shape)}" if mesh is not None else "")
-        if cfg.metrics_out or cfg.trace_events:
+        if cfg.metrics_out or cfg.trace_events or cfg.flight_out:
             obs.configure(metrics_out=cfg.metrics_out,
-                          trace_events=cfg.trace_events)
+                          trace_events=cfg.trace_events,
+                          flight_out=cfg.flight_out)
             armed = True
+        metrics_http = _start_metrics_http(cfg, rank)
+        if armed or cfg.metrics_port is not None:
+            # An interrupted run still flushes its sinks (atexit, SIGTERM;
+            # SIGUSR1 dumps and keeps running). Installed before
+            # --serve-http's drain takes SIGTERM over.
+            armed = True
+            obs.install_crash_handlers()
         if mesh is not None and cfg.mode == "generate" and mesh.size > 1:
             raise SystemExit(
                 "--mode generate on a mesh is a later slice of the port "
@@ -691,15 +736,17 @@ def main(argv: Optional[list] = None) -> int:
                     "--serve-http serves one engine in one process; --mesh "
                     "runs one process per rank, and only one of them could "
                     "take the HTTP requests")
-            record = run_serve_http(cfg, dev)
+            record = run_serve_http(cfg, dev, metrics_http)
             if record is None:
                 return 1
         else:
-            record, _, _ = run_serve(cfg, dev, mesh)
+            record, _, _ = run_serve(cfg, dev, mesh, metrics_http)
         if rank == 0:
             print(json.dumps(record))
         return 0
     finally:
+        if metrics_http is not None:
+            metrics_http.stop()
         if armed:
             sinks = obs.shutdown()
             if any(sinks.values()):

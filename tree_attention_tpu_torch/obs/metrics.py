@@ -5,8 +5,9 @@ kept as the port's own copy). The registry starts disabled; every mutation
 method's first action is one attribute check and an early return, so hot
 paths pay nothing unless a run enables telemetry. Thread-safe when enabled.
 :meth:`MetricsRegistry.snapshot` / :meth:`~MetricsRegistry.write_json` back
-``--metrics-out``; the Prometheus export waits for the slice that ports the
-metrics endpoint.
+``--metrics-out``; :meth:`MetricsRegistry.to_prometheus` is the text
+exposition format (0.0.4) that ``/metrics`` serves, byte for byte the JAX
+package's for the same registry contents.
 """
 
 from __future__ import annotations
@@ -59,6 +60,26 @@ def _check_labels(label_names: Sequence[str]) -> Tuple[str, ...]:
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate label names in {names}")
     return names
+
+
+def _escape_label_value(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt_value(v: float) -> str:
+    """Prometheus sample value: integral floats print as ints (repr
+    round-trips everything else)."""
+    if isinstance(v, bool):  # bool is an int subclass
+        return "1" if v else "0"
+    if isinstance(v, int):
+        return str(v)
+    if v != v:  # NaN
+        return "NaN"
+    if v in (float("inf"), float("-inf")):
+        return "+Inf" if v > 0 else "-Inf"
+    if float(v).is_integer() and abs(v) < 2**53:
+        return str(int(v))
+    return repr(float(v))
 
 
 class _Metric:
@@ -399,6 +420,38 @@ class MetricsRegistry:
             f.write(self.to_json(indent=2))
             f.write("\n")
 
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format (version 0.0.4)."""
+        lines: List[str] = []
+        with self._lock:
+            for name in sorted(self._metrics):
+                m = self._metrics[name]
+                if m.help:
+                    lines.append(f"# HELP {m.name} {m.help}")
+                lines.append(f"# TYPE {m.name} {m._type}")
+                for lbls, payload in m._samples():
+                    if isinstance(payload, dict):  # histogram
+                        for le, c in payload["buckets"]:
+                            lines.append(
+                                f"{m.name}_bucket"
+                                f"{_label_str({**lbls, 'le': _fmt_le(le)})}"
+                                f" {c}"
+                            )
+                        lines.append(
+                            f"{m.name}_sum{_label_str(lbls)} "
+                            f"{_fmt_value(payload['sum'])}"
+                        )
+                        lines.append(
+                            f"{m.name}_count{_label_str(lbls)} "
+                            f"{payload['count']}"
+                        )
+                    else:
+                        lines.append(
+                            f"{m.name}{_label_str(lbls)} "
+                            f"{_fmt_value(payload)}"
+                        )
+        return "\n".join(lines) + "\n"
+
     # -- test support -----------------------------------------------------
 
     def reset(self) -> None:
@@ -412,6 +465,19 @@ class MetricsRegistry:
 
     def get(self, name: str) -> Optional[_Metric]:
         return self._metrics.get(name)
+
+
+def _fmt_le(le: Any) -> str:
+    return le if isinstance(le, str) else _fmt_value(le)
+
+
+def _label_str(labels: Dict[str, str]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(
+        f'{k}="{_escape_label_value(str(v))}"' for k, v in labels.items()
+    )
+    return "{" + inner + "}"
 
 
 #: The process-wide default registry every instrumentation site uses.

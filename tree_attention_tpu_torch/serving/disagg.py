@@ -42,6 +42,10 @@ includes the serialized prefill ticks. The serialized totals are reported
 **One tick body.** Both workers run :class:`SlotServer`'s own tick sections
 (``_poll``, ``_sweep``, ``_admit_pending``, ``_tick``); this module adds
 only the handoff, the sweep over both workers and the time attribution.
+With the flight recorder armed each tick records two dicts, tagged
+``worker: "prefill"`` (its chunk plan, the handoff queue and the pair's
+sweep arcs) and ``worker: "decode"`` (occupancy, tokens emitted, the
+pool's blocks); a sweep-only tick records one, tagged ``prefill``.
 
 Threading: :meth:`cancel`, :meth:`fork` and :meth:`request_drain` are
 mailboxes (under one lock) swept at tick start; everything else runs on the
@@ -60,6 +64,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from tree_attention_tpu_torch import obs
+from tree_attention_tpu_torch.obs.flight import FLIGHT
 from tree_attention_tpu_torch.models.transformer import (
     Params,
     TransformerConfig,
@@ -76,6 +81,8 @@ from tree_attention_tpu_torch.serving.engine import (
     SlotServer,
     StaticRequestSource,
     _Run,
+    _TickOut,
+    _chunk_plan_rec,
 )
 from tree_attention_tpu_torch.serving.host_pool import HostBlockPool
 from tree_attention_tpu_torch.serving.prefix_cache import PagedPrefixIndex
@@ -227,6 +234,9 @@ class DisaggServer:
         # the decode worker, retires on whichever owns the request.
         self.slo = self.prefill.slo
         self.decode.slo = self.slo
+        # ONE set of per-tick arc counts for the flight records: the pair's
+        # sweep and both workers' ticks count into it.
+        self.decode._tc = self.prefill._tc
         # ONE set of pool tensors: the decode worker's own (all-zero) pool
         # is dropped for the prefill worker's, so both caches are views of
         # the same storage — int8's per-block scales included.
@@ -449,6 +459,34 @@ class DisaggServer:
 
     # -- the split tick loop -------------------------------------------------
 
+    def _prefill_rec(self, run: _Run, out: _TickOut, t_s: float,
+                     queue_depth: int, handoff_queue: int,
+                     draining: bool) -> Dict[str, Any]:
+        """The prefill worker's flight record of one tick: its chunk plan,
+        the handoff queue and the pair's sweep arcs (the JAX pair's keys;
+        every value a host-side ledger's)."""
+        pf, tc = self.prefill, self.prefill._tc
+        return {
+            "worker": "prefill",
+            "tick": run.tick,
+            "t_s": round(t_s, 6),
+            "states": list(pf._slot_state),
+            "chunk_plan": _chunk_plan_rec(out.plan),
+            "chunk_tokens": sum(int(n) for _, n, _ in out.plan),
+            "handoff_queue": handoff_queue,
+            "pending": len(run.pending),
+            "queue_depth": queue_depth,
+            "prefix_hits": tc.prefix_hits,
+            "prefix_reused": tc.prefix_reused,
+            "cancelled": tc.cancelled,
+            "deadline_expired": tc.deadline_expired,
+            "shed": tc.shed,
+            **({"restored_blocks": tc.restored_blocks,
+                "host_blocks_used": self.host_pool.used}
+               if self.host_pool is not None else {}),
+            "draining": draining,
+        }
+
     @torch.no_grad()
     def serve(self, requests: Union[Sequence[Request], RequestSource],
               max_ticks: Optional[int] = None) -> ServeReport:
@@ -496,87 +534,130 @@ class DisaggServer:
         pf._defer_gen = -1
         t0 = time.monotonic()
 
-        while True:
-            if max_ticks is not None and run.tick >= max_ticks:
-                raise RuntimeError(
-                    f"DisaggServer.serve() exceeded max_ticks={max_ticks} "
-                    f"with {len(run.pending)} pending and {len(parked)} "
-                    f"queued-for-handoff request(s)")
-            now = time.monotonic()
-            pf._poll(run, source, now)
-            # The control sweep, across BOTH workers. A request parked for
-            # handoff occupies a prefill slot and retires through that
-            # worker's _retire.
-            cancels, draining = self._take_control()
-            pf._sweep(run, source, now, cancels, draining, (pf, dc))
-            parked[:] = [p for p in parked if pf._slot_state[p] == "handoff"]
-            forks = self._take_forks()
-            if forks or self._fork_carry:
-                self._apply_forks(forks, run.tick, run.pending)
+        try:
+            while True:
+                if max_ticks is not None and run.tick >= max_ticks:
+                    raise RuntimeError(
+                        f"DisaggServer.serve() exceeded max_ticks="
+                        f"{max_ticks} with {len(run.pending)} pending and "
+                        f"{len(parked)} queued-for-handoff request(s)")
+                now = time.monotonic()
+                pf._tc.zero()
+                pf._poll(run, source, now)
+                # The control sweep, across BOTH workers. A request parked
+                # for handoff occupies a prefill slot and retires through
+                # that worker's _retire.
+                cancels, draining = self._take_control()
+                pf._sweep(run, source, now, cancels, draining, (pf, dc))
+                parked[:] = [p for p in parked
+                             if pf._slot_state[p] == "handoff"]
+                forks = self._take_forks()
+                if forks or self._fork_carry:
+                    self._apply_forks(forks, run.tick, run.pending)
 
-            # Adopt: the oldest parked request per free decode slot.
-            free_d = [i for i, st in enumerate(dc._slot_state)
-                      if st == "free"]
-            adopted = bool(parked and free_d)
-            while parked and free_d:
-                self._adopt(parked.pop(0), free_d.pop(0), run.tick)
+                # Adopt: the oldest parked request per free decode slot.
+                free_d = [i for i, st in enumerate(dc._slot_state)
+                          if st == "free"]
+                adopted = bool(parked and free_d)
+                while parked and free_d:
+                    self._adopt(parked.pop(0), free_d.pop(0), run.tick)
 
-            # Admit: the oldest visible request per free PREFILL slot,
-            # reserving its worst case in the shared pool.
-            pf._admit_pending(run, now)
-            queue_peak = max(queue_peak, len(parked))
-            if obs.REGISTRY.enabled:
-                _HANDOFF_QUEUE.set(len(parked))
+                # Admit: the oldest visible request per free PREFILL slot,
+                # reserving its worst case in the shared pool.
+                pf._admit_pending(run, now)
+                queue_depth = len(run.pending)
+                queue_peak = max(queue_peak, len(parked))
+                if obs.REGISTRY.enabled:
+                    _HANDOFF_QUEUE.set(len(parked))
 
-            if not (run.pending or parked or not pf.all_slots_free
-                    or not dc.all_slots_free):
-                if source.exhausted or draining:
-                    break
-                nxt = source.next_arrival()
-                if nxt is not None:
-                    run.tick = max(run.tick + 1, nxt)
-                else:
-                    source.wait(0.05)
-                continue
+                if not (run.pending or parked or not pf.all_slots_free
+                        or not dc.all_slots_free):
+                    # Idle iterations stay before the tick body: recorded
+                    # ticks are executed ticks (and sweep-only records).
+                    if FLIGHT.enabled:
+                        rec = pf._sweep_only_rec(run, queue_depth, draining)
+                        if rec is not None:
+                            FLIGHT.record({**rec, "worker": "prefill"})
+                    if source.exhausted or draining:
+                        break
+                    nxt = source.next_arrival()
+                    if nxt is not None:
+                        run.tick = max(run.tick + 1, nxt)
+                    else:
+                        if FLIGHT.enabled:
+                            FLIGHT.mark_idle()
+                        source.wait(0.05)
+                    continue
 
-            # ---- the prefill worker's tick: chunks only, no decode rows.
-            tp0 = time.monotonic()
-            pf._tick(run)
-            self._relay_pool(pf, dc)
-            queue_peak = max(queue_peak, len(parked))
-            dt_pf = time.monotonic() - tp0
-            prefill_s += dt_pf
-            # The serialized prefill section is not the decode worker's own
-            # inter-token gap: shift every live decode slot's clock past it
-            # (the recorded TBT is the decode worker's; a streaming client
-            # on this one device does wait through it).
-            for i, st in enumerate(dc._slot_state):
-                if st == "live":
-                    dc._last_tok_t[i] += dt_pf
+                # ---- the prefill worker's tick: chunks only, no decode
+                # rows.
+                tp0 = time.monotonic()
+                pout = pf._tick(run)
+                self._relay_pool(pf, dc)
+                queue_peak = max(queue_peak, len(parked))
+                dt_pf = time.monotonic() - tp0
+                prefill_s += dt_pf
+                # The serialized prefill section is not the decode worker's
+                # own inter-token gap: shift every live decode slot's clock
+                # past it (the recorded TBT is the decode worker's; a
+                # streaming client on this one device does wait through
+                # it).
+                for i, st in enumerate(dc._slot_state):
+                    if st == "live":
+                        dc._last_tok_t[i] += dt_pf
+                if FLIGHT.enabled:
+                    FLIGHT.record(self._prefill_rec(
+                        run, pout, now - t0, queue_depth, len(parked),
+                        draining))
 
-            # ---- the decode worker's tick: one-row decode or verify only.
-            td0 = time.monotonic()
-            if adopted:
-                # The adopted slots' first tokens, one push of the token
-                # vector (not KV: the handoff itself issues no device op).
-                dc.tok.copy_(torch.from_numpy(dc._tok_host))
-            dc._tick(run)
-            self._relay_pool(dc, pf)
-            decode_s += time.monotonic() - td0
-            peak_used = max(peak_used, self.pool.used)
-            self.pool.publish_gauges()
-            if self.host_pool is not None:
-                # The pair's staged D2H flush point, after both workers'
-                # steps.
-                pf._flush_demotions()
-                self.host_pool.publish_gauge()
-            self.slo.maybe_export(now)
-            run.tick += 1
+                # ---- the decode worker's tick: one-row decode or verify
+                # only.
+                td0 = time.monotonic()
+                if adopted:
+                    # The adopted slots' first tokens, one push of the
+                    # token vector (not KV: the handoff itself issues no
+                    # device op).
+                    dc.tok.copy_(torch.from_numpy(dc._tok_host))
+                dout = dc._tick(run)
+                self._relay_pool(dc, pf)
+                decode_s += time.monotonic() - td0
+                peak_used = max(peak_used, self.pool.used)
+                self.pool.publish_gauges()
+                if self.host_pool is not None:
+                    # The pair's staged D2H flush point, after both
+                    # workers' steps.
+                    pf._flush_demotions()
+                    self.host_pool.publish_gauge()
+                if FLIGHT.enabled:
+                    FLIGHT.record({
+                        "worker": "decode",
+                        "tick": run.tick,
+                        "t_s": round(now - t0, 6),
+                        "occupancy": dout.occupancy,
+                        "states": list(dc._slot_state),
+                        "tokens_emitted": dout.tokens,
+                        "handoff_queue": len(parked),
+                        "kv_blocks_used": self.pool.used,
+                        "kv_blocks_free": self.pool.free_count,
+                        "draining": draining,
+                    })
+                self.slo.maybe_export(now)
+                run.tick += 1
+        except BaseException as e:
+            # The black box: the pair's last ticks reach the disk before
+            # the error propagates.
+            FLIGHT.dump_if_armed(f"disagg_error:{type(e).__name__}")
+            if obs.TRACER.active:
+                obs.instant("engine_error", cat="serving", args={
+                    "error": type(e).__name__, "tick": run.tick})
+            raise
 
         if self.host_pool is not None:
             # A drained run leaves no demotion staged.
             pf._flush_demotions()
             self.host_pool.publish_gauge()
+        if FLIGHT.enabled:
+            FLIGHT.mark_idle()
         with self._lock:
             self._cancel_uids.clear()
             self._draining = False

@@ -160,9 +160,19 @@ decode. ``fork(uid)`` on a plain live slot converts it into a two-branch
 tree where the rule allows. A family outside the rule runs the fork-slot
 path: one slot per branch.
 
+**The flight recorder** (``obs.FLIGHT``, armed by ``--flight-out`` or
+``--metrics-port``): after each executed tick :meth:`SlotServer.serve`
+records one dict (slot states and lengths, the chunk plan, tokens emitted,
+whether the tick paid its host fetch, queue depth, the tick's arcs: cancels,
+deadlines, sheds, forks, tree branches, prefix hits, restores, speculative
+proposals; the pool's blocks and fragmentation), built from host-side
+ledgers only (:class:`_TickCounts` for the arcs); a sweep that retires
+work on an otherwise idle tick records a ``sweep_only`` dict; an error
+escaping the loop dumps the armed ring before it propagates.
+
 Left for later slices of the port (see ROADMAP): speculation and the
-prefix cache (so KV tiering) on a mesh, the flight recorder and the
-request ledger. Disaggregated prefill/decode serving is
+prefix cache (so KV tiering) on a mesh, and the request ledger.
+Disaggregated prefill/decode serving is
 :class:`~tree_attention_tpu_torch.serving.disagg.DisaggServer`, two of these
 engines over one block pool.
 """
@@ -212,6 +222,7 @@ from tree_attention_tpu_torch.models.transformer import (
     Params,
     TransformerConfig,
 )
+from tree_attention_tpu_torch.obs.flight import FLIGHT
 from tree_attention_tpu_torch.obs.metrics import percentile
 from tree_attention_tpu_torch.obs.slo import SLOMonitor
 from tree_attention_tpu_torch.parallel.mesh import AXIS_SEQ, Mesh
@@ -291,6 +302,17 @@ _FORK_SHARED = obs.counter(
     "serving_fork_blocks_shared_total",
     "full ancestor KV blocks a fork SHARED (radix pins + refcounted "
     "CoW blocks) instead of copying or recomputing them",
+)
+_TREE_BRANCHES = obs.gauge(
+    "serving_tree_branches",
+    "live sibling branches decoding as token trees in single slots "
+    "(set once per tick; 0 when no tree family is in flight)",
+)
+_SPEC_ACCEPT_SAMPLES = obs.counter(
+    "serving_spec_accept_samples_total",
+    "per-row stochastic draws consumed by sampled (temperature > 0) "
+    "speculative accept walks — the Leviathan ratio test's coupled "
+    "samples; greedy verifies draw nothing and do not count",
 )
 
 # The one retire-outcome vocabulary: every way a request leaves the engine,
@@ -442,6 +464,32 @@ class _Run:
         # report covers the most recent window); a finite trace keeps all.
         return cls(results=deque(maxlen=4096) if live else [],
                    tbt=deque(maxlen=1 << 16) if live else [])
+
+
+@dataclasses.dataclass
+class _TickCounts:
+    """The arcs of one tick, for its flight record: zeroed at the tick's
+    top, counted where each arc happens. The two engines of a
+    :class:`~.disagg.DisaggServer` share one (the pair's sweep and both
+    workers' ticks count into it)."""
+
+    cancelled: int = 0
+    deadline_expired: int = 0
+    shed: int = 0
+    forks: int = 0
+    shared_blocks: int = 0        # ancestor blocks forks shared
+    tree_branches: int = 0        # tree-family branches advanced
+    branch_retired: int = 0       # tree-family branches retired
+    prefix_hits: int = 0
+    prefix_reused: int = 0        # prompt tokens the hits reused
+    restored_blocks: int = 0      # host-tier blocks restored by hits
+    spec_slots: int = 0           # slots a verify tick walked
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+
+    def zero(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
 
 @dataclasses.dataclass
@@ -631,6 +679,20 @@ class StaticRequestSource(RequestSource):
     @property
     def exhausted(self) -> bool:
         return self._pos >= len(self._reqs)
+
+
+class _TickOut(NamedTuple):
+    """What one :meth:`SlotServer._tick` did, for its flight record."""
+
+    plan: List[tuple]   # the tick's prompt chunks, (slot, n, last)
+    occupancy: int      # live slots at the tick's top
+    host_sync: bool     # the tick paid its one host fetch
+    tokens: int         # tokens it emitted (first tokens included)
+
+
+def _chunk_plan_rec(plan: List[tuple]) -> List[list]:
+    """A tick's chunk plan as its flight record holds it."""
+    return [[int(s), int(n), bool(last)] for s, n, last in plan]
 
 
 class _Verify(NamedTuple):
@@ -1003,6 +1065,9 @@ class SlotServer:
         self._tree_fams_life = 0
         self._tree_branches_life = 0
         self._tree_ticks = 0  # ticks that ran a sibling bundle
+        # This tick's arcs for the flight record (shared with the other
+        # engine of a disaggregated pair).
+        self._tc = _TickCounts()
         self._slot_clen = [0] * slots
         self._hist_buf = np.zeros((slots, cache_len + 1), np.int32)
         self._hist_len = [0] * slots
@@ -1372,6 +1437,8 @@ class SlotServer:
         demoted = self._prefix.demoted_in(nodes)
         if not demoted:
             return
+        # Either arc counts: each was a device miss the host tier absorbed.
+        self._tc.restored_blocks += len(demoted)
 
         def take_one() -> int:
             assert self._slot_reserve[slot] > 0, (
@@ -1654,6 +1721,8 @@ class SlotServer:
         else:
             self._prefix.copy_into(self.cache, slot, nodes, matched)
         self._hit_bytes_moved += matched * self._kv_token_bytes
+        self._tc.prefix_hits += 1
+        self._tc.prefix_reused += matched
         return matched
 
     def _paged_hit(self, slot: int, resv: tuple) -> int:
@@ -1689,6 +1758,8 @@ class SlotServer:
                 self.cache.k_scale, self.cache.v_scale,
                 torch.from_numpy(ids), matched)
             self._hit_bytes_moved += matched * self._kv_token_bytes_q
+        self._tc.prefix_hits += 1
+        self._tc.prefix_reused += matched
         return matched
 
     def _publish_prefix(self, slot: int) -> None:
@@ -1969,6 +2040,8 @@ class SlotServer:
                 "at_tokens": len(tokens_prefix)})
         self._forks_life += 1
         self._fork_shared_life += nshare
+        self._tc.forks += 1
+        self._tc.shared_blocks += nshare
         if obs.REGISTRY.enabled:
             _FORKS.inc()
             if nshare:
@@ -2197,6 +2270,8 @@ class SlotServer:
         nshare = fam.base_len // self.kv_block
         self._forks_life += k - 1
         self._fork_shared_life += (k - 1) * nshare
+        self._tc.forks += k - 1
+        self._tc.shared_blocks += (k - 1) * nshare
         if obs.REGISTRY.enabled:
             _FORKS.inc(k - 1)
             if nshare:
@@ -2241,6 +2316,7 @@ class SlotServer:
                 continue
             req = fam.req
             self._tree_branches_life += len(order)
+            self._tc.tree_branches += len(order)
             gap = max(now - self._last_tok_t[slot], 0.0)
             self._last_tok_t[slot] = now
             self._slot_max_tbt[slot] = max(self._slot_max_tbt[slot], gap)
@@ -2291,6 +2367,7 @@ class SlotServer:
                                      self._slot_max_tbt[slot])
         elif outcome in (OUTCOME_DEADLINE, OUTCOME_SHED, OUTCOME_ERROR):
             self.slo.observe_miss()
+        self._tc.branch_retired += 1
         if obs.REGISTRY.enabled:
             _REQUESTS.labels(outcome=outcome).inc()
         if obs.TRACER.active:
@@ -2448,6 +2525,8 @@ class SlotServer:
         nshare = base_len // self.kv_block
         self._forks_life += 1
         self._fork_shared_life += nshare
+        self._tc.forks += 1
+        self._tc.shared_blocks += nshare
         if obs.REGISTRY.enabled:
             _FORKS.inc()
             if nshare:
@@ -2617,9 +2696,12 @@ class SlotServer:
         t_prop = t_acc = t_ver = 0
         for i, pack in spec_plan.items():
             req = self._slot_req[i]
-            accept = (accept_stochastic_path if self._temp_np[i] > 0.0
-                      else accept_longest_path)
-            kept, committed = accept(pack, alltok[i])
+            if self._temp_np[i] > 0.0:
+                kept, committed = accept_stochastic_path(pack, alltok[i])
+                if obs.REGISTRY.enabled and pack.rows:
+                    _SPEC_ACCEPT_SAMPLES.inc(pack.rows)
+            else:
+                kept, committed = accept_longest_path(pack, alltok[i])
             m = pack.rows - 1
             t_prop += m
             t_acc += len(kept)
@@ -2690,6 +2772,9 @@ class SlotServer:
             self._spec_ticks += 1
         if obs.REGISTRY.enabled and self._spec_proposed:
             _SPEC_ACCEPT_RATIO.set(self._spec_accepted / self._spec_proposed)
+        tc = self._tc
+        tc.spec_slots, tc.spec_proposed, tc.spec_accepted = (
+            len(spec_plan), t_prop, t_acc)
         return emitted
 
     def _retire(self, slot: int, tick: int, outcome: str,
@@ -3025,12 +3110,14 @@ class SlotServer:
         the previous tick, so a request that finished and expired on the
         same tick keeps its outcome."""
         workers = workers or (self,)
+        tc = self._tc
         cancels |= set(run.cancel_carry)
         if cancels:
             matched = set()
             for r in [r for r in run.pending if r.uid in cancels]:
                 run.pending.remove(r)
                 matched.add(r.uid)
+                tc.cancelled += 1
                 self._finish_unadmitted(
                     r, run.tick, OUTCOME_CANCELLED, run.results,
                     run.visible_wall.pop(r.uid, now), now)
@@ -3038,6 +3125,7 @@ class SlotServer:
                 for i, rq in enumerate(eng._slot_req):
                     if rq is not None and rq.uid in cancels:
                         matched.add(rq.uid)
+                        tc.cancelled += 1
                         eng._retire(i, run.tick, OUTCOME_CANCELLED,
                                     run.results)
             # A cancel can race its own request's submission (the submit
@@ -3059,6 +3147,7 @@ class SlotServer:
         for r in [r for r in run.pending
                   if r.deadline_s is not None and now >= r.deadline_s]:
             run.pending.remove(r)
+            tc.deadline_expired += 1
             self._finish_unadmitted(r, run.tick, OUTCOME_DEADLINE,
                                     run.results,
                                     run.visible_wall.pop(r.uid, now), now)
@@ -3066,6 +3155,7 @@ class SlotServer:
             for i, rq in enumerate(eng._slot_req):
                 if (rq is not None and rq.deadline_s is not None
                         and now >= rq.deadline_s):
+                    tc.deadline_expired += 1
                     eng._retire(i, run.tick, OUTCOME_DEADLINE, run.results)
         if draining:
             # Graceful drain: no new work, the queue sheds, in-flight
@@ -3073,6 +3163,7 @@ class SlotServer:
             source.close()
             while run.pending:
                 r = run.pending.popleft()
+                tc.shed += 1
                 self._finish_unadmitted(r, run.tick, OUTCOME_SHED,
                                         run.results,
                                         run.visible_wall.pop(r.uid, now), now)
@@ -3112,13 +3203,14 @@ class SlotServer:
             self._admit(req, slot, run.tick,
                         run.visible_wall.pop(req.uid, now), resv)
 
-    def _tick(self, run: _Run) -> None:
+    def _tick(self, run: _Run) -> _TickOut:
         """One tick's step and its commits: plan the prefill chunks, run
         the tick's one step (verify, tree, mixed or pure decode), fetch its
         tokens once, land the first tokens of finished prompts (live, or
         parked for the handoff on a prefill worker) and commit every live
         slot's token, retiring on EOS and budget."""
         tick, results, tbt = run.tick, run.results, run.tbt
+        tokens0 = run.tokens
         # Every started tree family's live suffixes, packed into one
         # bundle for its one slot (host work, like drafting).
         tree_plan = {i: self._pack_tree(f)
@@ -3130,10 +3222,14 @@ class SlotServer:
         # staged int8 chunks never share the step.)
         plan = self._plan_chunks(
             max_n=32 if tree_plan and not self.quantize else None)
+        plan_rec = plan  # the staged path rebinds ``plan`` to []
         live_idx = [i for i, st in enumerate(self._slot_state)
                     if st == "live"]
         if obs.REGISTRY.enabled:
             _SLOTS_OCCUPIED.set(len(live_idx))
+            _TREE_BRANCHES.set(sum(sum(f.br_live)
+                                   for f in self._tree_fams.values()
+                                   if f.forked))
         # The tick's span (closed after the fetch and retires; a shared
         # no-op while the tracer is off).
         tick_span = obs.span(
@@ -3251,7 +3347,8 @@ class SlotServer:
 
         awaits = [i for i, st in enumerate(self._slot_state)
                   if st == "await"]
-        if awaits or live_idx:
+        host_sync = bool(awaits or live_idx)
+        if host_sync:
             # THE per-tick host fetch: every new token of the tick and its
             # logprob, one array (the token vector itself when no step ran:
             # a staged final chunk parked its first token).
@@ -3364,6 +3461,87 @@ class SlotServer:
                     elif len(self._slot_tokens[i]) >= req.max_new_tokens:
                         self._retire(i, tick, OUTCOME_BUDGET, results)
         tick_span.__exit__(None, None, None)
+        return _TickOut(plan_rec, len(live_idx), host_sync,
+                        run.tokens - tokens0)
+
+    # -- the flight recorder's records (host-side ledgers only) -------------
+
+    def _sweep_only_rec(self, run: _Run, queue_depth: int,
+                        draining: bool) -> Optional[Dict[str, Any]]:
+        """The record of a tick whose sweep retired work and left nothing
+        to run (else its arcs would vanish at the next tick's zeroing), or
+        None when the sweep retired nothing."""
+        tc = self._tc
+        if not (tc.cancelled or tc.deadline_expired or tc.shed):
+            return None
+        return {
+            "tick": run.tick,
+            "sweep_only": True,
+            "occupancy": 0,
+            "queue_depth": queue_depth,
+            "pending": len(run.pending),
+            "cancelled": tc.cancelled,
+            "deadline_expired": tc.deadline_expired,
+            "shed": tc.shed,
+            "draining": draining,
+        }
+
+    def _tick_rec(self, run: _Run, out: _TickOut, t_s: float,
+                  queue_depth: int, draining: bool) -> Dict[str, Any]:
+        """One executed tick's flight record, the JAX engine's keys and
+        values: lists are copies, every value a host-side ledger's."""
+        tc = self._tc
+        rec = {
+            "tick": run.tick,
+            "t_s": round(t_s, 6),
+            "occupancy": out.occupancy,
+            "states": list(self._slot_state),
+            "lengths": [int(self._prefill_pos[i])
+                        if self._slot_state[i] == "prefill"
+                        else len(self._slot_tokens[i])
+                        for i in range(self.slots)],
+            "chunk_plan": _chunk_plan_rec(out.plan),
+            "chunk_tokens": sum(int(n) for _, n, _ in out.plan),
+            "tokens_emitted": out.tokens,
+            "host_sync": out.host_sync,
+            "queue_depth": queue_depth,
+            "pending": len(run.pending),
+            "prefix_hits": tc.prefix_hits,
+            "prefix_reused": tc.prefix_reused,
+            "cancelled": tc.cancelled,
+            "deadline_expired": tc.deadline_expired,
+            "shed": tc.shed,
+            "forks": tc.forks,
+            "shared_blocks": tc.shared_blocks,
+            "tree_branches": tc.tree_branches,
+            "branch_retired": tc.branch_retired,
+            "draining": draining,
+        }
+        if self._paged:
+            # Block occupancy and internal fragmentation: the share of the
+            # mapped block capacity no written token occupies.
+            mapped = sum(self._slot_nblocks)
+            written = 0
+            for i in range(self.slots):
+                st = self._slot_state[i]
+                if st == "prefill":
+                    written += int(self._prefill_pos[i])
+                elif st in ("await", "live"):
+                    written += (len(self._slot_req[i].prompt)
+                                + max(len(self._slot_tokens[i]) - 1, 0))
+            rec["kv_blocks_used"] = self._pool.used
+            rec["kv_blocks_free"] = self._pool.free_count
+            rec["kv_frag"] = round(
+                1.0 - written / (mapped * self.kv_block), 4) if mapped \
+                else 0.0
+            if self._host_pool is not None:
+                rec["host_blocks_used"] = self._host_pool.used
+                rec["restored_blocks"] = tc.restored_blocks
+        if self._speculate:
+            rec["spec_verify"] = {"slots": tc.spec_slots,
+                                  "proposed": tc.spec_proposed,
+                                  "accepted": tc.spec_accepted}
+        return rec
 
     def serve(self, requests: Union[Sequence[Request], RequestSource],
               max_ticks: Optional[int] = None) -> ServeReport:
@@ -3406,49 +3584,74 @@ class SlotServer:
             self._defer_gen = -1
         t0 = time.monotonic()
 
-        while True:
-            if max_ticks is not None and run.tick >= max_ticks:
-                raise RuntimeError(
-                    f"serve() exceeded max_ticks={max_ticks} with "
-                    f"{len(run.pending)} pending request(s)"
-                )
-            now = time.monotonic()
-            self._poll(run, source, now)
-            cancels, draining = self._take_control()
-            self._sweep(run, source, now, cancels, draining)
-            # Copy-on-write forks: mailboxed fork(uid)s branch live
-            # requests onto free slots (deferred ones retry from the carry).
-            forks = self._take_forks()
-            if forks or self._fork_carry:
-                self._apply_forks(forks, run.tick, run.pending)
-            self._admit_pending(run, now)
+        try:
+            while True:
+                if max_ticks is not None and run.tick >= max_ticks:
+                    raise RuntimeError(
+                        f"serve() exceeded max_ticks={max_ticks} with "
+                        f"{len(run.pending)} pending request(s)"
+                    )
+                now = time.monotonic()
+                self._tc.zero()
+                self._poll(run, source, now)
+                cancels, draining = self._take_control()
+                self._sweep(run, source, now, cancels, draining)
+                # Copy-on-write forks: mailboxed fork(uid)s branch live
+                # requests onto free slots (deferred ones retry from the
+                # carry).
+                forks = self._take_forks()
+                if forks or self._fork_carry:
+                    self._apply_forks(forks, run.tick, run.pending)
+                self._admit_pending(run, now)
+                queue_depth = len(run.pending)  # visible, not admitted
 
-            if not run.pending and all(st == "free"
-                                       for st in self._slot_state):
-                if source.exhausted or draining:
-                    break
-                nxt = source.next_arrival()
-                if nxt is not None:
-                    run.tick = max(run.tick + 1, nxt)
-                else:
-                    # A live feeder: block until a submission (or close)
-                    # wakes the source; the timeout only bounds how late a
-                    # mailboxed drain is seen while idle.
-                    source.wait(0.05)
-                continue
+                if not run.pending and all(st == "free"
+                                           for st in self._slot_state):
+                    # Idle iterations are handled here, before the body:
+                    # recorded ticks are executed ticks (and sweep-only
+                    # records).
+                    if FLIGHT.enabled:
+                        FLIGHT.record(self._sweep_only_rec(run, queue_depth,
+                                                           draining))
+                    if source.exhausted or draining:
+                        break
+                    nxt = source.next_arrival()
+                    if nxt is not None:
+                        run.tick = max(run.tick + 1, nxt)
+                    else:
+                        # A live feeder: idle, not stalled, while it blocks
+                        # until a submission (or close) wakes the source;
+                        # the timeout only bounds how late a mailboxed
+                        # drain is seen while idle.
+                        if FLIGHT.enabled:
+                            FLIGHT.mark_idle()
+                        source.wait(0.05)
+                    continue
 
-            self._tick(run)
-            if self._paged:
-                self._peak_blocks_used = max(self._peak_blocks_used,
-                                             self._pool.used)
-                self._pool.publish_gauges()
-            if self._host_pool is not None:
-                # The staged D2H flush point: the demotions this tick's
-                # evictions enqueued, in one batch behind the tick's work.
-                self._flush_demotions()
-                self._host_pool.publish_gauge()
-            self.slo.maybe_export(now)
-            run.tick += 1
+                out = self._tick(run)
+                if self._paged:
+                    self._peak_blocks_used = max(self._peak_blocks_used,
+                                                 self._pool.used)
+                    self._pool.publish_gauges()
+                if self._host_pool is not None:
+                    # The staged D2H flush point: the demotions this tick's
+                    # evictions enqueued, in one batch behind the tick's
+                    # work.
+                    self._flush_demotions()
+                    self._host_pool.publish_gauge()
+                if FLIGHT.enabled:
+                    FLIGHT.record(self._tick_rec(run, out, now - t0,
+                                                 queue_depth, draining))
+                self.slo.maybe_export(now)
+                run.tick += 1
+        except BaseException as e:
+            # The black box: a crashed tick loop leaves its last ticks on
+            # disk before the error propagates.
+            FLIGHT.dump_if_armed(f"engine_error:{type(e).__name__}")
+            if obs.TRACER.active:
+                obs.instant("engine_error", cat="serving", args={
+                    "error": type(e).__name__, "tick": run.tick})
+            raise
 
         with self._ctl_lock:
             # This run consumed its control state: the engine is reusable
@@ -3460,6 +3663,12 @@ class SlotServer:
             # read as leaked capacity).
             self._flush_demotions()
             self._host_pool.publish_gauge()
+        if FLIGHT.enabled:
+            # Drained, not wedged: /healthz stays 200 "idle" between runs.
+            FLIGHT.mark_idle()
+        if obs.REGISTRY.enabled:
+            # The branch gauge is set at tick top; every family closed.
+            _TREE_BRANCHES.set(0)
         wall = time.monotonic() - t0
         self.slo.export_gauges()
         kv_snap: Dict[str, Any] = {}

@@ -117,6 +117,8 @@ class RunConfig:
     log_file: Optional[str] = None
     metrics_out: Optional[str] = None   # registry snapshot (JSON) at exit
     trace_events: Optional[str] = None  # Chrome-trace JSONL span sink
+    metrics_port: Optional[int] = None  # live /metrics HTTP exporter
+    flight_out: Optional[str] = None    # tick flight-recorder dump sink
 
     def mesh_axes(self) -> Optional[Dict[str, int]]:
         return parse_mesh_spec(self.mesh) if self.mesh else None
@@ -361,6 +363,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "request's life, the ingress's submissions) as "
                         "Chrome-trace JSONL, one JSON event per line "
                         "(Perfetto loads it)")
+    p.add_argument("--metrics-port", type=int, default=d.metrics_port,
+                   metavar="PORT",
+                   help="serve the live telemetry HTTP endpoint on "
+                        "localhost:PORT: /metrics (Prometheus text), "
+                        "/metrics.json (registry snapshot), /healthz (tick "
+                        "liveness), /flight (flight-recorder ring), /slots; "
+                        "0 picks a free port (logged). Arms the registry "
+                        "and the flight recorder even without "
+                        "--metrics-out; under --mesh rank 0 serves it")
+    p.add_argument("--flight-out", default=d.flight_out, metavar="PATH",
+                   help="arm the serving tick flight recorder and dump its "
+                        "ring (last ticks: occupancy, slot states, chunk "
+                        "plan, queue depth) to PATH at exit, on an engine "
+                        "error and on SIGTERM/SIGUSR1; under --mesh each "
+                        "rank writes PATH.pK")
     return p
 
 
