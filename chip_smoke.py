@@ -338,7 +338,32 @@ failure exits non-zero:
    instead of transferring. The exact pair serve runs with the flight ring
    armed: every record tagged ``prefill`` or ``decode``, one of each per
    executed tick, and the decode records' tokens plus each request's first
-   (sampled by the prefill worker) the report's.
+   (sampled by the prefill worker) the report's; and with the request
+   ledger armed: every request's ledger charges ``handoff_s > 0`` and
+   reconciles, the report's aggregates are its ledgers'; a ledger that
+   drops ``park`` is shown rejected. Phase 3g's static A/B serves arm the
+   ledger with the flight ring: launches, host reads and tokens equal
+   armed and unarmed, the armed report's aggregates ``aggregate_ledgers``
+   of its results, the unarmed one's empty.
+   Then the in-process fleet (phase 3l: ``fleet_phase``): two
+   ``LocalReplica`` engines from one ``cli.engine_factory`` (one copy of
+   the parameters on the card, a block pool each) behind a
+   ``FleetRouter`` with the prefix cache and the request ledger on: 16
+   requests (4 shared 384-token prefixes, 4 tails each, 32 new tokens,
+   greedy) one at a time through the router, then the same requests on two
+   fresh engines without it, each serving its replica's requests one after
+   the other: tokens and B2/B3 launches per replica equal; every repeat
+   of a prefix on its first's replica with the whole prefix hit (the
+   router's affinity count and the replicas' ``ServeReport.prefix``
+   agree); every ledger reconciled; the router's ``/requests`` every uid
+   once with its replica's label, the telemetry endpoint's
+   ``/request/{uid}`` the same ledger; a rolling restart under 8 cold
+   concurrent requests dropping nothing, both drains leak-free; a router
+   that ignores affinity shown rejected; then 2 prefixes x 2 under
+   ``--kv-quant int8`` (B5) against their direct twins the same way; then
+   ``cli.main --serve-fleet --replicas 2 --prefix-cache`` on the card's
+   default device, 4 requests, SIGTERM: its record (the card, 2 affinity
+   routes, clean leaks) and ``/requests``.
 4. Time ``--mode decode`` at the reference workload (B=1, 16 heads x 128,
    64000 KV tokens, one query) through the contiguous decode kernel (B1),
    and with ``--kv-quant int8`` (B4) and ``int8-cast`` (B1 over int8 K/V);
@@ -353,7 +378,8 @@ failure exits non-zero:
 7. Split one training step's device time by kernel group from a traced
    step, against the median wall of three untraced steps (the idle share),
    with the steps' peak device memory.
-8. Print the total wall, the kernels line, then ``{"ok": true, "device":
+8. Print each phase's wall as it ends (``phase <name> wall <s>``), the
+   total wall, the kernels line, then ``{"ok": true, "device":
    {...}}`` last.
 
 Extra per-case numbers go to ``chiprun_out/chip_smoke.json``.
@@ -2019,15 +2045,19 @@ FLIGHT_AB_TURNS = ("unarmed", "armed", "unarmed", "unarmed", "armed")
 
 def flight_ab(server, trace, wrappers, reset_counts, on_card) -> dict:
     """One static trace (``trace()`` makes it) served on ``server``
-    unarmed and armed (the registry on, the flight recorder armed, a
-    ``MetricsHTTPServer`` attached to the engine), in the turns of
+    unarmed and armed (the registry on, the flight recorder and the
+    request ledger armed, a ``MetricsHTTPServer`` attached to the
+    engine), in the turns of
     :data:`FLIGHT_AB_TURNS`. Each serve's launches (set to 0 just before
     it, read just after), host reads of the card
     (:func:`host_fetch_watch`), executed ticks and tok/s; an armed serve's
     records and its ticks that paid a fetch (``host_sync``). The trace is
     static and greedy, so every serve runs the same ticks: their tokens,
-    launches and host reads must be equal. The tok/s ratio is the armed
-    serves' mean over the warm unarmed serves' mean."""
+    launches and host reads must be equal. An armed serve's
+    ``ServeReport.requests`` must be ``aggregate_ledgers`` of its results'
+    ledgers (one a request, reconciled: :func:`ledger_gates`), an unarmed
+    one's empty. The tok/s ratio is the armed serves' mean over the warm
+    unarmed serves' mean."""
     import torch
 
     from tree_attention_tpu_torch import obs
@@ -2041,6 +2071,7 @@ def flight_ab(server, trace, wrappers, reset_counts, on_card) -> dict:
             obs.FLIGHT.clear()
             obs.FLIGHT.arm(capacity=FLIGHT_CAPACITY)
             obs.REGISTRY.enable()
+            obs.REQLOG.arm()
             mhttp = MetricsHTTPServer(0)
             mhttp.start()
             mhttp.attach_engine(server)
@@ -2070,11 +2101,25 @@ def flight_ab(server, trace, wrappers, reset_counts, on_card) -> dict:
                 mhttp.stop()
                 obs.REGISTRY.disable()
                 obs.FLIGHT.disarm()
+                obs.REQLOG.disarm()
+        ledgers = [r.ledger for r in rep.results]
         rec = {"label": label, "launches": launches, **seen,
                "ticks": rep.ticks, "tokens": rep.tokens_generated,
                "tokens_per_sec": rep.tokens_per_sec,
                "streams": {r.uid: list(map(int, r.tokens))
-                           for r in rep.results}}
+                           for r in rep.results},
+               "requests": rep.requests}
+        if label == "armed":
+            rec["ledger"] = {
+                "one_per_request": all(lg is not None for lg in ledgers),
+                **(ledger_gates(ledgers, [len(r.tokens)
+                                          for r in rep.results])
+                   if all(ledgers) else {}),
+                "report_equal_aggregate": bool(rep.requests)
+                and rep.requests == obs.aggregate_ledgers(ledgers)}
+        else:
+            rec["ledger"] = {"report_empty": rep.requests == {}
+                             and not any(ledgers)}
         if label == "armed":
             recs = obs.FLIGHT.snapshot()["records"]
             rec["host_sync_ticks"] = sum(1 for r in recs
@@ -2096,6 +2141,7 @@ def flight_ab(server, trace, wrappers, reset_counts, on_card) -> dict:
         "fetches_equal": same("fetches") and same("syncs"),
         "records_are_ticks": all(r["records"] == r["ticks"] == first["ticks"]
                                  for r in armed),
+        "ledger": all(v for r in serves for v in r["ledger"].values()),
     }}
     if on_card:  # a CPU tensor's reads are not the card's
         out["gates"]["one_fetch_per_sync_tick"] = all(
@@ -4462,8 +4508,11 @@ def disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     prefill chunks and the decode ticks on the tick body (B2, or B5 under
     int8) counted; the leak report drained with ``blocks_transferred`` equal
     to the handed-off private blocks. Each planted fault of ``faults`` must
-    fail a gate. Launch counts are set to 0 just before each serve and read
-    just after; on a CPU they are not read."""
+    fail a gate. The exact pair serve runs with the request ledger armed:
+    every request's ledger charges its handoff segment and reconciles, and
+    the report's aggregates are its ledgers'; a ledger that drops ``park``
+    (4 requests) must fail those gates. Launch counts are set to 0 just
+    before each serve and read just after; on a CPU they are not read."""
     with shared_weights():
         return _disagg_phase(dev, card, serve_args, wrappers, reset_counts,
                              tol_logits, faults)
@@ -4494,23 +4543,28 @@ def _disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
     def tokens(rep):
         return {r.uid: list(map(int, r.tokens)) for r in rep.results}
 
-    def run(extra, seen, label, requests=None):
+    def run(extra, seen, label, requests=None, ledger=False):
         srv = cli.build_server(parse_args(serve_args + DISAGG_ARGS + extra),
                                dev)[0]
         shared0 = srv.pool_shared()
         n0 = len(seen["handoffs"])
         seen["decode_tq"].clear()
         tr = trace(srv.cfg.vocab_size)[:requests]
-        armed = label == "exact"  # the flight ring, on one pair serve
+        # The flight ring and the request ledger, on one pair serve (the
+        # ledger also on the planted fault's).
+        armed = label == "exact"
         if armed:
             obs.FLIGHT.clear()
             obs.FLIGHT.arm(capacity=FLIGHT_CAPACITY)
+        if armed or ledger:
+            obs.REQLOG.arm()
         reset_counts()
         t0 = time.monotonic()
         try:
             rep = srv.serve(tr)
         finally:
             obs.FLIGHT.disarm()
+            obs.REQLOG.disarm()
         if on_card:
             torch.cuda.synchronize()
         wall = time.monotonic() - t0
@@ -4562,6 +4616,23 @@ def _disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
             bool(dec) and dec[-1]["kv_blocks_used"] == r["srv"].pool.used,
         }
 
+    def pair_ledger_gates(r):
+        """The armed pair serve's ledgers: one a request, each charging
+        its handoff segment, reconciled (:func:`ledger_gates`), and the
+        report's aggregates theirs."""
+        rep = r["rep"]
+        lgs = [x.ledger for x in rep.results]
+        ok = all(lg is not None for lg in lgs)
+        r["ledger_summary"] = {"handoff_s": [lg["handoff_s"] for lg in lgs]
+                               if ok else None, "requests": rep.requests}
+        return {
+            "one_per_request": ok,
+            "handoff_charged": ok and all(lg["handoff_s"] > 0 for lg in lgs),
+            **(ledger_gates(lgs, [len(x.tokens) for x in rep.results])
+               if ok else {}),
+            "report_equal_aggregate": ok
+            and rep.requests == obs.aggregate_ledgers(lgs)}
+
     def gates(r, fused, quant):
         rep = r["rep"]
         t = tokens(rep)
@@ -4608,6 +4679,14 @@ def _disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
                       f"{json.dumps(fg)}", flush=True)
                 if not all(fg.values()):
                     fail(f"disagg flight recorder: {fg}")
+                lgg = pair_ledger_gates(r)
+                out["ledger"] = {"gates": lgg, **r["ledger_summary"]}
+                print(f"disagg request ledger ({label}, armed; {card}): "
+                      f"handoff_s {r['ledger_summary']['handoff_s']}, "
+                      f"aggregates {json.dumps(r['rep'].requests)}; gates "
+                      f"{json.dumps(lgg)}", flush=True)
+                if not all(lgg.values()):
+                    fail(f"disagg request ledger: {lgg}")
             decode_kernel = ("flash_decode_paged_q8q_tick" if quant
                              else "flash_decode_paged_tick")
             rec = {k: r[k] for k in (
@@ -4703,8 +4782,452 @@ def _disagg_phase(dev, card, serve_args, wrappers, reset_counts, tol_logits,
             fail(f"disagg phase: every gate passed the planted fault "
                  f"{fault!r}")
         del r
+    # The ledger's planted fault: a ledger that drops ``park`` (4 requests
+    # of the trace, the ledger armed).
+    obs.REQLOG.park = lambda uid, now=None: None
+    try:
+        with disagg_watch() as fseen:
+            r = run([], fseen, "fault park", requests=4, ledger=True)
+    finally:
+        del obs.REQLOG.park
+    lgg = pair_ledger_gates(r)
+    out["faults"]["ledger_drops_park"] = [k for k, v in lgg.items() if not v]
+    print(f"disagg planted fault 'ledger drops park' ({card}): handoff_s "
+          f"{r['ledger_summary']['handoff_s']}, gates that rejected it "
+          f"{out['faults']['ledger_drops_park']}", flush=True)
+    if not out["faults"]["ledger_drops_park"]:
+        fail("disagg phase: the ledger gates passed a ledger that drops "
+             "park")
+    del r
     out["wall_s"] = time.monotonic() - t_phase
     print(f"disagg phase wall ({card}) {out['wall_s']:.2f}s", flush=True)
+    return out
+
+
+# Phase 3l: the fleet's trace: 4 shared 384-token prefixes, 4 tails each
+# (prefix-major: each prefix's first request, then its repeats), 32 new
+# tokens; its int8 leg: 2 prefixes x 2, 16 new tokens; the rolling
+# restart's traffic: 8 cold prompts of 16 new tokens.
+FLEET_ARGS = ["--prefix-cache", "--serve-fleet", "--replicas", "2"]
+FLEET_PREFIXES, FLEET_PREFIX_LEN, FLEET_NEW = 4, 384, 32
+
+
+def fleet_prompts(vocab: int, seed: int, prefixes: int = FLEET_PREFIXES,
+                  per_prefix: int = 4) -> list:
+    """``prefixes`` x ``per_prefix`` prompts, prefix-major: a shared
+    384-token head and a distinct tail of 24 to 84 tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(0, vocab, FLEET_PREFIX_LEN).tolist()
+             for _ in range(prefixes)]
+    return [heads[p] + rng.integers(0, vocab, 24 + 16 * j + 4 * p).tolist()
+            for p in range(prefixes) for j in range(per_prefix)]
+
+
+def affinity_gate(entries: list, per_prefix: int, block: int) -> dict:
+    """``entries`` (the ledgers of a prefix-major trace, in order): every
+    repeat of a prefix labelled with its first's replica and hitting the
+    whole shared head there, every first cold."""
+    head = FLEET_PREFIX_LEN // block * block
+    firsts = entries[::per_prefix]
+    return {
+        "repeats_on_holder": all(
+            e["replica"] == entries[i - i % per_prefix]["replica"]
+            for i, e in enumerate(entries)),
+        "repeats_hit_the_head": all(
+            e["prefix_hit_tokens"] == (0 if i % per_prefix == 0 else head)
+            for i, e in enumerate(entries)),
+        "firsts_cold": all(e["prefix_hit_tokens"] == 0 for e in firsts),
+    }
+
+
+def ledger_gates(ledgers: list, streamed: list) -> dict:
+    """Each finished ledger against its request: the prompt's tokens are
+    the prefix hit plus the prefilled ones, the decoded tokens the ones
+    streamed, and the in-span segments sum to the span (within 1e-5 s:
+    ``as_dict`` rounds each of the four fields to 1e-6)."""
+    return {
+        "prompt_is_hit_plus_prefilled": all(
+            lg["prompt_tokens"] == lg["prefix_hit_tokens"]
+            + lg["tokens_prefilled"] for lg in ledgers),
+        "decoded_equal_streamed": [lg["tokens_decoded"] for lg in ledgers]
+        == list(streamed),
+        "segments_sum_to_span": all(
+            abs(lg["prefill_s"] + lg["handoff_s"] + lg["decode_s"]
+                - lg["wall_s"]) <= 1e-5 for lg in ledgers),
+        "finished": all(lg["outcome"] in ("budget", "eos")
+                        for lg in ledgers),
+    }
+
+
+def fleet_phase(dev, card, serve_args, wrappers, reset_counts,
+                tol_logits) -> dict:
+    """Phase 3l: the in-process fleet with the request ledger armed. Two
+    :class:`LocalReplica` engines from one ``cli.engine_factory`` (one
+    copy of the parameters on the card, a block pool each) behind a
+    :class:`FleetRouter` on 127.0.0.1, the prefix cache on:
+
+    (a) the 16-request fleet trace, one request at a time (SSE and whole
+        bodies alternating), each request's launches read alone;
+    (b) the router's ``/requests`` and the process's telemetry endpoint's
+        ``/request/{uid}`` (in-process replicas record into one ledger);
+    (c) a rolling restart under 8 concurrent cold requests;
+    (d) the planted fault: the router with affinity ignored, on 2 fresh
+        prefixes x 2;
+    (e) the same 16 requests on two fresh engines without the router, each
+        serving its replica's requests one after the other;
+    (f) ``--kv-quant int8``: 2 prefixes x 2 through a fresh fleet and
+        again on two direct engines (B5);
+    (g) the CLI: ``cli.main`` with ``--serve-fleet --replicas 2
+        --prefix-cache --metrics-port 0`` and no ``--device`` on this
+        thread, 2 prefixes x 2 (4 new tokens) from a client thread, then
+        SIGTERM: the record names the card, the router's 2 affinity
+        routes, clean leak reports; ``/requests`` every uid once.
+
+    Gates: the replicas read one parameter tensor set; every routed
+    stream equal to its direct twin's tokens and every replica's launches
+    (B2's tick and multi-row bodies, B3; B5 under int8) equal to its
+    twin's; every repeat on its first's replica with the whole shared
+    head hit (the router's ``affinity`` count 12, the replicas'
+    ``ServeReport.prefix`` reuse the ledgers' hits); the ledgers
+    reconciled (:func:`ledger_gates`); ``/requests`` every uid once with
+    its replica's label, ``/request/{uid}`` the same ledger; the roll
+    drained both replicas leak-free and dropped nothing; the fault
+    rejected by :func:`affinity_gate`."""
+    import numpy as np
+    import torch
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch import obs
+    from tree_attention_tpu_torch.models import named_params
+    from tree_attention_tpu_torch.obs.http import MetricsHTTPServer
+    from tree_attention_tpu_torch.serving import (
+        FleetRouter,
+        FleetSupervisor,
+        LocalReplica,
+        Request,
+    )
+    from tree_attention_tpu_torch.utils.config import parse_args
+
+    on_card = dev.type == "cuda"
+    t_phase = time.monotonic()
+    out = {"card": card}
+
+    class KeptReplica(LocalReplica):
+        """A replica that keeps each drained ingress's ``ServeReport``."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.reports = []
+
+        def await_drained(self, timeout_s=60.0):
+            with self._lock:
+                ing = self._ingress
+            ok = super().await_drained(timeout_s)
+            if ok and ing is not None and ing.report is not None:
+                self.reports.append(ing.report)
+            return ok
+
+    def settle(router):
+        t_w = time.monotonic()
+        while time.monotonic() - t_w < 30 and any(
+                v["inflight"] for v in router.stats()["replicas"].values()):
+            time.sleep(0.005)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def sequential(port, router, prompts, n_new):
+        """One request at a time; each one's client view and launches."""
+        runs = []
+        for i, p in enumerate(prompts):
+            reset_counts()
+            cl = _http_client(port, {"prompt": p, "max_tokens": n_new},
+                              stream=i % 2 == 0)
+            settle(router)
+            sync()
+            runs.append({"client": cl, "launches": launch_counts(wrappers)})
+        return runs
+
+    def ledgers_of(port, runs):
+        snap = json.loads(_http_get(port, "/requests")[1])
+        by_uid = {}
+        for e in snap["live"] + snap["recent"]:
+            by_uid.setdefault(e["uid"], []).append(e)
+        return snap, by_uid, [by_uid[r["client"]["uid"]][0] for r in runs]
+
+    def add(total, launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def direct(make_engine, prompts, n_new, owners):
+        """Each replica's requests on a fresh engine of its own, one after
+        the other: tokens and summed launches per replica."""
+        toks, launches = {}, {}
+        for name in sorted(set(owners)):
+            eng = make_engine()
+            launches[name] = {}
+            for i, p in enumerate(prompts):
+                if owners[i] != name:
+                    continue
+                reset_counts()
+                rep = eng.serve([Request(uid=100000 + i,
+                                         prompt=np.asarray(p, np.int32),
+                                         max_new_tokens=n_new)])
+                sync()
+                add(launches[name], launch_counts(wrappers))
+                toks[i] = [int(t) for t in rep.results[0].tokens]
+            del eng
+        return toks, launches
+
+    def fleet_run(label, extra, prompts, n_new, per_prefix, roll):
+        c = parse_args(serve_args + FLEET_ARGS + extra)
+        make_engine, _, kernel = cli.engine_factory(c, dev)
+        reps = [KeptReplica(f"r{i}", make_engine, max_queue=c.max_queue,
+                            default_max_tokens=n_new) for i in range(2)]
+        router = FleetRouter(block=c.prefix_block, affinity=True)
+        sup = FleetSupervisor(reps, router=router, monitor_interval_s=0)
+        obs.REQLOG.arm()
+        mhttp = MetricsHTTPServer(0)
+        mport = mhttp.start()
+        port = sup.start()
+        r = {"label": label}
+        try:
+            e0, e1 = sup.engines
+            r["one_param_copy"] = all(
+                a.data_ptr() == b.data_ptr() for (_, a), (_, b) in zip(
+                    named_params(e0.params), named_params(e1.params)))
+            t0 = time.monotonic()
+            runs = sequential(port, router, prompts, n_new)
+            r["sequential_wall_s"] = time.monotonic() - t0
+            snap, by_uid, entries = ledgers_of(port, runs)
+            owners = [e["replica"] for e in entries]
+            r["owners"] = owners
+            r["routed"] = router.stats()["routed"]
+            detail = [json.loads(_http_get(mport, f"/request/{e['uid']}")[1])
+                      for e in entries]
+            fleet_launches = {n: {} for n in ("r0", "r1")}
+            for run, name in zip(runs, owners):
+                add(fleet_launches[name], run["launches"])
+            r["launches"] = fleet_launches
+            r["streams"] = [run["client"]["tokens"] for run in runs]
+            r["gates"] = {
+                "all_200": all(run["client"]["statuses"] == [200]
+                               for run in runs),
+                "one_param_copy": r["one_param_copy"],
+                "uids_once": all(len(v) == 1 for v in by_uid.values())
+                and len(by_uid) == len(snap["live"]) + len(snap["recent"]),
+                "labelled_with_a_replica": set(owners) == {"r0", "r1"},
+                "request_detail_equal": all(
+                    {k: v for k, v in e.items() if k != "replica"} == d
+                    for e, d in zip(entries, detail)),
+                **affinity_gate(entries, per_prefix, c.prefix_block),
+                **ledger_gates(entries, [len(s) for s in r["streams"]]),
+                "router_affinity_count": r["routed"]["affinity"]
+                == len(prompts) - len(prompts) // per_prefix,
+            }
+            r["ledgers"] = entries
+            if roll:
+                # (c) a rolling restart under 8 concurrent cold requests.
+                rng = np.random.default_rng(7)
+                cold = [rng.integers(0, c.vocab_size, 96 + 8 * i).tolist()
+                        for i in range(8)]
+                roll_out = {}
+
+                def do_roll():
+                    time.sleep(0.05)
+                    roll_out.update(sup.rolling_restart())
+
+                import threading
+
+                th = threading.Thread(target=do_roll)
+                th.start()
+                t0 = time.monotonic()
+                traffic = _in_threads([(_http_client, dict(
+                    port=port, body={"prompt": p, "max_tokens": 16},
+                    stream=i % 2 == 0)) for i, p in enumerate(cold)])
+                th.join(300)
+                settle(router)
+                r["roll_wall_s"] = time.monotonic() - t0
+                st = router.stats()
+                r["roll"] = {"replicas": roll_out, "requeued": st["requeued"],
+                             "dropped": st["dropped"],
+                             "statuses": [cl["statuses"] for cl in traffic]}
+                r["gates"].update({
+                    "roll_both_drained": sorted(roll_out) == ["r0", "r1"]
+                    and all(v.get("drained") for v in roll_out.values()),
+                    "roll_leak_free": all(leaks_clean(v["leak"])
+                                          for v in roll_out.values()),
+                    "roll_dropped_nothing": st["dropped"] == 0 and all(
+                        cl["statuses"][-1] == 200 and cl["finish"] == "length"
+                        and len(cl["tokens"]) == 16 for cl in traffic),
+                    "roll_rejoined": [v["state"] for v in
+                                      st["replicas"].values()] == ["up",
+                                                                   "up"],
+                })
+                # The replicas' own prefix reports (their first drained
+                # run: the sequential pass, then cold roll traffic).
+                reused = {n: rep.reports[0].prefix["tokens_reused"]
+                          for n, rep in sup.replicas.items()}
+                hits = {n: sum(e["prefix_hit_tokens"] for e in entries
+                               if e["replica"] == n) for n in reused}
+                r["prefix_reports"] = {n: rep.reports[0].prefix
+                                       for n, rep in sup.replicas.items()}
+                r["gates"]["prefix_reports_equal_ledgers"] = reused == hits
+                # (d) the planted fault: affinity ignored.
+                fresh = fleet_prompts(c.vocab_size, 99, prefixes=2,
+                                      per_prefix=2)
+                router.affinity = False
+                fruns = sequential(port, router, fresh, 4)
+                router.affinity = True
+                fentries = ledgers_of(port, fruns)[2]
+                fg = affinity_gate(fentries, 2, c.prefix_block)
+                r["fault_affinity_ignored"] = {
+                    "owners": [e["replica"] for e in fentries],
+                    "gates": fg, "rejected": not all(fg.values())}
+        finally:
+            sup.stop()
+            mhttp.stop()
+            obs.REQLOG.disarm()
+        r["leaks"] = sup.leak_reports()
+        r["gates"]["leak_free_at_stop"] = all(
+            leaks_clean(v) for v in r["leaks"].values())
+        del sup, reps, e0, e1
+        if on_card:
+            torch.cuda.empty_cache()
+        toks, dlaunches = direct(make_engine, prompts, n_new, owners)
+        r["direct_launches"] = dlaunches
+        r["gates"]["streams_equal_direct"] = [
+            toks[i] for i in range(len(prompts))] == r["streams"]
+        r["gates"]["launches_equal_direct"] = dlaunches == r["launches"]
+        if on_card:
+            # B2's tick body (B5's under int8) and B3 on each replica.
+            tick = ("flash_decode_paged_q8q_tick" if kernel else
+                    "flash_decode_paged_tick")
+            r["gates"]["kernels_launched"] = all(
+                n.get(tick) and n.get("flash_fwd")
+                for n in r["launches"].values())
+        r["kernel"] = kernel
+        return r
+
+    c = parse_args(serve_args + FLEET_ARGS)
+    vocab = c.vocab_size
+    exact = fleet_run("exact", [], fleet_prompts(vocab, 5), FLEET_NEW, 4,
+                      roll=True)
+    int8 = fleet_run("int8", ["--kv-quant", "int8"],
+                     fleet_prompts(vocab, 6, prefixes=2, per_prefix=2), 16,
+                     2, roll=False)
+    for r in (exact, int8):
+        lab = r["label"]
+        print(f"fleet {lab} ({card}; 2 replicas sharing the one card: not a "
+              f"scaling figure): owners {r['owners']}, routed "
+              f"{json.dumps(r['routed'])}, sequential wall "
+              f"{r['sequential_wall_s']:.2f}s, launches per replica "
+              f"{json.dumps(r['launches'])} (direct twins "
+              f"{json.dumps(r['direct_launches'])}), leaks "
+              f"{json.dumps(r['leaks'])}; gates {json.dumps(r['gates'])}",
+              flush=True)
+        if not all(r["gates"].values()):
+            fail(f"fleet {lab}: {r['gates']}")
+    lg = exact["ledgers"]
+    print(f"fleet ledgers ({card}): prompt/hit/prefilled/decoded "
+          f"{[[e['prompt_tokens'], e['prefix_hit_tokens'], e['tokens_prefilled'], e['tokens_decoded']] for e in lg]}; "
+          f"prefill/decode s p50 "
+          f"{sorted(e['prefill_s'] for e in lg)[len(lg) // 2]:.4f} / "
+          f"{sorted(e['decode_s'] for e in lg)[len(lg) // 2]:.4f}; "
+          f"replica prefix reports {json.dumps(exact['prefix_reports'])}",
+          flush=True)
+    print(f"fleet rolling restart ({card}): {json.dumps(exact['roll'])} "
+          f"wall {exact['roll_wall_s']:.2f}s", flush=True)
+    f = exact["fault_affinity_ignored"]
+    print(f"fleet planted fault 'affinity ignored' ({card}): owners "
+          f"{f['owners']}, gates {json.dumps(f['gates'])} (the gate must "
+          f"reject it)", flush=True)
+    if not f["rejected"]:
+        fail("fleet: the affinity gate passed a router that ignores "
+             "affinity")
+    out["cli"] = fleet_cli(serve_args, card, vocab)
+    for r in (exact, int8):
+        r.pop("streams")
+    out.update(exact=exact, int8=int8)
+    out["wall_s"] = time.monotonic() - t_phase
+    print(f"fleet phase wall ({card}) {out['wall_s']:.2f}s", flush=True)
+    return out
+
+
+def fleet_cli(serve_args, card, vocab) -> dict:
+    """Phase 3l (g): ``python -m tree_attention_tpu_torch --mode serve
+    --serve-fleet --replicas 2 --prefix-cache`` in this process
+    (``cli.main`` on the main thread, which takes SIGTERM), driven by a
+    client thread that learns the router's port from
+    ``FleetSupervisor.start``, sends 2 prefixes x 2 requests one at a
+    time, reads ``/requests`` and sends SIGTERM; the record read from
+    ``cli.main``'s stdout."""
+    import signal
+    import threading
+
+    from tree_attention_tpu_torch import cli
+    from tree_attention_tpu_torch.serving import FleetSupervisor
+
+    prompts = fleet_prompts(vocab, 8, prefixes=2, per_prefix=2)
+    started, seen = [], {}
+    start = FleetSupervisor.start
+
+    def recorded_start(self):
+        port = start(self)
+        started.append(port)
+        return port
+
+    def client():
+        t_w = time.monotonic()
+        while not started and time.monotonic() - t_w < 300:
+            time.sleep(0.01)
+        try:
+            seen["clients"] = [_http_client(started[0], {
+                "prompt": p, "max_tokens": 4}, stream=i % 2 == 0)
+                for i, p in enumerate(prompts)]
+            seen["requests"] = json.loads(
+                _http_get(started[0], "/requests")[1])
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    FleetSupervisor.start = recorded_start
+    th = threading.Thread(target=client)
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        th.start()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(serve_args + ["--serve-fleet", "--replicas", "2",
+                                        "--prefix-cache", "--metrics-port",
+                                        "0", "--log-level", "warning"])
+    finally:
+        FleetSupervisor.start = start
+        th.join(60)
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    snap = seen.get("requests") or {"live": [], "recent": []}
+    uids = [e["uid"] for e in snap["live"] + snap["recent"]]
+    fl = rec["fleet"]
+    gates = {
+        "exit_0": rc == 0,
+        "on_the_card": rec["device"] == card.split(",")[0].strip(),
+        "all_200_with_4_tokens": all(
+            cl["statuses"] == [200] and len(cl["tokens"]) == 4
+            for cl in seen.get("clients", [])) and len(seen["clients"]) == 4,
+        "router_affinity_2": fl["router"]["routed"]["affinity"] == 2,
+        "leak_free": all(leaks_clean(v) for v in fl["leaks"].values()),
+        "requests_once_labelled": len(uids) == len(set(uids)) == 4
+        and {e["replica"] for e in snap["recent"]} <= {"r0", "r1"},
+    }
+    out = {"record": {k: rec[k] for k in ("device", "fleet")},
+           "wall_s": time.monotonic() - t0, "gates": gates}
+    print(f"fleet CLI ({card}): --serve-fleet --replicas 2 --prefix-cache "
+          f"on {rec['device']}: {json.dumps(out['record'])}; "
+          f"{out['wall_s']:.2f}s; gates {json.dumps(gates)}", flush=True)
+    if not all(gates.values()):
+        fail(f"fleet CLI: {gates}")
     return out
 
 
@@ -4717,7 +5240,7 @@ def fail(msg: str) -> None:
 # build (phase 1) always runs; the report (phase 8) needs them all. A name
 # on the left runs the phases on the right too: what it reads of theirs.
 PHASES = ("2", "3", "3f", "3c", "3e", "4", "5", "6", "7", "3g", "3h", "3i",
-          "3j", "3k")
+          "3j", "3k", "3l")
 PHASE_NEEDS = {"3b": ("3",), "3d": ("3",), "7": ("6", "7")}
 
 
@@ -5022,7 +5545,18 @@ def main() -> None:
     n_layers = parse_args(SERVE_ARGS).n_layers
     targs = parse_args(TRAIN_ARGS)
 
+    # Each phase's wall: from its block's start to the next one's.
+    wall_mark = {"phase": None, "t": time.monotonic()}
+
+    def mark(phase):
+        now = time.monotonic()
+        if wall_mark["phase"] is not None:
+            print(f"phase {wall_mark['phase']} wall "
+                  f"{now - wall_mark['t']:.2f}s", flush=True)
+        wall_mark.update(phase=phase, t=now)
+
     if "2" in run:
+        mark("2")
         # The decode kernels' own launches: a body and the merge (the tick body
         # merges inside its launch).
         own = ("decode_split", "decode_tiled", "decode_tick", "merge_splits")
@@ -6950,6 +7484,7 @@ def main() -> None:
         del leaves, dout, dlse, routes
 
     if "3" in run:
+        mark("3")
         # -- 3. serve through the paged, chunked SlotServer --------------------
         serve_cfg = parse_args(SERVE_ARGS)
         reset_counts()
@@ -7374,6 +7909,7 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     if "3f" in run:
+        mark("3f")
         # -- 3f. the radix prefix cache ---------------------------------------
         # The serve phase's trace with a shared 384-token prefix, through the
         # CLI's --prefix-cache on the paged layout (exact, int8, int8-cast) and
@@ -7394,6 +7930,7 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     if "3c" in run:
+        mark("3c")
         # -- 3c. two ranks sharing the card: the sequence-sharded pool ---------
         sharded = run_sharded_ranks()
         sh = {label: [r[label] for r in sharded] for label in ("exact", "int8")}
@@ -7525,6 +8062,7 @@ def main() -> None:
                  f"{mdec['median_s']} s")
 
     if "3e" in run:
+        mark("3e")
         # -- 3e. two ranks sharing the card: sequence-parallel training -------
         from tree_attention_tpu_torch.parallel import tree as ttree
 
@@ -7617,6 +8155,7 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     if "4" in run:
+        mark("4")
         # -- 4. decode: the reference workload through B1, then int8 through
         # B4 and through B1 over int8 K/V ---------------------------------------
         decode_recs = {}
@@ -7644,6 +8183,7 @@ def main() -> None:
             launches["flash_decode"] = decode_recs["none"]["launches"]
 
     if "5" in run:
+        mark("5")
         # -- 5. train through the CLI's --mode train ---------------------------
         targs = parse_args(TRAIN_ARGS)
         n_layers = targs.n_layers
@@ -7686,6 +8226,7 @@ def main() -> None:
                      f"{trec['losses'][0]}")
 
     if "6" in run:
+        mark("6")
         # -- 6. one training step, kernel path against plain path --------------
         from tree_attention_tpu_torch.data import make_lm_batch
         from tree_attention_tpu_torch.models import (
@@ -7726,6 +8267,7 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     if "7" in run:
+        mark("7")
         # -- 7. where a training step's time goes ------------------------------
         # Three untraced steps (the median wall) and one traced step (its device
         # time) at the train phase's config, after a warm-up step.
@@ -7777,6 +8319,7 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     if "3g" in run:
+        mark("3g")
         # -- 3g. live HTTP serving --------------------------------------------
         # The serve phase's engine behind the HTTP ingress, exact then int8:
         # SSE and whole-body clients, a disconnect, deadlines, 429s, a drain.
@@ -7786,6 +8329,7 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     if "3h" in run:
+        mark("3h")
         # -- 3h. whole-prompt admission and the host-RAM KV tier ---------------
         t0 = time.monotonic()
         whole_tier = whole_tier_phase(
@@ -7801,22 +8345,35 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     if "3i" in run:
+        mark("3i")
         # -- 3i. copy-on-write fork families ----------------------------------
         forks = fork_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
                            TOL_LOGITS)
         torch.cuda.empty_cache()
 
     if "3j" in run:
+        mark("3j")
         # -- 3j. token-tree sibling families ----------------------------------
         trees = tree_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
                            TOL_LOGITS)
         torch.cuda.empty_cache()
 
     if "3k" in run:
+        mark("3k")
         # -- 3k. disaggregated prefill/decode ---------------------------------
         disagg = disagg_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
                               TOL_LOGITS)
         torch.cuda.empty_cache()
+
+    if "3l" in run:
+        mark("3l")
+        # -- 3l. the in-process fleet and the request ledger --------------------
+        with shared_weights():
+            fleet = fleet_phase(dev, smi, SERVE_ARGS, wrappers, reset_counts,
+                                TOL_LOGITS)
+        torch.cuda.empty_cache()
+
+    mark(None)
 
     if run != set(PHASES):
         # A partial run has no whole kernels line: its phases' own lines
@@ -8062,6 +8619,14 @@ def main() -> None:
                      if n.get(name)}
         if by_disagg:
             entry["launches_disagg"] = by_disagg
+        # Phase 3l's launches of this kernel: each fleet replica's
+        # sequential pass (its own counts, set to 0 before each request,
+        # read after it, summed by the replica that served it).
+        by_fleet = {f"{q} {rep}": n[name] for q in ("exact", "int8")
+                    for rep, n in fleet[q]["launches"].items()
+                    if n.get(name)}
+        if by_fleet:
+            entry["launches_fleet"] = by_fleet
         if name.startswith("flash_decode"):
             # Which body ran the head case (cuda_decode.decode_body: every
             # variant but f32 with more than one packed row or a tree takes
@@ -8191,7 +8756,7 @@ def main() -> None:
                    "forks": forks, "sharded_family": sh_family,
                    "tree_families": trees, "disagg": {
                        "runs": disagg["runs"], "faults": disagg["faults"],
-                       "wall_s": disagg["wall_s"]},
+                       "wall_s": disagg["wall_s"]}, "fleet": fleet,
                    "kernels": kernels}, f, indent=1)
     print(f"chip_smoke: total wall {time.monotonic() - t_start:.1f}s",
           flush=True)

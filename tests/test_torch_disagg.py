@@ -415,11 +415,11 @@ def test_cli_refusals(args, match):
 
 
 def test_cli_has_no_fleet_to_combine_with():
-    """The port has no ``--serve-fleet`` yet (ROADMAP A4.5): the flag the
-    JAX CLI refuses beside ``--serve-disagg`` does not parse."""
-    with pytest.raises(SystemExit) as e:
+    """``--serve-fleet`` beside ``--serve-disagg`` is refused, as the JAX
+    CLI refuses it: no disaggregated fleet tier exists."""
+    with pytest.raises(SystemExit, match="--serve-disagg and --serve-fleet "
+                       "are exclusive"):
         cli.main(SERVE + ["--serve-fleet"])
-    assert e.value.code == 2
 
 
 def test_cli_serve_disagg_record(capsys):

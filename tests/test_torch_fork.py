@@ -56,7 +56,7 @@ from tree_attention_tpu_torch import models as tm
 from tree_attention_tpu_torch import serving as ts
 from tree_attention_tpu_torch.models import decode as td
 from tree_attention_tpu_torch.serving import block_pool as tbp
-from tests.torch_params import seeded_params
+from tests.torch_params import fresh_whole_scratch, seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -118,8 +118,8 @@ def _run(params, case):
     """The case's trace through JAX's engine and the port's, once."""
     if case not in _RUNS:
         jp, tp = params
-        jserver = js.SlotServer(jp, J_CFG, tree_sampling=False,
-                                **BASE, **CASES[case])
+        jserver = fresh_whole_scratch(js.SlotServer(
+            jp, J_CFG, tree_sampling=False, **BASE, **CASES[case]))
         jrep = jserver.serve(_trace(js), max_ticks=400)
         server = ts.SlotServer(tp, T_CFG, tree_sampling=False, **BASE,
                                **CASES[case])

@@ -28,6 +28,7 @@ PORT_MODULES = [
     "tree_attention_tpu_torch.obs.flight",
     "tree_attention_tpu_torch.obs.http",
     "tree_attention_tpu_torch.obs.metrics",
+    "tree_attention_tpu_torch.obs.reqlog",
     "tree_attention_tpu_torch.obs.slo",
     "tree_attention_tpu_torch.obs.tracing",
     "tree_attention_tpu_torch.ops",
@@ -48,9 +49,11 @@ PORT_MODULES = [
     "tree_attention_tpu_torch.serving.block_pool",
     "tree_attention_tpu_torch.serving.disagg",
     "tree_attention_tpu_torch.serving.engine",
+    "tree_attention_tpu_torch.serving.fleet",
     "tree_attention_tpu_torch.serving.host_pool",
     "tree_attention_tpu_torch.serving.ingress",
     "tree_attention_tpu_torch.serving.prefix_cache",
+    "tree_attention_tpu_torch.serving.router",
     "tree_attention_tpu_torch.serving.speculation",
     "tree_attention_tpu_torch.utils",
     "tree_attention_tpu_torch.utils.config",

@@ -11,8 +11,9 @@ crash-safety and overhead cases:
   texts are equal byte for byte (``TestExports``).
 - **Endpoints.** A loopback ``MetricsHTTPServer`` (``TestHTTPEndpoints``):
   ``/metrics``, ``/metrics.json``, ``/healthz``, ``/flight``, ``/slots``,
-  the index, 405 on POST, and 404 for ``/requests`` (the request ledger
-  is a later slice).
+  the index, 405 on POST, and 404 for unknown paths and for a uid the
+  request ledger does not hold (the ledger's routes themselves:
+  ``tests/test_torch_reqlog.py``).
 - **Signals.** SIGTERM flushes every armed sink and the process still dies
   by SIGTERM (143); SIGUSR1 dumps and keeps running: each one short
   subprocess that imports only the port's ``obs`` (no torch).
@@ -42,6 +43,7 @@ from tree_attention_tpu.obs import metrics as jmetrics
 from tree_attention_tpu_torch.obs import flight as tflight
 from tree_attention_tpu_torch.obs import http as thttp
 from tree_attention_tpu_torch.obs import metrics as tmetrics
+from tree_attention_tpu_torch.obs import reqlog as treqlog
 from tree_attention_tpu_torch.obs.tracing import SpanTracer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -228,7 +230,8 @@ def _loopback():
 
 @pytest.fixture()
 def server(_loopback):
-    """The loopback exporter over a fresh registry and flight recorder."""
+    """The loopback exporter over a fresh registry, flight recorder and
+    (disarmed) request ledger."""
     reg = tmetrics.MetricsRegistry(enabled=True)
     reg.counter("http_test_total", "h").inc(7)
     reg.gauge("http_cap").set(4)
@@ -236,6 +239,7 @@ def server(_loopback):
     fr.arm()
     srv = _loopback
     srv._registry, srv._flight, srv._engine = reg, fr, None
+    srv._reqlog = treqlog.ReqLog()
     return srv, reg, fr
 
 
@@ -291,7 +295,7 @@ def test_slots_404_until_an_engine_is_attached(server):
     assert status == 200 and json.loads(body) == _Engine().slots_snapshot()
 
 
-@pytest.mark.parametrize("path", ["/nope", "/requests", "/request/3"])
+@pytest.mark.parametrize("path", ["/nope", "/requests/3", "/request/3"])
 def test_unserved_paths_404(server, path):
     assert _status(server[0].port, path)[0] == 404
 
@@ -300,9 +304,8 @@ def test_index_lists_only_served_routes(server):
     status, _, body = _get(server[0].port, "/")
     assert status == 200
     for route in ("/metrics", "/metrics.json", "/healthz", "/flight",
-                  "/slots"):
+                  "/requests", "/request/{uid}", "/slots"):
         assert route in body.split()
-    assert "/requests" not in body
 
 
 def test_post_is_405(server):

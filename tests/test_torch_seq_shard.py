@@ -424,11 +424,12 @@ def test_seq_sharded_whole_admission_matches_jax(jax_params,
     anchor SUM per step); the pools drain."""
     from tree_attention_tpu import serving as js
     from tree_attention_tpu.parallel.mesh import cpu_mesh
+    from tests.torch_params import fresh_whole_scratch
 
     jcfg, jp, _ = jax_params
-    jref = js.SlotServer(jp, jcfg, mesh=cpu_mesh(2), kv_shard="seq",
-                         quantize=True, admission="whole",
-                         **ENGINE_KW).serve(js.synthetic_trace(**TRACE_KW))
+    jref = fresh_whole_scratch(js.SlotServer(
+        jp, jcfg, mesh=cpu_mesh(2), kv_shard="seq", quantize=True,
+        admission="whole", **ENGINE_KW)).serve(js.synthetic_trace(**TRACE_KW))
     for r in (x["whole"] for x in sharded_serves):
         assert r["tokens"] == _tokens(jref)
         assert r["outcomes"] == {"budget": TRACE_KW["n_requests"]}

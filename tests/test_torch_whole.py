@@ -46,7 +46,7 @@ from tree_attention_tpu.models import decode as jd
 from tree_attention_tpu_torch import models as tm
 from tree_attention_tpu_torch import serving as ts
 from tree_attention_tpu_torch.models import decode as td
-from tests.torch_params import seeded_params
+from tests.torch_params import fresh_whole_scratch, seeded_params
 from tests.torch_threads import few_torch_threads  # noqa: F401
 
 CFG = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -114,7 +114,8 @@ def _run(params, case):
     if case not in _RUNS:
         jp, tp = params
         layout, on = JAX_CASES[case]
-        jserver = js.SlotServer(jp, J_CFG, **_kw(layout, on))
+        jserver = fresh_whole_scratch(
+            js.SlotServer(jp, J_CFG, **_kw(layout, on)))
         jrep = jserver.serve(_reqs(js), max_ticks=500)
         server = ts.SlotServer(tp, T_CFG, **_kw(layout, on))
         rep = server.serve(_reqs(ts), max_ticks=500)

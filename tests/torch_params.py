@@ -30,3 +30,27 @@ def seeded_params(t_cfg, seed: int = 0):
     updates never reach the JAX side)."""
     tp = tm.init_params(t_cfg, seed, "cpu")
     return jax.tree.map(lambda t: jnp.asarray(to_numpy(t)), tp), tp
+
+
+class _NoReuse(dict):
+    """A scratch table whose lookups always miss: each admission gets a
+    fresh host buffer."""
+
+    def get(self, key, default=None):
+        return None
+
+
+def fresh_whole_scratch(jax_engine):
+    """Give a JAX ``SlotServer`` a fresh host buffer per whole admission.
+
+    Its whole admission lays each prompt into one reused per-bucket numpy
+    buffer and hands it to the jitted prefill through ``jnp.asarray``, on
+    the premise that ``jnp.asarray`` copies (``tree_attention_tpu/serving/
+    engine.py``, ``_admit_whole``). On the CPU backend it aliases a 64-byte
+    aligned buffer instead, and the prefill runs asynchronously: under
+    load the next admission in the bucket overwrites the buffer before the
+    earlier prefill reads it (a repeated prompt then decodes another
+    prompt's stream). A buffer per admission, kept alive by the array that
+    aliases it, removes the race without touching the JAX package."""
+    jax_engine._whole_scratch = _NoReuse()
+    return jax_engine

@@ -14,7 +14,10 @@ cache with ``--kv-quant``); ``generate``
 prefills a random prompt and decodes; ``serve`` drains a synthetic request
 trace through the continuous-batching :class:`SlotServer`, or with
 ``--serve-http PORT`` serves live HTTP clients until SIGTERM drains it
-(:class:`~tree_attention_tpu_torch.serving.IngressServer`); ``train`` takes
+(:class:`~tree_attention_tpu_torch.serving.IngressServer`), or with
+``--serve-fleet --replicas N`` serves them through N in-process engines
+(one copy of the parameters) behind the cache-aware router on
+``--router-port``; ``train`` takes
 ``--steps`` optimizer steps on random next-token batches (with
 ``--ckpt-dir``/``--resume`` checkpointing) and times one more. Everything
 runs on the GPU unless ``--device cpu`` is given; with no usable GPU the CLI
@@ -37,7 +40,8 @@ Telemetry: ``--metrics-out`` and ``--trace-events`` write the registry and
 the span trace at exit; ``--flight-out`` arms the serving engines' tick
 flight recorder and dumps its ring at exit, on an engine error and on
 SIGTERM/SIGUSR1; ``--metrics-port`` serves ``/metrics``, ``/metrics.json``,
-``/healthz``, ``/flight`` and ``/slots`` live (rank 0 alone under a mesh;
+``/healthz``, ``/flight``, ``/requests`` (the per-request cost ledger,
+armed with it) and ``/slots`` live (rank 0 alone under a mesh;
 every rank records its own ring into its rank-suffixed ``--flight-out``).
 """
 
@@ -49,7 +53,7 @@ import json
 import logging
 import sys
 import zlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -397,6 +401,17 @@ def build_server(cfg: RunConfig, dev: torch.device,
     ``--max-new-tokens``. Returns ``(server, cache_len, kernel)``,
     ``kernel`` the q8 route or None. Every flag check of serve mode
     happens here and exits with its message."""
+    make_engine, cache_len, kernel = engine_factory(cfg, dev, mesh)
+    return make_engine(), cache_len, kernel
+
+
+def engine_factory(cfg: RunConfig, dev: torch.device,
+                   mesh: Optional[Mesh] = None
+                   ) -> Tuple[Callable[[], Any], int, str]:
+    """:func:`build_server`'s checks and model, and a function that builds
+    one engine over them: ``(make_engine, cache_len, kernel)``. Every
+    engine it builds reads the same parameters on the device (the fleet's
+    replicas share one copy) and has its own slots and block pool."""
     from tree_attention_tpu_torch.models import init_params, round_cache_len
     from tree_attention_tpu_torch.serving import DisaggServer, SlotServer
 
@@ -456,6 +471,7 @@ def build_server(cfg: RunConfig, dev: torch.device,
         raise SystemExit("--max-queue must be >= 1")
     if cfg.default_deadline is not None and cfg.default_deadline <= 0:
         raise SystemExit("--default-deadline must be > 0 seconds")
+    check_fleet(cfg, mesh)
     decode_slots = disagg_decode_slots(cfg, mesh)
     kernel = check_kv_quant(cfg)
     cache_len = round_cache_len(
@@ -488,22 +504,45 @@ def build_server(cfg: RunConfig, dev: torch.device,
         mesh=mesh, kv_shard=cfg.kv_shard, speculate=cfg.speculate,
         draft_k=cfg.draft_k, drafter=drafter, prefix_cache=cfg.prefix_cache,
         prefix_block=cfg.prefix_block, host_blocks=host_blocks)
-    try:
-        # The engine refuses what it does not serve (--draft-k out of
-        # [1, 31], --speculate or --prefix-cache under --mesh).
-        if cfg.serve_disagg:
-            # The disaggregated pair: SlotServer's serving surface, so the
-            # ingress drives it unchanged.
-            server = DisaggServer(params, tcfg,
-                                  prefill_slots=cfg.prefill_slots,
-                                  decode_slots=decode_slots, **engine_kw)
-        else:
-            server = SlotServer(params, tcfg, slots=cfg.slots,
-                                admission=cfg.admission,
-                                kv_layout=cfg.kv_layout, **engine_kw)
-    except (ValueError, NotImplementedError) as e:
-        raise SystemExit(f"error: {e}") from None
-    return server, cache_len, kernel
+
+    def make_engine() -> Any:
+        try:
+            # The engine refuses what it does not serve (--draft-k out of
+            # [1, 31], --speculate or --prefix-cache under --mesh).
+            if cfg.serve_disagg:
+                # The disaggregated pair: SlotServer's serving surface, so
+                # the ingress drives it unchanged.
+                return DisaggServer(params, tcfg,
+                                    prefill_slots=cfg.prefill_slots,
+                                    decode_slots=decode_slots, **engine_kw)
+            return SlotServer(params, tcfg, slots=cfg.slots,
+                              admission=cfg.admission,
+                              kv_layout=cfg.kv_layout, **engine_kw)
+        except (ValueError, NotImplementedError) as e:
+            raise SystemExit(f"error: {e}") from None
+
+    return make_engine, cache_len, kernel
+
+
+def check_fleet(cfg: RunConfig, mesh: Optional[Mesh] = None) -> None:
+    """``--serve-fleet``'s exclusions."""
+    if not cfg.serve_fleet:
+        return
+    if cfg.serve_http is not None:
+        raise SystemExit(
+            "--serve-fleet and --serve-http are exclusive: the router IS "
+            "the fleet's HTTP front door (it listens on --router-port)")
+    if cfg.replicas < 1:
+        raise SystemExit("--replicas must be >= 1")
+    if cfg.serve_disagg:
+        raise SystemExit(
+            "--serve-disagg and --serve-fleet are exclusive (a "
+            "disaggregated fleet tier is not built; run one disaggregated "
+            "pair per process)")
+    if mesh is not None:
+        raise SystemExit(
+            "--serve-fleet runs its replicas in one process on one "
+            "device; --mesh runs one process per rank")
 
 
 def disagg_decode_slots(cfg: RunConfig,
@@ -649,6 +688,50 @@ def run_serve_http(cfg: RunConfig, dev: torch.device,
     }
 
 
+def run_serve_fleet(cfg: RunConfig, dev: torch.device,
+                    mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+    """``--serve-fleet``: ``--replicas`` in-process engines over one copy
+    of the parameters on the device, each with its own slots and block
+    pool behind its own loopback ingress, fronted by the cache-aware
+    :class:`~tree_attention_tpu_torch.serving.FleetRouter` on
+    ``--router-port``, until SIGTERM or SIGINT drains the fleet. Returns
+    the drained fleet's record: the router's stats and every replica's
+    leak report."""
+    from tree_attention_tpu_torch.serving import (
+        FleetRouter,
+        FleetSupervisor,
+        LocalReplica,
+        install_fleet_drain_signals,
+    )
+
+    make_engine, cache_len, kernel = engine_factory(cfg, dev, mesh)
+    if not cfg.prefix_cache:
+        log.warning("--serve-fleet without --prefix-cache: affinity routing "
+                    "groups shared prefixes per replica, but no replica can "
+                    "reuse them")
+    reps = [LocalReplica(f"r{i}", make_engine, max_queue=cfg.max_queue,
+                         default_deadline_s=cfg.default_deadline,
+                         default_max_tokens=cfg.max_new_tokens)
+            for i in range(cfg.replicas)]
+    router = FleetRouter(port=cfg.router_port, block=cfg.prefix_block,
+                         affinity=cfg.affinity == "on")
+    fleet = FleetSupervisor(reps, router=router)
+    drained = install_fleet_drain_signals(fleet)
+    port = fleet.start()
+    log.info("serving fleet on http://127.0.0.1:%d/v1/completions (%d "
+             "replica(s) x %d slot(s), cache_len %d, affinity %s); SIGTERM "
+             "drains the fleet", port, cfg.replicas, cfg.slots, cache_len,
+             cfg.affinity)
+    drained.wait()  # until SIGTERM or SIGINT
+    fleet.stop()
+    return {
+        **_serve_record(cfg, dev, cache_len, kernel),
+        "fleet": {"router_port": port, "replicas": cfg.replicas,
+                  "affinity": cfg.affinity, "router": router.stats(),
+                  "leaks": fleet.leak_reports()},
+    }
+
+
 def _check_ranks_agree(report, mesh: Mesh) -> None:
     """Every rank must have served the same tokens: the merged attention
     comes out of an all-reduce, so logits and greedy tokens agree by
@@ -660,7 +743,8 @@ def _check_ranks_agree(report, mesh: Mesh) -> None:
 
 def _start_metrics_http(cfg: RunConfig, rank: int) -> Any:
     """``--metrics-port``: enable the registry and arm the flight recorder
-    (memory-only unless ``--flight-out`` gave it a sink) on every rank, and
+    (memory-only unless ``--flight-out`` gave it a sink) and the request
+    ledger on every rank, and
     start the live endpoint on rank 0 alone (one port per host; the other
     ranks' rings reach their rank-suffixed ``--flight-out``). Returns the
     started server, or None."""
@@ -669,6 +753,9 @@ def _start_metrics_http(cfg: RunConfig, rank: int) -> Any:
     obs.REGISTRY.enable()
     if not obs.FLIGHT.enabled:
         obs.FLIGHT.arm()
+    if not obs.REQLOG.enabled:
+        # /requests reads the ledger, armed with no sink of its own.
+        obs.REQLOG.arm()
     if rank != 0:
         return None
     from tree_attention_tpu_torch.obs.http import MetricsHTTPServer
@@ -676,7 +763,7 @@ def _start_metrics_http(cfg: RunConfig, rank: int) -> Any:
     server = MetricsHTTPServer(cfg.metrics_port)
     port = server.start()
     log.info("telemetry endpoint: http://127.0.0.1:%d/metrics "
-             "(/metrics.json /healthz /flight /slots)", port)
+             "(/metrics.json /healthz /flight /requests /slots)", port)
     return server
 
 
@@ -739,6 +826,8 @@ def main(argv: Optional[list] = None) -> int:
             record = run_serve_http(cfg, dev, metrics_http)
             if record is None:
                 return 1
+        elif cfg.serve_fleet:
+            record = run_serve_fleet(cfg, dev, mesh)
         else:
             record, _, _ = run_serve(cfg, dev, mesh, metrics_http)
         if rank == 0:

@@ -1,5 +1,5 @@
-"""Telemetry: the metrics registry, the span tracer, the SLO monitor and
-the tick flight recorder.
+"""Telemetry: the metrics registry, the span tracer, the SLO monitor, the
+tick flight recorder and the per-request cost ledger.
 
 Counterpart of ``tree_attention_tpu/obs`` for the slices ported so far: the
 registry (:mod:`.metrics`) that the ops, models and serving layers emit
@@ -7,13 +7,14 @@ through, exported as JSON (``--metrics-out``) and Prometheus text; the
 Chrome-trace span tracer (:mod:`.tracing`, ``--trace-events``); the
 sliding-window SLO monitor (:mod:`.slo`) that feeds ``ServeReport.slo``;
 the serving engines' per-tick flight recorder (:mod:`.flight`,
-``--flight-out``); and the live HTTP exporter (:mod:`.http`,
+``--flight-out``); the per-request cost ledger (:mod:`.reqlog`,
+``REQLOG``: armed with the registry or the tracer, read at ``/requests``
+and in ``ServeReport.requests``); and the live HTTP exporter (:mod:`.http`,
 ``--metrics-port``, imported where it is started: mounting ``/metrics``
 must not tax every import of the package). All are off (and free) until
 :func:`configure` (or :func:`enable` for the registry alone);
 :func:`install_crash_handlers` makes the armed sinks crash-safe (atexit
-and SIGTERM flush, SIGUSR1 dumps and keeps running). The request ledger
-waits for a later slice (ROADMAP).
+and SIGTERM flush, SIGUSR1 dumps and keeps running).
 
 ``TA_METRICS_OUT`` / ``TA_TRACE_EVENTS`` / ``TA_FLIGHT_OUT`` stand in for
 :func:`configure`'s arguments, so a process a run spawns inherits its
@@ -55,6 +56,12 @@ from tree_attention_tpu_torch.obs.tracing import (  # noqa: F401
 from tree_attention_tpu_torch.obs.flight import (  # noqa: F401
     FLIGHT,
     FlightRecorder,
+)
+from tree_attention_tpu_torch.obs.reqlog import (  # noqa: F401
+    REQLOG,
+    ReqLog,
+    RequestLedger,
+    aggregate_ledgers,
 )
 from tree_attention_tpu_torch.obs.slo import SLOMonitor  # noqa: F401
 
@@ -98,13 +105,19 @@ def configure(metrics_out: Optional[str] = None,
     if trace_events:
         TRACER.start(_rank_suffixed(trace_events))
         REGISTRY.enable()
+    if metrics_out or trace_events:
+        # The ledger rides whichever of the two is on (its finish instant
+        # lands in the trace, its /requests view beside /metrics); it has
+        # no sink file of its own.
+        REQLOG.arm()
     if flight_out:
         FLIGHT.arm(_rank_suffixed(flight_out))
 
 
 def shutdown() -> Dict[str, Any]:
     """Write the metrics snapshot (if configured), dump the flight recorder
-    (if armed with a sink), close the tracer, and disarm: a later run in
+    (if armed with a sink), close the tracer, and disarm (the request
+    ledger too, dropping its tables): a later run in
     the process records nothing unless it configures again. Idempotent.
     Returns the sinks this run wrote, ``{"metrics_out": ...,
     "trace_events": ..., "flight_out": ...}``."""
@@ -125,6 +138,7 @@ def shutdown() -> Dict[str, Any]:
     REGISTRY.disable()
     TRACER.close()
     FLIGHT.disarm()
+    REQLOG.disarm()
     return out
 
 

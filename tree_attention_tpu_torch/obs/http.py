@@ -1,10 +1,8 @@
-"""Live telemetry HTTP endpoint: /metrics, /healthz, /flight, /slots.
+"""Live telemetry HTTP endpoint: /metrics, /healthz, /flight, /requests.
 
-Counterpart of ``tree_attention_tpu/obs/http.py`` without the request
-ledger's routes (``/requests``, ``/request/{uid}``: a later slice,
-ROADMAP queue A4.4; until then they answer 404 like any unknown path). A
-stdlib server on a daemon thread (``utils/httpd.py``'s
-:class:`DaemonHTTPServer`, the ingress's base too) serving:
+Counterpart of ``tree_attention_tpu/obs/http.py``. A stdlib server on a
+daemon thread (``utils/httpd.py``'s :class:`DaemonHTTPServer`, the
+ingress's base too) serving:
 
 - ``/metrics``: Prometheus text exposition format,
   :meth:`MetricsRegistry.to_prometheus` at scrape time;
@@ -15,6 +13,12 @@ stdlib server on a daemon thread (``utils/httpd.py``'s
   503 once the last tick is older than ``stall_after``, so a wedged tick
   loop fails the check though the HTTP thread still answers;
 - ``/flight``: the flight recorder's ring as JSON;
+- ``/requests``: the request ledger (``{"enabled", "live", "recent"}``:
+  live requests with their running wall segments, and the bounded ring of
+  finished ones);
+- ``/request/{uid}``: one request's ledger, live or recent, with its
+  phase timeline; 404 for a uid never seen or evicted from the ring, 400
+  for one that is not an integer;
 - ``/slots``: per-slot occupancy of the attached engine
   (``slots_snapshot``); 404 until one is attached;
 - ``/``: the index of these routes.
@@ -32,6 +36,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from tree_attention_tpu_torch.obs.flight import FLIGHT, FlightRecorder
 from tree_attention_tpu_torch.obs.metrics import REGISTRY, MetricsRegistry
+from tree_attention_tpu_torch.obs.reqlog import REQLOG, ReqLog
 from tree_attention_tpu_torch.utils.httpd import DaemonHTTPServer
 
 DEFAULT_STALL_AFTER = 60.0
@@ -63,7 +68,9 @@ def flight_health(flight: FlightRecorder,
 
 
 class MetricsHTTPServer(DaemonHTTPServer):
-    """Daemon-thread HTTP exporter over one registry and flight recorder.
+    """Daemon-thread HTTP exporter over one registry, flight recorder and
+    request ledger (``reqlog``, backing ``/requests`` and
+    ``/request/{uid}``).
 
     ``engine`` (optional) is anything with a ``slots_snapshot()`` method, a
     :class:`SlotServer` or a :class:`DisaggServer`, backing ``/slots``."""
@@ -77,12 +84,14 @@ class MetricsHTTPServer(DaemonHTTPServer):
         *,
         registry: MetricsRegistry = REGISTRY,
         flight: FlightRecorder = FLIGHT,
+        reqlog: ReqLog = REQLOG,
         engine: Optional[Any] = None,
         stall_after: float = DEFAULT_STALL_AFTER,
     ):
         super().__init__(port, host)
         self._registry = registry
         self._flight = flight
+        self._reqlog = reqlog
         self._engine = engine
         self._stall_after = stall_after
 
@@ -123,6 +132,12 @@ class MetricsHTTPServer(DaemonHTTPServer):
                 json.dumps(self._flight.snapshot(), indent=2, default=str),
                 "application/json",
             )
+        elif path == "/requests":
+            self.reply(req, 200,
+                       json.dumps(self._reqlog.snapshot(), indent=2),
+                       "application/json")
+        elif path.startswith("/request/"):
+            self._request_detail(req, path[len("/request/"):])
         elif path == "/slots":
             engine = self._engine
             if engine is None:
@@ -136,9 +151,26 @@ class MetricsHTTPServer(DaemonHTTPServer):
             self.reply(
                 req, 200,
                 "tree_attention_tpu_torch telemetry: /metrics /metrics.json "
-                "/healthz /flight /slots\n",
+                "/healthz /flight /requests /request/{uid} /slots\n",
                 "text/plain",
             )
         else:
             self.reply(req, 404, f"no such endpoint: {path}\n",
                        "text/plain")
+
+    def _request_detail(self, req: BaseHTTPRequestHandler,
+                        tail: str) -> None:
+        try:
+            uid = int(tail)
+        except ValueError:
+            self.reply(req, 400, f"uid must be an integer, got {tail!r}\n",
+                       "text/plain")
+            return
+        ledger = self._reqlog.get(uid)
+        if ledger is None:
+            self.reply(req, 404,
+                       f"no ledger for request {uid} (never seen, or "
+                       f"evicted from the recent ring)\n", "text/plain")
+            return
+        self.reply(req, 200, json.dumps(ledger, indent=2),
+                   "application/json")

@@ -10,7 +10,9 @@ copy-on-write fork families over shared pool blocks, or as token trees
 in one slot (``tree_sampling=True``, the default); prefill and decode on
 two engines over one pool (:class:`DisaggServer`, a handoff that moves no
 KV byte); served live over HTTP by :class:`IngressServer` (SSE streaming,
-cancellation, deadlines, drain)."""
+cancellation, deadlines, drain); N in-process replicas behind a
+prefix-affinity :class:`FleetRouter` under a :class:`FleetSupervisor`
+(``--serve-fleet``)."""
 
 from tree_attention_tpu_torch.serving.block_pool import (  # noqa: F401
     BlockAllocator,
@@ -48,4 +50,14 @@ from tree_attention_tpu_torch.serving.ingress import (  # noqa: F401
     IngressServer,
     QueueRequestSource,
     install_drain_signals,
+)
+from tree_attention_tpu_torch.serving.router import (  # noqa: F401
+    FleetRouter,
+    ReplicaTree,
+    federate_metrics,
+)
+from tree_attention_tpu_torch.serving.fleet import (  # noqa: F401
+    FleetSupervisor,
+    LocalReplica,
+    install_fleet_drain_signals,
 )

@@ -456,6 +456,9 @@ class DisaggServer:
                 "blocks": nb, "kv_bytes_moved": 0})
             if req.trace is not None:
                 obs.flow("t", obs.flow_id(req.trace[0]))
+        if obs.REQLOG.enabled:
+            # Close the ledger's handoff segment (parked -> adopted).
+            obs.REQLOG.resume(req.uid)
 
     # -- the split tick loop -------------------------------------------------
 
@@ -744,4 +747,7 @@ class DisaggServer:
             kv=kv_snap,
             spec=spec_snap,
             handoff=handoff_snap,
+            requests=obs.aggregate_ledgers(
+                [r.ledger for r in run.results if r.ledger is not None]
+            ) or {},
         )

@@ -402,6 +402,11 @@ class RequestResult:
     # Fork-family branch index: 0 = the parent (or the only branch); a
     # family finishes once per branch, all under its one uid.
     index: int = 0
+    # The finished request ledger (``obs.REQLOG.finish``'s dict: wall
+    # segments, token and block attribution, trace ids); None while the
+    # ledger is disarmed, and on every branch of a family but the one
+    # that closed it.
+    ledger: Optional[Dict[str, Any]] = None
 
 
 @dataclasses.dataclass
@@ -516,6 +521,9 @@ class ServeReport:
     # kv_bytes_moved, each worker's serialized tick seconds); empty for
     # one engine.
     handoff: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Request-ledger aggregates of this run (``obs.aggregate_ledgers`` over
+    # the results' ledgers); empty while the ledger is disarmed.
+    requests: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     @property
     def tokens_per_sec(self) -> float:
@@ -564,6 +572,7 @@ class ServeReport:
             **({"kv": self.kv} if self.kv else {}),
             **({"spec": self.spec} if self.spec else {}),
             **({"handoff": self.handoff} if self.handoff else {}),
+            **({"request_ledgers": self.requests} if self.requests else {}),
         }
 
 
@@ -1423,6 +1432,10 @@ class SlotServer:
         hp.commit([r for r, _ in items], *out)
         for b in bids:
             self._pool.free_demoted(b)
+        if self._admitting:
+            # A dry allocator forced this flush mid-admission: the admitting
+            # request's ledger is charged.
+            self._adm_demoted += len(bids)
         if obs.TRACER.active:
             obs.instant("kv_demote_flush", cat="serving",
                         args={"blocks": len(bids)})
@@ -1439,6 +1452,7 @@ class SlotServer:
             return
         # Either arc counts: each was a device miss the host tier absorbed.
         self._tc.restored_blocks += len(demoted)
+        self._adm_restored += len(demoted)
 
         def take_one() -> int:
             assert self._slot_reserve[slot] > 0, (
@@ -1624,6 +1638,7 @@ class SlotServer:
         if not self._paged:
             return
         need = -(-tokens_needed // self.kv_block)
+        grew = self._slot_nblocks[slot] < need
         while self._slot_nblocks[slot] < need:
             assert self._slot_reserve[slot] > 0, (
                 f"slot {slot} outgrew its block reservation"
@@ -1634,6 +1649,11 @@ class SlotServer:
             self._slot_private[slot].add(bid)
             self._slot_nblocks[slot] += 1
             self._table_dirty = True
+        if grew and obs.REQLOG.enabled:
+            # The ledger integrates block-seconds at each block boundary.
+            rq = self._slot_req[slot]
+            if rq is not None:
+                obs.REQLOG.blocks(rq.uid, self._slot_nblocks[slot])
 
     def _sync_table(self) -> None:
         """Push the host block table to the device when it changed."""
@@ -1641,9 +1661,19 @@ class SlotServer:
             self.cache.table.copy_(torch.from_numpy(self._host_table))
             self._table_dirty = False
 
+    # The admission's host-tier attribution for the request ledger: blocks
+    # its paged hit restored, demotions a dry allocator flushed while it
+    # ran; folded into the ledger when it opens.
+    _admitting = False
+    _adm_restored = 0
+    _adm_demoted = 0
+
     def _admit(self, req: Request, slot: int, tick: int, visible_at: float,
                resv: Optional[tuple]) -> None:
         waited = max(time.monotonic() - visible_at, 0.0)
+        self._admitting = True
+        self._adm_restored = 0
+        self._adm_demoted = 0
         self._slot_req[slot] = req
         self._slot_tokens[slot] = []
         self._slot_admit[slot] = (tick, visible_at)
@@ -1679,6 +1709,23 @@ class SlotServer:
         self._prefill_start[slot] = matched
         self._prefill_pos[slot] = matched
         self._slot_prefix_hit[slot] = matched
+        if obs.REQLOG.enabled:
+            obs.REQLOG.open(
+                req.uid,
+                trace_id=req.trace[0] if req.trace else "",
+                span_id=obs.new_span_id(),
+                parent_span_id=req.trace[1] if req.trace else "",
+                prompt_tokens=len(req.prompt),
+                prefix_hit_tokens=matched,
+                arrival_tick=req.arrival_tick,
+                admit_tick=tick,
+                queue_wait_s=waited,
+                nblocks=self._slot_nblocks[slot] if self._paged else 0,
+            )
+            if self._adm_restored or self._adm_demoted:
+                obs.REQLOG.note(req.uid, host_restores=self._adm_restored,
+                                host_demotes=self._adm_demoted)
+        self._admitting = False
         if self.admission == "chunked":
             self._slot_state[slot] = "prefill"
             self._prefill_fifo.append(slot)
@@ -2046,6 +2093,8 @@ class SlotServer:
             _FORKS.inc()
             if nshare:
                 _FORK_SHARED.inc(nshare)
+        if obs.REQLOG.enabled and nshare:
+            obs.REQLOG.note(req.uid, fork_shared_blocks=nshare)
 
     def _fork_live(self, uid: int, tick: int, pend_uids: Set[int]) -> str:
         """One mailboxed ``fork(uid)``: branch the request's lowest-index
@@ -2374,6 +2423,14 @@ class SlotServer:
             obs.instant("request_retired", cat="serving", args={
                 "rid": req.uid, "slot": slot, "tick": tick,
                 "outcome": outcome, "index": fam.br_index[b], "tree": True})
+        if obs.REQLOG.enabled and not any(fam.br_live):
+            # A token-tree family's ledger closes with its LAST branch (the
+            # tick the slot closes, as the JAX engine's tree path closes
+            # it), over every branch's tokens, before that branch's finish
+            # is delivered: its usage block carries the ledger.
+            res.ledger = obs.REQLOG.finish(
+                req.uid, outcome=outcome, finish_tick=tick,
+                tokens_decoded=sum(len(t) for t in fam.br_tokens), now=now)
         self._notify_finish(req, res, fam)
         self._family_branch_done(fam, res)
 
@@ -2537,6 +2594,8 @@ class SlotServer:
                 "child_slot": parent, "index": idx, "tree": True,
                 "shared_blocks": nshare, "copied_blocks": 0,
                 "at_tokens": t})
+        if obs.REQLOG.enabled and nshare:
+            obs.REQLOG.note(req.uid, fork_shared_blocks=nshare)
         return "done"
 
     # -- speculation ------------------------------------------------------
@@ -2738,6 +2797,9 @@ class SlotServer:
                 _SPEC_PROPOSED.inc(m)
                 if kept:
                     _SPEC_ACCEPTED.inc(len(kept))
+            if obs.REQLOG.enabled and m:
+                obs.REQLOG.note(req.uid, spec_proposed=m,
+                                spec_accepted=len(kept))
             if outcome is not None:
                 self._retire(i, tick, outcome, results)
                 continue
@@ -2835,6 +2897,12 @@ class SlotServer:
                 obs.flow("f", obs.flow_id(req.trace[0]))
             span.__exit__(None, None, None)
             self._slot_span[slot] = None
+        if obs.REQLOG.enabled:
+            # Closed by the first branch of a fork-slot family to retire
+            # (later branches find it closed and carry None).
+            result.ledger = obs.REQLOG.finish(
+                req.uid, outcome=outcome, finish_tick=tick,
+                tokens_decoded=len(result.tokens), now=now)
         self._free_slot_resources(slot)
         if obs.REGISTRY.enabled:
             _REQUESTS.labels(outcome=outcome).inc()
@@ -3394,6 +3462,8 @@ class SlotServer:
                     obs.instant("first_token", cat="serving", args={
                         "rid": req.uid, "slot": i, "tick": tick,
                         "ttft_s": round(self._slot_ttft[i], 6)})
+                if obs.REQLOG.enabled:
+                    obs.REQLOG.first_token(req.uid, now=now2)
                 # A family forks HERE, before the parent's EOS and budget
                 # checks: a one-token parent still yields n independent
                 # samples.
@@ -3420,6 +3490,10 @@ class SlotServer:
                     if obs.TRACER.active:
                         obs.instant("handoff_queued", cat="serving", args={
                             "rid": req.uid, "slot": i, "tick": tick})
+                    if obs.REQLOG.enabled:
+                        # The ledger's handoff segment opens: parked until
+                        # a decode slot adopts it.
+                        obs.REQLOG.park(req.uid)
             if spec_plan:
                 # Live slots' tokens come from the accept walk over the
                 # fetched row draws: 1 to draft_k + 1 per slot.
@@ -3768,4 +3842,7 @@ class SlotServer:
             prefix=prefix_snap,
             kv=kv_snap,
             spec=spec_snap,
+            requests=obs.aggregate_ledgers(
+                [r.ledger for r in run.results if r.ledger is not None]
+            ) or {},
         )

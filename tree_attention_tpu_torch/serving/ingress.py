@@ -620,6 +620,12 @@ class IngressServer(DaemonHTTPServer):
             in ("stop", "length") for r in finished) else 503
         usage = _usage(finished[0])
         usage["completion_tokens"] = sum(len(r.tokens) for r in finished)
+        # The request ledger rides the branch that closed it (the first to
+        # retire on fork slots, the last on a token tree).
+        ledger = next((r.ledger for r in finished if r.ledger is not None),
+                      None)
+        if ledger is not None:
+            usage["ledger"] = ledger
         self._reply_counted(req, "completions", code, json.dumps({
             "id": f"cmpl-{uid}",
             "object": "text_completion",
@@ -641,11 +647,18 @@ def _render(tokens) -> str:
     return " ".join(str(int(t)) for t in tokens)
 
 
-def _usage(result: RequestResult) -> Dict[str, int]:
-    return {"prompt_tokens": result.prompt_len,
-            "completion_tokens": len(result.tokens),
-            # How much of the prompt the prefix cache served.
-            "prefix_hit_tokens": result.prefix_hit_tokens}
+def _usage(result: RequestResult) -> Dict[str, Any]:
+    usage: Dict[str, Any] = {
+        "prompt_tokens": result.prompt_len,
+        "completion_tokens": len(result.tokens),
+        # How much of the prompt the prefix cache served (the fleet
+        # router's feedback on its approximate trees).
+        "prefix_hit_tokens": result.prefix_hit_tokens}
+    if result.ledger is not None:
+        # The finished request ledger: only while it is armed, and only on
+        # the branch that closed it.
+        usage["ledger"] = result.ledger
+    return usage
 
 
 def _sse_token(uid: int, tok: int, index: int = 0) -> bytes:

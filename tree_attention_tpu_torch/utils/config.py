@@ -105,6 +105,12 @@ class RunConfig:
     serve_http: Optional[int] = None  # port (0 = OS-picked, logged)
     max_queue: int = 64      # ingress admission-queue bound (429 past it)
     default_deadline: Optional[float] = None  # seconds; None = no default
+    # Fleet serving: N in-process replica engines behind the cache-aware
+    # router.
+    serve_fleet: bool = False
+    replicas: int = 2        # replica engines under --serve-fleet
+    router_port: int = 0     # router HTTP port (0 = OS-picked, logged)
+    affinity: str = "on"     # prefix-affinity routing: on | off
     # Disaggregated prefill/decode: two engines over one block pool, a
     # handoff that moves no KV byte.
     serve_disagg: bool = False
@@ -330,6 +336,28 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "deadline_s — expired in the queue they finish "
                         "unserved, in flight they retire with outcome "
                         "'deadline'")
+    p.add_argument("--serve-fleet", action="store_true",
+                   default=d.serve_fleet,
+                   help="serve mode: run --replicas in-process replica "
+                        "engines (one copy of the parameters, a block "
+                        "pool each) behind the cache-aware HTTP router "
+                        "(prefix-affinity load balancing, SGLang arXiv:"
+                        "2312.07104) instead of one ingress: the same "
+                        "POST /v1/completions on the router port; SIGTERM "
+                        "drains the whole fleet")
+    p.add_argument("--replicas", type=int, default=d.replicas,
+                   help="--serve-fleet: replica engine count (each with "
+                        "its own slots, block pool and prefix cache)")
+    p.add_argument("--router-port", type=int, default=d.router_port,
+                   metavar="PORT",
+                   help="--serve-fleet: router HTTP port (0 picks a free "
+                        "port, logged)")
+    p.add_argument("--affinity", choices=["on", "off"],
+                   default=d.affinity,
+                   help="--serve-fleet: 'on' routes a request to the "
+                        "replica whose radix cache holds its longest "
+                        "prefix (least-loaded with hysteresis otherwise); "
+                        "'off' is least-loaded round-robin")
     p.add_argument("--serve-disagg", action="store_true",
                    default=d.serve_disagg,
                    help="serve mode: disaggregated prefill/decode "
